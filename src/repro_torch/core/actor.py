@@ -1,0 +1,124 @@
+"""Dataflow actors — paper §2.2 and §3.1.
+
+An actor has the mandatory ``fire`` function and optional ``init``,
+``control`` and ``finish`` functions.  *Static* actors consume/produce the
+channel rate ``r`` on every port on every firing; *dynamic* actors have one
+control port (rate 1) whose token pins every regular port to rate 0 or r
+for that firing.
+
+In the port a firing runs eagerly: ``control`` receives the control token
+as a list of host numbers and returns host ints, so rates are concrete
+and a rate-0 term is dropped instead of multiplied by 0.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+# fire(state, inputs: {port: (r, *tok_shape)}, rates: {port: 0/1}) ->
+#     (new_state, outputs: {port: (r, *tok_shape)})
+FireFn = Callable[[Any, Mapping[str, torch.Tensor], Mapping[str, int]],
+                  Tuple[Any, Dict[str, torch.Tensor]]]
+# control(token as a list of host numbers) -> {port: 0/1} for every regular port.
+ControlFn = Callable[[Sequence[Any]], Dict[str, int]]
+
+
+@dataclasses.dataclass(frozen=True)
+class ActorSpec:
+    """Static description of one actor.
+
+    Attributes:
+      name:         unique actor name.
+      in_ports:     regular input ports (the control port excluded).
+      out_ports:    output ports.
+      fire:         the firing function (paper §3.1).
+      control_port: name of the control input port; None for static actors.
+      control:      control token -> per-port 0/1 enables; required iff
+                    ``control_port``.
+      init:         optional state constructor, run at ``init_state``.
+      finish:       optional hook run on the final state (sinks).
+      ready:        optional ``state -> bool`` readiness predicate on host
+                    values (sources signal exhaustion with it).
+      cost_flops:   per-firing FLOP estimate.
+    """
+
+    name: str
+    in_ports: Tuple[str, ...]
+    out_ports: Tuple[str, ...]
+    fire: FireFn
+    control_port: Optional[str] = None
+    control: Optional[ControlFn] = None
+    init: Optional[Callable[[], Any]] = None
+    finish: Optional[Callable[[Any], Any]] = None
+    ready: Optional[Callable[[Any], bool]] = None
+    cost_flops: int = 0
+
+    def __post_init__(self) -> None:
+        if self.control_port is not None and self.control is None:
+            raise ValueError(f"actor {self.name}: dynamic actor needs a control function")
+        if self.control_port is None and self.control is not None:
+            raise ValueError(f"actor {self.name}: control function without control port")
+        if self.control_port in self.in_ports:
+            raise ValueError(
+                f"actor {self.name}: control port {self.control_port!r} must "
+                "not be listed among regular in_ports")
+        names = list(self.in_ports) + list(self.out_ports)
+        if len(set(names)) != len(names):
+            raise ValueError(f"actor {self.name}: duplicate port names {names}")
+
+    @property
+    def is_dynamic(self) -> bool:
+        return self.control_port is not None
+
+    @property
+    def is_source(self) -> bool:
+        """Zero input ports (paper §2.2); the control port counts as one."""
+        return not self.in_ports and self.control_port is None
+
+    @property
+    def is_sink(self) -> bool:
+        return not self.out_ports
+
+    def all_in_ports(self) -> Tuple[str, ...]:
+        if self.control_port is not None:
+            return (self.control_port,) + tuple(self.in_ports)
+        return tuple(self.in_ports)
+
+    def rates_for(self, ctrl_token: Optional[Sequence[Any]]) -> Dict[str, int]:
+        """Evaluate the control function -> {port: 0/1}; static actors
+        enable every port."""
+        if not self.is_dynamic:
+            return {p: 1 for p in (*self.in_ports, *self.out_ports)}
+        rates = {k: int(v) for k, v in self.control(ctrl_token).items()}
+        missing = (set(self.in_ports) | set(self.out_ports)) - set(rates)
+        if missing:
+            raise ValueError(
+                f"actor {self.name}: control() must set a rate for every "
+                f"regular port; missing {sorted(missing)}")
+        return rates
+
+    def init_state(self) -> Any:
+        return self.init() if self.init is not None else ()
+
+
+def static_actor(name: str, in_ports, out_ports, fire: FireFn, **kw) -> ActorSpec:
+    """Constructor for static-rate actors."""
+    return ActorSpec(name=name, in_ports=tuple(in_ports),
+                     out_ports=tuple(out_ports), fire=fire, **kw)
+
+
+def dynamic_actor(name: str, control_port: str, control: ControlFn,
+                  in_ports, out_ports, fire: FireFn, **kw) -> ActorSpec:
+    """Constructor for dynamic-rate actors (the paper's contribution)."""
+    return ActorSpec(name=name, in_ports=tuple(in_ports),
+                     out_ports=tuple(out_ports), fire=fire,
+                     control_port=control_port, control=control, **kw)
+
+
+def apply_rate_gate(rate: int, window: torch.Tensor) -> Optional[torch.Tensor]:
+    """Gate a window by its 0/1 rate: the window for 1, ``None`` (drop the
+    term) for 0.  On finite windows this gives the same bits as the
+    reference's multiply by the traced 0/1 flag."""
+    return window if rate else None
