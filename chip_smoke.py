@@ -3,23 +3,29 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
-``sm_90a``) and, on the card:
+``sm_90a``, one ``nvcc`` per library, started together) and, on the card:
 
 1. prints the card's name and power limit (``nvidia-smi``);
-2. holds every kernel against its plain PyTorch version at the main
-   path's shapes and times both (CUDA events; the kernel's own time from
-   replays of a CUDA graph of its launches, so the host wrapper is out of
-   it);
+2. holds kernel B1 against its plain PyTorch version at the main path's
+   shapes and times both (CUDA events; the kernel's own time from replays
+   of a CUDA graph of its launches, so the host wrapper is out of it);
 3. drives the main path — the DPD network at full width (block 32 768,
    10 branches, 64 firings, dynamic mode) — with every launch count set to
    0 just before and read just after, and holds its structure (exactly)
    and its floats (``1e-5 * max|y|`` per plane) against the same run on the
    CPU;
-4. measures the paper's Table 4 rows (Msamples/s) in static and dynamic
-   mode;
-5. profiles the main path: device time by kernel (``torch.profiler``),
-   the device's busy share against the median wall time of warm runs, and
-   where the host's time goes (``cProfile``).
+6. (run right after 3, since 4 and 5 time it) drives the same network in
+   ``mode="megakernel"``, again with every count set to 0 just before:
+   one launch of kernel B2 per run and no launch of B1, and every leaf of
+   the final state bit-identical to the phase-3 run and to B2's plain
+   version (``core/megakernel/ref.py``) on the card, at ``cores=1`` and
+   ``cores=2``; then times B2 and its plain version;
+4. measures the paper's Table 4 rows (Msamples/s) in static, dynamic and
+   megakernel mode;
+5. profiles the main path in dynamic and in megakernel mode: device time by
+   kernel (``torch.profiler``), the device's busy share against the median
+   wall time of warm runs, and where the host's time goes in dynamic mode
+   (``cProfile``).
 
 Every phase fails the run; nothing is caught.  The line before the last
 is a JSON record of the kernels; the last line is
@@ -95,8 +101,10 @@ def main() -> None:
                          "runs only on the card")
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
+    from repro_torch.core.megakernel import megakernel_cuda
+    from repro_torch.core.megakernel.program import stage
     from repro_torch.graphs.dpd import default_active_schedule
-    from repro_torch.graphs.factories import make_dpd
+    from repro_torch.graphs.factories import make_dpd, states_equal
     from repro_torch.kernels import _build
     from repro_torch.kernels.dyn_fir import (N_TAPS, dpd_branch_cuda,
                                              poly_branch, poly_ref)
@@ -115,12 +123,13 @@ def main() -> None:
         f"{sys.version.split()[0]}")
     dev = torch.device("cuda", 0)
 
-    # ---- build the path's kernel from the checkout's sources ---------- #
+    # ---- build the paths' kernels from the checkout's sources --------- #
     t0 = time.perf_counter()
-    nvcc_out = _build.build("dyn_fir")
-    log(f"built dyn_fir in {time.perf_counter() - t0:.1f} s")
-    for line in nvcc_out.splitlines():
-        log(f"  nvcc[dyn_fir]: {line}")
+    nvcc_out = _build.build("dyn_fir", "megakernel")
+    log(f"built dyn_fir and megakernel in {time.perf_counter() - t0:.1f} s")
+    for lib, text in nvcc_out.items():
+        for line in text.splitlines():
+            log(f"  nvcc[{lib}]: {line}")
 
     # ---- 2. kernel vs plain on the card -------------------------------- #
     rng = np.random.default_rng(0)
@@ -239,6 +248,100 @@ def main() -> None:
     log(f"DPD structure equals the CPU run (sweeps {res_gpu.sweeps}, counts, "
         f"cursors); floats within {worst_state:.3g} * max|y| per plane")
 
+    # ---- 6. B2: the main path in one launch per run -------------------- #
+    # Runs before 4 and 5, which time it.  Bar: every leaf bit-identical
+    # (B2 runs B1's arithmetic and the adder's adds in the host path's
+    # order), so the tolerance is 0.
+    from repro_torch.core.megakernel import compile_megakernel
+    for cores in (1, 2):
+        prog_mk = net_gpu.compile(mode="megakernel", cores=cores)
+        st = prog_mk.init_state()
+        torch.cuda.synchronize()
+        megakernel_cuda.launches = 0
+        dpd_branch_cuda.launches = 0
+        t0 = time.perf_counter()
+        res_mk = prog_mk.run(st, in_place=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        mk_launches = megakernel_cuda.launches
+        if mk_launches != 1 or dpd_branch_cuda.launches != 0:
+            fail(f"megakernel cores={cores}: {mk_launches} B2 launches and "
+                 f"{dpd_branch_cuda.launches} B1 launches in one run (want 1, 0)")
+        if res_mk.sweeps != res_gpu.sweeps or res_mk.fire_counts != res_gpu.fire_counts:
+            fail(f"megakernel cores={cores}: sweeps {res_mk.sweeps} vs "
+                 f"{res_gpu.sweeps}, counts {res_mk.fire_counts} vs "
+                 f"{res_gpu.fire_counts}")
+        if not states_equal(res_mk.state, res_gpu.state):
+            bad = [i for i, (a, b) in enumerate(zip(state_to_numpy(res_mk.state),
+                                                    state_to_numpy(res_gpu.state)))
+                   if not np.array_equal(a, b)]
+            fail(f"megakernel cores={cores}: state leaves {bad} differ from "
+                 "the host dynamic run on the card")
+        plain_state = prog_mk.init_state()
+        compile_megakernel(net_gpu, cores=cores).plain(plain_state)
+        torch.cuda.synchronize()
+        b2_err = 0.0
+        for g, r in zip(state_to_numpy(res_mk.state), state_to_numpy(plain_state)):
+            if g.dtype != r.dtype or g.shape != r.shape:
+                fail(f"megakernel cores={cores}: leaf {g.dtype} {g.shape} vs "
+                     f"{r.dtype} {r.shape}")
+            b2_err = max(b2_err, float(np.abs(g.astype(np.float64)
+                                              - r.astype(np.float64)).max())
+                         if g.size else 0.0)
+        if b2_err != 0.0 or not states_equal(res_mk.state, plain_state):
+            fail(f"megakernel cores={cores}: differs from its plain version "
+                 f"on the card, max_abs_err {b2_err}")
+        log(f"DPD megakernel cores={cores} on the card: {wall * 1e3:.2f} ms cold, "
+            f"sweeps {res_mk.sweeps}, B2 launches {mk_launches}, B1 launches 0; "
+            "every leaf bit-identical to the dynamic run and to the plain version")
+
+    # B2's own time: launches back to back on a staged argument block, reset
+    # before each launch (every DPD channel is forwarded, so the kernel
+    # re-zeroes the rings itself); the runner's staging is out of it.
+    runner = compile_megakernel(net_gpu)
+    dp = runner.device_program
+    st = net_gpu.init_state()
+    tensors, io = stage(dp, st, dev, [t.to(dev) for _, t in dp.consts])
+    args0 = torch.tensor([0 if t is None else t.data_ptr() for t in tensors] + io,
+                         dtype=torch.int64, device=dev)
+    args = args0.clone()
+    table_dev = dp.table.to(dev)
+
+    def b2_launch():
+        args.copy_(args0)
+        megakernel_cuda(table_dev, args, dp.n_ptrs, 1_000_000, True)
+
+    b2_ms = cuda_ms(b2_launch, reps=5, inner=5)
+    b2_io = args[dp.n_ptrs:].cpu().tolist()
+    if b2_io[dp.io_meta] != res_gpu.sweeps:
+        fail(f"timed B2 launches ran {b2_io[dp.io_meta]} sweeps, not {res_gpu.sweeps}")
+    b2_blocks = b2_io[dp.io_meta + 5]
+    plain_times = []
+    for _ in range(3):
+        st = net_gpu.init_state()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        runner.plain(st)
+        end.record()
+        torch.cuda.synchronize()
+        plain_times.append(start.elapsed_time(end))
+    b2_plain_ms = float(np.median(plain_times))
+    # Bound: Poly's fp32 work on this run's schedule (order k+1 runs on
+    # firings with more than k active branches), against the HBM time of
+    # the source and sink slabs, taps, histories and the schedule.
+    b2_flops = float(sum(L * (84 + k + 1) for n_act in sched for k in range(int(n_act))))
+    b2_bytes = 4 * (2 * 2 * N_FIRINGS * L + 10 * 2 * N_TAPS
+                    + 10 * 2 * 2 * (N_TAPS - 1) + N_FIRINGS)
+    b2_t_ops = b2_flops / FP32_FLOP_PER_S * 1e3
+    b2_t_bytes = b2_bytes / HBM_BYTES_PER_S * 1e3
+    b2_bound_ms = max(b2_t_ops, b2_t_bytes)
+    log(f"megakernel timing ({smi}): B2 {b2_ms:.4f} ms per run (CUDA events, "
+        f"{b2_blocks} blocks), plain version {b2_plain_ms:.2f} ms per run, "
+        f"bound {b2_bound_ms:.5f} ms ({'bytes' if b2_t_bytes >= b2_t_ops else 'operations'}: "
+        f"{b2_flops:.4g} flop, {b2_bytes} B)")
+
     # ---- 4. Table 4 rows ------------------------------------------------ #
     samples = N_FIRINGS * L
     mixed = np.resize(np.array([2, 10, 5, 7, 3, 9, 2, 10], np.int32), N_FIRINGS)
@@ -251,7 +354,7 @@ def main() -> None:
     rows = []
     for label, kw in variants:
         net, _ = make_dpd(N_FIRINGS, block_l=L, seed=1, device=dev, **kw)
-        for mode in ("static", "dynamic"):
+        for mode in ("static", "dynamic", "megakernel"):
             prog = net.compile(mode=mode, n_iterations=N_FIRINGS if mode == "static" else None)
             base = prog.init_state()
             times = []
@@ -308,6 +411,39 @@ def main() -> None:
                  "device_ms": e.self_device_time_total / 1e3} for e in top]}
     log("profile " + json.dumps(profile_rec))
 
+    # The same in megakernel mode: one B2 launch per run.
+    prog_mk = net_gpu.compile(mode="megakernel")
+    mk_walls = []
+    for _ in range(5):
+        st = prog_mk.init_state()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog_mk.run(st, in_place=True)
+        torch.cuda.synchronize()
+        mk_walls.append(time.perf_counter() - t0)
+    mk_warm_ms = float(np.median(mk_walls)) * 1e3
+    st = prog_mk.init_state()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prog_mk.run(st, in_place=True)
+        torch.cuda.synchronize()
+    mk_kernels = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    b2_events = [e for e in mk_kernels if "megakernel" in e.key]
+    if not b2_events:
+        fail("the profiler saw no B2 launch in megakernel mode")
+    mk_device_ms = sum(e.self_device_time_total for e in mk_kernels) / 1e3
+    b2_device_ms = b2_events[0].self_device_time_total / b2_events[0].count / 1e3
+    mk_rec = {
+        "card": smi, "warm_wall_ms": mk_warm_ms,
+        "warm_walls_ms": [w * 1e3 for w in mk_walls],
+        "device_ms": mk_device_ms, "b2_device_ms": b2_device_ms,
+        "busy_share": mk_device_ms / mk_warm_ms,
+        "kernels": [{"kernel": e.key[:80], "count": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in sorted(mk_kernels, key=lambda e: -e.self_device_time_total)]}
+    log("profile_megakernel " + json.dumps(mk_rec))
+
     # Host split: cumulative time of the scheduler's parts under cProfile,
     # which slows every Python call, so its shares matter, not its totals.
     import cProfile
@@ -363,6 +499,20 @@ def main() -> None:
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }, {
+        "name": "megakernel.b2",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/megakernel.cu",
+        "replaces": "src/repro/core/megakernel/kernel.py:780",
+        "function": "compile_megakernel",
+        "launches": mk_launches,
+        "max_abs_err": b2_err,
+        "ms": b2_ms,
+        "device_ms": b2_device_ms,
+        "plain_ms": b2_plain_ms,
+        "bound_ms": b2_bound_ms,
+        "bound_by": "bytes" if b2_t_bytes >= b2_t_ops else "operations",
         "library_ms": None,
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,42 @@ FireFn = Callable[[Any, Mapping[str, torch.Tensor], Mapping[str, int]],
 # control(token as a list of host numbers) -> {port: 0/1} for every regular port.
 ControlFn = Callable[[Sequence[Any]], Dict[str, int]]
 
+#: Op kinds the persistent scheduler kernel (B2) runs as device functions.
+DEVICE_OP_KINDS = ("source", "config", "fork", "poly", "adder", "sink")
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class DeviceOp:
+    """What an actor computes, declared for the megakernel backend.
+
+    The reference's megakernel traces each actor's Python ``fire`` into a
+    jaxpr and lifts the arrays its closure captures into kernel operands
+    (``_hoist_consts``).  Torch has no jaxpr to lift closures from, so a
+    graph declares here which device function of the persistent kernel
+    runs its actor, with the closure data that function needs (tensors and
+    ints in ``params``).  Everything else the function reads is the
+    actor's state, as ``fire`` reads it.  The host executors ignore it.
+
+    Kinds: ``"source"`` (``n_firings``, ``L``: ready while its index
+    ``idx`` is below ``n_firings``, copies window ``idx`` of its state's
+    staged slab), ``"config"`` (``schedule``, an int32 tensor, and
+    ``n_firings``: ready likewise, emits ``schedule[idx]`` on every
+    output),
+    ``"fork"`` (copies its input to each enabled output), ``"poly"``
+    (``order``: basis and 10-tap FIR on its ``(hist, taps)`` state),
+    ``"adder"`` (``terms``: its input ports in summation order) and
+    ``"sink"`` (``L``: stores window ``idx`` into its state's slab).
+    """
+
+    kind: str
+    params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self) -> None:
+        if self.kind not in DEVICE_OP_KINDS:
+            raise ValueError(f"DeviceOp kind must be one of {DEVICE_OP_KINDS}, "
+                             f"got {self.kind!r}")
+        object.__setattr__(self, "params", dict(self.params))
+
 
 @dataclasses.dataclass(frozen=True)
 class ActorSpec:
@@ -42,6 +78,8 @@ class ActorSpec:
       ready:        optional ``state -> bool`` readiness predicate on host
                     values (sources signal exhaustion with it).
       cost_flops:   per-firing FLOP estimate.
+      device_op:    the :class:`DeviceOp` the megakernel backend runs for
+                    this actor; None keeps the actor off that backend.
     """
 
     name: str
@@ -54,6 +92,7 @@ class ActorSpec:
     finish: Optional[Callable[[Any], Any]] = None
     ready: Optional[Callable[[Any], bool]] = None
     cost_flops: int = 0
+    device_op: Optional[DeviceOp] = None
 
     def __post_init__(self) -> None:
         if self.control_port is not None and self.control is None:

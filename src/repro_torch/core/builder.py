@@ -73,7 +73,7 @@ class _Connection:
 # --------------------------------------------------------------------------- #
 # matched_rates derivation.
 # --------------------------------------------------------------------------- #
-def _domain_values(spec: FifoSpec) -> Optional[range]:
+def domain_values(spec: FifoSpec) -> Optional[range]:
     """Every token value of a single-element integer control channel's
     declared domain, or None when it cannot be enumerated."""
     if spec.domain is None or tuple(spec.token_shape) != (1,):
@@ -96,7 +96,7 @@ def _enable_expr(actor: ActorSpec, port: str,
         return ("const", 1)
     if ctl_spec is None or ctl_feed is None:
         return None
-    values = _domain_values(ctl_spec)
+    values = domain_values(ctl_spec)
     if values is None or len(values) == 0:
         return None
     table = {v: int(actor.control([v])[port]) for v in values}

@@ -1,0 +1,166 @@
+"""The megakernel backend: kernel B2 and the runner around it.
+
+Replaces ``src/repro/core/megakernel/kernel.py::compile_megakernel``.  On
+the card one run of the compiled program is ONE launch of the persistent
+kernel ``csrc/megakernel.cu``: every firing of every actor happens inside
+it, Poly's arithmetic included.  For a state on the CPU the runner runs the
+kernel's plain PyTorch version (:mod:`.ref`) on the same device program.
+
+:func:`megakernel_cuda` is the ctypes wrapper: it checks its operands,
+launches on PyTorch's current stream without synchronising, raises on a
+refused launch, and adds one to ``megakernel_cuda.launches`` per launch.
+The library is built and loaded at the first launch, never at import.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.core.megakernel.lower import (GridPartition, MegakernelLayout,
+                                               lower_network, partition_layout)
+from repro_torch.core.megakernel.program import (DeviceProgram,
+                                                 build_device_program, stage,
+                                                 unstage)
+from repro_torch.core.megakernel.ref import run_program
+from repro_torch.core.network import Network, NetworkState
+from repro_torch.kernels import _build
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The built library with its C signatures declared (once)."""
+    lib = _build.load("megakernel")
+    fn = lib.megakernel_run
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.megakernel_error_string.argtypes = [ctypes.c_int]
+    lib.megakernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
+                    max_sweeps: int, multi_firing: bool) -> None:
+    """One launch of B2.
+
+    ``table``: the packed device program, int32 on the card; ``args``: the
+    run's int64 block on the same card, ``n_ptrs`` device addresses (rings,
+    then actor tensors) followed by the io words, which the kernel
+    rewrites.  Every address must stay valid until the launch completes.
+    """
+    for t, what, dtype in ((table, "table", torch.int32),
+                           (args, "args", torch.int64)):
+        if not t.is_cuda or t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"megakernel_cuda: {what} must be a contiguous 1-D "
+                             f"{dtype} CUDA tensor, got {t.dtype} on {t.device}")
+    if table.device != args.device:
+        raise ValueError(f"megakernel_cuda: operands span {table.device} and "
+                         f"{args.device}")
+    if not 0 <= n_ptrs < args.numel():
+        raise ValueError(f"megakernel_cuda: n_ptrs {n_ptrs} out of range")
+    if not 0 <= max_sweeps < 2 ** 31:
+        raise ValueError(f"megakernel_cuda: max_sweeps {max_sweeps} must fit int32")
+    lib = _library()
+    with torch.cuda.device(args.device):
+        stream = torch.cuda.current_stream(args.device).cuda_stream
+        err = lib.megakernel_run(table.data_ptr(), table.numel(), args.data_ptr(),
+                                 n_ptrs, args.numel() - n_ptrs, max_sweeps,
+                                 int(bool(multi_firing)), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"megakernel launch failed: CUDA error {err} "
+            f"({lib.megakernel_error_string(err).decode()})")
+    megakernel_cuda.launches += 1
+
+
+#: Launches of the kernel since the count was last set to 0.
+megakernel_cuda.launches = 0
+
+
+def _state_device(prog: DeviceProgram, state: NetworkState,
+                  default: torch.device) -> torch.device:
+    """Where the state's data rings live (the run's device)."""
+    for i, f in enumerate(state.fifos):
+        if i not in prog.ctrl_base:
+            return f.buf.device
+    return default
+
+
+def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
+                       multi_firing: bool = True,
+                       layout: Optional[MegakernelLayout] = None,
+                       partition: Optional[GridPartition] = None,
+                       cores: int = 1) -> Callable:
+    """Compile ``network`` into the device program of B2.
+
+    Returns ``runner(state) -> (state, fire_counts, sweeps, stalled)``,
+    which updates ``state`` in place.  A state on the card is one kernel
+    launch, staged in and out through one small block each way with one
+    synchronisation at the end; a state on the CPU runs :mod:`.ref`.
+
+    ``layout`` and ``partition`` default to :func:`lower_network` and the
+    default ``cores``-way :func:`partition_layout`.  Entry rules of the
+    reference: a forwarded channel (``partition.forwarded_fifos``) must
+    enter drained, and starts the run from zeros.  ``cores > 1`` runs the
+    partition's visit order in the one replicated scheduler, so states,
+    cursors and counts equal ``cores=1`` and sweeps follow the reference.
+    """
+    if layout is None:
+        layout = lower_network(network)
+    if partition is None:
+        partition = partition_layout(network, layout, cores)
+    prog = build_device_program(network, layout, partition)
+    on_device: Dict[torch.device, Tuple[torch.Tensor, List[torch.Tensor]]] = {}
+
+    def device_operands(device: torch.device) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The table and the DeviceOps' tensors on ``device``, made once."""
+        if device not in on_device:
+            on_device[device] = (prog.table.to(device),
+                                 [t.to(device) for _, t in prog.consts])
+        return on_device[device]
+
+    def run(state: NetworkState, kernel: bool
+            ) -> Tuple[NetworkState, Dict[str, int], int, bool]:
+        for fi in partition.forwarded_fifos:
+            occ = state.fifos[fi].occ
+            if occ:
+                raise ValueError(
+                    f"megakernel transient forwarding: fifo "
+                    f"{layout.fifo_names[fi]!r} enters with occupancy "
+                    f"{int(occ)}; forwarded channels must be drained "
+                    "(start from Network.init_state, or compile with "
+                    "ExecutionPlan(specialize=False) to keep every "
+                    "ring in scratch)")
+        device = _state_device(prog, state, network.device)
+        table, consts = device_operands(device)
+        tensors, io = stage(prog, state, device, consts)
+        if kernel:
+            ptrs = [0 if t is None else t.data_ptr() for t in tensors]
+            host = torch.tensor(ptrs + io, dtype=torch.int64, pin_memory=True)
+            args = host.to(device, non_blocking=True)
+            megakernel_cuda(table, args, prog.n_ptrs, max_sweeps, multi_firing)
+            io = args[prog.n_ptrs:].cpu().tolist()
+        else:
+            run_program(prog.table.tolist(), tensors, io, max_sweeps,
+                        multi_firing)
+        counts, sweeps, stalled = unstage(prog, state, io)
+        return state, counts, sweeps, stalled
+
+    def runner(state: NetworkState) -> Tuple[NetworkState, Dict[str, int], int, bool]:
+        return run(state, _state_device(prog, state, network.device).type == "cuda")
+
+    def plain(state: NetworkState) -> Tuple[NetworkState, Dict[str, int], int, bool]:
+        """The plain version on the state's device, whatever it is: the
+        kernel's oracle on the card."""
+        return run(state, False)
+
+    runner.plain = plain
+    runner.device_program = prog
+    runner.grid_partition = partition
+    runner.hoisted_const_bytes = sum(t.numel() * t.element_size()
+                                     for _, t in prog.consts)
+    return runner

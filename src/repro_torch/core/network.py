@@ -199,6 +199,9 @@ class Network:
                 raise ValueError(f"initial token for delay-free fifo {name}")
 
     # ------------------------------------------------------------------ #
+    def edge_of(self, fifo_name: str) -> Edge:
+        return self._edge_by_fifo[fifo_name]
+
     def fifo_for_in_port(self, actor: str, port: str) -> FifoSpec:
         return self.fifos[self.in_fifo[(actor, port)]]
 
@@ -296,3 +299,57 @@ class Network:
                 raise ValueError(
                     f"unbalanced iteration: fifo {name} ends at occupancy "
                     f"{occ[name]} != initial {spec.delay}")
+
+    # ------------------------------------------------------------------ #
+    # Grid partitioning (megakernel multi-core sweeps, paper §3.3).        #
+    # ------------------------------------------------------------------ #
+    def delay_partition_constraints(self) -> List[Tuple[str, str, str]]:
+        """Delay channels whose endpoints must share a grid partition.
+
+        Returns ``(fifo, src_actor, dst_actor)`` for every delay channel
+        whose initial tokens do NOT cover a whole read window
+        (``delay < rate``): its Fig. 2 copy-back lands while the reader may
+        hold a window overlapping slot 0, which only one core's sequential
+        sweep orders.
+        """
+        out = []
+        for e in self.edges:
+            f = self.fifos[e.fifo]
+            if f.delay and f.delay < f.rate:
+                out.append((e.fifo, e.src_actor, e.dst_actor))
+        return out
+
+    def validate_partition(self, assignment: Mapping[str, int],
+                           cores: int, unit: str = "core") -> None:
+        """Check an actor -> core map against the grid-partition rules: it
+        covers every actor exactly, uses cores in ``[0, cores)``, and keeps
+        both endpoints of every :meth:`delay_partition_constraints` channel
+        on one core.  Raises ``ValueError`` naming the offenders."""
+        unknown = set(assignment) - set(self.actors)
+        if unknown:
+            raise ValueError(
+                f"partition assignment names unknown actors "
+                f"{sorted(unknown)}; known: {sorted(self.actors)}")
+        missing = set(self.actors) - set(assignment)
+        if missing:
+            raise ValueError(
+                f"partition assignment must map every actor to a {unit} "
+                f"(the firing table is partitioned, not filtered); "
+                f"missing {sorted(missing)}")
+        bad = {n: c for n, c in assignment.items()
+               if not isinstance(c, int) or not 0 <= c < cores}
+        if bad:
+            raise ValueError(
+                f"partition assignment maps actors to {unit}s outside "
+                f"[0, {cores}): {dict(sorted(bad.items()))}")
+        for fifo, src, dst in self.delay_partition_constraints():
+            if assignment[src] != assignment[dst]:
+                spec = self.fifos[fifo]
+                raise ValueError(
+                    f"delay channel {fifo!r} ({src} -> {dst}, rate "
+                    f"{spec.rate}, delay {spec.delay}) may not cross "
+                    f"partitions ({unit}s {assignment[src]} vs "
+                    f"{assignment[dst]}): its initial tokens do not "
+                    "cover a whole read window (delay < rate), so the "
+                    "Fig. 2 copy-back races the remote reader's phase-0 "
+                    f"window; assign both endpoints to one {unit}")

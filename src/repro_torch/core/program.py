@@ -6,8 +6,11 @@
     result = prog.run()                 # RunResult(state, counts, sweeps)
 
 The port carries the reference's host-driven ``"static"`` and ``"dynamic"``
-modes.  Every other mode or plan field of the reference raises with the
-ROADMAP item that ports it; none is silently ignored.
+modes and its ``"megakernel"`` mode (one launch of the persistent kernel B2
+per run on the card; its plain version for CPU states), with the grid knobs
+``cores``, ``assign`` and ``cut_objective``.  Every other mode or plan field
+of the reference raises with the ROADMAP item that ports it; none is
+silently ignored.
 """
 from __future__ import annotations
 
@@ -16,13 +19,15 @@ import warnings
 from typing import Any, Dict, Optional, Tuple
 
 from repro_torch.core.executor import collect_sink, run_dynamic, run_static
+from repro_torch.core.megakernel import (CUT_OBJECTIVES, compile_megakernel,
+                                         lower_network, partition_layout,
+                                         state_hbm_bytes)
 from repro_torch.core.network import Network, NetworkState
 
-_MODES = ("static", "dynamic")
+_MODES = ("static", "dynamic", "megakernel")
 
 #: Reference modes not ported yet -> the ROADMAP item that ports them.
 _UNPORTED_MODES = {
-    "megakernel": "B2 (persistent scheduler kernel, with A5)",
     "interpreted": "A3 (interpreted mode)",
 }
 
@@ -33,10 +38,6 @@ _UNPORTED_FIELDS = {
     "donate_threshold_bytes": "A3 (donation)",
     "runtime_mode": "A3 (STATIC_DAL runtime mode)",
     "unroll_bound": "A3 (eager cursors need no phase unroll)",
-    "interpret": "B2 (persistent scheduler kernel)",
-    "cores": "B2 (persistent scheduler kernel)",
-    "assign": "B2 (persistent scheduler kernel)",
-    "cut_objective": "B2 (persistent scheduler kernel)",
     "accelerated": "A11 (heterogeneous mapping) and A9 (Program.stream)",
     "guards": "A7 (health guards)",
     "trace": "A7 (firing trace)",
@@ -52,16 +53,31 @@ class ExecutionPlan:
     """Declarative execution policy.
 
     Fields:
-      mode:         ``"static"`` (single-appearance schedule for
-                    ``n_iterations``) or ``"dynamic"`` (token-driven
-                    sweeps to quiescence).
-      n_iterations: iteration count of static mode.
-      specialize:   static mode: forward the windows of transient
-                    (``register_fifos``) channels instead of buffering.
-      multi_firing: dynamic mode: fire each actor up to its occupancy
-                    bound per visit.
-      max_sweeps:   dynamic mode sweep bound.
-      order:        optional static firing order (defaults topological).
+      mode:          ``"static"`` (single-appearance schedule for
+                     ``n_iterations``), ``"dynamic"`` (token-driven sweeps
+                     to quiescence, driven from the host) or
+                     ``"megakernel"`` (the same sweeps in one launch of the
+                     persistent kernel B2).
+      n_iterations:  iteration count of static mode.
+      specialize:    static mode: forward the windows of transient
+                     (``register_fifos``) channels instead of buffering;
+                     megakernel mode: forward the core-private transient
+                     channels (they must enter drained and start from
+                     zeros).
+      multi_firing:  dynamic/megakernel modes: fire each actor up to its
+                     occupancy bound per visit.
+      max_sweeps:    dynamic/megakernel mode sweep bound.
+      order:         optional static firing order (defaults topological).
+      cores:         megakernel mode: grid partitions of the firing table
+                     (the reference's actor-to-core mapping).  The port's
+                     kernel runs the partitions' visit order in one
+                     replicated scheduler, so results equal ``cores=1``.
+      assign:        megakernel mode: explicit actor -> core map.
+      cut_objective: megakernel mode: ``"crossing"`` or ``"flops"`` default
+                     cut; ``"profile"`` raises (ROADMAP A7).
+      interpret:     the reference's Pallas interpret switch; the port
+                     raises, since the state's device picks the kernel or
+                     its plain version.
 
     The reference's other fields exist so a plan written for it
     constructs; any value but the default ``None`` raises, naming the
@@ -79,9 +95,9 @@ class ExecutionPlan:
     runtime_mode: Any = None
     unroll_bound: Any = None
     interpret: Any = None
-    cores: Any = None
-    assign: Any = None
-    cut_objective: Any = None
+    cores: int = 1
+    assign: Optional[Any] = None
+    cut_objective: str = "crossing"
     accelerated: Any = None
     guards: Any = None
     trace: Any = None
@@ -104,6 +120,23 @@ class ExecutionPlan:
             if getattr(self, field) is not None:
                 raise NotImplementedError(
                     f"ExecutionPlan.{field} is not ported yet: ROADMAP {item}")
+        if self.interpret is not None:
+            raise ValueError(
+                "ExecutionPlan.interpret has no counterpart in the port: the "
+                "state's device picks the kernel (CUDA) or its plain "
+                "PyTorch version (CPU)")
+        if (not isinstance(self.cores, int) or isinstance(self.cores, bool)
+                or self.cores < 1):
+            raise ValueError(
+                f"ExecutionPlan.cores must be an int >= 1, got {self.cores!r}")
+        if self.assign is not None:
+            # A sorted pair tuple keeps the frozen plan immutable.
+            object.__setattr__(self, "assign", tuple(sorted(
+                (str(k), int(v)) for k, v in dict(self.assign).items())))
+        if self.cut_objective not in CUT_OBJECTIVES:
+            raise ValueError(
+                f"ExecutionPlan.cut_objective must be one of "
+                f"{CUT_OBJECTIVES}, got {self.cut_objective!r}")
         if self.n_iterations is not None and self.n_iterations < 0:
             raise ValueError(
                 f"ExecutionPlan: n_iterations must be >= 0, got {self.n_iterations}")
@@ -115,11 +148,27 @@ class ExecutionPlan:
         if self.order is not None:
             object.__setattr__(self, "order", tuple(self.order))
 
+    def validate(self, network: Network) -> "ExecutionPlan":
+        """The cross-field rules against ``network``, judged when a
+        :class:`Program` is built (the reference's ``program.py:370-378``
+        and ``:455``)."""
+        if (self.cores != 1 or self.assign is not None
+                or self.cut_objective != "crossing") \
+                and self.mode != "megakernel":
+            raise ValueError(
+                f"ExecutionPlan(mode={self.mode!r}): cores=/assign=/"
+                "cut_objective= are grid-partition knobs of the megakernel "
+                "backend; the host executors have no core axis (use "
+                "mode='megakernel')")
+        if self.assign is not None:
+            network.validate_partition(dict(self.assign), self.cores)
+        return self
+
 
 @dataclasses.dataclass(frozen=True)
 class RunResult:
     """One execution's outcome; ``fire_counts`` / ``sweeps`` / ``stalled``
-    are set by dynamic mode only."""
+    are set by the dynamic and megakernel modes only."""
 
     state: NetworkState
     fire_counts: Optional[Dict[str, int]] = None
@@ -130,7 +179,9 @@ class RunResult:
 @dataclasses.dataclass(frozen=True)
 class ProgramStats:
     """The buffer accounting of a compiled program plus its last run's
-    sweeps and fire counts."""
+    sweeps and fire counts.  The megakernel fields (``scratch_bytes`` on)
+    are the reference's, set in megakernel mode only; ``hbm_state_bytes``
+    and ``partition_fire_counts`` after a run."""
 
     mode: str
     n_actors: int
@@ -139,6 +190,19 @@ class ProgramStats:
     register_fifos: Tuple[str, ...]
     last_sweeps: Optional[int] = None
     last_fire_counts: Optional[Dict[str, int]] = None
+    scratch_bytes: Optional[int] = None
+    transient_scratch_bytes: Optional[int] = None
+    forwarded_fifos: Optional[Tuple[str, ...]] = None
+    reclaimed_scratch_bytes: Optional[int] = None
+    hbm_state_bytes: Optional[int] = None
+    grid_cores: Optional[int] = None
+    partition_actors: Optional[Tuple[Tuple[str, ...], ...]] = None
+    core_scratch_bytes: Optional[Tuple[int, ...]] = None
+    shared_scratch_bytes: Optional[int] = None
+    shared_fifos: Optional[Tuple[str, ...]] = None
+    core_cursor_rows: Optional[Tuple[int, ...]] = None
+    cut_objective: Optional[str] = None
+    partition_fire_counts: Optional[Tuple[int, ...]] = None
 
 
 class Program:
@@ -146,8 +210,20 @@ class Program:
 
     def __init__(self, network: Network, plan: ExecutionPlan):
         self.network = network
-        self.plan = plan
+        self.plan = plan.validate(network)
         self._last: Optional[RunResult] = None
+        self._layout = self._partition = self._runner = None
+        if plan.mode == "megakernel":
+            # Lower and partition once, as the reference does.
+            self._layout = lower_network(network)
+            self._partition = partition_layout(
+                network, self._layout, plan.cores,
+                dict(plan.assign) if plan.assign is not None else None,
+                objective=plan.cut_objective,
+                forward_transients=plan.specialize)
+            self._runner = compile_megakernel(
+                network, plan.max_sweeps, plan.multi_firing,
+                layout=self._layout, partition=self._partition)
 
     def init_state(self) -> NetworkState:
         return self.network.init_state()
@@ -164,9 +240,12 @@ class Program:
         else:
             st = state if in_place else state.clone()
         plan = self.plan
-        if plan.mode == "dynamic":
-            st, counts, sweeps, stalled = run_dynamic(
-                self.network, st, plan.max_sweeps, plan.multi_firing)
+        if plan.mode in ("dynamic", "megakernel"):
+            if plan.mode == "dynamic":
+                st, counts, sweeps, stalled = run_dynamic(
+                    self.network, st, plan.max_sweeps, plan.multi_firing)
+            else:
+                st, counts, sweeps, stalled = self._runner(st)
             result = RunResult(st, fire_counts=counts, sweeps=sweeps,
                                stalled=stalled)
             if stalled:
@@ -195,6 +274,34 @@ class Program:
     def stats(self) -> ProgramStats:
         net = self.network
         last = self._last
+        mega: Dict[str, Any] = {}
+        layout, part = self._layout, self._partition
+        if layout is not None:
+            names = tuple(net.actors)
+            mega = dict(
+                scratch_bytes=part.scratch_bytes(layout),
+                transient_scratch_bytes=layout.transient_scratch_bytes,
+                forwarded_fifos=tuple(layout.fifo_names[i]
+                                      for i in part.forwarded_fifos),
+                reclaimed_scratch_bytes=part.reclaimed_ring_bytes(layout),
+                grid_cores=part.n_cores,
+                partition_actors=tuple(tuple(names[i] for i in rows)
+                                       for rows in part.core_rows),
+                core_scratch_bytes=part.private_ring_bytes(layout),
+                shared_scratch_bytes=(part.shared_ring_bytes(layout)
+                                      + part.semaphore_bytes()),
+                shared_fifos=tuple(layout.fifo_names[i]
+                                   for i in part.shared_fifos),
+                core_cursor_rows=part.core_cursor_rows,
+                cut_objective=part.objective)
+            if last is not None:
+                # Every operand the kernel touches: the state plus the
+                # DeviceOps' tensors (the reference's hoisted constants).
+                mega["hbm_state_bytes"] = (state_hbm_bytes(last.state)
+                                           + self._runner.hoisted_const_bytes)
+                mega["partition_fire_counts"] = tuple(
+                    sum(last.fire_counts[names[i]] for i in rows)
+                    for rows in part.core_rows)
         return ProgramStats(
             mode=self.plan.mode,
             n_actors=len(net.actors),
@@ -203,4 +310,5 @@ class Program:
             register_fifos=tuple(sorted(net.register_fifos)),
             last_sweeps=last.sweeps if last is not None else None,
             last_fire_counts=(dict(last.fire_counts) if last is not None
-                              and last.fire_counts is not None else None))
+                              and last.fire_counts is not None else None),
+            **mega)

@@ -21,34 +21,18 @@
 // the actor's next history (the stream's last 9 samples), so the firing
 // needs no second launch to carry it.  Taps and the order are kernel
 // arguments (the taps as device pointers, so nothing syncs to the host).
-// The remaining cost, one launch per firing, is for a later change (a CUDA
-// graph or the persistent scheduler kernel).
-//
-// Arithmetic: every operation is rounded on its own (the _rn intrinsics,
-// so nvcc contracts nothing into FMAs) and in the plain PyTorch version's
-// order, and the basis power follows PyTorch's pow.  The kernel then
-// agrees with its plain version on the card to the bit wherever powf does,
-// which matters because order-10 outputs span many decades and cancel.
+// The remaining cost, one launch per firing, is what kernel B2
+// (megakernel.cu) removes: it runs the same arithmetic (dyn_fir.cuh)
+// inside one launch per network run.
 #include <cuda_runtime.h>
+
+#include "dyn_fir.cuh"
 
 namespace {
 
-constexpr int N_TAPS = 10;
-constexpr int HALO = N_TAPS - 1;
+using dyn_fir::HALO;
+using dyn_fir::N_TAPS;
 constexpr int TILE = 256;  // output samples (and threads) per block
-
-// mag2 ** e as the plain version computes it on the card: PyTorch's pow
-// with a scalar exponent fills 1 for e = 0, copies for e = 1, multiplies
-// out e = 2 and 3, and calls powf otherwise.
-__device__ __forceinline__ float basis_scale(float mag2, int e) {
-  switch (e) {
-    case 0: return 1.f;
-    case 1: return mag2;
-    case 2: return __fmul_rn(mag2, mag2);
-    case 3: return __fmul_rn(__fmul_rn(mag2, mag2), mag2);
-    default: return powf(mag2, static_cast<float>(e));
-  }
-}
 
 __global__ void __launch_bounds__(TILE)
 dyn_fir_branch_kernel(const float* __restrict__ hist_re,
@@ -86,10 +70,7 @@ dyn_fir_branch_kernel(const float* __restrict__ hist_re,
       xr = win_re[g - HALO];
       xi = win_im[g - HALO];
     }
-    const float mag2 = __fadd_rn(__fmul_rn(xr, xr), __fmul_rn(xi, xi));
-    const float scale = basis_scale(mag2, order - 1);
-    sb_re[j] = __fmul_rn(xr, scale);
-    sb_im[j] = __fmul_rn(xi, scale);
+    dyn_fir::basis(xr, xi, order, &sb_re[j], &sb_im[j]);
   }
   if (threadIdx.x < N_TAPS) {
     sh_re[threadIdx.x] = h_re[threadIdx.x];
@@ -99,17 +80,7 @@ dyn_fir_branch_kernel(const float* __restrict__ hist_re,
 
   const int n = base + threadIdx.x;
   if (n >= L) return;
-  float yr = 0.f, yi = 0.f;
-#pragma unroll
-  for (int t = 0; t < N_TAPS; ++t) {
-    // y[n] = sum_t h[t] * b[n + HALO - t] in stream coordinates.
-    const float sr = sb_re[threadIdx.x + HALO - t];
-    const float si = sb_im[threadIdx.x + HALO - t];
-    yr = __fsub_rn(__fadd_rn(yr, __fmul_rn(sh_re[t], sr)), __fmul_rn(sh_im[t], si));
-    yi = __fadd_rn(__fadd_rn(yi, __fmul_rn(sh_re[t], si)), __fmul_rn(sh_im[t], sr));
-  }
-  y_re[n] = yr;
-  y_im[n] = yi;
+  dyn_fir::fir_mac(sb_re, sb_im, sh_re, sh_im, threadIdx.x, &y_re[n], &y_im[n]);
 }
 
 }  // namespace

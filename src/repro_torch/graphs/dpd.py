@@ -12,10 +12,13 @@ Wiring (22 complex data channels + 12 control channels):
 
 Tokens are ``(2, L)`` float32 (re, im) planes on the network's device;
 L = 32 768 makes Eq. 1 over the 22 data channels Table 1's 11.5 MB.  On the
-card every enabled Poly firing is one launch of the Hopper kernel; a rate-0
-firing launches nothing.  The control channels declare the schedule's
-value range as their domain, which is what lets the builder prove every
-data channel transient (``register_fifos``).
+card, in the host modes, every enabled Poly firing is one launch of the
+Hopper kernel B1; a rate-0 firing launches nothing.  Every actor also
+declares its :class:`~repro_torch.core.actor.DeviceOp`, which is what the
+megakernel mode runs inside one launch of B2.  The control channels
+declare the schedule's value range as their domain, which is what lets the
+builder prove every data channel transient (``register_fifos``) and the
+device program tabulate the dynamic actors' rates.
 """
 from __future__ import annotations
 
@@ -25,7 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import NetworkBuilder, dynamic_actor, static_actor
-from repro_torch.core.actor import apply_rate_gate
+from repro_torch.core.actor import DeviceOp, apply_rate_gate
 from repro_torch.core.network import Network
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.dyn_fir import N_BRANCHES, N_TAPS, poly_branch
@@ -90,7 +93,9 @@ def build_dpd(n_firings: int,
         return (staged, 0)
 
     source = static_actor("source", (), ("out",), src_fire, init=src_init,
-                          ready=lambda st: st[1] < n_firings)
+                          ready=lambda st: st[1] < n_firings,
+                          device_op=DeviceOp("source", {"n_firings": n_firings,
+                                                        "L": L}))
 
     def sink_fire(state, inputs, rates):
         data, idx = state
@@ -101,7 +106,7 @@ def build_dpd(n_firings: int,
         "sink", ("in",), (), sink_fire,
         init=lambda: (torch.zeros((2, n_firings * L), dtype=torch.float32,
                                   device=dev), 0),
-        finish=lambda st: st[0])
+        finish=lambda st: st[0], device_op=DeviceOp("sink", {"L": L}))
 
     # -- configuration: one active-count token to 12 control ports ------ #
     ctrl_ports = ["c_fork", "c_add"] + [f"c{k}" for k in range(n_branches)]
@@ -112,8 +117,12 @@ def build_dpd(n_firings: int,
         tok_out = torch.tensor([[n_active]], dtype=torch.int32)
         return idx + 1, {p: tok_out for p in ctrl_ports}
 
+    config_op = DeviceOp("config", {
+        "schedule": torch.as_tensor(sched, dtype=torch.int32).to(dev),
+        "n_firings": n_firings})
     config = static_actor("config", (), tuple(ctrl_ports), config_fire,
-                          init=lambda: 0, ready=lambda st: st < n_firings)
+                          init=lambda: 0, ready=lambda st: st < n_firings,
+                          device_op=config_op)
 
     # -- fork: the input window to the enabled branches ----------------- #
     fork_outs = tuple(f"b{k}" for k in range(n_branches))
@@ -128,10 +137,11 @@ def build_dpd(n_firings: int,
         return state, {p: inputs["in"] for p in fork_outs}
 
     if static_all_active:
-        fork = static_actor("fork", ("in",), fork_outs, fork_fire)
+        fork = static_actor("fork", ("in",), fork_outs, fork_fire,
+                            device_op=DeviceOp("fork"))
     else:
         fork = dynamic_actor("fork", "c", fork_control, ("in",), fork_outs,
-                             fork_fire)
+                             fork_fire, device_op=DeviceOp("fork"))
 
     # -- Poly branches: basis + 10-tap complex FIR, 9-sample history ---- #
     def make_poly(k: int):
@@ -155,11 +165,12 @@ def build_dpd(n_firings: int,
             return {"in": on, "out": on}
 
         flops = 2 * L * (4 * N_TAPS + 2 * order)  # complex MACs + basis
+        op = DeviceOp("poly", {"order": order})
         if static_all_active:
             return static_actor(f"poly{k}", ("in",), ("out",), fire, init=init,
-                                cost_flops=flops)
+                                cost_flops=flops, device_op=op)
         return dynamic_actor(f"poly{k}", "c", control, ("in",), ("out",), fire,
-                             init=init, cost_flops=flops)
+                             init=init, cost_flops=flops, device_op=op)
 
     polys = [make_poly(k) for k in range(n_branches)]
 
@@ -180,11 +191,13 @@ def build_dpd(n_firings: int,
             d[f"y{k}"] = _branch_on(k, tok)
         return d
 
+    adder_op = DeviceOp("adder", {"terms": add_ins})
     if static_all_active:
-        adder = static_actor("adder", add_ins, ("out",), adder_fire)
+        adder = static_actor("adder", add_ins, ("out",), adder_fire,
+                             device_op=adder_op)
     else:
         adder = dynamic_actor("adder", "c", adder_control, add_ins, ("out",),
-                              adder_fire)
+                              adder_fire, device_op=adder_op)
 
     # -- wiring (Eq. 1 capacities derived per channel) ------------------ #
     b = NetworkBuilder()

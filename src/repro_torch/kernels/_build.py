@@ -1,8 +1,10 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
-for Hopper (``sm_90a``) into ``_build/lib<name>-<hash>.so`` on first use,
-keyed by a hash of the sources and flags, then loaded with ``ctypes``.
+Each ``csrc/<name>.cu`` (``dyn_fir`` for B1, ``megakernel`` for B2) has a
+plain C interface and is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``) into ``_build/lib<name>-<hash>.so`` on first use, keyed by a
+hash of the source, the shared headers and the flags, then loaded with
+``ctypes``.
 ``_build/`` is listed in ``.gitignore``.  A missing ``nvcc`` or a failed
 compile raises; nothing falls back.
 """
@@ -15,6 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -44,23 +47,33 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless it is built already; return
-    ``nvcc``'s output (ptxas registers, shared memory, spills), empty when
-    there was nothing to build.  Raises if the compile fails."""
-    lib = library_path(name)
-    if lib.exists():
-        return ""
+def build(*names: str) -> Dict[str, str]:
+    """Compile each ``csrc/<name>.cu`` that is not built yet, one ``nvcc``
+    per library, all started together; return each library's ``nvcc``
+    output (ptxas registers, shared memory, spills), empty when there was
+    nothing to build.  Raises if a compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {name}.cu failed (nvcc exit "
-                           f"{proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, lib)
-    return proc.stdout
+    procs = {}
+    for name in names:
+        lib = library_path(name)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, lib, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    out = {name: "" for name in names}
+    failed = []
+    for name, (tmp, lib, proc) in procs.items():
+        out[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"building {name}.cu failed (nvcc exit "
+                          f"{proc.returncode}):\n{out[name]}")
+        else:
+            os.replace(tmp, lib)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -117,8 +117,7 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("donate", True), ("donate_threshold_bytes", 1), ("runtime_mode", "x"),
-    ("unroll_bound", 6), ("interpret", True), ("cores", 2), ("assign", {}),
-    ("cut_objective", "flops"), ("accelerated", ("poly0",)), ("guards", True),
+    ("unroll_bound", 6), ("accelerated", ("poly0",)), ("guards", True),
     ("trace", True), ("trace_capacity", 8), ("profile", {}), ("devices", 2),
     ("device_assign", {})])
 def test_unported_plan_fields_raise(field, value):
@@ -129,8 +128,21 @@ def test_unported_plan_fields_raise(field, value):
         net.compile(mode="dynamic", **{field: value})
 
 
+@pytest.mark.parametrize("field,value,msg", [
+    ("interpret", True, "interpret"), ("cores", 2, "grid-partition knobs"),
+    ("assign", {}, "grid-partition knobs"),
+    ("cut_objective", "flops", "grid-partition knobs")])
+def test_grid_knobs_off_megakernel_raise(field, value, msg):
+    net, _ = make_dpd(n_firings=2, block_l=32, device="cpu")
+    with pytest.raises(ValueError, match=msg):
+        net.compile(mode="dynamic", **{field: value})
+
+
 @pytest.mark.parametrize("mode", ["megakernel", "interpreted"])
 def test_unported_modes_raise(mode):
+    if mode == "megakernel":            # ported: the plan constructs
+        assert ExecutionPlan(mode=mode).mode == "megakernel"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ExecutionPlan(mode=mode, n_iterations=2)
 

@@ -1,0 +1,272 @@
+"""The port's megakernel backend (``ExecutionPlan(mode="megakernel")``) on
+the CPU, where it runs the plain PyTorch version of kernel B2 (``ref.py``)
+on the device program.
+
+Against the reference's ``compile_megakernel`` (Pallas interpret mode) on
+the same DPD: fire counts, sweeps, cursors and integer leaves exactly,
+floats within ``1e-5 * max|y|`` per plane.  Against the port's own host
+dynamic executor: every leaf bit for bit, as the reference's megakernel is
+held to its dynamic executor (``tests/test_megakernel.py``).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import jax
+import pytest
+import torch
+
+from repro.core import ExecutionPlan as RefPlan
+from repro.graphs.factories import make_dpd as ref_make_dpd
+from repro_torch.core.megakernel import compile_megakernel, megakernel_cuda
+from repro_torch.core.network import Network
+from repro_torch.graphs.factories import make_dpd, states_equal
+from test_torch_harness import assert_runs_match
+
+# One scrambled core map of DPD's 15 actors (config first).
+SCRAMBLED = {"config": 2, "source": 0, "fork": 3, "poly0": 1, "poly1": 0,
+             "poly2": 2, "poly3": 3, "poly4": 1, "poly5": 0, "poly6": 2,
+             "poly7": 3, "poly8": 1, "poly9": 0, "adder": 2, "sink": 3}
+
+REF_PLANS = {
+    "default": dict(),
+    "single": dict(multi_firing=False),
+    "cores2": dict(cores=2),
+    "cores4": dict(cores=4),
+    "scrambled": dict(cores=4, assign=SCRAMBLED),
+}
+
+
+@pytest.fixture(scope="module")
+def ref_runs():
+    """Reference megakernel programs on DPD(4, block 128), compiled and run
+    on first use (about 6 s each).  ``jax.core.Literal`` is aliased for the
+    graph build only, and restored before any test body runs."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.core, "Literal"):
+            from jax.extend.core import Literal
+            mp.setattr(jax.core, "Literal", Literal, raising=False)
+        ref_net, _ = ref_make_dpd(4, block_l=128)
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            prog = ref_net.compile(RefPlan(mode="megakernel", **REF_PLANS[name]))
+            cache[name] = (prog, prog.run())
+        return cache[name]
+
+    return get
+
+
+def _port(n_firings=4, **kw):
+    net, _ = make_dpd(n_firings, block_l=128, device="cpu", **kw)
+    return net
+
+
+def test_megakernel_matches_reference(ref_runs):
+    _, ref = ref_runs("default")
+    got = _port().compile(mode="megakernel").run()
+    assert got.sweeps == int(ref.sweeps) == 3
+    assert_runs_match(ref, got)
+
+
+@pytest.mark.parametrize("static_all_active", [False, True])
+@pytest.mark.parametrize("n_firings", [4, 5, 6])
+def test_megakernel_bit_identical_to_port_dynamic(n_firings, static_all_active):
+    net = _port(n_firings, static_all_active=static_all_active)
+    dyn = net.compile(mode="dynamic").run()
+    mega = net.compile(mode="megakernel").run()
+    assert states_equal(dyn.state, mega.state)
+    assert mega.fire_counts == dyn.fire_counts
+    assert mega.sweeps == dyn.sweeps and not mega.stalled
+
+
+def test_single_firing_sweeps_match_reference(ref_runs):
+    _, ref = ref_runs("single")
+    net = _port()
+    single = net.compile(mode="megakernel", multi_firing=False).run()
+    dyn = net.compile(mode="dynamic", multi_firing=False).run()
+    assert single.sweeps == int(ref.sweeps) == dyn.sweeps
+    assert states_equal(single.state, dyn.state)
+    multi = net.compile(mode="megakernel").run()
+    assert multi.sweeps < single.sweeps
+    assert states_equal(multi.state, single.state)
+
+
+@pytest.mark.parametrize("plan", ["cores2", "cores4", "scrambled"])
+def test_grid_plans_give_the_single_core_state(ref_runs, plan):
+    _, ref = ref_runs(plan)
+    net = _port()
+    one = net.compile(mode="megakernel").run()
+    got = net.compile(mode="megakernel", **REF_PLANS[plan]).run()
+    assert states_equal(got.state, one.state)
+    assert got.fire_counts == one.fire_counts
+    assert got.sweeps == int(ref.sweeps)
+    assert_runs_match(ref, got)
+
+
+def test_stats_megakernel_fields_equal_reference(ref_runs):
+    ref_prog, _ = ref_runs("default")
+    prog = _port().compile(mode="megakernel")
+    assert prog.stats().hbm_state_bytes is None              # nothing ran yet
+    prog.run()
+    got, ref = prog.stats(), ref_prog.stats()
+    for field in ("scratch_bytes", "transient_scratch_bytes", "forwarded_fifos",
+                  "reclaimed_scratch_bytes", "hbm_state_bytes", "grid_cores",
+                  "partition_actors", "core_scratch_bytes",
+                  "shared_scratch_bytes", "shared_fifos", "core_cursor_rows",
+                  "cut_objective", "partition_fire_counts", "last_sweeps"):
+        assert getattr(got, field) == getattr(ref, field), field
+    assert got.mode == "megakernel" and got.scratch_bytes == 408
+
+
+def test_stats_of_a_grid_plan_equal_reference(ref_runs):
+    ref_prog, _ = ref_runs("cores2")
+    prog = _port().compile(mode="megakernel", cores=2)
+    prog.run()
+    got, ref = prog.stats(), ref_prog.stats()
+    for field in ("scratch_bytes", "forwarded_fifos", "shared_scratch_bytes",
+                  "shared_fifos", "core_cursor_rows", "core_scratch_bytes",
+                  "partition_actors", "partition_fire_counts"):
+        assert getattr(got, field) == getattr(ref, field), field
+
+
+def test_megakernel_resumes_from_partial_state():
+    """A quiescent state fires nothing (one empty sweep); forwarded
+    channels restart from zeros (the dead-slot rule), every other byte and
+    every cursor carries over."""
+    prog = _port().compile(mode="megakernel")
+    forwarded = prog.stats().forwarded_fifos
+    assert len(forwarded) == 34
+    r1 = prog.run()
+    r2 = prog.run(r1.state)
+    assert r2.sweeps == 1 and set(r2.fire_counts.values()) == {0}
+    for a, b in zip(r1.state.actors, r2.state.actors):
+        assert _leaf_equal(a, b)
+    for name in forwarded:
+        f1, f2 = r1.state.fifo(name), r2.state.fifo(name)
+        assert (f1.rd, f1.wr, f1.occ) == (f2.rd, f2.wr, f2.occ)
+        assert f2.occ == 0 and not torch.any(f2.buf)
+
+
+def _leaf_equal(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(_leaf_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def test_megakernel_unspecialized_resume_keeps_every_byte():
+    prog = _port().compile(mode="megakernel", specialize=False)
+    assert prog.stats().forwarded_fifos == ()
+    assert prog.stats().reclaimed_scratch_bytes == 0
+    r1 = prog.run()
+    r2 = prog.run(r1.state)
+    assert r2.sweeps == 1
+    assert states_equal(r1.state, r2.state)
+
+
+def test_megakernel_forwarding_rejects_undrained_entry():
+    net = _port()
+    state = net.init_state()
+    state.fifo("f_in").occ, state.fifo("f_in").wr = 1, 1
+    with pytest.raises(ValueError, match="must be drained"):
+        net.compile(mode="megakernel").run(state)
+    # The escape hatch: the unspecialized program takes the same state.
+    net.compile(mode="megakernel", specialize=False).run(state)
+
+
+def test_control_rings_are_back_in_host_memory():
+    net = _port()
+    dyn = net.compile(mode="dynamic").run()
+    mega = net.compile(mode="megakernel", specialize=False).run()
+    for name, spec in net.fifos.items():
+        if spec.is_control:
+            buf = mega.state.fifo(name).buf
+            assert buf.device.type == "cpu" and buf.dtype == torch.int32
+            assert torch.equal(buf, dyn.state.fifo(name).buf)
+    assert isinstance(mega.state.actor("source")[1], int)
+    assert mega.state.actor("config") == 4
+
+
+def test_rate_table_is_control_over_domain():
+    net = _port()
+    prog = compile_megakernel(net).device_program
+    dynamic = [n for n, a in net.actors.items() if a.is_dynamic]
+    assert sorted(prog.rate_tables) == sorted(dynamic)
+    for name in dynamic:
+        a = net.actors[name]
+        lo, hi = prog.domains[name]
+        assert (lo, hi) == (2, 10)
+        for v in range(lo, hi + 1):
+            assert prog.rates(name, v) == {p: int(bool(e))
+                                           for p, e in a.rates_for([v]).items()}
+    with pytest.raises(ValueError, match="declared domain"):
+        prog.rates("fork", 11)
+
+
+def test_control_token_outside_domain_raises():
+    net = _port()
+    state = net.init_state()
+    ring = state.fifo("f_c_fork")
+    ring.buf[0, 0] = 42
+    ring.occ, ring.wr = 1, 1
+    with pytest.raises(ValueError, match="token 42, outside"):
+        net.compile(mode="megakernel", specialize=False).run(state)
+
+
+def _rebuilt(net: Network, actors=None, fifos=None) -> Network:
+    return Network(list((actors or net.actors).values()),
+                   list((fifos or net.fifos).values()), list(net.edges),
+                   device="cpu")
+
+
+def test_actor_without_device_op_raises_naming_a6_and_a8():
+    net = _port()
+    actors = dict(net.actors)
+    actors["adder"] = dataclasses.replace(actors["adder"], device_op=None)
+    with pytest.raises(NotImplementedError, match="A6.*A8"):
+        _rebuilt(net, actors=actors).compile(mode="megakernel")
+
+
+def test_delay_channel_raises_naming_a6():
+    net = _port()
+    fifos = dict(net.fifos)
+    fifos["f_out"] = dataclasses.replace(fifos["f_out"], delay=1,
+                                         matched_rates=False)
+    with pytest.raises(NotImplementedError, match="copy-back.*A6"):
+        _rebuilt(net, fifos=fifos).compile(mode="megakernel")
+
+
+def test_control_channel_without_domain_raises():
+    net = _port()
+    fifos = {n: dataclasses.replace(f, domain=None) if f.is_control else f
+             for n, f in net.fifos.items()}
+    with pytest.raises(ValueError, match="no finite"):
+        _rebuilt(net, fifos=fifos).compile(mode="megakernel")
+
+
+def test_cpu_run_launches_no_kernel_and_collects_the_sink():
+    net = _port()
+    before = megakernel_cuda.launches
+    prog = net.compile(mode="megakernel")
+    prog.run()
+    assert megakernel_cuda.launches == before
+    dyn = net.compile(mode="dynamic")
+    assert torch.equal(prog.collect("sink"), dyn.collect("sink", dyn.run().state))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        megakernel_cuda(torch.zeros(4, dtype=torch.int32),
+                        torch.zeros(4, dtype=torch.int64), 1, 10, True)
+    assert megakernel_cuda.launches == before
+
+
+def test_sweep_budget_exhaustion_warns_like_dynamic():
+    net = _port()
+    with pytest.warns(RuntimeWarning, match="max_sweeps"):
+        res = net.compile(mode="megakernel", max_sweeps=1).run()
+    dyn = net.compile(mode="dynamic", max_sweeps=1)
+    with pytest.warns(RuntimeWarning):
+        ref = dyn.run()
+    assert res.stalled and res.sweeps == 1
+    assert states_equal(res.state, ref.state)
