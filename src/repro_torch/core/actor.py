@@ -25,7 +25,8 @@ FireFn = Callable[[Any, Mapping[str, torch.Tensor], Mapping[str, int]],
 ControlFn = Callable[[Sequence[Any]], Dict[str, int]]
 
 #: Op kinds the persistent scheduler kernel (B2) runs as device functions.
-DEVICE_OP_KINDS = ("source", "config", "fork", "poly", "adder", "sink")
+DEVICE_OP_KINDS = ("source", "config", "fork", "poly", "adder", "sink",
+                   "gauss", "thres", "med")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -40,15 +41,23 @@ class DeviceOp:
     ints in ``params``).  Everything else the function reads is the
     actor's state, as ``fire`` reads it.  The host executors ignore it.
 
-    Kinds: ``"source"`` (``n_firings``, ``L``: ready while its index
+    Kinds: ``"source"`` (``n_firings``, ``planes``: ready while its index
     ``idx`` is below ``n_firings``, copies window ``idx`` of its state's
     staged slab), ``"config"`` (``schedule``, an int32 tensor, and
     ``n_firings``: ready likewise, emits ``schedule[idx]`` on every
     output),
     ``"fork"`` (copies its input to each enabled output), ``"poly"``
     (``order``: basis and 10-tap FIR on its ``(hist, taps)`` state),
-    ``"adder"`` (``terms``: its input ports in summation order) and
-    ``"sink"`` (``L``: stores window ``idx`` into its state's slab).
+    ``"adder"`` (``terms``: its input ports in summation order),
+    ``"sink"`` (``planes``: stores window ``idx`` into its state's slab),
+    and motion detection's ``"gauss"`` (the blur of every u8 frame of its
+    window, rounded to u8, to each output), ``"thres"`` (``threshold``:
+    the motion map of its ``cur`` and ``prev`` windows) and ``"med"`` (the
+    plus-shaped median of every frame).
+
+    A source's or sink's slab holds its windows in ``planes`` planes, each
+    the run of every window's part of that plane: DPD's ``(2, k * L)``
+    (re, im) slab has 2, motion detection's ``(n_frames, H, W)`` video 1.
     """
 
     kind: str

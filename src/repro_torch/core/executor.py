@@ -9,7 +9,16 @@ and every Poly body is a kernel launch there:
    with their rate-0 ports frozen.  With ``specialize=True`` channels in
    ``Network.register_fifos`` forward their window producer -> consumer
    and never touch the ring; in eager torch that is all specialization
-   means, since cursor offsets are host ints already.
+   means, since cursor offsets are host ints already.  So the port's
+   specialized static mode also takes a phase-misaligned state (say,
+   motion detection advanced one iteration, its delay ring mid-period),
+   where the reference's raises and asks for ``specialize=False``: the
+   reference bakes the phase offsets of one unroll period into its trace,
+   the port reads them from the cursors.  ``specialize=False`` is also
+   the reference's interpreted mode (``_run_interpreted``,
+   ``src/repro/core/executor.py:686``, Table 3's multicore baseline): the
+   reference jits each firing on its own there where its static mode
+   traces the whole schedule, but the port fires eagerly either way.
 2. **Dynamic** token-driven scheduler (:func:`run_dynamic`): sweeps visit
    every actor in declaration order, firing it while its blocking
    predicates hold (the control token peeked first), up to

@@ -10,14 +10,22 @@ run of the compiled program.
 
 * **Visit order**: the rows of ``partition.core_rows`` in partition order,
   as the reference traces them (``kernel.py:674``).
-* **Per channel**: rate, Eq. 1 capacity, token size, write phases, blocking
-  bound, whether it is a control channel and whether it is forwarded.
+* **Per channel**: rate, Eq. 1 capacity, token size in bytes, write
+  phases, blocking bound, whether it is a control channel, whether it is
+  forwarded, its delay (a Fig. 2 triple buffer writes one slot further on
+  and copies slot ``3r`` back to slot 0 after a phase-2 write) and its
+  element type.  Rings are addressed as bytes, so one kernel moves float32
+  (DPD) and uint8 (motion detection) tokens alike.
 * **Per actor**: its :class:`~repro_torch.core.actor.DeviceOp` kind, its
   control, input and output channels, its ready limit, and for a dynamic
   actor a **rate table**: ``control`` evaluated over every token of its
   control channel's declared ``domain`` (the evaluation NetworkBuilder's
   matched-rates proof uses), so the kernel looks rates up by token and needs
-  no scheduler code of its own per graph.
+  no scheduler code of its own per graph; the shape parameters of its body
+  (Poly's ``L``, a frame's ``H`` and ``W``, Thres's threshold); and for a
+  source or sink its **slab descriptor**: ``planes`` planes, each holding
+  every window's ``window_bytes / planes`` bytes of that plane in a row
+  (DPD's ``(2, k L)`` slab has 2 planes, motion detection's video 1).
 
 Per run the kernel also takes an int64 argument block (see
 :class:`DeviceProgram`): the device addresses of the rings and actor
@@ -29,29 +37,36 @@ Networks the kernel cannot run raise here, naming the ROADMAP item.
 from __future__ import annotations
 
 import dataclasses
+import struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.builder import domain_values
+from repro_torch.core.fifo import FifoSpec
 from repro_torch.core.megakernel.lower import GridPartition, MegakernelLayout
 from repro_torch.core.network import Network
 from repro_torch.kernels.dyn_fir.ref import N_TAPS
 
 KIND_CODES = {"source": 0, "config": 1, "fork": 2, "poly": 3, "adder": 4,
-              "sink": 5}
+              "sink": 5, "gauss": 6, "thres": 7, "med": 8}
+
+#: Element types of a channel row.
+ELEM_CODES = {torch.float32: 0, torch.uint8: 1, torch.int32: 2}
 
 # ---- packed table layout (mirrored by csrc/megakernel.cu) --------------- #
 HEADER = 16
 H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF, \
-    H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_L, H_LEN = range(11)
+    H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN = range(10)
 
-FIFO_FIELDS = 8
-F_RATE, F_CAP, F_TOKN, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE = range(8)
+FIFO_FIELDS = 12
+(F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
+ F_ELEM) = range(10)
 
-ACTOR_FIELDS = 16
+ACTOR_FIELDS = 20
 (A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
- A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX) = range(16)
+ A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1, A_PLANES,
+ A_FPARAM) = range(20)
 
 #: Words at the end of the io block: sweeps, stall flag, error code, the
 #: actor and token of the error, the grid size the kernel ran with.
@@ -63,19 +78,22 @@ M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS = range(6)
 ERR_DOMAIN, ERR_SLAB = 1, 2
 
 _UNSUPPORTED = ("the megakernel backend runs actors through the device "
-                "functions they declare (ActorSpec.device_op); motion "
-                "detection's actors get theirs with ROADMAP A6, MoE's with "
-                "ROADMAP A8")
+                "functions they declare (ActorSpec.device_op); MoE's actors "
+                "get theirs with ROADMAP A8")
 
 
 @dataclasses.dataclass(frozen=True)
 class ActorSlots:
     """Where one actor's state meets the kernel: its int scalar slot, its
-    tensor pointer slots, and the state's layout."""
+    tensor pointer slots, and for a source or sink its slab's element type
+    and window (planes, bytes per plane)."""
 
     kind: str
     scalar: int = -1            # slot in the io scalar area, -1 for none
     ptrs: Tuple[int, ...] = ()  # slots in the pointer table (after rings)
+    dtype: Any = None
+    planes: int = 0
+    plane_bytes: int = 0
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -91,6 +109,7 @@ class DeviceProgram:
 
     table: torch.Tensor
     fifo_names: Tuple[str, ...]
+    fifo_dtypes: Tuple[Any, ...]
     actor_names: Tuple[str, ...]
     slots: Tuple[ActorSlots, ...]
     consts: Tuple[Tuple[int, torch.Tensor], ...]
@@ -99,7 +118,6 @@ class DeviceProgram:
     n_aptrs: int
     n_scalars: int
     n_ctrl: int
-    L: int
     rate_tables: Dict[str, Dict[int, Dict[str, int]]]
     domains: Dict[str, Tuple[int, int]]
 
@@ -153,31 +171,37 @@ def domain_error(actor: str, token: int, lo: int, hi: int) -> str:
             "declare a domain that covers every token")
 
 
-def _check_channels(network: Network) -> int:
-    """Channel shapes the device functions take; returns the window
-    length ``L`` of the ``(2, L)`` float32 data tokens."""
-    L = None
+def fifo_row(spec: FifoSpec, forwarded: bool = False,
+             ctrl_base: int = -1) -> List[int]:
+    """A channel's row of the table: its ``FifoSpec`` in the kernel's
+    terms."""
+    row = [0] * FIFO_FIELDS
+    row[F_RATE] = spec.rate
+    row[F_CAP] = spec.capacity_tokens
+    row[F_TOKB] = spec.token_size_bytes
+    row[F_NPH] = spec.n_write_phases
+    row[F_BOUND] = spec.writable_occupancy_bound
+    row[F_CTRL] = int(spec.is_control)
+    row[F_FWD] = int(forwarded)
+    row[F_CBASE] = ctrl_base
+    row[F_DELAY] = spec.delay
+    row[F_ELEM] = ELEM_CODES[spec.dtype]
+    return row
+
+
+def _check_channels(network: Network) -> None:
+    """Element types the kernel moves: float32 or uint8 data tokens,
+    ``(1,)`` int32 control tokens."""
     for name, spec in network.fifos.items():
-        if spec.delay:
-            raise NotImplementedError(
-                f"megakernel: channel {name!r} carries a delay token; the "
-                "Fig. 2 copy-back in the kernel comes with ROADMAP A6 "
-                "(motion detection)")
         if spec.is_control:
             if spec.dtype != torch.int32 or tuple(spec.token_shape) != (1,):
                 raise NotImplementedError(
                     f"megakernel: control channel {name!r} must carry (1,) "
                     f"int32 tokens, got {spec.dtype} {spec.token_shape}")
-            continue
-        shape = tuple(spec.token_shape)
-        if (spec.dtype != torch.float32 or spec.rate != 1 or len(shape) != 2
-                or shape[0] != 2 or (L is not None and shape[1] != L)):
+        elif spec.dtype not in (torch.float32, torch.uint8):
             raise NotImplementedError(
-                f"megakernel: data channel {name!r} must carry rate-1 "
-                f"(2, L) float32 tokens with one L for the whole network, "
-                f"got rate {spec.rate} {spec.dtype} {shape}")
-        L = shape[1]
-    return L if L is not None else 0
+                f"megakernel: data channel {name!r} carries {spec.dtype}; the "
+                "device functions take float32 and uint8 tokens")
 
 
 #: Regular ports per side an actor may have (the kernel's enable masks).
@@ -185,7 +209,8 @@ MAX_PORTS = 32
 
 _PORTS = {  # kind -> (inputs, outputs): exact counts, or None for >= 1
     "source": (0, 1), "config": (0, None), "fork": (1, None),
-    "poly": (1, 1), "adder": (None, 1), "sink": (1, 0)}
+    "poly": (1, 1), "adder": (None, 1), "sink": (1, 0),
+    "gauss": (1, None), "thres": (2, 1), "med": (1, 1)}
 
 
 def _check_ports(network: Network, name: str, kind: str) -> None:
@@ -206,6 +231,46 @@ def _check_ports(network: Network, name: str, kind: str) -> None:
                 "actors write control channels, and they write nothing else")
 
 
+def _check_tokens(network: Network, name: str, kind: str) -> Tuple[int, int]:
+    """The data channels a body reads and writes must carry what its device
+    function computes on; returns the body's shape parameters ``(n0, n1)``:
+    Poly's ``(L, 0)``, a frame's ``(H, W)``, else ``(0, 0)``."""
+    specs = ([s for _, s, _ in network.in_port_specs[name]]
+             + [s for _, s, _ in network.out_port_specs[name] if not s.is_control])
+    if not specs or kind in ("source", "sink"):
+        return 0, 0
+    first = specs[0]
+    want = {"poly": "rate-1 (2, L) float32", "adder": "float32",
+            "gauss": "(H, W) uint8", "thres": "(H, W) uint8",
+            "med": "(H, W) uint8", "fork": None}[kind]
+    shape = tuple(first.token_shape)
+    ok = all((s.rate, tuple(s.token_shape), s.dtype)
+             == (first.rate, shape, first.dtype) for s in specs)
+    if kind == "poly":
+        ok = ok and first.rate == 1 and len(shape) == 2 and shape[0] == 2
+    elif kind == "adder":
+        ok = ok and first.dtype == torch.float32
+    elif kind in ("gauss", "thres", "med"):
+        ok = ok and first.dtype == torch.uint8 and len(shape) == 2
+    if not ok:
+        raise ValueError(
+            f"megakernel: {kind} actor {name!r} reads and writes channels of "
+            f"one rate, token shape and type"
+            + (f", {want}" if want else "") + "; got "
+            + ", ".join(f"{s.name}: rate {s.rate} {s.dtype} "
+                        f"{tuple(s.token_shape)}" for s in specs))
+    if kind == "poly":
+        return shape[1], 0
+    if kind in ("gauss", "med"):
+        return shape
+    return 0, 0
+
+
+def _float_bits(x: float) -> int:
+    """The float32 bit pattern of ``x`` as a signed int32 table word."""
+    return struct.unpack("<i", struct.pack("<f", float(x)))[0]
+
+
 def build_device_program(network: Network, layout: MegakernelLayout,
                          partition: GridPartition) -> DeviceProgram:
     """Pack ``network`` for the kernel; raises for what it cannot run."""
@@ -214,7 +279,7 @@ def build_device_program(network: Network, layout: MegakernelLayout,
         raise NotImplementedError(
             f"megakernel: actors {missing} declare no DeviceOp; "
             + _UNSUPPORTED)
-    L = _check_channels(network)
+    _check_channels(network)
     fifo_names = layout.fifo_names
     n_fifos = len(fifo_names)
     actor_names = tuple(network.actors)
@@ -231,13 +296,8 @@ def build_device_program(network: Network, layout: MegakernelLayout,
 
     fifo_rows: List[int] = []
     for i, spec in enumerate(layout.fifo_specs):
-        tokn = 1
-        for d in spec.token_shape:
-            tokn *= int(d)
-        fifo_rows += [spec.rate, spec.capacity_tokens, tokn,
-                      spec.n_write_phases, spec.writable_occupancy_bound,
-                      int(spec.is_control), int(i in forwarded),
-                      ctrl_base.get(i, -1)]
+        fifo_rows += fifo_row(spec, forwarded=i in forwarded,
+                              ctrl_base=ctrl_base.get(i, -1))
 
     # Variable-length lists (ports, rate tables, adder terms) follow the
     # fixed tables; actor rows point at them by absolute offset.
@@ -272,17 +332,29 @@ def build_device_program(network: Network, layout: MegakernelLayout,
         r[A_NOUT] = len(row.outputs)
         r[A_READY] = -1
         r[A_SCALAR] = r[A_PTR0] = r[A_PTR1] = r[A_RATES] = r[A_AUX] = -1
+        r[A_N0], r[A_N1] = _check_tokens(network, row.name, kind)
         if kind in ("source", "config") and a.ready is not None:
             r[A_READY] = int(op.params["n_firings"])
         ptrs: Tuple[int, ...] = ()
         scalar = -1
+        window: Dict[str, Any] = {}
         if kind in ("source", "config", "sink"):
             scalar = n_scalars
             n_scalars += 1
         if kind in ("source", "sink"):
-            if int(op.params["L"]) != L:
-                raise ValueError(f"megakernel: {kind} {row.name!r} declares "
-                                 f"L={op.params['L']}, its channels carry {L}")
+            spec = layout.fifo_specs[(row.outputs if kind == "source"
+                                      else row.inputs)[0].fifo]
+            planes = int(op.params.get("planes", 1))
+            win_bytes = spec.rate * spec.token_size_bytes
+            if planes < 1 or win_bytes % planes:
+                raise ValueError(
+                    f"megakernel: {kind} {row.name!r} declares planes="
+                    f"{planes}, which does not divide its {win_bytes}-byte "
+                    f"window on {spec.name!r}")
+            r[A_PLANES] = planes
+            r[A_N0] = win_bytes // planes
+            window = dict(dtype=spec.dtype, planes=planes,
+                          plane_bytes=win_bytes // planes)
             ptrs = (n_aptrs,)
         elif kind == "poly":
             order = int(op.params["order"])
@@ -307,6 +379,8 @@ def build_device_program(network: Network, layout: MegakernelLayout,
                                  f"inputs {list(a.in_ports)}")
             r[A_AUX] = put([list(a.in_ports).index(p) for p in terms])
             r[A_NAUX] = len(terms)
+        elif kind == "thres":
+            r[A_FPARAM] = _float_bits(op.params["threshold"])
         n_aptrs += len(ptrs)
         r[A_SCALAR] = scalar
         if ptrs:
@@ -329,7 +403,7 @@ def build_device_program(network: Network, layout: MegakernelLayout,
             domains[row.name] = (values[0], values[-1])
             r[A_DLO], r[A_DHI] = values[0], values[-1]
             r[A_RATES] = put([table[v][p] for v in values for p in ports])
-        slots.append(ActorSlots(kind=kind, scalar=scalar, ptrs=ptrs))
+        slots.append(ActorSlots(kind=kind, scalar=scalar, ptrs=ptrs, **window))
         actor_rows += r
 
     total = tail_off + len(tail)
@@ -343,28 +417,34 @@ def build_device_program(network: Network, layout: MegakernelLayout,
     header[H_N_APTRS] = n_aptrs
     header[H_N_SCALARS] = n_scalars
     header[H_N_CTRL] = n_ctrl
-    header[H_L] = L
     header[H_LEN] = total
     packed = header + fifo_rows + actor_rows + list(visit) + tail
     assert len(packed) == total
     return DeviceProgram(
         table=torch.tensor(packed, dtype=torch.int32),
-        fifo_names=fifo_names, actor_names=actor_names,
+        fifo_names=fifo_names,
+        fifo_dtypes=tuple(s.dtype for s in layout.fifo_specs),
+        actor_names=actor_names,
         slots=tuple(slots), consts=tuple(consts), ctrl_base=ctrl_base,
         forwarded=forwarded, n_aptrs=n_aptrs, n_scalars=n_scalars,
-        n_ctrl=n_ctrl, L=L, rate_tables=rate_tables, domains=domains)
+        n_ctrl=n_ctrl, rate_tables=rate_tables, domains=domains)
 
 
 # --------------------------------------------------------------------------- #
 # Staging: NetworkState <-> (tensors, io words), shared by kernel and ref.
 # --------------------------------------------------------------------------- #
-def _slab(t: Any, name: str, L: int, device: torch.device) -> torch.Tensor:
-    if (not isinstance(t, torch.Tensor) or t.dtype != torch.float32
-            or t.dim() != 2 or t.shape[0] != 2 or not t.is_contiguous()
-            or t.device != device or (L and t.shape[1] % L)):
-        raise ValueError(f"megakernel: actor {name!r} state must hold a "
-                         f"contiguous float32 (2, k*{L}) slab on {device}")
-    return t
+def _slab(t: Any, name: str, sl: ActorSlots, device: torch.device) -> int:
+    """Check a source's or sink's slab; returns its window count."""
+    window = sl.planes * sl.plane_bytes
+    if (not isinstance(t, torch.Tensor) or t.dtype != sl.dtype
+            or not t.is_contiguous() or t.device != device
+            or t.numel() * t.element_size() % window
+            or (sl.planes > 1 and t.shape[0] != sl.planes)):
+        raise ValueError(
+            f"megakernel: actor {name!r} state must hold a contiguous "
+            f"{sl.dtype} slab on {device} of {sl.planes} plane(s) of "
+            f"{sl.plane_bytes}-byte windows")
+    return t.numel() * t.element_size() // window
 
 
 def stage(prog: DeviceProgram, state: Any, device: torch.device,
@@ -388,9 +468,10 @@ def stage(prog: DeviceProgram, state: Any, device: torch.device,
                 io[base:base + len(vals)] = vals
             continue
         buf = f.buf
-        if buf.device != device or not buf.is_contiguous() or buf.dtype != torch.float32:
+        want = prog.fifo_dtypes[i]
+        if buf.device != device or not buf.is_contiguous() or buf.dtype != want:
             raise ValueError(f"megakernel: ring {prog.fifo_names[i]!r} must be "
-                             f"a contiguous float32 tensor on {device}")
+                             f"a contiguous {want} tensor on {device}")
         tensors.append(buf)
     aptr: List[Optional[torch.Tensor]] = [None] * prog.n_aptrs
     for slot, t in zip((s for s, _ in prog.consts), consts):
@@ -398,9 +479,9 @@ def stage(prog: DeviceProgram, state: Any, device: torch.device,
     for name, sl, st in zip(prog.actor_names, prog.slots, state.actors):
         if sl.kind in ("source", "sink"):
             slab, idx = st
-            aptr[sl.ptrs[0]] = _slab(slab, name, prog.L, device)
+            io[prog.io_scalars + 2 * sl.scalar + 1] = _slab(slab, name, sl, device)
             io[prog.io_scalars + 2 * sl.scalar] = int(idx)
-            io[prog.io_scalars + 2 * sl.scalar + 1] = slab.shape[1] // max(prog.L, 1)
+            aptr[sl.ptrs[0]] = slab
         elif sl.kind == "config":
             io[prog.io_scalars + 2 * sl.scalar] = int(st)
         elif sl.kind == "poly":

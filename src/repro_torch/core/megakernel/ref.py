@@ -10,9 +10,13 @@ host dynamic executor's (``executor.run_dynamic``):
 * per visit up to ``_max_fireable`` firings (cap 8), each guarded by
   ``_can_fire`` on the rate table, the control token peeked first;
 * masked ring reads and writes at the reference's offsets
-  (``src/repro/core/megakernel/kernel.py:151-214``);
-* op bodies in plain torch: window copies, ``poly_ref`` for Poly, and the
-  adder as ``add_`` from zeros in its terms' order.
+  (``src/repro/core/megakernel/kernel.py:151-214``): a delay channel writes
+  one slot further on and, after an enabled phase-2 write, copies slot
+  ``3r`` back to slot 0 (Fig. 2);
+* op bodies in plain torch: window copies (byte for byte, through the
+  source's and sink's slab descriptors), ``poly_ref`` for Poly, the adder
+  as ``add_`` from zeros in its terms' order, and motion detection's
+  ``gauss5x5_u8_ref``, ``thres_ref`` and ``med_ref`` with the u8 rounding.
 
 Every tensor it is given is updated in place and ``io`` is rewritten, as
 the kernel rewrites its argument block.  The megakernel backend runs it for
@@ -24,20 +28,49 @@ from typing import List, Optional, Sequence
 
 import torch
 
+import struct
+
 from repro_torch.core.megakernel.program import (
-    A_AUX, A_CTRL, A_DHI, A_DLO, A_IN, A_KIND, A_NAUX, A_NIN, A_NOUT, A_ORDER,
-    A_OUT, A_PTR0, A_PTR1, A_RATES, A_READY, A_SCALAR, ACTOR_FIELDS,
-    ERR_DOMAIN, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL, F_FWD, F_NPH, F_RATE,
-    FIFO_FIELDS, H_ACTOR_OFF, H_FIFO_OFF, H_L, H_N_ACTORS, H_N_CTRL,
-    H_N_FIFOS, H_N_SCALARS, H_N_VISIT, H_VISIT_OFF, KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE,
-    M_ERROR, M_STALLED, M_SWEEPS)
+    A_AUX, A_CTRL, A_DHI, A_DLO, A_FPARAM, A_IN, A_KIND, A_N0, A_NAUX, A_NIN,
+    A_NOUT, A_ORDER, A_OUT, A_PLANES, A_PTR0, A_PTR1, A_RATES, A_READY,
+    A_SCALAR, ACTOR_FIELDS, ERR_DOMAIN, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL,
+    F_DELAY, F_FWD, F_NPH, F_RATE, FIFO_FIELDS, H_ACTOR_OFF, H_FIFO_OFF,
+    H_N_ACTORS, H_N_CTRL, H_N_FIFOS, H_N_SCALARS, H_N_VISIT, H_VISIT_OFF,
+    KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE, M_ERROR, M_STALLED, M_SWEEPS)
 from repro_torch.kernels.dyn_fir.ref import poly_ref
+from repro_torch.kernels.gauss5x5.ref import gauss5x5_u8_ref, to_u8
+from repro_torch.kernels.motion_post.ref import med_ref, thres_ref
 
 #: The reference's per-visit firing cap (``executor.py:31``).
 MAX_FIRINGS_PER_VISIT = 8
 
-SOURCE, CONFIG, FORK, POLY, ADDER, SINK = (
-    KIND_CODES[k] for k in ("source", "config", "fork", "poly", "adder", "sink"))
+SOURCE, CONFIG, FORK, POLY, ADDER, SINK, GAUSS, THRES, MED = (
+    KIND_CODES[k] for k in ("source", "config", "fork", "poly", "adder",
+                            "sink", "gauss", "thres", "med"))
+
+
+def _bytes(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes, as a flat uint8 view."""
+    return t.reshape(-1).view(torch.uint8)
+
+
+# ---- ring arithmetic on a channel row (``FifoSpec`` in table form) ------ #
+def read_offset(row: Sequence[int], rd: int) -> int:
+    """First slot of read phase ``rd``: 0, r (, 2r) cyclically."""
+    return (rd % row[F_NPH]) * row[F_RATE]
+
+
+def write_offset(row: Sequence[int], wr: int) -> int:
+    """First slot of write phase ``wr``; a delay channel writes one slot
+    further on, since slot 0 holds the (copied-back) delay token."""
+    return (wr % row[F_NPH]) * row[F_RATE] + row[F_DELAY]
+
+
+def copy_back(ring: torch.Tensor, row: Sequence[int], wr: int) -> None:
+    """After an enabled write at phase ``wr``: a delay channel's phase-2
+    write copies slot ``3r`` back to slot 0 (paper Fig. 2)."""
+    if row[F_DELAY] and wr % row[F_NPH] == 2:
+        ring[0].copy_(ring[3 * row[F_RATE]])
 
 
 class _Stop(Exception):
@@ -55,7 +88,6 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
     actor = [t[t[H_ACTOR_OFF] + ACTOR_FIELDS * a:][:ACTOR_FIELDS]
              for a in range(n_actors)]
     visit = t[t[H_VISIT_OFF]:t[H_VISIT_OFF] + t[H_N_VISIT]]
-    L = t[H_L]
     rings = tensors[:n_fifos]
     aptr = tensors[n_fifos:]
     io_scal = 3 * n_fifos
@@ -69,10 +101,10 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         return io[3 * f + 2]
 
     def rd_off(f: int) -> int:
-        return (io[3 * f] % fifo[f][F_NPH]) * fifo[f][F_RATE]
+        return read_offset(fifo[f], io[3 * f])
 
     def wr_off(f: int) -> int:
-        return (io[3 * f + 1] % fifo[f][F_NPH]) * fifo[f][F_RATE]
+        return write_offset(fifo[f], io[3 * f + 1])
 
     def ports(a: int):
         r = actor[a]
@@ -142,6 +174,7 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             body(a, ins, outs, en[:len(ins)], out_en, in_off, out_off)
         for e, f in zip(out_en, outs):
             if e:
+                copy_back(rings[f], fifo[f], io[3 * f + 1])
                 io[3 * f + 1] += 1
                 io[3 * f + 2] += fifo[f][F_RATE]
         io[io_counts + a] += 1
@@ -149,8 +182,8 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
     def body(a, ins, outs, in_en, out_en, in_off, out_off) -> None:
         r = actor[a]
         kind = r[A_KIND]
-        win = [rings[f][o] for f, o in zip(ins, in_off)]
-        dst = [None if fifo[f][F_CTRL] else rings[f][o]
+        win = [rings[f][o:o + fifo[f][F_RATE]] for f, o in zip(ins, in_off)]
+        dst = [None if fifo[f][F_CTRL] else rings[f][o:o + fifo[f][F_RATE]]
                for f, o in zip(outs, out_off)]
         if kind in (SOURCE, CONFIG, SINK):
             s = io_scal + 2 * r[A_SCALAR]
@@ -161,9 +194,18 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
                 io[io_meta + M_ERR_VALUE] = idx
                 raise _Stop
             io[s] = idx + 1
-        if kind == SOURCE:
-            if out_en[0]:
-                dst[0].copy_(aptr[r[A_PTR0]][:, idx * L:(idx + 1) * L])
+        if kind in (SOURCE, SINK):
+            # Plane p of window idx sits at p * stride + idx * wb of the slab.
+            wb = r[A_N0]
+            stride = io[s + 1] * wb
+            slab = _bytes(aptr[r[A_PTR0]])
+            ring = _bytes(dst[0] if kind == SOURCE else win[0])
+            for p in range(r[A_PLANES]):
+                at = p * stride + idx * wb
+                if kind == SINK:
+                    slab[at:at + wb].copy_(ring[p * wb:(p + 1) * wb])
+                elif out_en[0]:
+                    ring[p * wb:(p + 1) * wb].copy_(slab[at:at + wb])
         elif kind == CONFIG:
             sched = schedules[a]
             value = sched[min(max(idx, 0), r[A_AUX] - 1)]
@@ -176,10 +218,10 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
                     d.copy_(win[0])
         elif kind == POLY:
             hist = aptr[r[A_PTR0]]
-            y, nxt = poly_ref(hist, win[0], aptr[r[A_PTR1]], r[A_ORDER])
+            y, nxt = poly_ref(hist, win[0][0], aptr[r[A_PTR1]], r[A_ORDER])
             hist.copy_(nxt)
             if out_en[0]:
-                dst[0].copy_(y)
+                dst[0][0].copy_(y)
         elif kind == ADDER:
             acc = torch.zeros_like(win[0])
             for k in t[r[A_AUX]:r[A_AUX] + r[A_NAUX]]:
@@ -187,12 +229,24 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
                     acc.add_(win[k])
             if out_en[0]:
                 dst[0].copy_(acc)
-        elif kind == SINK:
-            aptr[r[A_PTR0]][:, idx * L:(idx + 1) * L].copy_(win[0])
+        elif kind == GAUSS:
+            out = gauss5x5_u8_ref(win[0])
+            for e, d in zip(out_en, dst):
+                if e:
+                    d.copy_(out)
+        elif kind == THRES:
+            threshold = struct.unpack("<f", struct.pack("<i", r[A_FPARAM]))[0]
+            if out_en[0]:
+                dst[0].copy_(to_u8(thres_ref(win[0].to(torch.float32),
+                                             win[1].to(torch.float32),
+                                             threshold)))
+        elif kind == MED:
+            if out_en[0]:
+                dst[0].copy_(to_u8(med_ref(win[0].to(torch.float32))))
 
     for f in range(n_fifos):                     # the dead-slot rule
         if fifo[f][F_FWD] and not fifo[f][F_CTRL]:
-            rings[f].zero_()
+            _bytes(rings[f]).zero_()
     sweeps = 0
     fired_any = True
     try:

@@ -5,10 +5,10 @@
     prog = net.compile(ExecutionPlan(mode="static", n_iterations=8))
     result = prog.run()                 # RunResult(state, counts, sweeps)
 
-The port carries the reference's host-driven ``"static"`` and ``"dynamic"``
-modes and its ``"megakernel"`` mode (one launch of the persistent kernel B2
-per run on the card; its plain version for CPU states), with the grid knobs
-``cores``, ``assign`` and ``cut_objective``.  Every other mode or plan field
+The port carries the reference's host-driven ``"static"``, ``"dynamic"``
+and ``"interpreted"`` modes and its ``"megakernel"`` mode (one launch of
+the persistent kernel B2 per run on the card; its plain version for CPU
+states), with the grid knobs ``cores``, ``assign`` and ``cut_objective``.  Every other mode or plan field
 of the reference raises with the ROADMAP item that ports it; none is
 silently ignored.
 """
@@ -24,12 +24,7 @@ from repro_torch.core.megakernel import (CUT_OBJECTIVES, compile_megakernel,
                                          state_hbm_bytes)
 from repro_torch.core.network import Network, NetworkState
 
-_MODES = ("static", "dynamic", "megakernel")
-
-#: Reference modes not ported yet -> the ROADMAP item that ports them.
-_UNPORTED_MODES = {
-    "interpreted": "A3 (interpreted mode)",
-}
+_MODES = ("static", "dynamic", "interpreted", "megakernel")
 
 #: Reference plan fields not ported yet -> the ROADMAP item that ports them.
 _UNPORTED_FIELDS = {
@@ -54,11 +49,13 @@ class ExecutionPlan:
 
     Fields:
       mode:          ``"static"`` (single-appearance schedule for
-                     ``n_iterations``), ``"dynamic"`` (token-driven sweeps
-                     to quiescence, driven from the host) or
+                     ``n_iterations``), ``"interpreted"`` (the same
+                     schedule fired actor by actor, no forwarding: Table
+                     3's multicore baseline), ``"dynamic"`` (token-driven
+                     sweeps to quiescence, driven from the host) or
                      ``"megakernel"`` (the same sweeps in one launch of the
                      persistent kernel B2).
-      n_iterations:  iteration count of static mode.
+      n_iterations:  iteration count of static and interpreted mode.
       specialize:    static mode: forward the windows of transient
                      (``register_fifos``) channels instead of buffering;
                      megakernel mode: forward the core-private transient
@@ -109,10 +106,6 @@ class ExecutionPlan:
     def __post_init__(self) -> None:
         mode = getattr(self.mode, "value", self.mode)
         object.__setattr__(self, "mode", mode)
-        if mode in _UNPORTED_MODES:
-            raise NotImplementedError(
-                f"ExecutionPlan(mode={mode!r}) is not ported yet: ROADMAP "
-                f"{_UNPORTED_MODES[mode]}")
         if mode not in _MODES:
             raise ValueError(
                 f"ExecutionPlan.mode must be one of {_MODES}, got {mode!r}")
@@ -140,11 +133,11 @@ class ExecutionPlan:
         if self.n_iterations is not None and self.n_iterations < 0:
             raise ValueError(
                 f"ExecutionPlan: n_iterations must be >= 0, got {self.n_iterations}")
-        if self.mode == "static" and self.n_iterations is None:
+        if self.mode in ("static", "interpreted") and self.n_iterations is None:
             raise ValueError(
-                "ExecutionPlan(mode='static'): pass n_iterations= — the "
-                "static schedule runs a fixed iteration count (dynamic mode "
-                "runs to quiescence without one)")
+                f"ExecutionPlan(mode={self.mode!r}): pass n_iterations= — "
+                "static/interpreted schedules run a fixed iteration count "
+                "(dynamic mode runs to quiescence without one)")
         if self.order is not None:
             object.__setattr__(self, "order", tuple(self.order))
 
@@ -254,10 +247,11 @@ class Program:
                     "exhausted with work remaining — partial state returned",
                     RuntimeWarning, stacklevel=2)
         else:
+            # Interpreted mode is the static schedule without forwarding.
             order = list(plan.order) if plan.order is not None else None
-            result = RunResult(run_static(self.network, st, plan.n_iterations,
-                                          order=order,
-                                          specialize=plan.specialize))
+            result = RunResult(run_static(
+                self.network, st, plan.n_iterations, order=order,
+                specialize=plan.specialize and plan.mode == "static"))
         self._last = result
         return result
 

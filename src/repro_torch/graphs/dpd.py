@@ -95,7 +95,7 @@ def build_dpd(n_firings: int,
     source = static_actor("source", (), ("out",), src_fire, init=src_init,
                           ready=lambda st: st[1] < n_firings,
                           device_op=DeviceOp("source", {"n_firings": n_firings,
-                                                        "L": L}))
+                                                        "planes": 2}))
 
     def sink_fire(state, inputs, rates):
         data, idx = state
@@ -106,7 +106,7 @@ def build_dpd(n_firings: int,
         "sink", ("in",), (), sink_fire,
         init=lambda: (torch.zeros((2, n_firings * L), dtype=torch.float32,
                                   device=dev), 0),
-        finish=lambda st: st[0], device_op=DeviceOp("sink", {"L": L}))
+        finish=lambda st: st[0], device_op=DeviceOp("sink", {"planes": 2}))
 
     # -- configuration: one active-count token to 12 control ports ------ #
     ctrl_ports = ["c_fork", "c_add"] + [f"c{k}" for k in range(n_branches)]

@@ -50,3 +50,16 @@ def make_dpd(n_firings: int = 6, block_l: int = 256, seed: int = 0,
     return build_dpd(n_firings, active_schedule=active_schedule,
                      block_l=block_l, signal=sig, device=device,
                      **build_kw), n_firings
+
+
+def make_motion_detection(n_frames: int = 12, rate: int = 4,
+                          frame_hw: Tuple[int, int] = (240, 320),
+                          seed: int = 1, device: DeviceLike = None
+                          ) -> Tuple[Network, int]:
+    """Motion detection (paper §4.1) with a seeded ``numpy`` uniform video
+    staged — the delay-channel (Fig. 4 dotted edge) workload."""
+    from repro_torch.graphs.motion_detection import build_motion_detection
+    rng = np.random.default_rng(seed)
+    video = rng.uniform(0, 255, (n_frames,) + tuple(frame_hw)).astype(np.float32)
+    return build_motion_detection(n_frames, rate=rate, frame_hw=frame_hw,
+                                  video=video, device=device), n_frames // rate

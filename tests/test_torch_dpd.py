@@ -140,11 +140,20 @@ def test_grid_knobs_off_megakernel_raise(field, value, msg):
 
 @pytest.mark.parametrize("mode", ["megakernel", "interpreted"])
 def test_unported_modes_raise(mode):
-    if mode == "megakernel":            # ported: the plan constructs
+    """Named for the raise it checked while these modes were unported; both
+    are ported now (megakernel: ROADMAP A5, interpreted: A3), so their
+    plans construct, and interpreted mode runs DPD as static mode without
+    forwarding does."""
+    if mode == "megakernel":
         assert ExecutionPlan(mode=mode).mode == "megakernel"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ExecutionPlan(mode=mode, n_iterations=2)
+    assert ExecutionPlan(mode=mode, n_iterations=2).mode == "interpreted"
+    with pytest.raises(ValueError, match="n_iterations"):
+        ExecutionPlan(mode=mode)
+    net, n = make_dpd(device="cpu")
+    got = net.compile(mode=mode, n_iterations=n).run()
+    want = net.compile(mode="static", n_iterations=n, specialize=False).run()
+    assert got.sweeps is None and states_equal(got.state, want.state)
 
 
 def test_plan_validation():

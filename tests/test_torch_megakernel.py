@@ -4,23 +4,32 @@ on the device program.
 
 Against the reference's ``compile_megakernel`` (Pallas interpret mode) on
 the same DPD: fire counts, sweeps, cursors and integer leaves exactly,
-floats within ``1e-5 * max|y|`` per plane.  Against the port's own host
-dynamic executor: every leaf bit for bit, as the reference's megakernel is
-held to its dynamic executor (``tests/test_megakernel.py``).
+floats within ``1e-5 * max|y|`` per plane; on the same motion detection
+network (u8 tokens, the Fig. 2 delay channel): every leaf exactly.
+Against the port's own host dynamic executor: every leaf bit for bit, as
+the reference's megakernel is held to its dynamic executor
+(``tests/test_megakernel.py``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 import jax
+import numpy as np
 import pytest
 import torch
 
 from repro.core import ExecutionPlan as RefPlan
 from repro.graphs.factories import make_dpd as ref_make_dpd
+from repro.graphs.factories import make_motion_detection as ref_make_md
 from repro_torch.core.megakernel import compile_megakernel, megakernel_cuda
+from repro_torch.core.fifo import FifoSpec
+from repro_torch.core.megakernel.program import (F_BOUND, F_CAP, F_DELAY, F_NPH,
+                                                 F_TOKB, fifo_row)
+from repro_torch.core.megakernel.ref import copy_back, read_offset, write_offset
 from repro_torch.core.network import Network
-from repro_torch.graphs.factories import make_dpd, states_equal
+from repro_torch.graphs.factories import (make_dpd, make_motion_detection,
+                                         states_equal)
 from test_torch_harness import assert_runs_match
 
 # One scrambled core map of DPD's 15 actors (config first).
@@ -56,6 +65,30 @@ def ref_runs():
         return cache[name]
 
     return get
+
+
+@pytest.fixture(scope="module")
+def ref_md_runs():
+    """Reference megakernel programs on motion detection (12 frames of
+    48 x 64 at rate 4), at cores 1 and 2, compiled and run on first use;
+    ``jax.core.Literal`` is aliased for the graph build only."""
+    with pytest.MonkeyPatch.context() as mp:
+        if not hasattr(jax.core, "Literal"):
+            from jax.extend.core import Literal
+            mp.setattr(jax.core, "Literal", Literal, raising=False)
+        ref_net, _ = ref_make_md(12, rate=4, frame_hw=MD_HW)
+    cache = {}
+
+    def get(cores):
+        if cores not in cache:
+            prog = ref_net.compile(RefPlan(mode="megakernel", cores=cores))
+            cache[cores] = (prog, prog.run())
+        return cache[cores]
+
+    return get
+
+
+MD_HW = (48, 64)
 
 
 def _port(n_firings=4, **kw):
@@ -223,20 +256,32 @@ def _rebuilt(net: Network, actors=None, fifos=None) -> Network:
 
 
 def test_actor_without_device_op_raises_naming_a6_and_a8():
+    """Named for the items it named while motion detection (ROADMAP A6) had
+    no device ops; MoE (A8) is the one network left without them."""
     net = _port()
     actors = dict(net.actors)
     actors["adder"] = dataclasses.replace(actors["adder"], device_op=None)
-    with pytest.raises(NotImplementedError, match="A6.*A8"):
+    with pytest.raises(NotImplementedError, match="DeviceOp.*MoE.*A8"):
         _rebuilt(net, actors=actors).compile(mode="megakernel")
 
 
 def test_delay_channel_raises_naming_a6():
-    net = _port()
-    fifos = dict(net.fifos)
-    fifos["f_out"] = dataclasses.replace(fifos["f_out"], delay=1,
-                                         matched_rates=False)
-    with pytest.raises(NotImplementedError, match="copy-back.*A6"):
-        _rebuilt(net, fifos=fifos).compile(mode="megakernel")
+    """Named for the raise it checked until B2 learnt the Fig. 2 delay
+    channel (ROADMAP A6): motion detection's delay ring now compiles and
+    runs, bit-identical to the host dynamic run, while a cut that splits
+    its endpoints still raises."""
+    net, _ = make_motion_detection(12, rate=4, frame_hw=(24, 32), device="cpu")
+    row = fifo_row(net.fifos["f_gauss_thres_d"])
+    assert [row[F_CAP], row[F_BOUND], row[F_NPH], row[F_DELAY], row[F_TOKB]] == \
+        [13, 9, 3, 1, 24 * 32]
+    prog = net.compile(mode="megakernel")
+    assert "f_gauss_thres_d" not in prog.stats().forwarded_fifos
+    got, dyn = prog.run(), net.compile(mode="dynamic").run()
+    assert states_equal(got.state, dyn.state) and got.fire_counts == dyn.fire_counts
+    assert got.state.fifo("f_gauss_thres_d").wr == 3
+    split = {"source": 0, "gauss": 0, "thres": 1, "med": 1, "sink": 1}
+    with pytest.raises(ValueError, match="may not cross"):
+        net.compile(mode="megakernel", cores=2, assign=split)
 
 
 def test_control_channel_without_domain_raises():
@@ -270,3 +315,80 @@ def test_sweep_budget_exhaustion_warns_like_dynamic():
         ref = dyn.run()
     assert res.stalled and res.sweeps == 1
     assert states_equal(res.state, ref.state)
+
+
+# --------------------------------------------------------------------------- #
+# Motion detection: u8 tokens, the delay channel, the gauss/thres/med bodies.
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("cores", [1, 2])
+def test_motion_detection_equals_reference_exactly(ref_md_runs, cores):
+    ref_prog, ref = ref_md_runs(cores)
+    net, _ = make_motion_detection(12, rate=4, frame_hw=MD_HW, device="cpu")
+    prog = net.compile(mode="megakernel", cores=cores)
+    got = prog.run()
+    assert got.sweeps == int(ref.sweeps) == 3
+    assert_runs_match(ref, got, rel=0.0)
+    dyn = net.compile(mode="dynamic").run()
+    assert states_equal(got.state, dyn.state)
+    assert got.fire_counts == dyn.fire_counts and got.sweeps == dyn.sweeps
+    ours, theirs = prog.stats(), ref_prog.stats()
+    for field in ("scratch_bytes", "forwarded_fifos", "hbm_state_bytes",
+                  "partition_actors", "shared_fifos", "core_cursor_rows",
+                  "partition_fire_counts", "last_sweeps"):
+        assert getattr(ours, field) == getattr(theirs, field), field
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("rate", [1, 2, 4])
+def test_motion_detection_bit_identical_to_port_dynamic(rate, cores):
+    net, n = make_motion_detection(12, rate=rate, frame_hw=(20, 28), seed=rate,
+                                   device="cpu")
+    dyn = net.compile(mode="dynamic").run()
+    mega = net.compile(mode="megakernel", cores=cores).run()
+    assert states_equal(dyn.state, mega.state)
+    assert mega.fire_counts == dyn.fire_counts == {a: n for a in net.actors}
+    assert mega.sweeps == dyn.sweeps and not mega.stalled
+    single = net.compile(mode="megakernel", multi_firing=False).run()
+    assert states_equal(single.state, dyn.state)
+
+
+@pytest.mark.parametrize("rate", [1, 2, 3, 4])
+def test_delay_ring_helpers_equal_fifo_write_masked(rate):
+    """B2's plain ring arithmetic on a delay channel's table row (shifted
+    writes, the Fig. 2 copy-back) against ``FifoSpec`` itself, over a
+    random sequence of masked writes and reads."""
+    spec = FifoSpec("d", rate, (3,), torch.uint8, delay=1)
+    row = fifo_row(spec)
+    st = spec.init_state(torch.device("cpu"), initial_token=[7, 8, 9])
+    ring, rd, wr, occ = st.buf.clone(), 0, 0, 1
+    rng = np.random.default_rng(rate)
+    copied_back = 0
+    for _ in range(200):
+        en = int(rng.random() < 0.8)
+        if occ + rate <= spec.writable_occupancy_bound and rng.random() < 0.55:
+            tokens = torch.tensor(rng.integers(0, 256, (rate, 3)), dtype=torch.uint8)
+            spec.write_masked(st, tokens, en)
+            if en:
+                off = write_offset(row, wr)
+                ring[off:off + rate] = tokens
+                copy_back(ring, row, wr)
+                copied_back += wr % 3 == 2
+                wr, occ = wr + 1, occ + rate
+        elif occ >= rate:
+            want = spec.read_masked(st, en)
+            off = read_offset(row, rd)
+            assert torch.equal(ring[off:off + rate], want)
+            if en:
+                rd, occ = rd + 1, occ - rate
+        assert torch.equal(ring, st.buf)
+        assert (rd, wr, occ) == (st.rd, st.wr, st.occ)
+    assert copied_back > 3
+
+
+def test_staging_refuses_a_slab_of_another_type():
+    net, _ = make_motion_detection(8, rate=4, frame_hw=(16, 16), device="cpu")
+    state = net.init_state()
+    slab, idx = state.actor("sink")
+    state.actors[net.actor_index["sink"]] = (slab.to(torch.float32), idx)
+    with pytest.raises(ValueError, match="torch.uint8 slab"):
+        net.compile(mode="megakernel").run(state)

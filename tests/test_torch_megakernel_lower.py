@@ -1,6 +1,7 @@
 """The port's megakernel lowering and grid partitioning against the
-reference's (``src/repro/core/megakernel/lower.py``), on the same DPD built
-in both frameworks: every table and byte count exactly equal."""
+reference's (``src/repro/core/megakernel/lower.py``), on the same DPD and
+motion detection networks built in both frameworks: every table and byte
+count exactly equal."""
 from __future__ import annotations
 
 import pytest
@@ -11,10 +12,11 @@ from repro.core.megakernel import lower_network as ref_lower_network
 from repro.core.megakernel import partition_layout as ref_partition_layout
 from repro.core.megakernel import state_hbm_bytes as ref_state_hbm_bytes
 from repro.graphs.factories import make_dpd as ref_make_dpd
+from repro.graphs.factories import make_motion_detection as ref_make_md
 from repro_torch.core.megakernel import (default_assignment, entry_staging_bytes,
                                          lower_network, partition_layout,
                                          state_hbm_bytes)
-from repro_torch.graphs.factories import make_dpd
+from repro_torch.graphs.factories import make_dpd, make_motion_detection
 from test_torch_harness import jax_literal
 
 __all__ = ["jax_literal"]  # the fixture is used by name
@@ -142,3 +144,41 @@ def test_profile_objective_raises_naming_a7():
         partition_layout(net, lower_network(net), 2, objective="profile")
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         net.compile(mode="megakernel", cores=2, cut_objective="profile")
+
+
+# --------------------------------------------------------------------------- #
+# Motion detection: byte tokens and the delay channel's partition glue.
+# --------------------------------------------------------------------------- #
+def _md_pair():
+    ref_net, _ = ref_make_md(12, rate=4, frame_hw=(24, 32))
+    net, _ = make_motion_detection(12, rate=4, frame_hw=(24, 32), device="cpu")
+    return ref_net, net
+
+
+@pytest.mark.parametrize("objective", ["crossing", "flops"])
+@pytest.mark.parametrize("cores", [1, 2, 4])
+def test_md_tables_equal_reference(jax_literal, cores, objective):
+    ref_net, net = _md_pair()
+    ref_layout, layout = ref_lower_network(ref_net), lower_network(net)
+    assert _layout_tables(layout) == _layout_tables(ref_layout)
+    ref = ref_partition_layout(ref_net, ref_layout, cores, objective=objective)
+    got = partition_layout(net, layout, cores, objective=objective)
+    assert _partition_tables(got, layout) == _partition_tables(ref, ref_layout)
+    assert (entry_staging_bytes(layout, got)
+            == ref_entry_staging_bytes(ref_layout, ref))
+    assert state_hbm_bytes(net.init_state()) == ref_state_hbm_bytes(ref_net.init_state())
+    # The delay channel (delay 1 < rate 4) glues gauss and thres together.
+    names = list(net.actors)
+    assert got.assignment[names.index("gauss")] == got.assignment[names.index("thres")]
+    assert got.forwarded_fifos == ()    # no MD channel is transient
+
+
+def test_md_splitting_assign_raises_as_reference(jax_literal):
+    ref_net, net = _md_pair()
+    split = {"source": 0, "gauss": 0, "thres": 1, "med": 1, "sink": 1}
+    with pytest.raises(ValueError) as ref_err:
+        ref_partition_layout(ref_net, ref_lower_network(ref_net), 2, split)
+    with pytest.raises(ValueError) as got_err:
+        partition_layout(net, lower_network(net), 2, split)
+    assert str(got_err.value) == str(ref_err.value)
+    assert "f_gauss_thres_d" in str(got_err.value)
