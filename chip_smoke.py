@@ -4,9 +4,9 @@
     python3 chip_smoke.py --b2 SRC    # B2's time alone, from another src tree
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
-``sm_90a``, one ``nvcc`` per library, all four started together:
-``dyn_fir`` B1, ``megakernel`` B2, ``gauss5x5`` B3, ``motion_post`` B4)
-and, on the card:
+``sm_90a``, one ``nvcc`` per library, all seven started together:
+``dyn_fir`` B1, ``megakernel`` B2, ``gauss5x5`` B3, ``motion_post`` B4,
+``flash_attention`` B5, ``ssd`` B6, ``rglru`` B7) and, on the card:
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds kernel B1 against its plain PyTorch version at the main path's
@@ -44,7 +44,40 @@ and, on the card:
 10. measures the paper's Table 3 rows (frames/s): interpreted at rate 1,
     static, dynamic and megakernel at rate 4, on the same video;
 11. profiles motion detection in dynamic and megakernel mode: device time
-    by kernel and the busy share against the median warm wall.
+    by kernel and the busy share against the median warm wall;
+12. holds kernels B5 (flash attention), B6 (SSD) and B7 (RG-LRU) against
+    their plain versions at the full-width serving shapes: B5 at
+    recurrentgemma-2b's (q (4, 4096, 10, 256), k/v (4, 4096, 1, 256) bf16,
+    causal, window 2048), B6 at mamba2-780m's (x (4, 4096, 48, 64) bf16,
+    B/C (4, 4096, 128), chunk 256; and on float32 inputs), B7 at (4, 4096,
+    2560) float32; B5 within one bf16 step plus ``B5_ROW_TOL`` of its
+    row's RMS, a bar three planted faults (the plain version with one key
+    tile skipped, the causal or the window edge one key off) must break;
+    times each (CUDA graph replays), its plain version and, for B5,
+    ``scaled_dot_product_attention`` with the same boolean mask and
+    ``enable_gqa=True`` as the library yardstick (never used by the port);
+13. serves recurrentgemma-2b at its published width (weights from a seeded
+    generator): 8 requests with prompt lengths from
+    ``numpy.random.default_rng(0)`` in 2048-4096, left-padded to 4096,
+    batch 4, 32 new tokens, no EOS, through ``repro_torch.serve.Engine``,
+    with every count set to 0 just before: 16 B5 and 36 B7 launches (8 and
+    18 per prefill) and none of B1-B4 or B6; logs prefill ms per batch,
+    decode ms per step and tokens/s; then a short run (batch 2, prompt 256,
+    4 new tokens, the same weights) on the card and on the CPU (the plain
+    path): every layer's mixer and MLP, fed the CPU's input, element by
+    element within one bf16 step plus ``MIX_ROW_TOL`` of the row's RMS;
+    logits at every prompt position within ``LOGIT_SENS`` times the CPU
+    model's own sensitivity there to one bf16 step at its input (random
+    full-width weights amplify rounding noise; at least 3e-2), a bar that
+    must lie below the logits' magnitude at some positions; the Engine's
+    logits within the last position's bar and its tokens identical
+    wherever the CPU's top-2 margin exceeds twice the step's largest logit
+    difference;
+14. the same for mamba2-780m: 96 B6 launches (48 per prefill) and no B5 or
+    B7;
+15. profiles one prefill (4 x 4096 tokens) and one decode step of each
+    model: device time by kernel and the busy share against the median
+    wall of warm runs (printed after 13 and after 14).
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -57,6 +90,7 @@ CUDA device is visible.
 ``--b2 SRC`` times kernel B2 alone (as phases 6 and 9 do) from the
 ``repro_torch`` package under ``SRC`` and prints one ``b2 {...}`` line;
 run in turns from two trees it compares B2 across commits on one card.
+``--lm`` runs phases 1 and 12-15 only (the LM path), for work on it.
 """
 from __future__ import annotations
 
@@ -73,6 +107,7 @@ import torch
 # bandwidth and float32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12     # tensor cores, dense
 
 BLOCK_L = 32768
 N_FIRINGS = 64
@@ -82,6 +117,34 @@ GAUSS_RTOL, GAUSS_ATOL = 1e-5, 1e-3   # B3 on float frames, tests/test_kernels.p
 
 MD_FRAMES, MD_RATE, MD_HW = 960, 4, (240, 320)
 GAUSS_FLOP_PER_PX = 20  # separable 5 + 5 multiply-adds per interior pixel
+
+# LM serving (phases 12-15).
+LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 8, 4, 4096, 32
+LM_PROMPT_MIN = 2048       # prompt lengths drawn in LM_PROMPT_MIN..LM_PROMPT
+PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 256, 4
+# B5 (bf16 out): |got - want| <= 2^-7 |want| + B5_ROW_TOL * rms, rms the
+# RMS of want's (batch, position, head) row: one bf16 step at |want| (the
+# two sides may round to neighbours), plus a term in the row's own scale
+# (a softmax average over n keys shrinks as n^-1/2, and so does the error
+# of its bf16-rounded weights).  B5_ROW_TOL, MIX_ROW_TOL and LOGIT_SENS
+# are each the smallest power of two at least twice the largest reading of
+# sound runs on an H100 (B5 0.0081; PERF.md has every reading); phase 12
+# also checks that planted faults break B5's bar (they read 1.8-2.8).
+B5_ROW_TOL = 2.0 ** -5
+B5_FAULT_TILE = 2048       # the planted skipped key tile starts here
+B6_TOL = 3e-4       # of max|ref|: tests/test_kernels.py:92; y (bf16) also
+                    # gets one bf16 step at |y|: two float32 values that
+                    # differ in the last bits may round to neighbours
+B7_TOL = 1e-5       # rtol = atol: tests/test_kernels.py:103
+# Full-width parity, card vs CPU (phases 13-14).  Each mixer's and each
+# MLP's output, fed the CPU's input: |d| <= 2^-7 |ref| + MIX_ROW_TOL * rms
+# of ref's (batch, position) row (readings up to 0.022).  Logits at every
+# prompt position: within LOGIT_SENS times the CPU model's own change when
+# its embedded prompt moves one bf16 step (readings up to 1.26 times it),
+# and never below LOGIT_TOL (tests/test_torch_lm.py's bar).
+MIX_ROW_TOL = 2.0 ** -4
+LOGIT_SENS = 4.0
+LOGIT_TOL = 3e-2
 
 
 def log(msg: str) -> None:
@@ -258,6 +321,14 @@ def first_diff(a, b) -> list:
             if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(x, y)]
 
 
+def bound_of(nbytes: float, flops: float, flop_rate: float) -> tuple:
+    """(least ms for ``nbytes`` of memory traffic and ``flops`` at
+    ``flop_rate``, which of the two bounds it)."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / flop_rate * 1e3
+    return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
 def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     """Phases 7-11; returns the kernels line's records of B3, B4 and B2's
     motion detection numbers."""
@@ -334,14 +405,9 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     b4_bytes, b4_flops = 3 * 4 * n_px, 11 * n_px
     b3f_bytes = 2 * 4 * n_px
 
-    def bound(nbytes: float, flops: float) -> tuple:
-        t_b = nbytes / HBM_BYTES_PER_S * 1e3
-        t_o = flops / FP32_FLOP_PER_S * 1e3
-        return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
-
-    b3_bound, b3_by = bound(b3_bytes, b3_flops)
-    b3f_bound, _ = bound(b3f_bytes, b3_flops)
-    b4_bound, b4_by = bound(b4_bytes, b4_flops)
+    b3_bound, b3_by = bound_of(b3_bytes, b3_flops, FP32_FLOP_PER_S)
+    b3f_bound, _ = bound_of(b3f_bytes, b3_flops, FP32_FLOP_PER_S)
+    b4_bound, b4_by = bound_of(b4_bytes, b4_flops, FP32_FLOP_PER_S)
     log(f"B3 timing ({smi}): u8 {b3_ms:.5f} ms/launch (CUDA graph replay; "
         f"profiler {b3_dev[0]:.5f}), wrapper {b3_wrapper_ms:.5f} ms/call back "
         f"to back, plain {b3_plain_ms:.5f} ms/call, bound {b3_bound:.6f} ms "
@@ -441,7 +507,7 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     slab = MD_FRAMES * H * W
     b2_bytes = 2 * slab + 2 * net.buffer_bytes()
     b2_flops = n_fire * (GAUSS_FLOP_PER_PX * interior + 11 * n_px)
-    b2_bound, b2_by = bound(b2_bytes, b2_flops)
+    b2_bound, b2_by = bound_of(b2_bytes, b2_flops, FP32_FLOP_PER_S)
     log(f"MD megakernel timing ({smi}): B2 {b2_ms:.4f} ms per run (CUDA events, "
         f"back to back), plain version {b2_plain_ms:.1f} ms per run, bound "
         f"{b2_bound:.5f} ms ({b2_by}: {b2_bytes} B, {b2_flops} flop)")
@@ -496,6 +562,466 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     }
 
 
+def row_excess(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Per element: |got - ref| beyond one bf16 step of |ref|, in units of
+    the RMS of ref's last-axis row (float32)."""
+    ref = ref.float()
+    rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
+    return ((got.float() - ref).abs() - 2.0 ** -7 * ref.abs()) / rms
+
+
+def lm_kernels(dev, smi: str) -> dict:
+    """Phase 12: B5, B6 and B7 against their plain versions at the serving
+    shapes, with their times and bounds; returns their records."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import (attention_mask, flash_attention,
+                                                     flash_attention_ref,
+                                                     masked_attention_ref)
+    from repro_torch.kernels.rglru import rglru, rglru_ref
+    from repro_torch.kernels.ssd import ssd, ssd_ref
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    B, S = LM_BATCH, LM_PROMPT
+    recs = {}
+
+    # ---- B5 at recurrentgemma-2b's local attention ---------------------- #
+    rc = get_config("recurrentgemma-2b")
+    H, Hkv, hd, win = rc.n_heads, rc.n_kv_heads, rc.hd, rc.swa_window
+    q = randn(B, S, H, hd, dtype=torch.bfloat16)
+    k = randn(B, S, Hkv, hd, dtype=torch.bfloat16)
+    v = randn(B, S, Hkv, hd, dtype=torch.bfloat16)
+    got = flash_attention(q, k, v, causal=True, window=win).float()
+    want = flash_attention_ref(q, k, v, causal=True, window=win).float()
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    b5_err = float(diff.max())
+    b5_excess = float(row_excess(got, want).max())
+    # Planted faults, made with the plain version under a wrong mask: what
+    # a kernel that skipped one 64-key tile, or missed the causal or the
+    # window edge by one key, would read against the bar.
+    i = torch.arange(S, device=dev)[:, None]
+    j = torch.arange(S, device=dev)[None, :]
+    right = attention_mask(S, True, win, dev)
+    tile = (j >= B5_FAULT_TILE) & (j < B5_FAULT_TILE + 64)
+    faults = {f"key tile {B5_FAULT_TILE}-{B5_FAULT_TILE + 63} skipped": right & ~tile,
+              "causal edge one key late (rows >= 512)": right | ((j == i + 1) & (i >= 512)),
+              "window one key wider": attention_mask(S, True, win + 1, dev)}
+    fault_excess = {name: float(row_excess(masked_attention_ref(q, k, v, m), want).max())
+                    for name, m in faults.items()}
+    del i, j, right, tile, faults
+    log(f"B5 vs plain: max |diff| {b5_err:.4g}, median |want| "
+        f"{float(want.abs().median()):.4g}; beyond one bf16 step, in row-RMS "
+        f"units: sound {b5_excess:.4g}, bar {B5_ROW_TOL:.4g}, planted faults "
+        + json.dumps(fault_excess))
+    if not torch.isfinite(got).all() or not b5_excess <= B5_ROW_TOL:
+        fail(f"B5: {b5_excess:.3g} row-RMS beyond one bf16 step > {B5_ROW_TOL}")
+    for name, ex in fault_excess.items():
+        if not ex > B5_ROW_TOL:
+            fail(f"B5: the bar cannot see a planted fault ({name}: {ex:.3g})")
+    mask = attention_mask(S, True, win, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
+    del got, want, diff
+    b5_ms = graph_ms(lambda: flash_attention(q, k, v, causal=True, window=win), inner=10)
+    b5_wrapper = cuda_ms(lambda: flash_attention(q, k, v, causal=True, window=win), inner=10)
+    b5_plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=True, window=win),
+                       reps=3, inner=1)
+    b5_lib = cuda_ms(sdpa, reps=3, inner=5)
+    live = sum(min(p + 1, win) for p in range(S))          # (q, k) pairs per (b, h)
+    b5_flops = 4 * hd * live * B * H
+    b5_bytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b5_bound, b5_by = bound_of(b5_bytes, b5_flops, BF16_FLOP_PER_S)
+    log(f"B5 vs plain, q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, causal, window "
+        f"{win}: max_abs_err {b5_err:.3g} (SDPA vs plain {lib_err:.3g})")
+    log(f"B5 timing ({smi}): {b5_ms:.4f} ms/launch (CUDA graph replay), wrapper "
+        f"{b5_wrapper:.4f} ms/call, plain {b5_plain:.3f} ms, SDPA {b5_lib:.4f} ms, "
+        f"bound {b5_bound:.4f} ms ({b5_by}: {b5_flops:.4g} flop, {b5_bytes} B)")
+    recs["B5"] = {"max_abs_err": b5_err, "row_rms_excess": b5_excess,
+                  "planted_fault_excess": fault_excess, "ms": b5_ms, "wrapper_ms": b5_wrapper,
+                  "plain_ms": b5_plain, "bound_ms": b5_bound, "bound_by": b5_by,
+                  "library_ms": b5_lib, "library_max_abs_err": lib_err,
+                  "library": "torch.nn.functional.scaled_dot_product_attention "
+                             "(boolean causal+window mask, enable_gqa=True)"}
+    del q, k, v, qt, kt, vt, mask
+
+    # ---- B6 at mamba2-780m's SSD ---------------------------------------- #
+    mc = get_config("mamba2-780m")
+    s = mc.ssm
+    nh, P, N = s.n_heads(mc.d_model), s.head_dim, s.state_dim
+    dt = F.softplus(randn(B, S, nh))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, nh, device=dev)))
+    ins = {}
+    b6_err = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = randn(B, S, nh, P, dtype=dtype)
+        Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
+        y, hT = ssd(x, dt, A, Bm, Cm, chunk=s.chunk)
+        yr, hr = ssd_ref(x, dt, A, Bm, Cm, s.chunk)
+        torch.cuda.synchronize()
+        dy, dh = (y.float() - yr.float()).abs(), (hT - hr).abs()
+        y_bar = B6_TOL * float(yr.float().abs().max())
+        if dtype == torch.bfloat16:   # plus one bf16 step at |y| (at most 2^-7 |y|)
+            y_bar = y_bar + 2.0 ** -7 * yr.float().abs()
+        if not torch.isfinite(y.float()).all() or bool((dy > y_bar).any()) \
+                or float(dh.max()) > B6_TOL * float(hr.abs().max()):
+            fail(f"B6 {dtype}: max |dy| {float(dy.max()):.3g}, |dhT| {float(dh.max()):.3g}")
+        b6_err[str(dtype)] = {"y": float(dy.max()), "hT": float(dh.max()),
+                              "max_y": float(yr.float().abs().max()),
+                              "max_hT": float(hr.abs().max())}
+        ins[dtype] = (x, Bm, Cm)
+        del y, hT, yr, hr, dy, dh
+    x, Bm, Cm = ins[torch.bfloat16]
+    b6_ms = graph_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=s.chunk), inner=10)
+    b6_wrapper = cuda_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=s.chunk), inner=10)
+    b6_plain = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, s.chunk), reps=3, inner=1)
+    # Bytes: x and y bf16, dt float32, B and C bf16, hT float32.  Flop: the
+    # chunked algorithm at chunk c with C B^T once per (batch, chunk) (its
+    # causal half), then per head the (C B^T * L)(dt x) product, the chunk
+    # state and the inter-chunk term, at the bf16 tensor-core rate of the
+    # inputs' type.
+    c, nc = s.chunk, -(-S // s.chunk)
+    tri = c * (c + 1) // 2
+    b6_flops = B * nc * (2 * tri * N + nh * (2 * tri * P + 4 * c * P * N))
+    b6_bytes = 2 * 2 * x.numel() + 4 * dt.numel() + 4 * nh + 2 * 2 * Bm.numel() \
+        + 4 * B * nh * P * N
+    b6_bound, b6_by = bound_of(b6_bytes, b6_flops, BF16_FLOP_PER_S)
+    log(f"B6 vs plain, x {tuple(x.shape)}, B/C {tuple(Bm.shape)}, chunk {s.chunk}: "
+        f"{json.dumps(b6_err)}")
+    log(f"B6 timing ({smi}): {b6_ms:.4f} ms/launch (CUDA graph replay), wrapper "
+        f"{b6_wrapper:.4f} ms/call, plain {b6_plain:.3f} ms, bound {b6_bound:.4f} ms "
+        f"({b6_by}: {b6_flops:.4g} flop, {b6_bytes} B)")
+    recs["B6"] = {"max_abs_err": b6_err["torch.bfloat16"]["y"], "errors": b6_err,
+                  "ms": b6_ms, "wrapper_ms": b6_wrapper, "plain_ms": b6_plain,
+                  "bound_ms": b6_bound, "bound_by": b6_by, "library_ms": None,
+                  "library": "none: no single PyTorch call runs the SSD scan"}
+    del ins, x, Bm, Cm, dt
+
+    # ---- B7 at recurrentgemma-2b's RG-LRU ------------------------------- #
+    W = rc.rglru.lru_width
+    la = -(torch.rand((B, S, W), generator=gen, device=dev) * 2.0 + 0.01)
+    gx = randn(B, S, W)
+    h, t = rglru(la, gx)
+    hr, tr = rglru_ref(la, gx)
+    torch.cuda.synchronize()
+    dh, dt_ = (h - hr).abs(), (t - tr).abs()
+    if bool((dh > B7_TOL * (1 + hr.abs())).any()) or bool((dt_ > B7_TOL * (1 + tr.abs())).any()):
+        fail(f"B7: max |dh| {float(dh.max()):.3g}, |dhT| {float(dt_.max()):.3g}")
+    b7_err = max(float(dh.max()), float(dt_.max()))
+    b7_ms = graph_ms(lambda: rglru(la, gx), inner=10)
+    b7_wrapper = cuda_ms(lambda: rglru(la, gx), inner=10)
+    b7_plain = cuda_ms(lambda: rglru_ref(la, gx), reps=3, inner=1)
+    b7_bytes = 4 * (3 * la.numel() + B * W)
+    b7_bound, b7_by = bound_of(b7_bytes, 3 * la.numel(), FP32_FLOP_PER_S)
+    log(f"B7 vs plain, (log_a, gx) {tuple(la.shape)} float32: max_abs_err {b7_err:.3g}")
+    log(f"B7 timing ({smi}): {b7_ms:.4f} ms/launch (CUDA graph replay), wrapper "
+        f"{b7_wrapper:.4f} ms/call, plain {b7_plain:.3f} ms, bound {b7_bound:.4f} ms "
+        f"({b7_by}: {b7_bytes} B)")
+    recs["B7"] = {"max_abs_err": b7_err, "ms": b7_ms, "wrapper_ms": b7_wrapper,
+                  "plain_ms": b7_plain, "bound_ms": b7_bound, "bound_by": b7_by,
+                  "library_ms": None,
+                  "library": "none: no single PyTorch call runs a linear recurrence"}
+    return recs
+
+
+def capture_logits(model) -> list:
+    """Record the logits of every prefill and decode_step of ``model`` (an
+    instance wrapper; ``release_logits`` removes it)."""
+    seen: list = []
+    prefill, decode = model.prefill, model.decode_step
+
+    def pre(*a, **kw):
+        out = prefill(*a, **kw)
+        seen.append(out[0].float().cpu())
+        return out
+
+    def dec(*a, **kw):
+        out = decode(*a, **kw)
+        seen.append(out[0].float().cpu())
+        return out
+
+    model.prefill, model.decode_step = pre, dec
+    return seen
+
+
+def release_logits(model) -> None:
+    del model.prefill, model.decode_step
+
+
+def bf16_step_noise(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (bf16) moved one representable step up or down at every
+    element, the sign drawn from a fixed seed: one rounding step of noise."""
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(5)
+    sign = torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
+    return (x.view(torch.int16) + sign.to(torch.int16)).view(torch.bfloat16)
+
+
+def serve_parity(cfg, model, dev) -> dict:
+    """The short full-width run on the card and on the CPU (the plain
+    path), same weights.
+
+    * Every layer: the card's mixer (attention, RG-LRU or Mamba2) and MLP,
+      each fed the CPU's input, against the CPU's, element by element
+      before the residual add: within one bf16 step plus MIX_ROW_TOL of
+      the row's RMS.
+    * Logits at every prompt position (the card's own forward against the
+      CPU's): within LOGIT_SENS times the CPU model's sensitivity at that
+      position (the change of its logits when the embedded prompt moves
+      one bf16 step at every element; random full-width weights amplify
+      rounding noise), never below LOGIT_TOL.  A position's bar has power
+      where it is below the logits' largest magnitude there; some must.
+    * The Engine on both: each step's logits within the last prompt
+      position's bar, and tokens identical while the CPU's top-2 margin
+      exceeds twice the step's largest logit difference."""
+    from repro_torch.models import LM
+    from repro_torch.serve import Engine, Request, ServeConfig
+    t0 = time.perf_counter()
+    cpu = LM(cfg, device="cpu", seed=None)
+    cpu.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT))
+    V = cfg.vocab
+
+    # ---- layer by layer: each mixer and MLP fed the CPU's input ---------- #
+    toks = torch.tensor(prompts)
+    mix_worst: dict = {}
+    with torch.inference_mode():
+        xc = cpu._embed(toks)
+        for i, (bg, bc) in enumerate(zip(model.layers, cpu.layers)):
+            parts = [("mixer", lambda m, b, x: m._mixer(b, x, mode="train")[0])]
+            if bc.kind != "ssd":
+                parts.append(("mlp", lambda m, b, x: m._mlp(b, x)))
+            for part, fn in parts:
+                yc = fn(cpu, bc, xc)
+                ex = float(row_excess(fn(model, bg, xc.to(dev)).cpu(), yc).max())
+                key = f"{bc.kind} {part}"
+                mix_worst[key] = max(mix_worst.get(key, -1.0), ex)
+                if not ex <= MIX_ROW_TOL:
+                    fail(f"{cfg.name} parity: layer {i} {key} is {ex:.3g} row-RMS beyond "
+                         f"one bf16 step of the CPU's (> {MIX_ROW_TOL})")
+                xc = xc + yc
+        cpu_lg = cpu._logits(xc)[..., :V].float()
+
+        # ---- logits at every position, and the CPU's sensitivity ------- #
+        card_lg = model(toks.to(dev), mode="train")[0][..., :V].float().cpu()
+        x = bf16_step_noise(cpu._embed(toks))
+        for bc in cpu.layers:
+            x, _ = cpu._block(bc, x, mode="train")
+        sens = (cpu._logits(x)[..., :V].float() - cpu_lg).abs().amax(-1)
+    err = (card_lg - cpu_lg).abs().amax(-1)
+    mag = cpu_lg.abs().amax(-1)
+    bar = torch.clamp(LOGIT_SENS * sens, min=LOGIT_TOL)
+    if not bool(torch.isfinite(card_lg).all()):
+        fail(f"{cfg.name}: non-finite logits on the card")
+    if bool((err > bar).any()):
+        b, p = (int(t) for t in divmod(int((err - bar).argmax()), PARITY_PROMPT))
+        fail(f"{cfg.name} parity: row {b} position {p} logits differ by "
+             f"{float(err[b, p]):.3g} > {float(bar[b, p]):.3g}")
+    power = bar < mag
+    if not bool(power.any()):
+        fail(f"{cfg.name} parity: the logit bar is above the logits at every position")
+    first_blind = [int(r.logical_not().int().argmax()) if not bool(r.all()) else None
+                   for r in power]
+    del card_lg, x
+
+    # ---- the Engine on both --------------------------------------------- #
+    reqs = [Request(p.astype(np.int32), PARITY_NEW) for p in prompts]
+    scfg = ServeConfig(batch_size=PARITY_BATCH, max_prompt=PARITY_PROMPT,
+                       max_new=PARITY_NEW)
+    out = {}
+    for name, m in (("gpu", model), ("cpu", cpu)):
+        seen = capture_logits(m)
+        toks_out = [r.tokens for r in Engine(cfg, m, scfg).generate(reqs)]
+        release_logits(m)
+        out[name] = (np.stack(toks_out), seen)
+    (g_tok, g_lg), (c_tok, c_lg) = out["gpu"], out["cpu"]
+    worst, compared, flips, step_power = 0.0, 0, 0, 0
+    for i in range(PARITY_BATCH):
+        step_bar = float(bar[i, -1])
+        for step in range(PARITY_NEW):
+            if step and not np.array_equal(g_tok[i, :step], c_tok[i, :step]):
+                break        # an allowed flip earlier: the paths differ now
+            g, c = g_lg[step][i].numpy()[:V], c_lg[step][i].numpy()[:V]
+            if not np.all(np.isfinite(g)):
+                fail(f"{cfg.name}: non-finite logits on the card")
+            e = float(np.abs(g - c).max())
+            if e > step_bar:
+                fail(f"{cfg.name} parity: row {i} step {step} logits differ by "
+                     f"{e:.3g} > {step_bar:.3g}")
+            worst = max(worst, e)
+            step_power += step_bar < float(np.abs(c).max())
+            top2 = np.sort(c)[-2:]
+            if top2[1] - top2[0] > 2 * e:
+                if g_tok[i, step] != c_tok[i, step]:
+                    fail(f"{cfg.name} parity: row {i} step {step} token "
+                         f"{g_tok[i, step]} vs {c_tok[i, step]}, margin "
+                         f"{top2[1] - top2[0]:.3g} > 2 x {e:.3g}")
+                compared += 1
+            elif g_tok[i, step] != c_tok[i, step]:
+                flips += 1
+    del cpu
+    return {"mixer_mlp_row_excess": mix_worst, "mixer_mlp_bar": MIX_ROW_TOL,
+            "logit_err_over_sens_max": float((err / sens).max()),
+            "logit_err_max": float(err.max()), "sensitivity_max": float(sens.max()),
+            "sensitivity_last": [float(t) for t in sens[:, -1]],
+            "logit_bar_last": [float(t) for t in bar[:, -1]],
+            "max_abs_logit": float(mag.max()),
+            "positions_with_power": int(power.sum()), "positions": int(power.numel()),
+            "first_position_without_power": first_blind,
+            "engine_max_abs_logit_diff": worst, "engine_steps_with_power": step_power,
+            "tokens_compared": compared, "allowed_flips": flips,
+            "tokens_equal": bool(np.array_equal(g_tok, c_tok)),
+            "parity_s": time.perf_counter() - t0}
+
+
+def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict,
+                phase: int) -> dict:
+    """Phases 13 / 14 and this model's part of 15: full-width serving with
+    the launch counts, the card-vs-CPU parity run, and the profile."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = LM(cfg, device=dev, seed=0)
+    model.head_f32()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(0)
+    lens = rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)
+    reqs = [Request(rng.integers(0, cfg.vocab, int(n)).astype(np.int32), LM_NEW)
+            for n in lens]
+    engine = Engine(cfg, model, ServeConfig(batch_size=LM_BATCH, max_prompt=LM_PROMPT,
+                                            max_new=LM_NEW))
+
+    # ---- the main path, counted, with prefill and decode steps timed ---- #
+    times: dict = {"prefill": [], "decode_step": []}
+    for name in times:
+        fn = getattr(model, name)
+
+        def timed(*a, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **kw)
+            torch.cuda.synchronize()
+            times[_name].append((time.perf_counter() - t) * 1e3)
+            return out
+        setattr(model, name, timed)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_counts(f"{arch} serving", want)
+    del model.prefill, model.decode_step
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    for r, n in zip(results, lens):
+        if r.tokens.shape != (LM_NEW,) or r.prompt_len != n \
+                or not ((r.tokens >= 0) & (r.tokens < cfg.vocab)).all():
+            fail(f"{arch}: result {r.tokens.shape} prompt {r.prompt_len}")
+    if engine.last_decode_steps != LM_NEW - 1:
+        fail(f"{arch}: {engine.last_decode_steps} decode steps, want {LM_NEW - 1}")
+    # Warm, untimed run: tokens/s over the whole generate.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = engine.generate(reqs)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(results, again))
+    n_tok = LM_REQUESTS * LM_NEW
+    rec = {"card": smi, "arch": arch, "params": n_params, "init_s": init_s,
+           "requests": LM_REQUESTS, "batch": LM_BATCH, "max_prompt": LM_PROMPT,
+           "max_new": LM_NEW, "prompt_lens": [int(n) for n in lens],
+           "launches": {k: v for k, v in counts.items() if v},
+           "prefill_ms": times["prefill"],
+           "decode_ms_per_step_median": float(np.median(times["decode_step"])),
+           "decode_ms_per_step_first_batch": times["decode_step"][:LM_NEW - 1],
+           "cold_wall_s": wall, "warm_wall_s": warm, "tokens": n_tok,
+           "tokens_per_s_warm": n_tok / warm, "repeat_tokens_equal": same,
+           "peak_memory_gb": peak_gb}
+    log(f"phase {phase} {arch} serving ({smi}): " + json.dumps(rec))
+
+    # ---- parity: the same weights on the card and on the CPU ------------ #
+    par = serve_parity(cfg, model, dev)
+    log(f"phase {phase} {arch} parity card vs CPU: " + json.dumps(par))
+    rec["parity"] = par
+
+    # ---- 15. where a prefill and a decode step spend their time -------- #
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
+    caches = [None]
+
+    def prefill():
+        caches[0] = model.prefill(toks, max_cache_len=LM_PROMPT + LM_NEW)[1]
+
+    nxt = toks[:, -1:]
+    pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int64, device=dev)
+
+    def step():
+        model.decode_step(nxt, pos, caches[0])
+
+    prof = {"card": smi, "arch": arch}
+    for name, fn, runs in (("prefill", prefill, 3), ("decode_step", step, 9)):
+        walls = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        device_ms, kernels, profiled = profile_run(fn)
+        warm_ms = float(np.median(walls))
+        prof[name] = {"warm_wall_ms": warm_ms, "warm_walls_ms": walls,
+                      "profiled_wall_ms": profiled, "device_ms": device_ms,
+                      "busy_share": device_ms / warm_ms,
+                      "kernels": len(kernels),
+                      "launches": sum(n for _, n, _ in kernels),
+                      "top": [{"kernel": k, "count": n, "device_ms": ms}
+                              for k, n, ms in kernels[:10]]}
+    log(f"phase 15 profile {arch} " + json.dumps(prof))
+    rec["profile"] = prof
+    del model, caches, engine
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
+    """Phases 12-15; returns the kernels line's records of B5, B6 and B7."""
+    recs = lm_kernels(dev, smi)
+    torch.cuda.empty_cache()
+    rg = serve_model("recurrentgemma-2b", dev, smi, zero_counts, expect_counts,
+                     {"B5": 16, "B7": 36}, 13)
+    mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14)
+    recs["B5"]["launches"] = rg["launches"]["B5"]
+    recs["B7"]["launches"] = rg["launches"]["B7"]
+    recs["B6"]["launches"] = mb["launches"]["B6"]
+    out = [{"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+            "function": "flash_attention_pallas", **recs["B5"]},
+           {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:63",
+            "function": "ssd_pallas", **recs["B6"]},
+           {"name": "rglru", "route": "cuda", "source": "src/repro_torch/csrc/rglru.cu",
+            "replaces": "src/repro/kernels/rglru/kernel.py:43",
+            "function": "rglru_pallas", **recs["B7"]}]
+    return out
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -533,7 +1059,8 @@ def main() -> None:
         sys.path.insert(0, sys.argv[2])
         b2_turn(sys.argv[2])
         return
-    if len(sys.argv) > 1:
+    lm_only = sys.argv[1:] == ["--lm"]
+    if len(sys.argv) > 1 and not lm_only:
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -544,17 +1071,24 @@ def main() -> None:
     from repro_torch.kernels.dyn_fir import (N_TAPS, dpd_branch_cuda,
                                              poly_branch, poly_ref)
     from repro_torch.kernels.gauss5x5 import gauss5x5_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.motion_post import motion_post_cuda
+    from repro_torch.kernels.rglru import rglru_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
 
     wrappers = {"B1": dpd_branch_cuda, "B2": megakernel_cuda,
-                "B3": gauss5x5_cuda, "B4": motion_post_cuda}
+                "B3": gauss5x5_cuda, "B4": motion_post_cuda,
+                "B5": flash_attention_cuda, "B6": ssd_cuda, "B7": rglru_cuda}
 
     def zero_counts() -> None:
         for w in wrappers.values():
             w.launches = 0
 
     def expect_counts(path: str, want: dict) -> dict:
+        """Every kernel's count since zero_counts(); kernels ``want`` does
+        not name must not have launched."""
         got = {k: w.launches for k, w in wrappers.items()}
+        want = {k: want.get(k, 0) for k in wrappers}
         if got != want:
             fail(f"{path}: kernel launches {got}, want {want}")
         return got
@@ -573,12 +1107,22 @@ def main() -> None:
 
     # ---- build the paths' kernels from the checkout's sources --------- #
     t0 = time.perf_counter()
-    nvcc_out = _build.build("dyn_fir", "megakernel", "gauss5x5", "motion_post")
-    log(f"built dyn_fir, megakernel, gauss5x5 and motion_post in "
-        f"{time.perf_counter() - t0:.1f} s")
+    libs = ("dyn_fir", "megakernel", "gauss5x5", "motion_post", "flash_attention",
+            "ssd", "rglru")
+    nvcc_out = _build.build(*libs)
+    log(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib, text in nvcc_out.items():
         for line in text.splitlines():
             log(f"  nvcc[{lib}]: {line}")
+
+    if lm_only:
+        lm = lm_serving(dev, smi, zero_counts, expect_counts)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": lm}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
 
     # ---- 2. kernel vs plain on the card -------------------------------- #
     rng = np.random.default_rng(0)
@@ -624,14 +1168,11 @@ def main() -> None:
     bytes_moved = 4 * (2 * (L + N_TAPS - 1) + 2 * N_TAPS + 2 * L + 2 * (N_TAPS - 1))
     mean_order = (N_TAPS + 1) / 2
     flops = L * (5 + (mean_order - 1) + 8 * N_TAPS)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
-    bound_ms = max(t_bytes, t_ops)
+    bound_ms, bound_by = bound_of(bytes_moved, flops, FP32_FLOP_PER_S)
     log(f"dyn_fir timing ({smi}): kernel {k_ms:.5f} ms/launch (CUDA graph "
         f"replay), wrapper {wrapper_ms:.5f} ms/call back to back, plain "
         f"{p_ms:.5f} ms/call, bound {bound_ms:.6f} ms "
-        f"({'bytes' if t_bytes >= t_ops else 'operations'}: {bytes_moved} B, "
-        f"{flops:.0f} flop)")
+        f"({bound_by}: {bytes_moved} B, {flops:.0f} flop)")
 
     # ---- 3. the main path: full-width DPD, dynamic mode ----------------- #
     sched = default_active_schedule(N_FIRINGS, seed=0)
@@ -757,13 +1298,10 @@ def main() -> None:
     b2_flops = float(sum(L * (84 + k + 1) for n_act in sched for k in range(int(n_act))))
     b2_bytes = 4 * (2 * 2 * N_FIRINGS * L + 10 * 2 * N_TAPS
                     + 10 * 2 * 2 * (N_TAPS - 1) + N_FIRINGS)
-    b2_t_ops = b2_flops / FP32_FLOP_PER_S * 1e3
-    b2_t_bytes = b2_bytes / HBM_BYTES_PER_S * 1e3
-    b2_bound_ms = max(b2_t_ops, b2_t_bytes)
+    b2_bound_ms, b2_bound_by = bound_of(b2_bytes, b2_flops, FP32_FLOP_PER_S)
     log(f"megakernel timing ({smi}): B2 {b2_ms:.4f} ms per run (CUDA events, "
         f"{b2_blocks} blocks), plain version {b2_plain_ms:.2f} ms per run, "
-        f"bound {b2_bound_ms:.5f} ms ({'bytes' if b2_t_bytes >= b2_t_ops else 'operations'}: "
-        f"{b2_flops:.4g} flop, {b2_bytes} B)")
+        f"bound {b2_bound_ms:.5f} ms ({b2_bound_by}: {b2_flops:.4g} flop, {b2_bytes} B)")
 
     # ---- 4. Table 4 rows ------------------------------------------------ #
     samples = N_FIRINGS * L
@@ -866,6 +1404,7 @@ def main() -> None:
     log("host " + json.dumps(host_rec))
 
     md = motion_detection(dev, smi, zero_counts, expect_counts)
+    lm = lm_serving(dev, smi, zero_counts, expect_counts)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -882,7 +1421,7 @@ def main() -> None:
         "device_ms": fir_ms,
         "plain_ms": p_ms,
         "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_by": bound_by,
         "library_ms": None,
     }, {
         "name": "megakernel.b2",
@@ -896,7 +1435,7 @@ def main() -> None:
         "device_ms": b2_device_ms,
         "plain_ms": b2_plain_ms,
         "bound_ms": b2_bound_ms,
-        "bound_by": "bytes" if b2_t_bytes >= b2_t_ops else "operations",
+        "bound_by": b2_bound_by,
         "library_ms": None,
         "network": "dpd",
         "motion_detection": md["B2"],
@@ -916,7 +1455,7 @@ def main() -> None:
         "function": "motion_post_pallas",
         **md["B4"],
         "library_ms": None,
-    }]}), flush=True)
+    }, *lm]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

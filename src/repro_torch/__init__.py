@@ -4,7 +4,8 @@ Laid out like the JAX package ``repro`` (the reference it is checked
 against) and importing nothing of it: ``core`` holds the model of
 computation (Eq. 1 FIFOs, actors, networks, the builder, the host
 executors, ``Program``), ``kernels`` the hand-written Hopper kernels with
-their plain PyTorch versions, and ``graphs`` the paper's applications.
+their plain PyTorch versions, ``graphs`` the paper's applications, and
+``configs``, ``models``, ``serve`` and ``launch`` the LM serving stack.
 Entry points run on the CUDA card unless the caller passes ``device=``
 (see :mod:`repro_torch.device`).
 """

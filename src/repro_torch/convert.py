@@ -7,15 +7,27 @@ slabs with their indices, the configuration index) — so the reference's
 ``jax.tree.leaves(state)``, converted to numpy, and :func:`state_to_numpy`
 of the port line up one to one.  Host ints flatten to 0-d int32 arrays, as
 the reference's int32 scalars do.
+
+The LM's weights and serving state cross too: :func:`lm_params_from_numpy`
+turns the JAX package's ``init_params`` pytree (as numpy arrays) into an
+:class:`~repro_torch.models.LM` state dict, and
+:func:`serve_state_from_numpy` / :func:`serve_state_to_numpy` carry the
+serving caches between the JAX package's grouped layout
+(``{"groups": {"c<i>": leaves stacked over groups}, "rest": (...)}``) and
+the port's list of one dict per layer.  bf16 arrays reach numpy as
+``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses; they cross as
+their 16-bit patterns.
 """
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+from typing import Any, Dict, List, Mapping, Sequence
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.network import Network, NetworkState
+from repro_torch.models.lm import layer_plan
 
 
 def state_to_numpy(state: NetworkState) -> List[np.ndarray]:
@@ -58,3 +70,85 @@ def state_from_numpy(net: Network, leaves: Sequence[Any]) -> NetworkState:
         return int(arr)
 
     return template.map_leaves(convert)
+
+
+# ---------------------------------------------------------------------- #
+# LM weights and serving state.
+# ---------------------------------------------------------------------- #
+def tensor_from_numpy(arr: Any, device=None) -> torch.Tensor:
+    """A numpy array as a tensor of the same type, bf16 included."""
+    arr = np.array(arr)   # a writable copy that the tensor owns
+    if arr.dtype.name == "bfloat16":
+        t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(arr)
+    return t if device is None else t.to(device)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as numpy; bf16 becomes ``ml_dtypes.bfloat16`` (the type the
+    JAX package's arrays have in numpy)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16).copy()
+    return t.numpy().copy()
+
+
+def _flatten(tree: Mapping, prefix: str, out: Dict[str, Any]) -> None:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            _flatten(v, f"{prefix}{k}.", out)
+        else:
+            out[f"{prefix}{k}"] = v
+
+
+def lm_params_from_numpy(cfg: ArchConfig, params: Mapping) -> Dict[str, torch.Tensor]:
+    """The JAX package's LM params of ``cfg`` (a pytree of numpy arrays) as
+    the port's ``LM`` state dict (CPU tensors; ``load_state_dict`` copies
+    them to the model's device).  Group-stacked leaves are split into the
+    port's per-layer blocks: layer ``g * len(cycle) + i`` is group ``g``'s
+    ``c<i>``, the remainder follows."""
+    cycle, n_groups, rest = layer_plan(cfg)
+    flat: Dict[str, Any] = {}
+    _flatten({k: v for k, v in params.items() if k not in ("groups", "rest")}, "", flat)
+    for i in range(len(cycle)):
+        block: Dict[str, Any] = {}
+        _flatten(params["groups"][f"c{i}"], "", block)
+        for g in range(n_groups):
+            for name, leaf in block.items():
+                flat[f"layers.{g * len(cycle) + i}.{name}"] = np.asarray(leaf)[g]
+    for j, bp in enumerate(params["rest"]):
+        _flatten(bp, f"layers.{n_groups * len(cycle) + j}.", flat)
+    return {k: tensor_from_numpy(v) for k, v in flat.items()}
+
+
+def serve_state_from_numpy(cfg: ArchConfig, caches: Mapping, device=None
+                           ) -> List[Dict[str, torch.Tensor]]:
+    """The JAX package's serving state (grouped as its ``serve_state`` and
+    ``prefill`` group it, as numpy arrays) as the port's list of one dict
+    per layer, on ``device``."""
+    cycle, n_groups, rest = layer_plan(cfg)
+    layers: List[Dict[str, torch.Tensor]] = []
+    for g in range(n_groups):
+        for i in range(len(cycle)):
+            layers.append({k: tensor_from_numpy(np.asarray(v)[g], device)
+                           for k, v in caches["groups"][f"c{i}"].items()})
+    for c in caches["rest"]:
+        layers.append({k: tensor_from_numpy(v, device) for k, v in c.items()})
+    return layers
+
+
+def serve_state_to_numpy(cfg: ArchConfig, layers: Sequence[Mapping[str, torch.Tensor]]
+                         ) -> Dict[str, Any]:
+    """The port's per-layer serving state in the JAX package's grouped
+    layout, as numpy arrays (the inverse of :func:`serve_state_from_numpy`)."""
+    cycle, n_groups, rest = layer_plan(cfg)
+    groups = {}
+    for i in range(len(cycle)):
+        per = [layers[g * len(cycle) + i] for g in range(n_groups)]
+        groups[f"c{i}"] = {k: np.stack([tensor_to_numpy(c[k]) for c in per])
+                           for k in per[0]} if per else {}
+    tail = layers[n_groups * len(cycle):]
+    return {"groups": groups,
+            "rest": tuple({k: tensor_to_numpy(v) for k, v in c.items()} for c in tail)}

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into shared libraries and load them.
 
-Each ``csrc/<name>.cu`` (``dyn_fir`` for B1, ``megakernel`` for B2) has a
-plain C interface and is compiled by its own ``nvcc`` for Hopper
+Each ``csrc/<name>.cu`` (``dyn_fir`` B1, ``megakernel`` B2, ``gauss5x5``
+B3, ``motion_post`` B4, ``flash_attention`` B5, ``ssd`` B6, ``rglru`` B7)
+has a plain C interface and is compiled by its own ``nvcc`` for Hopper
 (``sm_90a``) into ``_build/lib<name>-<hash>.so`` on first use, keyed by a
 hash of the source, the shared headers and the flags, then loaded with
 ``ctypes``.

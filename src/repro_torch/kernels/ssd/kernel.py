@@ -1,0 +1,72 @@
+"""ctypes wrapper of the Hopper SSD kernel (``csrc/ssd.cu``).
+
+Replaces ``src/repro/kernels/ssd/kernel.py::ssd_pallas``.  The library is
+built and loaded at the first launch, never at import.  :func:`ssd_cuda`
+checks its operands, launches on PyTorch's current stream without
+synchronising, raises on a refused launch, and adds one to
+``ssd_cuda.launches`` per launch.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build
+
+#: The (head_dim, state_dim) the kernel is built for (mamba2's).
+HEAD_DIM, STATE_DIM = 64, 128
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("ssd")
+    lib.ssd_run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.ssd_run.restype = ctypes.c_int
+    lib.ssd_error_string.argtypes = [ctypes.c_int]
+    lib.ssd_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+             C_: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch: x (B, L, H, 64), B_/C_ (B, L, 128) contiguous, all bf16
+    or all float32; dt (B, L, H) and A (H,) float32; all on one CUDA
+    device.  Returns (y (B, L, H, 64) in x's type, hT (B, H, 64, 128)
+    float32).  The kernel picks its own chunk length, which changes only
+    rounding."""
+    Bsz, L, H, P = x.shape if x.dim() == 4 else (0, 0, 0, 0)
+    want = {"x": (x, x.dtype, (Bsz, L, H, HEAD_DIM)),
+            "dt": (dt, torch.float32, (Bsz, L, H)),
+            "A": (A, torch.float32, (H,)),
+            "B_": (B_, x.dtype, (Bsz, L, STATE_DIM)),
+            "C_": (C_, x.dtype, (Bsz, L, STATE_DIM))}
+    for name, (t, dtype, shape) in want.items():
+        if not t.is_cuda or t.device != x.device or t.dtype != dtype \
+                or tuple(t.shape) != shape or not t.is_contiguous():
+            raise ValueError(f"ssd_cuda: {name} must be a contiguous {dtype} {shape} "
+                             f"tensor on x's CUDA device, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if x.dtype not in (torch.bfloat16, torch.float32) or min(Bsz, L, H) < 1 \
+            or Bsz > 65535:
+        raise ValueError(f"ssd_cuda: x {x.dtype} {tuple(x.shape)}: bf16 or float32, "
+                         "at most 65535 batches")
+    y = torch.empty_like(x)
+    h_last = torch.empty((Bsz, H, HEAD_DIM, STATE_DIM), dtype=torch.float32,
+                         device=x.device)
+    lib = _library()
+    err = lib.ssd_run(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+                      C_.data_ptr(), y.data_ptr(), h_last.data_ptr(), Bsz, L, H,
+                      int(x.dtype == torch.bfloat16),
+                      torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ssd launch failed: CUDA error {err} "
+                           f"({lib.ssd_error_string(err).decode()})")
+    ssd_cuda.launches += 1
+    return y, h_last
+
+
+#: Launches of the kernel since the count was last set to 0.
+ssd_cuda.launches = 0

@@ -1,0 +1,253 @@
+"""The language model: a stack of blocks in a cyclic layer pattern.
+
+Uniform models have a cycle of one kind; recurrentgemma has (rec, rec,
+attn_local).  :func:`layer_plan` gives the cycle, the number of full
+cycles (groups) and the remainder, as in the JAX package; the port keeps
+the layers in one ``nn.ModuleList`` in layer order, group by group, then
+the remainder (the JAX package stacks each group's parameters on a
+leading axis instead; ``repro_torch.convert`` maps one to the other).
+
+Block kinds: ``attn_local`` / ``attn_global`` (attention + SwiGLU MLP),
+``rec`` (RG-LRU + MLP) and ``ssd`` (mamba2).  The MoE, audio and vision
+families are not ported yet (ROADMAP A8b) and raise at construction.
+
+Entry points: :meth:`LM.forward` (modes "train" and "prefill"; the loss
+comes with the training slice), :meth:`LM.prefill`, :meth:`LM.decode_step`
+and :meth:`LM.serve_state`.  Serving state is a list with one dict per
+layer: ``{k, v, pos}`` ring caches, RG-LRU ``{conv, h}``, Mamba2
+``{conv, ssm}``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import attention as att
+from repro_torch.models import rglru as rg_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (DTYPE, F32, RMSNorm, SwiGLU, embed_lookup,
+                                       init_normal_, param, rmsnorm, swiglu, unembed)
+
+Cache = Dict[str, torch.Tensor]
+
+
+def layer_plan(cfg: ArchConfig) -> Tuple[List[str], int, List[str]]:
+    """(cycle kinds, n_groups, remainder kinds)."""
+    if cfg.family == "ssm":
+        cycle = ["ssd"]
+    elif cfg.rglru is not None:
+        cycle = ["rec" if p == 0 else "attn_local" for p in cfg.rglru.pattern]
+    elif cfg.family == "audio":
+        cycle = ["xdec"]
+    else:
+        cycle = ["attn_global" if p == 1 else "attn_local" for p in cfg.attn_pattern]
+    n_groups, rest = divmod(cfg.n_layers, len(cycle))
+    return cycle, n_groups, cycle[:rest]
+
+
+def layer_kinds(cfg: ArchConfig) -> List[str]:
+    """Every layer's kind, in layer order."""
+    cycle, n_groups, rest = layer_plan(cfg)
+    return cycle * n_groups + rest
+
+
+def _cache_len(cfg: ArchConfig, kind: str, max_seq: int) -> int:
+    if kind == "attn_local" and cfg.swa_window is not None:
+        return min(cfg.swa_window, max_seq)
+    return max_seq
+
+
+def _check_ported(cfg: ArchConfig) -> None:
+    if cfg.family in ("moe", "audio", "vlm") or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family (MoE experts, cross attention, "
+            "vision/audio frontends) is not ported yet (ROADMAP A8b)")
+    if cfg.kv_quant_int8:
+        raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not ported yet "
+                                  "(ROADMAP A8b)")
+
+
+class Table(nn.Module):
+    """An embedding table (V, D), bf16."""
+
+    def __init__(self, vocab: int, dim: int, gen=None, device=None):
+        super().__init__()
+        self.w = param((vocab, dim), device=device)
+        init_normal_(self.w, gen, 0.02)
+
+
+class Block(nn.Module):
+    """One layer; submodules named as the JAX package's block params."""
+
+    def __init__(self, cfg: ArchConfig, kind: str, gen=None, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.kind = kind
+        if kind == "ssd":
+            self.norm = RMSNorm(d, device)
+            self.mixer = ssm_mod.Mamba2Block(d, cfg.ssm, gen, device)
+            return
+        self.norm1 = RMSNorm(d, device)
+        if kind == "rec":
+            self.mixer = rg_mod.RGLRUBlock(d, cfg.rglru, gen, device)
+        else:
+            self.attn = att.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                      cfg.qkv_bias, gen, device)
+        self.norm2 = RMSNorm(d, device)
+        self.mlp = SwiGLU(d, cfg.d_ff, gen, device)
+
+
+class LM(nn.Module):
+    """The model of ``cfg`` on ``device`` (the CUDA card by default).
+
+    ``seed`` draws the weights from a seeded ``torch.Generator`` on the
+    device (normal draws scaled as the JAX package's initialisers scale
+    them; the values are not ``jax.random``'s); ``seed=None`` leaves them
+    uninitialised for :meth:`load_state_dict`."""
+
+    def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
+                 seed: Optional[int] = 0):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        dev = resolve_device(device)
+        self.device = dev
+        gen = None
+        if seed is not None:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+        self.embed = Table(cfg.vocab_padded, cfg.d_model, gen, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = Table(cfg.vocab_padded, cfg.d_model, gen, dev)
+        self.final_norm = RMSNorm(cfg.d_model, dev)
+        self.kinds = layer_kinds(cfg)
+        self.layers = nn.ModuleList(Block(cfg, kind, gen, dev) for kind in self.kinds)
+        self._head_key = None
+        self._head = None
+
+    # ------------------------------------------------------------------ #
+    def head_f32(self) -> torch.Tensor:
+        """The unembedding table in float32, cast once and kept until the
+        weights change (tied recurrentgemma-2b: 256 000 x 2560 floats,
+        2.62 GB beside the 1.31 GB bf16 table)."""
+        w = (self.embed if self.cfg.tie_embeddings else self.lm_head).w
+        key = (w.data_ptr(), 0 if w.is_inference() else w._version)
+        if self._head_key != key:
+            self._head = w.detach().to(F32)
+            self._head_key = key
+        return self._head
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        x = embed_lookup(self.embed.w, tokens).to(DTYPE)
+        if self.cfg.tie_embeddings:
+            # gemma scaling: sqrt(d) rounded to bf16 first (50.5 at d 2560)
+            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=F32).to(DTYPE)
+        return x
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits over the padded vocab, padding columns forced to -1e30."""
+        logits = unembed(rmsnorm(x, self.final_norm.scale, self.cfg.rms_eps),
+                         self.head_f32())
+        if self.cfg.vocab_padded != self.cfg.vocab:
+            logits[..., self.cfg.vocab:] = -1e30
+        return logits
+
+    def _attn_kw(self, kind: str):
+        cfg = self.cfg
+        return dict(n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                    rope_theta=cfg.rope_theta,
+                    window=cfg.swa_window if kind == "attn_local" else None)
+
+    def _mixer(self, blk: Block, x: torch.Tensor, *, mode: str, cache=None, pos=None,
+               max_cache_len: Optional[int] = None):
+        """The block's norm and mixer (attention, RG-LRU or Mamba2): (y, new
+        cache), y before the residual add."""
+        cfg = self.cfg
+        kind = blk.kind
+        if kind == "ssd":
+            h = rmsnorm(x, blk.norm.scale, cfg.rms_eps)
+            return ssm_mod.mamba2_block(blk.mixer, h, cfg.ssm, mode=mode, state=cache)
+        h = rmsnorm(x, blk.norm1.scale, cfg.rms_eps)
+        if kind == "rec":
+            return rg_mod.rglru_block(blk.mixer, h, mode=mode, state=cache)
+        if mode == "decode":
+            return att.attention_decode(blk.attn, h, cache, pos, **self._attn_kw(kind))
+        y, k, v = att.attention(blk.attn, h, return_kv=True, **self._attn_kw(kind))
+        new_cache = None
+        if mode == "prefill":
+            new_cache = att.cache_from_kv(
+                k, v, _cache_len(cfg, kind, max_cache_len or x.shape[1]))
+        return y, new_cache
+
+    def _mlp(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
+        """The block's second norm and SwiGLU MLP, before the residual add
+        (every kind but ``ssd``)."""
+        h = rmsnorm(x, blk.norm2.scale, self.cfg.rms_eps)
+        return swiglu(h, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down)
+
+    def _block(self, blk: Block, x: torch.Tensor, *, mode: str, cache=None, pos=None,
+               max_cache_len: Optional[int] = None):
+        y, new_cache = self._mixer(blk, x, mode=mode, cache=cache, pos=pos,
+                                   max_cache_len=max_cache_len)
+        x = x + y
+        if blk.kind != "ssd":
+            x = x + self._mlp(blk, x)
+        return x, new_cache
+
+    # ------------------------------------------------------------------ #
+    def forward(self, tokens: torch.Tensor, *, mode: str = "train",
+                max_cache_len: Optional[int] = None):
+        """tokens (B, S) -> (logits f32, caches).  "train": logits at every
+        position, caches None; "prefill": logits (B, 1, V) of the last
+        position and the serving state."""
+        if mode not in ("train", "prefill"):
+            raise ValueError(f"forward: mode {mode!r} is 'train' or 'prefill'")
+        x = self._embed(tokens.to(self.device))
+        caches = []
+        for blk in self.layers:
+            x, c = self._block(blk, x, mode=mode, max_cache_len=max_cache_len)
+            caches.append(c)
+        if mode == "prefill":
+            return self._logits(x[:, -1:]), caches
+        return self._logits(x), None
+
+    @torch.inference_mode()
+    def prefill(self, tokens: torch.Tensor, *, max_cache_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, List[Cache]]:
+        """``max_cache_len``: ring size of full-attention layers; it must
+        cover the prompt and the decode budget (defaults to the prompt
+        length, which leaves no room to decode)."""
+        logits, caches = self.forward(tokens, mode="prefill", max_cache_len=max_cache_len)
+        return logits[:, 0], caches
+
+    @torch.inference_mode()
+    def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, caches: List[Cache]
+                    ) -> Tuple[torch.Tensor, List[Cache]]:
+        """tokens (B, 1), pos (B,) -> (logits (B, V) f32, new caches).  Ring
+        KV caches are updated in place."""
+        x = self._embed(tokens.to(self.device))
+        pos = pos.to(self.device)
+        new = []
+        for blk, c in zip(self.layers, caches):
+            x, nc = self._block(blk, x, mode="decode", cache=c, pos=pos)
+            new.append(nc)
+        return self._logits(x)[:, 0], new
+
+    def serve_state(self, batch: int, max_seq: int) -> List[Cache]:
+        """Empty ring caches and recurrent states for every layer."""
+        cfg, dev = self.cfg, self.device
+        out = []
+        for kind in self.kinds:
+            if kind == "ssd":
+                out.append(ssm_mod.mamba2_state_init(batch, cfg.d_model, cfg.ssm, dev))
+            elif kind == "rec":
+                out.append(rg_mod.rglru_state_init(batch, cfg.d_model, cfg.rglru, dev))
+            else:
+                out.append(att.cache_init(batch, _cache_len(cfg, kind, max_seq),
+                                          cfg.n_kv_heads, cfg.hd, device=dev))
+        return out

@@ -1,0 +1,103 @@
+"""B5, B6 and B7 on the card against their plain versions at shapes the
+serving path does not reach (ragged lengths, other head widths and group
+sizes, float32 SSD inputs), and the wrappers' launch counts and refusals.
+These tests need a CUDA card and ``nvcc``; without one they skip.  Run
+them on the card with
+
+    python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Bars: B5 within one bf16 step of |want| plus 2^-5 of the RMS of want's
+(batch, position, head) row, the bar of ``chip_smoke.py`` phase 12 (set
+from the readings of sound runs and planted faults there; PERF.md);
+B6 within 3e-4 of the largest magnitude (``tests/test_kernels.py:92``),
+plus one bf16 step of y for bf16 inputs; B7 within 1e-5
+(``tests/test_kernels.py:103``).
+"""
+from __future__ import annotations
+
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
+                                                 flash_attention_ref)
+from repro_torch.kernels.rglru import rglru, rglru_cuda, rglru_ref
+from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_ref
+
+pytestmark = pytest.mark.cuda
+
+B5_ROW_TOL = 2.0 ** -5
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    return g
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", [
+    (1, 1, 1, 1, 16, True, None), (1, 63, 2, 1, 16, True, None),
+    (2, 130, 6, 3, 120, False, None), (1, 96, 4, 4, 64, False, 40),
+    (2, 300, 10, 1, 256, True, 64), (1, 257, 8, 2, 128, True, 100),
+    (1, 200, 12, 4, 240, True, None)])
+def test_flash_attention_matches_plain(gen, B, S, H, Hkv, hd, causal, window):
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
+    before = flash_attention_cuda.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention_cuda.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window).float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    excess = float((((got.float() - want).abs() - 2.0 ** -7 * want.abs()) / rms).max())
+    assert bool(torch.isfinite(got).all()) and excess <= B5_ROW_TOL, excess
+
+
+@pytest.mark.parametrize("B,L,H", [(1, 1, 1), (2, 31, 3), (1, 300, 48)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_matches_plain(gen, B, L, H, dtype):
+    x = torch.randn((B, L, H, 64), generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn((B, L, H), generator=gen, device="cuda"))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = torch.randn((B, L, 128), generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn((B, L, 128), generator=gen, device="cuda").to(dtype)
+    before = ssd_cuda.launches
+    y, h = ssd(x, dt, A, Bm, Cm, chunk=256)
+    assert ssd_cuda.launches == before + 1 and y.dtype == dtype
+    yr, hr = ssd_ref(x, dt, A, Bm, Cm, 256)
+    bar = 3e-4 * yr.float().abs().max()
+    if dtype == torch.bfloat16:
+        bar = bar + 2.0 ** -7 * yr.float().abs()
+    assert bool(((y.float() - yr.float()).abs() <= bar).all())
+    assert float((h - hr).abs().max()) <= 3e-4 * float(hr.abs().max())
+
+
+@pytest.mark.parametrize("B,L,W", [(1, 1, 1), (3, 17, 100), (2, 40, 2560)])
+def test_rglru_matches_plain(gen, B, L, W):
+    la = -(torch.rand((B, L, W), generator=gen, device="cuda") * 2.0 + 0.01)
+    gx = torch.randn((B, L, W), generator=gen, device="cuda")
+    before = rglru_cuda.launches
+    h, t = rglru(la, gx)
+    assert rglru_cuda.launches == before + 1
+    hr, tr = rglru_ref(la, gx)
+    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(t, tr, rtol=1e-5, atol=1e-5)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    q = torch.randn((1, 8, 2, 16), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="bf16"):
+        flash_attention_cuda(q, q, q)                   # float32
+    with pytest.raises(ValueError, match="multiple of 8"):
+        b = torch.zeros((1, 8, 2, 12), device="cuda", dtype=torch.bfloat16)
+        flash_attention_cuda(b, b, b)
+    x = torch.zeros((1, 4, 2, 32), device="cuda")       # head_dim 32, not 64
+    with pytest.raises(ValueError, match="ssd_cuda"):
+        ssd_cuda(x, torch.zeros((1, 4, 2), device="cuda"), torch.zeros(2, device="cuda"),
+                 torch.zeros((1, 4, 128), device="cuda"), torch.zeros((1, 4, 128), device="cuda"))
+    with pytest.raises(ValueError, match="float32"):
+        z = torch.zeros((1, 4, 8), device="cuda", dtype=torch.float64)
+        rglru_cuda(z, z)
