@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b2 SRC    # B2's time alone, from another src tree
+    python3 chip_smoke.py --b6 SRC    # B6's time alone, from another src tree
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -53,6 +54,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     2560) float32; B5 within one bf16 step plus ``B5_ROW_TOL`` of its
     row's RMS, a bar three planted faults (the plain version with one key
     tile skipped, the causal or the window edge one key off) must break;
+    B6 within ``B6_TOL`` of the plain version and of the step-by-step
+    recurrence ``ssd_naive`` (under strong decays, dt up to 5 at A = -16,
+    of ``ssd_naive`` only), a bar a planted fault (the plain version put
+    together chunk by chunk with the state entering each chunk taken one
+    chunk late) must break;
     times each (CUDA graph replays), its plain version and, for B5,
     ``scaled_dot_product_attention`` with the same boolean mask and
     ``enable_gqa=True`` as the library yardstick (never used by the port);
@@ -76,8 +82,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 14. the same for mamba2-780m: 96 B6 launches (48 per prefill) and no B5 or
     B7;
 15. profiles one prefill (4 x 4096 tokens) and one decode step of each
-    model: device time by kernel and the busy share against the median
-    wall of warm runs (printed after 13 and after 14).
+    model: device time by kernel, B5-B7 each summed over its CUDA kernels
+    (B6 launches 3 per call), and the busy share against the median wall
+    of warm runs (printed after 13 and after 14).
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -89,12 +96,15 @@ CUDA device is visible.
 
 ``--b2 SRC`` times kernel B2 alone (as phases 6 and 9 do) from the
 ``repro_torch`` package under ``SRC`` and prints one ``b2 {...}`` line;
-run in turns from two trees it compares B2 across commits on one card.
+``--b6 SRC`` does the same for B6 (as phase 12 does; a ``b6 {...}``
+line).  Run in turns from two trees they compare a kernel across commits
+on one card.
 ``--lm`` runs phases 1 and 12-15 only (the LM path), for work on it.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -570,6 +580,66 @@ def row_excess(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     return ((got.float() - ref).abs() - 2.0 ** -7 * ref.abs()) / rms
 
 
+def b6_inputs(dev, gen, dtype, strong: bool = False) -> tuple:
+    """B6's operands at mamba2-780m's prefill shape (batch LM_BATCH, LM_PROMPT
+    steps, 48 heads of 64, state 128): x, B, C in ``dtype``; dt =
+    softplus(randn), A from -1 to -16, float32; or, ``strong``, dt uniform
+    in 0-5 at A = -16 (a chunk's cumsum of dt A reaches -1e4)."""
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    mc = get_config("mamba2-780m")
+    s = mc.ssm
+    nh, P, N = s.n_heads(mc.d_model), s.head_dim, s.state_dim
+    B, S = LM_BATCH, LM_PROMPT
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    dt = F.softplus(randn(B, S, nh))
+    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, nh, device=dev)))
+    if strong:
+        dt = torch.rand((B, S, nh), generator=gen, device=dev) * 5.0
+        A = torch.full((nh,), -16.0, device=dev)
+    return (randn(B, S, nh, P).to(dtype), dt, A, randn(B, S, N).to(dtype),
+            randn(B, S, N).to(dtype))
+
+
+def b6_reading(y, hT, yr, hr) -> tuple:
+    """(y, hT) against the plain version's (yr, hr), as multiples of B6's
+    bar: |dy| <= B6_TOL max|yr| (plus one bf16 step of |yr| on bf16 y),
+    |dhT| <= B6_TOL max|hr|.  A reading above 1 fails it."""
+    y_bar = B6_TOL * float(yr.float().abs().max())
+    if yr.dtype == torch.bfloat16:   # one bf16 step at |y| is at most 2^-7 |y|
+        y_bar = y_bar + 2.0 ** -7 * yr.float().abs()
+    ry = float(((y.float() - yr.float()).abs() / y_bar).max())
+    rh = float((hT - hr).abs().max()) / (B6_TOL * float(hr.abs().max()))
+    return ry, rh
+
+
+def b6_chunkwise(x, dt, A, Bm, Cm, c: int, lag: int) -> torch.Tensor:
+    """y of the SSD scan put together chunk by chunk from the plain version:
+    each chunk's own output and final state from a zero state
+    (``ssd_ref`` on that chunk alone), the states passed over the chunks,
+    and exp(cum_t) C_t h^T added for the state h that entered the chunk
+    ``lag`` chunks before (zero before the first).  At lag 0 it is the
+    scan; at lag 1 it is the planted fault of a wrong state pass, the state
+    entering each chunk taken one chunk late."""
+    from repro_torch.kernels.ssd import ssd_ref
+    Bsz, L, H, P = x.shape
+    h = torch.zeros((Bsz, H, P, Bm.shape[-1]), device=x.device)
+    ys, h_in = [], []
+    for z0 in range(0, L, c):
+        s = slice(z0, z0 + c)
+        y0, S = ssd_ref(x[:, s].float(), dt[:, s], A, Bm[:, s].float(), Cm[:, s].float(), c)
+        cum = torch.cumsum(dt[:, s] * A, dim=1)                             # (B, c, H)
+        h_in.append(h)
+        h_late = h_in[-1 - lag] if len(h_in) > lag else torch.zeros_like(h)
+        ys.append(y0 + torch.exp(cum)[..., None]
+                  * torch.einsum("bcn,bhpn->bchp", Cm[:, s].float(), h_late))
+        h = h * torch.exp(cum[:, -1])[..., None, None] + S
+    return torch.cat(ys, dim=1).to(x.dtype)
+
+
 def lm_kernels(dev, smi: str) -> dict:
     """Phase 12: B5, B6 and B7 against their plain versions at the serving
     shapes, with their times and bounds; returns their records."""
@@ -579,7 +649,7 @@ def lm_kernels(dev, smi: str) -> dict:
                                                      flash_attention_ref,
                                                      masked_attention_ref)
     from repro_torch.kernels.rglru import rglru, rglru_ref
-    from repro_torch.kernels.ssd import ssd, ssd_ref
+    from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_naive, ssd_ref
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -655,56 +725,104 @@ def lm_kernels(dev, smi: str) -> dict:
     del q, k, v, qt, kt, vt, mask
 
     # ---- B6 at mamba2-780m's SSD ---------------------------------------- #
-    mc = get_config("mamba2-780m")
-    s = mc.ssm
-    nh, P, N = s.n_heads(mc.d_model), s.head_dim, s.state_dim
-    dt = F.softplus(randn(B, S, nh))
-    A = -torch.exp(torch.log(torch.linspace(1.0, 16.0, nh, device=dev)))
-    ins = {}
+    # B6 against the plain version and against the step-by-step recurrence
+    # (ssd_naive, independent of the chunked algorithm).  Then the plain
+    # version put together chunk by chunk (b6_chunkwise): at lag 0 it must
+    # hold the bar, which shows the construction sound; at lag 1, the state
+    # entering each chunk taken one chunk late (the likeliest fault of a
+    # chunk-parallel scan), it must break it.  A reading above 1 fails it.
+    c = get_config("mamba2-780m").ssm.chunk
     b6_err = {}
     for dtype in (torch.float32, torch.bfloat16):
-        x = randn(B, S, nh, P, dtype=dtype)
-        Bm, Cm = randn(B, S, N, dtype=dtype), randn(B, S, N, dtype=dtype)
-        y, hT = ssd(x, dt, A, Bm, Cm, chunk=s.chunk)
-        yr, hr = ssd_ref(x, dt, A, Bm, Cm, s.chunk)
+        x, dt, A, Bm, Cm = b6_inputs(dev, gen, dtype)
+        y, hT = ssd(x, dt, A, Bm, Cm, chunk=c)
+        yr, hr = ssd_ref(x, dt, A, Bm, Cm, c)
+        yn, hn = ssd_naive(x, dt, A, Bm, Cm)
         torch.cuda.synchronize()
-        dy, dh = (y.float() - yr.float()).abs(), (hT - hr).abs()
-        y_bar = B6_TOL * float(yr.float().abs().max())
-        if dtype == torch.bfloat16:   # plus one bf16 step at |y| (at most 2^-7 |y|)
-            y_bar = y_bar + 2.0 ** -7 * yr.float().abs()
-        if not torch.isfinite(y.float()).all() or bool((dy > y_bar).any()) \
-                or float(dh.max()) > B6_TOL * float(hr.abs().max()):
-            fail(f"B6 {dtype}: max |dy| {float(dy.max()):.3g}, |dhT| {float(dh.max()):.3g}")
-        b6_err[str(dtype)] = {"y": float(dy.max()), "hT": float(dh.max()),
+        ry, rh = b6_reading(y, hT, yr, hr)
+        ny, nh = b6_reading(y, hT, yn, hn)
+        py, ph = b6_reading(yr, hr, yn, hn)
+        sound = b6_reading(b6_chunkwise(x, dt, A, Bm, Cm, c, lag=0), hr, yr, hr)[0]
+        fault = b6_reading(b6_chunkwise(x, dt, A, Bm, Cm, c, lag=1), hr, yr, hr)[0]
+        b6_err[str(dtype)] = {"y": float((y.float() - yr.float()).abs().max()),
+                              "hT": float((hT - hr).abs().max()),
                               "max_y": float(yr.float().abs().max()),
-                              "max_hT": float(hr.abs().max())}
-        ins[dtype] = (x, Bm, Cm)
-        del y, hT, yr, hr, dy, dh
-    x, Bm, Cm = ins[torch.bfloat16]
-    b6_ms = graph_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=s.chunk), inner=10)
-    b6_wrapper = cuda_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=s.chunk), inner=10)
-    b6_plain = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, s.chunk), reps=3, inner=1)
+                              "max_hT": float(hr.abs().max()),
+                              "y_over_bar": ry, "hT_over_bar": rh,
+                              "vs_naive_y_over_bar": ny, "vs_naive_hT_over_bar": nh,
+                              "plain_vs_naive_y_over_bar": py,
+                              "plain_vs_naive_hT_over_bar": ph,
+                              "chunkwise_lag0_y_over_bar": sound,
+                              "late_state_fault_y_over_bar": fault}
+        if not torch.isfinite(y.float()).all() or not max(ry, rh, ny, nh) <= 1.0:
+            fail(f"B6 {dtype}: {json.dumps(b6_err[str(dtype)])}")
+        if not sound <= 1.0:
+            fail(f"B6 {dtype}: the chunk-by-chunk plain version reads {sound:.3g} "
+                 "over the bar at lag 0")
+        if not fault > 1.0:
+            fail(f"B6 {dtype}: the bar cannot see a state taken one chunk late "
+                 f"(reading {fault:.3g})")
+        del x, dt, A, Bm, Cm, y, hT, yr, hr, yn, hn
+    # Under strong decays B6 is held against ssd_naive only: there the
+    # plain version's float32 cumsum cancels (cum_t - cum_s of two values
+    # near -1e4), so its readings are logged, not gated.
+    x, dt, A, Bm, Cm = b6_inputs(dev, gen, torch.float32, strong=True)
+    y, hT = ssd(x, dt, A, Bm, Cm, chunk=c)
+    yr, hr = ssd_ref(x, dt, A, Bm, Cm, c)
+    yn, hn = ssd_naive(x, dt, A, Bm, Cm)
+    torch.cuda.synchronize()
+    ny, nh = b6_reading(y, hT, yn, hn)
+    ry, rh = b6_reading(y, hT, yr, hr)
+    py, ph = b6_reading(yr, hr, yn, hn)
+    b6_err["strong decays, float32"] = {
+        "vs_naive_y_over_bar": ny, "vs_naive_hT_over_bar": nh,
+        "vs_plain_y_over_bar": ry, "vs_plain_hT_over_bar": rh,
+        "plain_vs_naive_y_over_bar": py, "plain_vs_naive_hT_over_bar": ph}
+    if not torch.isfinite(y).all() or not torch.isfinite(hT).all() or not max(ny, nh) <= 1.0:
+        fail(f"B6 under strong decays: {json.dumps(b6_err['strong decays, float32'])}")
+    del x, dt, A, Bm, Cm, y, hT, yr, hr, yn, hn
+    x, dt, A, Bm, Cm = b6_inputs(dev, gen, torch.bfloat16)
+    b6_ms = graph_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=c), inner=10)
+    b6_wrapper = cuda_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=c), inner=10)
+    b6_plain = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, c), reps=3, inner=1)
+    # B6's CUDA kernels per call and its time split over them, from the
+    # profiler over 20 calls.  The profiler has dropped launches on an H100
+    # (it saw 12 of 15 in one full run) but never adds one, so with fewer
+    # than 20 dropped the count rounded up over 20 calls is exact; each
+    # kernel's time is per launch it saw (one launch a call).
+    n_calls = 20
+    _, ks, _ = profile_run(lambda: [ssd(x, dt, A, Bm, Cm, chunk=c) for _ in range(n_calls)])
+    b6_split = {re.search(r"ssd_\w+", k).group(0): ms / n for k, n, ms in ks if "ssd_" in k}
+    b6_count = sum(n for k, n, _ in ks if "ssd_" in k)
+    b6_kernels = -(-b6_count // n_calls)
+    if b6_kernels != ssd_cuda.kernels_per_call:
+        fail(f"B6: the profiler saw {b6_count} CUDA kernels in {n_calls} calls, the "
+             f"wrapper says {ssd_cuda.kernels_per_call} per call")
     # Bytes: x and y bf16, dt float32, B and C bf16, hT float32.  Flop: the
     # chunked algorithm at chunk c with C B^T once per (batch, chunk) (its
     # causal half), then per head the (C B^T * L)(dt x) product, the chunk
     # state and the inter-chunk term, at the bf16 tensor-core rate of the
     # inputs' type.
-    c, nc = s.chunk, -(-S // s.chunk)
+    nh, P = x.shape[2], x.shape[3]
+    N, nc = Bm.shape[-1], -(-S // c)
     tri = c * (c + 1) // 2
     b6_flops = B * nc * (2 * tri * N + nh * (2 * tri * P + 4 * c * P * N))
     b6_bytes = 2 * 2 * x.numel() + 4 * dt.numel() + 4 * nh + 2 * 2 * Bm.numel() \
         + 4 * B * nh * P * N
     b6_bound, b6_by = bound_of(b6_bytes, b6_flops, BF16_FLOP_PER_S)
-    log(f"B6 vs plain, x {tuple(x.shape)}, B/C {tuple(Bm.shape)}, chunk {s.chunk}: "
-        f"{json.dumps(b6_err)}")
-    log(f"B6 timing ({smi}): {b6_ms:.4f} ms/launch (CUDA graph replay), wrapper "
-        f"{b6_wrapper:.4f} ms/call, plain {b6_plain:.3f} ms, bound {b6_bound:.4f} ms "
-        f"({b6_by}: {b6_flops:.4g} flop, {b6_bytes} B)")
+    log(f"B6 vs plain and vs ssd_naive, x {tuple(x.shape)}, B/C {tuple(Bm.shape)}, chunk "
+        f"{c}; readings over the bar, sound and planted fault: {json.dumps(b6_err)}")
+    log(f"B6 timing ({smi}): {b6_ms:.4f} ms/call (CUDA graph replay), {b6_kernels} "
+        f"kernels per call (profiler: {b6_count} in {n_calls} calls), wrapper {b6_wrapper:.4f} ms/call, plain {b6_plain:.3f} ms, "
+        f"bound {b6_bound:.4f} ms ({b6_by}: {b6_flops:.4g} flop, {b6_bytes} B); "
+        f"by kernel (profiler) {json.dumps(b6_split)}")
     recs["B6"] = {"max_abs_err": b6_err["torch.bfloat16"]["y"], "errors": b6_err,
+                  "ms_by_kernel": b6_split,
                   "ms": b6_ms, "wrapper_ms": b6_wrapper, "plain_ms": b6_plain,
                   "bound_ms": b6_bound, "bound_by": b6_by, "library_ms": None,
+                  "kernels_per_call": b6_kernels,
                   "library": "none: no single PyTorch call runs the SSD scan"}
-    del ins, x, Bm, Cm, dt
+    del x, Bm, Cm, dt
 
     # ---- B7 at recurrentgemma-2b's RG-LRU ------------------------------- #
     W = rc.rglru.lru_width
@@ -985,9 +1103,16 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
             walls.append((time.perf_counter() - t0) * 1e3)
         device_ms, kernels, profiled = profile_run(fn)
         warm_ms = float(np.median(walls))
+        # The port's kernels, each summed over its CUDA kernels (B6 has 3).
+        ours = {label: [(n, ms) for k, n, ms in kernels if part in k]
+                for label, part in (("B5", "flash_fwd_kernel"), ("B6", "ssd_"),
+                                    ("B7", "rglru_kernel"))}
         prof[name] = {"warm_wall_ms": warm_ms, "warm_walls_ms": walls,
                       "profiled_wall_ms": profiled, "device_ms": device_ms,
                       "busy_share": device_ms / warm_ms,
+                      "by_port_kernel": {label: {"launches": sum(n for n, _ in v),
+                                                 "device_ms": sum(ms for _, ms in v)}
+                                         for label, v in ours.items() if v},
                       "kernels": len(kernels),
                       "launches": sum(n for _, n, _ in kernels),
                       "top": [{"kernel": k, "count": n, "device_ms": ms}
@@ -1051,13 +1176,39 @@ def b2_turn(src: str) -> None:
     print("b2 " + json.dumps(rec), flush=True)
 
 
+def b6_turn(src: str) -> None:
+    """``--b6 SRC``: B6's time per call at mamba2-780m's prefill shape (bf16,
+    CUDA graph replays, as phase 12 times it) from the ``repro_torch``
+    package under ``SRC``, with its reading against that tree's plain
+    version.  Run in turns from two trees it compares B6 across commits on
+    one card."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd import ssd, ssd_ref
+    smi = card()
+    _build.build("ssd")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    c = get_config("mamba2-780m").ssm.chunk
+    x, dt, A, Bm, Cm = b6_inputs(dev, gen, torch.bfloat16)
+    y, hT = ssd(x, dt, A, Bm, Cm, chunk=c)
+    yr, hr = ssd_ref(x, dt, A, Bm, Cm, c)
+    ry, rh = b6_reading(y, hT, yr, hr)
+    del y, hT, yr, hr
+    ms = graph_ms(lambda: ssd(x, dt, A, Bm, Cm, chunk=c), inner=10)
+    print("b6 " + json.dumps({"src": src, "card": smi, "ms": ms, "y_over_bar": ry,
+                              "hT_over_bar": rh}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
                          "runs only on the card")
-    if sys.argv[1:2] == ["--b2"] and len(sys.argv) == 3:
+    turns = {"--b2": b2_turn, "--b6": b6_turn}
+    if sys.argv[1:2] and sys.argv[1] in turns and len(sys.argv) == 3:
         sys.path.insert(0, sys.argv[2])
-        b2_turn(sys.argv[2])
+        turns[sys.argv[1]](sys.argv[2])
         return
     lm_only = sys.argv[1:] == ["--lm"]
     if len(sys.argv) > 1 and not lm_only:

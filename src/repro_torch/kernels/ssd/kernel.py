@@ -2,9 +2,10 @@
 
 Replaces ``src/repro/kernels/ssd/kernel.py::ssd_pallas``.  The library is
 built and loaded at the first launch, never at import.  :func:`ssd_cuda`
-checks its operands, launches on PyTorch's current stream without
-synchronising, raises on a refused launch, and adds one to
-``ssd_cuda.launches`` per launch.
+checks its operands, allocates the chunk-state scratch, launches the three
+kernels of one scan (chunk states, state passing, chunk outputs) on
+PyTorch's current stream without synchronising, raises on a refused
+launch, and adds one to ``ssd_cuda.launches`` per scan.
 """
 from __future__ import annotations
 
@@ -18,13 +19,19 @@ from repro_torch.kernels import _build
 
 #: The (head_dim, state_dim) the kernel is built for (mamba2's).
 HEAD_DIM, STATE_DIM = 64, 128
+#: The kernels' own chunk length (``Q`` in ``csrc/ssd.cu``); it changes
+#: only rounding, and sizes the scratch.
+CHUNK = 256
 
 
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = _build.load("ssd")
-    lib.ssd_run.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.ssd_run.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.ssd_run.restype = ctypes.c_int
+    lib.ssd_chunk_len.restype = ctypes.c_int
+    if lib.ssd_chunk_len() != CHUNK:
+        raise RuntimeError(f"ssd.cu's chunk {lib.ssd_chunk_len()} != CHUNK {CHUNK}")
     lib.ssd_error_string.argtypes = [ctypes.c_int]
     lib.ssd_error_string.restype = ctypes.c_char_p
     return lib
@@ -32,10 +39,11 @@ def _library() -> ctypes.CDLL:
 
 def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
              C_: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch: x (B, L, H, 64), B_/C_ (B, L, 128) contiguous, all bf16
-    or all float32; dt (B, L, H) and A (H,) float32; all on one CUDA
-    device.  Returns (y (B, L, H, 64) in x's type, hT (B, H, 64, 128)
-    float32).  The kernel picks its own chunk length, which changes only
+    """One scan, ``kernels_per_call`` launches: x (B, L, H, 64), B_/C_
+    (B, L, 128) contiguous, all bf16 or all float32; dt (B, L, H) and A
+    (H,) float32; all on one CUDA device; x, B_, C_ 16-byte aligned.  Returns
+    (y (B, L, H, 64) in x's type, hT (B, H, 64, 128) float32).  The
+    kernels use their own chunk length, ``CHUNK``, which changes only
     rounding."""
     Bsz, L, H, P = x.shape if x.dim() == 4 else (0, 0, 0, 0)
     want = {"x": (x, x.dtype, (Bsz, L, H, HEAD_DIM)),
@@ -45,10 +53,11 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tenso
             "C_": (C_, x.dtype, (Bsz, L, STATE_DIM))}
     for name, (t, dtype, shape) in want.items():
         if not t.is_cuda or t.device != x.device or t.dtype != dtype \
-                or tuple(t.shape) != shape or not t.is_contiguous():
+                or tuple(t.shape) != shape or not t.is_contiguous() \
+                or (name in ("x", "B_", "C_") and t.data_ptr() % 16):
             raise ValueError(f"ssd_cuda: {name} must be a contiguous {dtype} {shape} "
-                             f"tensor on x's CUDA device, got {t.dtype} "
-                             f"{tuple(t.shape)} on {t.device}")
+                             f"tensor on x's CUDA device (x, B_, C_ 16-byte aligned), "
+                             f"got {t.dtype} {tuple(t.shape)} on {t.device}")
     if x.dtype not in (torch.bfloat16, torch.float32) or min(Bsz, L, H) < 1 \
             or Bsz > 65535:
         raise ValueError(f"ssd_cuda: x {x.dtype} {tuple(x.shape)}: bf16 or float32, "
@@ -56,9 +65,17 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tenso
     y = torch.empty_like(x)
     h_last = torch.empty((Bsz, H, HEAD_DIM, STATE_DIM), dtype=torch.float32,
                          device=x.device)
+    nc = -(-L // CHUNK)
+    # Each chunk's own state, and the state entering it as bf16 hi and lo.
+    states = torch.empty((Bsz, nc, H, HEAD_DIM, STATE_DIM), dtype=torch.float32,
+                         device=x.device)
+    entering = torch.empty((Bsz, nc, H, 2, HEAD_DIM, STATE_DIM), dtype=torch.bfloat16,
+                           device=x.device)
+    totals = torch.empty((Bsz, nc, H), dtype=torch.float32, device=x.device)
     lib = _library()
     err = lib.ssd_run(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-                      C_.data_ptr(), y.data_ptr(), h_last.data_ptr(), Bsz, L, H,
+                      C_.data_ptr(), y.data_ptr(), h_last.data_ptr(), states.data_ptr(),
+                      entering.data_ptr(), totals.data_ptr(), Bsz, L, H,
                       int(x.dtype == torch.bfloat16),
                       torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
@@ -68,5 +85,7 @@ def ssd_cuda(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tenso
     return y, h_last
 
 
-#: Launches of the kernel since the count was last set to 0.
+#: Scans launched since the count was last set to 0 (one per call).
 ssd_cuda.launches = 0
+#: CUDA kernels launched per call.
+ssd_cuda.kernels_per_call = 3

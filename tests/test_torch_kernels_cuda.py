@@ -1,6 +1,7 @@
 """B5, B6 and B7 on the card against their plain versions at shapes the
 serving path does not reach (ragged lengths, other head widths and group
-sizes, float32 SSD inputs), and the wrappers' launch counts and refusals.
+sizes, float32 SSD inputs, B6 under strong decays), and the wrappers'
+launch counts and refusals.
 These tests need a CUDA card and ``nvcc``; without one they skip.  Run
 them on the card with
 
@@ -10,7 +11,8 @@ Bars: B5 within one bf16 step of |want| plus 2^-5 of the RMS of want's
 (batch, position, head) row, the bar of ``chip_smoke.py`` phase 12 (set
 from the readings of sound runs and planted faults there; PERF.md);
 B6 within 3e-4 of the largest magnitude (``tests/test_kernels.py:92``),
-plus one bf16 step of y for bf16 inputs; B7 within 1e-5
+plus one bf16 step of y for bf16 inputs, against its plain version, and
+under strong decays against the step-by-step recurrence; B7 within 1e-5
 (``tests/test_kernels.py:103``).
 """
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.rglru import rglru, rglru_cuda, rglru_ref
-from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_ref
+from repro_torch.kernels.ssd import ssd, ssd_cuda, ssd_naive, ssd_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -56,7 +58,29 @@ def test_flash_attention_matches_plain(gen, B, S, H, Hkv, hd, causal, window):
     assert bool(torch.isfinite(got).all()) and excess <= B5_ROW_TOL, excess
 
 
-@pytest.mark.parametrize("B,L,H", [(1, 1, 1), (2, 31, 3), (1, 300, 48)])
+def _ssd_holds_the_bar(x, dt, A, Bm, Cm, oracle="plain"):
+    """B6 within its bar of the plain version, or of the step-by-step
+    recurrence ``ssd_naive`` (independent of the chunked algorithm)."""
+    before = ssd_cuda.launches
+    y, h = ssd(x, dt, A, Bm, Cm, chunk=256)
+    assert ssd_cuda.launches == before + 1 and y.dtype == x.dtype
+    if oracle == "plain":
+        yr, hr = ssd_ref(x, dt, A, Bm, Cm, 256)
+    else:
+        yr, hr = ssd_naive(x, dt, A, Bm, Cm)
+    bar = 3e-4 * yr.float().abs().max()
+    if x.dtype == torch.bfloat16:
+        bar = bar + 2.0 ** -7 * yr.float().abs()
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
+    assert bool(((y.float() - yr.float()).abs() <= bar).all())
+    assert float((h - hr).abs().max()) <= 3e-4 * float(hr.abs().max())
+
+
+# Lengths from 1 up to several chunks of the kernels' 256 steps, with ragged
+# tails (1100, 513, 300), one chunk exactly (256), and head counts that
+# are not a multiple of the kernels' head groups (3, 5, 11) at B > 1.
+@pytest.mark.parametrize("B,L,H", [(1, 1, 1), (2, 31, 3), (1, 300, 48), (1, 1100, 48),
+                                   (2, 513, 5), (1, 256, 4), (3, 300, 11)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ssd_matches_plain(gen, B, L, H, dtype):
     x = torch.randn((B, L, H, 64), generator=gen, device="cuda").to(dtype)
@@ -64,15 +88,22 @@ def test_ssd_matches_plain(gen, B, L, H, dtype):
     A = -torch.linspace(1.0, 16.0, H, device="cuda")
     Bm = torch.randn((B, L, 128), generator=gen, device="cuda").to(dtype)
     Cm = torch.randn((B, L, 128), generator=gen, device="cuda").to(dtype)
-    before = ssd_cuda.launches
-    y, h = ssd(x, dt, A, Bm, Cm, chunk=256)
-    assert ssd_cuda.launches == before + 1 and y.dtype == dtype
-    yr, hr = ssd_ref(x, dt, A, Bm, Cm, 256)
-    bar = 3e-4 * yr.float().abs().max()
-    if dtype == torch.bfloat16:
-        bar = bar + 2.0 ** -7 * yr.float().abs()
-    assert bool(((y.float() - yr.float()).abs() <= bar).all())
-    assert float((h - hr).abs().max()) <= 3e-4 * float(hr.abs().max())
+    _ssd_holds_the_bar(x, dt, A, Bm, Cm)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_strong_decay_gives_no_nan(gen, dtype):
+    """dt up to 5 at A = -16: the chunk's cumsum reaches -1e4 and most decays
+    underflow to 0, which must give no NaN and still hold the bar against
+    the step-by-step recurrence, whose decays are each taken from one step's
+    dt and so lose nothing to the cumsum's cancellation."""
+    B, L, H = 1, 700, 6
+    x = torch.randn((B, L, H, 64), generator=gen, device="cuda").to(dtype)
+    dt = torch.rand((B, L, H), generator=gen, device="cuda") * 5.0
+    A = torch.full((H,), -16.0, device="cuda")
+    Bm = torch.randn((B, L, 128), generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn((B, L, 128), generator=gen, device="cuda").to(dtype)
+    _ssd_holds_the_bar(x, dt, A, Bm, Cm, oracle="naive")
 
 
 @pytest.mark.parametrize("B,L,W", [(1, 1, 1), (3, 17, 100), (2, 40, 2560)])
