@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b2 SRC    # B2's time alone, from another src tree
+    python3 chip_smoke.py --b5 SRC    # B5's time alone, from another src tree
     python3 chip_smoke.py --b6 SRC    # B6's time alone, from another src tree
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
@@ -83,8 +84,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     B7;
 15. profiles one prefill (4 x 4096 tokens) and one decode step of each
     model: device time by kernel, B5-B7 each summed over its CUDA kernels
-    (B6 launches 3 per call), and the busy share against the median wall
-    of warm runs (printed after 13 and after 14).
+    (B5 ``flash_fwd_wgmma``, B6 3 per call, B7 ``rglru_kernel``), and the
+    busy share against the median wall of warm runs (printed after 13 and
+    after 14).
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -96,9 +98,9 @@ CUDA device is visible.
 
 ``--b2 SRC`` times kernel B2 alone (as phases 6 and 9 do) from the
 ``repro_torch`` package under ``SRC`` and prints one ``b2 {...}`` line;
-``--b6 SRC`` does the same for B6 (as phase 12 does; a ``b6 {...}``
-line).  Run in turns from two trees they compare a kernel across commits
-on one card.
+``--b5 SRC`` and ``--b6 SRC`` do the same for B5 and B6 (as phase 12
+does; a ``b5 {...}`` or ``b6 {...}`` line).  Run in turns from two trees
+they compare a kernel across commits on one card.
 ``--lm`` runs phases 1 and 12-15 only (the LM path), for work on it.
 """
 from __future__ import annotations
@@ -662,10 +664,8 @@ def lm_kernels(dev, smi: str) -> dict:
 
     # ---- B5 at recurrentgemma-2b's local attention ---------------------- #
     rc = get_config("recurrentgemma-2b")
-    H, Hkv, hd, win = rc.n_heads, rc.n_kv_heads, rc.hd, rc.swa_window
-    q = randn(B, S, H, hd, dtype=torch.bfloat16)
-    k = randn(B, S, Hkv, hd, dtype=torch.bfloat16)
-    v = randn(B, S, Hkv, hd, dtype=torch.bfloat16)
+    q, k, v, win = b5_inputs(dev, gen)
+    H, hd = rc.n_heads, rc.hd
     got = flash_attention(q, k, v, causal=True, window=win).float()
     want = flash_attention_ref(q, k, v, causal=True, window=win).float()
     torch.cuda.synchronize()
@@ -1105,7 +1105,7 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
         warm_ms = float(np.median(walls))
         # The port's kernels, each summed over its CUDA kernels (B6 has 3).
         ours = {label: [(n, ms) for k, n, ms in kernels if part in k]
-                for label, part in (("B5", "flash_fwd_kernel"), ("B6", "ssd_"),
+                for label, part in (("B5", "flash_fwd_wgmma"), ("B6", "ssd_"),
                                     ("B7", "rglru_kernel"))}
         prof[name] = {"warm_wall_ms": warm_ms, "warm_walls_ms": walls,
                       "profiled_wall_ms": profiled, "device_ms": device_ms,
@@ -1176,6 +1176,41 @@ def b2_turn(src: str) -> None:
     print("b2 " + json.dumps(rec), flush=True)
 
 
+def b5_inputs(dev, gen) -> tuple:
+    """B5's operands at recurrentgemma-2b's local attention in phase 12 (q
+    (LM_BATCH, LM_PROMPT, 10, 256), k/v (LM_BATCH, LM_PROMPT, 1, 256) bf16)
+    and its window."""
+    from repro_torch.configs import get_config
+    rc = get_config("recurrentgemma-2b")
+    q, k, v = (torch.randn((LM_BATCH, LM_PROMPT, n, rc.hd), generator=gen,
+                           device=dev).to(torch.bfloat16)
+               for n in (rc.n_heads, rc.n_kv_heads, rc.n_kv_heads))
+    return q, k, v, rc.swa_window
+
+
+def b5_turn(src: str) -> None:
+    """``--b5 SRC``: B5's time per call at phase 12's shape (CUDA graph
+    replays, as phase 12 times it) from the ``repro_torch`` package under
+    ``SRC``, with its reading against that tree's plain version (beyond one
+    bf16 step, in row-RMS units, as phase 12 reads it).  Run in turns from two trees it compares B5 across
+    commits on one card."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_ref
+    smi = card()
+    _build.build("flash_attention")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q, k, v, win = b5_inputs(dev, gen)
+    got = flash_attention(q, k, v, causal=True, window=win)
+    want = flash_attention_ref(q, k, v, causal=True, window=win)
+    excess = float(row_excess(got, want).max())
+    del got, want
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=True, window=win), inner=10)
+    print("b5 " + json.dumps({"src": src, "card": smi, "ms": ms, "row_rms_excess": excess}),
+          flush=True)
+
+
 def b6_turn(src: str) -> None:
     """``--b6 SRC``: B6's time per call at mamba2-780m's prefill shape (bf16,
     CUDA graph replays, as phase 12 times it) from the ``repro_torch``
@@ -1205,7 +1240,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
                          "runs only on the card")
-    turns = {"--b2": b2_turn, "--b6": b6_turn}
+    turns = {"--b2": b2_turn, "--b5": b5_turn, "--b6": b6_turn}
     if sys.argv[1:2] and sys.argv[1] in turns and len(sys.argv) == 3:
         sys.path.insert(0, sys.argv[2])
         turns[sys.argv[1]](sys.argv[2])

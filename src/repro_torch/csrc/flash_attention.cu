@@ -10,274 +10,634 @@
 // recurrentgemma-2b's prefill shape (B 4, S 4096, 10 query heads on one KV
 // head, hd 256, causal, window 2048) that is about 2.6e11 flop, 0.26 ms on
 // the bf16 tensor cores (989 TFLOP/s), against about 0.06 ms for the
-// 210 MB of q, k, v and out.
+// 185 MB of q, k, v and out.
 //
-// Design.  One block of 4 warps owns 64 "rows" of one (batch, KV head):
-// the query rows of all G heads that share that KV head, in (position,
-// head) order, so one staged K/V tile serves G query heads at once (the
-// TPU kernel re-reads it per head).  Each warp owns 16 rows.  The block
-// walks the key tiles of 64 keys that hold a live key for any of its rows
-// (below the causal diagonal, inside the window) and skips the rest, as
-// the TPU kernel's pl.when does, so the window costs O(S * window).
-// Scores and the output go through the tensor cores with
-// mma.sync.m16n8k16 (bf16 operands, float32 sums); the score tile stays in
-// registers and is reused, rounded to bf16, as the A operand of P @ V.
-// Q, K and V tiles sit in dynamic shared memory (101 376 B at hd 256), rows
-// padded by 16 B so the fragment loads hit distinct banks.  The softmax
-// follows the TPU kernel's order and its finite NEG_INF = -1e30: a row
-// whose keys in a tile are all masked gets exp(0) = 1 entries that the
-// first unmasked key wipes (alpha = exp(-1e30 - m) = 0); keys past the end
-// of the sequence, which the TPU kernel never has, get -inf and weight 0.
-// wgmma, TMA and warp specialisation are left for a later change.
+// Design, after FlashAttention-3's forward.  One block of three warpgroups
+// per (batch, query head, 128-query tile); the grid puts the H heads of one
+// (batch, tile) side by side, so they run together and share each K/V tile
+// through L2, and the highest (longest) tiles first.  Warpgroup 0 is the
+// producer: after setmaxnreg.dec one thread starts TMA loads of the Q tile
+// and then of the K and V tiles of 64 keys into a two-stage ring, each
+// stage with its own full and empty mbarrier for K and for V.  It walks
+// only the key tiles that hold a live key for some row of the block (the
+// TPU kernel's pl.when skip), so a window costs O(S * window).
+// Warpgroups 1 and 2 (setmaxnreg.inc) each own 64 query rows: S = Q K^T by
+// wgmma.m64n64k16 with Q and K in shared memory, scale and online softmax
+// in registers, and O += P V by wgmma.m64n{HDP}k16 with P, rounded to
+// bf16, as the register A operand and V read from shared memory as a
+// transposed (MN-major) B operand; float32 accumulators.  Within a
+// warpgroup the next tile's Q K^T goes out before this tile's P V, so the
+// softmax of one runs while the tensor cores do the other.  A warpgroup
+// skips the tiles that are dead for all of its rows (exact: such a tile
+// adds weights of 0, or weights that a later alpha = 0 wipes) and masks
+// only the tiles that the causal diagonal, the window edge or the end of
+// the sequence cuts.  The output goes through shared memory (the Q tile's
+// place) and out by TMA stores.
+//
+// What this does about the limits of the earlier mma.sync design: V's
+// B operand was gathered two bytes at a time, and is now read by the
+// tensor cores from shared memory (transpose bit); no copy was in flight
+// while the tensor cores worked, and now the producer keeps the next K and
+// V tiles in flight; mma.sync gave way to wgmma; a block held 6.4
+// positions of G heads and re-read each K/V tile per block, and now 128
+// positions of one head, with the heads that share a KV head adjacent in
+// the grid.
+//
+// Layout: every tile arrives by TMA with the 128-byte swizzle, hd split in
+// panels of 64 columns (128 B rows, the swizzle's widest box), so a tile of
+// R rows is HDP / 64 panels of R x 128 B.  The wgmma descriptors match it:
+// Q and K K-major (SBO 1024 B between 8-row groups; a 16-column k step
+// advances 32 B within the panel), V MN-major (LBO = one panel between
+// 64-column blocks of hd, SBO 1024 B between 8-key groups).  hd below the
+// padded width HDP (64, 128 or 256) and rows past S arrive as zeros; the
+// TMA store writes only columns below hd and rows below S.
+//
+// Numerics, as the mma.sync design and the TPU kernel have them: a masked
+// score is the finite NEG_INF = -1e30, so a row whose keys in a tile are
+// all masked gets weights exp(0) = 1 that its first live key wipes (alpha =
+// exp(NEG_INF - m) = 0); a key at or past S, which the TPU kernel never
+// has, gets -inf and weight 0; alpha = exp(m_prev - m_new); P is rounded to
+// bf16 before P V while l sums the unrounded weights; out = O / max(l,
+// 1e-20).  Exponentials are taken base 2 on scores scaled by
+// scale * log2(e) (ex2.approx), which is the same function.
+#include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's type; libcuda is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <stdio.h>
 
 namespace {
 
-constexpr int WARPS = 4;
-constexpr int THREADS = WARPS * 32;
-constexpr int BM = WARPS * 16;  // rows per block
-constexpr int BK = 64;          // keys per tile
+constexpr int BM = 128;         // query rows per block: two consumer warpgroups of 64
+constexpr int BN = 64;          // keys per tile
+constexpr int STAGES = 2;       // depth of the K and V rings
+constexpr int PANEL = 64;       // bf16 columns per 128-byte swizzled panel
+constexpr int ROW_BYTES = 128;  // one panel row
+constexpr int THREADS = 384;    // producer warpgroup + two consumer warpgroups
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
+// Shared memory, from a 1024-byte aligned base (the swizzle repeats every
+// 8 rows of 128 B): the Q tile (later the output tile), STAGES K tiles,
+// STAGES V tiles, then the mbarriers.
 template <int HDP>
-__host__ __device__ constexpr int stride() { return HDP + 8; }  // bf16 elements per smem row
+struct Smem {
+  static constexpr int PANELS = HDP / PANEL;
+  static constexpr uint32_t Q_PANEL = BM * ROW_BYTES;
+  static constexpr uint32_t KV_PANEL = BN * ROW_BYTES;
+  static constexpr uint32_t Q_BYTES = PANELS * Q_PANEL;
+  static constexpr uint32_t KV_BYTES = PANELS * KV_PANEL;  // one K or V tile
+  static constexpr uint32_t K_OFF = Q_BYTES;
+  static constexpr uint32_t V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr uint32_t BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr size_t bytes = BAR_OFF + 16 * 8 + 1024;  // barriers, alignment slack
+};
 
-template <int HDP>
-__host__ __device__ constexpr size_t smem_bytes() {
-  return static_cast<size_t>(BM + 2 * BK) * stride<HDP>() * sizeof(__nv_bfloat16);
+// mbarriers: Q full, then per stage K full, V full, K empty, V empty.
+constexpr int BAR_Q = 0;
+constexpr int BAR_K_FULL = 1;
+constexpr int BAR_V_FULL = BAR_K_FULL + STAGES;
+constexpr int BAR_K_EMPTY = BAR_V_FULL + STAGES;
+constexpr int BAR_V_EMPTY = BAR_K_EMPTY + STAGES;
+constexpr int CONSUMER_WARPS = 8;  // each arrives once on an empty barrier
+
+// ---- PTX helpers ----------------------------------------------------------- //
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-__device__ __forceinline__ uint32_t pack_f2(float lo, float hi) {
-  return pack2(__float2bfloat16_rn(lo), __float2bfloat16_rn(hi));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
 }
 
-// d += a * b for one 16x8x16 tile (row-major A, column-major B).
-__device__ __forceinline__ void mma(float (&d)[4], uint32_t a0, uint32_t a1,
-                                    uint32_t a2, uint32_t a3, uint32_t b0,
-                                    uint32_t b1) {
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// TMA: box (c0 column, c1 head, c2 row, c3 batch) of a (B, S, heads, hd)
+// tensor into shared memory at dst, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2), "r"(c3)
+      : "memory");
 }
 
-// Stage `rows` rows of a (B, S, heads, hd) tensor into smem, 16 B at a
-// time, zero past `hd` and past the last row.  `src_row(i)` is the element
-// offset of row i, or -1 for a row that does not exist.
-template <int HDP, typename RowFn>
-__device__ __forceinline__ void stage(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                      int rows, int hd, RowFn src_row) {
-  constexpr int CH = HDP / 8;
-  for (int i = threadIdx.x; i < rows * CH; i += THREADS) {
-    const int row = i / CH, c = (i % CH) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    const long long off = src_row(row);
-    if (off >= 0 && c < hd) val = *reinterpret_cast<const uint4*>(src + off + c);
-    *reinterpret_cast<uint4*>(dst + row * stride<HDP>() + c) = val;
-  }
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
 }
+
+__device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int PENDING>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// Pins registers that a wgmma writes asynchronously: after a wait, no read
+// of them may move above it.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// ---- wgmma ----------------------------------------------------------------- //
+
+// d (+)= A B for m64n64k16: A (64 x 16) and B (64 x 16), both K-major
+// in shared memory (descriptors); d is overwritten when `accumulate` is 0.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A B for m64n64k16: A (64 x 16) from registers (mma.sync's A
+// fragment layout, warp w holding rows 16w..16w+15), B (16 x 64) MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for m64n128k16: A (64 x 16) from registers (mma.sync's A
+// fragment layout, warp w holding rows 16w..16w+15), B (16 x 128) MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A B for m64n256k16: A (64 x 16) from registers (mma.sync's A
+// fragment layout, warp w holding rows 16w..16w+15), B (16 x 256) MN-major
+// in shared memory (transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      " {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      :
+      "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+      "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+      "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+      "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+      "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+      "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+      "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// O += P V for one 16-key step: the output width HDP in one instruction.
+template <int HDP>
+__device__ __forceinline__ void wgmma_pv(float (&o)[HDP / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (HDP == 64) wgmma_rs_n64(o, a, db);
+  else if constexpr (HDP == 128) wgmma_rs_n128(o, a, db);
+  else wgmma_rs_n256(o, a, db);
+}
+
+// ---- the kernel -------------------------------------------------------------- //
 
 template <int HDP>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                 const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                 int S, int H, int Hkv, int hd, int causal, int window, float scale) {
-  constexpr int STR = stride<HDP>();
-  constexpr int NT = HDP / 8;  // 8-wide output column tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ks = Qs + BM * STR;
-  __nv_bfloat16* Vs = Ks + BK * STR;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_o,
+                int B, int S, int H, int Hkv, int causal, int window, float scale_log2) {
+  using L = Smem<HDP>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);  // the same place, generic address
+  const uint32_t sq = base, sk = base + L::K_OFF, sv = base + L::V_OFF;
+  const uint32_t bars = base + L::BAR_OFF;
+  auto bar = [&](int i) -> uint32_t { return bars + 8u * i; };
 
-  const int G = H / Hkv;
-  const int hk = blockIdx.y, b = blockIdx.z;
-  const long long R = static_cast<long long>(S) * G;  // rows of this (b, hk)
-  const long long r0 = static_cast<long long>(blockIdx.x) * BM;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tq = lane & 3;
-
-  auto q_row = [&](int i) -> long long {
-    const long long r = r0 + i;
-    if (r >= R) return -1;
-    const long long pos = r / G;
-    return ((static_cast<long long>(b) * S + pos) * H + hk * G + r % G) * hd;
-  };
-  stage<HDP>(Qs, q, BM, hd, q_row);
-
-  // Positions of this thread's two rows (row g and g + 8 of its warp);
-  // rows past the end borrow the last position and are never stored.
-  long long rr[2];
-  int pos[2];
-  for (int h = 0; h < 2; ++h) {
-    rr[h] = r0 + warp * 16 + g + 8 * h;
-    pos[h] = static_cast<int>((rr[h] < R ? rr[h] : R - 1) / G);
-  }
-  const int w_lo = static_cast<int>(min(r0 + warp * 16, R - 1) / G);
-  const int w_hi = static_cast<int>(min(r0 + warp * 16 + 15, R - 1) / G);
-  const int p_lo = static_cast<int>(r0 / G);
-  const int p_hi = static_cast<int>(min(r0 + BM - 1, R - 1) / G);
+  // Work unit: heads fastest, then batch, then query tiles from the last.
+  const int nq = (S + BM - 1) / BM;
+  int idx = blockIdx.x;
+  const int h = idx % H;
+  idx /= H;
+  const int b = idx % B;
+  const int q0 = (nq - 1 - idx / B) * BM;
+  const int hk = h / (H / Hkv);
 
   // Key tiles holding a live key for some row of the block.
-  int k_lo = 0;
-  if (window > 0) k_lo = max(0, p_lo - window + 1);
-  const int k_hi = causal ? p_hi : S - 1;
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(q0 + BM - 1, S - 1) : S - 1;
+  const int t_first = k_lo / BN;
+  const int n_tiles = k_hi / BN - t_first + 1;
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
-  float m_run[2] = {NEG_INF, NEG_INF};
-  float l_run[2] = {0.0f, 0.0f};
-  const int qrow = warp * 16 + g;
+  if (threadIdx.x == 0) {
+    mbar_init(bar(BAR_Q), 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar(BAR_K_FULL + s), 1);
+      mbar_init(bar(BAR_V_FULL + s), 1);
+      mbar_init(bar(BAR_K_EMPTY + s), CONSUMER_WARPS);
+      mbar_init(bar(BAR_V_EMPTY + s), CONSUMER_WARPS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  for (int kt = (k_lo / BK) * BK; kt <= k_hi; kt += BK) {
-    __syncthreads();  // Q staged; the previous tile's K/V no longer read
-    auto kv_row = [&](int i) -> long long {
-      const int key = kt + i;
-      if (key >= S) return -1;
-      return ((static_cast<long long>(b) * S + key) * Hkv + hk) * hd;
-    };
-    stage<HDP>(Ks, k, BK, hd, kv_row);
-    stage<HDP>(Vs, v, BK, hd, kv_row);
-    __syncthreads();
-
-    // This warp's rows see no live key in the tile: skip it (exact, as the
-    // TPU kernel's block skip is).
-    if ((causal && kt > w_hi) || (window > 0 && w_lo - (kt + BK - 1) >= window)) continue;
-
-    // Scores S = Q K^T for 16 rows x 64 keys.
-    float s[BK / 8][4];
-#pragma unroll
-    for (int j = 0; j < BK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll 4
-    for (int kk = 0; kk < HDP / 16; ++kk) {
-      const __nv_bfloat16* qa = Qs + qrow * STR + kk * 16 + 2 * tq;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * STR);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * STR + 8);
-#pragma unroll
-      for (int j = 0; j < BK / 8; ++j) {
-        const __nv_bfloat16* kb = Ks + (j * 8 + g) * STR + kk * 16 + 2 * tq;
-        mma(s[j], a0, a1, a2, a3, ld32(kb), ld32(kb + 8));
+  if (threadIdx.x < 128) {
+    // ---- producer ---------------------------------------------------------- //
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      prefetch_map(&tm_q);
+      prefetch_map(&tm_k);
+      prefetch_map(&tm_v);
+      mbar_expect_tx(bar(BAR_Q), L::Q_BYTES);
+      for (int p = 0; p < L::PANELS; ++p)
+        for (int half = 0; half < 2; ++half)
+          tma_load(sq + p * L::Q_PANEL + half * 64 * ROW_BYTES, &tm_q, bar(BAR_Q), p * PANEL,
+                   h, q0 + 64 * half, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        const uint32_t par = ((j / STAGES) & 1) ^ 1;  // the first pass finds the stage free
+        const int key = (t_first + j) * BN;
+        mbar_wait(bar(BAR_K_EMPTY + s), par);
+        mbar_expect_tx(bar(BAR_K_FULL + s), L::KV_BYTES);
+        for (int p = 0; p < L::PANELS; ++p)
+          tma_load(sk + s * L::KV_BYTES + p * L::KV_PANEL, &tm_k, bar(BAR_K_FULL + s),
+                   p * PANEL, hk, key, b);
+        mbar_wait(bar(BAR_V_EMPTY + s), par);
+        mbar_expect_tx(bar(BAR_V_FULL + s), L::KV_BYTES);
+        for (int p = 0; p < L::PANELS; ++p)
+          tma_load(sv + s * L::KV_BYTES + p * L::KV_PANEL, &tm_v, bar(BAR_V_FULL + s),
+                   p * PANEL, hk, key, b);
       }
     }
+    return;
+  }
 
-    // Scale and mask, then the online softmax update of both rows.
+  // ---- consumers: warpgroup c owns rows q0 + 64 c .. q0 + 64 c + 63 -------- //
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+  // The warpgroup and warp from a shuffle, so the compiler sees them
+  // uniform across the warp (wgmma in a path it thinks divergent is
+  // serialized).
+  const int c = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0) - 1;
+  const int warp = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 32, 0) % 4;
+  const int tid = threadIdx.x % 128, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int r_lo = q0 + 64 * c;
+  const int r_hi = min(r_lo + 63, S - 1);
+  const int pos0 = r_lo + 16 * warp + g;  // this thread's rows: pos0 and pos0 + 8
+
+  // This warpgroup's live tiles, i_lo..i_hi of the block's 0..n_tiles-1
+  // (none when all its rows lie past S).
+  int i_lo = n_tiles, i_hi = -1;
+  if (r_lo < S) {
+    const int lo_key = window > 0 ? max(0, r_lo - window + 1) : 0;
+    i_lo = lo_key / BN - t_first;
+    i_hi = (causal ? r_hi : S - 1) / BN - t_first;
+  }
+
+  float o[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.0f;
+  float sc[BN / 2];            // this thread's scores of the 64 x 64 tile, then weights
+  uint32_t pa[BN / 16][4];     // the weights in bf16, as A fragments of P V
+  float m_run[2] = {NEG_INF, NEG_INF};
+  float l_run[2] = {0.0f, 0.0f};  // partial: this thread's columns only
+  const uint32_t q_rows = sq + c * 64 * ROW_BYTES;
+
+  auto start_qk = [&](int s) {
+    const uint32_t kb = sk + s * L::KV_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < HDP / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 columns of the 128-byte row
+      wgmma_ss_n64(sc, sw128_desc(q_rows + (kk / 4) * L::Q_PANEL + off, 16, 1024),
+                   sw128_desc(kb + (kk / 4) * L::KV_PANEL + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+  };
+  auto start_pv = [&](int s) {
+    const uint32_t vb = sv + s * L::KV_BYTES;
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk)
+      wgmma_pv<HDP>(o, pa[kk], sw128_desc(vb + kk * 16 * ROW_BYTES, L::KV_PANEL, 1024));
+    wg_commit();
+  };
+
+  auto release = [&](int base_bar, int i) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar(base_bar + i % STAGES));
+  };
+  auto wait_full = [&](int base_bar, int i) {
+    mbar_wait(bar(base_bar + i % STAGES), (i / STAGES) & 1);
+  };
+  // A dead tile: K and V released unread, each after it lands, so the empty
+  // barriers' phases stay in order.
+  auto skip = [&](int i) {
+    wait_full(BAR_K_FULL, i);
+    release(BAR_K_EMPTY, i);
+    wait_full(BAR_V_FULL, i);
+    release(BAR_V_EMPTY, i);
+  };
+  // Scores of tile i (in sc) to weights: scale, mask a tile that the
+  // diagonal, the window edge or the end of the sequence cuts, and update
+  // the running max and sum; returns each row's alpha in `alpha`.
+  auto softmax = [&](int i, float (&alpha)[2]) {
+    const int kt = (t_first + i) * BN;
+    const bool cut = (causal && kt + BN - 1 > r_lo) || (window > 0 && r_hi - kt >= window) ||
+                     kt + BN > S;
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) sc[e] *= scale_log2;
+    if (cut) {
+#pragma unroll
+      for (int e = 0; e < BN / 2; ++e) {
+        const int key = kt + 8 * (e / 4) + 2 * tq + (e & 1);
+        const int pos = pos0 + 8 * ((e / 2) & 1);
+        if (key >= S) sc[e] = -CUDART_INF_F;
+        else if ((causal && key > pos) || (window > 0 && pos - key >= window)) sc[e] = NEG_INF;
+      }
+    }
     float m_cur[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
+    for (int e = 0; e < BN / 2; ++e) m_cur[(e / 2) & 1] = fmaxf(m_cur[(e / 2) & 1], sc[e]);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const int key = kt + j * 8 + 2 * tq + (e & 1);
-        float val;
-        if (key >= S) {
-          val = -CUDART_INF_F;
-        } else {
-          const bool live = (!causal || key <= pos[h]) &&
-                            (window <= 0 || pos[h] - key < window);
-          val = live ? s[j][e] * scale : NEG_INF;
-        }
-        s[j][e] = val;
-        m_cur[h] = fmaxf(m_cur[h], val);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_cur[h] = fmaxf(m_cur[h], __shfl_xor_sync(0xffffffffu, m_cur[h], 1));
-      m_cur[h] = fmaxf(m_cur[h], __shfl_xor_sync(0xffffffffu, m_cur[h], 2));
-      const float m_new = fmaxf(m_run[h], m_cur[h]);
-      alpha[h] = expf(m_run[h] - m_new);
-      m_run[h] = m_new;
+    for (int r = 0; r < 2; ++r) {
+      m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 1));
+      m_cur[r] = fmaxf(m_cur[r], __shfl_xor_sync(0xffffffffu, m_cur[r], 2));
+      const float m_new = fmaxf(m_run[r], m_cur[r]);
+      alpha[r] = ex2(m_run[r] - m_new);
+      m_run[r] = m_new;
     }
     float l_cur[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int j = 0; j < BK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        s[j][e] = expf(s[j][e] - m_run[h]);
-        l_cur[h] += s[j][e];
-      }
+    for (int e = 0; e < BN / 2; ++e) {
+      const int r = (e / 2) & 1;
+      sc[e] = ex2(sc[e] - m_run[r]);
+      l_cur[r] += sc[e];
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      l_cur[h] += __shfl_xor_sync(0xffffffffu, l_cur[h], 1);
-      l_cur[h] += __shfl_xor_sync(0xffffffffu, l_cur[h], 2);
-      l_run[h] = alpha[h] * l_run[h] + l_cur[h];
-    }
+    for (int r = 0; r < 2; ++r) l_run[r] = alpha[r] * l_run[r] + l_cur[r];
+  };
+  // The weights, rounded to bf16, as the A fragments of P V.
+  auto to_pa = [&]() {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      pa[kk][0] = pack_bf16(sc[8 * kk], sc[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
     }
+  };
 
-    // acc += P V: the score registers, rounded to bf16, are the A operand.
+  mbar_wait(bar(BAR_Q), 0);
+  for (int i = 0; i < min(i_lo, n_tiles); ++i) skip(i);
+  if (i_lo <= i_hi) {
+    // The first live tile: scores, weights; O is still 0.
+    float alpha[2];
+    wait_full(BAR_K_FULL, i_lo);
+    start_qk(i_lo % STAGES);
+    wg_wait<0>();
+    pin(sc);
+    release(BAR_K_EMPTY, i_lo);
+    softmax(i_lo, alpha);
+    to_pa();
+    // Then each tile's Q K^T goes out before the last tile's P V, and its
+    // softmax runs while that P V is on the tensor cores.
+    for (int i = i_lo + 1; i <= i_hi; ++i) {
+      wait_full(BAR_K_FULL, i);
+      start_qk(i % STAGES);
+      wait_full(BAR_V_FULL, i - 1);
+      start_pv((i - 1) % STAGES);
+      wg_wait<1>();  // Q K^T is done; P V may still run
+      pin(sc);
+      release(BAR_K_EMPTY, i);
+      softmax(i, alpha);
+      wg_wait<0>();
+      pin(o);
+      release(BAR_V_EMPTY, i - 1);
 #pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a0 = pack_f2(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = pack_f2(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = pack_f2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = pack_f2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vb = Vs + (kk * 16 + 2 * tq) * STR + g;
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        const __nv_bfloat16* vn = vb + n * 8;
-        const uint32_t b0 = pack2(vn[0], vn[STR]);
-        const uint32_t b1 = pack2(vn[8 * STR], vn[9 * STR]);
-        mma(acc[n], a0, a1, a2, a3, b0, b1);
+      for (int j = 0; j < HDP / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
       }
+      to_pa();
+    }
+    wait_full(BAR_V_FULL, i_hi);
+    start_pv(i_hi % STAGES);
+    wg_wait<0>();
+    pin(o);
+    release(BAR_V_EMPTY, i_hi);
+  }
+  for (int i = max(i_hi + 1, i_lo); i < n_tiles; ++i) skip(i);
+
+  // ---- epilogue: O / l in bf16 into this warpgroup's Q rows, then TMA ------ //
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    l_run[r] = fmaxf(l_run[r], 1e-20f);
+  }
+  unsigned char* rows = gbase + c * 64 * ROW_BYTES;
+#pragma unroll
+  for (int j = 0; j < HDP / 8; ++j) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = 16 * warp + g + 8 * r;  // row % 8 == g
+      const uint32_t off = (j / 8) * L::Q_PANEL + row * ROW_BYTES + (((j % 8) ^ g) << 4) + 4 * tq;
+      *reinterpret_cast<__nv_bfloat162*>(rows + off) =
+          __floats2bfloat162_rn(o[4 * j + 2 * r] / l_run[r], o[4 * j + 2 * r + 1] / l_run[r]);
     }
   }
-
-  // Normalise and store both rows, bf16.
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    if (rr[h] >= R) continue;
-    const float l = fmaxf(l_run[h], 1e-20f);
-    __nv_bfloat16* dst =
-        o + ((static_cast<long long>(b) * S + pos[h]) * H + hk * G + rr[h] % G) * hd;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int d = n * 8 + 2 * tq;
-      if (d < hd)
-        *reinterpret_cast<__nv_bfloat162*>(dst + d) =
-            __floats2bfloat162_rn(acc[n][2 * h] / l, acc[n][2 * h + 1] / l);
-    }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + c) : "memory");
+  if (tid == 0 && r_lo < S) {
+    for (int p = 0; p < L::PANELS; ++p)
+      tma_store(&tm_o, q_rows + p * L::Q_PANEL, p * PANEL, h, r_lo, b);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   }
 }
 
+// ---- host ---------------------------------------------------------------------- //
+
+typedef decltype(&cuTensorMapEncodeTiled) EncodeFn;
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query (the library does not link libcuda).  0 on success, else a CUDA runtime error code.
+int encoder(EncodeFn* fn) {
+  static EncodeFn cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                    cudaEnableDefault, &q);
+#endif
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (q != cudaDriverEntryPointSuccess || p == nullptr)
+      return static_cast<int>(cudaErrorSymbolNotFound);
+    cached = reinterpret_cast<EncodeFn>(p);
+  }
+  *fn = cached;
+  return 0;
+}
+
+// Negative codes: cuTensorMapEncodeTiled refused a map (-1000 - CUresult).
+constexpr int ENCODE_FAILED = -1000;
+
+// The tensor map of a contiguous (B, S, heads, hd) bf16 tensor: 4-D, hd
+// innermost, boxes of 64 columns x 1 head x 64 rows x 1 batch, 128-byte
+// swizzle, zeros outside the tensor.
+int make_map(EncodeFn encode, CUtensorMap* map, const void* ptr, int hd, int heads, int S,
+             int B) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(hd) * sizeof(__nv_bfloat16);
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * S};
+  const cuuint32_t box[4] = {PANEL, 1, 64, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+                            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED - static_cast<int>(r);
+}
+
 template <int HDP>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
-           int Hkv, int hd, int causal, int window, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hkv,
+           int hd, int causal, int window, float scale, cudaStream_t stream) {
+  static_assert(BN == 64, "K/V boxes share the 64-row box of Q and O");
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem_bytes<HDP>()));
+        flash_fwd_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(Smem<HDP>::bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     configured = true;
   }
-  const long long rows = static_cast<long long>(S) * (H / Hkv);
-  const dim3 grid(static_cast<unsigned>((rows + BM - 1) / BM), Hkv, B);
-  flash_fwd_kernel<HDP><<<grid, THREADS, smem_bytes<HDP>(), stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, H, Hkv,
-      hd, causal, window, scale);
+  EncodeFn encode;
+  int err = encoder(&encode);
+  if (err != 0) return err;
+  CUtensorMap mq, mk, mv, mo;
+  if ((err = make_map(encode, &mq, q, hd, H, S, B)) != 0) return err;
+  if ((err = make_map(encode, &mk, k, hd, Hkv, S, B)) != 0) return err;
+  if ((err = make_map(encode, &mv, v, hd, Hkv, S, B)) != 0) return err;
+  if ((err = make_map(encode, &mo, o, hd, H, S, B)) != 0) return err;
+  const long long blocks = static_cast<long long>((S + BM - 1) / BM) * B * H;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  flash_fwd_wgmma<HDP><<<static_cast<unsigned>(blocks), THREADS, Smem<HDP>::bytes, stream>>>(
+      mq, mk, mv, mo, B, S, H, Hkv, causal, window, scale * LOG2E);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -285,9 +645,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
 
 // q, o: contiguous (B, S, H, hd) bf16; k, v: contiguous (B, S, Hkv, hd)
 // bf16, 16-byte aligned; H a multiple of Hkv; hd a multiple of 8, at most
-// 256.  causal: 0 or 1; window: the sliding window, or 0 for none; scale:
-// the score scale (1 / sqrt(hd)).  Launches on `stream`; returns a CUDA
-// error code (0 on success).
+// 256.  causal: 0 or 1; window: the
+// sliding window, or 0 for none; scale: the score scale (1 / sqrt(hd)).
+// One launch on `stream`; returns 0 on success, a CUDA runtime error code
+// (cudaErrorInvalidConfiguration when B * H * ceil(S / 128) reaches 2^31),
+// or a negative code when a tensor map is refused.
 extern "C" int flash_attention_run(const void* q, const void* k, const void* v, void* o,
                                    int B, int S, int H, int Hkv, int hd, int causal,
                                    int window, float scale, void* stream) {
@@ -298,5 +660,11 @@ extern "C" int flash_attention_run(const void* q, const void* k, const void* v, 
 }
 
 extern "C" const char* flash_attention_error_string(int code) {
+  static char buf[96];
+  if (code <= ENCODE_FAILED) {
+    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled failed (CUresult %d)",
+             ENCODE_FAILED - code);
+    return buf;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -1,5 +1,6 @@
 """ctypes wrapper of the Hopper flash-attention kernel
-(``csrc/flash_attention.cu``).
+(``csrc/flash_attention.cu``: ``flash_fwd_wgmma``, TMA loads into a
+two-stage ring, a producer warpgroup and two wgmma consumer warpgroups).
 
 Replaces ``src/repro/kernels/flash_attention/kernel.py::flash_attention_pallas``.
 The library is built and loaded at the first launch, never at import.
@@ -50,9 +51,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape != (B, S, Hkv, hd) or v.shape != k.shape or H % Hkv:
         raise ValueError(f"flash_attention_cuda: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit GQA")
-    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM or B > 65535 or Hkv > 65535:
+    if hd % 8 or not 0 < hd <= MAX_HEAD_DIM or S < 1:
         raise ValueError(f"flash_attention_cuda: hd {hd} must be a multiple of 8 "
-                         f"up to {MAX_HEAD_DIM}; B {B}, Hkv {Hkv} at most 65535")
+                         f"up to {MAX_HEAD_DIM}, and S {S} at least 1")
     if window is not None and window < 1:
         raise ValueError(f"flash_attention_cuda: window {window} must be positive")
     out = torch.empty_like(q)

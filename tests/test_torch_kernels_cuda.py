@@ -40,11 +40,21 @@ def gen():
     return g
 
 
+# B5's edges: S not a multiple of the kernel's 128-query or 64-key tile
+# (63, 130, 257, 333, 517, 650, 700); windows shorter than a key tile and
+# not a multiple of it (1, 37, 40); the full-length tile walk (S 4096,
+# window 2048, B 1); Hkv 2 and 4 with G > 1; hd 16, 120 and 240 (zero fill
+# past hd and the store mask); S = 1; non-causal with and without a window.
 @pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", [
     (1, 1, 1, 1, 16, True, None), (1, 63, 2, 1, 16, True, None),
     (2, 130, 6, 3, 120, False, None), (1, 96, 4, 4, 64, False, 40),
     (2, 300, 10, 1, 256, True, 64), (1, 257, 8, 2, 128, True, 100),
-    (1, 200, 12, 4, 240, True, None)])
+    (1, 200, 12, 4, 240, True, None), (1, 333, 10, 1, 256, True, None),
+    (1, 700, 10, 1, 256, True, 37), (1, 650, 4, 2, 64, False, 100),
+    (1, 4096, 10, 1, 256, True, 2048), (2, 333, 8, 4, 256, True, 90),
+    (2, 190, 6, 2, 120, True, 50), (1, 517, 4, 2, 16, True, 70),
+    (1, 150, 4, 1, 240, False, None), (2, 1, 10, 1, 256, True, 2048),
+    (1, 129, 2, 2, 128, False, 1)])
 def test_flash_attention_matches_plain(gen, B, S, H, Hkv, hd, causal, window):
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
