@@ -282,12 +282,14 @@ def profile_program(prog, runs: int) -> tuple:
     return device_ms / runs, kernels, wall / runs, b2_ms
 
 
-def b2_timed(net, dev) -> tuple:
+def b2_timed(net, dev, clock_split: bool = False) -> tuple:
     """B2's own time per run of ``net``: launches back to back on a staged
     argument block, reset before each launch, so the runner's staging is
     out of it (the rings keep the last run's bytes, which changes no work:
     forwarded rings are re-zeroed by the kernel and the same bodies run on
-    the same windows).  Returns ``(ms, meta words after the last launch)``."""
+    the same windows).  ``clock_split`` times the build that writes the
+    clock split instead.  Returns ``(ms, meta words after the last
+    launch)``."""
     from repro_torch.core.megakernel import compile_megakernel, megakernel_cuda
     from repro_torch.core.megakernel.program import stage
     dp = compile_megakernel(net).device_program
@@ -297,12 +299,35 @@ def b2_timed(net, dev) -> tuple:
     args = args0.clone()
     table = dp.table.to(dev)
 
+    kw = {"clock_split": True} if clock_split else {}
+
     def launch():
         args.copy_(args0)
-        megakernel_cuda(table, args, dp.n_ptrs, 1_000_000, True)
+        megakernel_cuda(table, args, dp.n_ptrs, 1_000_000, True, **kw)
 
     ms = cuda_ms(launch, reps=7, inner=5)
     return ms, args[dp.n_ptrs + dp.io_meta:].cpu().tolist()
+
+
+def b2_split(net, dev) -> dict:
+    """B2's clock split per run of ``net``: the build with the split
+    counters timed as :func:`b2_timed` times B2, and block 0's cycles in
+    its last run by where its body threads were: waiting for the scheduler
+    (``sched``: today a step it takes alone, once a scheduler warp runs
+    ahead the ring running dry), waiting on other blocks (``wait``: grid
+    barriers, or dependency waits, ``waits`` of them) and the rest
+    (``body``); each share of the loop also as ms of the timed run."""
+    from repro_torch.core.megakernel.kernel import decode_clock_split
+    ms, meta = b2_timed(net, dev, clock_split=True)
+    sp = decode_clock_split(meta)
+    loop = sp["loop"]
+    cycles = {"sched": sp["stall_sched"], "wait": sp["stall_wait"],
+              "body": loop - sp["stall_sched"] - sp["stall_wait"]}
+    share = {k: v / loop for k, v in cycles.items()}
+    return {"ms": ms, "loop_cycles": loop, "waits": sp["waits"],
+            "cycles": cycles, "share": share,
+            "ms_split": {k: v * ms for k, v in share.items()},
+            "sweeps": meta[0]}
 
 
 def warm_wall_ms(prog, runs: int = 5) -> list:
@@ -1176,6 +1201,25 @@ def b2_turn(src: str) -> None:
     print("b2 " + json.dumps(rec), flush=True)
 
 
+def b2_split_turn(src: str) -> None:
+    """``--b2-split SRC``: :func:`b2_split` on DPD's main path and on motion
+    detection from the ``repro_torch`` package under ``SRC`` (a tree whose
+    wrapper takes ``clock_split``); one ``b2_split {...}`` line."""
+    from repro_torch.graphs.dpd import default_active_schedule
+    from repro_torch.graphs.factories import make_dpd
+    from repro_torch.graphs.motion_detection import bench_workload
+    from repro_torch.kernels import _build
+    from repro_torch.core.megakernel.kernel import CLOCK_SPLIT_DEFINE
+    smi = card()
+    _build.build("megakernel", defines=(CLOCK_SPLIT_DEFINE,))
+    dev = torch.device("cuda", 0)
+    net, _ = make_dpd(N_FIRINGS, block_l=BLOCK_L, seed=0, device=dev,
+                      active_schedule=default_active_schedule(N_FIRINGS, seed=0))
+    md = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0, device=dev)
+    print("b2_split " + json.dumps({"src": src, "card": smi, "dpd": b2_split(net, dev),
+                                    "md": b2_split(md, dev)}), flush=True)
+
+
 def b5_inputs(dev, gen) -> tuple:
     """B5's operands at recurrentgemma-2b's local attention in phase 12 (q
     (LM_BATCH, LM_PROMPT, 10, 256), k/v (LM_BATCH, LM_PROMPT, 1, 256) bf16)
@@ -1240,7 +1284,8 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
                          "runs only on the card")
-    turns = {"--b2": b2_turn, "--b5": b5_turn, "--b6": b6_turn}
+    turns = {"--b2": b2_turn, "--b2-split": b2_split_turn, "--b5": b5_turn,
+             "--b6": b6_turn}
     if sys.argv[1:2] and sys.argv[1] in turns and len(sys.argv) == 3:
         sys.path.insert(0, sys.argv[2])
         turns[sys.argv[1]](sys.argv[2])
@@ -1250,6 +1295,7 @@ def main() -> None:
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
+    from repro_torch.core.megakernel import kernel as mk_kernel
     from repro_torch.core.megakernel import megakernel_cuda
     from repro_torch.graphs.dpd import default_active_schedule
     from repro_torch.graphs.factories import make_dpd, states_equal
@@ -1518,6 +1564,15 @@ def main() -> None:
             log(f"table4 {label:12s} {mode:7s}: {samples / dt / 1e6:10.2f} "
                 f"Msamples/s ({dt * 1e3:.2f} ms for {samples} samples; {smi})")
     log("table4 " + json.dumps({"card": smi, "rows": rows}))
+    # The dynamic-rate gain (PERF.md section 2): min_active2 over the static
+    # all-10 network in the same mode, and all10's time over min_active2's.
+    ms_of = {(r["network"], r["mode"]): r["ms"] for r in rows}
+    gain = {mode: {"min_active2_over_static_all10":
+                   ms_of[("static_all10", mode)] / ms_of[("min_active2", mode)],
+                   "all10_over_min_active2":
+                   ms_of[("all10", mode)] / ms_of[("min_active2", mode)]}
+            for mode in ("static", "dynamic", "megakernel")}
+    log("table4_gain " + json.dumps({"card": smi, "gain": gain}))
 
     # ---- 5. where the time goes on the main path ------------------------ #
     # Busy share: device time of one profiled run over the median wall time
@@ -1590,6 +1645,17 @@ def main() -> None:
     log("host " + json.dumps(host_rec))
 
     md = motion_detection(dev, smi, zero_counts, expect_counts)
+
+    # ---- 16. B2's clock split ------------------------------------------- #
+    from repro_torch.graphs.motion_detection import bench_workload
+    _build.build("megakernel", defines=(mk_kernel.CLOCK_SPLIT_DEFINE,))
+    md_net = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0, device=dev)
+    for label, split_net, sweeps in (("dpd", net_gpu, res_gpu.sweeps),
+                                     ("md", md_net, 121)):
+        split = b2_split(split_net, dev)
+        if split["sweeps"] != sweeps:
+            fail(f"B2 clock split on {label}: {split['sweeps']} sweeps, not {sweeps}")
+        log(f"b2_split_{label} " + json.dumps({"card": smi, **split}))
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.core.megakernel.lower import (GridPartition, MegakernelLayout,
                                                lower_network, partition_layout)
-from repro_torch.core.megakernel.program import (DeviceProgram,
+from repro_torch.core.megakernel.program import (M_CLK_LOOP, M_CLK_STALL,
+                                                 DeviceProgram,
                                                  build_device_program, stage,
                                                  unstage)
 from repro_torch.core.megakernel.ref import run_program
@@ -29,10 +30,14 @@ from repro_torch.core.network import Network, NetworkState
 from repro_torch.kernels import _build
 
 
+#: The compile-time define of the build that writes B2's clock split.
+CLOCK_SPLIT_DEFINE = "-DMK_CLOCK_SPLIT"
+
+
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    """The built library with its C signatures declared (once)."""
-    lib = _build.load("megakernel")
+def _library(clock_split: bool = False) -> ctypes.CDLL:
+    """The built library with its C signatures declared (once per build)."""
+    lib = _build.load("megakernel", (CLOCK_SPLIT_DEFINE,) if clock_split else ())
     fn = lib.megakernel_run
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -44,13 +49,16 @@ def _library() -> ctypes.CDLL:
 
 
 def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
-                    max_sweeps: int, multi_firing: bool) -> None:
+                    max_sweeps: int, multi_firing: bool,
+                    clock_split: bool = False) -> None:
     """One launch of B2.
 
     ``table``: the packed device program, int32 on the card; ``args``: the
     run's int64 block on the same card, ``n_ptrs`` device addresses (rings,
     then actor tensors) followed by the io words, which the kernel
     rewrites.  Every address must stay valid until the launch completes.
+    ``clock_split`` launches the build that also writes block 0's clock
+    split into the last two meta words (:func:`decode_clock_split`).
     """
     for t, what, dtype in ((table, "table", torch.int32),
                            (args, "args", torch.int64)):
@@ -64,7 +72,7 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
         raise ValueError(f"megakernel_cuda: n_ptrs {n_ptrs} out of range")
     if not 0 <= max_sweeps < 2 ** 31:
         raise ValueError(f"megakernel_cuda: max_sweeps {max_sweeps} must fit int32")
-    lib = _library()
+    lib = _library(clock_split)
     with torch.cuda.device(args.device):
         stream = torch.cuda.current_stream(args.device).cuda_stream
         err = lib.megakernel_run(table.data_ptr(), table.numel(), args.data_ptr(),
@@ -79,6 +87,17 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
 
 #: Launches of the kernel since the count was last set to 0.
 megakernel_cuda.launches = 0
+
+
+def decode_clock_split(meta) -> Dict[str, int]:
+    """Block 0's clock split from a run's meta words (the ``MK_CLOCK_SPLIT``
+    build): SM cycles its body threads spent waiting for the scheduler
+    (``stall_sched``), waiting on other blocks (``stall_wait``: grid
+    barriers or dependency waits, ``waits`` of them), and in the whole
+    command loop (``loop``); the rest of the loop is bodies."""
+    stall, loop = int(meta[M_CLK_STALL]), int(meta[M_CLK_LOOP])
+    return {"stall_sched": stall & 0xFFFFFFFF, "stall_wait": stall >> 32,
+            "loop": loop & ((1 << 40) - 1), "waits": loop >> 40}
 
 
 def _state_device(prog: DeviceProgram, state: NetworkState,

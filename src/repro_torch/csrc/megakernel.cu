@@ -88,7 +88,8 @@ enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
        A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
        A_PLANES, A_FPARAM };
 constexpr int META_WORDS = 8;
-enum { M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS };
+enum { M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
+       M_CLK_STALL, M_CLK_LOOP };
 enum { K_SOURCE, K_CONFIG, K_FORK, K_POLY, K_ADDER, K_SINK, K_GAUSS, K_THRES,
        K_MED };
 enum { ERR_DOMAIN = 1, ERR_SLAB = 2 };
@@ -624,16 +625,42 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 
   // 3. The sweep loop: thread 0 decides, the grid runs each body.
   Sched s = {0, -1, -1, 1, 0, 0, 0, 0};
+#ifdef MK_CLOCK_SPLIT
+  // Thread 0 of block 0's cycles: waiting for the scheduler step, in grid
+  // barriers (with their count), and the whole loop.
+  long long clk_sched = 0, clk_wait = 0, n_wait = 0;
+  const long long clk_start = clock64();
+#endif
   for (;;) {
+#ifdef MK_CLOCK_SPLIT
+    const long long t0 = clock64();
+#endif
     if (threadIdx.x == 0) schedule_next(v, &cmd, &s, max_sweeps, multi_firing);
     __syncthreads();
+#ifdef MK_CLOCK_SPLIT
+    clk_sched += clock64() - t0;
+#endif
     if (cmd.kind == CMD_DONE) break;
     if (cmd.cb_mask)
       run_body_copy_back(cmd, sb_re, sb_im, sh_re, sh_im);
     else
       run_body<false>(cmd, sb_re, sb_im, sh_re, sh_im);
+#ifdef MK_CLOCK_SPLIT
+    const long long t1 = clock64();
+#endif
     grid.sync();
+#ifdef MK_CLOCK_SPLIT
+    clk_wait += clock64() - t1;
+    n_wait += 1;
+#endif
   }
+#ifdef MK_CLOCK_SPLIT
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    long long* meta = args + n_ptrs + (io_len - META_WORDS);
+    meta[M_CLK_STALL] = (clk_sched & 0xffffffffLL) | (clk_wait << 32);
+    meta[M_CLK_LOOP] = ((clock64() - clk_start) & ((1LL << 40) - 1)) | (n_wait << 40);
+  }
+#endif
 
   // 4. Block 0 writes the replicated state back.
   if (blockIdx.x == 0) {
