@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --b2 SRC    # B2's time alone, from another src tree
+    python3 chip_smoke.py --b2-split SRC  # B2's clock split, from another tree
     python3 chip_smoke.py --b5 SRC    # B5's time alone, from another src tree
     python3 chip_smoke.py --b6 SRC    # B6's time alone, from another src tree
 
@@ -26,7 +27,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
    version (``core/megakernel/ref.py``) on the card, at ``cores=1`` and
    ``cores=2``; then times B2 and its plain version;
 4. measures the paper's Table 4 rows (Msamples/s) in static, dynamic and
-   megakernel mode;
+   megakernel mode, and the dynamic-rate gain in each mode (``min_active2``
+   over the static all-10 network, and ``all10`` over ``min_active2``);
 5. profiles the main path in dynamic and in megakernel mode: device time by
    kernel (``torch.profiler``), the device's busy share against the median
    wall time of warm runs, and where the host's time goes in dynamic mode
@@ -86,7 +88,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     model: device time by kernel, B5-B7 each summed over its CUDA kernels
     (B5 ``flash_fwd_wgmma``, B6 3 per call, B7 ``rglru_kernel``), and the
     busy share against the median wall of warm runs (printed after 13 and
-    after 14).
+    after 14);
+16. (run after 11) B2's clock split per run on DPD's main path and on
+    motion detection (:func:`b2_split`): the build of ``megakernel.cu``
+    with ``-DMK_CLOCK_SPLIT`` (the main path's build leaves it off), timed
+    as phases 6 and 9 time B2, with block 0's cycles split into waiting
+    for the scheduler, waiting on other blocks (with the count of waits)
+    and the rest (bodies).
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -98,6 +106,8 @@ CUDA device is visible.
 
 ``--b2 SRC`` times kernel B2 alone (as phases 6 and 9 do) from the
 ``repro_torch`` package under ``SRC`` and prints one ``b2 {...}`` line;
+``--b2-split SRC`` prints phase 16's split from ``SRC`` (a ``b2_split
+{...}`` line; the tree's wrapper must take ``clock_split``);
 ``--b5 SRC`` and ``--b6 SRC`` do the same for B5 and B6 (as phase 12
 does; a ``b5 {...}`` or ``b6 {...}`` line).  Run in turns from two trees
 they compare a kernel across commits on one card.
@@ -109,6 +119,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -316,7 +327,8 @@ def b2_split(net, dev) -> dict:
     (``sched``: today a step it takes alone, once a scheduler warp runs
     ahead the ring running dry), waiting on other blocks (``wait``: grid
     barriers, or dependency waits, ``waits`` of them) and the rest
-    (``body``); each share of the loop also as ms of the timed run."""
+    (``body``); each share of the loop also as ms of the timed run, and
+    where the kernel splits them, the bodies' ms and count by kind."""
     from repro_torch.core.megakernel.kernel import decode_clock_split
     ms, meta = b2_timed(net, dev, clock_split=True)
     sp = decode_clock_split(meta)
@@ -324,10 +336,14 @@ def b2_split(net, dev) -> dict:
     cycles = {"sched": sp["stall_sched"], "wait": sp["stall_wait"],
               "body": loop - sp["stall_sched"] - sp["stall_wait"]}
     share = {k: v / loop for k, v in cycles.items()}
-    return {"ms": ms, "loop_cycles": loop, "waits": sp["waits"],
-            "cycles": cycles, "share": share,
-            "ms_split": {k: v * ms for k, v in share.items()},
-            "sweeps": meta[0]}
+    rec = {"ms": ms, "loop_cycles": loop, "waits": sp["waits"],
+           "cycles": cycles, "share": share,
+           "ms_split": {k: v * ms for k, v in share.items()},
+           "sweeps": meta[0]}
+    if "bodies" in sp:  # a tree whose kernel also splits the bodies by kind
+        rec["bodies_ms"] = {k: {"ms": b["cycles"] / loop * ms, "count": b["count"]}
+                            for k, b in sp["bodies"].items() if b["count"]}
+    return rec
 
 
 def warm_wall_ms(prog, runs: int = 5) -> list:
@@ -1341,7 +1357,14 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = ("dyn_fir", "megakernel", "gauss5x5", "motion_post", "flash_attention",
             "ssd", "rglru")
+    # Phase 16's build of B2 with the clock split, beside the seven.
+    split_build = threading.Thread(target=_build.build, args=("megakernel",),
+                                   kwargs={"defines": (mk_kernel.CLOCK_SPLIT_DEFINE,)})
+    if not lm_only:
+        split_build.start()
     nvcc_out = _build.build(*libs)
+    if not lm_only:
+        split_build.join()
     log(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib, text in nvcc_out.items():
         for line in text.splitlines():
@@ -1648,7 +1671,6 @@ def main() -> None:
 
     # ---- 16. B2's clock split ------------------------------------------- #
     from repro_torch.graphs.motion_detection import bench_workload
-    _build.build("megakernel", defines=(mk_kernel.CLOCK_SPLIT_DEFINE,))
     md_net = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0, device=dev)
     for label, split_net, sweeps in (("dpd", net_gpu, res_gpu.sweeps),
                                      ("md", md_net, 121)):

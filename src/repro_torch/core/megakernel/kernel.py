@@ -15,13 +15,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.megakernel.lower import (GridPartition, MegakernelLayout,
                                                lower_network, partition_layout)
-from repro_torch.core.megakernel.program import (M_CLK_LOOP, M_CLK_STALL,
+from repro_torch.core.megakernel.program import (KIND_CODES, M_CLK_KIND,
+                                                 M_CLK_LOOP, M_CLK_STALL,
                                                  DeviceProgram,
                                                  build_device_program, stage,
                                                  unstage)
@@ -41,11 +42,21 @@ def _library(clock_split: bool = False) -> ctypes.CDLL:
     fn = lib.megakernel_run
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.megakernel_error_string.argtypes = [ctypes.c_int]
     lib.megakernel_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _progress_words(device: torch.device) -> torch.Tensor:
+    """The blocks' progress words on ``device`` (one per SM, which the kernel
+    zeroes at its start), allocated once per device.  Launches on one device
+    share them, as they share its SMs: a cooperative launch holds every SM
+    until it ends."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return torch.zeros(sms, dtype=torch.int64, device=device)
 
 
 def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
@@ -73,11 +84,13 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
     if not 0 <= max_sweeps < 2 ** 31:
         raise ValueError(f"megakernel_cuda: max_sweeps {max_sweeps} must fit int32")
     lib = _library(clock_split)
+    progress = _progress_words(args.device)
     with torch.cuda.device(args.device):
         stream = torch.cuda.current_stream(args.device).cuda_stream
         err = lib.megakernel_run(table.data_ptr(), table.numel(), args.data_ptr(),
                                  n_ptrs, args.numel() - n_ptrs, max_sweeps,
-                                 int(bool(multi_firing)), stream)
+                                 int(bool(multi_firing)), progress.data_ptr(),
+                                 progress.numel(), stream)
     if err != 0:
         raise RuntimeError(
             f"megakernel launch failed: CUDA error {err} "
@@ -89,15 +102,20 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
 megakernel_cuda.launches = 0
 
 
-def decode_clock_split(meta) -> Dict[str, int]:
+def decode_clock_split(meta) -> Dict[str, Any]:
     """Block 0's clock split from a run's meta words (the ``MK_CLOCK_SPLIT``
     build): SM cycles its body threads spent waiting for the scheduler
-    (``stall_sched``), waiting on other blocks (``stall_wait``: grid
-    barriers or dependency waits, ``waits`` of them), and in the whole
-    command loop (``loop``); the rest of the loop is bodies."""
+    (``stall_sched``), waiting on other blocks (``stall_wait``: dependency
+    waits, ``waits`` of them), and in the whole command loop (``loop``);
+    the rest of the loop is bodies, whose cycles and count by kind are in
+    ``bodies``."""
     stall, loop = int(meta[M_CLK_STALL]), int(meta[M_CLK_LOOP])
+    kinds = [k for k in KIND_CODES if k != "config"]
+    words = [int(w) for w in meta[M_CLK_KIND:M_CLK_KIND + len(kinds)]]
     return {"stall_sched": stall & 0xFFFFFFFF, "stall_wait": stall >> 32,
-            "loop": loop & ((1 << 40) - 1), "waits": loop >> 40}
+            "loop": loop & ((1 << 40) - 1), "waits": loop >> 40,
+            "bodies": {k: {"cycles": w & ((1 << 40) - 1), "count": w >> 40}
+                       for k, w in zip(kinds, words)}}
 
 
 def _state_device(prog: DeviceProgram, state: NetworkState,

@@ -2,21 +2,34 @@
 
 :func:`run_program` runs a :class:`~.program.DeviceProgram` the way the
 kernel does: it reads the same packed table and the same io words, and
-never calls the network's Python bodies.  The loop is the kernel's and the
-host dynamic executor's (``executor.run_dynamic``):
+never calls the network's Python bodies.  It has the kernel's two parts,
+which the kernel overlaps and this version runs one after the other:
 
-* sweeps in the program's visit order until one fires nothing, or
-  ``max_sweeps``;
-* per visit up to ``_max_fireable`` firings (cap 8), each guarded by
-  ``_can_fire`` on the rate table, the control token peeked first;
-* masked ring reads and writes at the reference's offsets
-  (``src/repro/core/megakernel/kernel.py:151-214``): a delay channel writes
-  one slot further on and, after an enabled phase-2 write, copies slot
-  ``3r`` back to slot 0 (Fig. 2);
-* op bodies in plain torch: window copies (byte for byte, through the
-  source's and sink's slab descriptors), ``poly_ref`` for Poly, the adder
-  as ``add_`` from zeros in its terms' order, and motion detection's
-  ``gauss5x5_u8_ref``, ``thres_ref`` and ``med_ref`` with the u8 rounding.
+* :func:`schedule`, the kernel's scheduler warp.  The loop is the host
+  dynamic executor's (``executor.run_dynamic``): sweeps in the program's
+  visit order until one fires nothing, or ``max_sweeps``; per visit up to
+  ``_max_fireable`` firings (cap 8), each guarded by ``_can_fire`` on the
+  rate table, the control token peeked first; cursors, scalars, control
+  rings and fire counts in the io words.  It reads no ring: control tokens
+  are scheduler state.  It returns one :class:`Command` per firing with a
+  body, numbered from 1 in firing order, with the ring segments its body
+  reads and writes and ``wait_for``, the largest number of an earlier
+  command it conflicts with (:func:`hazard_waits`).
+* :func:`execute`, the kernel's body threads: the commands' bodies on the
+  rings at the reference's offsets
+  (``src/repro/core/megakernel/kernel.py:151-214``), a delay channel's
+  writes one slot further on and, after an enabled phase-2 write, slot
+  ``3r`` copied back to slot 0 (Fig. 2); window copies byte for byte
+  (through the source's and sink's slab descriptors), ``poly_ref`` for
+  Poly, the adder as ``add_`` from zeros in its terms' order, and motion
+  detection's ``gauss5x5_u8_ref``, ``thres_ref`` and ``med_ref`` with the
+  u8 rounding.
+
+The kernel's blocks each run their share of every command in order, and
+start command k only once every block has finished command ``wait_for``
+of k, so any order of whole commands that keeps those edges
+(:func:`permitted_order`) gives the sequential result; the tests replay
+such orders.
 
 Every tensor it is given is updated in place and ``io`` is rewritten, as
 the kernel rewrites its argument block.  The megakernel backend runs it for
@@ -24,11 +37,12 @@ CPU states; ``chip_smoke.py`` runs it on the card as the kernel's oracle.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import dataclasses
+import random
+import struct
+from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import torch
-
-import struct
 
 from repro_torch.core.megakernel.program import (
     A_AUX, A_CTRL, A_DHI, A_DLO, A_FPARAM, A_IN, A_KIND, A_N0, A_NAUX, A_NIN,
@@ -47,6 +61,12 @@ MAX_FIRINGS_PER_VISIT = 8
 SOURCE, CONFIG, FORK, POLY, ADDER, SINK, GAUSS, THRES, MED = (
     KIND_CODES[k] for k in ("source", "config", "fork", "poly", "adder",
                             "sink", "gauss", "thres", "med"))
+
+#: The hazard classes of :func:`hazard_waits`: a read waits for the last
+#: write of its segments (raw); a write waits for every read of the old
+#: contents (war) and for the last write (waw); the Fig. 2 copy-back's write
+#: of a delay channel's slot 0 is a write like any other (delay).
+HAZARDS: FrozenSet[str] = frozenset({"raw", "war", "waw", "delay"})
 
 
 def _bytes(t: torch.Tensor) -> torch.Tensor:
@@ -73,42 +93,142 @@ def copy_back(ring: torch.Tensor, row: Sequence[int], wr: int) -> None:
         ring[0].copy_(ring[3 * row[F_RATE]])
 
 
+# ---- ring segments: the unit of the kernel's dependency tracking -------- #
+# A delay-free channel's segment p is its phase-p window (slots pr..pr+r-1),
+# which its reads and writes share.  A delay channel's windows are cut by
+# the one-slot shift: segment 2p is slot pr, segment 2p+1 slots pr+1 ..
+# pr+r-1 (none when r = 1), segment 6 slot 3r.  Read phase p covers segments
+# 2p and 2p+1, write phase q segments 2q+1 and 2q+2, the copy-back segment 0.
+COPY_BACK_SEGMENT = 0
+
+
+def read_segments(row: Sequence[int], phase: int) -> Tuple[int, ...]:
+    """The segments read phase ``phase`` of a channel reads."""
+    if not row[F_DELAY]:
+        return (phase,)
+    return (2 * phase, 2 * phase + 1) if row[F_RATE] > 1 else (2 * phase,)
+
+
+def write_segments(row: Sequence[int], phase: int) -> Tuple[int, ...]:
+    """The segments write phase ``phase`` of a channel writes."""
+    if not row[F_DELAY]:
+        return (phase,)
+    return (2 * phase + 1, 2 * phase + 2) if row[F_RATE] > 1 else (2 * phase + 2,)
+
+
+@dataclasses.dataclass
+class Command:
+    """One firing with a body, as the kernel's scheduler warp emits it.
+
+    ``in_off`` / ``out_off`` are the first ring slot of each port's window;
+    ``copy_back`` marks an output whose enabled phase-2 write also goes to
+    slot 0; ``idx`` / ``n_idx`` are a source's or sink's window index and its
+    slab's window count.  ``reads`` and ``writes`` are ``(channel,
+    segment)`` pairs, ``copy_back_writes`` the slot-0 segments; ``after`` is
+    the previous command of the same Poly actor (0 for none), which the
+    kernel orders by running Poly's history in block 0 alone."""
+
+    seq: int
+    actor: int
+    in_en: List[int]
+    out_en: List[int]
+    in_off: List[int]
+    out_off: List[int]
+    copy_back: List[bool]
+    idx: int = 0
+    n_idx: int = 0
+    reads: Tuple[Tuple[int, int], ...] = ()
+    writes: Tuple[Tuple[int, int], ...] = ()
+    copy_back_writes: Tuple[Tuple[int, int], ...] = ()
+    after: int = 0
+    wait_for: int = 0
+
+
+class _Table:
+    """The packed program's rows, unpacked once."""
+
+    def __init__(self, table: Sequence[int]) -> None:
+        t = [int(v) for v in table]
+        self.t = t
+        self.n_fifos, self.n_actors = t[H_N_FIFOS], t[H_N_ACTORS]
+        self.fifo = [t[t[H_FIFO_OFF] + FIFO_FIELDS * i:][:FIFO_FIELDS]
+                     for i in range(self.n_fifos)]
+        self.actor = [t[t[H_ACTOR_OFF] + ACTOR_FIELDS * a:][:ACTOR_FIELDS]
+                      for a in range(self.n_actors)]
+        self.visit = t[t[H_VISIT_OFF]:t[H_VISIT_OFF] + t[H_N_VISIT]]
+        self.io_scal = 3 * self.n_fifos
+        self.io_ctrl = self.io_scal + 2 * t[H_N_SCALARS]
+        self.io_counts = self.io_ctrl + t[H_N_CTRL]
+        self.io_meta = self.io_counts + self.n_actors
+
+    def ports(self, a: int) -> Tuple[List[int], List[int]]:
+        r, t = self.actor[a], self.t
+        return (t[r[A_IN]:r[A_IN] + r[A_NIN]], t[r[A_OUT]:r[A_OUT] + r[A_NOUT]])
+
+
+def hazard_waits(commands: Sequence[Command],
+                 hazards: FrozenSet[str] = HAZARDS) -> None:
+    """Set each command's ``wait_for`` under the kernel's rule: the largest
+    number of an earlier command that wrote a segment it reads (raw), read
+    or wrote a segment it writes (war, waw), the copy-back's slot-0 writes
+    counted only with ``delay``.  Waits are taken before this command's own
+    segments are recorded, so a command never waits for itself."""
+    last_w: Dict[Tuple[int, int], int] = {}
+    last_r: Dict[Tuple[int, int], int] = {}
+    for c in commands:
+        writes = c.writes + (c.copy_back_writes if "delay" in hazards else ())
+        w = 0
+        if "raw" in hazards:
+            w = max([w] + [last_w.get(s, 0) for s in c.reads])
+        if "war" in hazards:
+            w = max([w] + [last_r.get(s, 0) for s in writes])
+        if "waw" in hazards:
+            w = max([w] + [last_w.get(s, 0) for s in writes])
+        c.wait_for = w
+        for s in c.reads:
+            last_r[s] = c.seq
+        for s in writes:
+            last_w[s] = c.seq
+
+
+def permitted_order(commands: Sequence[Command],
+                    rng: Optional[random.Random] = None) -> List[Command]:
+    """An order of whole commands the kernel permits: command k only after
+    every command up to its ``wait_for`` and after its ``after``; among the
+    commands ready, a random one (``rng``), or the latest without one."""
+    done = [True] + [False] * len(commands)     # done[0]: "no command"
+    prefix = 0                       # every command <= prefix is done
+    todo = list(commands)
+    order: List[Command] = []
+    while todo:
+        ready = [c for c in todo if c.wait_for <= prefix and done[c.after]]
+        c = rng.choice(ready) if rng is not None else ready[-1]
+        todo.remove(c)
+        order.append(c)
+        done[c.seq] = True
+        while prefix < len(commands) and done[prefix + 1]:
+            prefix += 1
+    return order
+
+
 class _Stop(Exception):
     """An error word was set; the run ends there, as the kernel's does."""
 
 
-def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
-                io: List[int], max_sweeps: int, multi_firing: bool) -> None:
-    """Run the device program to quiescence on ``tensors`` (rings, then
-    actor tensors) and ``io`` (the io block), in place."""
-    t = [int(v) for v in table]
-    n_fifos, n_actors = t[H_N_FIFOS], t[H_N_ACTORS]
-    fifo = [t[t[H_FIFO_OFF] + FIFO_FIELDS * i:][:FIFO_FIELDS]
-            for i in range(n_fifos)]
-    actor = [t[t[H_ACTOR_OFF] + ACTOR_FIELDS * a:][:ACTOR_FIELDS]
-             for a in range(n_actors)]
-    visit = t[t[H_VISIT_OFF]:t[H_VISIT_OFF] + t[H_N_VISIT]]
-    rings = tensors[:n_fifos]
-    aptr = tensors[n_fifos:]
-    io_scal = 3 * n_fifos
-    io_ctrl = io_scal + 2 * t[H_N_SCALARS]
-    io_counts = io_ctrl + t[H_N_CTRL]
-    io_meta = io_counts + n_actors
+def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
+             io: List[int], max_sweeps: int, multi_firing: bool) -> List[Command]:
+    """Run the sweep loop on ``io`` in place (the kernel's scheduler warp);
+    returns the commands of the firings with a body, ``wait_for`` set."""
+    P = _Table(table)
+    t, fifo, actor = P.t, P.fifo, P.actor
+    aptr = tensors[P.n_fifos:]
     schedules = {a: aptr[actor[a][A_PTR0]].tolist()
-                 for a in range(n_actors) if actor[a][A_KIND] == CONFIG}
+                 for a in range(P.n_actors) if actor[a][A_KIND] == CONFIG}
+    commands: List[Command] = []
+    last_poly: Dict[int, int] = {}
 
     def occ(f: int) -> int:
         return io[3 * f + 2]
-
-    def rd_off(f: int) -> int:
-        return read_offset(fifo[f], io[3 * f])
-
-    def wr_off(f: int) -> int:
-        return write_offset(fifo[f], io[3 * f + 1])
-
-    def ports(a: int):
-        r = actor[a]
-        return (t[r[A_IN]:r[A_IN] + r[A_NIN]], t[r[A_OUT]:r[A_OUT] + r[A_NOUT]])
 
     def rates(a: int) -> List[int]:
         """0/1 per port (inputs, then outputs); peeks the control token."""
@@ -117,23 +237,23 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         if r[A_CTRL] < 0:
             return [1] * n
         c = r[A_CTRL]
-        tok = io[io_ctrl + fifo[c][F_CBASE] + rd_off(c)]
+        tok = io[P.io_ctrl + fifo[c][F_CBASE] + read_offset(fifo[c], io[3 * c])]
         if not r[A_DLO] <= tok <= r[A_DHI]:
-            io[io_meta + M_ERROR] = ERR_DOMAIN
-            io[io_meta + M_ERR_ACTOR] = a
-            io[io_meta + M_ERR_VALUE] = tok
+            io[P.io_meta + M_ERROR] = ERR_DOMAIN
+            io[P.io_meta + M_ERR_ACTOR] = a
+            io[P.io_meta + M_ERR_VALUE] = tok
             raise _Stop
         row = r[A_RATES] + (tok - r[A_DLO]) * n
         return t[row:row + n]
 
     def can_fire(a: int) -> bool:
         r = actor[a]
-        if r[A_READY] >= 0 and io[io_scal + 2 * r[A_SCALAR]] >= r[A_READY]:
+        if r[A_READY] >= 0 and io[P.io_scal + 2 * r[A_SCALAR]] >= r[A_READY]:
             return False
         if r[A_CTRL] >= 0 and occ(r[A_CTRL]) < 1:
             return False
         en = rates(a)
-        ins, outs = ports(a)
+        ins, outs = P.ports(a)
         for e, f in zip(en, ins):
             if e and occ(f) < fifo[f][F_RATE]:
                 return False
@@ -147,7 +267,7 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         if r[A_CTRL] >= 0:
             return min(MAX_FIRINGS_PER_VISIT, occ(r[A_CTRL]))
         k = MAX_FIRINGS_PER_VISIT
-        ins, outs = ports(a)
+        ins, outs = P.ports(a)
         for f in ins:
             k = min(k, occ(f) // fifo[f][F_RATE])
         for f in outs:
@@ -156,103 +276,71 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
 
     def fire(a: int) -> None:
         r = actor[a]
+        kind = r[A_KIND]
         en = rates(a)
         if r[A_CTRL] >= 0:                       # consume the control token
             c = r[A_CTRL]
             io[3 * c] += 1
             io[3 * c + 2] -= 1
-        ins, outs = ports(a)
-        in_off = []
+        ins, outs = P.ports(a)
+        in_ph = [io[3 * f] % fifo[f][F_NPH] for f in ins]
         for e, f in zip(en, ins):
-            in_off.append(rd_off(f))
             if e:
                 io[3 * f] += 1
                 io[3 * f + 2] -= fifo[f][F_RATE]
-        out_en = en[len(ins):]
-        out_off = [wr_off(f) for f in outs]
-        if r[A_CTRL] < 0 or not en or any(en):
-            body(a, ins, outs, en[:len(ins)], out_en, in_off, out_off)
-        for e, f in zip(out_en, outs):
-            if e:
-                copy_back(rings[f], fifo[f], io[3 * f + 1])
-                io[3 * f + 1] += 1
-                io[3 * f + 2] += fifo[f][F_RATE]
-        io[io_counts + a] += 1
-
-    def body(a, ins, outs, in_en, out_en, in_off, out_off) -> None:
-        r = actor[a]
-        kind = r[A_KIND]
-        win = [rings[f][o:o + fifo[f][F_RATE]] for f, o in zip(ins, in_off)]
-        dst = [None if fifo[f][F_CTRL] else rings[f][o:o + fifo[f][F_RATE]]
-               for f, o in zip(outs, out_off)]
-        if kind in (SOURCE, CONFIG, SINK):
-            s = io_scal + 2 * r[A_SCALAR]
-            idx = io[s]
-            if kind != CONFIG and not 0 <= idx < io[s + 1]:
-                io[io_meta + M_ERROR] = ERR_SLAB
-                io[io_meta + M_ERR_ACTOR] = a
-                io[io_meta + M_ERR_VALUE] = idx
+        body = r[A_CTRL] < 0 or not en or any(en)
+        idx = n_idx = value = 0
+        if body and kind in (SOURCE, CONFIG, SINK):
+            s = P.io_scal + 2 * r[A_SCALAR]
+            idx, n_idx = io[s], io[s + 1]
+            if kind != CONFIG and not 0 <= idx < n_idx:
+                io[P.io_meta + M_ERROR] = ERR_SLAB
+                io[P.io_meta + M_ERR_ACTOR] = a
+                io[P.io_meta + M_ERR_VALUE] = idx
                 raise _Stop
             io[s] = idx + 1
-        if kind in (SOURCE, SINK):
-            # Plane p of window idx sits at p * stride + idx * wb of the slab.
-            wb = r[A_N0]
-            stride = io[s + 1] * wb
-            slab = _bytes(aptr[r[A_PTR0]])
-            ring = _bytes(dst[0] if kind == SOURCE else win[0])
-            for p in range(r[A_PLANES]):
-                at = p * stride + idx * wb
-                if kind == SINK:
-                    slab[at:at + wb].copy_(ring[p * wb:(p + 1) * wb])
-                elif out_en[0]:
-                    ring[p * wb:(p + 1) * wb].copy_(slab[at:at + wb])
-        elif kind == CONFIG:
-            sched = schedules[a]
-            value = sched[min(max(idx, 0), r[A_AUX] - 1)]
-            for e, f, o in zip(out_en, outs, out_off):
-                if e:
-                    io[io_ctrl + fifo[f][F_CBASE] + o] = value
-        elif kind == FORK:
-            for e, d in zip(out_en, dst):
-                if e:
-                    d.copy_(win[0])
-        elif kind == POLY:
-            hist = aptr[r[A_PTR0]]
-            y, nxt = poly_ref(hist, win[0][0], aptr[r[A_PTR1]], r[A_ORDER])
-            hist.copy_(nxt)
-            if out_en[0]:
-                dst[0][0].copy_(y)
-        elif kind == ADDER:
-            acc = torch.zeros_like(win[0])
-            for k in t[r[A_AUX]:r[A_AUX] + r[A_NAUX]]:
-                if in_en[k]:
-                    acc.add_(win[k])
-            if out_en[0]:
-                dst[0].copy_(acc)
-        elif kind == GAUSS:
-            out = gauss5x5_u8_ref(win[0])
-            for e, d in zip(out_en, dst):
-                if e:
-                    d.copy_(out)
-        elif kind == THRES:
-            threshold = struct.unpack("<f", struct.pack("<i", r[A_FPARAM]))[0]
-            if out_en[0]:
-                dst[0].copy_(to_u8(thres_ref(win[0].to(torch.float32),
-                                             win[1].to(torch.float32),
-                                             threshold)))
-        elif kind == MED:
-            if out_en[0]:
-                dst[0].copy_(to_u8(med_ref(win[0].to(torch.float32))))
+            if kind == CONFIG:
+                value = schedules[a][min(max(idx, 0), r[A_AUX] - 1)]
+        out_en = en[len(ins):]
+        out_ph = [io[3 * f + 1] % fifo[f][F_NPH] for f in outs]
+        cb = [bool(e and fifo[f][F_DELAY] and ph == 2)
+              for e, f, ph in zip(out_en, outs, out_ph)]
+        for e, f, ph in zip(out_en, outs, out_ph):
+            if e:
+                if fifo[f][F_CTRL] and body and kind == CONFIG:
+                    io[P.io_ctrl + fifo[f][F_CBASE] + write_offset(fifo[f], ph)] = value
+                io[3 * f + 1] += 1
+                io[3 * f + 2] += fifo[f][F_RATE]
+        io[P.io_counts + a] += 1
+        if not body or kind == CONFIG:
+            return
+        # What the body touches: every input window (an adder only its
+        # enabled terms), every enabled data output window, and slot 0 of a
+        # delay channel on its phase-2 write.
+        reads = tuple((f, s) for i, (f, ph) in enumerate(zip(ins, in_ph))
+                      if not fifo[f][F_CTRL] and (kind != ADDER or en[i])
+                      for s in read_segments(fifo[f], ph))
+        writes = tuple((f, s) for e, f, ph in zip(out_en, outs, out_ph)
+                       if e and not fifo[f][F_CTRL]
+                       for s in write_segments(fifo[f], ph))
+        seq = len(commands) + 1
+        commands.append(Command(
+            seq=seq, actor=a, in_en=list(en[:len(ins)]), out_en=list(out_en),
+            in_off=[ph * fifo[f][F_RATE] for f, ph in zip(ins, in_ph)],
+            out_off=[write_offset(fifo[f], ph) for f, ph in zip(outs, out_ph)],
+            copy_back=cb, idx=idx, n_idx=n_idx, reads=reads, writes=writes,
+            copy_back_writes=tuple((f, COPY_BACK_SEGMENT)
+                                   for f, on in zip(outs, cb) if on),
+            after=last_poly.get(a, 0) if kind == POLY else 0))
+        if kind == POLY:
+            last_poly[a] = seq
 
-    for f in range(n_fifos):                     # the dead-slot rule
-        if fifo[f][F_FWD] and not fifo[f][F_CTRL]:
-            _bytes(rings[f]).zero_()
     sweeps = 0
     fired_any = True
     try:
         while fired_any and sweeps < max_sweeps:
             fired_any = False
-            for a in visit:
+            for a in P.visit:
                 k = max_fireable(a) if multi_firing else 1
                 for _ in range(k):
                     if not can_fire(a):
@@ -262,5 +350,86 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             sweeps += 1
     except _Stop:
         pass
-    io[io_meta + M_SWEEPS] = sweeps
-    io[io_meta + M_STALLED] = int(fired_any and sweeps >= max_sweeps)
+    io[P.io_meta + M_SWEEPS] = sweeps
+    io[P.io_meta + M_STALLED] = int(fired_any and sweeps >= max_sweeps)
+    hazard_waits(commands)
+    return commands
+
+
+def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
+            commands: Sequence[Command]) -> None:
+    """Run the commands' bodies on ``tensors`` in the order given (the
+    kernel's body threads)."""
+    P = _Table(table)
+    t, fifo, actor = P.t, P.fifo, P.actor
+    rings = tensors[:P.n_fifos]
+    aptr = tensors[P.n_fifos:]
+    for c in commands:
+        r = actor[c.actor]
+        kind = r[A_KIND]
+        ins, outs = P.ports(c.actor)
+        win = [rings[f][o:o + fifo[f][F_RATE]] for f, o in zip(ins, c.in_off)]
+        dst = [None if fifo[f][F_CTRL] else rings[f][o:o + fifo[f][F_RATE]]
+               for f, o in zip(outs, c.out_off)]
+        if kind in (SOURCE, SINK):
+            # Plane p of window idx sits at p * stride + idx * wb of the slab.
+            wb = r[A_N0]
+            stride = c.n_idx * wb
+            slab = _bytes(aptr[r[A_PTR0]])
+            ring = _bytes(dst[0] if kind == SOURCE else win[0])
+            for p in range(r[A_PLANES]):
+                at = p * stride + c.idx * wb
+                if kind == SINK:
+                    slab[at:at + wb].copy_(ring[p * wb:(p + 1) * wb])
+                elif c.out_en[0]:
+                    ring[p * wb:(p + 1) * wb].copy_(slab[at:at + wb])
+        elif kind == FORK:
+            for e, d in zip(c.out_en, dst):
+                if e:
+                    d.copy_(win[0])
+        elif kind == POLY:
+            hist = aptr[r[A_PTR0]]
+            y, nxt = poly_ref(hist, win[0][0], aptr[r[A_PTR1]], r[A_ORDER])
+            hist.copy_(nxt)
+            if c.out_en[0]:
+                dst[0][0].copy_(y)
+        elif kind == ADDER:
+            acc = torch.zeros_like(win[0])
+            for k in t[r[A_AUX]:r[A_AUX] + r[A_NAUX]]:
+                if c.in_en[k]:
+                    acc.add_(win[k])
+            if c.out_en[0]:
+                dst[0].copy_(acc)
+        elif kind == GAUSS:
+            out = gauss5x5_u8_ref(win[0])
+            for e, d in zip(c.out_en, dst):
+                if e:
+                    d.copy_(out)
+        elif kind == THRES:
+            threshold = struct.unpack("<f", struct.pack("<i", r[A_FPARAM]))[0]
+            if c.out_en[0]:
+                dst[0].copy_(to_u8(thres_ref(win[0].to(torch.float32),
+                                             win[1].to(torch.float32),
+                                             threshold)))
+        elif kind == MED:
+            if c.out_en[0]:
+                dst[0].copy_(to_u8(med_ref(win[0].to(torch.float32))))
+        for on, f in zip(c.copy_back, outs):
+            if on:
+                rings[f][0].copy_(rings[f][3 * fifo[f][F_RATE]])
+
+
+def zero_forwarded(table: Sequence[int], tensors: List[Optional[torch.Tensor]]) -> None:
+    """Forwarded data rings start the run from zeros (the dead-slot rule)."""
+    P = _Table(table)
+    for f in range(P.n_fifos):
+        if P.fifo[f][F_FWD] and not P.fifo[f][F_CTRL]:
+            _bytes(tensors[f]).zero_()
+
+
+def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
+                io: List[int], max_sweeps: int, multi_firing: bool) -> None:
+    """Run the device program to quiescence on ``tensors`` (rings, then
+    actor tensors) and ``io`` (the io block), in place."""
+    zero_forwarded(table, tensors)
+    execute(table, tensors, schedule(table, tensors, io, max_sweeps, multi_firing))

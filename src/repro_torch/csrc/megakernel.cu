@@ -18,56 +18,86 @@
 // in place (DPD's 11.5 MB and motion detection's 3.5 MB fit in the 50 MB
 // L2; a block's 227 KB of shared memory could not hold them).
 //
-// Design, simple and right first:
-// * One cooperative launch, one block per SM, so that every block is
-//   co-resident and cooperative_groups' grid barrier is legal.
-// * The scheduler is replicated, not shared: thread 0 of every block runs
-//   the same deterministic loop over its own shared-memory copy of the
-//   cursor block, the fire counts, the actor states' int scalars and the
-//   control rings (control tokens are scheduler state: only config actors
-//   write them, only control ports read them).  Every block makes the same
-//   decisions, so no cursor semaphore or atomic is needed, and a config
-//   firing runs in thread 0 alone with no barrier.
-// * Rings are bytes: a channel row carries its token size in bytes, so one
-//   kernel moves DPD's float32 and motion detection's uint8 tokens.
-//   Windows are copied in 16-, 4- or 1-byte words, the widest that every
-//   address and length allows.  A source or sink copies its window through
-//   its slab descriptor (planes of per-window runs), so DPD's two (re, im)
-//   planes and motion detection's one run of frames take the same path.
-// * Bodies run across the whole grid as grid-stride loops (source and sink
-//   copy a window, fork copies its input to every enabled output, the adder
-//   sums its enabled inputs from 0 in its terms' order with __fadd_rn, Poly
-//   runs B1's arithmetic from dyn_fir.cuh, gauss/thres/med run B3's and
-//   B4's per-pixel arithmetic from motion.cuh with clamped neighbours); a
-//   grid barrier follows every body.  A rate-0 firing moves only the
-//   replicated cursors.  Data written by one body is read in a later one
-//   with __ldcg (L2), after the barrier.
-// * The delay channel's copy-back needs no barrier of its own: after an
-//   enabled phase-2 write, slot 0 takes slot 3r, the window's last token,
-//   and the thread that writes a word of that token writes it to slot 0
-//   too.  Its reader is a later body, after the grid barrier.  Only such
-//   a firing runs the bodies compiled with that test (run_body_copy_back);
-//   every other store tests nothing.
-// * Poly history is updated in place without a race: only tile 0 reads the
-//   9 history samples, tile 0 always belongs to block 0, and block 0 writes
-//   the next history after its own block barrier that ends the tile's
-//   staging; the next reader is a later body, after the grid barrier.
-//
 // Bound: on DPD, operations.  Poly's fp32 work over a run is the sum over
 // active firings of L * (84 + order) flop (about 1.2 Gflop, 18 us at
 // 67 TFLOP/s on DPD's main path), above the ~10 us of HBM time for the
 // source and sink slabs (16.8 MB each at 3.35 TB/s).  On motion detection,
 // bytes: the 73.7 MB source and sink slabs of 960 frames take 44 us.
-// What holds it back by design: one grid barrier per body (about 650 per
-// DPD run, 1200 per motion detection run, each a few us), one block per SM,
-// stencils that read their neighbours from L2 rather than a staged tile,
-// and a single-threaded scheduler step per firing attempt.  A later change
-// would partition the grid (`cores`, one SM group per partition with
-// cursor semaphores), move windows with TMA, and fuse bodies to need fewer
-// barriers.
+// What costs the time instead is latency: about 650 bodies per DPD run and
+// 1200 per motion detection run, each well under a microsecond of bytes or
+// flops, chained by data dependencies through L2.
+//
+// Design: the scheduler runs ahead of the bodies, and bodies wait only for
+// the bodies they depend on.
+// * One cooperative launch, one block per SM, every block co-resident.
+//   Each block is 256 body threads (the Poly tile, as in B1), a scheduler
+//   warp, a publisher warp and a watcher warp.
+// * The scheduler is replicated, not shared: the scheduler warp of every
+//   block runs the same deterministic sweep loop over its own shared-memory
+//   copy of the cursor block, the fire counts, the actor states' int
+//   scalars and the control rings (control tokens are scheduler state: only
+//   config actors write them, only control ports read them).  It never needs
+//   a body's result, so it runs ahead of them.  Lane l handles input l and
+//   output l of the actor it visits (can_fire, max_fireable and fire as
+//   warp votes and reductions); cursor phases (cursor % phases) are kept, so
+//   no step divides by a phase count; ring and tensor addresses are copied
+//   into shared memory, so the only global load it makes is a config
+//   actor's schedule entry.
+// * Each firing with a body becomes a command: its number k (from 1),
+//   wait_for, and what the body runs from (the addresses of its ports'
+//   windows and of its slab window, its enables, its parameters).  The
+//   scheduler warp writes it into a ring of RING command slots (mbarriers:
+//   full, done, empty), a lane for each port; the body threads run their
+//   share of the body from the slot, most as grid-stride loops.
+// * Dependency waits, not a grid barrier per body.  Each block runs its
+//   share of every command in order.  When every body warp of the block has
+//   arrived on the slot's `done`, the publisher warp publishes k in the
+//   block's progress word (fence.acq_rel.gpu, relaxed store) and frees the
+//   slot, off the body threads' path.  A watcher warp keeps the least
+//   progress of all blocks in shared memory (relaxed loads, then
+//   fence.acq_rel.gpu and a release store when it grows).  Before command
+//   k, warp 0 reads it with acquire loads until it covers wait_for, and a
+//   block barrier hands that on: a dependency is usually met while the
+//   block runs the commands before it, and a command with no conflict
+//   waits for nothing.  wait_for is the largest k of an earlier command that wrote a
+//   ring segment this one reads (RAW), or read or wrote one it writes (WAR,
+//   WAW); a segment is a channel's window (with a delay channel, the parts
+//   of its windows the one-slot shift cuts apart, and slot 0 written by the
+//   copy-back).  core/megakernel/ref.py holds the same rule
+//   (hazard_waits), and the tests replay its command lists in orders the
+//   rule permits.  Data written in another block is read with __ldcg (L1 is
+//   not coherent across SMs).  The start-up zeroing of forwarded rings
+//   keeps its one grid barrier.
+// * Poly history is updated in place without a wait: only tile 0 reads the
+//   9 history samples, tile 0 always belongs to block 0, block 0 runs its
+//   commands in order, and it writes the next history after the block
+//   barrier that ends the tile's staging.  Source slabs are only read and
+//   each sink window is written once per run, so neither is a resource.
+// * Rings are bytes: a channel row carries its token size in bytes, so one
+//   kernel moves DPD's float32 and motion detection's uint8 tokens.
+//   Windows are copied in 16-, 4- or 1-byte words, the widest that every
+//   address and length allows.  A source or sink copies its window through
+//   its slab descriptor (planes of per-window runs).  Bodies: source and
+//   sink copy a window, fork copies its input to every enabled output, the
+//   adder sums its enabled inputs from 0 in its terms' order with
+//   __fadd_rn, Poly runs B1's arithmetic from dyn_fir.cuh, gauss/thres/med
+//   run B3's and B4's per-pixel arithmetic from motion.cuh with clamped
+//   neighbours: gauss and med on rows a block stages with their halo in
+//   shared memory, thres on 16 pixels a thread.  A rate-0 firing moves only
+//   the replicated cursors.
+// * The delay channel's copy-back: after an enabled phase-2 write, slot 0
+//   takes slot 3r, the window's last token; the thread that writes a word
+//   of that token writes it to slot 0 too.  Only such a firing runs the
+//   bodies compiled with that test (run_body_copy_back).
+// * Built with -DMK_CLOCK_SPLIT, thread 0 of block 0 counts its cycles
+//   waiting for the scheduler (the ring empty), waiting on other blocks
+//   (and how often), in each kind of body (and how often), and in the
+//   whole command loop, into the meta words from M_CLK_STALL on
+//   (kernel.py's decode_clock_split reads them).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 #include "dyn_fir.cuh"
@@ -87,24 +117,34 @@ constexpr int ACTOR_FIELDS = 20;
 enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
        A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
        A_PLANES, A_FPARAM };
-constexpr int META_WORDS = 8;
+constexpr int META_WORDS = 16;
 enum { M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
-       M_CLK_STALL, M_CLK_LOOP };
+       M_CLK_STALL, M_CLK_LOOP, M_CLK_KIND };
 enum { K_SOURCE, K_CONFIG, K_FORK, K_POLY, K_ADDER, K_SINK, K_GAUSS, K_THRES,
        K_MED };
 enum { ERR_DOMAIN = 1, ERR_SLAB = 2 };
 
 constexpr int MAX_FIRINGS_PER_VISIT = 8;  // executor.py:31
-constexpr int MAX_PORTS = 32;             // checked by program.py
-constexpr int THREADS = 256;              // = Poly tile, as in B1
+constexpr int MAX_PORTS = 32;             // checked by program.py; a lane each
+constexpr int BODY_THREADS = 256;         // = Poly tile, as in B1
+constexpr int SCHED_TID = BODY_THREADS;   // the scheduler warp
+constexpr int PUBLISH_TID = BODY_THREADS + 32;  // the publisher warp
+constexpr int WATCH_TID = BODY_THREADS + 64;    // the watcher warp
+constexpr int THREADS = BODY_THREADS + 96;
+constexpr int TILE_FLOATS = 4096;         // a stencil's staged rows
+constexpr int RING = 16;                  // command slots
+constexpr int SEGS = 8;                   // segments a channel has, at most 7
 constexpr int CMD_DONE = -1;
+constexpr unsigned FULL = 0xffffffffu;
 
 using dyn_fir::HALO;
 using dyn_fir::N_TAPS;
 
-// One body for the whole grid, decided by thread 0 of every block.
+// A command: one firing with a body as the scheduler warp decided it, with
+// the addresses and parameters the body threads run it from.
 struct Cmd {
-  int kind;
+  long long seq, wait_for;
+  int kind;            // CMD_DONE ends the run
   int n_in, n_out;
   unsigned in_en, out_en;
   int order, n_terms;
@@ -126,17 +166,29 @@ struct Cmd {
   const float* taps;
 };
 
-// Thread 0's scheduler position between bodies.
+// The scheduler warp's position between firings (the same in every lane).
 struct Sched {
   int sweeps, vpos, left, fired_any;
   int stalled, error, err_actor, err_value;
+  long long seq;           // commands emitted
+};
+
+// One firing as fire() leaves it: lane l holds input l's and output l's
+// window; the rest is the same in every lane.
+struct Firing {
+  long long wait_for;
+  unsigned in_en, out_en, cb_mask;
+  int idx, n_idx;
+  int in_off, out_off;
 };
 
 // Views of the shared-memory replicas.
 struct View {
-  const int* P;      // the packed program
-  int* S;            // io words: cursors | scalars | control rings | counts
-  long long* args;   // ring addresses | actor tensor addresses | io
+  const int* P;            // the packed program
+  int* S;                  // io words: cursors | scalars | control rings | counts
+  int* ph;                 // per channel: read phase, write phase
+  const long long* addr;   // ring addresses | actor tensor addresses
+  long long* trk;          // per channel: each segment's last writer, then last reader
   int io_scal, io_ctrl, io_counts;
 };
 
@@ -147,184 +199,322 @@ __device__ __forceinline__ const int* actor_row(const View& v, int a) {
   return v.P + v.P[H_ACTOR_OFF] + ACTOR_FIELDS * a;
 }
 __device__ __forceinline__ int occ(const View& v, int f) { return v.S[3 * f + 2]; }
-__device__ __forceinline__ int rd_off(const View& v, int f) {
-  const int* fr = fifo_row(v, f);
-  return (v.S[3 * f] % fr[F_NPH]) * fr[F_RATE];
-}
-// A delay channel writes one slot further on: slot 0 holds the delay token.
-__device__ __forceinline__ int wr_off(const View& v, int f) {
-  const int* fr = fifo_row(v, f);
-  return (v.S[3 * f + 1] % fr[F_NPH]) * fr[F_RATE] + fr[F_DELAY];
-}
 __device__ __forceinline__ unsigned char* ring(const View& v, int f, int off) {
-  return reinterpret_cast<unsigned char*>(static_cast<uintptr_t>(v.args[f])) +
+  return reinterpret_cast<unsigned char*>(static_cast<uintptr_t>(v.addr[f])) +
          static_cast<long long>(off) * fifo_row(v, f)[F_TOKB];
 }
 __device__ __forceinline__ void* aptr(const View& v, int slot) {
   return reinterpret_cast<void*>(
-      static_cast<uintptr_t>(v.args[v.P[H_N_FIFOS] + slot]));
+      static_cast<uintptr_t>(v.addr[v.P[H_N_FIFOS] + slot]));
+}
+__device__ __forceinline__ long long& last_writer(const View& v, int f, int seg) {
+  return v.trk[2 * SEGS * f + seg];
+}
+__device__ __forceinline__ long long& last_reader(const View& v, int f, int seg) {
+  return v.trk[2 * SEGS * f + SEGS + seg];
 }
 
-// Enables of actor a: bit i for input i, bit n_in + o for output o.
-// Returns false (with the error set) for a token outside the domain.
-__device__ bool rates(const View& v, int a, unsigned long long* en, Sched* s) {
+__device__ __forceinline__ int lane() { return threadIdx.x & 31; }
+__device__ __forceinline__ unsigned low_bits(int n) {
+  return n >= 32 ? FULL : (1u << n) - 1;
+}
+__device__ __forceinline__ int next_phase(int ph, int n_phases) {
+  return ph + 1 == n_phases ? 0 : ph + 1;
+}
+
+// ---- synchronisation --------------------------------------------------- //
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)),
+               "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar))
+               : "memory");
+}
+// A wait that outlasts this many cycles (about 35 s at 1.98 GHz) traps: a
+// broken dependency then fails the launch instead of hanging the card.
+constexpr long long WAIT_LIMIT = 1LL << 36;
+__device__ __forceinline__ void watchdog(long long since) {
+  if (clock64() - since > WAIT_LIMIT) __trap();
+}
+
+// Wait until the phase of parity `parity` has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long since = clock64();
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (!done) watchdog(since);
+  } while (!done);
+}
+// The 256 body threads' own barrier (the scheduler warp never joins it).
+__device__ __forceinline__ void body_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(BODY_THREADS) : "memory");
+}
+// This block has finished command `seq`: after the block barrier that ends
+// its share, one thread makes the share's writes visible to the GPU and
+// then publishes the number.
+__device__ __forceinline__ void publish(unsigned long long* word, long long seq) {
+  asm volatile("fence.acq_rel.gpu;\n"
+               "st.relaxed.gpu.global.u64 [%0], %1;\n"
+               :: "l"(word), "l"(static_cast<unsigned long long>(seq)) : "memory");
+}
+__device__ __forceinline__ long long load_relaxed(const unsigned long long* word) {
+  unsigned long long x;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n" : "=l"(x) : "l"(word) : "memory");
+  return static_cast<long long>(x);
+}
+__device__ __forceinline__ void store_release_cta(long long* word, long long x) {
+  asm volatile("st.release.cta.shared.u64 [%0], %1;\n" :: "r"(smem_u32(word)),
+               "l"(static_cast<unsigned long long>(x)) : "memory");
+}
+__device__ __forceinline__ long long load_acquire_cta(const long long* word) {
+  unsigned long long x;
+  asm volatile("ld.acquire.cta.shared.u64 %0, [%1];\n" : "=l"(x) : "r"(smem_u32(word))
+               : "memory");
+  return static_cast<long long>(x);
+}
+
+// The watcher warp: keeps *least, in shared memory, at the least progress
+// of all blocks until the body threads set *finished.  Its loads are
+// relaxed, so a lane's few are in flight together; when the least grows, a
+// fence.acq_rel.gpu makes them an acquire, and a release store hands the
+// value on: a body warp that reads it with an acquire, and the block
+// barrier after that, see every write of the commands up to it.  So a
+// command's dependency is usually met while the block runs the commands
+// before it, and the block only reads shared memory to know.
+__device__ void watcher(const unsigned long long* progress, long long* least,
+                        const volatile int* finished) {
+  long long known = 0;
+  while (!*finished) {
+    long long m = LLONG_MAX;
+    for (int b = lane(); b < static_cast<int>(gridDim.x); b += 32) {
+      const long long p = load_relaxed(progress + b);
+      m = p < m ? p : m;
+    }
+    for (int o = 16; o; o >>= 1) {
+      const long long p = __shfl_xor_sync(FULL, m, o);
+      m = p < m ? p : m;
+    }
+    if (m > known) {
+      asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+      known = m;
+      if (lane() == 0) store_release_cta(least, m);
+    }
+  }
+}
+
+// ---- the scheduler warp ------------------------------------------------ //
+// The actor being visited, loaded once per visit: the same in every lane,
+// except that lane l holds input l's and output l's channel.
+struct Visit {
+  const int* r;            // the actor's row
+  int a, kind, n_in, n_out, ctrl;
+  int ctrl_base;           // the control ring's first io word
+  int ready, scalar;       // ready limit (-1: none) and its scalar slot
+  int fi, fo;              // lane l's input and output channel, -1 for none
+  int rate_i, nph_i, data_i;
+  int rate_o, nph_o, bound_o, delay_o, data_o, cbase_o;
+};
+
+__device__ void visit_actor(const View& v, int a, Visit* u) {
+  const int l = lane();
   const int* r = actor_row(v, a);
-  const int n = r[A_NIN] + r[A_NOUT];
-  if (r[A_CTRL] < 0) {
-    *en = n >= 64 ? ~0ull : ((1ull << n) - 1);
+  u->r = r;
+  u->a = a;
+  u->kind = r[A_KIND];
+  u->n_in = r[A_NIN];
+  u->n_out = r[A_NOUT];
+  u->ctrl = r[A_CTRL];
+  u->ctrl_base = u->ctrl >= 0 ? v.io_ctrl + fifo_row(v, u->ctrl)[F_CBASE] : 0;
+  u->ready = r[A_READY];
+  u->scalar = r[A_SCALAR];
+  u->fi = l < u->n_in ? v.P[r[A_IN] + l] : -1;
+  u->fo = l < u->n_out ? v.P[r[A_OUT] + l] : -1;
+  if (u->fi >= 0) {
+    const int* fr = fifo_row(v, u->fi);
+    u->rate_i = fr[F_RATE];
+    u->nph_i = fr[F_NPH];
+    u->data_i = !fr[F_CTRL];
+  }
+  if (u->fo >= 0) {
+    const int* fr = fifo_row(v, u->fo);
+    u->rate_o = fr[F_RATE];
+    u->nph_o = fr[F_NPH];
+    u->bound_o = fr[F_BOUND];
+    u->delay_o = fr[F_DELAY];
+    u->data_o = !fr[F_CTRL];
+    u->cbase_o = fr[F_CBASE];
+  }
+}
+
+// Enables of the visited actor, the same in every lane: bit i of *in_en
+// for input i, bit o of *out_en for output o.  Returns false (with the
+// error set) for a token outside the domain.
+__device__ bool rates(const View& v, const Visit& u, unsigned* in_en, unsigned* out_en,
+                      Sched* s) {
+  if (u.ctrl < 0) {
+    *in_en = low_bits(u.n_in);
+    *out_en = low_bits(u.n_out);
     return true;
   }
-  const int c = r[A_CTRL];
-  const int tok = v.S[v.io_ctrl + fifo_row(v, c)[F_CBASE] + rd_off(v, c)];
+  // A control channel has rate 1: phase p is slot p.
+  const int tok = v.S[u.ctrl_base + v.ph[2 * u.ctrl]];
+  const int* r = u.r;
   if (tok < r[A_DLO] || tok > r[A_DHI]) {
     s->error = ERR_DOMAIN;
-    s->err_actor = a;
+    s->err_actor = u.a;
     s->err_value = tok;
     return false;
   }
-  const int* row = v.P + r[A_RATES] + (tok - r[A_DLO]) * n;
-  unsigned long long bits = 0;
-  for (int i = 0; i < n; ++i) bits |= static_cast<unsigned long long>(row[i] != 0) << i;
-  *en = bits;
+  const int* row = v.P + r[A_RATES] + (tok - r[A_DLO]) * (u.n_in + u.n_out);
+  const int l = lane();
+  *in_en = __ballot_sync(FULL, l < u.n_in && row[l] != 0);
+  *out_en = __ballot_sync(FULL, l < u.n_out && row[u.n_in + l] != 0);
   return true;
 }
 
-__device__ bool can_fire(const View& v, int a, Sched* s) {
-  const int* r = actor_row(v, a);
-  if (r[A_READY] >= 0 && v.S[v.io_scal + 2 * r[A_SCALAR]] >= r[A_READY]) return false;
-  if (r[A_CTRL] >= 0 && occ(v, r[A_CTRL]) < 1) return false;
-  unsigned long long en;
-  if (!rates(v, a, &en, s)) return false;
-  const int n_in = r[A_NIN];
-  for (int i = 0; i < n_in; ++i) {
-    const int f = v.P[r[A_IN] + i];
-    if (((en >> i) & 1) && occ(v, f) < fifo_row(v, f)[F_RATE]) return false;
-  }
-  for (int o = 0; o < r[A_NOUT]; ++o) {
-    const int f = v.P[r[A_OUT] + o];
-    const int* fr = fifo_row(v, f);
-    if (((en >> (n_in + o)) & 1) && occ(v, f) + fr[F_RATE] > fr[F_BOUND]) return false;
-  }
-  return true;
+// can_fire: on true, *in_en and *out_en hold the firing's enables.
+__device__ bool can_fire(const View& v, const Visit& u, unsigned* in_en,
+                         unsigned* out_en, Sched* s) {
+  if (u.ready >= 0 && v.S[v.io_scal + 2 * u.scalar] >= u.ready) return false;
+  if (u.ctrl >= 0 && occ(v, u.ctrl) < 1) return false;
+  if (!rates(v, u, in_en, out_en, s)) return false;
+  const int l = lane();
+  const bool blocked = (((*in_en >> l) & 1) && occ(v, u.fi) < u.rate_i) ||
+                       (((*out_en >> l) & 1) && occ(v, u.fo) + u.rate_o > u.bound_o);
+  return !__any_sync(FULL, blocked);
 }
 
-__device__ int max_fireable(const View& v, int a) {
-  const int* r = actor_row(v, a);
-  if (r[A_CTRL] >= 0) return min(MAX_FIRINGS_PER_VISIT, occ(v, r[A_CTRL]));
+__device__ int max_fireable(const View& v, const Visit& u) {
+  if (u.ctrl >= 0) return min(MAX_FIRINGS_PER_VISIT, occ(v, u.ctrl));
   int k = MAX_FIRINGS_PER_VISIT;
-  for (int i = 0; i < r[A_NIN]; ++i) {
-    const int f = v.P[r[A_IN] + i];
-    k = min(k, occ(v, f) / fifo_row(v, f)[F_RATE]);
-  }
-  for (int o = 0; o < r[A_NOUT]; ++o) {
-    const int f = v.P[r[A_OUT] + o];
-    const int* fr = fifo_row(v, f);
-    k = min(k, (fr[F_BOUND] - occ(v, f)) / fr[F_RATE]);
-  }
-  return k;
+  if (u.fi >= 0) k = min(k, occ(v, u.fi) / u.rate_i);
+  if (u.fo >= 0) k = min(k, (u.bound_o - occ(v, u.fo)) / u.rate_o);
+  return __reduce_min_sync(FULL, k);
 }
 
-// One firing's bookkeeping (fire_actor): consume the control token, masked
-// input reads, the actor's scalar state, masked output writes.  Fills `cmd`
-// and returns true when the firing has a body for the grid to run.
-__device__ bool fire(const View& v, int a, Cmd* cmd, Sched* s) {
-  const int* r = actor_row(v, a);
-  unsigned long long en;
-  rates(v, a, &en, s);  // can_fire just checked the token
-  if (r[A_CTRL] >= 0) {
-    const int c = r[A_CTRL];
+// The segments a read (write) at phase ph of a channel with `delay` and
+// `rate` covers, *s1 = -1 when only one (ref.py's read_segments /
+// write_segments).
+__device__ __forceinline__ void read_segments(int delay, int rate, int ph, int* s0,
+                                              int* s1) {
+  *s0 = delay ? 2 * ph : ph;
+  *s1 = delay && rate > 1 ? 2 * ph + 1 : -1;
+}
+__device__ __forceinline__ void write_segments(int delay, int rate, int ph, int* s0,
+                                               int* s1) {
+  *s0 = delay ? 2 * ph + 2 : ph;
+  *s1 = delay && rate > 1 ? 2 * ph + 1 : -1;
+}
+
+// One firing's bookkeeping (fire_actor) by the whole warp, with the
+// enables can_fire returned: consume the control token, masked input
+// reads, the actor's scalar state, masked output writes, and for a firing
+// with a body its wait (hazard_waits in ref.py) as command `seq`.  Fills
+// `f`; returns true when the firing has a body for the body threads to run.
+__device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out_en,
+                     long long seq, Firing* f, Sched* s) {
+  const int l = lane();
+  const int kind = u.kind, fi = u.fi, fo = u.fo;
+  if (u.ctrl >= 0 && l == 0) {
+    const int c = u.ctrl;
     v.S[3 * c] += 1;
     v.S[3 * c + 2] -= 1;
+    v.ph[2 * c] = next_phase(v.ph[2 * c], fifo_row(v, c)[F_NPH]);
   }
-  const int n_in = r[A_NIN], n_out = r[A_NOUT];
-  const int kind = r[A_KIND];
-  for (int i = 0; i < n_in; ++i) {
-    const int f = v.P[r[A_IN] + i];
-    cmd->in[i] = ring(v, f, rd_off(v, f));
-    if ((en >> i) & 1) {
-      v.S[3 * f] += 1;
-      v.S[3 * f + 2] -= fifo_row(v, f)[F_RATE];
+  const int in_ph = fi >= 0 ? v.ph[2 * fi] : 0;
+  if (fi >= 0) {
+    f->in_off = in_ph * u.rate_i;
+    if ((in_en >> l) & 1) {
+      v.S[3 * fi] += 1;
+      v.S[3 * fi + 2] -= u.rate_i;
+      v.ph[2 * fi] = next_phase(in_ph, u.nph_i);
     }
   }
-  const bool body = r[A_CTRL] < 0 || n_in + n_out == 0 || en != 0;
+  const bool body = u.ctrl < 0 || u.n_in + u.n_out == 0 || (in_en | out_en) != 0;
   int value = 0;
+  f->idx = f->n_idx = 0;
   if (body && (kind == K_SOURCE || kind == K_CONFIG || kind == K_SINK)) {
-    int* sc = v.S + v.io_scal + 2 * r[A_SCALAR];
-    const int idx = sc[0];
-    if (kind != K_CONFIG && (idx < 0 || idx >= sc[1])) {
+    int* sc = v.S + v.io_scal + 2 * u.scalar;
+    const int idx = sc[0], n_idx = sc[1];
+    __syncwarp();
+    if (kind != K_CONFIG && (idx < 0 || idx >= n_idx)) {
       s->error = ERR_SLAB;
-      s->err_actor = a;
+      s->err_actor = u.a;
       s->err_value = idx;
+      __syncwarp();
       return false;
     }
-    sc[0] = idx + 1;
-    if (kind == K_CONFIG) {
-      const int* sched = static_cast<const int*>(aptr(v, r[A_PTR0]));
-      value = sched[min(max(idx, 0), r[A_AUX] - 1)];
-    } else {
-      // Plane p of window idx sits at p * stride + idx * plane_bytes.
-      const long long plane_bytes = r[A_N0];
-      cmd->slab = static_cast<unsigned char*>(aptr(v, r[A_PTR0])) + idx * plane_bytes;
-      cmd->slab_stride = static_cast<long long>(sc[1]) * plane_bytes;
-    }
+    if (l == 0) sc[0] = idx + 1;
+    f->idx = idx;
+    f->n_idx = n_idx;
+    if (kind == K_CONFIG)
+      value = __ldg(static_cast<const int*>(aptr(v, u.r[A_PTR0])) +
+                    min(max(idx, 0), u.r[A_AUX] - 1));
   }
-  unsigned cb_mask = 0;
-  for (int o = 0; o < n_out; ++o) {
-    const int f = v.P[r[A_OUT] + o];
-    const int* fr = fifo_row(v, f);
-    const int off = wr_off(v, f);
-    const bool on = (en >> (n_in + o)) & 1;
-    if (fr[F_CTRL]) {
-      cmd->out[o] = nullptr;
-      if (body && on && kind == K_CONFIG) v.S[v.io_ctrl + fr[F_CBASE] + off] = value;
+  __syncwarp();  // input cursors before output cursors: an actor may feed itself
+  const int out_ph = fo >= 0 ? v.ph[2 * fo + 1] : 0;
+  const bool on = (out_en >> l) & 1;
+  bool cb = false;
+  if (fo >= 0) {
+    const int off = out_ph * u.rate_o + u.delay_o;
+    f->out_off = off;
+    if (!u.data_o) {
+      if (body && on && kind == K_CONFIG) v.S[v.io_ctrl + u.cbase_o + off] = value;
     } else {
-      cmd->out[o] = ring(v, f, off);
-      if (on && fr[F_DELAY] && v.S[3 * f + 1] % fr[F_NPH] == 2) {  // Fig. 2
-        cb_mask |= 1u << o;
-        cmd->slot0[o] = ring(v, f, 0);
-        cmd->cb_from[o] = static_cast<long long>(fr[F_RATE] - 1) * fr[F_TOKB];
-      }
+      cb = on && u.delay_o && out_ph == 2;  // Fig. 2
     }
     if (on) {
-      v.S[3 * f + 1] += 1;
-      v.S[3 * f + 2] += fr[F_RATE];
+      v.S[3 * fo + 1] += 1;
+      v.S[3 * fo + 2] += u.rate_o;
+      v.ph[2 * fo + 1] = next_phase(out_ph, u.nph_o);
     }
   }
-  v.S[v.io_counts + a] += 1;
-  if (!body || kind == K_CONFIG) return false;
-  // The body's parameters; only those its kind reads are written, since
-  // thread 0 does this alone on every firing.
-  cmd->kind = kind;
-  cmd->cb_mask = cb_mask;
-  cmd->n_in = n_in;
-  cmd->n_out = n_out;
-  cmd->in_en = static_cast<unsigned>(en & ((1ull << n_in) - 1));
-  cmd->out_en = static_cast<unsigned>(en >> n_in);
-  cmd->n0 = r[A_N0];
-  if (kind == K_POLY) {
-    cmd->order = r[A_ORDER];
-    cmd->hist = static_cast<float*>(aptr(v, r[A_PTR0]));
-    cmd->taps = static_cast<const float*>(aptr(v, r[A_PTR1]));
-    return true;
+  if (l == 0) v.S[v.io_counts + u.a] += 1;
+  f->cb_mask = __ballot_sync(FULL, cb);
+  f->in_en = in_en;
+  f->out_en = out_en;
+  if (!body || kind == K_CONFIG) {
+    __syncwarp();
+    return false;
   }
-  if (kind == K_SOURCE || kind == K_SINK) {
-    cmd->planes = r[A_PLANES];
-    return true;
-  }
-  const int* f0 = fifo_row(v, v.P[r[A_IN]]);  // fork, adder, gauss, thres, med
-  cmd->win = static_cast<long long>(f0[F_RATE]) * f0[F_TOKB];
-  cmd->n1 = r[A_N1];
-  cmd->fparam = __int_as_float(r[A_FPARAM]);
-  if (kind == K_ADDER) {
-    cmd->n_terms = r[A_NAUX];
-    for (int t = 0; t < r[A_NAUX]; ++t) cmd->terms[t] = v.P[r[A_AUX] + t];
-  }
+
+  // What the body touches: every input window (an adder only its enabled
+  // terms), every enabled data output window, and slot 0 on a copy-back.
+  int r0 = -1, r1 = -1, w0 = -1, w1 = -1;
+  if (fi >= 0 && u.data_i && (kind != K_ADDER || ((in_en >> l) & 1)))
+    read_segments(fifo_row(v, fi)[F_DELAY], u.rate_i, in_ph, &r0, &r1);
+  if (fo >= 0 && on && u.data_o) write_segments(u.delay_o, u.rate_o, out_ph, &w0, &w1);
+  long long w = 0;
+  if (r0 >= 0) w = max(w, last_writer(v, fi, r0));
+  if (r1 >= 0) w = max(w, last_writer(v, fi, r1));
+  if (w0 >= 0) w = max(w, max(last_writer(v, fo, w0), last_reader(v, fo, w0)));
+  if (w1 >= 0) w = max(w, max(last_writer(v, fo, w1), last_reader(v, fo, w1)));
+  if (cb) w = max(w, max(last_writer(v, fo, 0), last_reader(v, fo, 0)));
+  for (int o = 16; o; o >>= 1) w = max(w, __shfl_xor_sync(FULL, w, o));
+  __syncwarp();  // every wait is read before this command's own segments count
+  if (r0 >= 0) last_reader(v, fi, r0) = seq;
+  if (r1 >= 0) last_reader(v, fi, r1) = seq;
+  if (w0 >= 0) last_writer(v, fo, w0) = seq;
+  if (w1 >= 0) last_writer(v, fo, w1) = seq;
+  if (cb) last_writer(v, fo, 0) = seq;
+  __syncwarp();
+  f->wait_for = w;
   return true;
 }
 
-// Thread 0: advance the sweep loop (run_dynamic) to the next firing with a
-// body, or to its end (cmd->kind = CMD_DONE).
-__device__ void schedule_next(const View& v, Cmd* cmd, Sched* s,
+// Advance the sweep loop (run_dynamic) to the next firing with a body, or
+// to its end: returns true with the visited actor in *u and the firing in
+// *f, or false at the end of the run.
+__device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
                               int max_sweeps, int multi_firing) {
   const int* visit = v.P + v.P[H_VISIT_OFF];
   const int n_visit = v.P[H_N_VISIT];
@@ -332,8 +522,7 @@ __device__ void schedule_next(const View& v, Cmd* cmd, Sched* s,
     if (s->vpos < 0) {  // between sweeps: `while fired_any and sweeps < max`
       if (!s->fired_any || s->sweeps >= max_sweeps) {
         s->stalled = s->fired_any && s->sweeps >= max_sweeps;
-        cmd->kind = CMD_DONE;
-        return;
+        return false;
       }
       s->fired_any = 0;
       s->vpos = 0;
@@ -344,34 +533,116 @@ __device__ void schedule_next(const View& v, Cmd* cmd, Sched* s,
       s->vpos = -1;
       continue;
     }
-    const int a = visit[s->vpos];
-    if (s->left < 0) s->left = multi_firing ? max_fireable(v, a) : 1;
-    if (s->left == 0 || !can_fire(v, a, s)) {
-      if (s->error) {
-        cmd->kind = CMD_DONE;
-        return;
-      }
+    if (s->left < 0) {
+      visit_actor(v, visit[s->vpos], u);
+      s->left = multi_firing ? max_fireable(v, *u) : 1;
+    }
+    unsigned in_en, out_en;
+    if (s->left == 0 || !can_fire(v, *u, &in_en, &out_en, s)) {
+      if (s->error) return false;
       s->vpos += 1;
       s->left = -1;
       continue;
     }
     s->left -= 1;
     s->fired_any = 1;
-    const bool body = fire(v, a, cmd, s);
-    if (s->error) {
-      cmd->kind = CMD_DONE;
-      return;
+    const bool body = fire(v, *u, in_en, out_en, s->seq + 1, f, s);
+    if (s->error) return false;
+    if (body) {
+      s->seq += 1;
+      return true;
     }
-    if (body) return;
   }
 }
 
-// ---- bodies: every thread of the grid ---------------------------------- //
+// Command slot c for firing f of the visited actor (number s->seq), by the
+// scheduler warp side by side: lane l fills input l, output l and adder
+// term l.
+__device__ void fill(const View& v, const Visit& u, const Firing& f, const Sched* s,
+                     Cmd* c) {
+  const int l = lane();
+  const int* r = u.r;
+  if (u.fi >= 0) c->in[l] = ring(v, u.fi, f.in_off);
+  if (u.fo >= 0) {
+    c->out[l] = u.data_o ? ring(v, u.fo, f.out_off) : nullptr;
+    if ((f.cb_mask >> l) & 1) {
+      c->slot0[l] = ring(v, u.fo, 0);
+      c->cb_from[l] = static_cast<long long>(u.rate_o - 1) * fifo_row(v, u.fo)[F_TOKB];
+    }
+  }
+  if (u.kind == K_ADDER && l < r[A_NAUX]) c->terms[l] = v.P[r[A_AUX] + l];
+  if (l == 0) {
+    c->seq = s->seq;
+    c->wait_for = f.wait_for;
+    c->kind = u.kind;
+    c->cb_mask = f.cb_mask;
+    c->n_in = u.n_in;
+    c->n_out = u.n_out;
+    c->in_en = f.in_en;
+    c->out_en = f.out_en;
+    c->n0 = r[A_N0];
+    c->n1 = r[A_N1];
+    c->order = r[A_ORDER];
+    c->n_terms = r[A_NAUX];
+    c->planes = r[A_PLANES];
+    c->fparam = __int_as_float(r[A_FPARAM]);
+    if (u.kind == K_POLY) {
+      c->hist = static_cast<float*>(aptr(v, r[A_PTR0]));
+      c->taps = static_cast<const float*>(aptr(v, r[A_PTR1]));
+    } else if (u.kind == K_SOURCE || u.kind == K_SINK) {
+      // Plane p of window idx sits at p * stride + idx * plane_bytes.
+      const long long plane_bytes = r[A_N0];
+      c->slab = static_cast<unsigned char*>(aptr(v, r[A_PTR0])) + f.idx * plane_bytes;
+      c->slab_stride = static_cast<long long>(f.n_idx) * plane_bytes;
+    }
+  }
+  if (u.n_in > 0 && l == 0)
+    c->win = static_cast<long long>(u.rate_i) * fifo_row(v, u.fi)[F_TOKB];
+}
+
+// The scheduler warp: every command, then CMD_DONE, into the slot ring.
+__device__ void scheduler(const View& v, Cmd* slots, uint64_t* full, uint64_t* empty,
+                          Sched* s, int max_sweeps, int multi_firing) {
+  Visit u;
+  for (long long n = 0;; ++n) {
+    Firing f;
+    const bool more = schedule_next(v, &u, &f, s, max_sweeps, multi_firing);
+    const int i = static_cast<int>(n % RING);
+    mbar_wait(&empty[i], static_cast<uint32_t>((n / RING) & 1) ^ 1);
+    if (more)
+      fill(v, u, f, s, &slots[i]);
+    else if (lane() == 0)
+      slots[i].kind = CMD_DONE;
+    __syncwarp();
+    if (lane() == 0) mbar_arrive(&full[i]);
+    if (!more) return;
+  }
+}
+
+// The publisher warp: once this block's body threads have run command k
+// (every body warp arrived on its slot's `done`), publish k and free the
+// slot.  Off the body threads' path, so a command that waits for nothing
+// starts while the one before it is still being published.
+__device__ void publisher(const Cmd* slots, uint64_t* done, uint64_t* empty,
+                          unsigned long long* progress) {
+  for (long long n = 0;; ++n) {
+    const int i = static_cast<int>(n % RING);
+    mbar_wait(&done[i], static_cast<uint32_t>((n / RING) & 1));
+    if (slots[i].kind == CMD_DONE) return;
+    if (lane() == 0) {
+      publish(progress + blockIdx.x, slots[i].seq);
+      mbar_arrive(&empty[i]);
+    }
+    __syncwarp();
+  }
+}
+
+// ---- the body threads -------------------------------------------------- //
 __device__ __forceinline__ long long grid_first() {
-  return static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  return static_cast<long long>(blockIdx.x) * BODY_THREADS + threadIdx.x;
 }
 __device__ __forceinline__ long long grid_step() {
-  return static_cast<long long>(gridDim.x) * blockDim.x;
+  return static_cast<long long>(gridDim.x) * BODY_THREADS;
 }
 
 // Store word x at byte b of output o's window.  CB is set only for a firing
@@ -449,14 +720,14 @@ __device__ void run_poly(const Cmd& c, float* sb_re, float* sb_im, float* sh_re,
   float* hist_re = c.hist;
   float* hist_im = c.hist + HALO;
   const int tid = threadIdx.x;
-  const int n_tiles = (L + THREADS - 1) / THREADS;
+  const int n_tiles = (L + BODY_THREADS - 1) / BODY_THREADS;
   if (static_cast<int>(blockIdx.x) >= n_tiles) return;
   if (tid < N_TAPS) {
     sh_re[tid] = __ldcg(c.taps + tid);
     sh_im[tid] = __ldcg(c.taps + N_TAPS + tid);
   }
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * THREADS;
+    const int base = tile * BODY_THREADS;
     float nr = 0.f, ni = 0.f;
     if (tile == 0 && tid < HALO) {
       // Next history: stream samples L .. L + 8 of hist ++ window.
@@ -464,7 +735,7 @@ __device__ void run_poly(const Cmd& c, float* sb_re, float* sb_im, float* sh_re,
       nr = g < HALO ? __ldcg(hist_re + g) : __ldcg(win_re + g - HALO);
       ni = g < HALO ? __ldcg(hist_im + g) : __ldcg(win_im + g - HALO);
     }
-    for (int j = tid; j < THREADS + HALO; j += THREADS) {
+    for (int j = tid; j < BODY_THREADS + HALO; j += BODY_THREADS) {
       const int g = base + j;
       float xr = 0.f, xi = 0.f;
       if (g < HALO) {
@@ -476,7 +747,7 @@ __device__ void run_poly(const Cmd& c, float* sb_re, float* sb_im, float* sh_re,
       }
       dyn_fir::basis(xr, xi, c.order, &sb_re[j], &sb_im[j]);
     }
-    __syncthreads();
+    body_sync();
     if (tile == 0 && tid < HALO) {  // tile 0's history reads are done
       hist_re[tid] = nr;
       hist_im[tid] = ni;
@@ -488,57 +759,194 @@ __device__ void run_poly(const Cmd& c, float* sb_re, float* sb_im, float* sh_re,
       put<CB, float>(c, 0, 4LL * n, yr);
       put<CB, float>(c, 0, 4LL * (L + n), yi);
     }
-    __syncthreads();
+    body_sync();
   }
 }
 
-// A stencil over every u8 frame of the window: out pixel j = px(at, y, x)
-// with at(dy, dx) the clamped neighbour of (y, x) in j's frame.  Motion
-// detection's bodies stay out of line, so DPD's bodies keep their code
-// compact in the sweep loop.
+// A stencil over every u8 frame of the window: out pixel (y, x) of a frame
+// is px(at, y, x, H, W) with at(dy, dx) the pixel at that offset (px
+// clamps the offsets it needs clamped).  The window's rows (frames
+// stacked) are split evenly over the blocks; a block stages its rows with
+// a 2-row halo (a clamped row never leaves it) in shared memory as floats,
+// TILE_FLOATS at a time, so each pixel is converted once, and computes
+// from there.  Rows too wide for the tile read their neighbours from L2.
+// Motion detection's bodies stay out of line, so DPD's bodies keep their
+// code compact in the command loop.
 template <bool CB, typename Px>
-__device__ __noinline__ void run_stencil(const Cmd& c, Px px) {
-  const int H = c.n0, W = c.n1;
-  const long long hw = static_cast<long long>(H) * W;
-  for (long long j = grid_first(); j < c.win; j += grid_step()) {
-    const long long frame = j / hw;
-    const int p = static_cast<int>(j - frame * hw);
-    const int y = p / W, x = p - y * W;
-    const unsigned char* in = c.in[0] + frame * hw;
-    auto at = [&](int dy, int dx) {
-      return static_cast<float>(__ldcg(in + static_cast<long long>(motion::clampi(y + dy, 0, H - 1)) * W +
-                                       motion::clampi(x + dx, 0, W - 1)));
-    };
-    const unsigned char u = motion::to_u8(px(at, y, x, H, W));
-    for (int o = 0; o < c.n_out; ++o)
-      if ((c.out_en >> o) & 1) put<CB, unsigned char>(c, o, j, u);
+__device__ __noinline__ void run_stencil(const Cmd& c, Px px, float* tile) {
+  const int H = c.n0, W = c.n1, n_out = c.n_out;
+  const unsigned out_en = c.out_en;
+  const int rows = static_cast<int>(c.win / W);
+  const int tid = threadIdx.x;
+  const int max_chunk = TILE_FLOATS / W - 4;
+  if (max_chunk < 1) {
+    for (long long j = grid_first(); j < c.win; j += grid_step()) {
+      const int g = static_cast<int>(j / W), x = static_cast<int>(j - static_cast<long long>(g) * W);
+      const unsigned char* at0 = c.in[0] + j;
+      auto at = [&](int dy, int dx) {
+        return static_cast<float>(__ldcg(at0 + static_cast<long long>(dy) * W + dx));
+      };
+      const unsigned char u = motion::to_u8(px(at, g % H, x, H, W));
+      for (int o = 0; o < c.n_out; ++o)
+        if ((c.out_en >> o) & 1) put<CB, unsigned char>(c, o, j, u);
+    }
+    return;
   }
+  const int per_block = (rows + gridDim.x - 1) / gridDim.x;
+  const int first = blockIdx.x * per_block;
+  const int last = min(first + per_block, rows);
+  for (int r0 = first; r0 < last; r0 += max_chunk) {
+    const int r1 = min(r0 + max_chunk, last);
+    const int s0 = max(r0 - 2, 0), s1 = min(r1 + 2, rows);
+    const unsigned char* src = c.in[0] + static_cast<long long>(s0) * W;
+    const int n = (s1 - s0) * W;
+    if (((reinterpret_cast<uintptr_t>(src) | n) & 15) == 0) {
+      for (int j = tid; j < n / 16; j += BODY_THREADS) {
+        const uint4 w = __ldcg(reinterpret_cast<const uint4*>(src) + j);
+        float4* d = reinterpret_cast<float4*>(tile) + 4 * j;
+        const unsigned words[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          d[k] = make_float4(static_cast<float>(words[k] & 255u),
+                             static_cast<float>((words[k] >> 8) & 255u),
+                             static_cast<float>((words[k] >> 16) & 255u),
+                             static_cast<float>(words[k] >> 24));
+      }
+    } else {
+      for (int j = tid; j < n; j += BODY_THREADS) tile[j] = static_cast<float>(__ldcg(src + j));
+    }
+    body_sync();
+    // Pixel p = tid + k * BODY_THREADS of the chunk, walked without dividing.
+    int g = r0 + tid / W, x = tid % W, y = g % H;
+    for (int p = tid; p < (r1 - r0) * W; p += BODY_THREADS) {
+      const float* at0 = tile + (g - s0) * W + x;
+      auto at = [&](int dy, int dx) { return at0[dy * W + dx]; };
+      const unsigned char u = motion::to_u8(px(at, y, x, H, W));
+      const long long b = static_cast<long long>(g) * W + x;
+      for (int o = 0; o < n_out; ++o)
+        if ((out_en >> o) & 1) put<CB, unsigned char>(c, o, b, u);
+      for (x += BODY_THREADS; x >= W; x -= W) {
+        ++g;
+        y = y + 1 == H ? 0 : y + 1;
+      }
+    }
+    body_sync();
+  }
+}
+
+// The Thres actor on 4 pixels packed in a word.
+__device__ __forceinline__ unsigned thres4(unsigned cur, unsigned prev, float threshold) {
+  unsigned out = 0;
+#pragma unroll
+  for (int k = 0; k < 32; k += 8) {
+    const float a = static_cast<float>((cur >> k) & 255u);
+    const float b = static_cast<float>((prev >> k) & 255u);
+    out |= static_cast<unsigned>(motion::to_u8(motion::thres_px(a, b, threshold))) << k;
+  }
+  return out;
 }
 
 template <bool CB>
 __device__ __noinline__ void run_thres(const Cmd& c) {
+  unsigned long long bits = reinterpret_cast<uintptr_t>(c.in[0]) |
+                            reinterpret_cast<uintptr_t>(c.in[1]) |
+                            reinterpret_cast<uintptr_t>(c.out[0]) | c.win;
+  if (CB && (c.cb_mask & 1))
+    bits |= reinterpret_cast<uintptr_t>(c.slot0[0]) | c.cb_from[0];
+  if ((bits & 15) == 0) {  // 16 pixels a thread
+    const uint4* cur = reinterpret_cast<const uint4*>(c.in[0]);
+    const uint4* prev = reinterpret_cast<const uint4*>(c.in[1]);
+    for (long long j = grid_first(); j < c.win / 16; j += grid_step()) {
+      const uint4 a = __ldcg(cur + j), b = __ldcg(prev + j);
+      const uint4 o = make_uint4(thres4(a.x, b.x, c.fparam), thres4(a.y, b.y, c.fparam),
+                                 thres4(a.z, b.z, c.fparam), thres4(a.w, b.w, c.fparam));
+      put<CB, uint4>(c, 0, 16 * j, o);
+    }
+    return;
+  }
   for (long long j = grid_first(); j < c.win; j += grid_step()) {
     const float cur = __ldcg(c.in[0] + j), prev = __ldcg(c.in[1] + j);
     put<CB, unsigned char>(c, 0, j, motion::to_u8(motion::thres_px(cur, prev, c.fparam)));
   }
 }
 
+// The blur passes its 2-pixel border through and reads an interior
+// pixel's 5x5 neighbours, all inside the frame: no offset needs clamping.
 struct GaussPx {
   template <typename At>
   __device__ float operator()(At at, int y, int x, int H, int W) const {
     return motion::gauss_px(at, y, x, H, W);
   }
 };
+// The median's neighbours are clamped to the frame.
 struct MedPx {
   template <typename At>
-  __device__ float operator()(At at, int, int, int, int) const {
-    return motion::med_px(at);
+  __device__ float operator()(At at, int y, int x, int H, int W) const {
+    auto clamped = [&](int dy, int dx) {
+      return at(motion::clampi(y + dy, 0, H - 1) - y, motion::clampi(x + dx, 0, W - 1) - x);
+    };
+    return motion::med_px(clamped);
   }
 };
 
+__device__ __forceinline__ float fadd(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float4 fadd(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+// The adder on words of T (float4 or float): its enabled inputs summed
+// from 0 in its terms' order, each add rounded on its own; the loads of 8
+// terms are in flight together.
+template <bool CB, typename T>
+__device__ void adder_words(const Cmd& c) {
+  constexpr int BATCH = 8;
+  for (long long j = grid_first(); j < c.win / static_cast<long long>(sizeof(T));
+       j += grid_step()) {
+    T acc = {};
+    for (int t0 = 0; t0 < c.n_terms; t0 += BATCH) {
+      T x[BATCH];
+      bool on[BATCH];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        const int t = t0 + u;
+        const int k = t < c.n_terms ? c.terms[t] : 0;
+        on[u] = t < c.n_terms && ((c.in_en >> k) & 1);
+        x[u] = on[u] ? __ldcg(reinterpret_cast<const T*>(c.in[k]) + j) : T{};
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+        if (on[u]) acc = fadd(acc, x[u]);
+    }
+    put<CB, T>(c, 0, static_cast<long long>(sizeof(T)) * j, acc);
+  }
+}
+
 template <bool CB>
-__device__ __forceinline__ void run_body(const Cmd& c, float* sb_re, float* sb_im,
-                                         float* sh_re, float* sh_im) {
+__device__ void run_adder(const Cmd& c) {
+  unsigned long long bits = reinterpret_cast<uintptr_t>(c.out[0]) | c.win;
+  for (int k = 0; k < c.n_in; ++k)
+    if ((c.in_en >> k) & 1) bits |= reinterpret_cast<uintptr_t>(c.in[k]);
+  if (CB && (c.cb_mask & 1))
+    bits |= reinterpret_cast<uintptr_t>(c.slot0[0]) | c.cb_from[0];
+  if ((bits & 15) == 0)
+    adder_words<CB, float4>(c);
+  else
+    adder_words<CB, float>(c);
+}
+
+// Shared memory the bodies stage in: Poly's basis values and taps, a
+// stencil's rows.
+struct Stage {
+  float sb_re[BODY_THREADS + HALO];
+  float sb_im[BODY_THREADS + HALO];
+  float sh_re[N_TAPS];
+  float sh_im[N_TAPS];
+  alignas(16) float tile[TILE_FLOATS];
+};
+
+template <bool CB>
+__device__ __forceinline__ void run_body(const Cmd& c, Stage& st) {
   switch (c.kind) {
     case K_SOURCE:
       if (c.out_en & 1)
@@ -554,25 +962,16 @@ __device__ __forceinline__ void run_body(const Cmd& c, float* sb_re, float* sb_i
       fan_out<CB>(c, c.in[0], c.win, 0);
       break;
     case K_ADDER:
-      if (c.out_en & 1)
-        for (long long j = grid_first(); j < c.win / 4; j += grid_step()) {
-          float acc = 0.f;
-          for (int t = 0; t < c.n_terms; ++t) {
-            const int k = c.terms[t];
-            if ((c.in_en >> k) & 1)
-              acc = __fadd_rn(acc, __ldcg(reinterpret_cast<const float*>(c.in[k]) + j));
-          }
-          put<CB, float>(c, 0, 4 * j, acc);
-        }
+      if (c.out_en & 1) run_adder<CB>(c);
       break;
     case K_POLY:
-      run_poly<CB>(c, sb_re, sb_im, sh_re, sh_im);
+      run_poly<CB>(c, st.sb_re, st.sb_im, st.sh_re, st.sh_im);
       break;
     case K_GAUSS:
-      run_stencil<CB>(c, GaussPx());
+      run_stencil<CB>(c, GaussPx(), st.tile);
       break;
     case K_MED:
-      run_stencil<CB>(c, MedPx());
+      run_stencil<CB>(c, MedPx(), st.tile);
       break;
     case K_THRES:
       if (c.out_en & 1) run_thres<CB>(c);
@@ -581,100 +980,165 @@ __device__ __forceinline__ void run_body(const Cmd& c, float* sb_re, float* sb_i
 }
 
 // The bodies of a firing that writes a delay channel's phase 2, out of line
-// so that the sweep loop's common path keeps its code compact.
-__device__ __noinline__ void run_body_copy_back(const Cmd& c, float* sb_re,
-                                                float* sb_im, float* sh_re,
-                                                float* sh_im) {
-  run_body<true>(c, sb_re, sb_im, sh_re, sh_im);
+// so that the command loop's common path keeps its code compact.
+__device__ __noinline__ void run_body_copy_back(const Cmd& c, Stage& st) {
+  run_body<true>(c, st);
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
 megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
-           int io_len, int max_sweeps, int multi_firing) {
-  extern __shared__ int smem[];
-  __shared__ Cmd cmd;
-  __shared__ float sb_re[THREADS + HALO];
-  __shared__ float sb_im[THREADS + HALO];
-  __shared__ float sh_re[N_TAPS];
-  __shared__ float sh_im[N_TAPS];
+           int io_len, int max_sweeps, int multi_firing,
+           unsigned long long* progress) {
+  extern __shared__ __align__(16) int smem[];
+  __shared__ Cmd slots[RING];
+  // Per slot: filled (scheduler), run by this block's body threads (one
+  // arrival a warp), free again (publisher).
+  __shared__ uint64_t full[RING], done[RING], empty[RING];
+  __shared__ Stage stage;
+  __shared__ long long least;        // the watcher's: every block has passed it
+  __shared__ volatile int finished;  // the body threads are done
   cg::grid_group grid = cg::this_grid();
+  const int tid = threadIdx.x;
 
-  // 1. Replicate the program and the io words into this block.
+  // 1. Replicate the program, the io words and the addresses into this
+  //    block: [program | io words | phases] as ints, then [addresses |
+  //    segment trackers] as 8-byte words (megakernel_run sizes it).
   const int len = prog[H_LEN];
   const int n_state = io_len - META_WORDS;
   long long* io = args + n_ptrs;
-  for (int i = threadIdx.x; i < len; i += blockDim.x) smem[i] = prog[i];
-  for (int i = threadIdx.x; i < n_state; i += blockDim.x)
-    smem[len + i] = static_cast<int>(io[i]);
-  __syncthreads();
   View v;
   v.P = smem;
   v.S = smem + len;
-  v.args = args;
+  v.ph = v.S + n_state;
+  long long* words = reinterpret_cast<long long*>(
+      smem + ((len + n_state + 2 * n_ptrs + 1) & ~1));
+  v.addr = words;
+  v.trk = words + n_ptrs;
+  for (int i = tid; i < len; i += THREADS) smem[i] = prog[i];
+  for (int i = tid; i < n_state; i += THREADS) v.S[i] = static_cast<int>(io[i]);
+  for (int i = tid; i < n_ptrs; i += THREADS) words[i] = args[i];
+  for (int i = tid; i < 2 * SEGS * n_ptrs; i += THREADS) v.trk[i] = 0;
+  if (tid == 0) {
+    least = 0;
+    finished = 0;
+    for (int i = 0; i < RING; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&done[i], BODY_THREADS / 32);
+      mbar_init(&empty[i], 1);
+    }
+    progress[blockIdx.x] = 0;
+  }
+  __syncthreads();
   v.io_scal = 3 * v.P[H_N_FIFOS];
   v.io_ctrl = v.io_scal + 2 * v.P[H_N_SCALARS];
   v.io_counts = v.io_ctrl + v.P[H_N_CTRL];
+  for (int f = tid; f < v.P[H_N_FIFOS]; f += THREADS) {
+    const int nph = fifo_row(v, f)[F_NPH];
+    v.ph[2 * f] = v.S[3 * f] % nph;
+    v.ph[2 * f + 1] = v.S[3 * f + 1] % nph;
+  }
 
   // 2. Forwarded data rings start from zeros (the dead-slot rule).
-  for (int f = 0; f < v.P[H_N_FIFOS]; ++f) {
-    const int* fr = fifo_row(v, f);
-    if (!fr[F_FWD] || fr[F_CTRL]) continue;
-    copy_bytes(ring(v, f, 0), nullptr, static_cast<long long>(fr[F_CAP]) * fr[F_TOKB]);
-  }
+  if (tid < BODY_THREADS)
+    for (int f = 0; f < v.P[H_N_FIFOS]; ++f) {
+      const int* fr = fifo_row(v, f);
+      if (!fr[F_FWD] || fr[F_CTRL]) continue;
+      copy_bytes(ring(v, f, 0), nullptr, static_cast<long long>(fr[F_CAP]) * fr[F_TOKB]);
+    }
   grid.sync();
 
-  // 3. The sweep loop: thread 0 decides, the grid runs each body.
-  Sched s = {0, -1, -1, 1, 0, 0, 0, 0};
+  // 3. The scheduler warp decides; the body threads run the commands; the
+  //    publisher warp reports each command this block has finished.
+  if (tid >= WATCH_TID) {
+    watcher(progress, &least, &finished);
+    return;
+  }
+  if (tid >= PUBLISH_TID) {
+    publisher(slots, done, empty, progress);
+    return;
+  }
+  if (tid >= SCHED_TID) {
+    Sched s = {0, -1, -1, 1, 0, 0, 0, 0, 0};
+    scheduler(v, slots, full, empty, &s, max_sweeps, multi_firing);
+    // 4. Block 0 writes the replicated state back.
+    if (blockIdx.x == 0) {
+      for (int i = lane(); i < n_state; i += 32) io[i] = v.S[i];
+      if (lane() == 0) {
+        long long* meta = io + n_state;
+        meta[M_SWEEPS] = s.sweeps;
+        meta[M_STALLED] = s.stalled;
+        meta[M_ERROR] = s.error;
+        meta[M_ERR_ACTOR] = s.err_actor;
+        meta[M_ERR_VALUE] = s.err_value;
+        meta[M_BLOCKS] = gridDim.x;
+      }
+    }
+    return;
+  }
 #ifdef MK_CLOCK_SPLIT
-  // Thread 0 of block 0's cycles: waiting for the scheduler step, in grid
-  // barriers (with their count), and the whole loop.
   long long clk_sched = 0, clk_wait = 0, n_wait = 0;
+  long long clk_kind[K_MED + 1] = {}, n_kind[K_MED + 1] = {};
   const long long clk_start = clock64();
 #endif
-  for (;;) {
+  long long seen = 0;  // warp 0: every block has passed command `seen`
+  for (long long n = 0;; ++n) {
+    const int i = static_cast<int>(n % RING);
 #ifdef MK_CLOCK_SPLIT
     const long long t0 = clock64();
 #endif
-    if (threadIdx.x == 0) schedule_next(v, &cmd, &s, max_sweeps, multi_firing);
-    __syncthreads();
-#ifdef MK_CLOCK_SPLIT
-    clk_sched += clock64() - t0;
-#endif
-    if (cmd.kind == CMD_DONE) break;
-    if (cmd.cb_mask)
-      run_body_copy_back(cmd, sb_re, sb_im, sh_re, sh_im);
-    else
-      run_body<false>(cmd, sb_re, sb_im, sh_re, sh_im);
+    mbar_wait(&full[i], static_cast<uint32_t>((n / RING) & 1));
 #ifdef MK_CLOCK_SPLIT
     const long long t1 = clock64();
+    clk_sched += t1 - t0;
 #endif
-    grid.sync();
+    const Cmd& cmd = slots[i];
+    const bool last = cmd.kind == CMD_DONE;
+    if (!last) {
+      // Warp 0 acquires the watcher's least progress until it covers
+      // wait_for; the block barrier hands that on.
+      bool waited = false;
+      if (tid < 32 && cmd.wait_for > seen) {
+        const long long since = clock64();
+        seen = load_acquire_cta(&least);
+        while (seen < cmd.wait_for) {
+          waited = true;
+          watchdog(since);
+          seen = load_acquire_cta(&least);
+        }
+      }
+      body_sync();
 #ifdef MK_CLOCK_SPLIT
-    clk_wait += clock64() - t1;
-    n_wait += 1;
+      if (waited) {
+        clk_wait += clock64() - t1;
+        n_wait += 1;
+      }
 #endif
+#ifdef MK_CLOCK_SPLIT
+      const long long t2 = clock64();
+#endif
+      if (cmd.cb_mask)
+        run_body_copy_back(cmd, stage);
+      else
+        run_body<false>(cmd, stage);
+#ifdef MK_CLOCK_SPLIT
+      clk_kind[cmd.kind] += clock64() - t2;
+      n_kind[cmd.kind] += 1;
+#endif
+    }
+    __syncwarp();
+    if (lane() == 0) mbar_arrive(&done[i]);
+    if (last) break;
   }
+  if (tid == 0) finished = 1;
 #ifdef MK_CLOCK_SPLIT
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    long long* meta = args + n_ptrs + (io_len - META_WORDS);
+  if (blockIdx.x == 0 && tid == 0) {
+    long long* meta = io + n_state;
     meta[M_CLK_STALL] = (clk_sched & 0xffffffffLL) | (clk_wait << 32);
     meta[M_CLK_LOOP] = ((clock64() - clk_start) & ((1LL << 40) - 1)) | (n_wait << 40);
+    for (int k = 0, w = M_CLK_KIND; k <= K_MED; ++k)
+      if (k != K_CONFIG) meta[w++] = (clk_kind[k] & ((1LL << 40) - 1)) | (n_kind[k] << 40);
   }
 #endif
-
-  // 4. Block 0 writes the replicated state back.
-  if (blockIdx.x == 0) {
-    for (int i = threadIdx.x; i < n_state; i += blockDim.x) io[i] = v.S[i];
-    if (threadIdx.x == 0) {
-      long long* meta = io + n_state;
-      meta[M_SWEEPS] = s.sweeps;
-      meta[M_STALLED] = s.stalled;
-      meta[M_ERROR] = s.error;
-      meta[M_ERR_ACTOR] = s.err_actor;
-      meta[M_ERR_VALUE] = s.err_value;
-      meta[M_BLOCKS] = gridDim.x;
-    }
-  }
 }
 
 }  // namespace
@@ -682,11 +1146,13 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 // Launch B2 once on `stream` (PyTorch's current stream) as a cooperative
 // grid of one block per SM.  `prog` is the packed program (prog_len int32
 // words), `args` the run's block (n_ptrs addresses, then io_len io words),
-// both on the current device.  Returns cudaGetLastError(), or the error of
-// the failed query or refused launch.
+// `progress` n_progress 8-byte words of scratch (the blocks' progress, which
+// the kernel zeroes), all on the current device.  Returns
+// cudaGetLastError(), or the error of the failed query or refused launch.
 extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
                               int n_ptrs, int io_len, int max_sweeps,
-                              int multi_firing, void* stream) {
+                              int multi_firing, unsigned long long* progress,
+                              int n_progress, void* stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -695,7 +1161,11 @@ extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
   if (!coop) return static_cast<int>(cudaErrorNotSupported);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = static_cast<size_t>(prog_len + io_len) * sizeof(int);
+  if (sms > n_progress) return static_cast<int>(cudaErrorInvalidValue);
+  // [program | io words | phases] as ints, padded to 8 bytes, then
+  // [addresses | segment trackers] as 8-byte words; channels <= n_ptrs.
+  const size_t ints = static_cast<size_t>(prog_len + io_len - META_WORDS + 2 * n_ptrs);
+  const size_t smem = (ints + 1) / 2 * 8 + static_cast<size_t>(1 + 2 * SEGS) * n_ptrs * 8;
   err = cudaFuncSetAttribute(megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -703,7 +1173,7 @@ extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, megakernel, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  void* kargs[] = {&prog, &args, &n_ptrs, &io_len, &max_sweeps, &multi_firing};
+  void* kargs[] = {&prog, &args, &n_ptrs, &io_len, &max_sweeps, &multi_firing, &progress};
   err = cudaLaunchCooperativeKernel((const void*)megakernel, dim3(sms),
                                     dim3(THREADS), kargs, smem,
                                     static_cast<cudaStream_t>(stream));

@@ -1,13 +1,16 @@
-"""B5, B6 and B7 on the card against their plain versions at shapes the
-serving path does not reach (ragged lengths, other head widths and group
-sizes, float32 SSD inputs, B6 under strong decays), and the wrappers'
-launch counts and refusals.
+"""B2, B5, B6 and B7 on the card against their plain versions at shapes the
+main paths do not reach (B2: DPD at two widths under four schedules, motion
+detection at rates 1 and 4, a control token outside its domain mid-run,
+sweep budget exhaustion, a resumed partial state, at cores 1 and 2; B5-B7:
+ragged lengths, other head widths and group sizes, float32 SSD inputs, B6
+under strong decays), and the wrappers' launch counts and refusals.
 These tests need a CUDA card and ``nvcc``; without one they skip.  Run
 them on the card with
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Bars: B5 within one bf16 step of |want| plus 2^-5 of the RMS of want's
+Bars: B2 bit for bit (every io word the plain version writes, every ring
+and actor tensor); B5 within one bf16 step of |want| plus 2^-5 of the RMS of want's
 (batch, position, head) row, the bar of ``chip_smoke.py`` phase 12 (set
 from the readings of sound runs and planted faults there; PERF.md);
 B6 within 3e-4 of the largest magnitude (``tests/test_kernels.py:92``),
@@ -17,10 +20,17 @@ under strong decays against the step-by-step recurrence; B7 within 1e-5
 """
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.megakernel import (compile_megakernel, lower_network,
+                                         megakernel_cuda, partition_layout)
+from repro_torch.core.megakernel.program import M_BLOCKS, M_ERROR, stage
+from repro_torch.core.megakernel.ref import run_program
+from repro_torch.graphs.dpd import default_active_schedule
+from repro_torch.graphs.factories import make_dpd, make_motion_detection
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.rglru import rglru, rglru_cuda, rglru_ref
@@ -142,3 +152,106 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="float32"):
         z = torch.zeros((1, 4, 8), device="cuda", dtype=torch.float64)
         rglru_cuda(z, z)
+
+
+def _b2_and_plain(net, cores=1, max_sweeps=1_000_000, specialize=True, state=None,
+                  edit_consts=None):
+    """One B2 launch and one run of its plain version on the card from the
+    same state: each side's io words and tensors (rings, then actor
+    tensors) after the run, as the kernel's argument block holds them."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    layout = lower_network(net)
+    part = partition_layout(net, layout, cores, forward_transients=specialize)
+    dp = compile_megakernel(net, max_sweeps, layout=layout, partition=part).device_program
+    consts = [t.to(dev) for _, t in dp.consts]
+    if edit_consts is not None:
+        edit_consts(consts)
+    sides = []
+    for kernel in (True, False):
+        st = (state if state is not None else net.init_state()).clone()
+        tensors, io = stage(dp, st, dev, consts)
+        if kernel:
+            ptrs = [0 if t is None else t.data_ptr() for t in tensors]
+            args = torch.tensor(ptrs + io, dtype=torch.int64, device=dev)
+            before = megakernel_cuda.launches
+            megakernel_cuda(dp.table.to(dev), args, dp.n_ptrs, max_sweeps, True)
+            assert megakernel_cuda.launches == before + 1
+            io = args[dp.n_ptrs:].cpu().tolist()
+        else:
+            run_program(dp.table.tolist(), tensors, io, max_sweeps, True)
+        torch.cuda.synchronize()
+        sides.append((io, [None if t is None else t.cpu() for t in tensors]))
+    return dp, sides
+
+
+def _assert_b2_bit_identical(dp, sides):
+    (io_k, t_k), (io_p, t_p) = sides
+    # The plain version writes every io word but the grid size.
+    assert io_k[:dp.io_meta + M_BLOCKS] == io_p[:dp.io_meta + M_BLOCKS]
+    for i, (a, b) in enumerate(zip(t_k, t_p)):
+        assert (a is None) == (b is None), i
+        assert a is None or torch.equal(a, b), i
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("schedule", ["default", "min_active2", "all10", "static"])
+@pytest.mark.parametrize("block_l", [4096, 32768])
+def test_megakernel_dpd_bit_identical_to_plain(gen, block_l, schedule, cores):
+    n = 64
+    kw = {"default": dict(active_schedule=default_active_schedule(n, seed=0)),
+          "min_active2": dict(active_schedule=np.full(n, 2, np.int32)),
+          "all10": dict(active_schedule=np.full(n, 10, np.int32)),
+          "static": dict(static_all_active=True)}[schedule]
+    net, _ = make_dpd(n, block_l=block_l, seed=0, device="cuda", **kw)
+    dp, sides = _b2_and_plain(net, cores)
+    assert sides[0][0][dp.io_meta] > 1          # sweeps
+    _assert_b2_bit_identical(dp, sides)
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("rate", [1, 4])
+def test_megakernel_motion_detection_bit_identical_to_plain(gen, rate, cores):
+    net, _ = make_motion_detection(48, rate=rate, frame_hw=(240, 320), seed=rate,
+                                   device="cuda")
+    _assert_b2_bit_identical(*_b2_and_plain(net, cores))
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_domain_error_mid_run(gen, cores):
+    """The config's 20th token is outside the fork's and the branches'
+    domain: the kernel stops with the plain version's error word, at the
+    same state."""
+    net, _ = make_dpd(64, block_l=4096, seed=0, device="cuda",
+                      active_schedule=default_active_schedule(64, seed=0))
+
+    def plant(consts):
+        consts[0][19] = 11
+
+    dp, sides = _b2_and_plain(net, cores, edit_consts=plant)
+    assert sides[0][0][dp.io_meta + M_ERROR] == 1
+    _assert_b2_bit_identical(dp, sides)
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("max_sweeps", [1, 3, 5])
+def test_megakernel_sweep_budget_exhaustion(gen, max_sweeps, cores):
+    net, _ = make_motion_detection(48, rate=4, frame_hw=(240, 320), seed=0,
+                                   device="cuda")
+    dp, sides = _b2_and_plain(net, cores, max_sweeps=max_sweeps)
+    assert sides[0][0][dp.io_meta:dp.io_meta + 2] == [max_sweeps, 1]  # stalled
+    _assert_b2_bit_identical(dp, sides)
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_resumes_a_partial_state(gen, cores):
+    """A DPD run stopped by its sweep budget, then resumed by both sides
+    (the unspecialized program: no channel is forwarded, so every ring
+    byte and cursor carries over)."""
+    net, _ = make_dpd(64, block_l=4096, seed=0, device="cuda",
+                      active_schedule=default_active_schedule(64, seed=0))
+    prog = net.compile(mode="megakernel", specialize=False, max_sweeps=5, cores=cores)
+    with pytest.warns(RuntimeWarning, match="max_sweeps"):
+        partial = prog.run().state
+    dp, sides = _b2_and_plain(net, cores, specialize=False, state=partial)
+    assert sides[0][0][dp.io_meta] > 1 and not sides[0][0][dp.io_meta + 1]
+    _assert_b2_bit_identical(dp, sides)

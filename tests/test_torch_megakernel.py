@@ -13,6 +13,7 @@ the reference's megakernel is held to its dynamic executor
 from __future__ import annotations
 
 import dataclasses
+import random
 
 import jax
 import numpy as np
@@ -23,10 +24,16 @@ from repro.core import ExecutionPlan as RefPlan
 from repro.graphs.factories import make_dpd as ref_make_dpd
 from repro.graphs.factories import make_motion_detection as ref_make_md
 from repro_torch.core.megakernel import compile_megakernel, megakernel_cuda
+from repro_torch.core import NetworkBuilder, static_actor
+from repro_torch.core.actor import DeviceOp
 from repro_torch.core.fifo import FifoSpec
 from repro_torch.core.megakernel.program import (F_BOUND, F_CAP, F_DELAY, F_NPH,
                                                  F_TOKB, fifo_row)
-from repro_torch.core.megakernel.ref import copy_back, read_offset, write_offset
+from repro_torch.core.megakernel.program import stage, unstage
+from repro_torch.core.megakernel.ref import (HAZARDS, copy_back, execute,
+                                             hazard_waits, permitted_order,
+                                             read_offset, schedule, write_offset,
+                                             zero_forwarded)
 from repro_torch.core.network import Network
 from repro_torch.graphs.factories import (make_dpd, make_motion_detection,
                                          states_equal)
@@ -392,3 +399,134 @@ def test_staging_refuses_a_slab_of_another_type():
     state.actors[net.actor_index["sink"]] = (slab.to(torch.float32), idx)
     with pytest.raises(ValueError, match="torch.uint8 slab"):
         net.compile(mode="megakernel").run(state)
+
+
+# --------------------------------------------------------------------------- #
+# B2's command list: the scheduler's hazard rule, replayed in every order the
+# kernel's dependency waits permit.
+# --------------------------------------------------------------------------- #
+def _delay_line(n_frames=12, rate=1, hw=(4, 8), seed=3):
+    """Source -> fork -> (delay channel) -> sink on u8 frames: the sink
+    reads the delay channel alone, so a read of its slot 0 depends on the
+    copy-back and on nothing else."""
+    rng = np.random.default_rng(seed)
+    video = torch.tensor(rng.integers(1, 256, (n_frames, *hw)), dtype=torch.uint8)
+    n_iter = n_frames // rate
+
+    def src_fire(st, inputs, rates):
+        data, idx = st
+        return (data, idx + 1), {"out": data[idx * rate:(idx + 1) * rate]}
+
+    def sink_fire(st, inputs, rates):
+        data, idx = st
+        data[idx * rate:(idx + 1) * rate] = inputs["in"]
+        return (data, idx + 1), {}
+
+    source = static_actor("source", (), ("out",), src_fire, init=lambda: (video, 0),
+                          ready=lambda st: st[1] < n_iter,
+                          device_op=DeviceOp("source", {"n_firings": n_iter, "planes": 1}))
+    fork = static_actor("fork", ("in",), ("out",),
+                        lambda st, inputs, rates: (st, {"out": inputs["in"]}),
+                        device_op=DeviceOp("fork"))
+    # One window more than the source sends: the delay token comes first.
+    sink = static_actor("sink", ("in",), (), sink_fire,
+                        init=lambda: (torch.zeros((n_frames + rate, *hw),
+                                                  dtype=torch.uint8), 0),
+                        finish=lambda st: st[0],
+                        device_op=DeviceOp("sink", {"planes": 1}))
+    b = NetworkBuilder()
+    b.actors(source, fork, sink)
+    b.connect("source.out", "fork.in", rate=rate, token_shape=hw, dtype=torch.uint8)
+    b.connect("fork.out", "sink.in", rate=rate, token_shape=hw, dtype=torch.uint8,
+              delay=1)
+    return b.build(device="cpu")
+
+
+REPLAY_NETS = {
+    "dpd_default": lambda: _port(8),
+    "dpd_min_active2": lambda: _port(8, active_schedule=np.full(8, 2, np.int32)),
+    "dpd_all10": lambda: _port(8, active_schedule=np.full(8, 10, np.int32)),
+    "dpd_static_all10": lambda: _port(8, static_all_active=True),
+    "md_rate1": lambda: make_motion_detection(8, rate=1, frame_hw=(12, 16), seed=1,
+                                              device="cpu")[0],
+    "md_rate4": lambda: make_motion_detection(24, rate=4, frame_hw=(12, 16), seed=4,
+                                              device="cpu")[0],
+    "delay_line_rate1": _delay_line,
+    "delay_line_rate3": lambda: _delay_line(12, rate=3),
+}
+
+
+def _replay(net, order, hazards=HAZARDS):
+    """One run of B2's plain version on a fresh state with its commands'
+    waits under ``hazards``, run in ``order(commands)``."""
+    prog = compile_megakernel(net).device_program
+    table = prog.table.tolist()
+    state = net.init_state()
+    tensors, io = stage(prog, state, torch.device("cpu"), [t for _, t in prog.consts])
+    zero_forwarded(table, tensors)
+    commands = schedule(table, tensors, io, 1_000_000, True)
+    hazard_waits(commands, hazards)
+    execute(table, tensors, order(commands))
+    unstage(prog, state, io)
+    return state, commands
+
+
+def _orders():
+    """The latest-ready-first order, then random permitted orders."""
+    yield "latest", permitted_order
+    for seed in range(4):
+        yield f"seed{seed}", lambda c, s=seed: permitted_order(c, random.Random(s))
+
+
+@pytest.mark.parametrize("name", list(REPLAY_NETS))
+def test_permitted_orders_give_the_sequential_state(name):
+    net = REPLAY_NETS[name]()
+    want, commands = _replay(net, list)
+    dyn = net.compile(mode="dynamic").run()
+    assert states_equal(want, dyn.state)
+    # The rule leaves room to reorder: some commands wait for none of the
+    # commands just before them.
+    assert sum(c.wait_for < c.seq - 1 for c in commands) > len(commands) // 4
+    for label, order in _orders():
+        got, _ = _replay(net, order)
+        reordered = [c.seq for c in order(commands)] != sorted(c.seq for c in commands)
+        assert reordered, label
+        assert states_equal(got, want), label
+
+
+@pytest.mark.parametrize("hazard,name", [
+    ("raw", "dpd_default"), ("war", "dpd_default"), ("raw", "md_rate4"),
+    ("war", "md_rate4"), ("raw", "delay_line_rate3"), ("war", "delay_line_rate1"),
+    ("delay", "delay_line_rate1")])
+def test_replay_sees_a_missing_hazard_class(hazard, name):
+    """With one hazard class dropped from the rule, some permitted order
+    gives another state: the replay test can see a missing edge.  (At a
+    rate above 1 the copy-back's edges are implied by others: a read of
+    slot 0 also reads slots 1 .. r-1, which a write after the copy-back
+    filled, so the delay class is shown on the rate-1 delay line.)"""
+    net = REPLAY_NETS[name]()
+    want, _ = _replay(net, list)
+    differs = [label for label, order in _orders()
+               if not states_equal(_replay(net, order, HAZARDS - {hazard})[0], want)]
+    assert differs, f"dropping {hazard} changed no replay"
+
+
+def test_commands_carry_the_kernels_segments():
+    """Delay-free windows are one segment each; the delay channel's read
+    and write windows are cut by the one-slot shift, and its phase-2 write
+    also writes segment 0 (the copy-back)."""
+    net = REPLAY_NETS["md_rate4"]()
+    prog = compile_megakernel(net).device_program
+    _, commands = _replay(net, list)
+    delay = prog.fifo_names.index(next(n for n, s in net.fifos.items() if s.delay))
+    writes = [c for c in commands if any(f == delay for f, _ in c.writes)]
+    reads = [c for c in commands if any(f == delay for f, _ in c.reads)]
+    assert writes and reads
+    assert {tuple(s for f, s in c.writes if f == delay) for c in writes} == {
+        (1, 2), (3, 4), (5, 6)}
+    assert {tuple(s for f, s in c.reads if f == delay) for c in reads} == {
+        (0, 1), (2, 3), (4, 5)}
+    assert all(bool(c.copy_back_writes) == ((5, 6) == tuple(
+        s for f, s in c.writes if f == delay)) for c in writes)
+    for c in commands:
+        assert c.wait_for < c.seq
