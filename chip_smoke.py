@@ -94,7 +94,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     with ``-DMK_CLOCK_SPLIT`` (the main path's build leaves it off), timed
     as phases 6 and 9 time B2, with block 0's cycles split into waiting
     for the scheduler, waiting on other blocks (with the count of waits)
-    and the rest (bodies).
+    and the rest (bodies, also by kind), and its scheduler warp's time
+    deciding and waiting for a free command slot.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -328,7 +329,8 @@ def b2_split(net, dev) -> dict:
     ahead the ring running dry), waiting on other blocks (``wait``: grid
     barriers, or dependency waits, ``waits`` of them) and the rest
     (``body``); each share of the loop also as ms of the timed run, and
-    where the kernel splits them, the bodies' ms and count by kind."""
+    where the kernel splits them, the bodies' ms and count by kind and the
+    scheduler warp's ms deciding and waiting for a free command slot."""
     from repro_torch.core.megakernel.kernel import decode_clock_split
     ms, meta = b2_timed(net, dev, clock_split=True)
     sp = decode_clock_split(meta)
@@ -343,6 +345,8 @@ def b2_split(net, dev) -> dict:
     if "bodies" in sp:  # a tree whose kernel also splits the bodies by kind
         rec["bodies_ms"] = {k: {"ms": b["cycles"] / loop * ms, "count": b["count"]}
                             for k, b in sp["bodies"].items() if b["count"]}
+        rec["scheduler_ms"] = {"busy": sp["sched_busy"] / loop * ms,
+                               "ring_full": sp["sched_full"] / loop * ms}
     return rec
 
 

@@ -9,7 +9,9 @@ kernel's plain PyTorch version (:mod:`.ref`) on the same device program.
 :func:`megakernel_cuda` is the ctypes wrapper: it checks its operands,
 launches on PyTorch's current stream without synchronising, raises on a
 refused launch, and adds one to ``megakernel_cuda.launches`` per launch.
-The library is built and loaded at the first launch, never at import.
+The library is built and loaded at the first launch, never at import.  The
+kernel's blocks report their progress through one scratch word per SM,
+which the wrapper allocates once per device and stream.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ import torch
 from repro_torch.core.megakernel.lower import (GridPartition, MegakernelLayout,
                                                lower_network, partition_layout)
 from repro_torch.core.megakernel.program import (KIND_CODES, M_CLK_KIND,
-                                                 M_CLK_LOOP, M_CLK_STALL,
+                                                 M_CLK_LOOP, M_CLK_SCHED,
+                                                 M_CLK_STALL,
                                                  DeviceProgram,
                                                  build_device_program, stage,
                                                  unstage)
@@ -50,13 +53,14 @@ def _library(clock_split: bool = False) -> ctypes.CDLL:
 
 
 @functools.lru_cache(maxsize=None)
-def _progress_words(device: torch.device) -> torch.Tensor:
-    """The blocks' progress words on ``device`` (one per SM, which the kernel
-    zeroes at its start), allocated once per device.  Launches on one device
-    share them, as they share its SMs: a cooperative launch holds every SM
-    until it ends."""
+def _progress_words(device: torch.device, stream: int) -> torch.Tensor:
+    """The blocks' progress words (one per SM) for launches on ``stream`` of
+    ``device``, allocated once and left uninitialised: the kernel zeroes
+    them before its start-up grid barrier, so a run launches nothing but
+    B2.  The launches of one stream run one after another, and no two
+    launches that could overlap share them."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return torch.zeros(sms, dtype=torch.int64, device=device)
+    return torch.empty(sms, dtype=torch.int64, device=device)
 
 
 def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
@@ -69,7 +73,8 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
     then actor tensors) followed by the io words, which the kernel
     rewrites.  Every address must stay valid until the launch completes.
     ``clock_split`` launches the build that also writes block 0's clock
-    split into the last two meta words (:func:`decode_clock_split`).
+    split into the meta words from ``M_CLK_STALL`` on
+    (:func:`decode_clock_split`).
     """
     for t, what, dtype in ((table, "table", torch.int32),
                            (args, "args", torch.int64)):
@@ -84,9 +89,9 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
     if not 0 <= max_sweeps < 2 ** 31:
         raise ValueError(f"megakernel_cuda: max_sweeps {max_sweeps} must fit int32")
     lib = _library(clock_split)
-    progress = _progress_words(args.device)
     with torch.cuda.device(args.device):
         stream = torch.cuda.current_stream(args.device).cuda_stream
+        progress = _progress_words(args.device, stream)
         err = lib.megakernel_run(table.data_ptr(), table.numel(), args.data_ptr(),
                                  n_ptrs, args.numel() - n_ptrs, max_sweeps,
                                  int(bool(multi_firing)), progress.data_ptr(),
@@ -108,12 +113,15 @@ def decode_clock_split(meta) -> Dict[str, Any]:
     (``stall_sched``), waiting on other blocks (``stall_wait``: dependency
     waits, ``waits`` of them), and in the whole command loop (``loop``);
     the rest of the loop is bodies, whose cycles and count by kind are in
-    ``bodies``."""
+    ``bodies``.  The scheduler warp's cycles deciding (``sched_busy``) and
+    waiting for a free command slot (``sched_full``) are its own."""
     stall, loop = int(meta[M_CLK_STALL]), int(meta[M_CLK_LOOP])
+    sched = int(meta[M_CLK_SCHED])
     kinds = [k for k in KIND_CODES if k != "config"]
     words = [int(w) for w in meta[M_CLK_KIND:M_CLK_KIND + len(kinds)]]
     return {"stall_sched": stall & 0xFFFFFFFF, "stall_wait": stall >> 32,
             "loop": loop & ((1 << 40) - 1), "waits": loop >> 40,
+            "sched_busy": sched & 0xFFFFFFFF, "sched_full": sched >> 32,
             "bodies": {k: {"cycles": w & ((1 << 40) - 1), "count": w >> 40}
                        for k, w in zip(kinds, words)}}
 

@@ -70,12 +70,12 @@ ACTOR_FIELDS = 20
 
 #: Words at the end of the io block: sweeps, stall flag, error code, the
 #: actor and token of the error, the grid size the kernel ran with, then
-#: B2's clock split: two words, and one per body kind from ``M_CLK_KIND``
-#: (written only by the build with ``-DMK_CLOCK_SPLIT``;
-#: ``kernel.decode_clock_split`` reads them).
-META_WORDS = 16
+#: B2's clock split: the body threads' two words, the scheduler warp's, and
+#: one per body kind from ``M_CLK_KIND`` (written only by the build with
+#: ``-DMK_CLOCK_SPLIT``; ``kernel.decode_clock_split`` reads them).
+META_WORDS = 17
 (M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
- M_CLK_STALL, M_CLK_LOOP, M_CLK_KIND) = range(9)
+ M_CLK_STALL, M_CLK_LOOP, M_CLK_SCHED, M_CLK_KIND) = range(10)
 
 #: Error codes of the run: a control token outside its channel's declared
 #: domain; a source or sink index past its slab.

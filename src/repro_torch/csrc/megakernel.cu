@@ -25,7 +25,10 @@
 // bytes: the 73.7 MB source and sink slabs of 960 frames take 44 us.
 // What costs the time instead is latency: about 650 bodies per DPD run and
 // 1200 per motion detection run, each well under a microsecond of bytes or
-// flops, chained by data dependencies through L2.
+// flops, chained by data dependencies through L2, and the sweep loop that
+// decides them one firing at a time.  The parent design ran each body
+// across the grid behind a serial scheduler step and a grid barrier; this
+// one overlaps the three (PERF.md has the clock split of both).
 //
 // Design: the scheduler runs ahead of the bodies, and bodies wait only for
 // the bodies they depend on.
@@ -59,11 +62,11 @@
 //   k, warp 0 reads it with acquire loads until it covers wait_for, and a
 //   block barrier hands that on: a dependency is usually met while the
 //   block runs the commands before it, and a command with no conflict
-//   waits for nothing.  wait_for is the largest k of an earlier command that wrote a
-//   ring segment this one reads (RAW), or read or wrote one it writes (WAR,
-//   WAW); a segment is a channel's window (with a delay channel, the parts
-//   of its windows the one-slot shift cuts apart, and slot 0 written by the
-//   copy-back).  core/megakernel/ref.py holds the same rule
+//   waits for nothing.  wait_for is the largest k of an earlier command
+//   that wrote a ring segment this one reads (RAW), or read or wrote one it
+//   writes (WAR, WAW); a segment is a channel's window (with a delay
+//   channel, the parts of its windows the one-slot shift cuts apart, and
+//   slot 0 written by the copy-back).  core/megakernel/ref.py holds the same rule
 //   (hazard_waits), and the tests replay its command lists in orders the
 //   rule permits.  Data written in another block is read with __ldcg (L1 is
 //   not coherent across SMs).  The start-up zeroing of forwarded rings
@@ -82,9 +85,10 @@
 //   adder sums its enabled inputs from 0 in its terms' order with
 //   __fadd_rn, Poly runs B1's arithmetic from dyn_fir.cuh, gauss/thres/med
 //   run B3's and B4's per-pixel arithmetic from motion.cuh with clamped
-//   neighbours: gauss and med on rows a block stages with their halo in
-//   shared memory, thres on 16 pixels a thread.  A rate-0 firing moves only
-//   the replicated cursors.
+//   neighbours: gauss and med on rows a block stages (as floats, with their
+//   halo) in shared memory, thres on 16 pixels a thread; the adder keeps 8
+//   terms' loads in flight.  A rate-0 firing moves only the replicated
+//   cursors.
 // * The delay channel's copy-back: after an enabled phase-2 write, slot 0
 //   takes slot 3r, the window's last token; the thread that writes a word
 //   of that token writes it to slot 0 too.  Only such a firing runs the
@@ -92,7 +96,8 @@
 // * Built with -DMK_CLOCK_SPLIT, thread 0 of block 0 counts its cycles
 //   waiting for the scheduler (the ring empty), waiting on other blocks
 //   (and how often), in each kind of body (and how often), and in the
-//   whole command loop, into the meta words from M_CLK_STALL on
+//   whole command loop, and block 0's scheduler warp its cycles deciding
+//   and waiting for a free slot, into the meta words from M_CLK_STALL on
 //   (kernel.py's decode_clock_split reads them).
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -117,9 +122,9 @@ constexpr int ACTOR_FIELDS = 20;
 enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
        A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
        A_PLANES, A_FPARAM };
-constexpr int META_WORDS = 16;
+constexpr int META_WORDS = 17;
 enum { M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
-       M_CLK_STALL, M_CLK_LOOP, M_CLK_KIND };
+       M_CLK_STALL, M_CLK_LOOP, M_CLK_SCHED, M_CLK_KIND };
 enum { K_SOURCE, K_CONFIG, K_FORK, K_POLY, K_ADDER, K_SINK, K_GAUSS, K_THRES,
        K_MED };
 enum { ERR_DOMAIN = 1, ERR_SLAB = 2 };
@@ -189,14 +194,16 @@ struct View {
   int* ph;                 // per channel: read phase, write phase
   const long long* addr;   // ring addresses | actor tensor addresses
   long long* trk;          // per channel: each segment's last writer, then last reader
-  int io_scal, io_ctrl, io_counts;
+  const int* fifos;        // the channel rows
+  const int* actors;       // the actor rows
+  int n_fifos, io_scal, io_ctrl, io_counts;
 };
 
 __device__ __forceinline__ const int* fifo_row(const View& v, int f) {
-  return v.P + v.P[H_FIFO_OFF] + FIFO_FIELDS * f;
+  return v.fifos + FIFO_FIELDS * f;
 }
 __device__ __forceinline__ const int* actor_row(const View& v, int a) {
-  return v.P + v.P[H_ACTOR_OFF] + ACTOR_FIELDS * a;
+  return v.actors + ACTOR_FIELDS * a;
 }
 __device__ __forceinline__ int occ(const View& v, int f) { return v.S[3 * f + 2]; }
 __device__ __forceinline__ unsigned char* ring(const View& v, int f, int off) {
@@ -204,8 +211,7 @@ __device__ __forceinline__ unsigned char* ring(const View& v, int f, int off) {
          static_cast<long long>(off) * fifo_row(v, f)[F_TOKB];
 }
 __device__ __forceinline__ void* aptr(const View& v, int slot) {
-  return reinterpret_cast<void*>(
-      static_cast<uintptr_t>(v.addr[v.P[H_N_FIFOS] + slot]));
+  return reinterpret_cast<void*>(static_cast<uintptr_t>(v.addr[v.n_fifos + slot]));
 }
 __device__ __forceinline__ long long& last_writer(const View& v, int f, int seg) {
   return v.trk[2 * SEGS * f + seg];
@@ -215,6 +221,18 @@ __device__ __forceinline__ long long& last_reader(const View& v, int f, int seg)
 }
 
 __device__ __forceinline__ int lane() { return threadIdx.x & 31; }
+// The largest of the warp's w (command numbers stay below 2^32 in any run
+// that ends in hours, so one 32-bit reduction does, checked).
+__device__ __forceinline__ long long warp_max(long long w) {
+  if (__any_sync(FULL, (w >> 32) != 0)) {
+    for (int o = 16; o; o >>= 1) {
+      const long long x = __shfl_xor_sync(FULL, w, o);
+      w = x > w ? x : w;
+    }
+    return w;
+  }
+  return __reduce_max_sync(FULL, static_cast<unsigned>(w));
+}
 __device__ __forceinline__ unsigned low_bits(int n) {
   return n >= 32 ? FULL : (1u << n) - 1;
 }
@@ -254,13 +272,13 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (!done) watchdog(since);
   } while (!done);
 }
-// The 256 body threads' own barrier (the scheduler warp never joins it).
+// The 256 body threads' own barrier (the other warps never join it).
 __device__ __forceinline__ void body_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(BODY_THREADS) : "memory");
 }
-// This block has finished command `seq`: after the block barrier that ends
-// its share, one thread makes the share's writes visible to the GPU and
-// then publishes the number.
+// This block has finished command `seq` (every body warp has arrived on the
+// slot's `done`): make the share's writes visible to the GPU, then publish
+// the number.
 __device__ __forceinline__ void publish(unsigned long long* word, long long seq) {
   asm volatile("fence.acq_rel.gpu;\n"
                "st.relaxed.gpu.global.u64 [%0], %1;\n"
@@ -317,11 +335,13 @@ __device__ void watcher(const unsigned long long* progress, long long* least,
 struct Visit {
   const int* r;            // the actor's row
   int a, kind, n_in, n_out, ctrl;
-  int ctrl_base;           // the control ring's first io word
+  int ctrl_base, ctrl_nph; // the control ring's first io word, its phases
   int ready, scalar;       // ready limit (-1: none) and its scalar slot
   int fi, fo;              // lane l's input and output channel, -1 for none
-  int rate_i, nph_i, data_i;
-  int rate_o, nph_o, bound_o, delay_o, data_o, cbase_o;
+  int rate_i, nph_i, data_i, delay_i, tokb_i;
+  int rate_o, nph_o, bound_o, delay_o, data_o, cbase_o, tokb_o;
+  unsigned char* ring_i;   // the rings' first slots
+  unsigned char* ring_o;
 };
 
 __device__ void visit_actor(const View& v, int a, Visit* u) {
@@ -333,7 +353,11 @@ __device__ void visit_actor(const View& v, int a, Visit* u) {
   u->n_in = r[A_NIN];
   u->n_out = r[A_NOUT];
   u->ctrl = r[A_CTRL];
-  u->ctrl_base = u->ctrl >= 0 ? v.io_ctrl + fifo_row(v, u->ctrl)[F_CBASE] : 0;
+  if (u->ctrl >= 0) {
+    const int* fc = fifo_row(v, u->ctrl);
+    u->ctrl_base = v.io_ctrl + fc[F_CBASE];
+    u->ctrl_nph = fc[F_NPH];
+  }
   u->ready = r[A_READY];
   u->scalar = r[A_SCALAR];
   u->fi = l < u->n_in ? v.P[r[A_IN] + l] : -1;
@@ -343,6 +367,9 @@ __device__ void visit_actor(const View& v, int a, Visit* u) {
     u->rate_i = fr[F_RATE];
     u->nph_i = fr[F_NPH];
     u->data_i = !fr[F_CTRL];
+    u->delay_i = fr[F_DELAY];
+    u->tokb_i = fr[F_TOKB];
+    u->ring_i = ring(v, u->fi, 0);
   }
   if (u->fo >= 0) {
     const int* fr = fifo_row(v, u->fo);
@@ -352,6 +379,8 @@ __device__ void visit_actor(const View& v, int a, Visit* u) {
     u->delay_o = fr[F_DELAY];
     u->data_o = !fr[F_CTRL];
     u->cbase_o = fr[F_CBASE];
+    u->tokb_o = fr[F_TOKB];
+    u->ring_o = ring(v, u->fo, 0);
   }
 }
 
@@ -428,7 +457,7 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
     const int c = u.ctrl;
     v.S[3 * c] += 1;
     v.S[3 * c + 2] -= 1;
-    v.ph[2 * c] = next_phase(v.ph[2 * c], fifo_row(v, c)[F_NPH]);
+    v.ph[2 * c] = next_phase(v.ph[2 * c], u.ctrl_nph);
   }
   const int in_ph = fi >= 0 ? v.ph[2 * fi] : 0;
   if (fi >= 0) {
@@ -491,7 +520,7 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
   // terms), every enabled data output window, and slot 0 on a copy-back.
   int r0 = -1, r1 = -1, w0 = -1, w1 = -1;
   if (fi >= 0 && u.data_i && (kind != K_ADDER || ((in_en >> l) & 1)))
-    read_segments(fifo_row(v, fi)[F_DELAY], u.rate_i, in_ph, &r0, &r1);
+    read_segments(u.delay_i, u.rate_i, in_ph, &r0, &r1);
   if (fo >= 0 && on && u.data_o) write_segments(u.delay_o, u.rate_o, out_ph, &w0, &w1);
   long long w = 0;
   if (r0 >= 0) w = max(w, last_writer(v, fi, r0));
@@ -499,8 +528,7 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
   if (w0 >= 0) w = max(w, max(last_writer(v, fo, w0), last_reader(v, fo, w0)));
   if (w1 >= 0) w = max(w, max(last_writer(v, fo, w1), last_reader(v, fo, w1)));
   if (cb) w = max(w, max(last_writer(v, fo, 0), last_reader(v, fo, 0)));
-  for (int o = 16; o; o >>= 1) w = max(w, __shfl_xor_sync(FULL, w, o));
-  __syncwarp();  // every wait is read before this command's own segments count
+  w = warp_max(w);  // every wait is read before this command's own segments count
   if (r0 >= 0) last_reader(v, fi, r0) = seq;
   if (r1 >= 0) last_reader(v, fi, r1) = seq;
   if (w0 >= 0) last_writer(v, fo, w0) = seq;
@@ -557,65 +585,93 @@ __device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
 
 // Command slot c for firing f of the visited actor (number s->seq), by the
 // scheduler warp side by side: lane l fills input l, output l and adder
-// term l.
+// term l, and the body's parameters are spread over the first lanes.
 __device__ void fill(const View& v, const Visit& u, const Firing& f, const Sched* s,
                      Cmd* c) {
   const int l = lane();
   const int* r = u.r;
-  if (u.fi >= 0) c->in[l] = ring(v, u.fi, f.in_off);
+  if (u.fi >= 0) c->in[l] = u.ring_i + static_cast<long long>(f.in_off) * u.tokb_i;
   if (u.fo >= 0) {
-    c->out[l] = u.data_o ? ring(v, u.fo, f.out_off) : nullptr;
+    c->out[l] = u.data_o ? u.ring_o + static_cast<long long>(f.out_off) * u.tokb_o : nullptr;
     if ((f.cb_mask >> l) & 1) {
-      c->slot0[l] = ring(v, u.fo, 0);
-      c->cb_from[l] = static_cast<long long>(u.rate_o - 1) * fifo_row(v, u.fo)[F_TOKB];
+      c->slot0[l] = u.ring_o;
+      c->cb_from[l] = static_cast<long long>(u.rate_o - 1) * u.tokb_o;
     }
   }
   if (u.kind == K_ADDER && l < r[A_NAUX]) c->terms[l] = v.P[r[A_AUX] + l];
-  if (l == 0) {
-    c->seq = s->seq;
-    c->wait_for = f.wait_for;
-    c->kind = u.kind;
-    c->cb_mask = f.cb_mask;
-    c->n_in = u.n_in;
-    c->n_out = u.n_out;
-    c->in_en = f.in_en;
-    c->out_en = f.out_en;
-    c->n0 = r[A_N0];
-    c->n1 = r[A_N1];
-    c->order = r[A_ORDER];
-    c->n_terms = r[A_NAUX];
-    c->planes = r[A_PLANES];
-    c->fparam = __int_as_float(r[A_FPARAM]);
-    if (u.kind == K_POLY) {
-      c->hist = static_cast<float*>(aptr(v, r[A_PTR0]));
-      c->taps = static_cast<const float*>(aptr(v, r[A_PTR1]));
-    } else if (u.kind == K_SOURCE || u.kind == K_SINK) {
-      // Plane p of window idx sits at p * stride + idx * plane_bytes.
-      const long long plane_bytes = r[A_N0];
-      c->slab = static_cast<unsigned char*>(aptr(v, r[A_PTR0])) + f.idx * plane_bytes;
-      c->slab_stride = static_cast<long long>(f.n_idx) * plane_bytes;
-    }
+  switch (l) {
+    case 0:
+      c->seq = s->seq;
+      c->wait_for = f.wait_for;
+      c->kind = u.kind;
+      // bytes of input 0's window (fork, adder, gauss, thres, med)
+      if (u.n_in > 0) c->win = static_cast<long long>(u.rate_i) * u.tokb_i;
+      break;
+    case 1:
+      c->cb_mask = f.cb_mask;
+      c->in_en = f.in_en;
+      c->out_en = f.out_en;
+      break;
+    case 2:
+      c->n_in = u.n_in;
+      c->n_out = u.n_out;
+      c->n_terms = r[A_NAUX];
+      break;
+    case 3:
+      c->n0 = r[A_N0];
+      c->n1 = r[A_N1];
+      c->planes = r[A_PLANES];
+      break;
+    case 4:
+      c->order = r[A_ORDER];
+      c->fparam = __int_as_float(r[A_FPARAM]);
+      break;
+    case 5:
+      if (u.kind == K_POLY) {
+        c->hist = static_cast<float*>(aptr(v, r[A_PTR0]));
+        c->taps = static_cast<const float*>(aptr(v, r[A_PTR1]));
+      } else if (u.kind == K_SOURCE || u.kind == K_SINK) {
+        // Plane p of window idx sits at p * stride + idx * plane_bytes.
+        const long long plane_bytes = r[A_N0];
+        c->slab = static_cast<unsigned char*>(aptr(v, r[A_PTR0])) + f.idx * plane_bytes;
+        c->slab_stride = static_cast<long long>(f.n_idx) * plane_bytes;
+      }
+      break;
   }
-  if (u.n_in > 0 && l == 0)
-    c->win = static_cast<long long>(u.rate_i) * fifo_row(v, u.fi)[F_TOKB];
 }
 
 // The scheduler warp: every command, then CMD_DONE, into the slot ring.
-__device__ void scheduler(const View& v, Cmd* slots, uint64_t* full, uint64_t* empty,
-                          Sched* s, int max_sweeps, int multi_firing) {
+// Returns its cycles deciding and filling | waiting for a free slot << 32
+// (counted with -DMK_CLOCK_SPLIT only).
+__device__ long long scheduler(const View& v, Cmd* slots, uint64_t* full, uint64_t* empty,
+                               Sched* s, int max_sweeps, int multi_firing) {
   Visit u;
+  long long busy = 0, full_wait = 0;
   for (long long n = 0;; ++n) {
+#ifdef MK_CLOCK_SPLIT
+    const long long t0 = clock64();
+#endif
     Firing f;
     const bool more = schedule_next(v, &u, &f, s, max_sweeps, multi_firing);
     const int i = static_cast<int>(n % RING);
+#ifdef MK_CLOCK_SPLIT
+    const long long t1 = clock64();
+#endif
     mbar_wait(&empty[i], static_cast<uint32_t>((n / RING) & 1) ^ 1);
+#ifdef MK_CLOCK_SPLIT
+    const long long t2 = clock64();
+#endif
     if (more)
       fill(v, u, f, s, &slots[i]);
     else if (lane() == 0)
       slots[i].kind = CMD_DONE;
     __syncwarp();
     if (lane() == 0) mbar_arrive(&full[i]);
-    if (!more) return;
+#ifdef MK_CLOCK_SPLIT
+    busy += (t1 - t0) + (clock64() - t2);
+    full_wait += t2 - t1;
+#endif
+    if (!more) return (busy & 0xffffffffLL) | (full_wait << 32);
   }
 }
 
@@ -1029,6 +1085,9 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
     progress[blockIdx.x] = 0;
   }
   __syncthreads();
+  v.fifos = v.P + v.P[H_FIFO_OFF];
+  v.actors = v.P + v.P[H_ACTOR_OFF];
+  v.n_fifos = v.P[H_N_FIFOS];
   v.io_scal = 3 * v.P[H_N_FIFOS];
   v.io_ctrl = v.io_scal + 2 * v.P[H_N_SCALARS];
   v.io_counts = v.io_ctrl + v.P[H_N_CTRL];
@@ -1059,7 +1118,8 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   }
   if (tid >= SCHED_TID) {
     Sched s = {0, -1, -1, 1, 0, 0, 0, 0, 0};
-    scheduler(v, slots, full, empty, &s, max_sweeps, multi_firing);
+    [[maybe_unused]] const long long clk =
+        scheduler(v, slots, full, empty, &s, max_sweeps, multi_firing);
     // 4. Block 0 writes the replicated state back.
     if (blockIdx.x == 0) {
       for (int i = lane(); i < n_state; i += 32) io[i] = v.S[i];
@@ -1071,6 +1131,9 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
         meta[M_ERR_ACTOR] = s.err_actor;
         meta[M_ERR_VALUE] = s.err_value;
         meta[M_BLOCKS] = gridDim.x;
+#ifdef MK_CLOCK_SPLIT
+        meta[M_CLK_SCHED] = clk;
+#endif
       }
     }
     return;

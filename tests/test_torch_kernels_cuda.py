@@ -195,8 +195,10 @@ def _assert_b2_bit_identical(dp, sides):
 
 @pytest.mark.parametrize("cores", [1, 2])
 @pytest.mark.parametrize("schedule", ["default", "min_active2", "all10", "static"])
-@pytest.mark.parametrize("block_l", [4096, 32768])
+@pytest.mark.parametrize("block_l", [129, 4096, 32768])
 def test_megakernel_dpd_bit_identical_to_plain(gen, block_l, schedule, cores):
+    """129 samples: windows at 8-byte offsets, so the bodies move 4-byte
+    words (the adder single floats)."""
     n = 64
     kw = {"default": dict(active_schedule=default_active_schedule(n, seed=0)),
           "min_active2": dict(active_schedule=np.full(n, 2, np.int32)),
@@ -209,9 +211,12 @@ def test_megakernel_dpd_bit_identical_to_plain(gen, block_l, schedule, cores):
 
 
 @pytest.mark.parametrize("cores", [1, 2])
-@pytest.mark.parametrize("rate", [1, 4])
-def test_megakernel_motion_detection_bit_identical_to_plain(gen, rate, cores):
-    net, _ = make_motion_detection(48, rate=rate, frame_hw=(240, 320), seed=rate,
+@pytest.mark.parametrize("rate,frame_hw", [(1, (240, 320)), (4, (240, 320)),
+                                           (4, (20, 322)), (4, (12, 1030))])
+def test_megakernel_motion_detection_bit_identical_to_plain(gen, rate, frame_hw, cores):
+    """(20, 322): staged rows and thres windows off 16-byte words; (12, 1030):
+    rows too wide for a stencil's tile, read from L2."""
+    net, _ = make_motion_detection(48, rate=rate, frame_hw=frame_hw, seed=rate,
                                    device="cuda")
     _assert_b2_bit_identical(*_b2_and_plain(net, cores))
 

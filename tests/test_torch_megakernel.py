@@ -29,7 +29,10 @@ from repro_torch.core.actor import DeviceOp
 from repro_torch.core.fifo import FifoSpec
 from repro_torch.core.megakernel.program import (F_BOUND, F_CAP, F_DELAY, F_NPH,
                                                  F_TOKB, fifo_row)
-from repro_torch.core.megakernel.program import stage, unstage
+from repro_torch.core.megakernel.kernel import CLOCK_SPLIT_DEFINE, decode_clock_split
+from repro_torch.core.megakernel.program import (M_CLK_KIND, M_CLK_LOOP, M_CLK_SCHED,
+                                                 M_CLK_STALL, META_WORDS, stage,
+                                                 unstage)
 from repro_torch.core.megakernel.ref import (HAZARDS, copy_back, execute,
                                              hazard_waits, permitted_order,
                                              read_offset, schedule, write_offset,
@@ -37,6 +40,7 @@ from repro_torch.core.megakernel.ref import (HAZARDS, copy_back, execute,
 from repro_torch.core.network import Network
 from repro_torch.graphs.factories import (make_dpd, make_motion_detection,
                                          states_equal)
+from repro_torch.kernels import _build
 from test_torch_harness import assert_runs_match
 
 # One scrambled core map of DPD's 15 actors (config first).
@@ -530,3 +534,22 @@ def test_commands_carry_the_kernels_segments():
         s for f, s in c.writes if f == delay)) for c in writes)
     for c in commands:
         assert c.wait_for < c.seq
+
+
+def test_clock_split_words_decode_and_key_their_own_build():
+    """The split build's meta words: body-thread stalls, the loop and its
+    waits, the scheduler warp's time, body time by kind; and a build with
+    the split define is a library of its own."""
+    meta = [0] * META_WORDS
+    meta[M_CLK_STALL] = 123 | (456 << 32)
+    meta[M_CLK_LOOP] = 10_000 | (7 << 40)
+    meta[M_CLK_SCHED] = 9_000 | (800 << 32)
+    meta[M_CLK_KIND + 2] = 4_321 | (398 << 40)          # poly (config has no word)
+    got = decode_clock_split(meta)
+    assert (got["stall_sched"], got["stall_wait"], got["loop"], got["waits"]) == (
+        123, 456, 10_000, 7)
+    assert (got["sched_busy"], got["sched_full"]) == (9_000, 800)
+    assert got["bodies"]["poly"] == {"cycles": 4_321, "count": 398}
+    assert "config" not in got["bodies"] and got["bodies"]["source"]["count"] == 0
+    assert (_build.library_path("megakernel", (CLOCK_SPLIT_DEFINE,))
+            != _build.library_path("megakernel"))
