@@ -5,6 +5,7 @@
     python3 chip_smoke.py --b2-split SRC  # B2's clock split, from another tree
     python3 chip_smoke.py --b5 SRC    # B5's time alone, from another src tree
     python3 chip_smoke.py --b6 SRC    # B6's time alone, from another src tree
+    python3 chip_smoke.py --b7 SRC    # B7's time alone, from another src tree
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -61,7 +62,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     recurrence ``ssd_naive`` (under strong decays, dt up to 5 at A = -16,
     of ``ssd_naive`` only), a bar a planted fault (the plain version put
     together chunk by chunk with the state entering each chunk taken one
-    chunk late) must break;
+    chunk late) must break; B7 bit-identical (``torch.equal`` on h_seq
+    and hT), with the largest difference printed;
     times each (CUDA graph replays), its plain version and, for B5,
     ``scaled_dot_product_attention`` with the same boolean mask and
     ``enable_gqa=True`` as the library yardstick (never used by the port);
@@ -109,9 +111,10 @@ CUDA device is visible.
 ``repro_torch`` package under ``SRC`` and prints one ``b2 {...}`` line;
 ``--b2-split SRC`` prints phase 16's split from ``SRC`` (a ``b2_split
 {...}`` line; the tree's wrapper must take ``clock_split``);
-``--b5 SRC`` and ``--b6 SRC`` do the same for B5 and B6 (as phase 12
-does; a ``b5 {...}`` or ``b6 {...}`` line).  Run in turns from two trees
-they compare a kernel across commits on one card.
+``--b5 SRC``, ``--b6 SRC`` and ``--b7 SRC`` do the same for B5, B6 and
+B7 (as phase 12 does; a ``b5 {...}``, ``b6 {...}`` or ``b7 {...}``
+line).  Run in turns from two trees they compare a kernel across commits
+on one card.
 ``--lm`` runs phases 1 and 12-15 only (the LM path), for work on it.
 """
 from __future__ import annotations
@@ -159,7 +162,6 @@ B5_FAULT_TILE = 2048       # the planted skipped key tile starts here
 B6_TOL = 3e-4       # of max|ref|: tests/test_kernels.py:92; y (bf16) also
                     # gets one bf16 step at |y|: two float32 values that
                     # differ in the last bits may round to neighbours
-B7_TOL = 1e-5       # rtol = atol: tests/test_kernels.py:103
 # Full-width parity, card vs CPU (phases 13-14).  Each mixer's and each
 # MLP's output, fed the CPU's input: |d| <= 2^-7 |ref| + MIX_ROW_TOL * rms
 # of ref's (batch, position) row (readings up to 0.022).  Logits at every
@@ -687,6 +689,29 @@ def b6_chunkwise(x, dt, A, Bm, Cm, c: int, lag: int) -> torch.Tensor:
     return torch.cat(ys, dim=1).to(x.dtype)
 
 
+def b7_inputs(dev, gen) -> tuple:
+    """B7's operands at recurrentgemma-2b's RG-LRU in phase 12: log_a in
+    [-2.01, -0.01) and gx standard normal, (LM_BATCH, LM_PROMPT, lru_width)
+    float32."""
+    from repro_torch.configs import get_config
+    shape = (LM_BATCH, LM_PROMPT, get_config("recurrentgemma-2b").rglru.lru_width)
+    la = -(torch.rand(shape, generator=gen, device=dev) * 2.0 + 0.01)
+    return la, torch.randn(shape, generator=gen, device=dev)
+
+
+def b7_reading(la, gx) -> float:
+    """B7 against its plain version on the same inputs: fails unless h_seq
+    and hT are bit-identical (both round exp, the product and the sum each
+    on its own, in time order); returns the largest difference."""
+    from repro_torch.kernels.rglru import rglru, rglru_ref
+    h, t = rglru(la, gx)
+    hr, tr = rglru_ref(la, gx)
+    err = max(float((h - hr).abs().max()), float((t - tr).abs().max()))
+    if not (torch.equal(h, hr) and torch.equal(t, tr)):
+        fail(f"B7 differs from its plain version: max |dh|, |dhT| {err:.3g}")
+    return err
+
+
 def lm_kernels(dev, smi: str) -> dict:
     """Phase 12: B5, B6 and B7 against their plain versions at the serving
     shapes, with their times and bounds; returns their records."""
@@ -870,22 +895,16 @@ def lm_kernels(dev, smi: str) -> dict:
     del x, Bm, Cm, dt
 
     # ---- B7 at recurrentgemma-2b's RG-LRU ------------------------------- #
-    W = rc.rglru.lru_width
-    la = -(torch.rand((B, S, W), generator=gen, device=dev) * 2.0 + 0.01)
-    gx = randn(B, S, W)
-    h, t = rglru(la, gx)
-    hr, tr = rglru_ref(la, gx)
-    torch.cuda.synchronize()
-    dh, dt_ = (h - hr).abs(), (t - tr).abs()
-    if bool((dh > B7_TOL * (1 + hr.abs())).any()) or bool((dt_ > B7_TOL * (1 + tr.abs())).any()):
-        fail(f"B7: max |dh| {float(dh.max()):.3g}, |dhT| {float(dt_.max()):.3g}")
-    b7_err = max(float(dh.max()), float(dt_.max()))
+    la, gx = b7_inputs(dev, gen)
+    W = la.shape[-1]
+    b7_err = b7_reading(la, gx)
     b7_ms = graph_ms(lambda: rglru(la, gx), inner=10)
     b7_wrapper = cuda_ms(lambda: rglru(la, gx), inner=10)
     b7_plain = cuda_ms(lambda: rglru_ref(la, gx), reps=3, inner=1)
     b7_bytes = 4 * (3 * la.numel() + B * W)
     b7_bound, b7_by = bound_of(b7_bytes, 3 * la.numel(), FP32_FLOP_PER_S)
-    log(f"B7 vs plain, (log_a, gx) {tuple(la.shape)} float32: max_abs_err {b7_err:.3g}")
+    log(f"B7 vs plain, (log_a, gx) {tuple(la.shape)} float32: bit-identical "
+        f"(max_abs_err {b7_err:.3g})")
     log(f"B7 timing ({smi}): {b7_ms:.4f} ms/launch (CUDA graph replay), wrapper "
         f"{b7_wrapper:.4f} ms/call, plain {b7_plain:.3f} ms, bound {b7_bound:.4f} ms "
         f"({b7_by}: {b7_bytes} B)")
@@ -1300,12 +1319,41 @@ def b6_turn(src: str) -> None:
                               "hT_over_bar": rh}), flush=True)
 
 
+def b7_turn(src: str) -> None:
+    """``--b7 SRC``: B7's time per call at phase 12's shape (CUDA graph
+    replays, as phase 12 times it) and at its first batch alone, from the
+    ``repro_torch`` package under ``SRC``, held bit for bit against that
+    tree's plain version; beside it, ``torch.add`` over the same bytes.
+    Run in turns from two trees it compares B7 across commits on one
+    card."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rglru import rglru
+    smi = card()
+    _build.build("rglru")
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    la, gx = b7_inputs(dev, gen)
+    err = b7_reading(la, gx)
+    ms = graph_ms(lambda: rglru(la, gx), inner=10)
+    # The same bytes streamed by one of PyTorch's elementwise kernels (two
+    # planes read, one written): what this traffic reaches on the card.
+    out = torch.empty_like(gx)
+    stream_ms = graph_ms(lambda: torch.add(la, gx, out=out), inner=10)
+    # One prompt's prefill: a quarter of the blocks and of the bytes.
+    la1, gx1 = la[:1], gx[:1]
+    err = max(err, b7_reading(la1, gx1))
+    ms_b1 = graph_ms(lambda: rglru(la1, gx1), inner=10)
+    print("b7 " + json.dumps({"src": src, "card": smi, "ms": ms, "max_abs_err": err,
+                              "stream_ms": stream_ms, "ms_batch1": ms_b1}), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
                          "runs only on the card")
     turns = {"--b2": b2_turn, "--b2-split": b2_split_turn, "--b5": b5_turn,
-             "--b6": b6_turn}
+             "--b6": b6_turn, "--b7": b7_turn}
     if sys.argv[1:2] and sys.argv[1] in turns and len(sys.argv) == 3:
         sys.path.insert(0, sys.argv[2])
         turns[sys.argv[1]](sys.argv[2])

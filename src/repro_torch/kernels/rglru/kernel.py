@@ -1,4 +1,7 @@
-"""ctypes wrapper of the Hopper RG-LRU kernel (``csrc/rglru.cu``).
+"""ctypes wrapper of the Hopper RG-LRU kernel (``csrc/rglru.cu``: one
+block per (batch, 32-channel tile), a producer warp streaming TMA or
+cp.async loads into a three-stage ring, a consumer warp walking time in
+order).
 
 Replaces ``src/repro/kernels/rglru/kernel.py::rglru_pallas``.  The library
 is built and loaded at the first launch, never at import.
@@ -29,7 +32,9 @@ def _library() -> ctypes.CDLL:
 
 def rglru_cuda(log_a: torch.Tensor, gx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch: ``log_a``, ``gx`` contiguous (B, L, W) float32 CUDA
-    tensors -> ``(h_seq (B, L, W), hT (B, W))`` float32."""
+    tensors, B <= 65535 -> ``(h_seq (B, L, W), hT (B, W))`` float32.  Any
+    L and W: the kernel moves its tiles by TMA when W is a multiple of 4
+    and the operands are 16-byte aligned, else by cp.async."""
     for name, t in (("log_a", log_a), ("gx", gx)):
         if not t.is_cuda or t.dtype != torch.float32 or t.dim() != 3 \
                 or not t.is_contiguous():

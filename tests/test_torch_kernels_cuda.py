@@ -15,8 +15,8 @@ and actor tensor); B5 within one bf16 step of |want| plus 2^-5 of the RMS of wan
 from the readings of sound runs and planted faults there; PERF.md);
 B6 within 3e-4 of the largest magnitude (``tests/test_kernels.py:92``),
 plus one bf16 step of y for bf16 inputs, against its plain version, and
-under strong decays against the step-by-step recurrence; B7 within 1e-5
-(``tests/test_kernels.py:103``).
+under strong decays against the step-by-step recurrence; B7 bit for bit
+(``torch.equal``), as in ``chip_smoke.py`` phase 12.
 """
 from __future__ import annotations
 
@@ -126,7 +126,16 @@ def test_ssd_strong_decay_gives_no_nan(gen, dtype):
     _ssd_holds_the_bar(x, dt, A, Bm, Cm, oracle="naive")
 
 
-@pytest.mark.parametrize("B,L,W", [(1, 1, 1), (3, 17, 100), (2, 40, 2560)])
+# B7's edges, against its ring of 4 stages of 64 steps and its tiles of 32
+# channels: L below one stage (1, 17, 40, 63), L not a multiple of a stage
+# (130, 1000), many laps of the ring (1000, 4096); W ending inside a tile
+# (100), in whole tiles (96, 2560), below one tile (8) and not a multiple
+# of 4 (1, 37), which loads by cp.async instead of TMA; and the serving
+# shape.  Bit for bit: both sides take exp, the product and the sum
+# each rounded on its own, in time order.
+@pytest.mark.parametrize("B,L,W", [(1, 1, 1), (3, 17, 100), (2, 40, 2560),
+                                   (1, 63, 8), (2, 130, 96), (2, 1000, 37),
+                                   (1, 1000, 100), (4, 4096, 2560)])
 def test_rglru_matches_plain(gen, B, L, W):
     la = -(torch.rand((B, L, W), generator=gen, device="cuda") * 2.0 + 0.01)
     gx = torch.randn((B, L, W), generator=gen, device="cuda")
@@ -134,8 +143,25 @@ def test_rglru_matches_plain(gen, B, L, W):
     h, t = rglru(la, gx)
     assert rglru_cuda.launches == before + 1
     hr, tr = rglru_ref(la, gx)
-    torch.testing.assert_close(h, hr, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(t, tr, rtol=1e-5, atol=1e-5)
+    assert torch.equal(h, hr), float((h - hr).abs().max())
+    assert torch.equal(t, tr), float((t - tr).abs().max())
+
+
+def test_rglru_misaligned_operands_take_cp_async(gen):
+    """W a multiple of 4 but the operands 4 bytes past a 16-byte boundary:
+    no TMA map fits, so the kernel loads by cp.async; still bit for bit."""
+    B, L, W = 2, 300, 64
+    flat = torch.empty(2 * B * L * W + 2, device="cuda")
+    la = flat[1:1 + B * L * W].view(B, L, W)
+    gx = flat[2 + B * L * W:].view(B, L, W)
+    assert la.data_ptr() % 16 and gx.data_ptr() % 16
+    la.copy_(-(torch.rand((B, L, W), generator=gen, device="cuda") * 2.0 + 0.01))
+    gx.copy_(torch.randn((B, L, W), generator=gen, device="cuda"))
+    before = rglru_cuda.launches
+    h, t = rglru(la, gx)
+    assert rglru_cuda.launches == before + 1
+    hr, tr = rglru_ref(la, gx)
+    assert torch.equal(h, hr) and torch.equal(t, tr)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
