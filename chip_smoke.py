@@ -6,6 +6,8 @@
     python3 chip_smoke.py --b5 SRC    # B5's time alone, from another src tree
     python3 chip_smoke.py --b6 SRC    # B6's time alone, from another src tree
     python3 chip_smoke.py --b7 SRC    # B7's time alone, from another src tree
+    python3 chip_smoke.py --b1 SRC    # B1's time, wrapper and DPD's wall, from SRC
+    python3 chip_smoke.py --b3 SRC    # B3's time, wrapper and MD's wall, from SRC
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -14,8 +16,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 
 1. prints the card's name and power limit (``nvidia-smi``);
 2. holds kernel B1 against its plain PyTorch version at the main path's
-   shapes and times both (CUDA events; the kernel's own time from replays
-   of a CUDA graph of its launches, so the host wrapper is out of it);
+   shapes, bit for bit, on an aligned window and on a view 36 bytes off
+   one, and times both (CUDA events; the kernel's own time from replays
+   of a CUDA graph of its launches, so the host wrapper is out of it),
+   beside two yardsticks timed the same way: ``copy_`` over the same
+   bytes and a one-element ``zero_()``, the launch floor;
 3. drives the main path — the DPD network at full width (block 32 768,
    10 branches, 64 firings, dynamic mode) — with every launch count set to
    0 just before and read just after, and holds its structure (exactly)
@@ -31,13 +36,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
    megakernel mode, and the dynamic-rate gain in each mode (``min_active2``
    over the static all-10 network, and ``all10`` over ``min_active2``);
 5. profiles the main path in dynamic and in megakernel mode: device time by
-   kernel (``torch.profiler``), the device's busy share against the median
+   kernel (``torch.profiler``; B1's device time per launch among them),
+   the device's busy share against the median
    wall time of warm runs, and where the host's time goes in dynamic mode
    (``cProfile``);
 7. holds kernels B3 (Gauss) and B4 (Thres + Med) against their plain
    versions at motion detection's shapes, (4, 240, 320): B3 bit-identical
    on u8 frames (one built to hold ``.5`` ties among them) and within
-   ``rtol 1e-5, atol 1e-3`` on float frames, B4 exact; and times both;
+   ``rtol 1e-5, atol 1e-3`` on float frames, B4 exact; and times both,
+   B3 beside the yardsticks of phase 2 over its u8 bytes;
 8. drives the second path — motion detection at the paper's frame
    (960 frames of 240x320 u8, rate 4, seed 0, dynamic mode) — with every
    count set to 0 just before: 240 B3 launches and none of B2 or B4, 121
@@ -113,8 +120,12 @@ CUDA device is visible.
 {...}`` line; the tree's wrapper must take ``clock_split``);
 ``--b5 SRC``, ``--b6 SRC`` and ``--b7 SRC`` do the same for B5, B6 and
 B7 (as phase 12 does; a ``b5 {...}``, ``b6 {...}`` or ``b7 {...}``
-line).  Run in turns from two trees they compare a kernel across commits
-on one card.
+line).  ``--b1 SRC`` and ``--b3 SRC`` print B1's and B3's graph-replay
+time, their wrapper's time per call, the ``copy_`` yardstick over the
+same bytes and the launch floor, and the warm wall of the host-mode path
+that launches them (DPD / motion detection in dynamic mode, median of 7;
+a ``b1 {...}`` or ``b3 {...}`` line).  Run in turns from two trees they
+compare a kernel across commits on one card.
 ``--lm`` runs phases 1 and 12-15 only (the LM path), for work on it.
 """
 from __future__ import annotations
@@ -228,6 +239,19 @@ def graph_ms(fn, copies: int = 1, reps: int = 5, inner: int = 20) -> float:
         for _ in range(copies):
             fn()
     return cuda_ms(graph.replay, reps, inner) / copies
+
+
+def yardsticks(shape: tuple, dtype, dev) -> tuple:
+    """``(copy_ ms, launch floor ms)``, both by CUDA graph replay as the
+    kernels are timed: ``copy_`` of a ``shape`` tensor of ``dtype`` into
+    another (a kernel's bytes read and written, by one of PyTorch's own
+    kernels), and a one-element ``zero_()``, the least one launch costs in
+    that replay loop."""
+    src = torch.zeros(shape, dtype=dtype, device=dev)
+    dst = torch.empty_like(src)
+    one = torch.zeros(1, device=dev)
+    return (graph_ms(lambda: dst.copy_(src), copies=10),
+            graph_ms(lambda: one.zero_(), copies=10))
 
 
 def profile_run(run) -> tuple:
@@ -388,6 +412,74 @@ def bound_of(nbytes: float, flops: float, flop_rate: float) -> tuple:
     return max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
+def b1_phase(dev, smi: str) -> dict:
+    """Phase 2: kernel B1 against its plain version at the main path's L,
+    orders 1..10, bit for bit (``torch.equal`` on the output and the next
+    history) and within ``REL_TOL`` and ``KERNEL_TOL``, on a 16-byte-aligned
+    window (the main path's ring slots are aligned) and on a view 36 bytes
+    off one with a row stride of L + 9.  Times, per launch and averaged over
+    the ten orders (the main path mixes them): the kernel by CUDA graph
+    replay on each window, so the wrapper's host time is out of it; the
+    wrapper per call back to back; the plain version; and the yardsticks.
+    Returns the kernels line's record (without the launches)."""
+    from repro_torch.kernels.dyn_fir import N_TAPS, poly_branch, poly_ref
+    rng = np.random.default_rng(0)
+    L = BLOCK_L
+    x = torch.tensor(rng.normal(size=(2, L + N_TAPS - 1)).astype(np.float32), device=dev)
+    taps = torch.tensor(rng.normal(scale=0.3, size=(2, N_TAPS)).astype(np.float32),
+                        device=dev)
+    hist, view = x[:, :N_TAPS - 1], x[:, N_TAPS - 1:]
+    win = view.contiguous()
+    worst_rel = worst_abs = 0.0
+    for label, w in (("aligned", win), ("36 bytes off", view)):
+        for order in range(1, N_TAPS + 1):
+            y, next_hist = poly_branch(hist, w, taps, order)
+            p_y, p_next = poly_ref(hist, w, taps, order)
+            torch.cuda.synchronize()
+            if not torch.equal(next_hist, p_next):
+                fail(f"dyn_fir order {order} ({label}): next history differs from "
+                     "the plain version")
+            g, r = y.cpu().numpy(), p_y.cpu().numpy()
+            if not np.all(np.isfinite(g)):
+                fail(f"dyn_fir order {order} ({label}): non-finite kernel output")
+            np.testing.assert_allclose(g, r, rtol=KERNEL_TOL, atol=KERNEL_TOL)
+            rel = plane_rel_err(r, g)
+            if rel > REL_TOL:
+                fail(f"dyn_fir order {order} ({label}): rel err {rel:.3g} > {REL_TOL}")
+            if not torch.equal(y, p_y):
+                fail(f"dyn_fir order {order} ({label}): {int((y != p_y).sum())} "
+                     "samples differ from the plain version's bits")
+            worst_rel = max(worst_rel, rel)
+            worst_abs = max(worst_abs, float(np.abs(g - r).max()))
+    log(f"dyn_fir kernel vs plain, L={L}, orders 1..10, aligned window and a view "
+        f"36 bytes off: bit-identical (max_abs_err {worst_abs:.3g}, max rel "
+        f"{worst_rel:.3g})")
+
+    def all_orders(fn, w):
+        return lambda: [fn(hist, w, taps, order) for order in range(1, N_TAPS + 1)]
+
+    k_ms = graph_ms(all_orders(poly_branch, win)) / N_TAPS
+    view_ms = graph_ms(all_orders(poly_branch, view)) / N_TAPS
+    wrapper_ms = cuda_ms(all_orders(poly_branch, win)) / N_TAPS
+    p_ms = cuda_ms(all_orders(poly_ref, win)) / N_TAPS
+    copy_ms, floor_ms = yardsticks((2, L), torch.float32, dev)
+    # Bound: each input byte read once (stream, taps), each output written
+    # once (samples, next history).
+    bytes_moved = 4 * (2 * (L + N_TAPS - 1) + 2 * N_TAPS + 2 * L + 2 * (N_TAPS - 1))
+    mean_order = (N_TAPS + 1) / 2
+    flops = L * (5 + (mean_order - 1) + 8 * N_TAPS)
+    bound_ms, bound_by = bound_of(bytes_moved, flops, FP32_FLOP_PER_S)
+    log(f"dyn_fir timing ({smi}): kernel {k_ms:.5f} ms/launch (CUDA graph "
+        f"replay; the view 36 bytes off {view_ms:.5f}), wrapper {wrapper_ms:.5f} "
+        f"ms/call back to back, plain {p_ms:.5f} ms/call, copy_ of the same "
+        f"bytes {copy_ms:.5f} ms, launch floor {floor_ms:.5f} ms, bound "
+        f"{bound_ms:.6f} ms ({bound_by}: {bytes_moved} B, {flops:.0f} flop)")
+    return {"max_abs_err": worst_abs, "max_err_rel": worst_rel, "ms": k_ms,
+            "ms_view": view_ms, "wrapper_ms": wrapper_ms, "plain_ms": p_ms,
+            "copy_ms": copy_ms, "floor_ms": floor_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
 def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     """Phases 7-11; returns the kernels line's records of B3, B4 and B2's
     motion detection numbers."""
@@ -445,6 +537,7 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     b3_plain_ms = cuda_ms(lambda: gauss5x5_u8_ref(x_u8))
     b3f_ms = graph_ms(lambda: gauss5x5(x_f), copies=10)
     b4_ms = graph_ms(lambda: motion_post(x_f, prev_f), copies=10)
+    b3_copy_ms, b3_floor_ms = yardsticks(shape, torch.uint8, dev)
     b4_wrapper_ms = cuda_ms(lambda: motion_post(x_f, prev_f))
     b4_plain_ms = cuda_ms(lambda: motion_post_ref(x_f, prev_f))
     _, b3_prof, _ = profile_run(lambda: [gauss5x5(x_u8) for _ in range(20)])
@@ -469,7 +562,8 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     b4_bound, b4_by = bound_of(b4_bytes, b4_flops, FP32_FLOP_PER_S)
     log(f"B3 timing ({smi}): u8 {b3_ms:.5f} ms/launch (CUDA graph replay; "
         f"profiler {b3_dev[0]:.5f}), wrapper {b3_wrapper_ms:.5f} ms/call back "
-        f"to back, plain {b3_plain_ms:.5f} ms/call, bound {b3_bound:.6f} ms "
+        f"to back, plain {b3_plain_ms:.5f} ms/call, copy_ of the same bytes "
+        f"{b3_copy_ms:.5f} ms, launch floor {b3_floor_ms:.5f} ms, bound {b3_bound:.6f} ms "
         f"({b3_by}: {b3_bytes} B, {b3_flops} flop); float {b3f_ms:.5f} "
         f"ms/launch, bound {b3f_bound:.6f} ms")
     log(f"B4 timing ({smi}): {b4_ms:.5f} ms/launch (CUDA graph replay; "
@@ -610,7 +704,8 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     return {
         "B3": {"launches": md_b3_launches, "max_abs_err": b3_err, "ms": b3_ms,
                "wrapper_ms": b3_wrapper_ms, "device_ms": b3_dev[0],
-               "plain_ms": b3_plain_ms, "bound_ms": b3_bound, "bound_by": b3_by,
+               "plain_ms": b3_plain_ms, "copy_ms": b3_copy_ms, "floor_ms": b3_floor_ms,
+               "bound_ms": b3_bound, "bound_by": b3_by,
                "float_ms": b3f_ms, "float_bound_ms": b3f_bound, "ties": ties},
         "B4": {"launches": 0, "max_abs_err": b4_err, "ms": b4_ms,
                "wrapper_ms": b4_wrapper_ms, "device_ms": b4_dev[0],
@@ -1348,12 +1443,65 @@ def b7_turn(src: str) -> None:
                               "stream_ms": stream_ms, "ms_batch1": ms_b1}), flush=True)
 
 
+def host_wall_ms(prog) -> float:
+    """Median warm wall of 7 runs of ``prog`` after one warm-up run."""
+    prog.run(prog.init_state(), in_place=True)
+    return float(np.median(warm_wall_ms(prog, runs=7)))
+
+
+def b1_turn(src: str) -> None:
+    """``--b1 SRC``: phase 2 (:func:`b1_phase`: B1 bit for bit against the
+    plain version, its graph-replay time, the wrapper's time per call, the
+    ``copy_`` yardstick and the launch floor) from the ``repro_torch``
+    package under ``SRC``, and the median warm wall of DPD's main path in
+    dynamic mode (398 B1 launches a run).  Run in turns from two trees it
+    compares B1 across commits on one card."""
+    from repro_torch.graphs.dpd import default_active_schedule
+    from repro_torch.graphs.factories import make_dpd
+    from repro_torch.kernels import _build
+    smi = card()
+    _build.build("dyn_fir")
+    dev = torch.device("cuda", 0)
+    rec = b1_phase(dev, smi)
+    net, _ = make_dpd(N_FIRINGS, block_l=BLOCK_L, seed=0, device=dev,
+                      active_schedule=default_active_schedule(N_FIRINGS, seed=0))
+    rec["dpd_dynamic_wall_ms"] = host_wall_ms(net.compile(mode="dynamic"))
+    print("b1 " + json.dumps({"src": src, "card": smi, **rec}), flush=True)
+
+
+def b3_turn(src: str) -> None:
+    """``--b3 SRC``: B3 on phase 7's u8 frames (4, 240, 320) from the
+    ``repro_torch`` package under ``SRC``, bit for bit against that tree's
+    plain version: its graph-replay time, the wrapper's time per call, the
+    ``copy_`` yardstick and the launch floor, and the median warm wall of
+    motion detection in dynamic mode (240 B3 launches a run).  Run in turns
+    from two trees it compares B3 across commits on one card."""
+    from repro_torch.graphs.motion_detection import bench_workload
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.gauss5x5 import gauss5x5, gauss5x5_u8_ref
+    smi = card()
+    _build.build("gauss5x5")
+    dev = torch.device("cuda", 0)
+    shape = (MD_RATE,) + MD_HW
+    x = torch.tensor(np.random.default_rng(0).integers(0, 256, shape).astype(np.uint8),
+                     device=dev)
+    if not torch.equal(gauss5x5(x), gauss5x5_u8_ref(x)):
+        fail("B3 u8 differs from the plain version")
+    copy_ms, floor_ms = yardsticks(shape, torch.uint8, dev)
+    rec = {"src": src, "card": smi, "ms": graph_ms(lambda: gauss5x5(x), copies=10),
+           "wrapper_ms": cuda_ms(lambda: gauss5x5(x)), "copy_ms": copy_ms,
+           "floor_ms": floor_ms}
+    net = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0, device=dev)
+    rec["md_dynamic_wall_ms"] = host_wall_ms(net.compile(mode="dynamic"))
+    print("b3 " + json.dumps(rec), flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
                          "runs only on the card")
     turns = {"--b2": b2_turn, "--b2-split": b2_split_turn, "--b5": b5_turn,
-             "--b6": b6_turn, "--b7": b7_turn}
+             "--b6": b6_turn, "--b7": b7_turn, "--b1": b1_turn, "--b3": b3_turn}
     if sys.argv[1:2] and sys.argv[1] in turns and len(sys.argv) == 3:
         sys.path.insert(0, sys.argv[2])
         turns[sys.argv[1]](sys.argv[2])
@@ -1368,8 +1516,7 @@ def main() -> None:
     from repro_torch.graphs.dpd import default_active_schedule
     from repro_torch.graphs.factories import make_dpd, states_equal
     from repro_torch.kernels import _build
-    from repro_torch.kernels.dyn_fir import (N_TAPS, dpd_branch_cuda,
-                                             poly_branch, poly_ref)
+    from repro_torch.kernels.dyn_fir import N_TAPS, dpd_branch_cuda
     from repro_torch.kernels.gauss5x5 import gauss5x5_cuda
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.motion_post import motion_post_cuda
@@ -1432,54 +1579,8 @@ def main() -> None:
         return
 
     # ---- 2. kernel vs plain on the card -------------------------------- #
-    rng = np.random.default_rng(0)
     L = BLOCK_L
-    x = torch.tensor(rng.normal(size=(2, L + N_TAPS - 1)).astype(np.float32), device=dev)
-    taps = torch.tensor(rng.normal(scale=0.3, size=(2, N_TAPS)).astype(np.float32), device=dev)
-    hist, win = x[:, :N_TAPS - 1], x[:, N_TAPS - 1:]
-    worst_rel = worst_abs = 0.0
-    for order in range(1, N_TAPS + 1):
-        y, next_hist = poly_branch(hist, win, taps, order)
-        p_y, p_next = poly_ref(hist, win, taps, order)
-        torch.cuda.synchronize()
-        if not torch.equal(next_hist, p_next):
-            fail(f"dyn_fir order {order}: next history differs from the plain version")
-        g, r = y.cpu().numpy(), p_y.cpu().numpy()
-        if not np.all(np.isfinite(g)):
-            fail(f"dyn_fir order {order}: non-finite kernel output")
-        np.testing.assert_allclose(g, r, rtol=KERNEL_TOL, atol=KERNEL_TOL)
-        rel = plane_rel_err(r, g)
-        if rel > REL_TOL:
-            fail(f"dyn_fir order {order}: rel err {rel:.3g} > {REL_TOL}")
-        worst_rel = max(worst_rel, rel)
-        worst_abs = max(worst_abs, float(np.abs(g - r).max()))
-    log(f"dyn_fir kernel vs plain, L={L}, orders 1..10: max_abs_err "
-        f"{worst_abs:.3g}, max rel {worst_rel:.3g}")
-
-    # Time one call per order 1..10, averaged: the main path mixes orders.
-    def kernel_all_orders():
-        for order in range(1, N_TAPS + 1):
-            poly_branch(hist, win, taps, order)
-
-    def plain_all_orders():
-        for order in range(1, N_TAPS + 1):
-            poly_ref(hist, win, taps, order)
-
-    # The kernel's own time: the ten launches captured once in a CUDA graph
-    # and replayed, so the Python wrapper's host time is out of the number.
-    k_ms = graph_ms(kernel_all_orders) / N_TAPS
-    wrapper_ms = cuda_ms(kernel_all_orders) / N_TAPS
-    p_ms = cuda_ms(plain_all_orders) / N_TAPS
-    # Bound: each input byte read once (stream, taps), each output written
-    # once (samples, next history).
-    bytes_moved = 4 * (2 * (L + N_TAPS - 1) + 2 * N_TAPS + 2 * L + 2 * (N_TAPS - 1))
-    mean_order = (N_TAPS + 1) / 2
-    flops = L * (5 + (mean_order - 1) + 8 * N_TAPS)
-    bound_ms, bound_by = bound_of(bytes_moved, flops, FP32_FLOP_PER_S)
-    log(f"dyn_fir timing ({smi}): kernel {k_ms:.5f} ms/launch (CUDA graph "
-        f"replay), wrapper {wrapper_ms:.5f} ms/call back to back, plain "
-        f"{p_ms:.5f} ms/call, bound {bound_ms:.6f} ms "
-        f"({bound_by}: {bytes_moved} B, {flops:.0f} flop)")
+    b1 = b1_phase(dev, smi)
 
     # ---- 3. the main path: full-width DPD, dynamic mode ----------------- #
     sched = default_active_schedule(N_FIRINGS, seed=0)
@@ -1665,6 +1766,9 @@ def main() -> None:
         "top": [{"kernel": k, "count": n, "device_ms": ms}
                 for k, n, ms in kernels[:6]]}
     log("profile " + json.dumps(profile_rec))
+    if fir:
+        log(f"B1 in the dynamic run's profile ({smi}): {fir[0][0]} launches, "
+            f"{fir_ms:.6f} ms of device time per launch")
 
     # The same in megakernel mode: one B2 launch per run.
     prog_mk = net_gpu.compile(mode="megakernel")
@@ -1740,14 +1844,8 @@ def main() -> None:
         "replaces": "src/repro/kernels/dyn_fir/kernel.py:55",
         "function": "dpd_branch_pallas",
         "launches": launches,
-        "max_abs_err": worst_abs,
-        "max_err_rel": worst_rel,
-        "ms": k_ms,
-        "wrapper_ms": wrapper_ms,
+        **b1,
         "device_ms": fir_ms,
-        "plain_ms": p_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
         "library_ms": None,
     }, {
         "name": "megakernel.b2",

@@ -7,23 +7,30 @@
 // writes one complex output (8 B) for about 2 * (40 + 2k) flop, so 6-9
 // flop/B, far under the card's fp32 ridge (67 TFLOP/s over 3.35 TB/s,
 // about 20 flop/B).  At the main path's L = 32768 a firing moves about
-// 0.5 MB, about 0.16 us at 3.35 TB/s: one launch per firing is bound by
-// the launch itself, not by the card.
+// 0.5 MB, about 0.16 us at 3.35 TB/s, so a launch takes about as long as
+// its own start-up, one trip to device memory and back, and the
+// instructions on its critical path: on an H100, by CUDA graph replay, an
+// empty launch of this grid takes about 1.1 us, a copy_ of the same bytes
+// about 1.4 us, and powf (orders 5..10) adds about 0.2 us (PERF.md).
 //
-// Design for that bound: every input byte is read from device memory once
-// and every output byte written once, coalesced.  A block owns a tile of
-// TILE output samples; it stages the tile's TILE + 9 input samples (the
-// 9-sample halo comes from the actor's history for the first tile) into
-// shared memory as *basis* values, computing the basis once per staged
-// sample instead of once per tap, then applies the 10 taps from shared
-// memory.  History and window arrive through separate pointers, so a
-// firing never materialises concat([hist, window]).  The kernel also writes
-// the actor's next history (the stream's last 9 samples), so the firing
-// needs no second launch to carry it.  Taps and the order are kernel
-// arguments (the taps as device pointers, so nothing syncs to the host).
-// The remaining cost, one launch per firing, is what kernel B2
-// (megakernel.cu) removes: it runs the same arithmetic (dyn_fir.cuh)
-// inside one launch per network run.
+// Design for that bound: one memory round trip per block and a short
+// critical path.  Four outputs a thread with 16-byte loads measured slower
+// (its longer serial path per thread outweighs the wider loads), as did a
+// rolled FIR loop.  A block owns a tile of 256 outputs, one a thread, and a
+// ninth warp that loads the tile's 9-sample halo (from the actor's history
+// for the first tile) and the 10 complex taps; every load goes out before
+// the first basis.  Each staged sample's basis is computed once, at one
+// call site (powf is long code), into shared memory as (re, im) pairs;
+// after one barrier each thread reads its 10 basis pairs and the taps as
+// 8- and 16-byte shared loads and runs its FIR chain.  The threads that
+// loaded the stream's last 9 samples also write the actor's next history,
+// so the firing needs no second launch to carry it.  History and window
+// arrive through separate pointers with a row stride each, so a firing
+// never materialises concat([hist, window]) and any window view is taken
+// as it is.  Taps and the order are kernel arguments (the taps as device
+// pointers, so nothing syncs to the host).  The arithmetic (dyn_fir.cuh)
+// is the plain version's, rounded per operation, shared with kernel B2
+// (megakernel.cu), which runs it inside one launch per network run.
 #include <cuda_runtime.h>
 
 #include "dyn_fir.cuh"
@@ -32,70 +39,92 @@ namespace {
 
 using dyn_fir::HALO;
 using dyn_fir::N_TAPS;
-constexpr int TILE = 256;  // output samples (and threads) per block
+constexpr int TILE = 256;               // outputs per block, one a thread
+constexpr int THREADS = TILE + 32;      // and a warp for the halo and the taps
+static_assert(HALO + 2 * N_TAPS <= 32, "the halo and the taps fit one warp");
 
-__global__ void __launch_bounds__(TILE)
-dyn_fir_branch_kernel(const float* __restrict__ hist_re,
-                      const float* __restrict__ hist_im,
-                      const float* __restrict__ win_re,
-                      const float* __restrict__ win_im,
-                      const float* __restrict__ h_re,
-                      const float* __restrict__ h_im,
-                      float* __restrict__ y_re,
-                      float* __restrict__ y_im,
-                      float* __restrict__ next_re,
-                      float* __restrict__ next_im,
+__global__ void __launch_bounds__(THREADS)
+dyn_fir_branch_kernel(const float* __restrict__ hist, long long hist_stride,
+                      const float* __restrict__ win, long long win_stride,
+                      const float* __restrict__ taps, long long taps_stride,
+                      float* __restrict__ y, float* __restrict__ next,
                       int L, int order) {
-  __shared__ float sb_re[TILE + HALO];
-  __shared__ float sb_im[TILE + HALO];
-  __shared__ float sh_re[N_TAPS];
-  __shared__ float sh_im[N_TAPS];
+  // Stream sample base + i of hist ++ window (window sample base + i - 9)
+  // at sb[i]; tap t as (re, im) at sh[t].
+  __shared__ float2 sb[TILE + HALO];
+  __shared__ __align__(16) float2 sh[N_TAPS];
 
-  const int base = blockIdx.x * TILE;  // first output sample of the tile
-  if (blockIdx.x == 0 && threadIdx.x < HALO) {
-    // Next history: stream samples L .. L + 8 of hist ++ window.
-    const int g = L + threadIdx.x;
-    next_re[threadIdx.x] = g < HALO ? hist_re[g] : win_re[g - HALO];
-    next_im[threadIdx.x] = g < HALO ? hist_im[g] : win_im[g - HALO];
-  }
-  // Staged index j is stream sample base + j of hist ++ window, whose
-  // window part starts at stream index HALO.
-  for (int j = threadIdx.x; j < TILE + HALO; j += TILE) {
-    const int g = base + j;
-    float xr = 0.f, xi = 0.f;
-    if (g < HALO) {
-      xr = hist_re[g];
-      xi = hist_im[g];
-    } else if (g - HALO < L) {
-      xr = win_re[g - HALO];
-      xi = win_im[g - HALO];
+  const int tid = threadIdx.x;
+  const int base = blockIdx.x * TILE;
+  const bool tile_thread = tid < TILE;
+  const int h = tid - TILE;             // the last warp: halo lanes, then taps
+  const int i = tile_thread ? HALO + tid : h;  // staged index of this thread's sample
+  const int g = base + i;               // its stream index
+  const bool staged = tile_thread || h < HALO;
+
+  // ---- every load of the tile, before any arithmetic ----------------- //
+  // Predicated selects, not branches, which measured slower (PERF.md).
+  const bool valid = staged && g - HALO < L;
+  const float* p = g < HALO ? hist + g : win + (g - HALO);  // first tile's halo: history
+  const long long ps = g < HALO ? hist_stride : win_stride;
+  const float xr = valid ? __ldg(p) : 0.f;
+  const float xi = valid ? __ldg(p + ps) : 0.f;
+  const int t = h - HALO;               // tap tt of plane t / N_TAPS
+  const bool tap = t >= 0 && t < 2 * N_TAPS;
+  const int tt = t >= N_TAPS ? t - N_TAPS : t;
+  const float hv = tap ? __ldg(taps + (t >= N_TAPS ? taps_stride : 0) + tt) : 0.f;
+
+  // ---- the basis at one call site; the next history from registers -- //
+  if (staged) {
+    float br, bi;
+    dyn_fir::basis(xr, xi, order, &br, &bi);
+    sb[i] = make_float2(br, bi);
+    // Stream samples L .. L + 8 are the next history; a window sample is
+    // written by its tile thread, a history sample by the first tile's halo.
+    if (g >= L && g - HALO < L && (tile_thread || blockIdx.x == 0)) {
+      next[g - L] = xr;
+      next[g - L + HALO] = xi;
     }
-    dyn_fir::basis(xr, xi, order, &sb_re[j], &sb_im[j]);
   }
-  if (threadIdx.x < N_TAPS) {
-    sh_re[threadIdx.x] = h_re[threadIdx.x];
-    sh_im[threadIdx.x] = h_im[threadIdx.x];
-  }
+  if (tap) reinterpret_cast<float*>(sh)[2 * tt + (t >= N_TAPS)] = hv;
   __syncthreads();
+  const int n = base + tid;
+  if (!tile_thread || n >= L) return;
 
-  const int n = base + threadIdx.x;
-  if (n >= L) return;
-  dyn_fir::fir_mac(sb_re, sb_im, sh_re, sh_im, threadIdx.x, &y_re[n], &y_im[n]);
+  // ---- the FIR: y[n] = sum_t h[t] * b[n + 9 - t] --------------------- //
+  float b_re[HALO + 1], b_im[HALO + 1], h_re[N_TAPS], h_im[N_TAPS];
+#pragma unroll
+  for (int k = 0; k <= HALO; ++k) {
+    const float2 v = sb[tid + k];
+    b_re[k] = v.x;
+    b_im[k] = v.y;
+  }
+#pragma unroll
+  for (int k = 0; k < N_TAPS; k += 2) {
+    const float4 v = *reinterpret_cast<const float4*>(&sh[k]);
+    h_re[k] = v.x;
+    h_im[k] = v.y;
+    h_re[k + 1] = v.z;
+    h_im[k + 1] = v.w;
+  }
+  dyn_fir::fir_mac(b_re, b_im, h_re, h_im, 0, &y[n], &y[n + L]);
 }
 
 }  // namespace
 
 // Launch on `stream` (PyTorch's current stream); returns cudaGetLastError().
-// The output and next-history buffers must not alias the inputs.
-extern "C" int dyn_fir_branch(const float* hist_re, const float* hist_im,
-                              const float* win_re, const float* win_im,
-                              const float* h_re, const float* h_im,
-                              float* y_re, float* y_im, float* next_re,
-                              float* next_im, int L, int order, void* stream) {
+// Each operand is a pair of float32 planes, the second `*_stride` floats
+// after the first: hist (2, 9), win (2, L), taps (2, 10).  y is a
+// contiguous (2, L) output and next a contiguous (2, 9) one; neither may
+// alias an input.
+extern "C" int dyn_fir_branch(const float* hist, long long hist_stride,
+                              const float* win, long long win_stride,
+                              const float* taps, long long taps_stride,
+                              float* y, float* next, int L, int order,
+                              void* stream) {
   const int blocks = (L + TILE - 1) / TILE;
-  dyn_fir_branch_kernel<<<blocks, TILE, 0, static_cast<cudaStream_t>(stream)>>>(
-      hist_re, hist_im, win_re, win_im, h_re, h_im, y_re, y_im, next_re,
-      next_im, L, order);
+  dyn_fir_branch_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      hist, hist_stride, win, win_stride, taps, taps_stride, y, next, L, order);
   return static_cast<int>(cudaGetLastError());
 }
 

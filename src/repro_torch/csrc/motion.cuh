@@ -6,10 +6,12 @@
 // B2 (megakernel.cu, the gauss/thres/med bodies), so the three give the
 // same bits.  Each stencil takes a loader `at(dy, dx)` that returns the
 // pixel at offset (dy, dx) from the output pixel with edge (clamped)
-// indices already applied: B3 and B4 read a staged tile, B2 reads device
-// memory.  Every operation follows the plain PyTorch versions
-// (kernels/gauss5x5/ref.py, kernels/motion_post/ref.py) in order and is
-// rounded on its own (_rn intrinsics, so nvcc contracts nothing into FMAs).
+// indices already applied: B3's float path and B4 read a staged tile, B2
+// reads device memory.  Every float operation follows the plain PyTorch
+// versions (kernels/gauss5x5/ref.py, kernels/motion_post/ref.py) in order
+// and is rounded on its own (_rn intrinsics, so nvcc contracts nothing
+// into FMAs).  B3's u8 path computes the same blur in integers
+// (binomial5, rint_div256_pair), exact where the float sum is.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +47,26 @@ __device__ __forceinline__ float gauss_px(At at, int y, int x, int H, int W) {
     for (int dx = 0; dx < 5; ++dx)
       acc = __fadd_rn(acc, __fmul_rn(gauss_weight(dy, dx), at(dy - 2, dx - 2)));
   return acc;
+}
+
+// The blur's separable form on u8 frames (B3): one 1-4-6-4-1 pass in
+// integers, a + 4 b + 6 c + 4 d + e.  A row pass over bytes is at most
+// 16 * 255 = 4 080 and a column pass over row sums at most 16 * 4 080 =
+// 65 280, so the column pass also runs on two sums packed in a word's
+// 16-bit halves, no half carrying into the other.  Its result S is 256
+// times gauss_px's float32 sum exactly: every partial sum there is a
+// multiple of 1/256 below 256, exact in float32.
+__device__ __forceinline__ unsigned binomial5(unsigned a, unsigned b, unsigned c,
+                                              unsigned d, unsigned e) {
+  return a + e + ((b + d) << 2) + (c << 2) + (c << 1);
+}
+
+// to_u8(S * (1/256.f)) for two column-pass sums S <= 65 280 packed in a
+// word's 16-bit halves, in integers: floor(S / 256) plus one where the
+// remainder is above 128, or exactly 128 with an odd floor (half to even);
+// the results land in bytes 0 and 2.  Never above 255, so no clamp.
+__device__ __forceinline__ unsigned rint_div256_pair(unsigned s) {
+  return ((s + 0x007f007fu + ((s >> 8) & 0x00010001u)) >> 8) & 0x00ff00ffu;
 }
 
 // jnp.clip(jnp.round(x), 0, 255).astype(uint8): round half to even (rintf;

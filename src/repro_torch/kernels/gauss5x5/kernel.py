@@ -4,7 +4,9 @@ Replaces ``src/repro/kernels/gauss5x5/kernel.py::gauss5x5_pallas``.  The
 library is built and loaded at the first launch, never at import.
 :func:`gauss5x5_cuda` checks its operand, launches on PyTorch's current
 stream without synchronising, raises on a refused launch, and adds one to
-``gauss5x5_cuda.launches`` per launch.
+``gauss5x5_cuda.launches`` per launch.  The Gauss actor launches it once
+per firing, so the host path is kept short: one combined check whose
+diagnosis runs only on a refusal, and PyTorch's raw current stream.
 """
 from __future__ import annotations
 
@@ -32,10 +34,8 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def gauss5x5_cuda(frames: torch.Tensor) -> torch.Tensor:
-    """One launch over ``frames``: a contiguous (H, W) or (N, H, W) CUDA
-    tensor, float32 (blurred float32 out) or uint8 (blurred and rounded
-    uint8 out).  Returns a new tensor of the same shape and type."""
+def _refuse(frames: torch.Tensor) -> None:
+    """Raise the ValueError that names what the kernel does not take."""
     if not frames.is_cuda:
         raise ValueError(f"gauss5x5_cuda: frames must be a CUDA tensor, got "
                          f"{frames.device}")
@@ -44,16 +44,26 @@ def gauss5x5_cuda(frames: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"gauss5x5_cuda: frames must be contiguous float32 or "
                          f"uint8 (H, W) or (N, H, W), got {frames.dtype} "
                          f"{tuple(frames.shape)} strides {frames.stride()}")
-    n = frames.shape[0] if frames.dim() == 3 else 1
-    H, W = frames.shape[-2:]
-    if not 1 <= n <= MAX_FRAMES or H < 1 or W < 1:
-        raise ValueError(f"gauss5x5_cuda: shape {tuple(frames.shape)} outside "
-                         f"1..{MAX_FRAMES} frames of at least 1 x 1")
+    raise ValueError(f"gauss5x5_cuda: shape {tuple(frames.shape)} outside "
+                     f"1..{MAX_FRAMES} frames of at least 1 x 1")
+
+
+def gauss5x5_cuda(frames: torch.Tensor) -> torch.Tensor:
+    """One launch over ``frames``: a contiguous (H, W) or (N, H, W) CUDA
+    tensor, float32 (blurred float32 out) or uint8 (blurred and rounded
+    uint8 out).  Returns a new tensor of the same shape and type."""
+    shape = frames.shape
+    dtype = frames.dtype
+    n = shape[0] if len(shape) == 3 else 1
+    if not (frames.is_cuda and (dtype == torch.uint8 or dtype == torch.float32)
+            and 2 <= len(shape) <= 3 and 1 <= n <= MAX_FRAMES
+            and shape[-2] >= 1 and shape[-1] >= 1 and frames.is_contiguous()):
+        _refuse(frames)
     out = torch.empty_like(frames)
     lib = _library()
-    stream = torch.cuda.current_stream(frames.device).cuda_stream
-    err = lib.gauss5x5_run(frames.data_ptr(), out.data_ptr(), n, H, W,
-                           int(frames.dtype == torch.uint8), stream)
+    err = lib.gauss5x5_run(frames.data_ptr(), out.data_ptr(), n, shape[-2], shape[-1],
+                           dtype == torch.uint8,
+                           torch._C._cuda_getCurrentRawStream(frames.device.index))
     if err != 0:
         raise RuntimeError(f"gauss5x5 launch failed: CUDA error {err} "
                            f"({lib.gauss5x5_error_string(err).decode()})")

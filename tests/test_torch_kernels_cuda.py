@@ -1,7 +1,11 @@
-"""B2, B5, B6 and B7 on the card against their plain versions at shapes the
-main paths do not reach (B2: DPD at two widths under four schedules, motion
-detection at rates 1 and 4, a control token outside its domain mid-run,
-sweep budget exhaustion, a resumed partial state, at cores 1 and 2; B5-B7:
+"""B1, B2, B3, B5, B6 and B7 on the card against their plain versions at
+shapes the main paths do not reach (B1: every order at window lengths
+around its 256-sample tiles and its 9-sample halo, the window 16-byte
+aligned and 4 bytes off; B2: DPD at two widths under four schedules,
+motion detection at rates 1 and 4, a control token outside its domain
+mid-run, sweep budget exhaustion, a resumed partial state, at cores 1 and
+2; B3: u8 frames from 1 x 1 to 1080 x 1920, widths that are and are not a
+multiple of 16, a view off 16 bytes, .5 ties and all-255 frames; B5-B7:
 ragged lengths, other head widths and group sizes, float32 SSD inputs, B6
 under strong decays), and the wrappers' launch counts and refusals.
 These tests need a CUDA card and ``nvcc``; without one they skip.  Run
@@ -9,7 +13,9 @@ them on the card with
 
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
-Bars: B2 bit for bit (every io word the plain version writes, every ring
+Bars: B1 bit for bit (``torch.equal`` on the output and the next history),
+as in ``chip_smoke.py`` phase 2; B3 on u8 frames bit for bit, as in phase
+7; B2 bit for bit (every io word the plain version writes, every ring
 and actor tensor); B5 within one bf16 step of |want| plus 2^-5 of the RMS of want's
 (batch, position, head) row, the bar of ``chip_smoke.py`` phase 12 (set
 from the readings of sound runs and planted faults there; PERF.md);
@@ -31,6 +37,8 @@ from repro_torch.core.megakernel.program import M_BLOCKS, M_ERROR, stage
 from repro_torch.core.megakernel.ref import run_program
 from repro_torch.graphs.dpd import default_active_schedule
 from repro_torch.graphs.factories import make_dpd, make_motion_detection
+from repro_torch.kernels.dyn_fir import N_TAPS, dpd_branch_cuda, poly_branch, poly_ref
+from repro_torch.kernels.gauss5x5 import gauss5x5, gauss5x5_cuda, gauss5x5_u8_ref
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.rglru import rglru, rglru_cuda, rglru_ref
@@ -164,7 +172,102 @@ def test_rglru_misaligned_operands_take_cp_async(gen):
     assert torch.equal(h, hr) and torch.equal(t, tr)
 
 
+# B1's edges, against its tiles of 256 outputs and its 9-sample halo: L
+# below the halo (1, 3), at it (9), around one tile (255, 256, 257),
+# several tiles with a ragged tail (1000) and the main path's 32768; the
+# window 16-byte aligned (a ring slot) or 4 bytes off, with a row stride
+# that is not L.  Every order: orders 5..10 take powf.
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("L", [1, 3, 9, 255, 256, 257, 1000, 32768])
+def test_dyn_fir_matches_plain(gen, L, offset):
+    flat = torch.empty(2 * (L + 8), device="cuda")
+    win = flat[offset:offset + 2 * (L + 4)].view(2, L + 4)[:, :L]
+    assert (win.data_ptr() % 16 == 0) == (offset == 0)
+    win.copy_(torch.randn((2, L), generator=gen, device="cuda"))
+    hist = torch.randn((2, N_TAPS - 1), generator=gen, device="cuda")
+    taps = torch.randn((2, N_TAPS), generator=gen, device="cuda") * 0.3
+    for order in range(1, N_TAPS + 1):
+        before = dpd_branch_cuda.launches
+        y, nxt = poly_branch(hist, win, taps, order)
+        assert dpd_branch_cuda.launches == before + 1
+        yr, nr = poly_ref(hist, win, taps, order)
+        assert torch.equal(y, yr), (order, float((y - yr).abs().max()))
+        assert torch.equal(nxt, nr), order
+
+
+def _tie_frame(n, H, W):
+    """Zeros with isolated 128s and 64s: their blur holds exact .5 values."""
+    f = torch.zeros((n, H, W), dtype=torch.uint8)
+    f[:, 4::9, 4::11] = 128
+    f[:, 8::9, 8::11] = 64
+    return f
+
+
+# B3's u8 edges, against its bands of 8 rows over up to 512 columns: every
+# pixel border (1 x 1, 4 x 4), one interior pixel (5 x 5), widths not a
+# multiple of 16 (33, 319: byte loads and stores), a ragged last band (17,
+# 241), the main path's (4, 240, 320) and (2, 1080, 1920) (four column
+# blocks); random, tie and all-255 frames.
+@pytest.mark.parametrize("kind", ["random", "ties", "white"])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 4, 4), (1, 5, 5), (3, 17, 33),
+                                   (4, 240, 320), (5, 241, 319), (2, 1080, 1920)])
+def test_gauss5x5_matches_plain(gen, shape, kind):
+    if kind == "random":
+        x = torch.randint(0, 256, shape, generator=gen, device="cuda", dtype=torch.uint8)
+    elif kind == "ties":
+        x = _tie_frame(*shape).cuda()
+    else:
+        x = torch.full(shape, 255, dtype=torch.uint8, device="cuda")
+    before = gauss5x5_cuda.launches
+    got = gauss5x5(x)
+    assert gauss5x5_cuda.launches == before + 1
+    want = gauss5x5_u8_ref(x)
+    assert got.dtype == torch.uint8 and torch.equal(got, want), \
+        int((got != want).sum())
+
+
+def test_gauss5x5_view_off_16_bytes(gen):
+    """Frames starting 1 byte past a 16-byte boundary, W a multiple of 16:
+    the kernel's byte loads and stores; still bit for bit."""
+    n, H, W = 4, 240, 320
+    flat = torch.empty(n * H * W + 1, dtype=torch.uint8, device="cuda")
+    x = flat[1:].view(n, H, W)
+    assert x.data_ptr() % 16
+    x.copy_(torch.randint(0, 256, (n, H, W), generator=gen, device="cuda",
+                          dtype=torch.uint8))
+    x[0] = _tie_frame(1, H, W)[0].cuda()
+    assert torch.equal(gauss5x5(x), gauss5x5_u8_ref(x))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    launches = (dpd_branch_cuda.launches, gauss5x5_cuda.launches)
+    hist = torch.zeros((2, N_TAPS - 1), device="cuda")
+    taps = torch.zeros((2, N_TAPS), device="cuda")
+    win = torch.zeros((2, 64), device="cuda")
+    with pytest.raises(ValueError, match="float32"):              # dtype
+        dpd_branch_cuda(hist, win.double(), taps, 3)
+    with pytest.raises(ValueError, match="float32 \\(2, 10\\)"):   # shape
+        dpd_branch_cuda(hist, win, taps[:, :9], 3)
+    with pytest.raises(ValueError, match="contiguous rows"):      # stride
+        dpd_branch_cuda(hist, torch.zeros((2, 128), device="cuda")[:, ::2], taps, 3)
+    with pytest.raises(ValueError, match="CUDA tensor"):          # device
+        dpd_branch_cuda(hist, win, taps.cpu(), 3)
+    with pytest.raises(ValueError, match="order"):
+        dpd_branch_cuda(hist, win, taps, 11)
+    with pytest.raises(ValueError, match="empty"):
+        dpd_branch_cuda(hist, win[:, :0], taps, 3)
+    frames = torch.zeros((2, 16, 32), dtype=torch.uint8, device="cuda")
+    with pytest.raises(ValueError, match="float32 or"):           # dtype
+        gauss5x5_cuda(frames.to(torch.int16))
+    with pytest.raises(ValueError, match="float32 or"):           # shape
+        gauss5x5_cuda(frames.view(1, 2, 16, 32))
+    with pytest.raises(ValueError, match="float32 or"):           # stride
+        gauss5x5_cuda(frames[:, :, ::2])
+    with pytest.raises(ValueError, match="outside"):
+        gauss5x5_cuda(frames[:0])
+    with pytest.raises(ValueError, match="CUDA tensor"):          # device
+        gauss5x5_cuda(frames.cpu())
+    assert (dpd_branch_cuda.launches, gauss5x5_cuda.launches) == launches
     q = torch.randn((1, 8, 2, 16), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="bf16"):
         flash_attention_cuda(q, q, q)                   # float32
