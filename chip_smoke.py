@@ -8,6 +8,7 @@
     python3 chip_smoke.py --b7 SRC    # B7's time alone, from another src tree
     python3 chip_smoke.py --b1 SRC    # B1's time, wrapper and DPD's wall, from SRC
     python3 chip_smoke.py --b3 SRC    # B3's time, wrapper and MD's wall, from SRC
+    python3 chip_smoke.py --b4 SRC    # B4's time, wrapper and R probe, from SRC
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -43,8 +44,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 7. holds kernels B3 (Gauss) and B4 (Thres + Med) against their plain
    versions at motion detection's shapes, (4, 240, 320): B3 bit-identical
    on u8 frames (one built to hold ``.5`` ties among them) and within
-   ``rtol 1e-5, atol 1e-3`` on float frames, B4 exact; and times both,
-   B3 beside the yardsticks of phase 2 over its u8 bytes;
+   ``rtol 1e-5, atol 1e-3`` on float frames; B4 bit-identical on float
+   and on u8 frames (one launch each, u8 straight into the kernel) and at
+   (3, 17, 13), which takes its element path; and times both, B3 beside
+   the yardsticks of phase 2 over its u8 bytes, B4 on float and u8 frames
+   beside ``torch.add`` into a float32 plane (its bytes exactly) and the
+   launch floor, with a profile of B4 on u8 frames that must hold no other
+   kernel;
 8. drives the second path — motion detection at the paper's frame
    (960 frames of 240x320 u8, rate 4, seed 0, dynamic mode) — with every
    count set to 0 just before: 240 B3 launches and none of B2 or B4, 121
@@ -124,8 +130,13 @@ line).  ``--b1 SRC`` and ``--b3 SRC`` print B1's and B3's graph-replay
 time, their wrapper's time per call, the ``copy_`` yardstick over the
 same bytes and the launch floor, and the warm wall of the host-mode path
 that launches them (DPD / motion detection in dynamic mode, median of 7;
-a ``b1 {...}`` or ``b3 {...}`` line).  Run in turns from two trees they
-compare a kernel across commits on one card.
+a ``b1 {...}`` or ``b3 {...}`` line).  ``--b4 SRC`` prints B4's
+graph-replay and wrapper time on phase 7's float frames beside
+``torch.add`` over the same bytes and the launch floor, and, where that
+tree's B4 takes u8 frames, the same on u8 frames and the R probe: B4 built
+for R = 1, 2, 4 and 8 rows a thread, each checked and timed (a ``b4
+{...}`` line).  Run in turns from two
+trees they compare a kernel across commits on one card.
 ``--lm`` runs phases 1 and 12-15 only (the LM path), for work on it.
 """
 from __future__ import annotations
@@ -252,6 +263,35 @@ def yardsticks(shape: tuple, dtype, dev) -> tuple:
     one = torch.zeros(1, device=dev)
     return (graph_ms(lambda: dst.copy_(src), copies=10),
             graph_ms(lambda: one.zero_(), copies=10))
+
+
+def add_ms(cur: torch.Tensor, prev: torch.Tensor) -> float:
+    """B4's yardstick by CUDA graph replay: ``torch.add(cur, prev, out=o)``
+    into a float32 ``o``, which reads the two input planes and writes one
+    float32 plane, B4's bytes exactly (for float32 and for u8 frames)."""
+    o = torch.empty(cur.shape, dtype=torch.float32, device=cur.device)
+    return graph_ms(lambda: torch.add(cur, prev, out=o), copies=10)
+
+
+def md_kernel_frames(dev) -> tuple:
+    """Phase 7's frames, (MD_RATE, 240, 320) from ``default_rng(0)``: u8
+    frames whose frame 0 is built to blur to exact .5 values (isolated
+    128s give 128/256 = 0.5 at their corners, 64s give 64 * 6/256 = 1.5
+    beside them), float frames and a second float set moved by noise of
+    scale 45, and a second u8 set moved by up to +-80: ``(x_u8, x_f, prev_f,
+    prev_u8)``."""
+    shape = (MD_RATE,) + MD_HW
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, shape).astype(np.uint8)
+    frames[0] = 0
+    frames[0, 4::9, 4::11] = 128
+    frames[0, 8::9, 8::11] = 64
+    x_f = torch.tensor(rng.uniform(0, 255, shape).astype(np.float32), device=dev)
+    prev_f = torch.clamp(x_f + torch.tensor(
+        rng.normal(scale=45.0, size=shape).astype(np.float32), device=dev), 0, 255)
+    prev_u8 = np.clip(frames.astype(np.int16) + rng.integers(-80, 81, shape), 0, 255)
+    return (torch.tensor(frames, device=dev), x_f, prev_f,
+            torch.tensor(prev_u8.astype(np.uint8), device=dev))
 
 
 def profile_run(run) -> tuple:
@@ -486,34 +526,27 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     from repro_torch.core.megakernel import compile_megakernel
     from repro_torch.graphs.factories import states_equal
     from repro_torch.graphs.motion_detection import bench_workload
-    from repro_torch.kernels.gauss5x5 import (gauss5x5, gauss5x5_ref,
+    from repro_torch.kernels.gauss5x5 import (gauss5x5, gauss5x5_ref, gauss5x5_u8,
                                               gauss5x5_u8_ref)
-    from repro_torch.kernels.motion_post import motion_post, motion_post_ref
+    from repro_torch.kernels.motion_post import (motion_post, motion_post_cuda,
+                                                 motion_post_ref)
 
     H, W = MD_HW
     shape = (MD_RATE, H, W)
     n_px = MD_RATE * H * W
 
     # ---- 7. B3 and B4 against their plain versions ---------------------- #
-    rng = np.random.default_rng(0)
-    frames = rng.integers(0, 256, shape).astype(np.uint8)
-    # Frame 0 is built to blur to exact .5 values: isolated 128s give
-    # 128/256 = 0.5 at their corners, 64s give 64 * 6/256 = 1.5 beside them.
-    frames[0] = 0
-    frames[0, 4::9, 4::11] = 128
-    frames[0, 8::9, 8::11] = 64
-    x_u8 = torch.tensor(frames, device=dev)
+    x_u8, x_f, prev_f, prev_u8 = md_kernel_frames(dev)
     blurred = gauss5x5_ref(x_u8.to(torch.float32))
     ties = int(torch.count_nonzero(blurred - torch.floor(blurred) == 0.5))
     ties0 = int(torch.count_nonzero(blurred[0] - torch.floor(blurred[0]) == 0.5))
     if ties0 == 0:
         fail("B3: the tie frame blurs to no .5 value")
-    got_u8, want_u8 = gauss5x5(x_u8), gauss5x5_u8_ref(x_u8)
+    got_u8, want_u8 = gauss5x5_u8(x_u8), gauss5x5_u8_ref(x_u8)
     torch.cuda.synchronize()
     if got_u8.dtype != torch.uint8 or not torch.equal(got_u8, want_u8):
         bad = int(torch.count_nonzero(got_u8 != want_u8))
         fail(f"B3 u8: {bad} pixels differ from the plain version")
-    x_f = torch.tensor(rng.uniform(0, 255, shape).astype(np.float32), device=dev)
     got_f, want_f = gauss5x5(x_f), gauss5x5_ref(x_f)
     torch.cuda.synchronize()
     g, r = got_f.cpu().numpy(), want_f.cpu().numpy()
@@ -521,31 +554,49 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
         fail("B3 float: non-finite output")
     np.testing.assert_allclose(g, r, rtol=GAUSS_RTOL, atol=GAUSS_ATOL)
     b3_err = float(np.abs(g - r).max())
-    prev_f = torch.clamp(x_f + torch.tensor(
-        rng.normal(scale=45.0, size=shape).astype(np.float32), device=dev), 0, 255)
-    got_m, want_m = motion_post(x_f, prev_f), motion_post_ref(x_f, prev_f)
-    torch.cuda.synchronize()
-    if not torch.equal(got_m, want_m):
-        fail(f"B4: {int(torch.count_nonzero(got_m != want_m))} pixels differ "
-             "from the plain version")
-    b4_err = float((got_m - want_m).abs().max())
+    # B4 bit for bit on float and u8 frames (u8 straight into the kernel:
+    # one launch each) and at an odd shape, W % 4 != 0, which takes its
+    # element path, for both types.
+    odd = np.random.default_rng(1).integers(0, 256, (2, 3, 17, 13)).astype(np.uint8)
+    b4_cases = [("float", x_f, prev_f), ("u8", x_u8, prev_u8)] + [
+        (f"{dt} (3, 17, 13)", torch.tensor(odd[0], device=dev).to(dt),
+         torch.tensor(odd[1], device=dev).to(dt)) for dt in (torch.float32, torch.uint8)]
+    b4_err = 0.0
+    for label, c, p in b4_cases:
+        before = motion_post_cuda.launches
+        got_m, want_m = motion_post(c, p), motion_post_ref(c.float(), p.float())
+        torch.cuda.synchronize()
+        if motion_post_cuda.launches != before + 1:
+            fail(f"B4 {label}: {motion_post_cuda.launches - before} launches, not 1")
+        if got_m.dtype != torch.float32 or not torch.equal(got_m, want_m):
+            fail(f"B4 {label}: {int(torch.count_nonzero(got_m != want_m))} pixels "
+                 "differ from the plain version")
+        b4_err = max(b4_err, float((got_m - want_m).abs().max()))
     log(f"B3 vs plain on {shape}: u8 bit-identical ({ties} .5 ties, {ties0} "
-        f"in the built frame), float max_abs_err {b3_err:.3g}; B4 exact")
+        f"in the built frame), float max_abs_err {b3_err:.3g}; B4 bit-identical on "
+        f"{', '.join(label for label, _, _ in b4_cases)}")
 
-    b3_ms = graph_ms(lambda: gauss5x5(x_u8), copies=10)
-    b3_wrapper_ms = cuda_ms(lambda: gauss5x5(x_u8))
+    b3_ms = graph_ms(lambda: gauss5x5_u8(x_u8), copies=10)
+    b3_wrapper_ms = cuda_ms(lambda: gauss5x5_u8(x_u8))
     b3_plain_ms = cuda_ms(lambda: gauss5x5_u8_ref(x_u8))
     b3f_ms = graph_ms(lambda: gauss5x5(x_f), copies=10)
     b4_ms = graph_ms(lambda: motion_post(x_f, prev_f), copies=10)
+    b4u_ms = graph_ms(lambda: motion_post(x_u8, prev_u8), copies=10)
     b3_copy_ms, b3_floor_ms = yardsticks(shape, torch.uint8, dev)
+    b4_add_ms, b4u_add_ms = add_ms(x_f, prev_f), add_ms(x_u8, prev_u8)
     b4_wrapper_ms = cuda_ms(lambda: motion_post(x_f, prev_f))
+    b4u_wrapper_ms = cuda_ms(lambda: motion_post(x_u8, prev_u8))
     b4_plain_ms = cuda_ms(lambda: motion_post_ref(x_f, prev_f))
-    _, b3_prof, _ = profile_run(lambda: [gauss5x5(x_u8) for _ in range(20)])
+    _, b3_prof, _ = profile_run(lambda: [gauss5x5_u8(x_u8) for _ in range(20)])
     _, b4_prof, _ = profile_run(lambda: [motion_post(x_f, prev_f) for _ in range(20)])
+    _, b4u_prof, _ = profile_run(lambda: [motion_post(x_u8, prev_u8) for _ in range(20)])
     b3_dev = [ms / n for k, n, ms in b3_prof if "gauss5x5" in k]
     b4_dev = [ms / n for k, n, ms in b4_prof if "motion_post" in k]
-    if not b3_dev or not b4_dev:
+    b4u_dev = [ms / n for k, n, ms in b4u_prof if "motion_post" in k]
+    if not b3_dev or not b4_dev or not b4u_dev:
         fail("the profiler saw no B3 or B4 launch")
+    if any("motion_post" not in k for k, _, _ in b4u_prof):
+        fail(f"B4 on u8 frames launched other kernels: {b4u_prof}")
     # Bounds: each input byte read once, each output written once; the
     # operations are what the functions need: the blur's separable 5 + 5
     # multiply-adds (20 flop) per interior pixel, as the Gauss actor's
@@ -554,22 +605,29 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
     # subtract, abs and compare plus 8 min/max per pixel (fp32).
     interior = MD_RATE * (H - 4) * (W - 4)
     b3_bytes, b3_flops = 2 * n_px, GAUSS_FLOP_PER_PX * interior
+    # B4 on u8 frames reads 2 bytes and writes 4 a pixel.
     b4_bytes, b4_flops = 3 * 4 * n_px, 11 * n_px
+    b4u_bytes = (2 + 4) * n_px
     b3f_bytes = 2 * 4 * n_px
 
     b3_bound, b3_by = bound_of(b3_bytes, b3_flops, FP32_FLOP_PER_S)
     b3f_bound, _ = bound_of(b3f_bytes, b3_flops, FP32_FLOP_PER_S)
     b4_bound, b4_by = bound_of(b4_bytes, b4_flops, FP32_FLOP_PER_S)
+    b4u_bound, _ = bound_of(b4u_bytes, b4_flops, FP32_FLOP_PER_S)
     log(f"B3 timing ({smi}): u8 {b3_ms:.5f} ms/launch (CUDA graph replay; "
         f"profiler {b3_dev[0]:.5f}), wrapper {b3_wrapper_ms:.5f} ms/call back "
         f"to back, plain {b3_plain_ms:.5f} ms/call, copy_ of the same bytes "
         f"{b3_copy_ms:.5f} ms, launch floor {b3_floor_ms:.5f} ms, bound {b3_bound:.6f} ms "
         f"({b3_by}: {b3_bytes} B, {b3_flops} flop); float {b3f_ms:.5f} "
         f"ms/launch, bound {b3f_bound:.6f} ms")
-    log(f"B4 timing ({smi}): {b4_ms:.5f} ms/launch (CUDA graph replay; "
-        f"profiler {b4_dev[0]:.5f}), wrapper {b4_wrapper_ms:.5f} ms/call, "
-        f"plain {b4_plain_ms:.5f} ms/call, bound {b4_bound:.6f} ms ({b4_by}: "
-        f"{b4_bytes} B, {b4_flops} flop)")
+    log(f"B4 timing ({smi}): float {b4_ms:.5f} ms/launch (CUDA graph "
+        f"replay; profiler {b4_dev[0]:.5f}), u8 {b4u_ms:.5f} (profiler "
+        f"{b4u_dev[0]:.5f}); wrapper float {b4_wrapper_ms:.5f}, u8 "
+        f"{b4u_wrapper_ms:.5f} ms/call back to back; plain {b4_plain_ms:.5f} "
+        f"ms/call; torch.add over the same bytes float {b4_add_ms:.5f}, u8 "
+        f"{b4u_add_ms:.5f} ms; launch floor {b3_floor_ms:.5f} ms; bound float "
+        f"{b4_bound:.6f} ms ({b4_by}: {b4_bytes} B, {b4_flops} flop), u8 "
+        f"{b4u_bound:.6f} ms ({b4u_bytes} B)")
 
     # ---- 8. motion detection, dynamic mode ------------------------------ #
     net = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0, device=dev)
@@ -707,9 +765,12 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
                "plain_ms": b3_plain_ms, "copy_ms": b3_copy_ms, "floor_ms": b3_floor_ms,
                "bound_ms": b3_bound, "bound_by": b3_by,
                "float_ms": b3f_ms, "float_bound_ms": b3f_bound, "ties": ties},
-        "B4": {"launches": 0, "max_abs_err": b4_err, "ms": b4_ms,
-               "wrapper_ms": b4_wrapper_ms, "device_ms": b4_dev[0],
-               "plain_ms": b4_plain_ms, "bound_ms": b4_bound, "bound_by": b4_by},
+        "B4": {"launches": 0, "max_abs_err": b4_err, "ms": b4_ms, "u8_ms": b4u_ms,
+               "wrapper_ms": b4_wrapper_ms, "u8_wrapper_ms": b4u_wrapper_ms,
+               "device_ms": b4_dev[0], "u8_device_ms": b4u_dev[0],
+               "plain_ms": b4_plain_ms, "add_ms": b4_add_ms, "u8_add_ms": b4u_add_ms,
+               "floor_ms": b3_floor_ms, "bound_ms": b4_bound, "bound_by": b4_by,
+               "u8_bound_ms": b4u_bound},
         "B2": {"launches": md_b2_launches, "max_abs_err": md_b2_err, "ms": b2_ms,
                "device_ms": b2_dev, "plain_ms": b2_plain_ms,
                "bound_ms": b2_bound, "bound_by": b2_by},
@@ -1478,22 +1539,89 @@ def b3_turn(src: str) -> None:
     from two trees it compares B3 across commits on one card."""
     from repro_torch.graphs.motion_detection import bench_workload
     from repro_torch.kernels import _build
-    from repro_torch.kernels.gauss5x5 import gauss5x5, gauss5x5_u8_ref
+    from repro_torch.kernels import gauss5x5 as b3
+    # The Gauss actor's body: gauss5x5_u8, or gauss5x5 in a tree older than
+    # the entry's rename, where it took u8 frames to u8.
+    blur = getattr(b3, "gauss5x5_u8", b3.gauss5x5)
     smi = card()
     _build.build("gauss5x5")
     dev = torch.device("cuda", 0)
     shape = (MD_RATE,) + MD_HW
     x = torch.tensor(np.random.default_rng(0).integers(0, 256, shape).astype(np.uint8),
                      device=dev)
-    if not torch.equal(gauss5x5(x), gauss5x5_u8_ref(x)):
+    if not torch.equal(blur(x), b3.gauss5x5_u8_ref(x)):
         fail("B3 u8 differs from the plain version")
     copy_ms, floor_ms = yardsticks(shape, torch.uint8, dev)
-    rec = {"src": src, "card": smi, "ms": graph_ms(lambda: gauss5x5(x), copies=10),
-           "wrapper_ms": cuda_ms(lambda: gauss5x5(x)), "copy_ms": copy_ms,
+    rec = {"src": src, "card": smi, "ms": graph_ms(lambda: blur(x), copies=10),
+           "wrapper_ms": cuda_ms(lambda: blur(x)), "copy_ms": copy_ms,
            "floor_ms": floor_ms}
     net = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0, device=dev)
     rec["md_dynamic_wall_ms"] = host_wall_ms(net.compile(mode="dynamic"))
     print("b3 " + json.dumps(rec), flush=True)
+
+
+B4_PROBE_ROWS = (1, 2, 4, 8)   # rows a thread, each a build of motion_post.cu
+
+
+def b4_turn(src: str) -> None:
+    """``--b4 SRC``: B4 on phase 7's float frames (4, 240, 320) from the
+    ``repro_torch`` package under ``SRC``, bit for bit against that tree's
+    plain version: its graph-replay time and the wrapper's time per call,
+    beside the ``torch.add`` yardstick over the same bytes and the launch
+    floor.  Where that tree's B4 takes u8 frames (its source reads
+    ``MOTION_POST_ROWS``), also on phase 7's u8 frames, and the R probe:
+    the kernel built with ``-DMOTION_POST_ROWS=R`` for each R in
+    ``B4_PROBE_ROWS``, launched through that library's C entry, checked bit
+    for bit and timed.  Run in turns from two trees it compares B4 across
+    commits on one card."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.motion_post import kernel as b4
+    from repro_torch.kernels.motion_post import motion_post, motion_post_ref
+    smi = card()
+    probe = "MOTION_POST_ROWS" in (_build.CSRC / "motion_post.cu").read_text()
+    defines = [(f"-DMOTION_POST_ROWS={r}",) for r in B4_PROBE_ROWS] if probe else []
+    builds = [threading.Thread(target=_build.build, args=("motion_post",),
+                               kwargs={"defines": d}) for d in defines]
+    for t in builds:
+        t.start()
+    _build.build("motion_post")
+    for t in builds:
+        t.join()
+    dev = torch.device("cuda", 0)
+    x_u8, x_f, prev_f, prev_u8 = md_kernel_frames(dev)
+    if not torch.equal(motion_post(x_f, prev_f), motion_post_ref(x_f, prev_f)):
+        fail("B4 differs from the plain version")
+    one = torch.zeros(1, device=dev)
+    rec = {"src": src, "card": smi,
+           "ms": graph_ms(lambda: motion_post(x_f, prev_f), copies=10),
+           "wrapper_ms": cuda_ms(lambda: motion_post(x_f, prev_f)),
+           "add_ms": add_ms(x_f, prev_f),
+           "floor_ms": graph_ms(lambda: one.zero_(), copies=10)}
+    if probe:
+        pairs = {"float": (x_f, prev_f), "u8": (x_u8, prev_u8)}
+        rec["u8_ms"] = graph_ms(lambda: motion_post(x_u8, prev_u8), copies=10)
+        rec["u8_wrapper_ms"] = cuda_ms(lambda: motion_post(x_u8, prev_u8))
+        rec["u8_add_ms"] = add_ms(x_u8, prev_u8)
+        rec["rows_ms"] = {}
+        for rows, d in zip(B4_PROBE_ROWS, defines):
+            lib = b4._library(d)
+
+            def launch(c, p, lib=lib):
+                out = torch.empty_like(c, dtype=torch.float32)
+                err = lib.motion_post_run(
+                    c.data_ptr(), p.data_ptr(), out.data_ptr(), c.shape[0], c.shape[1],
+                    c.shape[2], c.dtype == torch.uint8, 40.0,
+                    torch.cuda.current_stream().cuda_stream)
+                if err:
+                    fail(f"B4 at rows {rows}: CUDA error {err}")
+                return out
+            for kind, (c, p) in pairs.items():
+                if not torch.equal(launch(c, p), motion_post_ref(c.float(), p.float())):
+                    fail(f"B4 {kind} at rows {rows} differs from the plain version")
+            rec["rows_ms"][rows] = {
+                kind: graph_ms(lambda c=c, p=p: launch(c, p), copies=10)
+                for kind, (c, p) in pairs.items()}
+    print("b4 " + json.dumps(rec), flush=True)
 
 
 def main() -> None:
@@ -1501,7 +1629,8 @@ def main() -> None:
         raise SystemExit("chip_smoke: no CUDA device visible; this script "
                          "runs only on the card")
     turns = {"--b2": b2_turn, "--b2-split": b2_split_turn, "--b5": b5_turn,
-             "--b6": b6_turn, "--b7": b7_turn, "--b1": b1_turn, "--b3": b3_turn}
+             "--b6": b6_turn, "--b7": b7_turn, "--b1": b1_turn, "--b3": b3_turn,
+             "--b4": b4_turn}
     if sys.argv[1:2] and sys.argv[1] in turns and len(sys.argv) == 3:
         sys.path.insert(0, sys.argv[2])
         turns[sys.argv[1]](sys.argv[2])

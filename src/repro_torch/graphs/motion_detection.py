@@ -30,7 +30,7 @@ from repro_torch.core import NetworkBuilder, static_actor
 from repro_torch.core.actor import DeviceOp
 from repro_torch.core.network import Network
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels.gauss5x5 import gauss5x5, to_u8
+from repro_torch.kernels.gauss5x5 import gauss5x5_u8, to_u8
 from repro_torch.kernels.motion_post import DEFAULT_THRESHOLD, med_ref, thres_ref
 
 FRAME_H, FRAME_W = 240, 320
@@ -73,7 +73,7 @@ def build_motion_detection(n_frames: int, rate: int = 1,
         device_op=DeviceOp("source", {"n_firings": n_iter, "planes": 1}))
 
     def gauss_fire(state, inputs, rates):
-        out = gauss5x5(inputs["in"])
+        out = gauss5x5_u8(inputs["in"])
         # One filtered stream feeds two channels (direct + delayed).
         return state, {"out": out, "out_d": out}
 

@@ -11,8 +11,15 @@ from repro_torch.kernels.motion_post.ref import DEFAULT_THRESHOLD, motion_post_r
 
 def motion_post(cur: torch.Tensor, prev: torch.Tensor,
                 threshold: float = DEFAULT_THRESHOLD) -> torch.Tensor:
-    """The motion map of (H, W) or (N, H, W) float32 frame pairs: threshold
-    ``|cur - prev|``, then the plus-shaped median."""
+    """The float32 motion map of (H, W) or (N, H, W) frame pairs of any
+    dtype, as float32 values (the reference's contract): threshold
+    ``|cur - prev|``, then the plus-shaped median.  On the card a pair of
+    uint8 or of float32 frames goes into the kernel as it is (u8 -> f32 is
+    exact, and so is the difference of two such values); other pairs are
+    cast to float32 first."""
     if cur.is_cuda:
+        if not (cur.dtype == prev.dtype
+                and (cur.dtype == torch.uint8 or cur.dtype == torch.float32)):
+            cur, prev = cur.to(torch.float32), prev.to(torch.float32)
         return motion_post_cuda(cur, prev, threshold)
-    return motion_post_ref(cur, prev, threshold)
+    return motion_post_ref(cur.to(torch.float32), prev.to(torch.float32), threshold)

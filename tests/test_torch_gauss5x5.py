@@ -1,7 +1,9 @@
 """The plain PyTorch Gauss blur (B3's oracle) against the reference's
 ``gauss5x5`` through both its routes (``impl="xla"``, the 25-tap version,
 and ``impl="pallas"`` in interpret mode, the separable kernel), and the
-wrapper's CPU contract.  The Hopper kernel itself runs only on the card
+wrappers' CPU contract: ``gauss5x5`` takes any dtype and returns the
+float32 blur, as the reference's entry does; ``gauss5x5_u8`` is the Gauss
+actor's body, u8 in and the blur rounded to u8 out.  The Hopper kernel itself runs only on the card
 (``chip_smoke.py`` holds it against the plain version there); its u8
 scheme, an integer separable 1-4-6-4-1 blur with S / 256 rounded half to
 even in integers and two sums packed in a 32-bit word, is emulated here in
@@ -22,7 +24,8 @@ import torch
 from repro.kernels.gauss5x5 import gauss5x5 as ref_gauss5x5
 from repro.kernels.gauss5x5.ref import KERNEL_2D as REF_KERNEL_2D
 from repro_torch.kernels.gauss5x5 import (KERNEL_2D, gauss5x5, gauss5x5_cuda,
-                                          gauss5x5_ref, gauss5x5_u8_ref, to_u8)
+                                          gauss5x5_ref, gauss5x5_u8, gauss5x5_u8_ref,
+                                          to_u8)
 
 SHAPES = [(48, 64), (240, 320)]
 
@@ -69,9 +72,32 @@ def test_u8_path_is_the_rounded_reference_exactly(shape):
     blurred = _ref(x.astype(np.float32), "xla")
     ties = np.count_nonzero(blurred - np.floor(blurred) == 0.5)
     assert ties > 0                     # round half to even is exercised
-    got = gauss5x5(torch.tensor(x))
+    got = gauss5x5_u8(torch.tensor(x))
     assert got.dtype == torch.uint8 and tuple(got.shape) == shape
     assert np.array_equal(got.numpy(), _ref_u8(blurred))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_u8_frames_give_the_reference_float_blur_exactly(impl, shape):
+    """``gauss5x5`` on u8 frames casts them and returns the float32 blur,
+    as the reference's entry does on the same u8 array: bit for bit, since
+    every partial sum of the blur is exact on u8 sources."""
+    rng = np.random.default_rng(11 + sum(shape))
+    x = rng.integers(0, 256, shape).astype(np.uint8)
+    got = gauss5x5(torch.tensor(x))
+    ref = _ref(x, impl)
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    assert np.array_equal(got.numpy(), ref)
+    assert np.count_nonzero(ref - np.floor(ref)) > 0    # not u8-valued
+
+
+@pytest.mark.parametrize("shape", [(5, 7), (2, 24, 32)])
+def test_u8_entry_is_the_rounded_float_entry_and_takes_only_u8(shape):
+    x = torch.tensor(np.random.default_rng(2).integers(0, 256, shape), dtype=torch.uint8)
+    assert torch.equal(gauss5x5_u8(x), to_u8(gauss5x5(x)))
+    with pytest.raises(ValueError, match="uint8"):
+        gauss5x5_u8(x.to(torch.float32))
 
 
 def test_border_passes_through_and_edges_clamp():
@@ -96,7 +122,7 @@ def test_cpu_wrapper_takes_the_plain_version_without_launching():
     x = torch.tensor(np.random.default_rng(0).integers(0, 256, (2, 24, 32)),
                      dtype=torch.uint8)
     before = gauss5x5_cuda.launches
-    out = gauss5x5(x)
+    out = gauss5x5_u8(x)
     assert gauss5x5_cuda.launches == before
     assert torch.equal(out, to_u8(gauss5x5_ref(x.float())))
     with pytest.raises(ValueError, match="CUDA tensor"):

@@ -1,11 +1,14 @@
-"""B1, B2, B3, B5, B6 and B7 on the card against their plain versions at
-shapes the main paths do not reach (B1: every order at window lengths
-around its 256-sample tiles and its 9-sample halo, the window 16-byte
-aligned and 4 bytes off; B2: DPD at two widths under four schedules,
-motion detection at rates 1 and 4, a control token outside its domain
-mid-run, sweep budget exhaustion, a resumed partial state, at cores 1 and
-2; B3: u8 frames from 1 x 1 to 1080 x 1920, widths that are and are not a
-multiple of 16, a view off 16 bytes, .5 ties and all-255 frames; B5-B7:
+"""B1-B7 on the card against their plain versions at shapes the main
+paths do not reach (B1: every order at window lengths around its
+256-sample tiles and its 9-sample halo, the window 16-byte aligned and 4
+bytes off; B2: DPD at two widths under four schedules, motion detection at
+rates 1 and 4, a control token outside its domain mid-run, sweep budget
+exhaustion, a resumed partial state, at cores 1 and 2; B3: u8 frames from
+1 x 1 to 1080 x 1920, widths that are and are not a multiple of 16, a view
+off 16 bytes, .5 ties and all-255 frames; B4: float32 and u8 frame pairs
+from 1 x 1 to 1080 x 1920, widths that are and are not a multiple of 4,
+bases off the vector width, NaN pixels, thresholds 0, -1, 12.5 and NaN, and other dtypes cast by
+``motion_post``; B5-B7:
 ragged lengths, other head widths and group sizes, float32 SSD inputs, B6
 under strong decays), and the wrappers' launch counts and refusals.
 These tests need a CUDA card and ``nvcc``; without one they skip.  Run
@@ -14,8 +17,8 @@ them on the card with
     python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
 
 Bars: B1 bit for bit (``torch.equal`` on the output and the next history),
-as in ``chip_smoke.py`` phase 2; B3 on u8 frames bit for bit, as in phase
-7; B2 bit for bit (every io word the plain version writes, every ring
+as in ``chip_smoke.py`` phase 2; B3 on u8 frames and B4 bit for bit, as in
+phase 7; B2 bit for bit (every io word the plain version writes, every ring
 and actor tensor); B5 within one bf16 step of |want| plus 2^-5 of the RMS of want's
 (batch, position, head) row, the bar of ``chip_smoke.py`` phase 12 (set
 from the readings of sound runs and planted faults there; PERF.md);
@@ -38,7 +41,8 @@ from repro_torch.core.megakernel.ref import run_program
 from repro_torch.graphs.dpd import default_active_schedule
 from repro_torch.graphs.factories import make_dpd, make_motion_detection
 from repro_torch.kernels.dyn_fir import N_TAPS, dpd_branch_cuda, poly_branch, poly_ref
-from repro_torch.kernels.gauss5x5 import gauss5x5, gauss5x5_cuda, gauss5x5_u8_ref
+from repro_torch.kernels.gauss5x5 import gauss5x5_cuda, gauss5x5_u8, gauss5x5_u8_ref
+from repro_torch.kernels.motion_post import motion_post, motion_post_cuda, motion_post_ref
 from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_cuda,
                                                  flash_attention_ref)
 from repro_torch.kernels.rglru import rglru, rglru_cuda, rglru_ref
@@ -219,7 +223,7 @@ def test_gauss5x5_matches_plain(gen, shape, kind):
     else:
         x = torch.full(shape, 255, dtype=torch.uint8, device="cuda")
     before = gauss5x5_cuda.launches
-    got = gauss5x5(x)
+    got = gauss5x5_u8(x)
     assert gauss5x5_cuda.launches == before + 1
     want = gauss5x5_u8_ref(x)
     assert got.dtype == torch.uint8 and torch.equal(got, want), \
@@ -236,7 +240,101 @@ def test_gauss5x5_view_off_16_bytes(gen):
     x.copy_(torch.randint(0, 256, (n, H, W), generator=gen, device="cuda",
                           dtype=torch.uint8))
     x[0] = _tie_frame(1, H, W)[0].cuda()
-    assert torch.equal(gauss5x5(x), gauss5x5_u8_ref(x))
+    assert torch.equal(gauss5x5_u8(x), gauss5x5_u8_ref(x))
+
+
+def _mp_pair(gen, shape, dtype, nan=False):
+    """A frame pair that thresholds both ways at T = 40: uniform frames
+    and a second one moved by up to +-80, clamped to 0..255."""
+    cur = torch.randint(0, 256, shape, generator=gen, device="cuda").to(torch.float32)
+    step = torch.randint(-80, 81, shape, generator=gen, device="cuda")
+    prev = torch.clamp(cur + step, 0, 255)
+    if dtype == torch.float32:
+        cur = cur + torch.rand(shape, generator=gen, device="cuda")
+    if nan:
+        cur[torch.rand(shape, generator=gen, device="cuda") < 0.1] = float("nan")
+        prev[torch.rand(shape, generator=gen, device="cuda") < 0.1] = float("nan")
+    return cur.to(dtype), prev.to(dtype)
+
+
+def _mp_check(cur, prev, threshold=40.0):
+    before = motion_post_cuda.launches
+    got = motion_post_cuda(cur, prev, threshold)
+    assert motion_post_cuda.launches == before + 1
+    want = motion_post_ref(cur.float(), prev.float(), threshold)
+    assert got.dtype == torch.float32 and got.shape == cur.shape
+    assert torch.equal(got, want), int((got != want).sum())
+    return got
+
+
+# B4's edges, against its warps of 32 strips of 4 columns over bands of R
+# rows: 1 x 1, widths not a multiple of 4 (3, 5, 9, 13, 319: element loads
+# and stores), heights that leave a ragged last band, a band's warp edge
+# lanes (widths over 128), the main path's (4, 240, 320) and (2, 1080,
+# 1920); float32 and u8 frames.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+@pytest.mark.parametrize("shape", [(1, 1, 1), (1, 2, 3), (1, 3, 5), (2, 7, 9),
+                                   (3, 17, 13), (2, 23, 260), (4, 240, 320),
+                                   (5, 241, 319), (1, 5, 132), (2, 1080, 1920)])
+def test_motion_post_matches_plain(gen, shape, dtype):
+    got = _mp_check(*_mp_pair(gen, shape, dtype))
+    if shape[-1] * shape[-2] > 100:
+        assert 0 < int((got == 255).sum()) < got.numel()
+
+
+@pytest.mark.parametrize("dtype,offset", [(torch.float32, 1), (torch.uint8, 1),
+                                          (torch.uint8, 4)])
+def test_motion_post_bases_off_the_vector_width(gen, dtype, offset):
+    """Contiguous frames whose base is ``offset`` elements past an aligned
+    buffer: 4 bytes off 16 (float32) or 1 byte off 4 (u8) take element
+    loads; u8 4 bytes off 16 keeps its 4-byte words."""
+    n, H, W = 4, 240, 320
+    sides = []
+    for src in _mp_pair(gen, (n, H, W), dtype):
+        flat = torch.empty(n * H * W + offset, dtype=dtype, device="cuda")
+        view = flat[offset:].view(n, H, W)
+        view.copy_(src)
+        sides.append(view)
+    assert sides[0].data_ptr() % 16 and sides[0].is_contiguous()
+    _mp_check(*sides)
+
+
+@pytest.mark.parametrize("threshold", [0.0, -1.0, 12.5, float("nan")])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.uint8])
+def test_motion_post_thresholds_and_nan(gen, dtype, threshold):
+    for shape in [(2, 9, 13), (4, 240, 320)]:
+        got = _mp_check(*_mp_pair(gen, shape, dtype, nan=dtype == torch.float32),
+                        threshold)
+        if threshold != threshold:                        # NaN: nothing moves
+            assert not got.any()
+        elif threshold < 0 and dtype == torch.uint8:      # everything moves
+            assert torch.all(got == 255)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float64, torch.int16])
+def test_motion_post_casts_other_dtypes_then_launches_once(gen, dtype):
+    cur, prev = _mp_pair(gen, (2, 48, 64), torch.float32)
+    cur, prev = cur.to(dtype), prev.to(dtype)
+    before = motion_post_cuda.launches
+    got = motion_post(cur, prev)
+    assert motion_post_cuda.launches == before + 1
+    assert torch.equal(got, motion_post_ref(cur.float(), prev.float()))
+
+
+def test_motion_post_u8_frames_launch_the_kernel_and_nothing_else(gen):
+    cur, prev = _mp_pair(gen, (4, 240, 320), torch.uint8)
+    before = motion_post_cuda.launches
+    motion_post(cur, prev)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            motion_post(cur, prev)
+        torch.cuda.synchronize()
+    assert motion_post_cuda.launches == before + 21
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert names and all("motion_post" in k for k in names), names
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
@@ -268,6 +366,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     with pytest.raises(ValueError, match="CUDA tensor"):          # device
         gauss5x5_cuda(frames.cpu())
     assert (dpd_branch_cuda.launches, gauss5x5_cuda.launches) == launches
+    f = torch.zeros((2, 16, 32), device="cuda")
+    b4 = motion_post_cuda.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):          # device
+        motion_post_cuda(f, f.cpu(), 40.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        motion_post_cuda(f.cpu(), f.cpu(), 40.0)
+    with pytest.raises(ValueError, match="differ"):               # shapes
+        motion_post_cuda(f, f[:1], 40.0)
+    with pytest.raises(ValueError, match="differ"):               # dtypes
+        motion_post_cuda(f, frames, 40.0)
+    with pytest.raises(ValueError, match="float32 or uint8"):     # bool
+        motion_post_cuda(f.bool(), f.bool(), 40.0)
+    with pytest.raises(ValueError, match="float32 or uint8"):     # stride
+        motion_post_cuda(f[:, :, ::2], f[:, :, ::2], 40.0)
+    with pytest.raises(ValueError, match="outside"):
+        motion_post_cuda(f[:0], f[:0], 40.0)
+    assert motion_post_cuda.launches == b4
     q = torch.randn((1, 8, 2, 16), generator=gen, device="cuda")
     with pytest.raises(ValueError, match="bf16"):
         flash_attention_cuda(q, q, q)                   # float32
