@@ -80,6 +80,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     times each (CUDA graph replays), its plain version and, for B5,
     ``scaled_dot_product_attention`` with the same boolean mask and
     ``enable_gqa=True`` as the library yardstick (never used by the port);
+    also B5's float32 and f16 route (``flash_fwd_ffma``) at
+    recurrentgemma-2b's shape through the entry, float32 within
+    ``B5_F32_TOL`` and f16 within one f16 step plus ``B5_F16_ROW_TOL`` of
+    the row's RMS, timed beside SDPA in float32 with the same mask; B6's
+    SIMT route (any (P, N)) at mamba2's smoke shape (P 16, N 16, the
+    serving batch and prompt), on float32 and f16 inputs, within
+    ``B6_TOL`` of its plain version, timed; B7 on bf16 inputs through the
+    entry (cast to float32), bit-identical to the plain version on the cast
+    operands;
 13. serves recurrentgemma-2b at its published width (weights from a seeded
     generator): 8 requests with prompt lengths from
     ``numpy.random.default_rng(0)`` in 2048-4096, left-padded to 4096,
@@ -98,7 +107,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     wherever the CPU's top-2 margin exceeds twice the step's largest logit
     difference;
 14. the same for mamba2-780m: 96 B6 launches (48 per prefill) and no B5 or
-    B7;
+    B7; then mamba2's smoke configuration served on the card (B6's SIMT
+    route, one launch a layer a prefill) and held to the CPU model on the
+    same weights as in 13 (each layer, the logits, the Engine);
 15. profiles one prefill (4 x 4096 tokens) and one decode step of each
     model: device time by kernel, B5-B7 each summed over its CUDA kernels
     (B5 ``flash_fwd_wgmma``, B6 3 per call, B7 ``rglru_kernel``), and the
@@ -110,7 +121,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     as phases 6 and 9 time B2, with block 0's cycles split into waiting
     for the scheduler, waiting on other blocks (with the count of waits)
     and the rest (bodies, also by kind), and its scheduler warp's time
-    deciding and waiting for a free command slot.
+    deciding and waiting for a free command slot;
+17. (run after 16) the health layer, the firing trace and fault injection
+    (ROADMAP A7) at full width: DPD (phase 3's network) and motion
+    detection (phase 8's) run guarded and traced in dynamic mode, and in
+    megakernel mode at ``cores=1`` and ``2`` with each of B2's three health
+    builds (``-DMK_GUARDS``, ``-DMK_TRACE``, both), with every count set to
+    0 just before each run: the same launches as phases 3, 6, 8 and 9 (one
+    B2 launch of that build per megakernel run), every leaf bit-identical
+    to phase 3's and 8's states, and the diagnostics (fault words,
+    high-water marks) and trace events equal across the host dynamic run,
+    B2 and B2's plain version on the card; then each of the four faults
+    (overflow, underflow, a corrupted cursor, NaN poison) injected on
+    DPD's ``f_in``, run by B2 at ``cores=1`` and ``2`` (no channel
+    forwarded), by its plain version and by the host dynamic executor,
+    guarded and traced: the same named diagnostics, the same trace events
+    and the same partial state, bit for bit, from all three; and B2's time
+    per run from the main build and the three health builds, in turns.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -193,6 +220,15 @@ B6_TOL = 3e-4       # of max|ref|: tests/test_kernels.py:92; y (bf16) also
 MIX_ROW_TOL = 2.0 ** -4
 LOGIT_SENS = 4.0
 LOGIT_TOL = 3e-2
+# B5's float32 and f16 route against the plain version (float32 softmax):
+# float32 within rtol = atol = 2e-4 (tests/test_kernels.py's float32 bar);
+# f16 within one f16 step at |want| (2^-10 |want|: two float32 results that
+# differ in the last bits may round to neighbouring f16 values) plus
+# B5_F16_ROW_TOL of the row's RMS.  B6's f16 output likewise gets one f16
+# step at |y|.
+B5_F32_TOL = 2e-4
+B5_F16_ROW_TOL = 2.0 ** -10
+A7_TRACE_CAPACITY = 4096   # the reference's TRACE_CAPACITY_DEFAULT
 
 
 def log(msg: str) -> None:
@@ -333,11 +369,11 @@ def profile_program(prog, runs: int) -> tuple:
     states = [prog.init_state() for _ in range(runs)]
     launch, events = mk.megakernel_cuda, []
 
-    def timed(*args):
+    def timed(*args, **kw):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        launch(*args)
+        launch(*args, **kw)
         end.record()
         events.append((start, end))
 
@@ -346,12 +382,14 @@ def profile_program(prog, runs: int) -> tuple:
             prog.run(st, in_place=True)
 
     timed.launches = launch.launches
+    timed.build_launches = launch.build_launches
     mk.megakernel_cuda = timed
     try:
         device_ms, kernels, wall = profile_run(run)
     finally:
         mk.megakernel_cuda = launch
         launch.launches = timed.launches
+        launch.build_launches = timed.build_launches
     b2_ms = [start.elapsed_time(end) for start, end in events]
     if prog.plan.mode == "megakernel":
         if len(b2_ms) != runs:
@@ -360,24 +398,34 @@ def profile_program(prog, runs: int) -> tuple:
     return device_ms / runs, kernels, wall / runs, b2_ms
 
 
-def b2_timed(net, dev, clock_split: bool = False) -> tuple:
+def b2_timed(net, dev, clock_split: bool = False, guards: bool = False,
+             trace: bool = False) -> tuple:
     """B2's own time per run of ``net``: launches back to back on a staged
     argument block, reset before each launch, so the runner's staging is
     out of it (the rings keep the last run's bytes, which changes no work:
     forwarded rings are re-zeroed by the kernel and the same bodies run on
     the same windows).  ``clock_split`` times the build that writes the
-    clock split instead.  Returns ``(ms, meta words after the last
-    launch)``."""
+    clock split instead; ``guards`` and ``trace`` the health builds (a ring
+    of ``A7_TRACE_CAPACITY`` events).  Returns ``(ms, meta words after the
+    last launch)``."""
     from repro_torch.core.megakernel import compile_megakernel, megakernel_cuda
     from repro_torch.core.megakernel.program import stage
     dp = compile_megakernel(net).device_program
-    tensors, io = stage(dp, net.init_state(), dev, [t.to(dev) for _, t in dp.consts])
+    # (An older tree's stage takes no health words: pass them only when used.)
+    extra = {"health_words": True} if guards or trace else {}
+    tensors, io = stage(dp, net.init_state(), dev, [t.to(dev) for _, t in dp.consts],
+                        **extra)
     args0 = torch.tensor([0 if t is None else t.data_ptr() for t in tensors] + io,
                          dtype=torch.int64, device=dev)
     args = args0.clone()
     table = dp.table.to(dev)
 
     kw = {"clock_split": True} if clock_split else {}
+    if guards or trace:
+        kw.update(io_len=dp.io_len, guards=guards)
+    if trace:
+        kw["trace"] = torch.zeros((A7_TRACE_CAPACITY, 3 + dp.n_fifos), dtype=torch.int32,
+                                  device=dev)
 
     def launch():
         args.copy_(args0)
@@ -414,6 +462,171 @@ def b2_split(net, dev) -> dict:
         rec["scheduler_ms"] = {"busy": sp["sched_busy"] / loop * ms,
                                "ring_full": sp["sched_full"] / loop * ms}
     return rec
+
+
+def diag_key(d) -> tuple:
+    """Everything a Diagnostics decodes, as plain values."""
+    faults = tuple((f.fifo, f.src_actor, f.dst_actor, int(f.bits), f.faults,
+                    int(f.high_water)) for f in d.faults)
+    stall = None if d.stall is None else (d.stall.runnable, d.stall.blocked)
+    return (bool(d.ok), bool(d.stalled), faults, dict(d.high_water), stall)
+
+
+def state_bits(state) -> list:
+    """Every leaf of a state as bytes (NaN compares by its bits)."""
+    return [x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            if isinstance(x, torch.Tensor) else x for x in state.leaves()]
+
+
+def a7_phase(dev, smi: str, zero_counts, expect_counts, dpd: tuple, md: tuple,
+             bounds: dict) -> list:
+    """Phase 17: guards, trace and fault injection at full width.  ``dpd``
+    and ``md`` are ``(network, phase-3 / phase-8 result, launches of that
+    dynamic run)``; ``bounds`` each network's B2 ``(bound_ms, bound_by)``.
+    Returns the kernels line's records of B2's three health builds."""
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core.executor import run_dynamic
+    from repro_torch.core.faultinject import (corrupt_cursor, inject_overflow,
+                                              inject_underflow, poison_tokens)
+    from repro_torch.core.health import (CURSOR_INVALID, NONFINITE, OVERFLOW, UNDERFLOW,
+                                         decode_health, fault_names)
+    from repro_torch.core.megakernel import (compile_megakernel, lower_network,
+                                             megakernel_cuda, partition_layout)
+    from repro_torch.core.trace import decode_trace
+    from repro_torch.graphs.factories import states_equal
+
+    builds = {"guards": (True, False), "trace": (False, True), "guards+trace": (True, True)}
+    launches = {b: 0 for b in builds}
+    rec: dict = {"card": smi}
+    for label, (net, base, dyn_launches) in (("dpd", dpd), ("md", md)):
+        # Host dynamic, guarded and traced: phase 3's / 8's launches and state.
+        prog = net.compile(ExecutionPlan(mode="dynamic", guards=True, trace=True))
+        torch.cuda.synchronize()
+        zero_counts()
+        dyn = prog.run()
+        torch.cuda.synchronize()
+        expect_counts(f"A7 {label} dynamic guarded+traced", dyn_launches)
+        if (dyn.sweeps, dyn.fire_counts) != (base.sweeps, base.fire_counts) \
+                or not states_equal(dyn.state, base.state):
+            fail(f"A7 {label}: the guarded, traced dynamic run differs from the unguarded one")
+        want_diag, want_ev = diag_key(dyn.diagnostics), dyn.trace.events
+        if not dyn.diagnostics.ok:
+            fail(f"A7 {label}: a clean run reads {dyn.diagnostics.summary()}")
+        for cores in (1, 2):
+            for build, (g, t) in builds.items():
+                prog = net.compile(ExecutionPlan(mode="megakernel", cores=cores, guards=g,
+                                                 trace=t))
+                torch.cuda.synchronize()
+                zero_counts()
+                res = prog.run()
+                torch.cuda.synchronize()
+                expect_counts(f"A7 {label} megakernel cores={cores} {build}", {"B2": 1})
+                if megakernel_cuda.build_launches != {build: 1}:
+                    fail(f"A7 {label}: launches by build {megakernel_cuda.build_launches}")
+                launches[build] += 1
+                if (res.sweeps, res.fire_counts) != (base.sweeps, base.fire_counts) \
+                        or not states_equal(res.state, base.state):
+                    fail(f"A7 {label} cores={cores} {build}: state differs from phase 3/8")
+                if g and diag_key(res.diagnostics) != want_diag:
+                    fail(f"A7 {label} cores={cores} {build}: diagnostics differ")
+                if t and not np.array_equal(res.trace.events, want_ev):
+                    fail(f"A7 {label} cores={cores} {build}: trace differs")
+            # B2's plain version on the card, guarded and traced.
+            runner = compile_megakernel(net, cores=cores, guards=True,
+                                        trace_capacity=A7_TRACE_CAPACITY)
+            st = net.init_state()
+            pr = runner.plain(st)
+            torch.cuda.synchronize()
+            if not states_equal(st, base.state) \
+                    or diag_key(decode_health(net, pr.health, pr[3])) != want_diag \
+                    or not np.array_equal(decode_trace(net, pr.trace).events, want_ev):
+                fail(f"A7 {label} cores={cores}: B2's plain version differs")
+        rec[label] = {"events": int(len(want_ev)),
+                      "dropped": int(dyn.trace.dropped),
+                      "attempts": int(sum(dyn.trace.attempt_counts().values())),
+                      "high_water": dyn.diagnostics.high_water}
+        log(f"A7 {label} clean, guarded and traced: host dynamic, B2 (3 builds, cores 1 "
+            f"and 2) and its plain version agree; states bit-identical to the unguarded "
+            f"runs; {len(want_ev)} trace events kept, {dyn.trace.dropped} dropped")
+
+    # Faults on DPD's f_in: B2 (no channel forwarded), plain, host dynamic.
+    net = dpd[0]
+    layout = lower_network(net)
+    faults = {"overflow": (inject_overflow, OVERFLOW),
+              "underflow": (inject_underflow, UNDERFLOW),
+              "cursor": (lambda n, s, f: corrupt_cursor(n, s, f, occ=1), CURSOR_INVALID),
+              "nonfinite": (poison_tokens, NONFINITE)}
+    fault_rec = {}
+    for name, (inject, bit) in faults.items():
+        bad = inject(net, net.init_state(), "f_in")
+        sides = {}
+        dres = run_dynamic(net, bad.clone(), guards=True, trace_capacity=A7_TRACE_CAPACITY)
+        sides["dynamic"] = dres
+        for cores in (1, 2):
+            runner = compile_megakernel(
+                net, layout=layout, guards=True, trace_capacity=A7_TRACE_CAPACITY,
+                partition=partition_layout(net, layout, cores, forward_transients=False))
+            sides[f"b2_cores{cores}"] = runner(bad.clone())
+            sides[f"plain_cores{cores}"] = runner.plain(bad.clone())
+        torch.cuda.synchronize()
+        keys = {k: (diag_key(decode_health(net, r.health, r[3], r[0] if r[3] else None)),
+                    np.asarray(r.trace.ring).tobytes() if not isinstance(r.trace.ring, torch.Tensor)
+                    else r.trace.ring.cpu().numpy().tobytes(), r.trace.count,
+                    state_bits(r[0]), r[1], r[2])
+                for k, r in sides.items()}
+        first = keys["dynamic"]
+        for k, v in keys.items():
+            if v != first:
+                parts = [n for n, a, b in zip(("diagnostics", "trace ring", "events",
+                                               "state", "counts", "sweeps"), v, first)
+                         if a != b]
+                fail(f"A7 fault {name}: {k} differs from the host dynamic run in {parts}")
+        named = {f[0]: f[3] for f in first[0][2]}
+        if "f_in" not in named or not set(fault_names(bit)) <= set(fault_names(named["f_in"])):
+            fail(f"A7 fault {name}: f_in not named with {fault_names(bit)}: {named}")
+        fault_rec[name] = {"faulting_channels": {k: list(fault_names(v))
+                                                 for k, v in named.items()},
+                           "events": int(first[2]), "sweeps": int(first[5])}
+    rec["faults"] = fault_rec
+    log("A7 faults on f_in, host dynamic == B2 (cores 1, 2) == plain, bit for bit: "
+        + json.dumps(fault_rec))
+
+    # B2's time per run, main build and the three health builds, in turns.
+    times = {label: {b: [] for b in ("main", *builds)} for label in ("dpd", "md")}
+    order = ("main", "guards", "trace", "guards+trace")
+    for label, n in (("dpd", dpd[0]), ("md", md[0])):
+        for build in order + order[::-1]:
+            g, t = builds.get(build, (False, False))
+            times[label][build].append(b2_timed(n, dev, guards=g, trace=t)[0])
+    med = {label: {b: float(np.median(v)) for b, v in bt.items()} for label, bt in times.items()}
+    rec["b2_ms"] = times
+    log(f"A7 B2 timing ({smi}), ms per run, in turns main, guards, trace, both, then "
+        f"back: " + json.dumps(times))
+    log("a7 " + json.dumps(rec))
+    out = []
+    for build, (g, t) in builds.items():
+        runner = compile_megakernel(dpd[0], guards=g,
+                                    trace_capacity=A7_TRACE_CAPACITY if t else None)
+        st = dpd[0].init_state()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        runner.plain(st)
+        end.record()
+        torch.cuda.synchronize()
+        out.append({"name": f"megakernel.b2_{build.replace('+', '_')}", "route": "cuda",
+                    "source": "src/repro_torch/csrc/megakernel.cu",
+                    "replaces": "src/repro/core/megakernel/kernel.py:780",
+                    "function": f"compile_megakernel({', '.join(('guards=True',) * g + ('trace_capacity=N',) * t)})",
+                    "build": build, "launches": launches[build], "max_abs_err": 0.0,
+                    "ms": med["dpd"][build], "main_build_ms": med["dpd"]["main"],
+                    "plain_ms": start.elapsed_time(end),
+                    "bound_ms": bounds["dpd"][0], "bound_by": bounds["dpd"][1],
+                    "library_ms": None, "network": "dpd",
+                    "motion_detection": {"ms": med["md"][build],
+                                         "main_build_ms": med["md"]["main"],
+                                         "bound_ms": bounds["md"][0]}})
+    return out
 
 
 def warm_wall_ms(prog, runs: int = 5) -> list:
@@ -774,6 +987,7 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
         "B2": {"launches": md_b2_launches, "max_abs_err": md_b2_err, "ms": b2_ms,
                "device_ms": b2_dev, "plain_ms": b2_plain_ms,
                "bound_ms": b2_bound, "bound_by": b2_by},
+        "net": net, "result": res_dyn,
     }
 
 
@@ -948,7 +1162,60 @@ def lm_kernels(dev, smi: str) -> dict:
                   "library_ms": b5_lib, "library_max_abs_err": lib_err,
                   "library": "torch.nn.functional.scaled_dot_product_attention "
                              "(boolean causal+window mask, enable_gqa=True)"}
-    del q, k, v, qt, kt, vt, mask
+
+    # ---- B5's float32 and f16 route (flash_fwd_ffma), same shape -------- #
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    b5f = {}
+    b5f_launches = 0      # of the two checked calls; the timing's are not counted
+    for dtype in (torch.float32, torch.float16):
+        qf, kf, vf = (t.to(dtype) for t in (q, k, v))
+        before = flash_attention_cuda.route_launches["ffma"]
+        got = flash_attention(qf, kf, vf, causal=True, window=win)
+        b5f_launches += flash_attention_cuda.route_launches["ffma"] - before
+        want = flash_attention_ref(qf, kf, vf, causal=True, window=win)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or not torch.isfinite(got).all():
+            fail(f"B5 {dtype}: output {got.dtype}, finite {bool(torch.isfinite(got).all())}")
+        err = float((got.float() - want.float()).abs().max())
+        if dtype == torch.float32:
+            reading = float(((got - want).abs() / (B5_F32_TOL * (1 + want.abs()))).max())
+        else:
+            w = want.float()
+            rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+            reading = float((((got.float() - w).abs() - 2.0 ** -10 * w.abs()) / rms).max()
+                            / B5_F16_ROW_TOL)
+        if not reading <= 1.0:
+            fail(f"B5 {dtype}: {reading:.3g} times its bar (max |diff| {err:.3g})")
+        ms = graph_ms(lambda: flash_attention(qf, kf, vf, causal=True, window=win),
+                      reps=3, inner=3)
+        b5f[str(dtype)] = {"max_abs_err": err, "over_bar": reading, "ms": ms}
+        del got, want
+    if b5f_launches != 2:
+        fail(f"B5 float route: {b5f_launches} ffma launches for 2 calls")
+    q32, k32, v32 = (t.float() for t in (q, k, v))
+    qt32, kt32, vt32 = (t.transpose(1, 2) for t in (q32, k32, v32))
+    b5f_plain = cuda_ms(lambda: flash_attention_ref(q32, k32, v32, causal=True, window=win),
+                        reps=3, inner=1)
+    b5f_lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qt32, kt32, vt32, attn_mask=mask, enable_gqa=True), reps=3, inner=1)
+    b5f_bound, b5f_by = bound_of(4 * (2 * q.numel() + k.numel() + v.numel()), b5_flops,
+                                 FP32_FLOP_PER_S)
+    log(f"B5 float route vs plain (q {tuple(q.shape)}, causal, window {win}): "
+        + json.dumps(b5f))
+    log(f"B5 float route timing ({smi}): float32 {b5f['torch.float32']['ms']:.4f} ms, "
+        f"f16 {b5f['torch.float16']['ms']:.4f} ms per launch (CUDA graph replay), plain "
+        f"float32 {b5f_plain:.3f} ms, SDPA float32 {b5f_lib:.3f} ms, bound "
+        f"{b5f_bound:.4f} ms ({b5f_by}: {b5_flops:.4g} flop at {FP32_FLOP_PER_S:.3g}/s)")
+    recs["B5_ffma"] = {"launches": b5f_launches,
+                       "max_abs_err": b5f["torch.float32"]["max_abs_err"],
+                       "ms": b5f["torch.float32"]["ms"], "f16_ms": b5f["torch.float16"]["ms"],
+                       "errors": b5f, "plain_ms": b5f_plain, "bound_ms": b5f_bound,
+                       "bound_by": b5f_by, "library_ms": b5f_lib,
+                       "library": "torch.nn.functional.scaled_dot_product_attention in "
+                                  "float32 (boolean causal+window mask, enable_gqa=True)",
+                       "launches_from": "phase 12: one float32 and one f16 call "
+                                        "through flash_attention"}
+    del q, k, v, qt, kt, vt, mask, q32, k32, v32, qt32, kt32, vt32
 
     # ---- B6 at mamba2-780m's SSD ---------------------------------------- #
     # B6 against the plain version and against the step-by-step recurrence
@@ -1050,6 +1317,46 @@ def lm_kernels(dev, smi: str) -> dict:
                   "library": "none: no single PyTorch call runs the SSD scan"}
     del x, Bm, Cm, dt
 
+    # ---- B6's SIMT route at mamba2's smoke shape (P 16, N 16) ----------- #
+    from repro_torch.configs import smoke_config
+    sm = smoke_config("mamba2-780m").ssm
+    Hs = 8
+    simt = {}
+    for dtype in (torch.float32, torch.float16):
+        x = randn(B, S, Hs, sm.head_dim).to(dtype)
+        dt = F.softplus(randn(B, S, Hs))
+        A = -torch.linspace(1.0, 16.0, Hs, device=dev)
+        Bm, Cm = randn(B, S, sm.state_dim).to(dtype), randn(B, S, sm.state_dim).to(dtype)
+        before = ssd_cuda.route_launches["simt"]
+        y, hT = ssd(x, dt, A, Bm, Cm)
+        yr, hr = ssd_ref(x.float(), dt, A, Bm.float(), Cm.float(), 256)
+        torch.cuda.synchronize()
+        if ssd_cuda.route_launches["simt"] != before + 1 or y.dtype != dtype:
+            fail(f"B6 SIMT {dtype}: route launches or output type {y.dtype}")
+        ry, rh = b6_reading(y, hT, yr, hr)
+        if dtype == torch.float16:
+            ry = float(((y.float() - yr).abs() / (B6_TOL * yr.abs().max()
+                                                   + 2.0 ** -10 * yr.abs())).max())
+        if not torch.isfinite(y.float()).all() or not max(ry, rh) <= 1.0:
+            fail(f"B6 SIMT {dtype}: y {ry:.3g}, hT {rh:.3g} times the bar")
+        simt[str(dtype)] = {"y": float((y.float() - yr).abs().max()),
+                            "y_over_bar": ry, "hT_over_bar": rh}
+        if dtype == torch.float32:
+            simt_ms = graph_ms(lambda: ssd(x, dt, A, Bm, Cm), reps=3, inner=3)
+            simt_plain = cuda_ms(lambda: ssd_ref(x, dt, A, Bm, Cm, 256), reps=3, inner=1)
+            simt_bytes = 4 * (2 * x.numel() + dt.numel() + Hs + 2 * Bm.numel()
+                              + B * Hs * sm.head_dim * sm.state_dim)
+            simt_bound, simt_by = bound_of(simt_bytes, 0.0, FP32_FLOP_PER_S)
+        del x, dt, A, Bm, Cm, y, hT, yr, hr
+    log(f"B6 SIMT route vs plain, x (4, {S}, {Hs}, {sm.head_dim}), B/C (4, {S}, "
+        f"{sm.state_dim}): " + json.dumps(simt))
+    log(f"B6 SIMT timing ({smi}): {simt_ms:.4f} ms/call (CUDA graph replay), plain "
+        f"{simt_plain:.3f} ms, bound {simt_bound:.5f} ms ({simt_by}: {simt_bytes} B)")
+    recs["B6_simt"] = {"max_abs_err": simt["torch.float32"]["y"], "errors": simt,
+                       "ms": simt_ms, "plain_ms": simt_plain, "bound_ms": simt_bound,
+                       "bound_by": simt_by, "library_ms": None,
+                       "shape": [B, S, Hs, sm.head_dim, sm.state_dim]}
+
     # ---- B7 at recurrentgemma-2b's RG-LRU ------------------------------- #
     la, gx = b7_inputs(dev, gen)
     W = la.shape[-1]
@@ -1061,10 +1368,20 @@ def lm_kernels(dev, smi: str) -> dict:
     b7_bound, b7_by = bound_of(b7_bytes, 3 * la.numel(), FP32_FLOP_PER_S)
     log(f"B7 vs plain, (log_a, gx) {tuple(la.shape)} float32: bit-identical "
         f"(max_abs_err {b7_err:.3g})")
+    # bf16 operands through the entry: cast to float32, then B7.
+    lab, gxb = la.bfloat16(), gx.bfloat16()
+    hb, tb = rglru(lab, gxb)
+    hr, tr = rglru_ref(lab.float(), gxb.float())
+    if hb.dtype != torch.float32 or not (torch.equal(hb, hr) and torch.equal(tb, tr)):
+        fail(f"B7 on bf16 inputs: {hb.dtype}, max |diff| {float((hb - hr).abs().max()):.3g}")
+    log("B7 on bf16 inputs through the entry: float32 out, bit-identical to the plain "
+        "version on the cast operands")
+    del lab, gxb, hb, tb, hr, tr
     log(f"B7 timing ({smi}): {b7_ms:.4f} ms/launch (CUDA graph replay), wrapper "
         f"{b7_wrapper:.4f} ms/call, plain {b7_plain:.3f} ms, bound {b7_bound:.4f} ms "
         f"({b7_by}: {b7_bytes} B)")
-    recs["B7"] = {"max_abs_err": b7_err, "ms": b7_ms, "wrapper_ms": b7_wrapper,
+    recs["B7"] = {"max_abs_err": b7_err, "bf16_entry_bit_identical": True,
+                  "ms": b7_ms, "wrapper_ms": b7_wrapper,
                   "plain_ms": b7_plain, "bound_ms": b7_bound, "bound_by": b7_by,
                   "library_ms": None,
                   "library": "none: no single PyTorch call runs a linear recurrence"}
@@ -1344,16 +1661,51 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
     return rec
 
 
+def serve_smoke(arch: str, dev, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 14's smoke-configuration run: ``arch``'s smoke config (mamba2:
+    head_dim 16, state_dim 16, B6's SIMT route) served on the card with the
+    counts set to 0 just before, then held to the CPU model on the same
+    weights by :func:`serve_parity` (each layer, the logits at every
+    position, the Engine's logits and tokens)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.models import LM
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = smoke_config(arch)
+    model = LM(cfg, device=dev, seed=0)
+    rng = np.random.default_rng(3)
+    reqs = [Request(rng.integers(0, cfg.vocab, 24).astype(np.int32), 4) for _ in range(2)]
+    engine = Engine(cfg, model, ServeConfig(batch_size=2, max_prompt=32, max_new=4))
+    n_ssd = sum(k == "ssd" for k in model.kinds)
+    torch.cuda.synchronize()
+    zero_counts()
+    results = engine.generate(reqs)
+    torch.cuda.synchronize()
+    counts = expect_counts(f"{arch} smoke config serving", {"B6": n_ssd})
+    if ssd_cuda.route_launches["simt"] != n_ssd:
+        fail(f"{arch} smoke: {ssd_cuda.route_launches} B6 launches by route")
+    par = serve_parity(cfg, model, dev)
+    rec = {"card": smi, "arch": arch, "config": "smoke", "launches": counts["B6"],
+           "simt_launches": n_ssd, "tokens": [r.tokens.tolist() for r in results],
+           "parity": par}
+    log(f"phase 14 {arch} smoke config on the card: " + json.dumps(rec))
+    return rec
+
+
 def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
-    """Phases 12-15; returns the kernels line's records of B5, B6 and B7."""
+    """Phases 12-15; returns the kernels line's records of B5, B6 and B7 and
+    of B5's float route and B6's SIMT route."""
     recs = lm_kernels(dev, smi)
     torch.cuda.empty_cache()
     rg = serve_model("recurrentgemma-2b", dev, smi, zero_counts, expect_counts,
                      {"B5": 16, "B7": 36}, 13)
     mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14)
+    smoke = serve_smoke("mamba2-780m", dev, smi, zero_counts, expect_counts)
     recs["B5"]["launches"] = rg["launches"]["B5"]
     recs["B7"]["launches"] = rg["launches"]["B7"]
     recs["B6"]["launches"] = mb["launches"]["B6"]
+    recs["B6_simt"]["launches"] = smoke["simt_launches"]
+    recs["B6_simt"]["launches_from"] = "phase 14: mamba2-780m's smoke config served"
     out = [{"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
@@ -1363,7 +1715,15 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
             "function": "ssd_pallas", **recs["B6"]},
            {"name": "rglru", "route": "cuda", "source": "src/repro_torch/csrc/rglru.cu",
             "replaces": "src/repro/kernels/rglru/kernel.py:43",
-            "function": "rglru_pallas", **recs["B7"]}]
+            "function": "rglru_pallas", **recs["B7"]},
+           {"name": "flash_attention.ffma", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+            "function": "flash_attention_pallas (float32 and f16 inputs)",
+            **recs["B5_ffma"]},
+           {"name": "ssd.simt", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
+            "replaces": "src/repro/kernels/ssd/kernel.py:63",
+            "function": "ssd_pallas (any head and state width)", **recs["B6_simt"]}]
     return out
 
 
@@ -1659,6 +2019,9 @@ def main() -> None:
     def zero_counts() -> None:
         for w in wrappers.values():
             w.launches = 0
+        flash_attention_cuda.route_launches = {"wgmma": 0, "ffma": 0}
+        ssd_cuda.route_launches = {"tensor_cores": 0, "simt": 0}
+        megakernel_cuda.build_launches = {}
 
     def expect_counts(path: str, want: dict) -> dict:
         """Every kernel's count since zero_counts(); kernels ``want`` does
@@ -1685,14 +2048,26 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = ("dyn_fir", "megakernel", "gauss5x5", "motion_post", "flash_attention",
             "ssd", "rglru")
-    # Phase 16's build of B2 with the clock split, beside the seven.
-    split_build = threading.Thread(target=_build.build, args=("megakernel",),
-                                   kwargs={"defines": (mk_kernel.CLOCK_SPLIT_DEFINE,)})
+    # Phase 16's build of B2 with the clock split and phase 17's three
+    # health builds, beside the seven.
+    other_builds = [threading.Thread(target=_build.build, args=("megakernel",),
+                                     kwargs={"defines": d})
+                    for d in ((mk_kernel.CLOCK_SPLIT_DEFINE,),
+                              mk_kernel.build_defines(guards=True),
+                              mk_kernel.build_defines(trace=True),
+                              mk_kernel.build_defines(guards=True, trace=True))]
     if not lm_only:
-        split_build.start()
+        for t in other_builds:
+            t.start()
     nvcc_out = _build.build(*libs)
     if not lm_only:
-        split_build.join()
+        for t in other_builds:
+            t.join()
+        for d in ((mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
+                  mk_kernel.build_defines(trace=True),
+                  mk_kernel.build_defines(guards=True, trace=True)):
+            if not _build.library_path("megakernel", d).exists():
+                fail(f"megakernel build {d} failed")
     log(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib, text in nvcc_out.items():
         for line in text.splitlines():
@@ -1963,6 +2338,15 @@ def main() -> None:
         if split["sweeps"] != sweeps:
             fail(f"B2 clock split on {label}: {split['sweeps']} sweeps, not {sweeps}")
         log(f"b2_split_{label} " + json.dumps({"card": smi, **split}))
+
+    # ---- 17. guards, trace and fault injection (A7) ---------------------- #
+    a7 = a7_phase(dev, smi, zero_counts, expect_counts,
+                  (net_gpu, res_gpu, {"B1": expected}),
+                  (md["net"], md["result"], {"B3": MD_FRAMES // MD_RATE}),
+                  {"dpd": (b2_bound_ms, b2_bound_by),
+                   "md": (md["B2"]["bound_ms"], md["B2"]["bound_by"])})
+    del md["net"], md["result"]
+    torch.cuda.empty_cache()
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2008,7 +2392,7 @@ def main() -> None:
         "function": "motion_post_pallas",
         **md["B4"],
         "library_ms": None,
-    }, *lm]}), flush=True)
+    }, *a7, *lm]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

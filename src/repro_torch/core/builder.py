@@ -150,6 +150,58 @@ def derive_matched_rates(src: ActorSpec, dst: ActorSpec, src_env, dst_env,
 
 
 # --------------------------------------------------------------------------- #
+# PRUNE-style buffer-bound analysis (arXiv:1802.06625): decide per channel,
+# from declared or derived enable-fraction bounds, whether the Eq. 1
+# capacity provably suffices.  Overflow and starvation become build errors
+# for decidable graphs and stay runtime guard flags (core/health.py) for
+# the rest.
+# --------------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class ChannelBounds:
+    """One channel's enable-fraction bounds and the verdict they prove.
+
+    ``src_bounds`` / ``dst_bounds`` are ``(lo, hi)`` fractions of firings
+    in which the producing / consuming port is enabled (1.0: every
+    firing).  Verdicts: ``"balanced"`` (production provably equals
+    consumption), ``"unbounded"`` (the producer's floor exceeds the
+    consumer's ceiling), ``"starved"`` (the consumer's floor exceeds the
+    producer's ceiling), ``"undecided"`` (token-dependent enables with no
+    declared bounds: the runtime guards own the channel).
+    """
+
+    fifo: str
+    src: str
+    dst: str
+    src_bounds: Tuple[float, float]
+    dst_bounds: Tuple[float, float]
+    verdict: str
+
+    def describe(self) -> str:
+        return (f"channel {self.fifo!r} ({self.src} -> {self.dst}): "
+                f"{self.verdict} [producer enabled "
+                f"{self.src_bounds[0]:g}..{self.src_bounds[1]:g} of "
+                f"firings, consumer {self.dst_bounds[0]:g}.."
+                f"{self.dst_bounds[1]:g}]")
+
+
+@dataclasses.dataclass(frozen=True)
+class BoundsReport:
+    """Per-channel verdicts of :meth:`NetworkBuilder.check_bounds`."""
+
+    channels: Tuple[ChannelBounds, ...]
+
+    def violations(self) -> Tuple[ChannelBounds, ...]:
+        return tuple(c for c in self.channels
+                     if c.verdict in ("unbounded", "starved"))
+
+    def undecided(self) -> Tuple[ChannelBounds, ...]:
+        return tuple(c for c in self.channels if c.verdict == "undecided")
+
+    def describe(self) -> str:
+        return "\n".join(c.describe() for c in self.channels)
+
+
+# --------------------------------------------------------------------------- #
 # The builder.
 # --------------------------------------------------------------------------- #
 class NetworkBuilder:
@@ -161,6 +213,8 @@ class NetworkBuilder:
         self._fifo_names: set = set()
         self._used_out: Dict[Tuple[str, str], str] = {}
         self._used_in: Dict[Tuple[str, str], str] = {}
+        self._rate_bounds: Dict[Tuple[str, str], Tuple[float, float]] = {}
+        self.bounds_report: Optional[BoundsReport] = None
 
     def actor(self, spec: ActorSpec) -> ActorSpec:
         """Register an actor; registration order is the network's actor
@@ -349,18 +403,108 @@ class NetworkBuilder:
                 feeder_equal)
         return out
 
+    # -- PRUNE-style bound proofs ----------------------------------------- #
+    def rate_bounds(self, endpoint: str, lo: float,
+                    hi: float) -> "NetworkBuilder":
+        """Declare the fraction of firings in which the dynamic port
+        ``endpoint`` ("actor.port") is enabled: ``(0.0, 1.0)`` is the
+        vacuous default, ``(1.0, 1.0)`` pins the port always on.  Returns
+        ``self``."""
+        actor, port = self._parse(endpoint, "rate_bounds")
+        a = self._actors[actor]
+        ports = (*a.all_in_ports(), *a.out_ports)
+        if port not in ports:
+            raise ValueError(
+                f"rate_bounds({endpoint!r}): actor {actor!r} has no port "
+                f"{port!r}; {_suggest(port, ports)}")
+        if not (0.0 <= lo <= hi <= 1.0):
+            raise ValueError(
+                f"rate_bounds({endpoint!r}): bounds must satisfy "
+                f"0 <= lo <= hi <= 1 (fractions of firings), got "
+                f"lo={lo}, hi={hi}")
+        self._rate_bounds[(actor, port)] = (float(lo), float(hi))
+        return self
+
+    def _port_bounds(self, actor_name: str, port: str,
+                     env) -> Tuple[float, float]:
+        """Enable-fraction bounds of one port, most precise source first:
+        declared ``rate_bounds``, control port, static actor, provably
+        constant enable, else unknown."""
+        a = self._actors[actor_name]
+        declared = self._rate_bounds.get((actor_name, port))
+        if declared is not None:
+            return declared
+        if port == a.control_port or not a.is_dynamic:
+            return (1.0, 1.0)
+        e = env(actor_name, port)
+        if e is not None and e[0] == "const":
+            v = 1.0 if e[1] > 0 else 0.0
+            return (v, v)
+        return (0.0, 1.0)
+
+    def check_bounds(self) -> BoundsReport:
+        """The per-channel bound analysis, without building: matched-rates
+        proofs (``"balanced"``), constant enables and declared
+        :meth:`rate_bounds` give each channel a :class:`ChannelBounds`
+        verdict.  The report is also kept as ``self.bounds_report``."""
+        matched = self._derive_matched()
+        env_cache: Dict[Tuple[str, str], Any] = {}
+
+        def env(actor_name: str, port: str):
+            key = (actor_name, port)
+            if key not in env_cache:
+                a = self._actors[actor_name]
+                feed, cspec = self._control_feed(a)
+                env_cache[key] = _enable_expr(a, port, cspec, feed)
+            return env_cache[key]
+
+        channels = []
+        for c in self._connections:
+            e = c.edge
+            src_b = self._port_bounds(e.src_actor, e.src_port, env)
+            dst_b = self._port_bounds(e.dst_actor, e.dst_port, env)
+            if matched.get(c.spec.name):
+                verdict = "balanced"
+            elif src_b[0] > dst_b[1]:
+                verdict = "unbounded"
+            elif dst_b[0] > src_b[1]:
+                verdict = "starved"
+            elif src_b == dst_b and src_b[0] == src_b[1]:
+                verdict = "balanced"
+            else:
+                verdict = "undecided"
+            channels.append(ChannelBounds(
+                fifo=c.spec.name, src=f"{e.src_actor}.{e.src_port}",
+                dst=f"{e.dst_actor}.{e.dst_port}", src_bounds=src_b,
+                dst_bounds=dst_b, verdict=verdict))
+        self.bounds_report = BoundsReport(channels=tuple(channels))
+        return self.bounds_report
+
     def build(self, derive_matched: bool = True,
-              device: DeviceLike = None) -> Network:
+              device: DeviceLike = None,
+              check_bounds: bool = False) -> Network:
         """Validate and emit the :class:`Network` on ``device`` (the CUDA
         card when None).  Dangling ports are reported with the missing
         ``connect`` calls; ``derive_matched`` runs the matched-rates
-        proof for channels left at ``matched_rates=None``."""
+        proof for channels left at ``matched_rates=None``;
+        ``check_bounds=True`` runs :meth:`check_bounds` and rejects a
+        provably unbounded or starved channel."""
         dangling = self.dangling_ports()
         if dangling:
             raise ValueError(
                 "network has dangling ports (every port connects to exactly "
                 f"one channel, paper §3.2): {sorted(dangling)} — add a "
                 "b.connect(...) for each")
+        if check_bounds:
+            bad = self.check_bounds().violations()
+            if bad:
+                raise ValueError(
+                    "NetworkBuilder.build(check_bounds=True): the declared/"
+                    "derived rate bounds prove these channels violate their "
+                    "Eq. 1 buffers:\n  "
+                    + "\n  ".join(c.describe() for c in bad)
+                    + "\n(fix the graph, adjust rate_bounds(...), or build "
+                    "with check_bounds=False and rely on runtime guards)")
         matched = (self._derive_matched() if derive_matched
                    else {c.spec.name: bool(c.matched_override)
                          for c in self._connections})

@@ -23,17 +23,25 @@ and every Poly body is a kernel launch there:
    every actor in declaration order, firing it while its blocking
    predicates hold (the control token peeked first), up to
    ``_MAX_FIRINGS_PER_VISIT`` per visit, until a sweep fires nothing.
+   ``guards=True`` evaluates the health layer's guards next to every
+   channel operation (``core/health.py``) and ``trace_capacity=N``
+   records every firing attempt (``core/trace.py``); both observe and
+   change nothing, and with both off the executor does what it did
+   without them.
 
 Both update the state in place.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional
 
 import torch
 
+from repro_torch.core.health import (HealthState, init_health, read_guard_bits,
+                                     true_occupancy, write_guard_bits)
 from repro_torch.core.network import Network, NetworkState
 from repro_torch.core.schedule import validate_single_appearance
+from repro_torch.core.trace import init_trace
 
 # Worst-case firings of one actor per multi-firing visit (the reference's
 # bound: Eq. 1 caps a channel at 3 windows, 8 leaves slack).
@@ -51,7 +59,8 @@ def _forwarded(regs: Dict[int, Optional[torch.Tensor]], fi: int, spec,
 
 
 def fire_actor(network: Network, name: str, state: NetworkState,
-               regs: Optional[Dict[int, Optional[torch.Tensor]]] = None) -> None:
+               regs: Optional[Dict[int, Optional[torch.Tensor]]] = None,
+               health: Optional[HealthState] = None) -> None:
     """Fire actor ``name`` once, in place (paper §2.2 firing protocol).
 
     1. A dynamic actor consumes one control token; its control function
@@ -67,9 +76,19 @@ def fire_actor(network: Network, name: str, state: NetworkState,
     forwarding for ``network.register_fifos``: the producer's window is
     handed to the consumer and only the cursors move.  Callers guarantee
     the blocking preconditions.
+
+    ``health`` arms the channel guards: each read and write ORs its fault
+    bits, from the pre-op cursors and its window, into ``health``, and
+    each write of the firing marks the channel's true occupancy after it.
+    The guards ride the masked path only (``regs`` must be None).
     """
     a = network.actors[name]
     fifos = state.fifos
+    if health is not None and regs is not None:
+        raise ValueError(
+            "fire_actor: health guards apply to the dynamic (masked-cursor) "
+            "path; the static schedule proves its blocking bounds at build "
+            "time")
 
     def is_reg(spec) -> bool:
         return regs is not None and spec.name in network.register_fifos
@@ -83,7 +102,11 @@ def fire_actor(network: Network, name: str, state: NetworkState,
             fifos[ci].rd += 1
             fifos[ci].occ -= 1
         else:
-            window = cspec.read(fifos[ci])
+            st = fifos[ci]
+            pre = (st.rd, st.wr, st.occ)
+            window = cspec.read(st)
+            if health is not None:
+                health.record(ci, read_guard_bits(cspec, *pre, 1, window))
         ctrl_tok = window[0].tolist()
     rates = a.rates_for(ctrl_tok)
 
@@ -100,7 +123,10 @@ def fire_actor(network: Network, name: str, state: NetworkState,
                 st.rd += 1
                 st.occ -= spec.rate
         else:
+            pre = (st.rd, st.wr, st.occ)
             windows[p] = spec.read_masked(st, en)
+            if health is not None:
+                health.record(fi, read_guard_bits(spec, *pre, en, windows[p]))
 
     ports = (*a.in_ports, *a.out_ports)
     run_body = not a.is_dynamic or not ports or any(rates[p] for p in ports)
@@ -123,7 +149,13 @@ def fire_actor(network: Network, name: str, state: NetworkState,
                 fifos[fi].wr += 1
                 fifos[fi].occ += spec.rate
         else:
-            spec.write_masked(fifos[fi], outputs.get(p), en)
+            st = fifos[fi]
+            if health is not None:
+                health.record(fi, write_guard_bits(spec, st.rd, st.wr, st.occ,
+                                                   en, outputs.get(p)))
+                health.mark_high_water(fi, true_occupancy(spec, st.rd, st.wr)
+                                       + (spec.rate if en else 0))
+            spec.write_masked(st, outputs.get(p), en)
 
 
 # --------------------------------------------------------------------------- #
@@ -199,34 +231,70 @@ def _max_fireable(network: Network, name: str, state: NetworkState) -> int:
     return k
 
 
+class DynamicResult(tuple):
+    """``(state, fire_counts, sweeps, stalled)`` of a dynamic run, with the
+    health layer's record as attributes: ``health`` (a
+    :class:`~repro_torch.core.health.HealthState`, or None with guards
+    off) and ``trace`` (a :class:`~repro_torch.core.trace.TraceState`, or
+    None with tracing off)."""
+
+    def __new__(cls, state, counts, sweeps, stalled, health=None, trace=None):
+        self = tuple.__new__(cls, (state, counts, sweeps, stalled))
+        self.health = health
+        self.trace = trace
+        return self
+
+
 def run_dynamic(network: Network, state: NetworkState,
-                max_sweeps: int = 1_000_000, multi_firing: bool = True
-                ) -> Tuple[NetworkState, Dict[str, int], int, bool]:
+                max_sweeps: int = 1_000_000, multi_firing: bool = True,
+                guards: bool = False, trace_capacity: Optional[int] = None
+                ) -> DynamicResult:
     """Sweep to quiescence in place.
 
-    Returns ``(state, fire_counts, sweeps, stalled)``; ``stalled`` is True
-    when the loop left through ``max_sweeps`` with work remaining.  Within
-    a visit every firing is guarded by :func:`_can_fire`; a failed attempt
-    leaves the state unchanged, so the rest of the visit's budget would
-    fail too and the visit ends there.
+    Returns ``(state, fire_counts, sweeps, stalled)`` (a
+    :class:`DynamicResult`); ``stalled`` is True when the loop left through
+    ``max_sweeps`` with work remaining.  Within a visit every firing is
+    guarded by :func:`_can_fire`; a failed attempt leaves the state
+    unchanged, so the rest of the visit's budget would fail too and the
+    visit ends there.
+
+    ``guards=True`` collects the channel guards' fault words and
+    high-water marks (``.health``): cursor guards on the host ints, value
+    guards into one device vector read after the run.  ``trace_capacity``
+    records one event per attempt into a ring of that many events
+    (``.trace``); a visit's attempts after a failed one are recorded as
+    skipped, as the reference attempts all of them.
     """
     names = list(network.actors)
     counts = {nm: 0 for nm in names}
+    n_fifos = len(network.fifos)
+    health = init_health(n_fifos, network.device) if guards else None
+    trace = init_trace(n_fifos, trace_capacity) if trace_capacity else None
+
+    def occs() -> List[int]:
+        return [f.occ for f in state.fifos]
+
     sweeps = 0
     fired_any = True
     while fired_any and sweeps < max_sweeps:
         fired_any = False
         for nm in names:
             k = _max_fireable(network, nm, state) if multi_firing else 1
-            for _ in range(k):
+            for i in range(k):
                 if not _can_fire(network, nm, state):
+                    if trace is not None:
+                        row = occs()
+                        for _ in range(k - i):
+                            trace.record(network.actor_index[nm], sweeps, 0, row)
                     break
-                fire_actor(network, nm, state)
+                fire_actor(network, nm, state, health=health)
                 counts[nm] += 1
                 fired_any = True
+                if trace is not None:
+                    trace.record(network.actor_index[nm], sweeps, 1, occs())
         sweeps += 1
     stalled = fired_any and sweeps >= max_sweeps
-    return state, counts, sweeps, stalled
+    return DynamicResult(state, counts, sweeps, stalled, health, trace)
 
 
 def collect_sink(network: Network, state: NetworkState, actor: str) -> Any:

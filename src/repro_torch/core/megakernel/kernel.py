@@ -12,6 +12,12 @@ refused launch, and adds one to ``megakernel_cuda.launches`` per launch.
 The library is built and loaded at the first launch, never at import.  The
 kernel's blocks report their progress through one scratch word per SM,
 which the wrapper allocates once per device and stream.
+
+The health layer's builds are compile-time variants of the same source,
+each a library of its own: ``-DMK_GUARDS`` evaluates the channel guards
+(fault words and high-water marks after the meta words) and ``-DMK_TRACE``
+writes one event per firing attempt into a trace ring on the card.  The
+main build, with both off, is the kernel without them.
 """
 from __future__ import annotations
 
@@ -23,29 +29,53 @@ import torch
 
 from repro_torch.core.megakernel.lower import (GridPartition, MegakernelLayout,
                                                lower_network, partition_layout)
+import numpy as np
+
+from repro_torch.core.executor import DynamicResult
 from repro_torch.core.megakernel.program import (KIND_CODES, M_CLK_KIND,
                                                  M_CLK_LOOP, M_CLK_SCHED,
                                                  M_CLK_STALL,
                                                  DeviceProgram,
-                                                 build_device_program, stage,
-                                                 unstage)
+                                                 build_device_program, health_of,
+                                                 stage, unstage)
 from repro_torch.core.megakernel.ref import run_program
 from repro_torch.core.network import Network, NetworkState
+from repro_torch.core.trace import COL_OCC, TraceState
 from repro_torch.kernels import _build
 
 
-#: The compile-time define of the build that writes B2's clock split.
+#: The compile-time defines of B2's other builds: the clock split, the
+#: channel guards and the firing trace.
 CLOCK_SPLIT_DEFINE = "-DMK_CLOCK_SPLIT"
+GUARDS_DEFINE = "-DMK_GUARDS"
+TRACE_DEFINE = "-DMK_TRACE"
+
+
+def build_defines(clock_split: bool = False, guards: bool = False,
+                  trace: bool = False) -> Tuple[str, ...]:
+    """The ``-D`` flags of one build of ``megakernel.cu``."""
+    return tuple(d for on, d in ((clock_split, CLOCK_SPLIT_DEFINE),
+                                 (guards, GUARDS_DEFINE), (trace, TRACE_DEFINE))
+                 if on)
+
+
+def build_name(defines: Tuple[str, ...]) -> str:
+    """A build's key in ``megakernel_cuda.build_launches``: ``"main"``, or
+    its defines joined, as ``"guards+trace"``."""
+    return "+".join(d[len("-DMK_"):].lower() for d in defines) or "main"
 
 
 @functools.lru_cache(maxsize=None)
-def _library(clock_split: bool = False) -> ctypes.CDLL:
-    """The built library with its C signatures declared (once per build)."""
-    lib = _build.load("megakernel", (CLOCK_SPLIT_DEFINE,) if clock_split else ())
+def _library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The built library with its C signatures declared (once per build);
+    a trace build's entry takes the ring and its capacity as well."""
+    lib = _build.load("megakernel", defines)
     fn = lib.megakernel_run
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                    ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    if TRACE_DEFINE in defines:
+        fn.argtypes += [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
     lib.megakernel_error_string.argtypes = [ctypes.c_int]
     lib.megakernel_error_string.restype = ctypes.c_char_p
@@ -65,16 +95,23 @@ def _progress_words(device: torch.device, stream: int) -> torch.Tensor:
 
 def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
                     max_sweeps: int, multi_firing: bool,
-                    clock_split: bool = False) -> None:
+                    clock_split: bool = False, io_len: Optional[int] = None,
+                    guards: bool = False,
+                    trace: Optional[torch.Tensor] = None) -> None:
     """One launch of B2.
 
     ``table``: the packed device program, int32 on the card; ``args``: the
     run's int64 block on the same card, ``n_ptrs`` device addresses (rings,
     then actor tensors) followed by the io words, which the kernel
     rewrites.  Every address must stay valid until the launch completes.
+    ``io_len`` is the io words through the meta words (default: the rest
+    of ``args``); a guarded or traced launch needs the health and trace
+    words after them (``DeviceProgram.io_health_len``).
     ``clock_split`` launches the build that also writes block 0's clock
     split into the meta words from ``M_CLK_STALL`` on
-    (:func:`decode_clock_split`).
+    (:func:`decode_clock_split`); ``guards`` the ``MK_GUARDS`` build, and
+    ``trace``, a ``(capacity, 3 + n_fifos)`` int32 ring on the card, the
+    ``MK_TRACE`` build, which writes the ring and the event count.
     """
     for t, what, dtype in ((table, "table", torch.int32),
                            (args, "args", torch.int64)):
@@ -88,23 +125,41 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
         raise ValueError(f"megakernel_cuda: n_ptrs {n_ptrs} out of range")
     if not 0 <= max_sweeps < 2 ** 31:
         raise ValueError(f"megakernel_cuda: max_sweeps {max_sweeps} must fit int32")
-    lib = _library(clock_split)
+    if io_len is None:
+        io_len = args.numel() - n_ptrs
+    if not 0 < io_len <= args.numel() - n_ptrs:
+        raise ValueError(f"megakernel_cuda: io_len {io_len} out of range")
+    extra = []
+    if trace is not None:
+        if (not trace.is_cuda or trace.dtype != torch.int32 or trace.dim() != 2
+                or trace.shape[1] <= COL_OCC or not trace.is_contiguous()
+                or trace.device != args.device):
+            raise ValueError("megakernel_cuda: trace must be a contiguous "
+                             "(capacity, 3 + n_fifos) int32 tensor on "
+                             f"{args.device}")
+        extra = [trace.data_ptr(), trace.shape[0]]
+    defines = build_defines(clock_split, guards, trace is not None)
+    lib = _library(defines)
     with torch.cuda.device(args.device):
         stream = torch.cuda.current_stream(args.device).cuda_stream
         progress = _progress_words(args.device, stream)
         err = lib.megakernel_run(table.data_ptr(), table.numel(), args.data_ptr(),
-                                 n_ptrs, args.numel() - n_ptrs, max_sweeps,
+                                 n_ptrs, io_len, max_sweeps,
                                  int(bool(multi_firing)), progress.data_ptr(),
-                                 progress.numel(), stream)
+                                 progress.numel(), stream, *extra)
     if err != 0:
         raise RuntimeError(
             f"megakernel launch failed: CUDA error {err} "
             f"({lib.megakernel_error_string(err).decode()})")
     megakernel_cuda.launches += 1
+    key = build_name(defines)
+    megakernel_cuda.build_launches[key] = megakernel_cuda.build_launches.get(key, 0) + 1
 
 
-#: Launches of the kernel since the count was last set to 0.
+#: Launches of the kernel since the count was last set to 0, in all and by
+#: build (:func:`build_name`).
 megakernel_cuda.launches = 0
+megakernel_cuda.build_launches = {}
 
 
 def decode_clock_split(meta) -> Dict[str, Any]:
@@ -139,13 +194,17 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
                        multi_firing: bool = True,
                        layout: Optional[MegakernelLayout] = None,
                        partition: Optional[GridPartition] = None,
-                       cores: int = 1) -> Callable:
+                       cores: int = 1, guards: bool = False,
+                       trace_capacity: Optional[int] = None) -> Callable:
     """Compile ``network`` into the device program of B2.
 
-    Returns ``runner(state) -> (state, fire_counts, sweeps, stalled)``,
-    which updates ``state`` in place.  A state on the card is one kernel
-    launch, staged in and out through one small block each way with one
-    synchronisation at the end; a state on the CPU runs :mod:`.ref`.
+    Returns ``runner(state) -> (state, fire_counts, sweeps, stalled)`` (a
+    :class:`~repro_torch.core.executor.DynamicResult`), which updates
+    ``state`` in place.  A state on the card is one kernel launch, staged
+    in and out through one small block each way with one synchronisation
+    at the end; a state on the CPU runs :mod:`.ref`.  ``guards`` runs the
+    ``MK_GUARDS`` build (``.health`` on the result), ``trace_capacity``
+    the ``MK_TRACE`` build with a ring of that many events (``.trace``).
 
     ``layout`` and ``partition`` default to :func:`lower_network` and the
     default ``cores``-way :func:`partition_layout`.  Entry rules of the
@@ -159,6 +218,16 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
     if partition is None:
         partition = partition_layout(network, layout, cores)
     prog = build_device_program(network, layout, partition)
+    if guards:
+        declared = [n for n, sp in network.fifos.items()
+                    if sp.domain is not None and not sp.is_control]
+        if declared:
+            raise NotImplementedError(
+                f"megakernel guards: data channels {declared} declare a "
+                "value domain; the kernel's DOMAIN guard reads control "
+                "tokens only (MoE and serving graphs bring data domains, "
+                "ROADMAP A8b and A9)")
+    health_words = guards or bool(trace_capacity)
     on_device: Dict[torch.device, Tuple[torch.Tensor, List[torch.Tensor]]] = {}
 
     def device_operands(device: torch.device) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -168,8 +237,7 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
                                  [t.to(device) for _, t in prog.consts])
         return on_device[device]
 
-    def run(state: NetworkState, kernel: bool
-            ) -> Tuple[NetworkState, Dict[str, int], int, bool]:
+    def run(state: NetworkState, kernel: bool) -> DynamicResult:
         for fi in partition.forwarded_fifos:
             occ = state.fifos[fi].occ
             if occ:
@@ -182,23 +250,33 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
                     "ring in scratch)")
         device = _state_device(prog, state, network.device)
         table, consts = device_operands(device)
-        tensors, io = stage(prog, state, device, consts)
+        tensors, io = stage(prog, state, device, consts, health_words)
+        ring = None
         if kernel:
             ptrs = [0 if t is None else t.data_ptr() for t in tensors]
             host = torch.tensor(ptrs + io, dtype=torch.int64, pin_memory=True)
             args = host.to(device, non_blocking=True)
-            megakernel_cuda(table, args, prog.n_ptrs, max_sweeps, multi_firing)
+            if trace_capacity:
+                ring = torch.zeros((trace_capacity, COL_OCC + prog.n_fifos),
+                                   dtype=torch.int32, device=device)
+            megakernel_cuda(table, args, prog.n_ptrs, max_sweeps, multi_firing,
+                            io_len=prog.io_len, guards=guards, trace=ring)
             io = args[prog.n_ptrs:].cpu().tolist()
         else:
+            if trace_capacity:
+                ring = np.zeros((trace_capacity, COL_OCC + prog.n_fifos), np.int32)
             run_program(prog.table.tolist(), tensors, io, max_sweeps,
-                        multi_firing)
+                        multi_firing, guards=guards, trace_ring=ring)
         counts, sweeps, stalled = unstage(prog, state, io)
-        return state, counts, sweeps, stalled
+        return DynamicResult(
+            state, counts, sweeps, stalled,
+            health_of(prog, io) if guards else None,
+            TraceState(ring, int(io[prog.io_events])) if ring is not None else None)
 
-    def runner(state: NetworkState) -> Tuple[NetworkState, Dict[str, int], int, bool]:
+    def runner(state: NetworkState) -> DynamicResult:
         return run(state, _state_device(prog, state, network.device).type == "cuda")
 
-    def plain(state: NetworkState) -> Tuple[NetworkState, Dict[str, int], int, bool]:
+    def plain(state: NetworkState) -> DynamicResult:
         """The plain version on the state's device, whatever it is: the
         kernel's oracle on the card."""
         return run(state, False)

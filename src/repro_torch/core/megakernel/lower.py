@@ -41,8 +41,8 @@ SHARED = -1
 
 #: Partition-cut objectives.  ``"crossing"`` (default) minimizes crossing
 #: ring bytes within the balance slack, ``"flops"`` balances ``cost_flops``
-#: alone, ``"profile"`` cuts on measured weights from a traced run, which
-#: the port has not yet (ROADMAP A7): it raises.
+#: alone, ``"profile"`` is the crossing cut over measured weights from a
+#: traced run (``Profile.as_cut_weights()``).
 CUT_OBJECTIVES = ("crossing", "flops", "profile")
 
 #: How far above the flops-only optimal bottleneck the crossing cut may
@@ -301,29 +301,35 @@ def _crossing_cut(weights: List[int], spans: List[Tuple[int, int, int]],
     return groups
 
 
-def _check_objective(objective: str, cut: bool) -> None:
-    """Reject an unknown objective, and ``"profile"`` where a cut runs."""
+def _check_objective(objective: str) -> None:
     if objective not in CUT_OBJECTIVES:
         raise ValueError(
             f"partition cut objective must be one of {CUT_OBJECTIVES}, "
             f"got {objective!r}")
-    if cut and objective == "profile":
-        raise NotImplementedError(
-            "cut_objective='profile' cuts on measured weights from a traced "
-            "run; the firing trace is not ported yet: ROADMAP A7")
 
 
 def default_assignment(network: Network, cores: int,
                        layout: Optional[MegakernelLayout] = None,
-                       objective: str = "crossing") -> dict:
+                       objective: str = "crossing",
+                       profile: Optional[Mapping[str, Mapping[str, int]]]
+                       = None) -> dict:
     """Default actor -> core map: a contiguous cut of the visit order with
     window-uncovered delay-channel endpoints glued into one unit.
 
     ``"flops"`` balances ``cost_flops`` (floor 1 per actor);
     ``"crossing"`` (needs ``layout``, else it is the flops cut) picks,
-    within the balance slack, the cut with the fewest crossing ring bytes.
+    within the balance slack, the cut with the fewest crossing ring bytes;
+    ``"profile"`` is the crossing cut over measured weights,
+    ``profile={"actors": {...}, "channels": {...}}``
+    (``Profile.as_cut_weights()``): per-actor load and per-channel churn
+    bytes.
     """
-    _check_objective(objective, cut=True)
+    _check_objective(objective)
+    if objective == "profile" and profile is None:
+        raise ValueError(
+            "cut_objective='profile' needs measured weights: run once "
+            "with ExecutionPlan(trace=True), then pass "
+            "RunResult.trace.profile().as_cut_weights()")
     names = list(network.actors)
     units = _glued_units(network)
     if cores > len(units):
@@ -332,24 +338,34 @@ def default_assignment(network: Network, cores: int,
             f"this network ({len(names)} actors after gluing delay-channel "
             "endpoints); pass fewer cores or an explicit assign= that "
             "leaves no core empty")
-    weights = [sum(max(1, int(network.actors[names[i]].cost_flops)) for i in u)
-               for u in units]
+    if objective == "profile":
+        actor_w = dict(profile.get("actors", {}))
+        weights = [sum(max(1, int(actor_w.get(names[i], 1))) for i in u)
+                   for u in units]
+    else:
+        weights = [sum(max(1, int(network.actors[names[i]].cost_flops))
+                       for i in u) for u in units]
     groups, bottleneck = _balanced_cut(weights, cores)
-    if objective == "crossing" and layout is not None and cores > 1:
+    if (objective == "profile" or
+            (objective == "crossing" and layout is not None)) and cores > 1:
         unit_of = {}
         for ui, unit in enumerate(units):
             for i in unit:
                 unit_of[i] = ui
         idx = {n: i for i, n in enumerate(names)}
+        chan_w = (dict(profile.get("channels", {}))
+                  if objective == "profile" else None)
         spans = []
         for fname in network.fifos:
-            if fname not in layout.fifo_names:
+            if objective == "crossing" and fname not in layout.fifo_names:
                 continue
             e = network.edge_of(fname)
             a, b = unit_of[idx[e.src_actor]], unit_of[idx[e.dst_actor]]
             if a != b:
                 spans.append((min(a, b), max(a, b),
-                              network.fifos[fname].capacity_bytes))
+                              max(0, int(chan_w.get(fname, 0)))
+                              if chan_w is not None
+                              else network.fifos[fname].capacity_bytes))
         cap = max(bottleneck, int(bottleneck * _CUT_BALANCE_SLACK))
         groups = _crossing_cut(weights, spans, cores, cap)
     out = {}
@@ -363,20 +379,23 @@ def partition_layout(network: Network, layout: MegakernelLayout,
                      cores: int = 1,
                      assign: Optional[Mapping[str, int]] = None,
                      objective: str = "crossing",
-                     forward_transients: bool = True) -> GridPartition:
+                     forward_transients: bool = True,
+                     profile: Optional[Mapping[str, Mapping[str, int]]]
+                     = None) -> GridPartition:
     """Partition the firing table across ``cores`` grid partitions.
 
     ``assign`` (actor -> core) overrides the default cut and must pass
     ``Network.validate_partition``; the partition then records
-    ``objective="assign"``.  With ``forward_transients`` the core-private
-    subset of ``layout.transient_fifos`` is forwarded.
+    ``objective="assign"``.  ``profile`` carries the measured weights of
+    the ``"profile"`` objective.  With ``forward_transients`` the
+    core-private subset of ``layout.transient_fifos`` is forwarded.
     """
     if cores < 1:
         raise ValueError(f"cores must be >= 1, got {cores}")
-    _check_objective(objective, cut=False)
+    _check_objective(objective)
     if assign is None:
         assign = default_assignment(network, cores, layout=layout,
-                                    objective=objective)
+                                    objective=objective, profile=profile)
     else:
         objective = "assign"
     network.validate_partition(assign, cores)

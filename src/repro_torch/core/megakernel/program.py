@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core.builder import domain_values
 from repro_torch.core.fifo import FifoSpec
+from repro_torch.core.health import HealthState, int_domain
 from repro_torch.core.megakernel.lower import GridPartition, MegakernelLayout
 from repro_torch.core.network import Network
 from repro_torch.kernels.dyn_fir.ref import N_TAPS
@@ -61,7 +62,7 @@ H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF, \
 
 FIFO_FIELDS = 12
 (F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
- F_ELEM) = range(10)
+ F_ELEM, F_DLO, F_DHI) = range(12)
 
 ACTOR_FIELDS = 20
 (A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
@@ -80,6 +81,11 @@ META_WORDS = 17
 #: Error codes of the run: a control token outside its channel's declared
 #: domain; a source or sink index past its slab.
 ERR_DOMAIN, ERR_SLAB = 1, 2
+
+#: Words after the meta words of a guarded or traced run: per channel its
+#: fault word, then per channel its high-water mark, then the trace's event
+#: count (``DeviceProgram.io_fault`` and on).  Only the ``MK_GUARDS`` and
+#: ``MK_TRACE`` builds of B2 write them.
 
 _UNSUPPORTED = ("the megakernel backend runs actors through the device "
                 "functions they declare (ActorSpec.device_op); MoE's actors "
@@ -155,6 +161,23 @@ class DeviceProgram:
         return self.io_meta + META_WORDS
 
     @property
+    def io_fault(self) -> int:
+        return self.io_len
+
+    @property
+    def io_high_water(self) -> int:
+        return self.io_fault + self.n_fifos
+
+    @property
+    def io_events(self) -> int:
+        return self.io_high_water + self.n_fifos
+
+    @property
+    def io_health_len(self) -> int:
+        """The io block with the health and trace words."""
+        return self.io_events + 1
+
+    @property
     def n_ptrs(self) -> int:
         return self.n_fifos + self.n_aptrs
 
@@ -190,6 +213,9 @@ def fifo_row(spec: FifoSpec, forwarded: bool = False,
     row[F_CBASE] = ctrl_base
     row[F_DELAY] = spec.delay
     row[F_ELEM] = ELEM_CODES[spec.dtype]
+    if spec.is_control:
+        # The declared domain as the guards compare control tokens with it.
+        row[F_DLO], row[F_DHI] = int_domain(spec)
     return row
 
 
@@ -452,16 +478,19 @@ def _slab(t: Any, name: str, sl: ActorSlots, device: torch.device) -> int:
 
 
 def stage(prog: DeviceProgram, state: Any, device: torch.device,
-          consts: Sequence[torch.Tensor]
+          consts: Sequence[torch.Tensor], health_words: bool = False
           ) -> Tuple[List[Optional[torch.Tensor]], List[int]]:
     """The tensors the kernel addresses (ring per channel, None for control
-    rings, then each actor pointer slot) and the io words of ``state``.
+    rings, then each actor pointer slot) and the io words of ``state``,
+    with the zeroed health and trace words after the meta words when
+    ``health_words``.  Cursors are staged as they are, consistent or not:
+    the guards must see an injected fault.
 
     Forwarded control rings enter as zeros (the dead-slot rule); forwarded
     data rings are zeroed by the kernel itself.
     """
     tensors: List[Optional[torch.Tensor]] = []
-    io = [0] * prog.io_len
+    io = [0] * (prog.io_health_len if health_words else prog.io_len)
     for i, f in enumerate(state.fifos):
         io[3 * i:3 * i + 3] = [int(f.rd), int(f.wr), int(f.occ)]
         if i in prog.ctrl_base:
@@ -531,3 +560,11 @@ def unstage(prog: DeviceProgram, state: Any, io: Sequence[int]
     counts = {n: int(io[prog.io_counts + j])
               for j, n in enumerate(prog.actor_names)}
     return counts, int(io[meta + M_SWEEPS]), bool(io[meta + M_STALLED])
+
+
+def health_of(prog: DeviceProgram, io: Sequence[int]) -> HealthState:
+    """The fault words and high-water marks a guarded run left in ``io``."""
+    n = prog.n_fifos
+    return HealthState(n, fault=[int(x) for x in io[prog.io_fault:prog.io_fault + n]],
+                       high_water=[int(x) for x in
+                                   io[prog.io_high_water:prog.io_high_water + n]])

@@ -31,6 +31,14 @@ of k, so any order of whole commands that keeps those edges
 (:func:`permitted_order`) gives the sequential result; the tests replay
 such orders.
 
+With ``guards`` the scheduler also ORs each channel op's cursor fault bits
+(``core/health.py``, from the pre-op io words; the control tokens' DOMAIN)
+into the fault words after the meta words and keeps each channel's
+high-water mark, and :func:`execute` ORs NONFINITE for every enabled float
+window a body reads or writes, as kernel B2's ``MK_GUARDS`` build does.
+With a ``trace_ring`` the scheduler records one event per firing attempt,
+as the ``MK_TRACE`` build does (``core/trace.py``).
+
 Every tensor it is given is updated in place and ``io`` is rewritten, as
 the kernel rewrites its argument block.  The megakernel backend runs it for
 CPU states; ``chip_smoke.py`` runs it on the card as the kernel's oracle.
@@ -42,15 +50,19 @@ import random
 import struct
 from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.core.health import (CURSOR_INVALID, DOMAIN, NONFINITE,
+                                     OVERFLOW, UNDERFLOW)
 from repro_torch.core.megakernel.program import (
     A_AUX, A_CTRL, A_DHI, A_DLO, A_FPARAM, A_IN, A_KIND, A_N0, A_NAUX, A_NIN,
     A_NOUT, A_ORDER, A_OUT, A_PLANES, A_PTR0, A_PTR1, A_RATES, A_READY,
-    A_SCALAR, ACTOR_FIELDS, ERR_DOMAIN, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL,
-    F_DELAY, F_FWD, F_NPH, F_RATE, FIFO_FIELDS, H_ACTOR_OFF, H_FIFO_OFF,
+    A_SCALAR, ACTOR_FIELDS, ELEM_CODES, ERR_DOMAIN, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL,
+    F_DELAY, F_DHI, F_DLO, F_ELEM, F_FWD, F_NPH, F_RATE, FIFO_FIELDS, H_ACTOR_OFF, H_FIFO_OFF,
     H_N_ACTORS, H_N_CTRL, H_N_FIFOS, H_N_SCALARS, H_N_VISIT, H_VISIT_OFF,
-    KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE, M_ERROR, M_STALLED, M_SWEEPS)
+    KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE, M_ERROR, M_STALLED, M_SWEEPS,
+    META_WORDS)
 from repro_torch.kernels.dyn_fir.ref import poly_ref
 from repro_torch.kernels.gauss5x5.ref import gauss5x5_u8_ref, to_u8
 from repro_torch.kernels.motion_post.ref import med_ref, thres_ref
@@ -160,6 +172,9 @@ class _Table:
         self.io_ctrl = self.io_scal + 2 * t[H_N_SCALARS]
         self.io_counts = self.io_ctrl + t[H_N_CTRL]
         self.io_meta = self.io_counts + self.n_actors
+        self.io_fault = self.io_meta + META_WORDS
+        self.io_hw = self.io_fault + self.n_fifos
+        self.io_events = self.io_hw + self.n_fifos
 
     def ports(self, a: int) -> Tuple[List[int], List[int]]:
         r, t = self.actor[a], self.t
@@ -216,9 +231,16 @@ class _Stop(Exception):
 
 
 def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
-             io: List[int], max_sweeps: int, multi_firing: bool) -> List[Command]:
+             io: List[int], max_sweeps: int, multi_firing: bool,
+             guards: bool = False,
+             trace_ring: Optional[np.ndarray] = None) -> List[Command]:
     """Run the sweep loop on ``io`` in place (the kernel's scheduler warp);
-    returns the commands of the firings with a body, ``wait_for`` set."""
+    returns the commands of the firings with a body, ``wait_for`` set.
+
+    ``guards`` keeps the cursor guards' fault words and the high-water
+    marks in the io words after the meta words; ``trace_ring`` (a
+    ``(capacity, 3 + n_fifos)`` int32 array) takes one event per attempt,
+    the count in the io word after the high-water marks."""
     P = _Table(table)
     t, fifo, actor = P.t, P.fifo, P.actor
     aptr = tensors[P.n_fifos:]
@@ -229,6 +251,40 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
 
     def occ(f: int) -> int:
         return io[3 * f + 2]
+
+    def cursor_bits(f: int) -> Tuple[int, int]:
+        """CURSOR_INVALID of channel f's io words, and its true occupancy."""
+        rd, wr, o = io[3 * f:3 * f + 3]
+        true = fifo[f][F_DELAY] + (wr - rd) * fifo[f][F_RATE]
+        return (CURSOR_INVALID if o != true else 0), true
+
+    def domain_bit(f: int, tok: int) -> int:
+        return 0 if fifo[f][F_DLO] <= tok <= fifo[f][F_DHI] else DOMAIN
+
+    def guard_read(f: int, e: int) -> None:
+        bits, true = cursor_bits(f)
+        if e and true < fifo[f][F_RATE]:
+            bits |= UNDERFLOW
+        if e and fifo[f][F_CTRL]:
+            bits |= domain_bit(f, io[P.io_ctrl + fifo[f][F_CBASE]
+                                     + read_offset(fifo[f], io[3 * f])])
+        io[P.io_fault + f] |= bits
+
+    def guard_write(f: int, e: int, value: Optional[int]) -> None:
+        bits, true = cursor_bits(f)
+        if e and true + fifo[f][F_RATE] > fifo[f][F_BOUND]:
+            bits |= OVERFLOW
+        if e and value is not None:
+            bits |= domain_bit(f, value)
+        io[P.io_fault + f] |= bits
+        io[P.io_hw + f] = max(io[P.io_hw + f], true + (fifo[f][F_RATE] if e else 0))
+
+    def record(a: int, sweep: int, fired: int, times: int = 1) -> None:
+        occs = [occ(f) for f in range(P.n_fifos)]
+        for _ in range(times):
+            n = io[P.io_events]
+            trace_ring[n % trace_ring.shape[0]] = [a, sweep, fired] + occs
+            io[P.io_events] = n + 1
 
     def rates(a: int) -> List[int]:
         """0/1 per port (inputs, then outputs); peeks the control token."""
@@ -280,11 +336,15 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         en = rates(a)
         if r[A_CTRL] >= 0:                       # consume the control token
             c = r[A_CTRL]
+            if guards:
+                guard_read(c, 1)
             io[3 * c] += 1
             io[3 * c + 2] -= 1
         ins, outs = P.ports(a)
         in_ph = [io[3 * f] % fifo[f][F_NPH] for f in ins]
         for e, f in zip(en, ins):
+            if guards:
+                guard_read(f, e)
             if e:
                 io[3 * f] += 1
                 io[3 * f + 2] -= fifo[f][F_RATE]
@@ -306,6 +366,9 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         cb = [bool(e and fifo[f][F_DELAY] and ph == 2)
               for e, f, ph in zip(out_en, outs, out_ph)]
         for e, f, ph in zip(out_en, outs, out_ph):
+            if guards:
+                guard_write(f, e, value if fifo[f][F_CTRL] and body
+                            and kind == CONFIG else None)
             if e:
                 if fifo[f][F_CTRL] and body and kind == CONFIG:
                     io[P.io_ctrl + fifo[f][F_CBASE] + write_offset(fifo[f], ph)] = value
@@ -342,11 +405,15 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             fired_any = False
             for a in P.visit:
                 k = max_fireable(a) if multi_firing else 1
-                for _ in range(k):
+                for i in range(k):
                     if not can_fire(a):
+                        if trace_ring is not None:
+                            record(a, sweeps, 0, k - i)
                         break
                     fire(a)
                     fired_any = True
+                    if trace_ring is not None:
+                        record(a, sweeps, 1)
             sweeps += 1
     except _Stop:
         pass
@@ -356,10 +423,23 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
     return commands
 
 
+def _check_finite(P: _Table, fault: torch.Tensor, f: int,
+                  window: torch.Tensor) -> None:
+    """OR NONFINITE into ``fault[f]`` when a float data window holds a NaN
+    or an Inf (on the window's device, without a host sync)."""
+    if P.fifo[f][F_CTRL] or P.fifo[f][F_ELEM] != ELEM_CODES[torch.float32]:
+        return
+    bad = (~torch.isfinite(window)).any().to(torch.int32) * NONFINITE
+    fault[f:f + 1].bitwise_or_(bad)
+
+
 def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
-            commands: Sequence[Command]) -> None:
+            commands: Sequence[Command],
+            value_fault: Optional[torch.Tensor] = None) -> None:
     """Run the commands' bodies on ``tensors`` in the order given (the
-    kernel's body threads)."""
+    kernel's body threads).  With ``value_fault`` (an int32 vector, one
+    word per channel) every enabled float window a body reads, before it
+    runs, and writes, after, is checked for NaN and Inf."""
     P = _Table(table)
     t, fifo, actor = P.t, P.fifo, P.actor
     rings = tensors[:P.n_fifos]
@@ -371,6 +451,10 @@ def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         win = [rings[f][o:o + fifo[f][F_RATE]] for f, o in zip(ins, c.in_off)]
         dst = [None if fifo[f][F_CTRL] else rings[f][o:o + fifo[f][F_RATE]]
                for f, o in zip(outs, c.out_off)]
+        if value_fault is not None:
+            for e, f, w in zip(c.in_en, ins, win):
+                if e:
+                    _check_finite(P, value_fault, f, w)
         if kind in (SOURCE, SINK):
             # Plane p of window idx sits at p * stride + idx * wb of the slab.
             wb = r[A_N0]
@@ -414,6 +498,10 @@ def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         elif kind == MED:
             if c.out_en[0]:
                 dst[0].copy_(to_u8(med_ref(win[0].to(torch.float32))))
+        if value_fault is not None:
+            for e, f, d in zip(c.out_en, outs, dst):
+                if e and d is not None:
+                    _check_finite(P, value_fault, f, d)
         for on, f in zip(c.copy_back, outs):
             if on:
                 rings[f][0].copy_(rings[f][3 * fifo[f][F_RATE]])
@@ -428,8 +516,23 @@ def zero_forwarded(table: Sequence[int], tensors: List[Optional[torch.Tensor]]) 
 
 
 def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
-                io: List[int], max_sweeps: int, multi_firing: bool) -> None:
+                io: List[int], max_sweeps: int, multi_firing: bool,
+                guards: bool = False,
+                trace_ring: Optional[np.ndarray] = None) -> None:
     """Run the device program to quiescence on ``tensors`` (rings, then
-    actor tensors) and ``io`` (the io block), in place."""
+    actor tensors) and ``io`` (the io block), in place.  With ``guards``
+    or a ``trace_ring``, ``io`` holds the health and trace words after the
+    meta words (``stage(..., health_words=True)``)."""
     zero_forwarded(table, tensors)
-    execute(table, tensors, schedule(table, tensors, io, max_sweeps, multi_firing))
+    commands = schedule(table, tensors, io, max_sweeps, multi_firing,
+                        guards=guards, trace_ring=trace_ring)
+    value_fault = None
+    if guards:
+        P = _Table(table)
+        device = next((x.device for x in tensors[:P.n_fifos] if x is not None),
+                      torch.device("cpu"))
+        value_fault = torch.zeros(P.n_fifos, dtype=torch.int32, device=device)
+    execute(table, tensors, commands, value_fault)
+    if value_fault is not None:
+        for f, bits in enumerate(value_fault.tolist()):
+            io[P.io_fault + f] |= bits

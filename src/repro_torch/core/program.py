@@ -8,21 +8,25 @@
 The port carries the reference's host-driven ``"static"``, ``"dynamic"``
 and ``"interpreted"`` modes and its ``"megakernel"`` mode (one launch of
 the persistent kernel B2 per run on the card; its plain version for CPU
-states), with the grid knobs ``cores``, ``assign`` and ``cut_objective``.  Every other mode or plan field
-of the reference raises with the ROADMAP item that ports it; none is
-silently ignored.
+states), with the grid knobs ``cores``, ``assign`` and ``cut_objective``,
+and the health layer's ``guards``, ``trace``, ``trace_capacity`` and
+``profile``.  Every other mode or plan field of the reference raises with
+the ROADMAP item that ports it; none is silently ignored.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 import warnings
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 from repro_torch.core.executor import collect_sink, run_dynamic, run_static
+from repro_torch.core.health import Diagnostics, NetworkFaultError, decode_health
 from repro_torch.core.megakernel import (CUT_OBJECTIVES, compile_megakernel,
                                          lower_network, partition_layout,
                                          state_hbm_bytes)
 from repro_torch.core.network import Network, NetworkState
+from repro_torch.core.trace import TRACE_CAPACITY_DEFAULT, Trace, decode_trace
 
 _MODES = ("static", "dynamic", "interpreted", "megakernel")
 
@@ -34,10 +38,6 @@ _UNPORTED_FIELDS = {
     "runtime_mode": "A3 (STATIC_DAL runtime mode)",
     "unroll_bound": "A3 (eager cursors need no phase unroll)",
     "accelerated": "A11 (heterogeneous mapping) and A9 (Program.stream)",
-    "guards": "A7 (health guards)",
-    "trace": "A7 (firing trace)",
-    "trace_capacity": "A7 (firing trace)",
-    "profile": "A7 (firing trace)",
     "devices": "A12 (multi-device)",
     "device_assign": "A12 (multi-device)",
 }
@@ -71,10 +71,26 @@ class ExecutionPlan:
                      replicated scheduler, so results equal ``cores=1``.
       assign:        megakernel mode: explicit actor -> core map.
       cut_objective: megakernel mode: ``"crossing"`` or ``"flops"`` default
-                     cut; ``"profile"`` raises (ROADMAP A7).
+                     cut, or ``"profile"``: the crossing cut over the
+                     measured weights of ``profile``.
       interpret:     the reference's Pallas interpret switch; the port
                      raises, since the state's device picks the kernel or
                      its plain version.
+      guards:        dynamic/megakernel modes: evaluate the health layer's
+                     per-channel guards (``core/health.py``); a faulting
+                     run raises :class:`NetworkFaultError` naming the
+                     channel and its actors, and ``RunResult.diagnostics``
+                     carries fault words and high-water marks.  A clean
+                     guarded run is bit-identical to an unguarded one.
+      trace:         dynamic/megakernel modes: record one event per firing
+                     attempt (``core/trace.py``) onto ``RunResult.trace``.
+      trace_capacity: events the trace ring holds (requires ``trace``);
+                     None is ``TRACE_CAPACITY_DEFAULT``.  The newest are
+                     kept.
+      profile:       megakernel mode: the weights of
+                     ``cut_objective="profile"``: a ``Profile``, its
+                     ``as_cut_weights()`` mapping, or the frozen pair
+                     tuples a plan normalises it to.
 
     The reference's other fields exist so a plan written for it
     constructs; any value but the default ``None`` raises, naming the
@@ -96,10 +112,10 @@ class ExecutionPlan:
     assign: Optional[Any] = None
     cut_objective: str = "crossing"
     accelerated: Any = None
-    guards: Any = None
-    trace: Any = None
-    trace_capacity: Any = None
-    profile: Any = None
+    guards: bool = False
+    trace: bool = False
+    trace_capacity: Optional[int] = None
+    profile: Optional[Any] = None
     devices: Any = None
     device_assign: Any = None
 
@@ -130,6 +146,34 @@ class ExecutionPlan:
             raise ValueError(
                 f"ExecutionPlan.cut_objective must be one of "
                 f"{CUT_OBJECTIVES}, got {self.cut_objective!r}")
+        if self.trace_capacity is not None and (
+                not isinstance(self.trace_capacity, int)
+                or isinstance(self.trace_capacity, bool)
+                or self.trace_capacity < 1):
+            raise ValueError(
+                f"ExecutionPlan.trace_capacity must be None or an int "
+                f">= 1, got {self.trace_capacity!r}")
+        if self.profile is not None:
+            # A Profile, its as_cut_weights() mapping, or the frozen form a
+            # plan normalised it to; frozen to sorted pair tuples.
+            prof = self.profile
+            if hasattr(prof, "as_cut_weights"):
+                prof = prof.as_cut_weights()
+            if isinstance(prof, tuple):
+                prof = {k: dict(v) for k, v in prof}
+            if (not isinstance(prof, Mapping) or "actors" not in prof
+                    or set(prof) - {"actors", "channels"}):
+                raise ValueError(
+                    "ExecutionPlan.profile must be a "
+                    "repro_torch.core.trace.Profile or a mapping with "
+                    f"'actors' (and optional 'channels') weights, got {prof!r}")
+            object.__setattr__(self, "profile", (
+                ("actors", tuple(sorted(
+                    (str(k), int(v)) for k, v in dict(prof["actors"]).items()))),
+                ("channels", tuple(sorted(
+                    (str(k), int(v))
+                    for k, v in dict(prof.get("channels", {})).items()))),
+            ))
         if self.n_iterations is not None and self.n_iterations < 0:
             raise ValueError(
                 f"ExecutionPlan: n_iterations must be >= 0, got {self.n_iterations}")
@@ -153,6 +197,31 @@ class ExecutionPlan:
                 "cut_objective= are grid-partition knobs of the megakernel "
                 "backend; the host executors have no core axis (use "
                 "mode='megakernel')")
+        if self.guards and self.mode not in ("dynamic", "megakernel"):
+            raise ValueError(
+                f"ExecutionPlan(mode={self.mode!r}): guards=True is a "
+                "sweep-loop health knob of the dynamic and megakernel "
+                "backends; the static and interpreted schedules have no "
+                "per-channel cursor state for the guards to watch")
+        if self.trace and self.mode not in ("dynamic", "megakernel"):
+            raise ValueError(
+                f"ExecutionPlan(mode={self.mode!r}): trace=True is a "
+                "sweep-loop observability knob of the dynamic and "
+                "megakernel backends; the static/interpreted schedules "
+                "have no firing attempts to record")
+        if self.trace_capacity is not None and not self.trace:
+            raise ValueError("ExecutionPlan.trace_capacity requires trace=True")
+        if self.cut_objective == "profile" and self.profile is None:
+            raise ValueError(
+                "ExecutionPlan(cut_objective='profile') needs measured "
+                "weights: run once with ExecutionPlan(trace=True), then "
+                "pass profile=RunResult.trace.profile() (or its "
+                ".as_cut_weights() dict)")
+        if self.profile is not None and self.cut_objective != "profile":
+            raise ValueError(
+                f"ExecutionPlan.profile is only consumed by "
+                f"cut_objective='profile', but the plan says "
+                f"{self.cut_objective!r}")
         if self.assign is not None:
             network.validate_partition(dict(self.assign), self.cores)
         return self
@@ -161,12 +230,17 @@ class ExecutionPlan:
 @dataclasses.dataclass(frozen=True)
 class RunResult:
     """One execution's outcome; ``fire_counts`` / ``sweeps`` / ``stalled``
-    are set by the dynamic and megakernel modes only."""
+    / ``diagnostics`` are set by the dynamic and megakernel modes only.
+    ``diagnostics`` decodes the stall flag always, and the fault words and
+    high-water marks under ``guards=True``; ``trace`` is the decoded
+    :class:`~repro_torch.core.trace.Trace` of a ``trace=True`` run."""
 
     state: NetworkState
     fire_counts: Optional[Dict[str, int]] = None
     sweeps: Optional[int] = None
     stalled: bool = False
+    diagnostics: Optional[Diagnostics] = None
+    trace: Optional[Trace] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +271,24 @@ class ProgramStats:
     cut_objective: Optional[str] = None
     partition_fire_counts: Optional[Tuple[int, ...]] = None
 
+    #: Version of the :meth:`to_json` schema: the reference's (v2).
+    SCHEMA_VERSION = 2
+
+    def to_json(self) -> Dict[str, Any]:
+        """The stats as a ``json.dump``-able dict: every field under its own
+        name, tuples lowered to lists, and ``schema_version``."""
+        def lower(v):
+            if isinstance(v, tuple):
+                return [lower(x) for x in v]
+            if isinstance(v, dict):
+                return {k: lower(x) for k, x in v.items()}
+            return v
+
+        doc: Dict[str, Any] = {"schema_version": self.SCHEMA_VERSION}
+        for f in dataclasses.fields(self):
+            doc[f.name] = lower(getattr(self, f.name))
+        return doc
+
 
 class Program:
     """A network compiled under a plan; built by :meth:`Network.compile`."""
@@ -213,10 +305,19 @@ class Program:
                 network, self._layout, plan.cores,
                 dict(plan.assign) if plan.assign is not None else None,
                 objective=plan.cut_objective,
-                forward_transients=plan.specialize)
+                forward_transients=plan.specialize,
+                profile=({k: dict(v) for k, v in plan.profile}
+                         if plan.profile is not None else None))
             self._runner = compile_megakernel(
                 network, plan.max_sweeps, plan.multi_firing,
-                layout=self._layout, partition=self._partition)
+                layout=self._layout, partition=self._partition,
+                guards=plan.guards, trace_capacity=self._trace_capacity)
+
+    @property
+    def _trace_capacity(self) -> Optional[int]:
+        if not self.plan.trace:
+            return None
+        return self.plan.trace_capacity or TRACE_CAPACITY_DEFAULT
 
     def init_state(self) -> NetworkState:
         return self.network.init_state()
@@ -234,18 +335,41 @@ class Program:
             st = state if in_place else state.clone()
         plan = self.plan
         if plan.mode in ("dynamic", "megakernel"):
+            t0 = time.perf_counter()
             if plan.mode == "dynamic":
-                st, counts, sweeps, stalled = run_dynamic(
-                    self.network, st, plan.max_sweeps, plan.multi_firing)
+                res = run_dynamic(self.network, st, plan.max_sweeps,
+                                  plan.multi_firing, guards=plan.guards,
+                                  trace_capacity=self._trace_capacity)
             else:
-                st, counts, sweeps, stalled = self._runner(st)
+                res = self._runner(st)
+            st, counts, sweeps, stalled = res
+            trace = None
+            if res.trace is not None:
+                # The run ended with its results on the host, so this clock
+                # covers it; firings get a proportional share of it.
+                cores = None
+                part = self._partition
+                if part is not None and part.n_cores > 1:
+                    names = tuple(self.network.actors)
+                    cores = {names[i]: c for c, rows in enumerate(part.core_rows)
+                             for i in rows}
+                trace = decode_trace(self.network, res.trace,
+                                     wall_time_s=time.perf_counter() - t0,
+                                     actor_cores=cores)
+            diag = decode_health(self.network, res.health, stalled,
+                                 st if stalled else None)
             result = RunResult(st, fire_counts=counts, sweeps=sweeps,
-                               stalled=stalled)
-            if stalled:
+                               stalled=stalled, diagnostics=diag, trace=trace)
+            self._last = result
+            if not diag.ok:
+                if plan.guards:
+                    err = NetworkFaultError(diag)
+                    err.result = result
+                    raise err
                 warnings.warn(
                     f"Program.run: sweep budget (max_sweeps={plan.max_sweeps}) "
-                    "exhausted with work remaining — partial state returned",
-                    RuntimeWarning, stacklevel=2)
+                    "exhausted with work remaining — partial state returned; "
+                    f"{diag.summary()}", RuntimeWarning, stacklevel=2)
         else:
             # Interpreted mode is the static schedule without forwarding.
             order = list(plan.order) if plan.order is not None else None

@@ -60,8 +60,26 @@
 // bf16 before P V while l sums the unrounded weights; out = O / max(l,
 // 1e-20).  Exponentials are taken base 2 on scores scaled by
 // scale * log2(e) (ex2.approx), which is the same function.
+//
+// The float32 and f16 route (flash_fwd_ffma, flash_attention_ffma_run): the
+// same blocked online softmax, GQA, causal and window masks and skipping of
+// dead key tiles, with the arithmetic in float32 on the CUDA cores (FFMA),
+// so a float32 input keeps float32 precision (a cast to bf16 would lose
+// it).  Templated on the load type: f16 converts to float32 exactly in
+// registers, so there is no cast kernel.  One block of 8 warps per (batch,
+// query head, 64-query tile), ordered as above; the Q tile and each tile of
+// 32 keys and values are staged in shared memory as float32.  A warp owns 8
+// query rows: lane j computes the 8 scores of key j (float4 reads; K rows
+// padded by 4 floats so the lanes' rows fall in different banks), the
+// softmax takes warp max and sum, and for O += P V lane l holds columns l,
+// l + 32, ... of the 8 rows' accumulators and takes each weight by a
+// shuffle.  Any hd up to 256.  The numerics follow the TPU kernel: m starts
+// at the finite NEG_INF and masked scores are NEG_INF; keys past S get -inf;
+// out = O / max(l, 1e-20) in q's type.  Bound: operations, the FFMA peak
+// (67 TFLOP/s) for 4 * hd flop per live (query, key) pair.
 #include <cuda.h>  // CUtensorMap and cuTensorMapEncodeTiled's type; libcuda is not linked
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -641,7 +659,199 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the float32 / f16 route: FFMA on the CUDA cores -------------------- //
+constexpr int FQ = 64;          // query rows per block
+constexpr int FN = 32;          // keys per tile: a lane each
+constexpr int FR = 8;           // query rows per warp
+constexpr int F_THREADS = 256;  // 8 warps
+
+__device__ __forceinline__ float load_f(float x) { return x; }
+__device__ __forceinline__ float load_f(__half x) { return __half2float(x); }
+__device__ __forceinline__ void store_f(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f(__half* p, float x) { *p = __float2half_rn(x); }
+
+__device__ __forceinline__ float warp_max_f(float x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum_f(float x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Shared memory of one block: the Q tile, a K tile (rows padded by 4) and a
+// V tile, float32.
+__host__ __device__ __forceinline__ int ffma_row(int hd) { return (hd + 3) & ~3; }
+__host__ __device__ __forceinline__ size_t ffma_smem(int hd) {
+  return static_cast<size_t>(FQ * ffma_row(hd) + FN * (ffma_row(hd) + 4) + FN * ffma_row(hd)) *
+         sizeof(float);
+}
+
+// NT = ceil(hd / 32): lane l holds columns l + 32 t, t < NT, of its rows.
+template <typename T, int NT>
+__global__ void __launch_bounds__(F_THREADS, 1)
+flash_fwd_ffma(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, int B, int S, int H, int Hkv, int hd, int causal, int window,
+               float scale) {
+  extern __shared__ __align__(16) float fsm[];
+  const int hd4 = ffma_row(hd), ks = hd4 + 4;
+  float* sq = fsm;
+  float* sk = sq + FQ * hd4;
+  float* sv = sk + FN * ks;
+  const int nq = (S + FQ - 1) / FQ;
+  int idx = blockIdx.x;
+  const int h = idx % H;
+  idx /= H;
+  const int b = idx % B;
+  const int q0 = (nq - 1 - idx / B) * FQ;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  for (int i = tid; i < FQ * hd4; i += F_THREADS) {
+    const int r = i / hd4, d = i % hd4, row = q0 + r;
+    sq[i] = row < S && d < hd
+                ? load_f(q[((static_cast<long long>(b) * S + row) * H + h) * hd + d])
+                : 0.f;
+  }
+  // Key tiles holding a live key for some row of the block.
+  const int k_lo = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int k_hi = causal ? min(q0 + FQ - 1, S - 1) : S - 1;
+  const int r_lo = q0 + warp * FR, r_hi = min(r_lo + FR - 1, S - 1);
+  float m[FR], l[FR], acc[FR][NT];
+#pragma unroll
+  for (int r = 0; r < FR; ++r) {
+    m[r] = NEG_INF;
+    l[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) acc[r][t] = 0.f;
+  }
+  for (int kt = k_lo / FN * FN; kt <= k_hi; kt += FN) {
+    __syncthreads();  // the last tile is read (and the Q tile staged)
+    for (int i = tid; i < FN * hd4; i += F_THREADS) {
+      const int j = i / hd4, d = i % hd4, key = kt + j;
+      const bool in = key < S && d < hd;
+      const long long g = ((static_cast<long long>(b) * S + key) * Hkv + hk) * hd + d;
+      sk[j * ks + d] = in ? load_f(k[g]) : 0.f;
+      sv[j * hd4 + d] = in ? load_f(v[g]) : 0.f;
+    }
+    __syncthreads();
+    // A tile dead for every row of the warp adds nothing that survives.
+    if (r_lo >= S || (causal && kt > r_hi) || (window > 0 && kt + FN - 1 <= r_lo - window))
+      continue;
+    float s[FR];
+#pragma unroll
+    for (int r = 0; r < FR; ++r) s[r] = 0.f;
+    const float4* kr = reinterpret_cast<const float4*>(sk + lane * ks);
+    const float4* qr = reinterpret_cast<const float4*>(sq + warp * FR * hd4);
+    for (int d4 = 0; d4 < hd4 / 4; ++d4) {
+      const float4 kv = kr[d4];
+#pragma unroll
+      for (int r = 0; r < FR; ++r) {
+        const float4 qv = qr[r * (hd4 / 4) + d4];
+        s[r] = fmaf(qv.x, kv.x, s[r]);
+        s[r] = fmaf(qv.y, kv.y, s[r]);
+        s[r] = fmaf(qv.z, kv.z, s[r]);
+        s[r] = fmaf(qv.w, kv.w, s[r]);
+      }
+    }
+    const int key = kt + lane;
+#pragma unroll
+    for (int r = 0; r < FR; ++r) {
+      const int row = r_lo + r;
+      float x = s[r] * scale;
+      if (key >= S)
+        x = -CUDART_INF_F;
+      else if ((causal && key > row) || (window > 0 && row - key >= window))
+        x = NEG_INF;
+      const float mn = fmaxf(m[r], warp_max_f(x));
+      const float p = expf(x - mn);
+      const float alpha = expf(m[r] - mn);
+      l[r] = alpha * l[r] + warp_sum_f(p);
+      m[r] = mn;
+#pragma unroll
+      for (int t = 0; t < NT; ++t) acc[r][t] *= alpha;
+      s[r] = p;
+    }
+    for (int j = 0; j < FN; ++j) {
+      const float* vr = sv + j * hd4;
+      float vv[NT];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        const int d = lane + 32 * t;
+        vv[t] = d < hd4 ? vr[d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < FR; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, s[r], j);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) acc[r][t] = fmaf(pj, vv[t], acc[r][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < FR; ++r) {
+    const int row = r_lo + r;
+    if (row >= S) continue;
+    const float den = fmaxf(l[r], 1e-20f);
+    T* out = o + ((static_cast<long long>(b) * S + row) * H + h) * hd;
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int d = lane + 32 * t;
+      if (d < hd) store_f(out + d, acc[r][t] / den);
+    }
+  }
+}
+
+template <typename T, int NT>
+int launch_ffma(const void* q, const void* k, const void* v, void* o, int B, int S, int H,
+                int Hkv, int hd, int causal, int window, float scale, cudaStream_t stream) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_fwd_ffma<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(ffma_smem(32 * NT)));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    configured = true;
+  }
+  const long long blocks = static_cast<long long>((S + FQ - 1) / FQ) * B * H;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
+  flash_fwd_ffma<T, NT><<<static_cast<unsigned>(blocks), F_THREADS, ffma_smem(hd), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), B, S, H, Hkv, hd, causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_ffma(const void* q, const void* k, const void* v, void* o, int B, int S, int H, int Hkv,
+             int hd, int causal, int window, float scale, cudaStream_t s) {
+  switch ((hd + 31) / 32) {
+    case 1: return launch_ffma<T, 1>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+    case 2: return launch_ffma<T, 2>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+    case 3: return launch_ffma<T, 3>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+    case 4: return launch_ffma<T, 4>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+    case 5: return launch_ffma<T, 5>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+    case 6: return launch_ffma<T, 6>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+    case 7: return launch_ffma<T, 7>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+    default: return launch_ffma<T, 8>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+  }
+}
+
 }  // namespace
+
+// The float32 / f16 route: q, o contiguous (B, S, H, hd), k, v contiguous
+// (B, S, Hkv, hd), all float32 (half == 0) or all f16 (half != 0); H a
+// multiple of Hkv; 1 <= hd <= 256; causal, window and scale as below.  One
+// launch of flash_fwd_ffma on `stream`; returns a CUDA runtime error code.
+extern "C" int flash_attention_ffma_run(const void* q, const void* k, const void* v, void* o,
+                                        int B, int S, int H, int Hkv, int hd, int causal,
+                                        int window, float scale, int half, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd < 1 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (half) return run_ffma<__half>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+  return run_ffma<float>(q, k, v, o, B, S, H, Hkv, hd, causal, window, scale, s);
+}
 
 // q, o: contiguous (B, S, H, hd) bf16; k, v: contiguous (B, S, Hkv, hd)
 // bf16, 16-byte aligned; H a multiple of Hkv; hd a multiple of 8, at most

@@ -99,6 +99,31 @@
 //   whole command loop, and block 0's scheduler warp its cycles deciding
 //   and waiting for a free slot, into the meta words from M_CLK_STALL on
 //   (kernel.py's decode_clock_split reads them).
+// * Built with -DMK_GUARDS, the health layer's channel guards
+//   (core/health.py), each an observer that changes no operation.  The
+//   cursor guards belong to the scheduler warp, which already handles input
+//   l and output l of a firing in lane l: before each op it recomputes the
+//   true occupancy delay + (wr - rd) * rate from the io words (not from
+//   the phases, which a corrupted cursor leaves out of step) and ORs
+//   CURSOR_INVALID, UNDERFLOW and OVERFLOW into a per-channel word in
+//   shared memory, with the write's true occupancy after it as the
+//   high-water mark; a control token read or written is checked against its
+//   channel's domain (DOMAIN).  Every block keeps them, block 0 writes them
+//   out.  NONFINITE reads token values: before a body, the block scans its
+//   share of every enabled float input window (inputs stay put while a
+//   command runs); every store of an enabled float output (put) tests the
+//   word it stores.  A bad word sets its port's bit in a block word, and
+//   after the body thread 0 ORs NONFINITE into the channel's fault word in
+//   global memory.
+// * Built with -DMK_TRACE, block 0's scheduler warp writes one event per
+//   firing attempt (trace.py's row: actor, sweep, fired, then every
+//   channel's occupancy after the attempt) into a (capacity, 3 + channels)
+//   ring in global memory, under a monotonic count: all k attempts of a
+//   visit, k the bound at its start, the skipped ones after a failed
+//   attempt included, as the reference records them.
+// * Faulty operations go ahead and are reported.  An overflow's write past
+//   the Eq. 1 bound is a write like any other to the dependency rule, which
+//   orders it after the segment's last reader.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -117,7 +142,8 @@ enum { H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF,
        H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN };
 constexpr int FIFO_FIELDS = 12;
 enum { F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
-       F_ELEM };
+       F_ELEM, F_DLO, F_DHI };
+enum { ELEM_F32 = 0 };
 constexpr int ACTOR_FIELDS = 20;
 enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
        A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
@@ -128,6 +154,14 @@ enum { M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
 enum { K_SOURCE, K_CONFIG, K_FORK, K_POLY, K_ADDER, K_SINK, K_GAUSS, K_THRES,
        K_MED };
 enum { ERR_DOMAIN = 1, ERR_SLAB = 2 };
+// Fault bits (core/health.py).  After the meta words: a fault word per
+// channel, a high-water mark per channel, the trace's event count.
+enum { OVERFLOW = 1, UNDERFLOW = 2, CURSOR_INVALID = 4, NONFINITE = 8, DOMAIN = 32 };
+#ifdef MK_GUARDS
+constexpr int GUARD_INTS = 2;  // per channel in shared memory: fault bits, high water
+#else
+constexpr int GUARD_INTS = 0;
+#endif
 
 constexpr int MAX_FIRINGS_PER_VISIT = 8;  // executor.py:31
 constexpr int MAX_PORTS = 32;             // checked by program.py; a lane each
@@ -169,6 +203,11 @@ struct Cmd {
   long long slab_stride;   // source/sink: bytes between the slab's planes
   float* hist;
   const float* taps;
+#ifdef MK_GUARDS
+  unsigned in_fl, out_fl;  // bit k: port k's channel carries float tokens
+  int in_f[MAX_PORTS];     // each port's channel
+  int out_f[MAX_PORTS];
+#endif
 };
 
 // The scheduler warp's position between firings (the same in every lane).
@@ -176,6 +215,9 @@ struct Sched {
   int sweeps, vpos, left, fired_any;
   int stalled, error, err_actor, err_value;
   long long seq;           // commands emitted
+#ifdef MK_TRACE
+  long long events;        // trace events recorded
+#endif
 };
 
 // One firing as fire() leaves it: lane l holds input l's and output l's
@@ -197,6 +239,14 @@ struct View {
   const int* fifos;        // the channel rows
   const int* actors;       // the actor rows
   int n_fifos, io_scal, io_ctrl, io_counts;
+#ifdef MK_GUARDS
+  int* fault;              // per channel: the cursor guards' bits
+  int* hw;                 // per channel: the high-water mark
+#endif
+#ifdef MK_TRACE
+  int* trace;              // the event ring (global memory), block 0 only
+  int trace_cap;
+#endif
 };
 
 __device__ __forceinline__ const int* fifo_row(const View& v, int f) {
@@ -239,6 +289,22 @@ __device__ __forceinline__ unsigned low_bits(int n) {
 __device__ __forceinline__ int next_phase(int ph, int n_phases) {
   return ph + 1 == n_phases ? 0 : ph + 1;
 }
+
+#ifdef MK_GUARDS
+// The cursor guards of one op on channel f from its pre-op io words
+// (health.py's read_guard_bits / write_guard_bits): CURSOR_INVALID, and in
+// *true_occ the occupancy the cursors give.
+__device__ __forceinline__ int cursor_bits(const View& v, int f, int delay, int rate,
+                                           int* true_occ) {
+  *true_occ = delay + (v.S[3 * f + 1] - v.S[3 * f]) * rate;
+  return v.S[3 * f + 2] != *true_occ ? CURSOR_INVALID : 0;
+}
+// DOMAIN of a control token against its channel's declared domain.
+__device__ __forceinline__ int domain_bit(const View& v, int f, int tok) {
+  const int* fr = fifo_row(v, f);
+  return tok < fr[F_DLO] || tok > fr[F_DHI] ? DOMAIN : 0;
+}
+#endif
 
 // ---- synchronisation --------------------------------------------------- //
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -455,12 +521,31 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
   const int kind = u.kind, fi = u.fi, fo = u.fo;
   if (u.ctrl >= 0 && l == 0) {
     const int c = u.ctrl;
+#ifdef MK_GUARDS
+    int t;
+    int bits = cursor_bits(v, c, 0, 1, &t);
+    if (t < 1) bits |= UNDERFLOW;
+    bits |= domain_bit(v, c, v.S[u.ctrl_base + v.ph[2 * c]]);
+    if (bits) atomicOr(&v.fault[c], bits);
+#endif
     v.S[3 * c] += 1;
     v.S[3 * c + 2] -= 1;
     v.ph[2 * c] = next_phase(v.ph[2 * c], u.ctrl_nph);
   }
   const int in_ph = fi >= 0 ? v.ph[2 * fi] : 0;
   if (fi >= 0) {
+#ifdef MK_GUARDS
+    {
+      const bool e = (in_en >> l) & 1;
+      int t;
+      int bits = cursor_bits(v, fi, u.delay_i, u.rate_i, &t);
+      if (e && t < u.rate_i) bits |= UNDERFLOW;
+      // A control channel has rate 1: phase p is slot p.
+      if (e && !u.data_i)
+        bits |= domain_bit(v, fi, v.S[v.io_ctrl + fifo_row(v, fi)[F_CBASE] + in_ph]);
+      if (bits) atomicOr(&v.fault[fi], bits);
+    }
+#endif
     f->in_off = in_ph * u.rate_i;
     if ((in_en >> l) & 1) {
       v.S[3 * fi] += 1;
@@ -494,6 +579,18 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
   const bool on = (out_en >> l) & 1;
   bool cb = false;
   if (fo >= 0) {
+#ifdef MK_GUARDS
+    {
+      int t;
+      int bits = cursor_bits(v, fo, u.delay_o, u.rate_o, &t);
+      if (on && t + u.rate_o > u.bound_o) bits |= OVERFLOW;
+      if (on && !u.data_o && body && kind == K_CONFIG) bits |= domain_bit(v, fo, value);
+      if (bits) atomicOr(&v.fault[fo], bits);
+      // One port writes a channel: this lane alone marks it.
+      const int mark = t + (on ? u.rate_o : 0);
+      if (mark > v.hw[fo]) v.hw[fo] = mark;
+    }
+#endif
     const int off = out_ph * u.rate_o + u.delay_o;
     f->out_off = off;
     if (!u.data_o) {
@@ -539,6 +636,28 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
   return true;
 }
 
+#ifdef MK_TRACE
+// `times` events of the firing trace for actor a (the skipped attempts left
+// in a visit repeat one): block 0's scheduler warp writes [a, sweep, fired,
+// every channel's occupancy] at the count modulo the capacity.
+__device__ void trace_event(const View& v, Sched* s, int a, int fired, int times) {
+  if (blockIdx.x == 0) {
+    const int width = 3 + v.n_fifos;
+    for (int t = 0; t < times; ++t) {
+      int* row = v.trace + (s->events + t) % v.trace_cap * width;
+      if (lane() == 0) {
+        row[0] = a;
+        row[1] = s->sweeps;
+        row[2] = fired;
+      }
+      for (int f = lane(); f < v.n_fifos; f += 32) row[3 + f] = v.S[3 * f + 2];
+    }
+  }
+  s->events += times;
+  __syncwarp();
+}
+#endif
+
 // Advance the sweep loop (run_dynamic) to the next firing with a body, or
 // to its end: returns true with the visited actor in *u and the firing in
 // *f, or false at the end of the run.
@@ -568,6 +687,9 @@ __device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
     unsigned in_en, out_en;
     if (s->left == 0 || !can_fire(v, *u, &in_en, &out_en, s)) {
       if (s->error) return false;
+#ifdef MK_TRACE
+      if (s->left > 0) trace_event(v, s, u->a, 0, s->left);
+#endif
       s->vpos += 1;
       s->left = -1;
       continue;
@@ -576,6 +698,9 @@ __device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
     s->fired_any = 1;
     const bool body = fire(v, *u, in_en, out_en, s->seq + 1, f, s);
     if (s->error) return false;
+#ifdef MK_TRACE
+    trace_event(v, s, u->a, 1, 1);
+#endif
     if (body) {
       s->seq += 1;
       return true;
@@ -599,6 +724,19 @@ __device__ void fill(const View& v, const Visit& u, const Firing& f, const Sched
     }
   }
   if (u.kind == K_ADDER && l < r[A_NAUX]) c->terms[l] = v.P[r[A_AUX] + l];
+#ifdef MK_GUARDS
+  {
+    const bool fl_i = u.fi >= 0 && u.data_i && fifo_row(v, u.fi)[F_ELEM] == ELEM_F32;
+    const bool fl_o = u.fo >= 0 && u.data_o && fifo_row(v, u.fo)[F_ELEM] == ELEM_F32;
+    const unsigned in_fl = __ballot_sync(FULL, fl_i), out_fl = __ballot_sync(FULL, fl_o);
+    if (u.fi >= 0) c->in_f[l] = u.fi;
+    if (u.fo >= 0) c->out_f[l] = u.fo;
+    if (l == 6) {
+      c->in_fl = in_fl;
+      c->out_fl = out_fl;
+    }
+  }
+#endif
   switch (l) {
     case 0:
       c->seq = s->seq;
@@ -706,8 +844,32 @@ __device__ __forceinline__ long long grid_step() {
 // also goes to its slot-0 place when o is that channel and b lies in the
 // window's last token (the Fig. 2 copy-back).  Every other firing runs the
 // CB = false bodies, whose stores test nothing.
+#ifdef MK_GUARDS
+// Bit k: input k's (output k's) window held a NaN or an Inf in the command
+// the block is running.
+__shared__ unsigned bad_in, bad_out;
+
+// Whether a word of float32 tokens holds a NaN or an Inf (every exponent
+// bit set).  Float channels move words of 4 or 16 bytes (their addresses
+// and windows are multiples of 4); 1-byte words are u8 tokens.
+__device__ __forceinline__ bool nonfinite(unsigned x) {
+  return (x & 0x7f800000u) == 0x7f800000u;
+}
+__device__ __forceinline__ bool nonfinite(float x) { return nonfinite(__float_as_uint(x)); }
+__device__ __forceinline__ bool nonfinite(uint4 x) {
+  return nonfinite(x.x) || nonfinite(x.y) || nonfinite(x.z) || nonfinite(x.w);
+}
+__device__ __forceinline__ bool nonfinite(float4 x) {
+  return nonfinite(x.x) || nonfinite(x.y) || nonfinite(x.z) || nonfinite(x.w);
+}
+__device__ __forceinline__ bool nonfinite(unsigned char) { return false; }
+#endif
+
 template <bool CB, typename T>
 __device__ __forceinline__ void put(const Cmd& c, int o, long long b, T x) {
+#ifdef MK_GUARDS
+  if (((c.out_fl >> o) & 1) && nonfinite(x)) atomicOr(&bad_out, 1u << o);
+#endif
   *reinterpret_cast<T*>(c.out[o] + b) = x;
   if (CB && ((c.cb_mask >> o) & 1) && b >= c.cb_from[o])
     *reinterpret_cast<T*>(c.slot0[o] + (b - c.cb_from[o])) = x;
@@ -1035,6 +1197,34 @@ __device__ __forceinline__ void run_body(const Cmd& c, Stage& st) {
   }
 }
 
+#ifdef MK_GUARDS
+// NONFINITE of the command's enabled float inputs: the block scans its share
+// of each window (every input window of a command is win bytes).
+__device__ void scan_inputs(const Cmd& c) {
+  const unsigned m = c.in_fl & c.in_en;
+  for (int k = 0; k < c.n_in; ++k) {
+    if (!((m >> k) & 1)) continue;
+    const unsigned* w = reinterpret_cast<const unsigned*>(c.in[k]);
+    bool bad = false;
+    for (long long j = grid_first(); j < c.win / 4; j += grid_step()) bad |= nonfinite(__ldcg(w + j));
+    if (bad) atomicOr(&bad_in, 1u << k);
+  }
+}
+
+// After a body: OR NONFINITE into the global fault word of every channel
+// the block saw a bad word on, and clear the block words (thread 0, after a
+// barrier; the next command's barrier orders the clear before its stores).
+__device__ void flush_bad(const Cmd& c, long long* fault) {
+  for (unsigned m = bad_in; m; m &= m - 1)
+    atomicOr(reinterpret_cast<unsigned long long*>(fault + c.in_f[__ffs(m) - 1]),
+             static_cast<unsigned long long>(NONFINITE));
+  for (unsigned m = bad_out; m; m &= m - 1)
+    atomicOr(reinterpret_cast<unsigned long long*>(fault + c.out_f[__ffs(m) - 1]),
+             static_cast<unsigned long long>(NONFINITE));
+  bad_in = bad_out = 0;
+}
+#endif
+
 // The bodies of a firing that writes a delay channel's phase 2, out of line
 // so that the command loop's common path keeps its code compact.
 __device__ __noinline__ void run_body_copy_back(const Cmd& c, Stage& st) {
@@ -1044,7 +1234,11 @@ __device__ __noinline__ void run_body_copy_back(const Cmd& c, Stage& st) {
 __global__ void __launch_bounds__(THREADS, 1)
 megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
            int io_len, int max_sweeps, int multi_firing,
-           unsigned long long* progress) {
+           unsigned long long* progress
+#ifdef MK_TRACE
+           , int* trace, int trace_cap
+#endif
+           ) {
   extern __shared__ __align__(16) int smem[];
   __shared__ Cmd slots[RING];
   // Per slot: filled (scheduler), run by this block's body threads (one
@@ -1057,8 +1251,9 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   const int tid = threadIdx.x;
 
   // 1. Replicate the program, the io words and the addresses into this
-  //    block: [program | io words | phases] as ints, then [addresses |
-  //    segment trackers] as 8-byte words (megakernel_run sizes it).
+  //    block: [program | io words | phases | guard words] as ints, then
+  //    [addresses | segment trackers] as 8-byte words (megakernel_run sizes
+  //    it).
   const int len = prog[H_LEN];
   const int n_state = io_len - META_WORDS;
   long long* io = args + n_ptrs;
@@ -1067,7 +1262,16 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   v.S = smem + len;
   v.ph = v.S + n_state;
   long long* words = reinterpret_cast<long long*>(
-      smem + ((len + n_state + 2 * n_ptrs + 1) & ~1));
+      smem + ((len + n_state + (2 + GUARD_INTS) * n_ptrs + 1) & ~1));
+#ifdef MK_GUARDS
+  v.fault = v.ph + 2 * n_ptrs;
+  v.hw = v.fault + n_ptrs;
+  for (int i = tid; i < 2 * n_ptrs; i += THREADS) v.fault[i] = 0;
+#endif
+#ifdef MK_TRACE
+  v.trace = trace;
+  v.trace_cap = trace_cap;
+#endif
   v.addr = words;
   v.trk = words + n_ptrs;
   for (int i = tid; i < len; i += THREADS) smem[i] = prog[i];
@@ -1077,6 +1281,9 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   if (tid == 0) {
     least = 0;
     finished = 0;
+#ifdef MK_GUARDS
+    bad_in = bad_out = 0;
+#endif
     for (int i = 0; i < RING; ++i) {
       mbar_init(&full[i], 1);
       mbar_init(&done[i], BODY_THREADS / 32);
@@ -1092,9 +1299,10 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   v.io_ctrl = v.io_scal + 2 * v.P[H_N_SCALARS];
   v.io_counts = v.io_ctrl + v.P[H_N_CTRL];
   for (int f = tid; f < v.P[H_N_FIFOS]; f += THREADS) {
+    // Python's modulo: an injected cursor may be negative.
     const int nph = fifo_row(v, f)[F_NPH];
-    v.ph[2 * f] = v.S[3 * f] % nph;
-    v.ph[2 * f + 1] = v.S[3 * f + 1] % nph;
+    v.ph[2 * f] = (v.S[3 * f] % nph + nph) % nph;
+    v.ph[2 * f + 1] = (v.S[3 * f + 1] % nph + nph) % nph;
   }
 
   // 2. Forwarded data rings start from zeros (the dead-slot rule).
@@ -1117,7 +1325,9 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
     return;
   }
   if (tid >= SCHED_TID) {
-    Sched s = {0, -1, -1, 1, 0, 0, 0, 0, 0};
+    Sched s = {};
+    s.vpos = s.left = -1;
+    s.fired_any = 1;
     [[maybe_unused]] const long long clk =
         scheduler(v, slots, full, empty, &s, max_sweeps, multi_firing);
     // 4. Block 0 writes the replicated state back.
@@ -1134,7 +1344,19 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 #ifdef MK_CLOCK_SPLIT
         meta[M_CLK_SCHED] = clk;
 #endif
+#ifdef MK_TRACE
+        io[io_len + 2 * v.n_fifos] = s.events;
+#endif
       }
+#ifdef MK_GUARDS
+      // The body threads OR NONFINITE into the same fault words.
+      for (int f = lane(); f < v.n_fifos; f += 32) {
+        if (v.fault[f])
+          atomicOr(reinterpret_cast<unsigned long long*>(io + io_len + f),
+                   static_cast<unsigned long long>(v.fault[f]));
+        io[io_len + v.n_fifos + f] = v.hw[f];
+      }
+#endif
     }
     return;
   }
@@ -1179,10 +1401,17 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 #ifdef MK_CLOCK_SPLIT
       const long long t2 = clock64();
 #endif
+#ifdef MK_GUARDS
+      scan_inputs(cmd);
+#endif
       if (cmd.cb_mask)
         run_body_copy_back(cmd, stage);
       else
         run_body<false>(cmd, stage);
+#ifdef MK_GUARDS
+      body_sync();
+      if (tid == 0) flush_bad(cmd, io + io_len);
+#endif
 #ifdef MK_CLOCK_SPLIT
       clk_kind[cmd.kind] += clock64() - t2;
       n_kind[cmd.kind] += 1;
@@ -1212,10 +1441,19 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 // `progress` n_progress 8-byte words of scratch (the blocks' progress, which
 // the kernel zeroes), all on the current device.  Returns
 // cudaGetLastError(), or the error of the failed query or refused launch.
+//
+// The MK_GUARDS build writes, after the io_len io words, a fault word and a
+// high-water mark per channel; the MK_TRACE build takes a trace ring of
+// trace_cap rows of 3 + channels int32 words and writes the event count
+// after those.
 extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
                               int n_ptrs, int io_len, int max_sweeps,
                               int multi_firing, unsigned long long* progress,
-                              int n_progress, void* stream) {
+                              int n_progress, void* stream
+#ifdef MK_TRACE
+                              , int* trace, int trace_cap
+#endif
+                              ) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1225,9 +1463,11 @@ extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (sms > n_progress) return static_cast<int>(cudaErrorInvalidValue);
-  // [program | io words | phases] as ints, padded to 8 bytes, then
-  // [addresses | segment trackers] as 8-byte words; channels <= n_ptrs.
-  const size_t ints = static_cast<size_t>(prog_len + io_len - META_WORDS + 2 * n_ptrs);
+  // [program | io words | phases | guard words] as ints, padded to 8
+  // bytes, then [addresses | segment trackers] as 8-byte words; channels
+  // <= n_ptrs.
+  const size_t ints =
+      static_cast<size_t>(prog_len + io_len - META_WORDS + (2 + GUARD_INTS) * n_ptrs);
   const size_t smem = (ints + 1) / 2 * 8 + static_cast<size_t>(1 + 2 * SEGS) * n_ptrs * 8;
   err = cudaFuncSetAttribute(megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
@@ -1236,7 +1476,13 @@ extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, megakernel, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+#ifdef MK_TRACE
+  if (trace_cap < 1) return static_cast<int>(cudaErrorInvalidValue);
+  void* kargs[] = {&prog,         &args,     &n_ptrs, &io_len, &max_sweeps,
+                   &multi_firing, &progress, &trace,  &trace_cap};
+#else
   void* kargs[] = {&prog, &args, &n_ptrs, &io_len, &max_sweeps, &multi_firing, &progress};
+#endif
   err = cudaLaunchCooperativeKernel((const void*)megakernel, dim3(sms),
                                     dim3(THREADS), kargs, smem,
                                     static_cast<cudaStream_t>(stream));

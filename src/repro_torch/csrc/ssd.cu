@@ -47,6 +47,16 @@
 // sum (chunk_cumsum), as the plain version takes it in float64.  Steps
 // past L take dt = 0 and zero x, B, C (cp.async's zero fill); their y is
 // not stored.
+//
+// Any other (P, N) takes the SIMT route (ssd_run_simt): the same three
+// launches in float32 on the CUDA cores, one block of Q threads per
+// (chunk, head, batch).  ssd_chunk_state_simt takes dA's cumsum in float64
+// (a Hillis-Steele scan), w = exp(cum_T - cum) dt, and S_c = (w x)^T B with
+// a thread per state value; ssd_state_pass_simt is the float32 scan over
+// chunks (h_in[c] = h; h = exp(cum_T) h + S_c); ssd_chunk_out_simt forms M
+// = (C B^T) * L * dt for 16 rows of the chunk at a time in shared memory,
+// masked before the exp, then y = M x + exp(cum_t) C h_in^T with a thread
+// per (row, p).  Inputs are float32 (the entry casts f16); y is float32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -747,7 +757,139 @@ int launch(const void* x, const void* dt, const void* A, const void* Bm, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the SIMT route: any (P, N), float32 ------------------------------- //
+constexpr int SQ_THREADS = Q;  // a thread per step of the chunk
+constexpr int TT = 16;         // rows of M that ssd_chunk_out_simt holds at a time
+
+// dA's inclusive cumsum over chunk c of (b, h) in float64, and dt, into
+// shared memory; steps past L take dt = 0.
+__device__ void chunk_cum_simt(const float* dt, float a, int b, int c, int h, int L, int H,
+                               double* cum, float* dts) {
+  const int t = threadIdx.x;
+  const int l = c * Q + t;
+  const float d = l < L ? dt[(static_cast<long long>(b) * L + l) * H + h] : 0.f;
+  dts[t] = d;
+  cum[t] = static_cast<double>(d * a);
+  __syncthreads();
+  for (int off = 1; off < Q; off <<= 1) {
+    const double add = t >= off ? cum[t - off] : 0.0;
+    __syncthreads();
+    cum[t] += add;
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(SQ_THREADS)
+ssd_chunk_state_simt(const float* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const float* __restrict__ Bm,
+                     float* __restrict__ S, float* __restrict__ tot, int L, int H, int Pd,
+                     int Nd, int nc) {
+  __shared__ double cum[Q];
+  __shared__ float dts[Q], w[Q];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  chunk_cum_simt(dt, A[h], b, c, h, L, H, cum, dts);
+  const double total = cum[Q - 1];
+  w[threadIdx.x] = expf(static_cast<float>(total - cum[threadIdx.x])) * dts[threadIdx.x];
+  __syncthreads();
+  const int steps = min(Q, L - c * Q);
+  const long long row0 = static_cast<long long>(b) * L + static_cast<long long>(c) * Q;
+  float* Sc = S + ((static_cast<long long>(b) * nc + c) * H + h) * Pd * Nd;
+  for (int i = threadIdx.x; i < Pd * Nd; i += SQ_THREADS) {
+    const int p = i / Nd, n = i % Nd;
+    float acc = 0.f;
+    for (int s = 0; s < steps; ++s)
+      acc = fmaf(w[s] * __ldg(x + ((row0 + s) * H + h) * Pd + p), __ldg(Bm + (row0 + s) * Nd + n),
+                 acc);
+    Sc[i] = acc;
+  }
+  if (threadIdx.x == 0) tot[(static_cast<long long>(b) * nc + c) * H + h] = static_cast<float>(total);
+}
+
+__global__ void ssd_state_pass_simt(const float* __restrict__ S, const float* __restrict__ tot,
+                                    float* __restrict__ hin, float* __restrict__ h_last, int nc,
+                                    int H, long long PN, long long n) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const long long bh = i / PN, e = i % PN, b = bh / H, hh = bh % H;
+  float hv = 0.f;
+  for (int c = 0; c < nc; ++c) {
+    const long long r = (b * nc + c) * H + hh;
+    hin[r * PN + e] = hv;
+    hv = expf(tot[r]) * hv + S[r * PN + e];
+  }
+  h_last[bh * PN + e] = hv;
+}
+
+__global__ void __launch_bounds__(SQ_THREADS)
+ssd_chunk_out_simt(const float* __restrict__ x, const float* __restrict__ dt,
+                   const float* __restrict__ A, const float* __restrict__ Bm,
+                   const float* __restrict__ Cm, const float* __restrict__ hin,
+                   float* __restrict__ y, int L, int H, int Pd, int Nd, int nc) {
+  __shared__ double cum[Q];
+  __shared__ float dts[Q];
+  __shared__ float M[TT][Q];
+  const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  chunk_cum_simt(dt, A[h], b, c, h, L, H, cum, dts);
+  const int steps = min(Q, L - c * Q);
+  const long long row0 = static_cast<long long>(b) * L + static_cast<long long>(c) * Q;
+  const float* hc = hin + ((static_cast<long long>(b) * nc + c) * H + h) * Pd * Nd;
+  for (int t0 = 0; t0 < steps; t0 += TT) {
+    // M[r][s] = (C_t . B_s) exp(cum_t - cum_s) dt_s for s <= t = t0 + r.
+    for (int i = threadIdx.x; i < TT * Q; i += SQ_THREADS) {
+      const int r = i / Q, s = i % Q, t = t0 + r;
+      float m = 0.f;
+      if (t < steps && s <= t) {
+        const float* ct = Cm + (row0 + t) * Nd;
+        const float* bs = Bm + (row0 + s) * Nd;
+        float g = 0.f;
+        for (int n = 0; n < Nd; ++n) g = fmaf(__ldg(ct + n), __ldg(bs + n), g);
+        m = g * expf(static_cast<float>(cum[t] - cum[s])) * dts[s];
+      }
+      M[r][s] = m;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < TT * Pd; i += SQ_THREADS) {
+      const int r = i / Pd, p = i % Pd, t = t0 + r;
+      if (t >= steps) continue;
+      float acc = 0.f;
+      for (int s = 0; s <= t; ++s) acc = fmaf(M[r][s], __ldg(x + ((row0 + s) * H + h) * Pd + p), acc);
+      const float* ct = Cm + (row0 + t) * Nd;
+      const float* hp = hc + static_cast<long long>(p) * Nd;
+      float inter = 0.f;
+      for (int n = 0; n < Nd; ++n) inter = fmaf(__ldg(ct + n), hp[n], inter);
+      y[((row0 + t) * H + h) * Pd + p] = acc + expf(static_cast<float>(cum[t])) * inter;
+    }
+    __syncthreads();
+  }
+}
+
 }  // namespace
+
+// The SIMT route, any P, N >= 1: x, y contiguous (B, L, H, P), B_, C_
+// (B, L, N), dt (B, L, H), A (H,), h_last (B, H, P, N), all float32;
+// scratch, with nc = ceil(L / 256): S and hin (B, nc, H, P, N), tot
+// (B, nc, H) float32.  Three launches on `stream`; returns a CUDA error
+// code (0 on success).
+extern "C" int ssd_run_simt(const float* x, const float* dt, const float* A, const float* Bm,
+                            const float* Cm, float* y, float* h_last, float* S, float* hin,
+                            float* tot, int B, int L, int H, int Pd, int Nd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || L < 1 || H < 1 || Pd < 1 || Nd < 1 || B > 65535 || H > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int nc = (L + Q - 1) / Q;
+  const dim3 grid(nc, H, B);
+  ssd_chunk_state_simt<<<grid, SQ_THREADS, 0, s>>>(x, dt, A, Bm, S, tot, L, H, Pd, Nd, nc);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long PN = static_cast<long long>(Pd) * Nd;
+  const long long n = static_cast<long long>(B) * H * PN;
+  ssd_state_pass_simt<<<static_cast<unsigned>((n + 255) / 256), 256, 0, s>>>(S, tot, hin, h_last,
+                                                                             nc, H, PN, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ssd_chunk_out_simt<<<grid, SQ_THREADS, 0, s>>>(x, dt, A, Bm, Cm, hin, y, L, H, Pd, Nd, nc);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // x, y: contiguous (B, L, H, 64); B_, C_: (B, L, 128), all bf16 (bf16 != 0)
 // or all float32; dt (B, L, H), A (H,), h_last (B, H, 64, 128) float32;

@@ -221,3 +221,99 @@ def test_tile_walk_covers_live_keys_and_skips_the_rest(S, causal, window):
                 assert tile.all() and tile.shape[1] == BN
         if window:
             assert len(block) <= (BM + window - 2) // BN + 2
+
+
+# ---- the float32 / f16 route (ROADMAP C9), emulated ------------------------ #
+# csrc/flash_attention.cu's flash_fwd_ffma: one block per (batch, head,
+# 64-query tile), a warp per 8 query rows, key tiles of 32; the block walks
+# the key tiles live for some of its rows and each warp skips the tiles
+# dead for all of its own.  float32 arithmetic from the start (m = NEG_INF,
+# masked scores NEG_INF, keys past S -inf, natural exp), out = O / max(l,
+# 1e-20) in q's type.  The routing is the wrapper's.
+
+
+def _ffma_schedule(q, k, v, causal, window):
+    from repro_torch.kernels.flash_attention.kernel import (FFMA_KEYS, FFMA_QUERY_ROWS,
+                                                            FFMA_WARP_ROWS)
+    B, S, H, hd = q.shape
+    G = H // k.shape[2]
+    scale = torch.tensor(1.0 / hd ** 0.5, dtype=torch.float32)
+    qf, kf, vf = (t.float() for t in (q, k, v))
+    kf, vf = kf.repeat_interleave(G, dim=2), vf.repeat_interleave(G, dim=2)
+    out = torch.zeros(B, S, H, hd)
+    for q0 in range(0, S, FFMA_QUERY_ROWS):
+        k_lo = max(0, q0 - window + 1) if window else 0
+        k_hi = min(q0 + FFMA_QUERY_ROWS - 1, S - 1) if causal else S - 1
+        for r_lo in range(q0, min(q0 + FFMA_QUERY_ROWS, S), FFMA_WARP_ROWS):
+            r_hi = min(r_lo + FFMA_WARP_ROWS - 1, S - 1)
+            rows = torch.arange(r_lo, r_hi + 1)
+            Q = qf[:, r_lo:r_hi + 1].transpose(1, 2)                 # (B, H, R, hd)
+            m = torch.full((B, H, len(rows)), NEG_INF)
+            l = torch.zeros(B, H, len(rows))
+            O = torch.zeros(B, H, len(rows), hd)
+            for kt in range(k_lo // FFMA_KEYS * FFMA_KEYS, k_hi + 1, FFMA_KEYS):
+                if (causal and kt > r_hi) or (window and kt + FFMA_KEYS - 1 <= r_lo - window):
+                    continue
+                keys = torch.arange(kt, min(kt + FFMA_KEYS, S))
+                Kt = kf[:, kt:kt + FFMA_KEYS].transpose(1, 2)            # (B, H, n, hd)
+                Vt = vf[:, kt:kt + FFMA_KEYS].transpose(1, 2)
+                s = (Q @ Kt.transpose(-1, -2)) * scale
+                dead = torch.zeros(len(rows), len(keys), dtype=torch.bool)
+                if causal:
+                    dead |= keys[None] > rows[:, None]
+                if window:
+                    dead |= rows[:, None] - keys[None] >= window
+                s = torch.where(dead, torch.tensor(NEG_INF), s)
+                m_new = torch.maximum(m, s.max(dim=-1).values)
+                p = torch.exp(s - m_new[..., None])
+                alpha = torch.exp(m - m_new)
+                l = alpha * l + p.sum(dim=-1)
+                O = O * alpha[..., None] + p @ Vt
+                m = m_new
+            out[:, r_lo:r_hi + 1] = (O / l.clamp(min=1e-20)[..., None]).transpose(1, 2)
+    return out.to(q.dtype)
+
+
+FFMA_CASES = [(1, 300, 10, 1, 256, True, 64), (2, 97, 4, 2, 8, False, 40),
+              (1, 130, 6, 3, 64, True, None), (1, 70, 2, 2, 16, True, 7)]
+
+
+@pytest.mark.parametrize("route", ["xla", "pallas"])
+@pytest.mark.parametrize("dtype", ["float32", "float16"])
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", FFMA_CASES)
+def test_float_route_schedule_matches_reference(route, dtype, B, S, H, Hkv, hd, causal,
+                                                window):
+    """The FFMA kernel's walk, skips and float32 online softmax against both
+    reference routes: float32 within the file's float32 tolerance, f16
+    within two f16 steps of |want| plus 2^-10 of the largest magnitude.
+    The reference's Pallas kernel runs as one tile (``bq = bk = S``), so S
+    need not divide into its blocks."""
+    tdt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(a).to(tdt) for a in _qkv(B, S, H, Hkv, hd, S + hd + 2))
+    kw = dict(impl="pallas", bq=S, bk=S, interpret=True) if route == "pallas" \
+        else dict(impl="xla")
+    want = np.asarray(ref_flash(*(jnp.asarray(t.float().numpy()).astype(jnp.dtype(dtype))
+                                  for t in (q, k, v)),
+                                causal=causal, window=window, **kw), np.float32)
+    got = _ffma_schedule(q, k, v, causal, window)
+    assert got.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-4)
+    else:
+        step = float(torch.finfo(tdt).eps)
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2 * step,
+                                   atol=2.0 ** -10 * np.abs(want).max())
+
+
+def test_float32_and_f16_take_the_ffma_route():
+    from repro_torch.kernels.flash_attention.kernel import ROUTES
+    assert ROUTES == {torch.bfloat16: "wgmma", torch.float32: "ffma",
+                      torch.float16: "ffma"}
+    assert flash_attention_cuda.route_launches.keys() == {"wgmma", "ffma"}
+    for dtype in (torch.float32, torch.float16):
+        q, k, v = (torch.tensor(a).to(dtype) for a in _qkv(1, 16, 2, 1, 8, 0))
+        before = dict(flash_attention_cuda.route_launches)
+        assert flash_attention(q, k, v).dtype == dtype
+        assert flash_attention_cuda.route_launches == before
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_cuda(q, k, v)

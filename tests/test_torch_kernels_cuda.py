@@ -25,7 +25,15 @@ from the readings of sound runs and planted faults there; PERF.md);
 B6 within 3e-4 of the largest magnitude (``tests/test_kernels.py:92``),
 plus one bf16 step of y for bf16 inputs, against its plain version, and
 under strong decays against the step-by-step recurrence; B7 bit for bit
-(``torch.equal``), as in ``chip_smoke.py`` phase 12.
+(``torch.equal``), as in ``chip_smoke.py`` phase 12.  B5's float32 and f16
+route: float32 within rtol = atol = 2e-4 of its plain version (the
+reference's float32 tolerance, ``tests/test_kernels.py``), f16 within one
+f16 step of |want| plus 2^-10 of the row's RMS.  B6's SIMT route (any
+(P, N)): 3e-4 of the largest magnitude, plus one f16 step of y
+(2^-10 |y|) for f16 inputs.  B2's guarded and traced builds: every fault word, high-water mark
+and trace event equal to its plain version's and the host dynamic run's,
+and every ring, cursor and actor tensor bit for bit, clean and with each
+injected fault.
 """
 from __future__ import annotations
 
@@ -36,8 +44,12 @@ import torch.nn.functional as F
 
 from repro_torch.core.megakernel import (compile_megakernel, lower_network,
                                          megakernel_cuda, partition_layout)
+from repro_torch.core.executor import run_dynamic
+from repro_torch.core.faultinject import (corrupt_cursor, inject_overflow,
+                                          inject_underflow, poison_tokens)
 from repro_torch.core.megakernel.program import M_BLOCKS, M_ERROR, stage
 from repro_torch.core.megakernel.ref import run_program
+from repro_torch.core.trace import decode_trace
 from repro_torch.graphs.dpd import default_active_schedule
 from repro_torch.graphs.factories import make_dpd, make_motion_detection
 from repro_torch.kernels.dyn_fir import N_TAPS, dpd_branch_cuda, poly_branch, poly_ref
@@ -384,15 +396,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         motion_post_cuda(f[:0], f[:0], 40.0)
     assert motion_post_cuda.launches == b4
     q = torch.randn((1, 8, 2, 16), generator=gen, device="cuda")
+    b5 = flash_attention_cuda.launches
     with pytest.raises(ValueError, match="bf16"):
-        flash_attention_cuda(q, q, q)                   # float32
+        flash_attention_cuda(q.double(), q.double(), q.double())   # float64
+    with pytest.raises(ValueError, match="q's type"):
+        flash_attention_cuda(q, q.half(), q)                       # mixed types
     with pytest.raises(ValueError, match="multiple of 8"):
         b = torch.zeros((1, 8, 2, 12), device="cuda", dtype=torch.bfloat16)
         flash_attention_cuda(b, b, b)
-    x = torch.zeros((1, 4, 2, 32), device="cuda")       # head_dim 32, not 64
-    with pytest.raises(ValueError, match="ssd_cuda"):
+    assert flash_attention_cuda.launches == b5
+    x = torch.zeros((1, 4, 2, 32), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="SIMT route"):             # bf16, not (64, 128)
         ssd_cuda(x, torch.zeros((1, 4, 2), device="cuda"), torch.zeros(2, device="cuda"),
-                 torch.zeros((1, 4, 128), device="cuda"), torch.zeros((1, 4, 128), device="cuda"))
+                 torch.zeros((1, 4, 16), device="cuda", dtype=torch.bfloat16),
+                 torch.zeros((1, 4, 16), device="cuda", dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="float32"):
         z = torch.zeros((1, 4, 8), device="cuda", dtype=torch.float64)
         rglru_cuda(z, z)
@@ -504,3 +521,139 @@ def test_megakernel_resumes_a_partial_state(gen, cores):
     dp, sides = _b2_and_plain(net, cores, specialize=False, state=partial)
     assert sides[0][0][dp.io_meta] > 1 and not sides[0][0][dp.io_meta + 1]
     _assert_b2_bit_identical(dp, sides)
+
+
+# ---- B5's float32 / f16 route (flash_fwd_ffma) ---------------------------- #
+# hd 8 (a quarter of a lane's column block) and 256 (8 columns a lane), hd
+# not a multiple of 4 (6, the padded rows), ragged S against the 64-query
+# and 32-key tiles, GQA, causal and windowed (a window shorter than a key
+# tile), non-causal.
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", [
+    (1, 1, 1, 1, 8, True, None), (2, 100, 4, 2, 8, True, None),
+    (1, 130, 2, 1, 6, False, None), (1, 300, 10, 1, 256, True, 64),
+    (2, 97, 4, 4, 256, False, 40), (1, 257, 6, 3, 64, True, 7)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_flash_attention_float_route_matches_plain(gen, dtype, B, S, H, Hkv, hd, causal,
+                                                   window):
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device="cuda").to(dtype)
+               for n in (H, Hkv, Hkv))
+    before = dict(flash_attention_cuda.route_launches)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention_cuda.route_launches["ffma"] == before["ffma"] + 1
+    assert flash_attention_cuda.route_launches["wgmma"] == before["wgmma"]
+    assert got.dtype == dtype and bool(torch.isfinite(got).all())
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        w = want.float()
+        rms = w.pow(2).mean(-1, keepdim=True).sqrt()
+        excess = float((((got.float() - w).abs() - 2.0 ** -10 * w.abs()) / rms).max())
+        assert excess <= 2.0 ** -10, excess
+
+
+# ---- B6's SIMT route: any (P, N) ------------------------------------------- #
+@pytest.mark.parametrize("P,N", [(16, 16), (8, 24), (5, 7)])
+@pytest.mark.parametrize("B,L,H", [(1, 1, 1), (2, 300, 3), (1, 600, 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_ssd_simt_route_matches_plain(gen, dtype, B, L, H, P, N):
+    x = torch.randn((B, L, H, P), generator=gen, device="cuda").to(dtype)
+    dt = F.softplus(torch.randn((B, L, H), generator=gen, device="cuda"))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = torch.randn((B, L, N), generator=gen, device="cuda").to(dtype)
+    Cm = torch.randn((B, L, N), generator=gen, device="cuda").to(dtype)
+    before = dict(ssd_cuda.route_launches)
+    y, h = ssd(x, dt, A, Bm, Cm)
+    assert ssd_cuda.route_launches["simt"] == before["simt"] + 1
+    assert ssd_cuda.route_launches["tensor_cores"] == before["tensor_cores"]
+    assert y.dtype == dtype and h.dtype == torch.float32
+    yr, hr = ssd_ref(x.float(), dt, A, Bm.float(), Cm.float(), 256)
+    bar = 3e-4 * yr.abs().max()
+    if dtype == torch.float16:
+        bar = bar + 2.0 ** -10 * yr.abs()
+    assert bool(torch.isfinite(y.float()).all()) and bool(torch.isfinite(h).all())
+    assert bool(((y.float() - yr).abs() <= bar).all())
+    assert float((h - hr).abs().max()) <= 3e-4 * float(hr.abs().max())
+
+
+def test_ssd_f16_operands_at_mamba2_shape_run_in_float32(gen):
+    """f16 x, B, C at (64, 128) are cast to float32 by the entry and take
+    the tensor-core route's float32 kernels; y comes back in f16."""
+    x = torch.randn((1, 300, 4, 64), generator=gen, device="cuda").half()
+    dt = F.softplus(torch.randn((1, 300, 4), generator=gen, device="cuda")).half()
+    A = -torch.linspace(1.0, 16.0, 4, device="cuda").double()
+    Bm, Cm = (torch.randn((1, 300, 128), generator=gen, device="cuda").half() for _ in "BC")
+    before = dict(ssd_cuda.route_launches)
+    y, h = ssd(x, dt, A, Bm, Cm)
+    assert ssd_cuda.route_launches["tensor_cores"] == before["tensor_cores"] + 1
+    yr, hr = ssd_ref(x.float(), dt.float(), A.float(), Bm.float(), Cm.float(), 256)
+    assert y.dtype == torch.float16
+    assert bool(((y.float() - yr).abs() <= 3e-4 * yr.abs().max() + 2.0 ** -10 * yr.abs()).all())
+
+
+# ---- B2's guarded and traced builds ---------------------------------------- #
+FAULTS = {"clean": None,
+          "overflow": inject_overflow,
+          "underflow": inject_underflow,
+          "cursor": lambda net, st, f: corrupt_cursor(net, st, f, occ=1),
+          "nonfinite": poison_tokens}
+
+
+def _bits(state):
+    """Every leaf of a state as bytes (NaN compares by its bits)."""
+    return [x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+            if isinstance(x, torch.Tensor) else x for x in state.leaves()]
+
+
+def _health_and_trace(net, state, run, guards, trace):
+    st = state.clone()
+    res = run(st)
+    h = (res.health.fault_words().tolist(), list(res.health.high_water)) if guards else None
+    t = decode_trace(net, res.trace) if trace else None
+    return (_bits(res[0]), res[1], res[2], res[3], h,
+            None if t is None else (t.events.tolist(), t.dropped))
+
+
+@pytest.mark.parametrize("build", ["guards", "trace", "both"])
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_megakernel_guarded_traced_builds_match_plain_and_dynamic(gen, fault, cores, build):
+    """DPD with each fault injected on f_in: B2's build, its plain version on
+    the card and the host dynamic executor agree on every state bit, fire
+    count, sweep, fault word, high-water mark and trace event (a ring of 64
+    events, so a run wraps it)."""
+    guards, trace = build in ("guards", "both"), build in ("trace", "both")
+    net, _ = make_dpd(16, block_l=4096, seed=0, device="cuda",
+                      active_schedule=default_active_schedule(16, seed=0))
+    state = net.init_state()
+    if FAULTS[fault] is not None:
+        state = FAULTS[fault](net, state, "f_in")
+    cap = 64 if trace else None
+    layout = lower_network(net)
+    runner = compile_megakernel(net, layout=layout,
+                                partition=partition_layout(net, layout, cores,
+                                                           forward_transients=False),
+                                guards=guards, trace_capacity=cap)
+    before = megakernel_cuda.launches
+    k = _health_and_trace(net, state, runner, guards, trace)
+    assert megakernel_cuda.launches == before + 1
+    p = _health_and_trace(net, state, runner.plain, guards, trace)
+    d = _health_and_trace(net, state, lambda st: run_dynamic(
+        net, st, guards=guards, trace_capacity=cap), guards, trace)
+    assert k == p == d
+    if guards and fault != "clean":
+        assert k[4][0][net.fifo_index["f_in"]] != 0
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_guarded_traced_motion_detection(gen, cores):
+    net, _ = make_motion_detection(48, rate=4, frame_hw=(240, 320), seed=0, device="cuda")
+    layout = lower_network(net)
+    runner = compile_megakernel(net, layout=layout, guards=True, trace_capacity=4096,
+                                partition=partition_layout(net, layout, cores,
+                                                           forward_transients=False))
+    k = _health_and_trace(net, net.init_state(), runner, True, True)
+    p = _health_and_trace(net, net.init_state(), runner.plain, True, True)
+    d = _health_and_trace(net, net.init_state(), lambda st: run_dynamic(
+        net, st, guards=True, trace_capacity=4096), True, True)
+    assert k == p == d and not any(k[4][0])

@@ -53,3 +53,28 @@ def test_cpu_tensors_take_the_plain_version_and_the_kernel_refuses_them():
     with pytest.raises(ValueError, match="CUDA"):
         rglru_cuda(torch.tensor(la), torch.tensor(gx))
     assert rglru_cuda.launches == before
+
+
+# ---- the entry on other dtypes (ROADMAP C8) ------------------------------- #
+# The reference's default route casts both operands to float32 and returns
+# float32; its ``impl="xla"`` route keeps the input type and rounds every
+# step to it, so there the bar is that rounding: L steps of one unit of the
+# type at the largest |h|.  (float64 is float32 to the reference, whose
+# JAX runs without 64-bit types.)
+@pytest.mark.parametrize("route", ["pallas", "xla"])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float64"])
+def test_entry_casts_other_dtypes_to_float32(route, dtype):
+    la, gx = _inputs(2, 40, 16, 0)
+    tdt, jdt = getattr(torch, dtype), jnp.dtype(dtype)
+    tla, tgx = torch.tensor(la).to(tdt), torch.tensor(gx).to(tdt)
+    jla = jnp.asarray(tla.float().numpy()).astype(jdt)
+    jgx = jnp.asarray(tgx.float().numpy()).astype(jdt)
+    kw = dict(impl="pallas", interpret=True) if route == "pallas" else dict(impl="xla")
+    want_h, want_t = (np.asarray(x, np.float32) for x in ref_rglru(jla, jgx, **kw))
+    got_h, got_t = rglru(tla, tgx)
+    assert got_h.dtype == torch.float32 and got_t.dtype == torch.float32
+    tol = TOL
+    if route == "xla" and dtype != "float64":
+        tol = 40 * float(torch.finfo(tdt).eps) * float(np.abs(want_h).max())
+    np.testing.assert_allclose(got_h.numpy(), want_h, rtol=tol, atol=tol)
+    np.testing.assert_allclose(got_t.numpy(), want_t, rtol=tol, atol=tol)

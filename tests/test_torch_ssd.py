@@ -200,3 +200,32 @@ def test_split_products_hold_the_bar(inputs):
 def test_one_bf16_rounding_breaks_the_bar(inputs):
     ey, eh = _scheme_errors(inputs, split=False)
     assert ey > TOL and eh > TOL, (ey, eh)
+
+
+# ---- the entry on other dtypes (ROADMAP C10 a) ---------------------------- #
+# The reference casts dt, A, x, B and C to float32 inside its kernel and
+# returns y in x's type (float64 is float32 to it: its JAX runs without
+# 64-bit types).  Bar: the file's, plus one unit of y's type at |y|.
+@pytest.mark.parametrize("route", ["oracle", "pallas"])
+@pytest.mark.parametrize("xdt,dtdt,adt", [("bfloat16", "float32", "float32"),
+                                          ("float16", "bfloat16", "float64"),
+                                          ("float64", "float16", "float16"),
+                                          ("float32", "float64", "bfloat16")])
+def test_entry_casts_like_the_reference(route, xdt, dtdt, adt):
+    x, dt, A, B_, C_ = _inputs(2, 40, 2, 8, 16, 1)
+    tx, tB, tC = (torch.tensor(a).to(getattr(torch, xdt)) for a in (x, B_, C_))
+    tdt, tA = torch.tensor(dt).to(getattr(torch, dtdt)), torch.tensor(A).to(getattr(torch, adt))
+    to_j = lambda t: jnp.asarray(t.float().numpy()).astype(jnp.dtype(str(t.dtype)[6:]))
+    if route == "pallas":
+        want_y, want_h = ref_ssd(*(to_j(t) for t in (tx, tdt, tA, tB, tC)), chunk=16,
+                                 impl="pallas", interpret=True)
+    else:
+        want_y, want_h = ref_ssd_naive(*(to_j(t).astype(jnp.float32)
+                                         for t in (tx, tdt, tA, tB, tC)))
+        want_y = want_y.astype(to_j(tx).dtype)
+    got_y, got_h = ssd(tx, tdt, tA, tB, tC, chunk=16)
+    assert str(got_y.dtype)[6:] == str(want_y.dtype) and got_h.dtype == torch.float32
+    want_y = np.asarray(want_y, np.float32)
+    eps = float(torch.finfo(got_y.dtype).eps)
+    np.testing.assert_allclose(got_y.float().numpy(), want_y, rtol=TOL + eps, atol=TOL)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=TOL, atol=TOL)
