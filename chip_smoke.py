@@ -137,7 +137,30 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     forwarded), by its plain version and by the host dynamic executor,
     guarded and traced: the same named diagnostics, the same trace events
     and the same partial state, bit for bit, from all three; and B2's time
-    per run from the main build and the three health builds, in turns.
+    per run from the main build and the three health builds, in turns;
+18. (run after 17) the MoE actor network (``graphs/moe_as_actors.py``)
+    at one olmoe-1b-7b layer's published widths (D 2048, 64 experts,
+    top-8, F 1024, capacity factor 1.25; 512 tokens a firing, 8 firings,
+    C = 80; weights ``moe_init`` seed 0, tokens numpy seed 0): the host
+    dynamic mode (torch bodies, no kernel of the port), B2 at cores 1 and
+    2 (one launch a run) and B2's guarded and traced build: fire counts,
+    sweeps and cursors equal; the integer rings (slots, counts, the packed
+    token) equal unless a near-tie lies under the margin rule (the tokens
+    whose top-8 logit margin is at most twice the largest difference
+    between the host's and B2's router logits are counted and printed);
+    B2's output within ``MOE_Y_TOL`` of max|y| from the host run's; B2
+    against its plain version bit for bit at make_moe's width and at D 256
+    / E 8; B2 timed (CUDA events) beside its bound and the host run;
+19. (run after 14) olmoe-1b-7b served at its published width as in 13
+    (16 layers, d 2048, 16 heads of 128, 64 experts top-8, vocab 50 304,
+    6.9 B parameters, random weights from seed 0): 32 B5 launches (16 a
+    prefill), prefill and decode times, tokens/s; parity with the CPU on
+    a model cut to ``PARITY_MOE_LAYERS`` layers, its MoE MLPs held in two
+    parts (the router's logits within ``MOE_LOGIT_TOL``; dispatch, experts
+    and combine fed the CPU's routing, within 13's bar); its phase-15
+    profile with the MoE layers' share of the prefill.  Phase 12 also
+    holds B5 at olmoe's shape (q (4, 4096, 16, 128), causal, no window)
+    against its plain version and times it beside SDPA;
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -168,6 +191,7 @@ trees they compare a kernel across commits on one card.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import re
 import subprocess
@@ -220,6 +244,13 @@ B6_TOL = 3e-4       # of max|ref|: tests/test_kernels.py:92; y (bf16) also
 MIX_ROW_TOL = 2.0 ** -4
 LOGIT_SENS = 4.0
 LOGIT_TOL = 3e-2
+# MoE layers in the parity run (phase 19): the router's logits on the card
+# (float32 product of the bf16 operands) within MOE_LOGIT_TOL of their
+# largest magnitude of the CPU's (the same rule; reading 2.47e-7 on an
+# H100); olmoe-1b-7b's parity model is cut to PARITY_MOE_LAYERS layers (the
+# CPU's time), same widths.
+MOE_LOGIT_TOL = 2.0 ** -20
+PARITY_MOE_LAYERS = 4
 # B5's float32 and f16 route against the plain version (float32 softmax):
 # float32 within rtol = atol = 2e-4 (tests/test_kernels.py's float32 bar);
 # f16 within one f16 step at |want| (2^-10 |want|: two float32 results that
@@ -229,6 +260,12 @@ LOGIT_TOL = 3e-2
 B5_F32_TOL = 2e-4
 B5_F16_ROW_TOL = 2.0 ** -10
 A7_TRACE_CAPACITY = 4096   # the reference's TRACE_CAPACITY_DEFAULT
+# Phase 18: the MoE actor network at one olmoe-1b-7b layer's widths, N
+# tokens a firing.  MOE_Y_TOL bounds B2's output against the host dynamic
+# run's (torch.matmul bodies) in units of max|y|: the smallest power of two
+# at least twice the largest sound reading (3.21e-6 on an H100, PERF.md).
+MOE_N, MOE_FIRINGS = 512, 8
+MOE_Y_TOL = 2.0 ** -17
 
 
 def log(msg: str) -> None:
@@ -413,14 +450,19 @@ def b2_timed(net, dev, clock_split: bool = False, guards: bool = False,
     dp = compile_megakernel(net).device_program
     # (An older tree's stage takes no health words: pass them only when used.)
     extra = {"health_words": True} if guards or trace else {}
-    tensors, io = stage(dp, net.init_state(), dev, [t.to(dev) for _, t in dp.consts],
-                        **extra)
+    consts = ([t.to(dev) for _, t in dp.consts]
+              + [torch.zeros(n, device=dev) for _, n in getattr(dp, "scratch", ())])
+    tensors, io = stage(dp, net.init_state(), dev, consts, **extra)
     args0 = torch.tensor([0 if t is None else t.data_ptr() for t in tensors] + io,
                          dtype=torch.int64, device=dev)
     args = args0.clone()
     table = dp.table.to(dev)
 
     kw = {"clock_split": True} if clock_split else {}
+    # (An older tree's wrapper sizes shared memory from the pointers alone.)
+    if "n_actors" in inspect.signature(megakernel_cuda).parameters:
+        kw.update(n_actors=dp.n_actors, scratch_words=int(dp.table[10]),
+                  moe=bool(dp.table[11]))
     if guards or trace:
         kw.update(io_len=dp.io_len, guards=guards)
     if trace:
@@ -627,6 +669,186 @@ def a7_phase(dev, smi: str, zero_counts, expect_counts, dpd: tuple, md: tuple,
                                          "main_build_ms": med["md"]["main"],
                                          "bound_ms": bounds["md"][0]}})
     return out
+
+
+def moe_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 18: the MoE actor network (``graphs/moe_as_actors.py``) at one
+    olmoe-1b-7b layer's published widths (D 2048, 64 experts, top-8, F
+    1024, capacity factor 1.25; N = 512 tokens a firing, 8 firings, C =
+    80), weights from ``moe_init`` on seed 0, the token stream from numpy
+    seed 0.  The host dynamic mode (torch bodies), B2 at cores 1 and 2 and
+    B2's guarded and traced builds: fire counts, sweeps and cursors equal;
+    counts and slots equal under the margin rule; B2's output within
+    MOE_Y_TOL of the host run's; B2 against its plain version bit for bit
+    at make_moe's width and at D 256 / E 8; B2 timed beside its bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.megakernel import compile_megakernel, megakernel_cuda
+    from repro_torch.core.megakernel.ref import moe_logits
+    from repro_torch.graphs.factories import make_moe, states_equal
+    from repro_torch.graphs.moe_as_actors import build_moe_network
+    from repro_torch.models.moe import capacity_for, moe_init, route, router_logits
+    t_phase = time.perf_counter()
+    cfg = get_config("olmoe-1b-7b")
+    D, E, k, Fd = cfg.d_model, cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.d_ff_expert
+    cf = cfg.moe.capacity_factor
+    C = capacity_for(MOE_N, E, k, cf)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = moe_init(D, E, Fd, gen, device=dev)
+    xs = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(MOE_FIRINGS * MOE_N, D)).astype(np.float32)).to(dev)
+    net = build_moe_network(params, MOE_N, D, k, cf, MOE_FIRINGS, xs, device=dev)
+
+    # ---- the host dynamic mode: torch bodies on the card ---------------- #
+    dyn_prog = net.compile(mode="dynamic")
+    st = dyn_prog.init_state()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    dyn = dyn_prog.run(st, in_place=True)
+    torch.cuda.synchronize()
+    dyn_cold = (time.perf_counter() - t0) * 1e3
+    expect_counts("MoE dynamic", {})
+    dyn_walls = warm_wall_ms(dyn_prog, runs=3)
+    dyn_device, dyn_kernels, _, _ = profile_program(dyn_prog, 1)
+    y_host = dyn.state.actor("sink")[0]
+    ymax = float(y_host.abs().max())
+    if not bool(torch.isfinite(y_host).all()) or ymax == 0.0:
+        fail("MoE dynamic: the output is not finite or all zero")
+
+    # ---- routing on both backends' logits: the margin rule -------------- #
+    under, logit_diff, enabled = [], 0.0, []
+    for f in range(MOE_FIRINGS):
+        x = xs[f * MOE_N:(f + 1) * MOE_N]
+        lh = router_logits(params["router"], x)
+        lb = moe_logits(x, params["router"])
+        d = float((lh - lb).abs().max())
+        logit_diff = max(logit_diff, d)
+        srt = torch.sort(lh, dim=-1, descending=True).values
+        margin = srt[:, k - 1] - srt[:, k]
+        under.append(int((margin <= 2 * d).sum()))
+        r = route(lh, k)
+        kept = (r.rank < C)
+        counts = torch.zeros(E, dtype=torch.int64, device=dev).index_add_(
+            0, r.gate_e[kept], torch.ones_like(r.gate_e[kept]))
+        enabled.append(int((counts > 0).sum()))
+    log(f"phase 18 router margin: {sum(under)} of {MOE_FIRINGS * MOE_N} tokens have a "
+        f"top-{k} margin at most twice the largest logit difference {logit_diff:.3g} "
+        f"(host torch.matmul vs B2's ordered sums), per firing {under}")
+
+    def ring_ints(state):
+        return {n: state.fifo(n).buf.cpu().clone() for n, sp in net.fifos.items()
+                if sp.dtype == torch.int32}
+
+    # ---- B2, main build, cores 1 and 2 ---------------------------------- #
+    rec = {"card": smi, "N": MOE_N, "firings": MOE_FIRINGS, "D": D, "E": E, "k": k,
+           "F": Fd, "C": C, "sweeps": dyn.sweeps, "tokens_under_margin": sum(under),
+           "router_logit_max_diff": logit_diff, "enabled_experts": enabled,
+           "host_dynamic": {"cold_wall_ms": dyn_cold, "warm_walls_ms": dyn_walls,
+                            "device_ms": dyn_device,
+                            "top": [{"kernel": kk, "count": n, "device_ms": ms}
+                                    for kk, n, ms in dyn_kernels[:5]]}}
+    y_err = 0.0
+    launches = None
+    for cores in (1, 2):
+        prog = net.compile(mode="megakernel", cores=cores)
+        st = prog.init_state()
+        torch.cuda.synchronize()
+        zero_counts()
+        res = prog.run(st, in_place=True)
+        torch.cuda.synchronize()
+        got = expect_counts(f"MoE megakernel cores={cores}", {"B2": 1})["B2"]
+        launches = got if launches is None else launches
+        if (res.sweeps, res.fire_counts) != (dyn.sweeps, dyn.fire_counts):
+            fail(f"MoE megakernel cores={cores}: sweeps {res.sweeps} counts "
+                 f"{res.fire_counts} vs {dyn.sweeps} {dyn.fire_counts}")
+        for a, b in zip(res.state.fifos, dyn.state.fifos):
+            if (a.rd, a.wr, a.occ) != (b.rd, b.wr, b.occ):
+                fail(f"MoE megakernel cores={cores}: cursors differ")
+        y = res.state.actor("sink")[0]
+        if not bool(torch.isfinite(y).all()):
+            fail(f"MoE megakernel cores={cores}: non-finite output")
+        y_err = max(y_err, float((y - y_host).abs().max()) / ymax)
+    if y_err > MOE_Y_TOL:
+        fail(f"MoE megakernel: output {y_err:.3g} * max|y| from the host run "
+             f"(> {MOE_Y_TOL:.3g})")
+    # Integer tokens (slots, counts, the packed token) where the state keeps
+    # them: the unspecialized program keeps every ring.
+    un = net.compile(mode="megakernel", specialize=False).run()
+    want_ints = ring_ints(dyn.state)
+    got_ints = ring_ints(un.state)
+    last_two_clear = under[-1] == 0 and under[-2] == 0
+    for name, want in want_ints.items():
+        if not torch.equal(got_ints[name], want):
+            if last_two_clear:
+                fail(f"MoE megakernel: integer ring {name} differs from the host run "
+                     "with every token of its firings over the margin")
+            log(f"phase 18: integer ring {name} differs under a near-tie")
+    log(f"phase 18 MoE megakernel ({smi}): sweeps {dyn.sweeps}, counts and cursors "
+        f"equal the host run at cores 1 and 2; output within {y_err:.3g} * max|y| "
+        f"(bar {MOE_Y_TOL:.3g}); integer rings "
+        f"{'equal' if all(torch.equal(got_ints[n], w) for n, w in want_ints.items()) else 'differ under a near-tie'}")
+
+    # ---- guarded and traced builds -------------------------------------- #
+    dyn_gt = net.compile(mode="dynamic", guards=True, trace=True).run()
+    for cores in (1, 2):
+        prog = net.compile(mode="megakernel", cores=cores, specialize=False, guards=True,
+                           trace=True)
+        torch.cuda.synchronize()
+        zero_counts()
+        res = prog.run()
+        torch.cuda.synchronize()
+        expect_counts(f"MoE megakernel guarded+traced cores={cores}", {"B2": 1})
+        if megakernel_cuda.build_launches != {"guards+trace": 1}:
+            fail(f"MoE guarded+traced: builds {megakernel_cuda.build_launches}")
+        if (res.sweeps, res.fire_counts) != (dyn.sweeps, dyn.fire_counts) \
+                or not res.diagnostics.ok \
+                or res.diagnostics.high_water != dyn_gt.diagnostics.high_water \
+                or res.trace.attempt_counts() != dyn_gt.trace.attempt_counts() \
+                or res.trace.n_events != dyn_gt.trace.n_events:
+            fail(f"MoE guarded+traced cores={cores}: diagnostics or trace differ "
+                 "from the host run")
+    log(f"phase 18: B2's guarded and traced build on MoE equals the host run's "
+        f"diagnostics and {dyn_gt.trace.n_events} trace events at cores 1 and 2")
+
+    # ---- B2 against its plain version, bit for bit ---------------------- #
+    bits = {}
+    for label, kw in (("default", {}), ("middle", dict(d_model=256, n_experts=8))):
+        small, _ = make_moe(3, seed=1, device=dev, **kw)
+        runner = compile_megakernel(small)
+        a = runner(small.init_state())      # (state, fire counts, sweeps, stalled)
+        b = runner.plain(small.init_state())
+        torch.cuda.synchronize()
+        if not states_equal(a[0], b[0]) or tuple(a[1:3]) != tuple(b[1:3]):
+            fail(f"MoE megakernel at the {label} width differs from its plain version")
+        bits[label] = {"B2_ms": cuda_ms(lambda: runner(small.init_state()), reps=3, inner=3),
+                       "plain_ms": cuda_ms(lambda: runner.plain(small.init_state()),
+                                           reps=1, inner=1)}
+    log(f"phase 18: B2 equals its plain version bit for bit at make_moe's width and at "
+        f"D 256 / E 8 ({smi}): " + json.dumps(bits))
+
+    # ---- B2's time and its bound ---------------------------------------- #
+    b2_ms, meta = b2_timed(net, dev)
+    if meta[0] != dyn.sweeps:
+        fail(f"timed MoE B2 launches ran {meta[0]} sweeps")
+    flops = float(sum(e * C * 3 * 2 * D * Fd for e in enabled)
+                  + MOE_FIRINGS * 2 * MOE_N * D * E)
+    nbytes = float(sum(e * 3 * D * Fd * 2 for e in enabled) + MOE_FIRINGS * D * E * 2
+                   + 2 * MOE_FIRINGS * MOE_N * D * 4)
+    bound, by = bound_of(nbytes, flops, FP32_FLOP_PER_S)
+    log(f"phase 18 MoE timing ({smi}): B2 {b2_ms:.4f} ms per run (CUDA events), bound "
+        f"{bound:.4f} ms ({by}: {flops:.4g} flop at 67 TFLOP/s; the weights' "
+        f"{nbytes:.4g} B at 3.35 TB/s take {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms); "
+        f"host dynamic run warm {float(np.median(dyn_walls)):.2f} ms, device "
+        f"{dyn_device:.3f} ms")
+    rec.update({"launches": launches, "ms": b2_ms, "bound_ms": bound, "bound_by": by,
+                "flops": flops, "bytes": nbytes, "y_err_over_max": y_err,
+                "y_bar": MOE_Y_TOL, "plain_bits": bits,
+                "phase_s": time.perf_counter() - t_phase})
+    log("phase 18 moe " + json.dumps(rec))
+    del net, dyn, params, xs
+    torch.cuda.empty_cache()
+    return rec
 
 
 def warm_wall_ms(prog, runs: int = 5) -> list:
@@ -993,10 +1215,16 @@ def motion_detection(dev, smi: str, zero_counts, expect_counts) -> dict:
 
 def row_excess(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Per element: |got - ref| beyond one bf16 step of |ref|, in units of
-    the RMS of ref's last-axis row (float32)."""
+    the RMS of ref's last-axis row (float32); on an all-zero row, 0 where
+    got is 0 too, else inf."""
     ref = ref.float()
     rms = ref.pow(2).mean(-1, keepdim=True).sqrt()
-    return ((got.float() - ref).abs() - 2.0 ** -7 * ref.abs()) / rms
+    excess = (got.float() - ref).abs() - 2.0 ** -7 * ref.abs()
+    # A row of zeros (an MoE token whose every assignment was dropped) has
+    # no scale: any difference there is infinitely far.
+    zero = rms == 0
+    return torch.where(zero, torch.where(excess > 0, float("inf"), 0.0),
+                       excess / torch.where(zero, 1.0, rms))
 
 
 def b6_inputs(dev, gen, dtype, strong: bool = False) -> tuple:
@@ -1162,6 +1390,43 @@ def lm_kernels(dev, smi: str) -> dict:
                   "library_ms": b5_lib, "library_max_abs_err": lib_err,
                   "library": "torch.nn.functional.scaled_dot_product_attention "
                              "(boolean causal+window mask, enable_gqa=True)"}
+
+    # ---- B5 at olmoe-1b-7b's prefill: hd 128, full causal, no window ---- #
+    oc = get_config("olmoe-1b-7b")
+    qo, ko, vo = (torch.randn((B, S, n, oc.hd), generator=gen, device=dev)
+                  .to(torch.bfloat16) for n in (oc.n_heads, oc.n_kv_heads, oc.n_kv_heads))
+    got = flash_attention(qo, ko, vo, causal=True).float()
+    want = flash_attention_ref(qo, ko, vo, causal=True).float()
+    torch.cuda.synchronize()
+    o_err = float((got - want).abs().max())
+    o_excess = float(row_excess(got, want).max())
+    if not torch.isfinite(got).all() or not o_excess <= B5_ROW_TOL:
+        fail(f"B5 at olmoe's shape: {o_excess:.3g} row-RMS beyond one bf16 step "
+             f"> {B5_ROW_TOL}")
+    omask = attention_mask(S, True, None, dev)
+    oq, okk, ov = (t.transpose(1, 2) for t in (qo, ko, vo))
+
+    def sdpa_o():
+        return F.scaled_dot_product_attention(oq, okk, ov, attn_mask=omask, enable_gqa=True)
+
+    o_lib_err = float((sdpa_o().transpose(1, 2).float() - want).abs().max())
+    del got, want
+    o_ms = graph_ms(lambda: flash_attention(qo, ko, vo, causal=True), inner=10)
+    o_plain = cuda_ms(lambda: flash_attention_ref(qo, ko, vo, causal=True), reps=3, inner=1)
+    o_lib = cuda_ms(sdpa_o, reps=3, inner=5)
+    o_flops = 4 * oc.hd * (S * (S + 1) // 2) * B * oc.n_heads
+    o_bytes = 2 * (2 * qo.numel() + ko.numel() + vo.numel())
+    o_bound, o_by = bound_of(o_bytes, o_flops, BF16_FLOP_PER_S)
+    log(f"B5 at olmoe-1b-7b's prefill, q {tuple(qo.shape)} bf16, causal, no window "
+        f"({smi}): {o_ms:.4f} ms/launch (CUDA graph replay), plain {o_plain:.3f} ms, "
+        f"SDPA {o_lib:.4f} ms (max |diff| vs plain {o_lib_err:.3g}), bound {o_bound:.4f} "
+        f"ms ({o_by}: {o_flops:.4g} flop); max_abs_err {o_err:.3g}, row-RMS excess "
+        f"{o_excess:.4g} (bar {B5_ROW_TOL:.4g})")
+    recs["B5"]["olmoe_shape"] = {
+        "q": list(qo.shape), "causal": True, "window": None, "max_abs_err": o_err,
+        "row_rms_excess": o_excess, "ms": o_ms, "plain_ms": o_plain, "bound_ms": o_bound,
+        "bound_by": o_by, "library_ms": o_lib, "library_max_abs_err": o_lib_err}
+    del qo, ko, vo, oq, okk, ov, omask
 
     # ---- B5's float32 and f16 route (flash_fwd_ffma), same shape -------- #
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1439,6 +1704,8 @@ def serve_parity(cfg, model, dev) -> dict:
       position's bar, and tokens identical while the CPU's top-2 margin
       exceeds twice the step's largest logit difference."""
     from repro_torch.models import LM
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.moe import Routing, route, router_logits
     from repro_torch.serve import Engine, Request, ServeConfig
     t0 = time.perf_counter()
     cpu = LM(cfg, device="cpu", seed=None)
@@ -1450,12 +1717,39 @@ def serve_parity(cfg, model, dev) -> dict:
     # ---- layer by layer: each mixer and MLP fed the CPU's input ---------- #
     toks = torch.tensor(prompts)
     mix_worst: dict = {}
+    router_worst = [0.0]
+    # MoE: the CPU's routing of each layer, which the card's forward is fed
+    # (a near-tie top-k that goes the other way would cascade through the
+    # capacity ranks: ROADMAP's margin rule holds the routing itself).
+    cpu_routing: list = [None] * len(cpu.layers)
     with torch.inference_mode():
         xc = cpu._embed(toks)
         for i, (bg, bc) in enumerate(zip(model.layers, cpu.layers)):
             parts = [("mixer", lambda m, b, x: m._mixer(b, x, mode="train")[0])]
-            if bc.kind != "ssd":
-                parts.append(("mlp", lambda m, b, x: m._mlp(b, x)))
+            if bc.kind != "ssd" and cfg.moe is not None:
+                # The MoE MLP in two parts: the router's logits within
+                # MOE_LOGIT_TOL of their largest magnitude of the CPU's, on
+                # the CPU's input; dispatch, experts and combine fed the
+                # CPU's routing.  fn runs on the CPU first, then the card.
+                def moe_fn(m, b, x, _i=i, _seen={}):
+                    if not x.is_cuda:
+                        h = rmsnorm(x, b.norm2.scale, cfg.rms_eps).reshape(-1, cfg.d_model)
+                        _seen["h"] = h
+                        _seen["lc"] = router_logits(b.mlp.router, h)
+                        _seen["rc"] = route(_seen["lc"], cfg.moe.top_k)
+                        cpu_routing[_i] = _seen["rc"]
+                        return m._mlp(b, x, _seen["rc"])[0]
+                    lc = _seen["lc"]
+                    lg = router_logits(b.mlp.router, _seen["h"].to(dev)).cpu()
+                    rerr = float((lg - lc).abs().max()) / float(lc.abs().max())
+                    router_worst[0] = max(router_worst[0], rerr)
+                    if not rerr <= MOE_LOGIT_TOL:
+                        fail(f"{cfg.name} parity: layer {_i} router logits {rerr:.3g} of "
+                             f"max from the CPU's (> {MOE_LOGIT_TOL})")
+                    return m._mlp(b, x, Routing(*(t.to(dev) for t in _seen["rc"])))[0]
+                parts.append(("moe", moe_fn))
+            elif bc.kind != "ssd":
+                parts.append(("mlp", lambda m, b, x: m._mlp(b, x)[0]))
             for part, fn in parts:
                 yc = fn(cpu, bc, xc)
                 ex = float(row_excess(fn(model, bg, xc.to(dev)).cpu(), yc).max())
@@ -1468,10 +1762,14 @@ def serve_parity(cfg, model, dev) -> dict:
         cpu_lg = cpu._logits(xc)[..., :V].float()
 
         # ---- logits at every position, and the CPU's sensitivity ------- #
-        card_lg = model(toks.to(dev), mode="train")[0][..., :V].float().cpu()
+        fed = None
+        if cfg.moe is not None:
+            fed = [None if r is None else Routing(*(t.to(dev) for t in r))
+                   for r in cpu_routing]
+        card_lg = model(toks.to(dev), mode="train", routing=fed)[0][..., :V].float().cpu()
         x = bf16_step_noise(cpu._embed(toks))
-        for bc in cpu.layers:
-            x, _ = cpu._block(bc, x, mode="train")
+        for i, bc in enumerate(cpu.layers):
+            x, _, _ = cpu._block(bc, x, mode="train", routing=cpu_routing[i])
         sens = (cpu._logits(x)[..., :V].float() - cpu_lg).abs().amax(-1)
     err = (card_lg - cpu_lg).abs().amax(-1)
     mag = cpu_lg.abs().amax(-1)
@@ -1494,9 +1792,30 @@ def serve_parity(cfg, model, dev) -> dict:
     scfg = ServeConfig(batch_size=PARITY_BATCH, max_prompt=PARITY_PROMPT,
                        max_new=PARITY_NEW)
     out = {}
-    for name, m in (("gpu", model), ("cpu", cpu)):
+    # MoE: the card's Engine replays the CPU Engine's routing, call by call.
+    import repro_torch.models.moe as moe_mod
+    own_route, routes, at = moe_mod.route, [], [0]
+
+    def recorded(logits, k):
+        r = own_route(logits, k)
+        routes.append(r)
+        return r
+
+    def replayed(logits, k):
+        r = routes[at[0]]
+        at[0] += 1
+        if tuple(r.probs.shape) != tuple(logits.shape):
+            fail(f"{cfg.name} parity: routing replay out of step")
+        return Routing(*(t.to(logits.device) for t in r))
+
+    for name, m in (("cpu", cpu), ("gpu", model)):
         seen = capture_logits(m)
-        toks_out = [r.tokens for r in Engine(cfg, m, scfg).generate(reqs)]
+        if cfg.moe is not None:
+            moe_mod.route = recorded if name == "cpu" else replayed
+        try:
+            toks_out = [r.tokens for r in Engine(cfg, m, scfg).generate(reqs)]
+        finally:
+            moe_mod.route = own_route
         release_logits(m)
         out[name] = (np.stack(toks_out), seen)
     (g_tok, g_lg), (c_tok, c_lg) = out["gpu"], out["cpu"]
@@ -1526,6 +1845,8 @@ def serve_parity(cfg, model, dev) -> dict:
                 flips += 1
     del cpu
     return {"mixer_mlp_row_excess": mix_worst, "mixer_mlp_bar": MIX_ROW_TOL,
+            "router_logit_err_over_max": router_worst[0] if cfg.moe is not None else None,
+            "router_logit_bar": MOE_LOGIT_TOL if cfg.moe is not None else None,
             "logit_err_over_sens_max": float((err / sens).max()),
             "logit_err_max": float(err.max()), "sensitivity_max": float(sens.max()),
             "sensitivity_last": [float(t) for t in sens[:, -1]],
@@ -1609,11 +1930,6 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
            "peak_memory_gb": peak_gb}
     log(f"phase {phase} {arch} serving ({smi}): " + json.dumps(rec))
 
-    # ---- parity: the same weights on the card and on the CPU ------------ #
-    par = serve_parity(cfg, model, dev)
-    log(f"phase {phase} {arch} parity card vs CPU: " + json.dumps(par))
-    rec["parity"] = par
-
     # ---- 15. where a prefill and a decode step spend their time -------- #
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -1654,8 +1970,36 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
                       "launches": sum(n for _, n, _ in kernels),
                       "top": [{"kernel": k, "count": n, "device_ms": ms}
                               for k, n, ms in kernels[:10]]}
+    if cfg.moe is not None:
+        # The MoE layers' share of the prefill: one layer's MLP at the
+        # prefill's shape, by CUDA events, times the layer count.
+        h = torch.randn((LM_BATCH, LM_PROMPT, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        blk = model.layers[0]
+        with torch.inference_mode():
+            moe_ms = cuda_ms(lambda: model._mlp(blk, h), reps=3, inner=2)
+        prof["prefill"]["moe_layer_ms"] = moe_ms
+        prof["prefill"]["moe_share_of_device"] = cfg.n_layers * moe_ms / \
+            prof["prefill"]["device_ms"]
+        del h
     log(f"phase 15 profile {arch} " + json.dumps(prof))
     rec["profile"] = prof
+    # ---- parity (after 15's profile): the same weights on the card and on the CPU ------------ #
+    if cfg.moe is not None:
+        # The CPU's time: a model cut to PARITY_MOE_LAYERS layers, same
+        # widths and seed, held card against CPU.
+        import dataclasses
+        pcfg = dataclasses.replace(cfg, n_layers=PARITY_MOE_LAYERS)
+        pmodel = LM(pcfg, device=dev, seed=0)
+        par = serve_parity(pcfg, pmodel, dev)
+        par["depth"] = f"cut to {PARITY_MOE_LAYERS} of {cfg.n_layers} layers"
+        del pmodel
+        torch.cuda.empty_cache()
+    else:
+        par = serve_parity(cfg, model, dev)
+    log(f"phase {phase} {arch} parity card vs CPU: " + json.dumps(par))
+    rec["parity"] = par
+
     del model, caches, engine
     torch.cuda.empty_cache()
     return rec
@@ -1701,6 +2045,9 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
                      {"B5": 16, "B7": 36}, 13)
     mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14)
     smoke = serve_smoke("mamba2-780m", dev, smi, zero_counts, expect_counts)
+    ol = serve_model("olmoe-1b-7b", dev, smi, zero_counts, expect_counts, {"B5": 32}, 19)
+    recs["B5"]["olmoe_shape"]["launches"] = ol["launches"]["B5"]
+    recs["B5"]["olmoe_shape"]["launches_from"] = "phase 19: olmoe-1b-7b served"
     recs["B5"]["launches"] = rg["launches"]["B5"]
     recs["B7"]["launches"] = rg["launches"]["B7"]
     recs["B6"]["launches"] = mb["launches"]["B6"]
@@ -2347,6 +2694,7 @@ def main() -> None:
                    "md": (md["B2"]["bound_ms"], md["B2"]["bound_by"])})
     del md["net"], md["result"]
     torch.cuda.empty_cache()
+    moe = moe_phase(dev, smi, zero_counts, expect_counts)
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
@@ -2376,6 +2724,30 @@ def main() -> None:
         "library_ms": None,
         "network": "dpd",
         "motion_detection": md["B2"],
+    }, {
+        "name": "megakernel.b2.moe",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/megakernel.cu",
+        "replaces": "src/repro/core/megakernel/kernel.py:780",
+        "function": "compile_megakernel (the MoE actor network's router, expert, "
+                    "combine and packer bodies)",
+        "launches": moe["launches"],
+        "max_abs_err": 0.0,
+        "max_abs_err_at": "B2 against its plain version (ref.py) at make_moe's width "
+                          "and at D 256 / E 8 (phase 18), bit for bit",
+        "ms": moe["ms"],
+        "plain_ms": float(np.median(moe["host_dynamic"]["warm_walls_ms"])),
+        "plain": "the host dynamic mode's warm wall at the same width (torch.matmul "
+                 "bodies); B2's plain version runs the products term by term, "
+                 "minutes at this width (its times at the two small widths: "
+                 "plain_bits)",
+        "plain_bits": moe["plain_bits"],
+        "bound_ms": moe["bound_ms"],
+        "bound_by": moe["bound_by"],
+        "library_ms": None,
+        "network": "moe_as_actors at olmoe-1b-7b's widths",
+        "y_err_over_max_vs_host": moe["y_err_over_max"],
+        "tokens_under_margin": moe["tokens_under_margin"],
     }, {
         "name": "gauss5x5",
         "route": "cuda",

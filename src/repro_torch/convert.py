@@ -123,6 +123,13 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping) -> Dict[str, torch.Te
     return {k: tensor_from_numpy(v) for k, v in flat.items()}
 
 
+def moe_params_from_numpy(params: Mapping, device=None) -> Dict[str, torch.Tensor]:
+    """One MoE layer's params (``moe_init``'s: ``router``, ``we_gate``,
+    ``we_up``, ``we_down``, numpy arrays) as bf16 tensors on ``device``."""
+    return {k: tensor_from_numpy(np.asarray(params[k]), device)
+            for k in ("router", "we_gate", "we_up", "we_down")}
+
+
 def serve_state_from_numpy(cfg: ArchConfig, caches: Mapping, device=None
                            ) -> List[Dict[str, torch.Tensor]]:
     """The JAX package's serving state (grouped as its ``serve_state`` and

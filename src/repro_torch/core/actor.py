@@ -9,11 +9,20 @@ for that firing.
 In the port a firing runs eagerly: ``control`` receives the control token
 as a list of host numbers and returns host ints, so rates are concrete
 and a rate-0 term is dropped instead of multiplied by 0.
+
+A dynamic actor also declares the form of each enable (``enables``): the
+constant 0 or 1, or ``int(tok[word] > threshold)`` as the pair ``(word,
+threshold)``.  It is the port's counterpart of the reference's
+canonicalised enable expressions (``src/repro/core/builder.py:150-153``):
+the matched-rates proof compares forms, and the megakernel computes rates
+from them for any token value, where evaluating ``control`` would need
+every token enumerated.  ``NetworkBuilder.build`` checks each form against
+``control``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -23,10 +32,14 @@ FireFn = Callable[[Any, Mapping[str, torch.Tensor], Mapping[str, int]],
                   Tuple[Any, Dict[str, torch.Tensor]]]
 # control(token as a list of host numbers) -> {port: 0/1} for every regular port.
 ControlFn = Callable[[Sequence[Any]], Dict[str, int]]
+# A declared enable: the constant 0 or 1, or (word, threshold) for
+# int(tok[word] > threshold).
+EnableForm = Union[int, Tuple[int, int]]
 
 #: Op kinds the persistent scheduler kernel (B2) runs as device functions.
 DEVICE_OP_KINDS = ("source", "config", "fork", "poly", "adder", "sink",
-                   "gauss", "thres", "med")
+                   "gauss", "thres", "med", "router", "expert", "combine",
+                   "packer")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -53,7 +66,16 @@ class DeviceOp:
     and motion detection's ``"gauss"`` (the blur of every u8 frame of its
     window, rounded to u8, to each output), ``"thres"`` (``threshold``:
     the motion map of its ``cur`` and ``prev`` windows) and ``"med"`` (the
-    plus-shaped median of every frame).
+    plus-shaped median of every frame), and the MoE layer's
+    ``"router"`` (``router``, the bf16 ``(D, E)`` weight, and ``N``,
+    ``k``, ``C``, ``E``, ``D``: logits, softmax, top-k, capacity ranks,
+    the counts on its control outputs, the dispatched slabs, slots and
+    combine weights), ``"expert"`` (``we_gate``, ``we_up``, ``we_down``,
+    its bf16 ``(D, F)``, ``(D, F)`` and ``(F, D)`` weights, and ``C``,
+    ``D``, ``F``: the SwiGLU FFN of its slab), ``"combine"`` (``N``,
+    ``k``, ``C``, ``E``, ``D``: the weighted gather of the enabled experts'
+    rows) and ``"packer"`` (``E``: the counts, twice, as one control
+    token).
 
     A source's or sink's slab holds its windows in ``planes`` planes, each
     the run of every window's part of that plane: DPD's ``(2, k * L)``
@@ -89,6 +111,8 @@ class ActorSpec:
       cost_flops:   per-firing FLOP estimate.
       device_op:    the :class:`DeviceOp` the megakernel backend runs for
                     this actor; None keeps the actor off that backend.
+      enables:      a dynamic actor's declared enable form per regular
+                    port (:data:`EnableForm`); None when undeclared.
     """
 
     name: str
@@ -102,6 +126,7 @@ class ActorSpec:
     ready: Optional[Callable[[Any], bool]] = None
     cost_flops: int = 0
     device_op: Optional[DeviceOp] = None
+    enables: Optional[Mapping[str, EnableForm]] = None
 
     def __post_init__(self) -> None:
         if self.control_port is not None and self.control is None:
@@ -115,6 +140,29 @@ class ActorSpec:
         names = list(self.in_ports) + list(self.out_ports)
         if len(set(names)) != len(names):
             raise ValueError(f"actor {self.name}: duplicate port names {names}")
+        if self.enables is not None:
+            if self.control_port is None:
+                raise ValueError(f"actor {self.name}: enables declared on a "
+                                 "static actor")
+            if set(self.enables) != set(names):
+                raise ValueError(
+                    f"actor {self.name}: enables must declare every regular "
+                    f"port {sorted(names)}, got {sorted(self.enables)}")
+            forms = {}
+            for p, form in self.enables.items():
+                if isinstance(form, tuple):
+                    word, thr = (int(x) for x in form)
+                    if word < 0:
+                        raise ValueError(f"actor {self.name}: port {p!r} "
+                                         f"enable word {word} is negative")
+                    forms[p] = (word, thr)
+                elif int(form) in (0, 1):
+                    forms[p] = int(form)
+                else:
+                    raise ValueError(
+                        f"actor {self.name}: port {p!r} enable {form!r} is "
+                        "neither 0, 1 nor a (word, threshold) pair")
+            object.__setattr__(self, "enables", forms)
 
     @property
     def is_dynamic(self) -> bool:
@@ -163,6 +211,13 @@ def dynamic_actor(name: str, control_port: str, control: ControlFn,
     return ActorSpec(name=name, in_ports=tuple(in_ports),
                      out_ports=tuple(out_ports), fire=fire,
                      control_port=control_port, control=control, **kw)
+
+
+def eval_enable(form: EnableForm, tok: Sequence[Any]) -> int:
+    """A declared enable on a control token (a list of host numbers)."""
+    if isinstance(form, tuple):
+        return int(tok[form[0]] > form[1])
+    return form
 
 
 def apply_rate_gate(rate: int, window: torch.Tensor) -> Optional[torch.Tensor]:

@@ -15,17 +15,24 @@ allocation in the specialized static schedule) is derived at ``build()``
 when provable.
 
 **The matched-rates proof.**  The reference reads the control functions'
-jaxprs; torch has none, so the port proves it by evaluation:
+jaxprs; torch has none, so the port reads the enable forms a dynamic actor
+declares (``ActorSpec.enables``: the constant 0 or 1, or ``int(tok[word]
+> threshold)``), and falls back to evaluation for one that declares none:
 
 * an enable of a static actor's port is the constant 1;
-* an enable of a dynamic actor's port is ``control(tok)[port]`` evaluated
-  for every token value of the control channel's declared ``domain``
-  (single-element integer tokens).  Constant over the domain, it is that
-  constant; otherwise it is the table ``{value: enable}``.  No declared
-  domain, no proof;
-* two constant enables match when equal; two tables match when their
-  control channels are fed by ports of one actor that provably emit the
-  same value, and the tables agree on every value both domains admit;
+* a declared form is the constant it names, or the symbolic
+  ``(word, threshold)``; ``build`` checks every declared form against
+  ``control`` (over the control channel's declared domain where it has an
+  enumerable one, else at each threshold, its two neighbours and the int32
+  extremes) and raises on a mismatch;
+* an undeclared enable is ``control(tok)[port]`` evaluated for every token
+  value of the control channel's declared ``domain`` (single-element
+  integer tokens): constant over the domain, that constant, else the
+  table ``{value: enable}``; no declared domain, no proof;
+* two constant enables match when equal; two forms when equal, two tables
+  when they agree on every value both domains admit, and either only when
+  their control channels are fed by ports of one actor that provably emit
+  the same value;
 * the feeder proof fires the feeding actor once from its initial state and
   requires both ports to return the *same tensor object* — the eager
   analogue of the reference's "same jaxpr variable" rule, equally
@@ -45,7 +52,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.actor import ActorSpec
+from repro_torch.core.actor import ActorSpec, eval_enable
 from repro_torch.core.fifo import FifoSpec
 from repro_torch.core.network import Edge, Network
 from repro_torch.device import DeviceLike
@@ -89,11 +96,18 @@ def domain_values(spec: FifoSpec) -> Optional[range]:
 def _enable_expr(actor: ActorSpec, port: str,
                  ctl_spec: Optional[FifoSpec],
                  ctl_feed: Optional[Tuple[str, str]]):
-    """Classify a port's enable as ``("const", v)``, or
-    ``("table", {token value: enable}, feed)`` for a token-dependent one;
-    None when unprovable (no control channel yet, no enumerable domain)."""
+    """Classify a port's enable as ``("const", v)``, ``("form", (word,
+    threshold), feed)`` for a declared token-dependent one, or
+    ``("table", {token value: enable}, feed)`` for an undeclared one; None
+    when unprovable (no control channel yet, no declared form and no
+    enumerable domain)."""
     if not actor.is_dynamic:
         return ("const", 1)
+    if actor.enables is not None:
+        form = actor.enables[port]
+        if not isinstance(form, tuple):
+            return ("const", form)
+        return None if ctl_feed is None else ("form", form, ctl_feed)
     if ctl_spec is None or ctl_feed is None:
         return None
     values = domain_values(ctl_spec)
@@ -137,7 +151,13 @@ def derive_matched_rates(src: ActorSpec, dst: ActorSpec, src_env, dst_env,
         return False
     if src_env[0] == "const" and dst_env[0] == "const":
         return src_env[1] == dst_env[1]
-    if src_env[0] == "table" and dst_env[0] == "table":
+    if src_env[0] == dst_env[0] == "form":
+        _, s_form, (s_actor, s_port) = src_env
+        _, d_form, (d_actor, d_port) = dst_env
+        if s_form != d_form or s_actor != d_actor:
+            return False
+        return feeder_equal(s_actor, s_port, d_port)
+    if src_env[0] == dst_env[0] == "table":
         _, s_table, (s_actor, s_port) = src_env
         _, d_table, (d_actor, d_port) = dst_env
         common = set(s_table) & set(d_table)
@@ -146,7 +166,56 @@ def derive_matched_rates(src: ActorSpec, dst: ActorSpec, src_env, dst_env,
         if any(s_table[v] != d_table[v] for v in common):
             return False
         return feeder_equal(s_actor, s_port, d_port)
-    return False  # const vs token-dependent: enables can diverge
+    return False  # const vs token-dependent, or form vs table: can diverge
+
+
+_INT32 = (-2 ** 31, 2 ** 31 - 1)
+
+
+def probe_tokens(actor: ActorSpec, spec: FifoSpec) -> List[List[int]]:
+    """The control tokens the declared forms are checked on: every value
+    of an enumerable declared domain; otherwise, for each word a form
+    reads, each threshold, its two neighbours and the int32 extremes in
+    that word (the others 0), and each such value in every word."""
+    n = math.prod(spec.token_shape)
+    values = domain_values(spec)
+    if values is not None and len(values):
+        return [[v] for v in values]
+    probes = {_INT32[0], _INT32[1], 0}
+    words = set()
+    for form in actor.enables.values():
+        if isinstance(form, tuple):
+            words.add(form[0])
+            probes.update(min(max(form[1] + d, _INT32[0]), _INT32[1])
+                          for d in (-1, 0, 1))
+    toks = [[v] * n for v in sorted(probes)]
+    for w in sorted(words):
+        for v in sorted(probes):
+            t = [0] * n
+            t[w] = v
+            toks.append(t)
+    return toks
+
+
+def check_declared_enables(actor: ActorSpec, spec: FifoSpec) -> None:
+    """Raise when a declared enable form disagrees with ``control`` on any
+    probe token (:func:`probe_tokens`) or reads past the token."""
+    n = math.prod(spec.token_shape)
+    for p, form in actor.enables.items():
+        if isinstance(form, tuple) and form[0] >= n:
+            raise ValueError(
+                f"actor {actor.name!r}: port {p!r} declares an enable on word "
+                f"{form[0]} of its {n}-word control token")
+    for tok in probe_tokens(actor, spec):
+        got = {p: int(bool(e)) for p, e in actor.control(tok).items()}
+        for p, form in actor.enables.items():
+            want = eval_enable(form, tok)
+            if got.get(p) != want:
+                raise ValueError(
+                    f"actor {actor.name!r}: port {p!r} declares enable "
+                    f"{form!r}, which gives {want} on control token "
+                    f"{tok[:8]}{'...' if len(tok) > 8 else ''}, but "
+                    f"control() gives {got.get(p)}")
 
 
 # --------------------------------------------------------------------------- #
@@ -495,6 +564,9 @@ class NetworkBuilder:
                 "network has dangling ports (every port connects to exactly "
                 f"one channel, paper §3.2): {sorted(dangling)} — add a "
                 "b.connect(...) for each")
+        for a in self._actors.values():
+            if a.enables is not None:
+                check_declared_enables(a, self._control_feed(a)[1])
         if check_bounds:
             bad = self.check_bounds().violations()
             if bad:

@@ -32,7 +32,7 @@ from repro_torch.core.megakernel.lower import (GridPartition, MegakernelLayout,
 import numpy as np
 
 from repro_torch.core.executor import DynamicResult
-from repro_torch.core.megakernel.program import (KIND_CODES, M_CLK_KIND,
+from repro_torch.core.megakernel.program import (H_MOE, H_SCRATCH, KIND_CODES, M_CLK_KIND,
                                                  M_CLK_LOOP, M_CLK_SCHED,
                                                  M_CLK_STALL,
                                                  DeviceProgram,
@@ -73,7 +73,8 @@ def _library(defines: Tuple[str, ...] = ()) -> ctypes.CDLL:
     fn = lib.megakernel_run
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
     if TRACE_DEFINE in defines:
         fn.argtypes += [ctypes.c_void_p, ctypes.c_int]
     fn.restype = ctypes.c_int
@@ -97,9 +98,15 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
                     max_sweeps: int, multi_firing: bool,
                     clock_split: bool = False, io_len: Optional[int] = None,
                     guards: bool = False,
-                    trace: Optional[torch.Tensor] = None) -> None:
+                    trace: Optional[torch.Tensor] = None,
+                    n_actors: Optional[int] = None,
+                    scratch_words: int = 0, moe: bool = False) -> None:
     """One launch of B2.
 
+    ``n_actors`` (default ``n_ptrs``) and ``scratch_words`` (the table's
+    ``H_SCRATCH``) size the shared memory the kernel takes per block;
+    ``moe`` (the table's ``H_MOE``) launches the kernel's instance with the
+    MoE kinds.
     ``table``: the packed device program, int32 on the card; ``args``: the
     run's int64 block on the same card, ``n_ptrs`` device addresses (rings,
     then actor tensors) followed by the io words, which the kernel
@@ -138,6 +145,11 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
                              "(capacity, 3 + n_fifos) int32 tensor on "
                              f"{args.device}")
         extra = [trace.data_ptr(), trace.shape[0]]
+    if n_actors is None:
+        n_actors = n_ptrs
+    if n_actors < 1 or scratch_words < 0:
+        raise ValueError(f"megakernel_cuda: n_actors {n_actors} and "
+                         f"scratch_words {scratch_words} out of range")
     defines = build_defines(clock_split, guards, trace is not None)
     lib = _library(defines)
     with torch.cuda.device(args.device):
@@ -146,7 +158,8 @@ def megakernel_cuda(table: torch.Tensor, args: torch.Tensor, n_ptrs: int,
         err = lib.megakernel_run(table.data_ptr(), table.numel(), args.data_ptr(),
                                  n_ptrs, io_len, max_sweeps,
                                  int(bool(multi_firing)), progress.data_ptr(),
-                                 progress.numel(), stream, *extra)
+                                 progress.numel(), stream, n_actors,
+                                 scratch_words, int(bool(moe)), *extra)
     if err != 0:
         raise RuntimeError(
             f"megakernel launch failed: CUDA error {err} "
@@ -225,8 +238,17 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
             raise NotImplementedError(
                 f"megakernel guards: data channels {declared} declare a "
                 "value domain; the kernel's DOMAIN guard reads control "
-                "tokens only (MoE and serving graphs bring data domains, "
-                "ROADMAP A8b and A9)")
+                "tokens only (the serving graph brings data domains, "
+                "ROADMAP A9)")
+        body_written = [n for n, sp in network.fifos.items()
+                        if sp.is_control and sp.domain is not None
+                        and network.actors[network.edge_of(n).src_actor]
+                        .device_op.kind in ("router", "packer")]
+        if body_written:
+            raise NotImplementedError(
+                f"megakernel guards: control channels {body_written} are "
+                "written by bodies and declare a domain; the kernel checks "
+                "the domain of scheduler-written control tokens only")
     health_words = guards or bool(trace_capacity)
     on_device: Dict[torch.device, Tuple[torch.Tensor, List[torch.Tensor]]] = {}
 
@@ -234,7 +256,9 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
         """The table and the DeviceOps' tensors on ``device``, made once."""
         if device not in on_device:
             on_device[device] = (prog.table.to(device),
-                                 [t.to(device) for _, t in prog.consts])
+                                 [t.to(device) for _, t in prog.consts]
+                                 + [torch.zeros(n, dtype=torch.float32, device=device)
+                                    for _, n in prog.scratch])
         return on_device[device]
 
     def run(state: NetworkState, kernel: bool) -> DynamicResult:
@@ -260,7 +284,10 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
                 ring = torch.zeros((trace_capacity, COL_OCC + prog.n_fifos),
                                    dtype=torch.int32, device=device)
             megakernel_cuda(table, args, prog.n_ptrs, max_sweeps, multi_firing,
-                            io_len=prog.io_len, guards=guards, trace=ring)
+                            io_len=prog.io_len, guards=guards, trace=ring,
+                            n_actors=prog.n_actors,
+                            scratch_words=int(prog.table[H_SCRATCH]),
+                            moe=bool(prog.table[H_MOE]))
             io = args[prog.n_ptrs:].cpu().tolist()
         else:
             if trace_capacity:

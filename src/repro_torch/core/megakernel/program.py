@@ -18,14 +18,28 @@ run of the compiled program.
   (DPD) and uint8 (motion detection) tokens alike.
 * **Per actor**: its :class:`~repro_torch.core.actor.DeviceOp` kind, its
   control, input and output channels, its ready limit, and for a dynamic
-  actor a **rate table**: ``control`` evaluated over every token of its
-  control channel's declared ``domain`` (the evaluation NetworkBuilder's
-  matched-rates proof uses), so the kernel looks rates up by token and needs
-  no scheduler code of its own per graph; the shape parameters of its body
-  (Poly's ``L``, a frame's ``H`` and ``W``, Thres's threshold); and for a
-  source or sink its **slab descriptor**: ``planes`` planes, each holding
-  every window's ``window_bytes / planes`` bytes of that plane in a row
-  (DPD's ``(2, k L)`` slab has 2 planes, motion detection's video 1).
+  actor its **declared enables** (``ActorSpec.enables``): per port the
+  pair ``(word, threshold)`` for ``int(tok[word] > threshold)``, or
+  ``(-1, v)`` for the constant ``v``, so the kernel computes the
+  reference's rates for any control token and needs no scheduler code of
+  its own per graph; the shape parameters of its body (Poly's ``L``, a
+  frame's ``H`` and ``W``, Thres's threshold, the MoE layer's ``N``,
+  ``D``, ``E``, ``C``, ``k`` and ``F``); and for a source or sink its
+  **slab descriptor**: ``planes`` planes, each holding every window's
+  ``window_bytes / planes`` bytes of that plane in a row (DPD's
+  ``(2, k L)`` slab has 2 planes, motion detection's video 1).
+* **Control tokens** are int32 vectors of any length (MoE's packed
+  ``(2E,)`` token), kept in the io words.  Config actors write theirs as
+  the scheduler decides; the MoE router and packer write theirs from their
+  bodies, and the scheduler waits for that body before it peeks the
+  token.  ``H_MOE`` marks a program with MoE kinds, which the kernel runs
+  in an instance of its own (the wide path and these waits; the other
+  instance has none of that code).
+* **Scratch**: MoE bodies run in phases, each a command of its own, and
+  hand results from one phase to the next through a float32 tensor per
+  actor (the router's logits, an expert's hidden rows), made once per
+  device; the router's routing lives in ``H_SCRATCH`` words of shared
+  memory per block.
 
 Per run the kernel also takes an int64 argument block (see
 :class:`DeviceProgram`): the device addresses of the rings and actor
@@ -42,7 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.builder import domain_values
+from repro_torch.core.actor import eval_enable
 from repro_torch.core.fifo import FifoSpec
 from repro_torch.core.health import HealthState, int_domain
 from repro_torch.core.megakernel.lower import GridPartition, MegakernelLayout
@@ -50,7 +64,14 @@ from repro_torch.core.network import Network
 from repro_torch.kernels.dyn_fir.ref import N_TAPS
 
 KIND_CODES = {"source": 0, "config": 1, "fork": 2, "poly": 3, "adder": 4,
-              "sink": 5, "gauss": 6, "thres": 7, "med": 8}
+              "sink": 5, "gauss": 6, "thres": 7, "med": 8, "router": 9,
+              "expert": 10, "combine": 11, "packer": 12}
+
+#: The kinds that take more than 32 ports a side (the scheduler's wide path).
+WIDE_KINDS = ("router", "expert", "combine", "packer")
+#: Kernel commands one firing of each kind becomes; the phases of one
+#: firing run in order, each after the last in every block.
+PHASES = {"router": 2, "expert": 2}
 
 #: Element types of a channel row.
 ELEM_CODES = {torch.float32: 0, torch.uint8: 1, torch.int32: 2}
@@ -58,7 +79,7 @@ ELEM_CODES = {torch.float32: 0, torch.uint8: 1, torch.int32: 2}
 # ---- packed table layout (mirrored by csrc/megakernel.cu) --------------- #
 HEADER = 16
 H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF, \
-    H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN = range(10)
+    H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN, H_SCRATCH, H_MOE = range(12)
 
 FIFO_FIELDS = 12
 (F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
@@ -66,7 +87,7 @@ FIFO_FIELDS = 12
 
 ACTOR_FIELDS = 20
 (A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
- A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1, A_PLANES,
+ A_ENABLES, A_N2, A_N3, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1, A_PLANES,
  A_FPARAM) = range(20)
 
 #: Words at the end of the io block: sweeps, stall flag, error code, the
@@ -78,9 +99,8 @@ META_WORDS = 17
 (M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
  M_CLK_STALL, M_CLK_LOOP, M_CLK_SCHED, M_CLK_KIND) = range(10)
 
-#: Error codes of the run: a control token outside its channel's declared
-#: domain; a source or sink index past its slab.
-ERR_DOMAIN, ERR_SLAB = 1, 2
+#: Error code of the run: a source or sink index past its slab.
+ERR_SLAB = 2
 
 #: Words after the meta words of a guarded or traced run: per channel its
 #: fault word, then per channel its high-water mark, then the trace's event
@@ -88,8 +108,12 @@ ERR_DOMAIN, ERR_SLAB = 1, 2
 #: ``MK_TRACE`` builds of B2 write them.
 
 _UNSUPPORTED = ("the megakernel backend runs actors through the device "
-                "functions they declare (ActorSpec.device_op); MoE's actors "
-                "get theirs with ROADMAP A8")
+                "functions they declare (ActorSpec.device_op): give each "
+                "actor one")
+
+#: Words of routing state the router keeps in shared memory per block, at
+#: most (``H_SCRATCH``).
+MAX_SCRATCH_WORDS = 1 << 15
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,7 +135,9 @@ class DeviceProgram:
     """A network packed for the kernel.
 
     ``table`` is the int32 program (CPU).  ``consts`` are the DeviceOps'
-    closure tensors, each with its pointer slot.  The per-run block is
+    closure tensors, each with its pointer slot; ``scratch`` the float32
+    scratch tensors of MoE bodies, as ``(slot, elements)``; ``enables``
+    each dynamic actor's declared forms.  The per-run block is
     ``[ring addresses (n_fifos) | actor tensor addresses (n_aptrs) | io]``
     with ``io = [cursors (3 n_fifos) | scalars (2 per slot: value, bound) |
     control rings (n_ctrl) | fire counts (n_actors) | meta (META_WORDS)]``.
@@ -128,8 +154,8 @@ class DeviceProgram:
     n_aptrs: int
     n_scalars: int
     n_ctrl: int
-    rate_tables: Dict[str, Dict[int, Dict[str, int]]]
-    domains: Dict[str, Tuple[int, int]]
+    enables: Dict[str, Dict[str, Any]]
+    scratch: Tuple[Tuple[int, int], ...] = ()
 
     @property
     def n_fifos(self) -> int:
@@ -181,21 +207,10 @@ class DeviceProgram:
     def n_ptrs(self) -> int:
         return self.n_fifos + self.n_aptrs
 
-    def rates(self, actor: str, token: int) -> Dict[str, int]:
-        """The 0/1 enables of ``actor`` for control token ``token``, looked
-        up in its rate table; a token outside the declared domain raises."""
-        table = self.rate_tables[actor]
-        if token not in table:
-            lo, hi = self.domains[actor]
-            raise ValueError(domain_error(actor, token, lo, hi))
-        return dict(table[token])
-
-
-def domain_error(actor: str, token: int, lo: int, hi: int) -> str:
-    return (f"megakernel: actor {actor!r} peeked control token {token}, "
-            f"outside its control channel's declared domain [{lo}, {hi}]; "
-            "the device program tabulates rates over the domain only — "
-            "declare a domain that covers every token")
+    def rates(self, actor: str, token: Sequence[int]) -> Dict[str, int]:
+        """The 0/1 enables of ``actor`` for control token ``token`` (a list
+        of ints), from its declared forms, as the kernel computes them."""
+        return {p: eval_enable(f, token) for p, f in self.enables[actor].items()}
 
 
 def fifo_row(spec: FifoSpec, forwarded: bool = False,
@@ -220,45 +235,97 @@ def fifo_row(spec: FifoSpec, forwarded: bool = False,
 
 
 def _check_channels(network: Network) -> None:
-    """Element types the kernel moves: float32 or uint8 data tokens,
-    ``(1,)`` int32 control tokens."""
+    """Element types the kernel moves: float32, uint8 or int32 data tokens,
+    int32 control tokens."""
     for name, spec in network.fifos.items():
         if spec.is_control:
-            if spec.dtype != torch.int32 or tuple(spec.token_shape) != (1,):
+            if spec.dtype != torch.int32:
                 raise NotImplementedError(
-                    f"megakernel: control channel {name!r} must carry (1,) "
-                    f"int32 tokens, got {spec.dtype} {spec.token_shape}")
-        elif spec.dtype not in (torch.float32, torch.uint8):
+                    f"megakernel: control channel {name!r} must carry int32 "
+                    f"tokens, got {spec.dtype}")
+        elif spec.dtype not in ELEM_CODES:
             raise NotImplementedError(
                 f"megakernel: data channel {name!r} carries {spec.dtype}; the "
-                "device functions take float32 and uint8 tokens")
+                "device functions take float32, uint8 and int32 tokens")
 
 
-#: Regular ports per side an actor may have (the kernel's enable masks).
+#: Regular ports per side an actor may have (the kernel's enable masks):
+#: a lane each in the scheduler warp, and up to 8 each on its wide path.
 MAX_PORTS = 32
+MAX_WIDE_PORTS = 256
 
 _PORTS = {  # kind -> (inputs, outputs): exact counts, or None for >= 1
     "source": (0, 1), "config": (0, None), "fork": (1, None),
     "poly": (1, 1), "adder": (None, 1), "sink": (1, 0),
-    "gauss": (1, None), "thres": (2, 1), "med": (1, 1)}
+    "gauss": (1, None), "thres": (2, 1), "med": (1, 1),
+    "router": (1, None), "expert": (1, 1), "combine": (None, 1),
+    "packer": (None, 1)}
 
 
 def _check_ports(network: Network, name: str, kind: str) -> None:
     a = network.actors[name]
     want_in, want_out = _PORTS[kind]
+    most = MAX_WIDE_PORTS if kind in WIDE_KINDS else MAX_PORTS
     for want, have, what in ((want_in, len(a.in_ports), "inputs"),
                              (want_out, len(a.out_ports), "outputs")):
-        if ((want is None and not 1 <= have <= MAX_PORTS)
+        if ((want is None and not 1 <= have <= most)
                 or (want is not None and have != want)):
             raise ValueError(
                 f"megakernel: {kind} actor {name!r} has {have} {what}, its "
                 f"device function takes "
-                f"{f'1..{MAX_PORTS}' if want is None else want}")
+                f"{f'1..{most}' if want is None else want}")
+    if kind in ("router", "packer"):
+        return          # _check_moe checks which of their ports are control
     for p, spec, _ in network.out_port_specs[name]:
         if spec.is_control != (kind == "config"):
             raise ValueError(
                 f"megakernel: {kind} actor {name!r} port {p!r}: only config "
-                "actors write control channels, and they write nothing else")
+                "actors and the MoE router and packer write control channels, "
+                "and config actors write nothing else")
+        if spec.is_control and spec.token_size_bytes != 4:
+            raise ValueError(f"megakernel: config actor {name!r} port {p!r} "
+                             "writes one-word control tokens only")
+
+
+def _check_moe(network: Network, name: str, kind: str,
+               op_params: Dict[str, Any]) -> Tuple[int, ...]:
+    """The MoE kinds' channels against their parameters; returns ``(N, D,
+    E, C, k, F)`` (0 where the kind has none)."""
+    p = {k: int(op_params[k]) for k in ("N", "k", "C", "E", "D", "F")
+         if k in op_params}
+    N, k, C, E, D, F = (p.get(x, 0) for x in ("N", "k", "C", "E", "D", "F"))
+    ins = [s for _, s, _ in network.in_port_specs[name]]
+    outs = [s for _, s, _ in network.out_port_specs[name]]
+    ctl = network.control_specs[name]
+    f32, i32 = torch.float32, torch.int32
+
+    def want(spec: FifoSpec, shape, dtype, control=False) -> bool:
+        return (spec.rate == 1 and tuple(spec.token_shape) == tuple(shape)
+                and spec.dtype == dtype and spec.is_control == control
+                and not spec.delay)
+    if kind == "router":
+        ok = (len(ins) == 1 and want(ins[0], (N, D), f32) and len(outs) == 3 * E + 2
+              and all(want(s, (C, D), f32) for s in outs[:E])
+              and all(want(s, (1,), i32, True) for s in outs[E:2 * E])
+              and want(outs[2 * E], (N, k), i32) and want(outs[2 * E + 1], (N, k), f32)
+              and all(want(s, (1,), i32) for s in outs[2 * E + 2:]))
+    elif kind == "expert":
+        ok = (want(ins[0], (C, D), f32) and want(outs[0], (C, D), f32)
+              and ctl is not None and ctl[0].token_size_bytes == 4)
+    elif kind == "combine":
+        ok = (len(ins) == E + 2 and all(want(s, (C, D), f32) for s in ins[:E])
+              and want(ins[E], (N, k), i32) and want(ins[E + 1], (N, k), f32)
+              and want(outs[0], (N, D), f32)
+              and ctl is not None and ctl[0].token_size_bytes >= 4 * E)
+    else:
+        ok = (len(ins) == E and all(want(s, (1,), i32) for s in ins)
+              and want(outs[0], (2 * E,), i32, True))
+    if not ok:
+        raise ValueError(
+            f"megakernel: {kind} actor {name!r} has channels that do not fit "
+            f"its parameters {p}: the reference's MoE layout "
+            "(graphs/moe_as_actors.py) with rate-1, delay-free channels")
+    return N, D, E, C, k, F
 
 
 def _check_tokens(network: Network, name: str, kind: str) -> Tuple[int, int]:
@@ -267,7 +334,7 @@ def _check_tokens(network: Network, name: str, kind: str) -> Tuple[int, int]:
     Poly's ``(L, 0)``, a frame's ``(H, W)``, else ``(0, 0)``."""
     specs = ([s for _, s, _ in network.in_port_specs[name]]
              + [s for _, s, _ in network.out_port_specs[name] if not s.is_control])
-    if not specs or kind in ("source", "sink"):
+    if not specs or kind in ("source", "sink") or kind in WIDE_KINDS:
         return 0, 0
     first = specs[0]
     want = {"poly": "rate-1 (2, L) float32", "adder": "float32",
@@ -309,6 +376,12 @@ def build_device_program(network: Network, layout: MegakernelLayout,
         raise NotImplementedError(
             f"megakernel: actors {missing} declare no DeviceOp; "
             + _UNSUPPORTED)
+    undeclared = [n for n, a in network.actors.items()
+                  if a.is_dynamic and a.enables is None]
+    if undeclared:
+        raise NotImplementedError(
+            f"megakernel: dynamic actors {undeclared} declare no enable forms "
+            "(ActorSpec.enables); the kernel computes rates from them")
     _check_channels(network)
     fifo_names = layout.fifo_names
     n_fifos = len(fifo_names)
@@ -322,7 +395,7 @@ def build_device_program(network: Network, layout: MegakernelLayout,
     for i, spec in enumerate(layout.fifo_specs):
         if spec.is_control:
             ctrl_base[i] = n_ctrl
-            n_ctrl += spec.capacity_tokens
+            n_ctrl += spec.capacity_tokens * spec.token_size_bytes // 4
 
     fifo_rows: List[int] = []
     for i, spec in enumerate(layout.fifo_specs):
@@ -345,9 +418,10 @@ def build_device_program(network: Network, layout: MegakernelLayout,
     actor_rows: List[int] = []
     slots: List[ActorSlots] = []
     consts: List[Tuple[int, torch.Tensor]] = []
-    rate_tables: Dict[str, Dict[int, Dict[str, int]]] = {}
-    domains: Dict[str, Tuple[int, int]] = {}
+    scratch: List[Tuple[int, int]] = []
+    enables: Dict[str, Dict[str, Any]] = {}
     n_aptrs = n_scalars = 0
+    scratch_words = moe = 0
     for row in layout.firing_table:
         a = network.actors[row.name]
         op = a.device_op
@@ -361,7 +435,7 @@ def build_device_program(network: Network, layout: MegakernelLayout,
         r[A_OUT] = put([pb.fifo for pb in row.outputs])
         r[A_NOUT] = len(row.outputs)
         r[A_READY] = -1
-        r[A_SCALAR] = r[A_PTR0] = r[A_PTR1] = r[A_RATES] = r[A_AUX] = -1
+        r[A_SCALAR] = r[A_PTR0] = r[A_PTR1] = r[A_ENABLES] = r[A_AUX] = -1
         r[A_N0], r[A_N1] = _check_tokens(network, row.name, kind)
         if kind in ("source", "config") and a.ready is not None:
             r[A_READY] = int(op.params["n_firings"])
@@ -411,6 +485,29 @@ def build_device_program(network: Network, layout: MegakernelLayout,
             r[A_NAUX] = len(terms)
         elif kind == "thres":
             r[A_FPARAM] = _float_bits(op.params["threshold"])
+        elif kind in WIDE_KINDS:
+            N, D, E, C, k, F = _check_moe(network, row.name, kind, op.params)
+            r[A_N0], r[A_N1], r[A_N2], r[A_N3] = N, D, E, C
+            r[A_ORDER], r[A_AUX] = k, F
+            if kind == "expert":
+                r[A_N0] = C
+            weights = {"router": [("router", (D, E))],
+                       "expert": [("we_gate", (D, F)), ("we_up", (D, F)),
+                                  ("we_down", (F, D))]}.get(kind, [])
+            for j, (key, shape) in enumerate(weights):
+                w = op.params[key]
+                if w.dtype != torch.bfloat16 or tuple(w.shape) != shape:
+                    raise ValueError(f"megakernel: {kind} {row.name!r} weight "
+                                     f"{key!r} must be bf16 {shape}, got "
+                                     f"{w.dtype} {tuple(w.shape)}")
+                consts.append((n_aptrs + j, w.contiguous()))
+            n_scr = {"router": N * E, "expert": C * F}.get(kind)
+            if n_scr is not None:
+                scratch.append((n_aptrs + len(weights), n_scr))
+                ptrs = tuple(range(n_aptrs, n_aptrs + len(weights) + 1))
+            if kind == "router":
+                scratch_words = max(scratch_words, router_scratch_words(N, E, C, k))
+            moe = 1
         n_aptrs += len(ptrs)
         r[A_SCALAR] = scalar
         if ptrs:
@@ -418,21 +515,18 @@ def build_device_program(network: Network, layout: MegakernelLayout,
         if len(ptrs) > 1:
             r[A_PTR1] = ptrs[1]
         if a.is_dynamic:
-            cspec = layout.fifo_specs[row.control]
-            values = domain_values(cspec)
-            if not values:
-                raise ValueError(
-                    f"megakernel: dynamic actor {row.name!r} reads control "
-                    f"channel {cspec.name!r}, which declares no finite "
-                    "integer domain; declare domain=(lo, hi) so the device "
-                    "program can tabulate its rates")
             ports = (*a.in_ports, *a.out_ports)
-            table = {v: {p: int(bool(e)) for p, e in a.rates_for([v]).items()
-                         if p in ports} for v in values}
-            rate_tables[row.name] = table
-            domains[row.name] = (values[0], values[-1])
-            r[A_DLO], r[A_DHI] = values[0], values[-1]
-            r[A_RATES] = put([table[v][p] for v in values for p in ports])
+            forms = dict(a.enables)
+            words = layout.fifo_specs[row.control].token_size_bytes // 4
+            for p, f in forms.items():
+                if isinstance(f, tuple) and not 0 <= f[0] < words:
+                    raise ValueError(
+                        f"megakernel: actor {row.name!r} port {p!r} enables on "
+                        f"word {f[0]} of a {words}-word control token")
+            enables[row.name] = forms
+            r[A_ENABLES] = put([x for p in ports for x in
+                                (forms[p] if isinstance(forms[p], tuple)
+                                 else (-1, forms[p]))])
         slots.append(ActorSlots(kind=kind, scalar=scalar, ptrs=ptrs, **window))
         actor_rows += r
 
@@ -448,6 +542,13 @@ def build_device_program(network: Network, layout: MegakernelLayout,
     header[H_N_SCALARS] = n_scalars
     header[H_N_CTRL] = n_ctrl
     header[H_LEN] = total
+    if scratch_words > MAX_SCRATCH_WORDS:
+        raise ValueError(
+            f"megakernel: the router's routing takes {scratch_words} words of "
+            f"shared memory a block, more than {MAX_SCRATCH_WORDS}; cut the "
+            "tokens a firing or the experts")
+    header[H_SCRATCH] = scratch_words
+    header[H_MOE] = moe
     packed = header + fifo_rows + actor_rows + list(visit) + tail
     assert len(packed) == total
     return DeviceProgram(
@@ -457,7 +558,14 @@ def build_device_program(network: Network, layout: MegakernelLayout,
         actor_names=actor_names,
         slots=tuple(slots), consts=tuple(consts), ctrl_base=ctrl_base,
         forwarded=forwarded, n_aptrs=n_aptrs, n_scalars=n_scalars,
-        n_ctrl=n_ctrl, rate_tables=rate_tables, domains=domains)
+        n_ctrl=n_ctrl, enables=enables, scratch=tuple(scratch))
+
+
+def router_scratch_words(N: int, E: int, C: int, k: int) -> int:
+    """Shared-memory words of the router's routing: each assignment's
+    expert, weight and slot (``N k`` each), the token each expert slot
+    takes (``E C``), and the counts (``E``)."""
+    return 3 * N * k + E * C + E
 
 
 # --------------------------------------------------------------------------- #
@@ -481,7 +589,8 @@ def stage(prog: DeviceProgram, state: Any, device: torch.device,
           consts: Sequence[torch.Tensor], health_words: bool = False
           ) -> Tuple[List[Optional[torch.Tensor]], List[int]]:
     """The tensors the kernel addresses (ring per channel, None for control
-    rings, then each actor pointer slot) and the io words of ``state``,
+    rings, then each actor pointer slot: ``consts`` holds the DeviceOps'
+    tensors, then the scratch tensors) and the io words of ``state``,
     with the zeroed health and trace words after the meta words when
     ``health_words``.  Cursors are staged as they are, consistent or not:
     the guards must see an injected fault.
@@ -507,7 +616,8 @@ def stage(prog: DeviceProgram, state: Any, device: torch.device,
                              f"a contiguous {want} tensor on {device}")
         tensors.append(buf)
     aptr: List[Optional[torch.Tensor]] = [None] * prog.n_aptrs
-    for slot, t in zip((s for s, _ in prog.consts), consts):
+    slots = [s for s, _ in prog.consts] + [s for s, _ in prog.scratch]
+    for slot, t in zip(slots, consts):
         aptr[slot] = t
     for name, sl, st in zip(prog.actor_names, prog.slots, state.actors):
         if sl.kind in ("source", "sink"):
@@ -536,13 +646,9 @@ def unstage(prog: DeviceProgram, state: Any, io: Sequence[int]
     control rings in host memory); returns ``(fire_counts, sweeps,
     stalled)``.  Raises on an error the run reported."""
     meta = prog.io_meta
-    err = int(io[meta + M_ERROR])
-    if err:
+    if int(io[meta + M_ERROR]):
         actor = prog.actor_names[int(io[meta + M_ERR_ACTOR])]
         value = int(io[meta + M_ERR_VALUE])
-        if err == ERR_DOMAIN:
-            lo, hi = prog.domains[actor]
-            raise ValueError(domain_error(actor, value, lo, hi))
         raise ValueError(f"megakernel: actor {actor!r} fired with index "
                          f"{value}, past the end of its slab")
     ctrl = torch.tensor(list(io[prog.io_ctrl:prog.io_counts]), dtype=torch.int32)

@@ -8,13 +8,19 @@ which the kernel overlaps and this version runs one after the other:
 * :func:`schedule`, the kernel's scheduler warp.  The loop is the host
   dynamic executor's (``executor.run_dynamic``): sweeps in the program's
   visit order until one fires nothing, or ``max_sweeps``; per visit up to
-  ``_max_fireable`` firings (cap 8), each guarded by ``_can_fire`` on the
-  rate table, the control token peeked first; cursors, scalars, control
-  rings and fire counts in the io words.  It reads no ring: control tokens
-  are scheduler state.  It returns one :class:`Command` per firing with a
-  body, numbered from 1 in firing order, with the ring segments its body
-  reads and writes and ``wait_for``, the largest number of an earlier
-  command it conflicts with (:func:`hazard_waits`).
+  ``_max_fireable`` firings (cap 8), each guarded by ``_can_fire`` with
+  the rates from the actor's declared enables on the control token, which
+  is peeked first; cursors, scalars, control rings and fire counts in the
+  io words.  It reads no data ring.  Config actors' control tokens are its
+  own state; a control token that a body writes (the MoE router's counts,
+  the packer's packed token) is pending until that body has run: the
+  kernel's scheduler waits for its own block's body threads there, and
+  this version runs the commands through that one (``flush``) before it
+  peeks.  It returns one :class:`Command` per firing with a body, numbered
+  from 1 in firing order (a firing of ``phases`` kernel commands takes
+  that many numbers), with the ring segments its body reads and writes and
+  ``wait_for``, the largest number of an earlier command it conflicts with
+  (:func:`hazard_waits`).
 * :func:`execute`, the kernel's body threads: the commands' bodies on the
   rings at the reference's offsets
   (``src/repro/core/megakernel/kernel.py:151-214``), a delay channel's
@@ -23,7 +29,10 @@ which the kernel overlaps and this version runs one after the other:
   (through the source's and sink's slab descriptors), ``poly_ref`` for
   Poly, the adder as ``add_`` from zeros in its terms' order, and motion
   detection's ``gauss5x5_u8_ref``, ``thres_ref`` and ``med_ref`` with the
-  u8 rounding.
+  u8 rounding, and the MoE bodies in the kernel's arithmetic order: every
+  product term by term in float32, ``acc + x * w`` with each operation
+  rounded, in the order of the summed index (:func:`moe_router`,
+  :func:`moe_expert`, :func:`moe_combine`, :func:`moe_packer`).
 
 The kernel's blocks each run their share of every command in order, and
 start command k only once every block has finished command ``wait_for``
@@ -48,7 +57,7 @@ from __future__ import annotations
 import dataclasses
 import random
 import struct
-from typing import Dict, FrozenSet, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -56,23 +65,27 @@ import torch
 from repro_torch.core.health import (CURSOR_INVALID, DOMAIN, NONFINITE,
                                      OVERFLOW, UNDERFLOW)
 from repro_torch.core.megakernel.program import (
-    A_AUX, A_CTRL, A_DHI, A_DLO, A_FPARAM, A_IN, A_KIND, A_N0, A_NAUX, A_NIN,
-    A_NOUT, A_ORDER, A_OUT, A_PLANES, A_PTR0, A_PTR1, A_RATES, A_READY,
-    A_SCALAR, ACTOR_FIELDS, ELEM_CODES, ERR_DOMAIN, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL,
-    F_DELAY, F_DHI, F_DLO, F_ELEM, F_FWD, F_NPH, F_RATE, FIFO_FIELDS, H_ACTOR_OFF, H_FIFO_OFF,
-    H_N_ACTORS, H_N_CTRL, H_N_FIFOS, H_N_SCALARS, H_N_VISIT, H_VISIT_OFF,
-    KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE, M_ERROR, M_STALLED, M_SWEEPS,
-    META_WORDS)
+    A_AUX, A_CTRL, A_ENABLES, A_FPARAM, A_IN, A_KIND, A_N0, A_N2, A_N3,
+    A_NAUX, A_NIN, A_NOUT, A_ORDER, A_OUT, A_PLANES, A_PTR0, A_PTR1, A_READY,
+    A_SCALAR, ACTOR_FIELDS, ELEM_CODES, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL,
+    F_DELAY, F_DHI, F_DLO, F_ELEM, F_FWD, F_NPH, F_RATE, F_TOKB, FIFO_FIELDS,
+    H_ACTOR_OFF, H_FIFO_OFF, H_N_ACTORS, H_N_CTRL, H_N_FIFOS, H_N_SCALARS,
+    H_N_VISIT, H_VISIT_OFF, KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE, M_ERROR,
+    M_STALLED, M_SWEEPS, META_WORDS, PHASES)
 from repro_torch.kernels.dyn_fir.ref import poly_ref
 from repro_torch.kernels.gauss5x5.ref import gauss5x5_u8_ref, to_u8
 from repro_torch.kernels.motion_post.ref import med_ref, thres_ref
+from repro_torch.models.moe import scatter_rows
 
 #: The reference's per-visit firing cap (``executor.py:31``).
 MAX_FIRINGS_PER_VISIT = 8
 
-SOURCE, CONFIG, FORK, POLY, ADDER, SINK, GAUSS, THRES, MED = (
-    KIND_CODES[k] for k in ("source", "config", "fork", "poly", "adder",
-                            "sink", "gauss", "thres", "med"))
+SOURCE, CONFIG, FORK, POLY, ADDER, SINK, GAUSS, THRES, MED, ROUTER, \
+    EXPERT, COMBINE, PACKER = (KIND_CODES[k] for k in (
+        "source", "config", "fork", "poly", "adder", "sink", "gauss", "thres",
+        "med", "router", "expert", "combine", "packer"))
+#: Kernel commands a firing of each kind becomes.
+KIND_PHASES = {KIND_CODES[k]: n for k, n in PHASES.items()}
 
 #: The hazard classes of :func:`hazard_waits`: a read waits for the last
 #: write of its segments (raw); a write waits for every read of the old
@@ -138,7 +151,12 @@ class Command:
     slab's window count.  ``reads`` and ``writes`` are ``(channel,
     segment)`` pairs, ``copy_back_writes`` the slot-0 segments; ``after`` is
     the previous command of the same Poly actor (0 for none), which the
-    kernel orders by running Poly's history in block 0 alone."""
+    kernel orders by running Poly's history in block 0 alone.  A firing of
+    ``phases`` kernel commands takes numbers ``seq .. seq + phases - 1``;
+    ``serial`` is the last number of the actor's previous firing when the
+    two share a scratch tensor (the MoE router's and experts'), which every
+    block must have finished first.  ``ctrl_out`` is, per output, the io
+    word of the control token the body writes (-1 for none)."""
 
     seq: int
     actor: int
@@ -154,6 +172,14 @@ class Command:
     copy_back_writes: Tuple[Tuple[int, int], ...] = ()
     after: int = 0
     wait_for: int = 0
+    phases: int = 1
+    serial: int = 0
+    ctrl_out: Tuple[int, ...] = ()
+
+    @property
+    def last(self) -> int:
+        """The number of the firing's last kernel command."""
+        return self.seq + self.phases - 1
 
 
 class _Table:
@@ -176,6 +202,15 @@ class _Table:
         self.io_hw = self.io_fault + self.n_fifos
         self.io_events = self.io_hw + self.n_fifos
 
+    def words(self, f: int) -> int:
+        """Words of one token of channel ``f`` (control tokens)."""
+        return self.fifo[f][F_TOKB] // 4
+
+    def ctrl_word(self, f: int, phase: int) -> int:
+        """The io word of the first element of control channel ``f``'s token
+        at ``phase`` (rate 1: phase p is slot p)."""
+        return self.io_ctrl + self.fifo[f][F_CBASE] + phase * self.words(f)
+
     def ports(self, a: int) -> Tuple[List[int], List[int]]:
         r, t = self.actor[a], self.t
         return (t[r[A_IN]:r[A_IN] + r[A_NIN]], t[r[A_OUT]:r[A_OUT] + r[A_NOUT]])
@@ -186,13 +221,15 @@ def hazard_waits(commands: Sequence[Command],
     """Set each command's ``wait_for`` under the kernel's rule: the largest
     number of an earlier command that wrote a segment it reads (raw), read
     or wrote a segment it writes (war, waw), the copy-back's slot-0 writes
-    counted only with ``delay``.  Waits are taken before this command's own
-    segments are recorded, so a command never waits for itself."""
+    counted only with ``delay``, and ``serial``.  Waits are taken before
+    this command's own segments are recorded, so a command never waits for
+    itself; a firing's segments count from its last phase, and each later
+    phase waits for the one before it."""
     last_w: Dict[Tuple[int, int], int] = {}
     last_r: Dict[Tuple[int, int], int] = {}
     for c in commands:
         writes = c.writes + (c.copy_back_writes if "delay" in hazards else ())
-        w = 0
+        w = c.serial
         if "raw" in hazards:
             w = max([w] + [last_w.get(s, 0) for s in c.reads])
         if "war" in hazards:
@@ -201,9 +238,9 @@ def hazard_waits(commands: Sequence[Command],
             w = max([w] + [last_w.get(s, 0) for s in writes])
         c.wait_for = w
         for s in c.reads:
-            last_r[s] = c.seq
+            last_r[s] = c.last
         for s in writes:
-            last_w[s] = c.seq
+            last_w[s] = c.last
 
 
 def permitted_order(commands: Sequence[Command],
@@ -211,7 +248,8 @@ def permitted_order(commands: Sequence[Command],
     """An order of whole commands the kernel permits: command k only after
     every command up to its ``wait_for`` and after its ``after``; among the
     commands ready, a random one (``rng``), or the latest without one."""
-    done = [True] + [False] * len(commands)     # done[0]: "no command"
+    n = commands[-1].last if commands else 0
+    done = [True] + [False] * n     # done[0]: "no command"
     prefix = 0                       # every command <= prefix is done
     todo = list(commands)
     order: List[Command] = []
@@ -220,8 +258,9 @@ def permitted_order(commands: Sequence[Command],
         c = rng.choice(ready) if rng is not None else ready[-1]
         todo.remove(c)
         order.append(c)
-        done[c.seq] = True
-        while prefix < len(commands) and done[prefix + 1]:
+        for k in range(c.seq, c.last + 1):
+            done[k] = True
+        while prefix < n and done[prefix + 1]:
             prefix += 1
     return order
 
@@ -233,14 +272,19 @@ class _Stop(Exception):
 def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
              io: List[int], max_sweeps: int, multi_firing: bool,
              guards: bool = False,
-             trace_ring: Optional[np.ndarray] = None) -> List[Command]:
+             trace_ring: Optional[np.ndarray] = None,
+             flush: Optional[Callable[[List["Command"], int], None]] = None
+             ) -> List[Command]:
     """Run the sweep loop on ``io`` in place (the kernel's scheduler warp);
     returns the commands of the firings with a body, ``wait_for`` set.
 
     ``guards`` keeps the cursor guards' fault words and the high-water
     marks in the io words after the meta words; ``trace_ring`` (a
     ``(capacity, 3 + n_fifos)`` int32 array) takes one event per attempt,
-    the count in the io word after the high-water marks."""
+    the count in the io word after the high-water marks.  ``flush(commands,
+    seq)`` must run the commands through number ``seq`` (those not run
+    yet) before a control token a body writes is peeked; a program whose
+    bodies write none never calls it."""
     P = _Table(table)
     t, fifo, actor = P.t, P.fifo, P.actor
     aptr = tensors[P.n_fifos:]
@@ -248,6 +292,22 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
                  for a in range(P.n_actors) if actor[a][A_KIND] == CONFIG}
     commands: List[Command] = []
     last_poly: Dict[int, int] = {}
+    last_fire: Dict[int, int] = {}      # MoE actor -> its last command
+    pending: Dict[Tuple[int, int], int] = {}   # (control channel, phase) -> writer
+    seq_next = 1
+
+    def token(c: int) -> List[int]:
+        """The control token at channel c's read phase; waits for (runs)
+        the body that writes it."""
+        ph = read_offset(fifo[c], io[3 * c])
+        writer = pending.pop((c, ph), 0)
+        if writer:
+            if flush is None:
+                raise RuntimeError("ref.schedule: a body writes the control "
+                                   "token peeked here; pass flush=")
+            flush(commands, writer)
+        at = P.ctrl_word(c, ph)
+        return io[at:at + P.words(c)]
 
     def occ(f: int) -> int:
         return io[3 * f + 2]
@@ -258,16 +318,16 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         true = fifo[f][F_DELAY] + (wr - rd) * fifo[f][F_RATE]
         return (CURSOR_INVALID if o != true else 0), true
 
-    def domain_bit(f: int, tok: int) -> int:
-        return 0 if fifo[f][F_DLO] <= tok <= fifo[f][F_DHI] else DOMAIN
+    def domain_bit(f: int, tok: Sequence[int]) -> int:
+        lo, hi = fifo[f][F_DLO], fifo[f][F_DHI]
+        return 0 if all(lo <= x <= hi for x in tok) else DOMAIN
 
     def guard_read(f: int, e: int) -> None:
         bits, true = cursor_bits(f)
         if e and true < fifo[f][F_RATE]:
             bits |= UNDERFLOW
         if e and fifo[f][F_CTRL]:
-            bits |= domain_bit(f, io[P.io_ctrl + fifo[f][F_CBASE]
-                                     + read_offset(fifo[f], io[3 * f])])
+            bits |= domain_bit(f, token(f))
         io[P.io_fault + f] |= bits
 
     def guard_write(f: int, e: int, value: Optional[int]) -> None:
@@ -275,7 +335,7 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         if e and true + fifo[f][F_RATE] > fifo[f][F_BOUND]:
             bits |= OVERFLOW
         if e and value is not None:
-            bits |= domain_bit(f, value)
+            bits |= domain_bit(f, (value,))
         io[P.io_fault + f] |= bits
         io[P.io_hw + f] = max(io[P.io_hw + f], true + (fifo[f][F_RATE] if e else 0))
 
@@ -287,20 +347,17 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             io[P.io_events] = n + 1
 
     def rates(a: int) -> List[int]:
-        """0/1 per port (inputs, then outputs); peeks the control token."""
+        """0/1 per port (inputs, then outputs) from the declared enables:
+        (word, threshold) is tok[word] > threshold, (-1, v) the constant v;
+        peeks the control token."""
         r = actor[a]
         n = r[A_NIN] + r[A_NOUT]
         if r[A_CTRL] < 0:
             return [1] * n
-        c = r[A_CTRL]
-        tok = io[P.io_ctrl + fifo[c][F_CBASE] + read_offset(fifo[c], io[3 * c])]
-        if not r[A_DLO] <= tok <= r[A_DHI]:
-            io[P.io_meta + M_ERROR] = ERR_DOMAIN
-            io[P.io_meta + M_ERR_ACTOR] = a
-            io[P.io_meta + M_ERR_VALUE] = tok
-            raise _Stop
-        row = r[A_RATES] + (tok - r[A_DLO]) * n
-        return t[row:row + n]
+        tok = token(r[A_CTRL])
+        forms = t[r[A_ENABLES]:r[A_ENABLES] + 2 * n]
+        return [int(tok[w] > x) if w >= 0 else x
+                for w, x in zip(forms[0::2], forms[1::2])]
 
     def can_fire(a: int) -> bool:
         r = actor[a]
@@ -331,6 +388,7 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         return k
 
     def fire(a: int) -> None:
+        nonlocal seq_next
         r = actor[a]
         kind = r[A_KIND]
         en = rates(a)
@@ -365,13 +423,20 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         out_ph = [io[3 * f + 1] % fifo[f][F_NPH] for f in outs]
         cb = [bool(e and fifo[f][F_DELAY] and ph == 2)
               for e, f, ph in zip(out_en, outs, out_ph)]
+        seq = seq_next
+        phases = KIND_PHASES.get(kind, 1)
+        ctrl_out = []
         for e, f, ph in zip(out_en, outs, out_ph):
             if guards:
                 guard_write(f, e, value if fifo[f][F_CTRL] and body
                             and kind == CONFIG else None)
+            ctrl_out.append(-1)
             if e:
                 if fifo[f][F_CTRL] and body and kind == CONFIG:
-                    io[P.io_ctrl + fifo[f][F_CBASE] + write_offset(fifo[f], ph)] = value
+                    io[P.ctrl_word(f, ph)] = value
+                elif fifo[f][F_CTRL] and body:
+                    ctrl_out[-1] = P.ctrl_word(f, ph)
+                    pending[(f, ph)] = seq + phases - 1
                 io[3 * f + 1] += 1
                 io[3 * f + 2] += fifo[f][F_RATE]
         io[P.io_counts + a] += 1
@@ -386,7 +451,7 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         writes = tuple((f, s) for e, f, ph in zip(out_en, outs, out_ph)
                        if e and not fifo[f][F_CTRL]
                        for s in write_segments(fifo[f], ph))
-        seq = len(commands) + 1
+        seq_next += phases
         commands.append(Command(
             seq=seq, actor=a, in_en=list(en[:len(ins)]), out_en=list(out_en),
             in_off=[ph * fifo[f][F_RATE] for f, ph in zip(ins, in_ph)],
@@ -394,9 +459,12 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             copy_back=cb, idx=idx, n_idx=n_idx, reads=reads, writes=writes,
             copy_back_writes=tuple((f, COPY_BACK_SEGMENT)
                                    for f, on in zip(outs, cb) if on),
-            after=last_poly.get(a, 0) if kind == POLY else 0))
+            after=last_poly.get(a, 0) if kind == POLY else 0,
+            phases=phases, serial=last_fire.get(a, 0), ctrl_out=tuple(ctrl_out)))
         if kind == POLY:
             last_poly[a] = seq
+        if phases > 1:
+            last_fire[a] = seq + phases - 1
 
     sweeps = 0
     fired_any = True
@@ -433,13 +501,96 @@ def _check_finite(P: _Table, fault: torch.Tensor, f: int,
     fault[f:f + 1].bitwise_or_(bad)
 
 
+def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a (R, K) @ w (K, M)`` as the kernel sums it: float32, from 0, in
+    the order of k, each product and each sum rounded on its own."""
+    acc = torch.zeros((a.shape[0], w.shape[1]), dtype=torch.float32, device=a.device)
+    w = w.to(torch.float32)
+    for k in range(a.shape[1]):
+        acc = acc + a[:, k:k + 1] * w[k:k + 1, :]
+    return acc
+
+
+def _seq_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis from 0, in order, each add rounded."""
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def moe_logits(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The router's first phase: ``x (N, D) @ w (D, E)`` (bf16 weights)."""
+    return _dot(x, w)
+
+
+def moe_route(logits: torch.Tensor, k: int, C: int):
+    """The router's second phase on ``logits (N, E)``: softmax (the max,
+    ``exp``, the sum in expert order), top-k (ties to the lower expert),
+    the k weights over their sum (at least 1e-9), ranks in token-major
+    order, capacity ``C``.  Returns ``(slot (N, k) int32, w (N, k), counts
+    (E,) int32)``, dropped assignments at slot ``E C`` with weight 0."""
+    N, E = logits.shape
+    m = logits.max(dim=1, keepdim=True).values
+    ex = torch.exp(logits - m)
+    probs = ex / _seq_sum(ex)[:, None]
+    order = torch.sort(probs, dim=1, descending=True, stable=True).indices[:, :k]
+    gate_w = torch.gather(probs, 1, order)
+    gate_w = gate_w / torch.clamp(_seq_sum(gate_w), min=1e-9)[:, None]
+    flat = order.reshape(-1).to(torch.int64)
+    onehot = torch.nn.functional.one_hot(flat, E).to(torch.int32)
+    rank = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(1).reshape(N, k)
+    keep = rank < C
+    slot = torch.where(keep, order * C + rank, torch.full_like(rank, E * C))
+    counts = (onehot.reshape(N, k, E) * keep[..., None]).sum((0, 1))
+    w = gate_w * keep.to(torch.float32)
+    return slot.to(torch.int32), w, counts.to(torch.int32)
+
+
+def moe_dispatch(x: torch.Tensor, slot: torch.Tensor, E: int, C: int) -> torch.Tensor:
+    """The (E C, D) slabs: row ``slot`` of each kept assignment is its token
+    plus 0.0 (the reference's scatter-add into zeros), other rows 0."""
+    k = slot.shape[1]
+    return scatter_rows(slot.reshape(-1).to(torch.int64), x.repeat_interleave(k, dim=0),
+                        E * C + 1)[:-1]
+
+
+def moe_expert_hidden(slab: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor) -> torch.Tensor:
+    """An expert's first phase: ``silu(slab @ wg) * (slab @ wu)``, silu as
+    ``x * (1 / (1 + exp(-x)))``."""
+    g = _dot(slab, wg)
+    u = _dot(slab, wu)
+    return g * (1.0 / (1.0 + torch.exp(-g))) * u
+
+
+def moe_combine(ys: Sequence[Optional[torch.Tensor]], slot: torch.Tensor,
+                w: torch.Tensor, C: int) -> torch.Tensor:
+    """``y[n] = sum_k row(slot[n, k]) * w[n, k]`` from 0 in k order; a
+    dropped assignment or a disabled expert (None) gives a zero row."""
+    E = len(ys)
+    N, k = slot.shape
+    D = next((y.shape[1] for y in ys if y is not None), None)
+    dev = slot.device
+    D = D if D is not None else 0
+    flat = torch.zeros((E * C + 1, D), dtype=torch.float32, device=dev)
+    for e, y in enumerate(ys):
+        if y is not None:
+            flat[e * C:(e + 1) * C] = y
+    acc = torch.zeros((N, D), dtype=torch.float32, device=dev)
+    for j in range(k):
+        acc = acc + flat[slot[:, j].to(torch.int64)] * w[:, j:j + 1]
+    return acc
+
+
 def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             commands: Sequence[Command],
-            value_fault: Optional[torch.Tensor] = None) -> None:
+            value_fault: Optional[torch.Tensor] = None,
+            io: Optional[List[int]] = None) -> None:
     """Run the commands' bodies on ``tensors`` in the order given (the
     kernel's body threads).  With ``value_fault`` (an int32 vector, one
     word per channel) every enabled float window a body reads, before it
-    runs, and writes, after, is checked for NaN and Inf."""
+    runs, and writes, after, is checked for NaN and Inf.  The control
+    tokens bodies write go into ``io`` (``Command.ctrl_out``)."""
     P = _Table(table)
     t, fifo, actor = P.t, P.fifo, P.actor
     rings = tensors[:P.n_fifos]
@@ -498,6 +649,32 @@ def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         elif kind == MED:
             if c.out_en[0]:
                 dst[0].copy_(to_u8(med_ref(win[0].to(torch.float32))))
+        elif kind == ROUTER:
+            E, C, k = r[A_N2], r[A_N3], r[A_ORDER]
+            logits = aptr[r[A_PTR0] + 1].view(r[A_N0], E)
+            logits.copy_(moe_logits(win[0][0], aptr[r[A_PTR0]]))
+            slot, w, counts = moe_route(logits, k, C)
+            slabs = moe_dispatch(win[0][0], slot, E, C)
+            for e in range(E):
+                dst[e][0].copy_(slabs[e * C:(e + 1) * C])
+                dst[2 * E + 2 + e][0].copy_(counts[e:e + 1])
+            dst[2 * E][0].copy_(slot)
+            dst[2 * E + 1][0].copy_(w)
+            _write_ctrl(io, c.ctrl_out[E:2 * E], counts.tolist())
+        elif kind == EXPERT:
+            if c.out_en[0]:
+                base = r[A_PTR0]
+                h = aptr[base + 3].view(r[A_N0], r[A_AUX])
+                h.copy_(moe_expert_hidden(win[0][0], aptr[base], aptr[base + 1]))
+                dst[0][0].copy_(_dot(h, aptr[base + 2]))
+        elif kind == COMBINE:
+            E, C = r[A_N2], r[A_N3]
+            ys = [win[e][0] if c.in_en[e] else None for e in range(E)]
+            dst[0][0].copy_(moe_combine(ys, win[E][0], win[E + 1][0], C))
+        elif kind == PACKER:
+            E = r[A_N2]
+            counts = [int(x) for x in torch.cat([w.reshape(-1) for w in win]).tolist()]
+            _write_ctrl(io, c.ctrl_out[:1], [counts + counts])
         if value_fault is not None:
             for e, f, d in zip(c.out_en, outs, dst):
                 if e and d is not None:
@@ -505,6 +682,20 @@ def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         for on, f in zip(c.copy_back, outs):
             if on:
                 rings[f][0].copy_(rings[f][3 * fifo[f][F_RATE]])
+
+
+def _write_ctrl(io: Optional[List[int]], words: Sequence[int],
+                values: Sequence) -> None:
+    """Control tokens a body wrote, into their io words (a token is an int
+    or a list of ints)."""
+    if io is None:
+        raise RuntimeError("ref.execute: this body writes control tokens; "
+                           "pass io=")
+    for at, v in zip(words, values):
+        if at < 0:
+            continue
+        vals = v if isinstance(v, list) else [v]
+        io[at:at + len(vals)] = [int(x) for x in vals]
 
 
 def zero_forwarded(table: Sequence[int], tensors: List[Optional[torch.Tensor]]) -> None:
@@ -524,15 +715,23 @@ def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
     or a ``trace_ring``, ``io`` holds the health and trace words after the
     meta words (``stage(..., health_words=True)``)."""
     zero_forwarded(table, tensors)
-    commands = schedule(table, tensors, io, max_sweeps, multi_firing,
-                        guards=guards, trace_ring=trace_ring)
     value_fault = None
+    P = _Table(table)
     if guards:
-        P = _Table(table)
         device = next((x.device for x in tensors[:P.n_fifos] if x is not None),
                       torch.device("cpu"))
         value_fault = torch.zeros(P.n_fifos, dtype=torch.int32, device=device)
-    execute(table, tensors, commands, value_fault)
+    ran = 0      # commands run so far
+
+    def flush(commands: List[Command], upto: int) -> None:
+        nonlocal ran
+        todo = [c for c in commands[ran:] if c.seq <= upto]
+        execute(table, tensors, todo, value_fault, io)
+        ran += len(todo)
+
+    commands = schedule(table, tensors, io, max_sweeps, multi_firing,
+                        guards=guards, trace_ring=trace_ring, flush=flush)
+    execute(table, tensors, commands[ran:], value_fault, io)
     if value_fault is not None:
         for f, bits in enumerate(value_fault.tolist()):
             io[P.io_fault + f] |= bits

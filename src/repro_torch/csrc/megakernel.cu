@@ -11,10 +11,11 @@
 // device program packed by core/megakernel/program.py: sweeps in visit
 // order until a sweep fires nothing or max_sweeps; per visit up to
 // _max_fireable firings (cap 8), each guarded by _can_fire with the control
-// token peeked and its rates looked up in the actor's rate table; masked
-// ring reads and writes at the Eq. 1 offsets, with the Fig. 2 delay
-// channel's shifted writes and slot-0 copy-back; fire counts, sweeps and
-// the stall flag.  The Eq. 1 rings stay in device memory and are updated
+// token peeked and its rates computed from the actor's declared enables
+// (per port the constant 0 or 1, or tok[word] > threshold), for any token
+// value, as the reference computes control(tok); masked ring reads and
+// writes at the Eq. 1 offsets, with the Fig. 2 delay channel's shifted
+// writes and slot-0 copy-back; fire counts, sweeps and the stall flag.  The Eq. 1 rings stay in device memory and are updated
 // in place (DPD's 11.5 MB and motion detection's 3.5 MB fit in the 50 MB
 // L2; a block's 227 KB of shared memory could not hold them).
 //
@@ -22,7 +23,11 @@
 // active firings of L * (84 + order) flop (about 1.2 Gflop, 18 us at
 // 67 TFLOP/s on DPD's main path), above the ~10 us of HBM time for the
 // source and sink slabs (16.8 MB each at 3.35 TB/s).  On motion detection,
-// bytes: the 73.7 MB source and sink slabs of 960 frames take 44 us.
+// bytes: the 73.7 MB source and sink slabs of 960 frames take 44 us.  On
+// the MoE network at olmoe-1b-7b's widths (chip_smoke.py phase 18):
+// operations, the experts' three products over C rows each (about 515
+// Gflop a run of 8 firings, 7.7 ms at 67 TFLOP/s, against 1.9 ms for their
+// 6.4 GB of bf16 weights).
 // What costs the time instead is latency: about 650 bodies per DPD run and
 // 1200 per motion detection run, each well under a microsecond of bytes or
 // flops, chained by data dependencies through L2, and the sweep loop that
@@ -38,9 +43,14 @@
 // * The scheduler is replicated, not shared: the scheduler warp of every
 //   block runs the same deterministic sweep loop over its own shared-memory
 //   copy of the cursor block, the fire counts, the actor states' int
-//   scalars and the control rings (control tokens are scheduler state: only
-//   config actors write them, only control ports read them).  It never needs
-//   a body's result, so it runs ahead of them.  Lane l handles input l and
+//   scalars and the control rings.  A config actor's control token is
+//   scheduler state, written as the scheduler decides.  A token a body
+//   writes (the MoE router's counts, the packer's packed token) is written
+//   by every block's body threads into that block's own copy, and the
+//   scheduler records the writing command as the token's last writer; the
+//   one wait the scheduler ever makes on a body is before it peeks such a
+//   token, for its own block to have run that command (ctrl_wait).  Only
+//   then does it need a body's result, so otherwise it runs ahead.  Lane l handles input l and
 //   output l of the actor it visits (can_fire, max_fireable and fire as
 //   warp votes and reductions); cursor phases (cursor % phases) are kept, so
 //   no step divides by a phase count; ring and tensor addresses are copied
@@ -124,6 +134,23 @@
 // * Faulty operations go ahead and are reported.  An overflow's write past
 //   the Eq. 1 bound is a write like any other to the dependency rule, which
 //   orders it after the segment's last reader.
+// * The MoE kinds (router, expert, combine, packer) take up to 256 ports a
+//   side on a wide path of the scheduler (a lane takes ports l, l + 32, ...;
+//   per port enable and window phase bits in the command).  The router and
+//   an expert run in two phases, two commands, the second waiting for the
+//   first in every block, through a float32 scratch tensor per actor (the
+//   router's logits, the expert's hidden rows); a firing's first command
+//   also waits for the actor's previous firing, which shares the scratch.
+//   Router: phase 0 the logits split over the grid, one a thread; phase 1
+//   the routing in every block (softmax, top-k, capacity ranks by a scan
+//   per expert in token-major order, in shared memory), then block 0's
+//   slots, weights and counts, each block's own control tokens, and the
+//   dispatched slabs a row a block.  Expert: SIMT tiles of 16 columns by up
+//   to 96 rows, operands staged 32 k at a time; phase 0 both hidden
+//   products and SwiGLU, phase 1 the output product.  Every sum is from 0
+//   in the order of its index, each product and add rounded alone, as the
+//   plain version sums (ref.py).  Combine: an output a thread, the k
+//   weighted rows in order.  Packer: every block, its own control words.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -139,21 +166,21 @@ namespace {
 
 // ---- packed table layout: mirrors core/megakernel/program.py ----------- //
 enum { H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF,
-       H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN };
+       H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN, H_SCRATCH, H_MOE };
 constexpr int FIFO_FIELDS = 12;
 enum { F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
        F_ELEM, F_DLO, F_DHI };
 enum { ELEM_F32 = 0 };
 constexpr int ACTOR_FIELDS = 20;
 enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
-       A_RATES, A_DLO, A_DHI, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
+       A_ENABLES, A_N2, A_N3, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
        A_PLANES, A_FPARAM };
 constexpr int META_WORDS = 17;
 enum { M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
        M_CLK_STALL, M_CLK_LOOP, M_CLK_SCHED, M_CLK_KIND };
 enum { K_SOURCE, K_CONFIG, K_FORK, K_POLY, K_ADDER, K_SINK, K_GAUSS, K_THRES,
-       K_MED };
-enum { ERR_DOMAIN = 1, ERR_SLAB = 2 };
+       K_MED, K_ROUTER, K_EXPERT, K_COMBINE, K_PACKER };
+enum { ERR_SLAB = 2 };
 // Fault bits (core/health.py).  After the meta words: a fault word per
 // channel, a high-water mark per channel, the trace's event count.
 enum { OVERFLOW = 1, UNDERFLOW = 2, CURSOR_INVALID = 4, NONFINITE = 8, DOMAIN = 32 };
@@ -165,6 +192,7 @@ constexpr int GUARD_INTS = 0;
 
 constexpr int MAX_FIRINGS_PER_VISIT = 8;  // executor.py:31
 constexpr int MAX_PORTS = 32;             // checked by program.py; a lane each
+constexpr int WIDE_WORDS = 8;             // the MoE kinds: up to 256 ports a side
 constexpr int BODY_THREADS = 256;         // = Poly tile, as in B1
 constexpr int SCHED_TID = BODY_THREADS;   // the scheduler warp
 constexpr int PUBLISH_TID = BODY_THREADS + 32;  // the publisher warp
@@ -208,6 +236,13 @@ struct Cmd {
   int in_f[MAX_PORTS];     // each port's channel
   int out_f[MAX_PORTS];
 #endif
+  // The MoE kinds (the wide path): the actor's row, which phase of the
+  // firing this command runs, and per port its enable and its window's
+  // phase (delay-free channels have two), bit p % 32 of word p / 32.
+  const int* row;
+  int phase;
+  unsigned wen_in[WIDE_WORDS], wen_out[WIDE_WORDS];
+  unsigned wph_in[WIDE_WORDS], wph_out[WIDE_WORDS];
 };
 
 // The scheduler warp's position between firings (the same in every lane).
@@ -227,6 +262,8 @@ struct Firing {
   unsigned in_en, out_en, cb_mask;
   int idx, n_idx;
   int in_off, out_off;
+  int phases;              // commands the firing becomes (the wide path's
+                           // enables and phases are in View::wide)
 };
 
 // Views of the shared-memory replicas.
@@ -239,6 +276,14 @@ struct View {
   const int* fifos;        // the channel rows
   const int* actors;       // the actor rows
   int n_fifos, io_scal, io_ctrl, io_counts;
+  long long* alast;        // per actor: the last command of its last firing (MoE scratch)
+  const long long* local_done;  // this block has run every command up to it
+  int* moe;                // the router's routing words (H_SCRATCH)
+  // The wide path's last firing, by the scheduler warp for fill: enables
+  // in, out, then window phase bits in, out, WIDE_WORDS words each; its
+  // wait.
+  unsigned* wide;
+  long long* wide_wait;
 #ifdef MK_GUARDS
   int* fault;              // per channel: the cursor guards' bits
   int* hw;                 // per channel: the high-water mark
@@ -289,6 +334,15 @@ __device__ __forceinline__ unsigned low_bits(int n) {
 __device__ __forceinline__ int next_phase(int ph, int n_phases) {
   return ph + 1 == n_phases ? 0 : ph + 1;
 }
+// The io word of control channel c's token at phase ph (rate 1: phase p is
+// slot p), a token of F_TOKB / 4 words.
+__device__ __forceinline__ int ctrl_word(const View& v, int c, int ph) {
+  const int* fr = fifo_row(v, c);
+  return v.io_ctrl + fr[F_CBASE] + ph * (fr[F_TOKB] >> 2);
+}
+__device__ __forceinline__ bool bit_of(const unsigned* words, int p) {
+  return (words[p >> 5] >> (p & 31)) & 1;
+}
 
 #ifdef MK_GUARDS
 // The cursor guards of one op on channel f from its pre-op io words
@@ -303,6 +357,12 @@ __device__ __forceinline__ int cursor_bits(const View& v, int f, int delay, int 
 __device__ __forceinline__ int domain_bit(const View& v, int f, int tok) {
   const int* fr = fifo_row(v, f);
   return tok < fr[F_DLO] || tok > fr[F_DHI] ? DOMAIN : 0;
+}
+// DOMAIN of every word of channel f's token at io word `at`.
+__device__ int token_domain_bits(const View& v, int f, int at) {
+  int bits = 0;
+  for (int w = 0; w < (fifo_row(v, f)[F_TOKB] >> 2); ++w) bits |= domain_bit(v, f, v.S[at + w]);
+  return bits;
 }
 #endif
 
@@ -400,8 +460,9 @@ __device__ void watcher(const unsigned long long* progress, long long* least,
 // except that lane l holds input l's and output l's channel.
 struct Visit {
   const int* r;            // the actor's row
-  int a, kind, n_in, n_out, ctrl;
+  int a, kind, n_in, n_out, ctrl, wide;
   int ctrl_base, ctrl_nph; // the control ring's first io word, its phases
+  int ctrl_words;          // words of a control token
   int ready, scalar;       // ready limit (-1: none) and its scalar slot
   int fi, fo;              // lane l's input and output channel, -1 for none
   int rate_i, nph_i, data_i, delay_i, tokb_i;
@@ -410,7 +471,7 @@ struct Visit {
   unsigned char* ring_o;
 };
 
-__device__ void visit_actor(const View& v, int a, Visit* u) {
+__device__ __forceinline__ void visit_actor(const View& v, int a, Visit* u) {
   const int l = lane();
   const int* r = actor_row(v, a);
   u->r = r;
@@ -419,10 +480,12 @@ __device__ void visit_actor(const View& v, int a, Visit* u) {
   u->n_in = r[A_NIN];
   u->n_out = r[A_NOUT];
   u->ctrl = r[A_CTRL];
+  u->wide = u->kind >= K_ROUTER;
   if (u->ctrl >= 0) {
     const int* fc = fifo_row(v, u->ctrl);
     u->ctrl_base = v.io_ctrl + fc[F_CBASE];
     u->ctrl_nph = fc[F_NPH];
+    u->ctrl_words = fc[F_TOKB] >> 2;
   }
   u->ready = r[A_READY];
   u->scalar = r[A_SCALAR];
@@ -450,38 +513,59 @@ __device__ void visit_actor(const View& v, int a, Visit* u) {
   }
 }
 
+// A control token a body writes (the MoE router's counts, the packer's
+// packed token) goes into this block's own v.S from its body threads, and
+// the scheduler records the writing command as the token's segment's last
+// writer.  Before the token is peeked, wait until this block has run that
+// command (the publisher's local_done), and mark it read.
+// Out of line, and given pointers only: a View whose address is taken
+// would leave the registers of the scheduler's narrow path.
+__device__ __noinline__ void ctrl_wait(long long* writer, long long* reader,
+                                       const long long* local_done) {
+  const long long w = *writer;
+  if (w > *reader) {
+    const long long since = clock64();
+    while (load_acquire_cta(local_done) < w) watchdog(since);
+  }
+  __syncwarp();
+  if (lane() == 0 && w > *reader) *reader = w;
+  __syncwarp();
+}
+
+// A port's declared enable on token `tok`: (word, threshold) is tok[word]
+// > threshold, (-1, v) the constant v.
+__device__ __forceinline__ bool enable_of(const int* form, const int* tok) {
+  return form[0] < 0 ? form[1] != 0 : tok[form[0]] > form[1];
+}
+
 // Enables of the visited actor, the same in every lane: bit i of *in_en
-// for input i, bit o of *out_en for output o.  Returns false (with the
-// error set) for a token outside the domain.
-__device__ bool rates(const View& v, const Visit& u, unsigned* in_en, unsigned* out_en,
-                      Sched* s) {
+// for input i, bit o of *out_en for output o, from its declared enables on
+// the control token, whatever its value.
+template <bool MOE>
+__device__ __forceinline__ void rates(const View& v, const Visit& u, unsigned* in_en,
+                                      unsigned* out_en) {
   if (u.ctrl < 0) {
     *in_en = low_bits(u.n_in);
     *out_en = low_bits(u.n_out);
-    return true;
+    return;
   }
-  // A control channel has rate 1: phase p is slot p.
-  const int tok = v.S[u.ctrl_base + v.ph[2 * u.ctrl]];
-  const int* r = u.r;
-  if (tok < r[A_DLO] || tok > r[A_DHI]) {
-    s->error = ERR_DOMAIN;
-    s->err_actor = u.a;
-    s->err_value = tok;
-    return false;
-  }
-  const int* row = v.P + r[A_RATES] + (tok - r[A_DLO]) * (u.n_in + u.n_out);
+  const int ph = v.ph[2 * u.ctrl];
+  if constexpr (MOE)
+    ctrl_wait(&last_writer(v, u.ctrl, ph), &last_reader(v, u.ctrl, ph), v.local_done);
+  const int* tok = v.S + u.ctrl_base + ph * u.ctrl_words;
+  const int* en = v.P + u.r[A_ENABLES];
   const int l = lane();
-  *in_en = __ballot_sync(FULL, l < u.n_in && row[l] != 0);
-  *out_en = __ballot_sync(FULL, l < u.n_out && row[u.n_in + l] != 0);
-  return true;
+  *in_en = __ballot_sync(FULL, l < u.n_in && enable_of(en + 2 * l, tok));
+  *out_en = __ballot_sync(FULL, l < u.n_out && enable_of(en + 2 * (u.n_in + l), tok));
 }
 
 // can_fire: on true, *in_en and *out_en hold the firing's enables.
-__device__ bool can_fire(const View& v, const Visit& u, unsigned* in_en,
-                         unsigned* out_en, Sched* s) {
+template <bool MOE>
+__device__ __forceinline__ bool can_fire(const View& v, const Visit& u, unsigned* in_en,
+                                         unsigned* out_en) {
   if (u.ready >= 0 && v.S[v.io_scal + 2 * u.scalar] >= u.ready) return false;
   if (u.ctrl >= 0 && occ(v, u.ctrl) < 1) return false;
-  if (!rates(v, u, in_en, out_en, s)) return false;
+  rates<MOE>(v, u, in_en, out_en);
   const int l = lane();
   const bool blocked = (((*in_en >> l) & 1) && occ(v, u.fi) < u.rate_i) ||
                        (((*out_en >> l) & 1) && occ(v, u.fo) + u.rate_o > u.bound_o);
@@ -525,7 +609,7 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
     int t;
     int bits = cursor_bits(v, c, 0, 1, &t);
     if (t < 1) bits |= UNDERFLOW;
-    bits |= domain_bit(v, c, v.S[u.ctrl_base + v.ph[2 * c]]);
+    bits |= token_domain_bits(v, c, u.ctrl_base + v.ph[2 * c] * u.ctrl_words);
     if (bits) atomicOr(&v.fault[c], bits);
 #endif
     v.S[3 * c] += 1;
@@ -541,8 +625,7 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
       int bits = cursor_bits(v, fi, u.delay_i, u.rate_i, &t);
       if (e && t < u.rate_i) bits |= UNDERFLOW;
       // A control channel has rate 1: phase p is slot p.
-      if (e && !u.data_i)
-        bits |= domain_bit(v, fi, v.S[v.io_ctrl + fifo_row(v, fi)[F_CBASE] + in_ph]);
+      if (e && !u.data_i) bits |= token_domain_bits(v, fi, ctrl_word(v, fi, in_ph));
       if (bits) atomicOr(&v.fault[fi], bits);
     }
 #endif
@@ -636,6 +719,198 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
   return true;
 }
 
+// ---- the wide path: the MoE kinds, up to 256 ports a side -------------- //
+// The router has 3E + 2 outputs, the combine E + 2 inputs, the packer E.
+// Lane l takes ports l, l + 32, ...; the rules are the narrow path's, port
+// by port, on delay-free channels (program.py checks), whose window at
+// phase p is segment p.  A firing becomes `phases` commands (PHASES in
+// program.py), numbered seq .. seq + phases - 1: the first waits for the
+// conflicts (and for the actor's previous firing, which shares its
+// scratch), each later one for the one before it, and the firing's
+// segments count from the last.
+
+// The wide actor's enables, word w of each side for ports 32 w .. 32 w + 31.
+__device__ void wide_rates(const View& v, const Visit& u, unsigned* in_en,
+                           unsigned* out_en) {
+  const int l = lane();
+  const int* tok = nullptr;
+  const int* en = nullptr;
+  if (u.ctrl >= 0) {
+    const int ph = v.ph[2 * u.ctrl];
+    ctrl_wait(&last_writer(v, u.ctrl, ph), &last_reader(v, u.ctrl, ph), v.local_done);
+    tok = v.S + u.ctrl_base + ph * u.ctrl_words;
+    en = v.P + u.r[A_ENABLES];
+  }
+  for (int w = 0; w < WIDE_WORDS; ++w) {
+    const int p = 32 * w + l;
+    in_en[w] = __ballot_sync(FULL, p < u.n_in && (en == nullptr || enable_of(en + 2 * p, tok)));
+    out_en[w] = __ballot_sync(
+        FULL, p < u.n_out && (en == nullptr || enable_of(en + 2 * (u.n_in + p), tok)));
+  }
+}
+
+__device__ bool can_fire_wide(const View& v, const Visit& u, unsigned* in_en,
+                              unsigned* out_en) {
+  if (u.ready >= 0 && v.S[v.io_scal + 2 * u.scalar] >= u.ready) return false;
+  if (u.ctrl >= 0 && occ(v, u.ctrl) < 1) return false;
+  wide_rates(v, u, in_en, out_en);
+  bool blocked = false;
+  for (int p = lane(); p < u.n_in; p += 32) {
+    const int f = v.P[u.r[A_IN] + p];
+    if (bit_of(in_en, p) && occ(v, f) < fifo_row(v, f)[F_RATE]) blocked = true;
+  }
+  for (int p = lane(); p < u.n_out; p += 32) {
+    const int f = v.P[u.r[A_OUT] + p];
+    const int* fr = fifo_row(v, f);
+    if (bit_of(out_en, p) && occ(v, f) + fr[F_RATE] > fr[F_BOUND]) blocked = true;
+  }
+  return !__any_sync(FULL, blocked);
+}
+
+__device__ __noinline__ int max_fireable_wide(const View v, const Visit u) {
+  if (u.ctrl >= 0) return min(MAX_FIRINGS_PER_VISIT, occ(v, u.ctrl));
+  int k = MAX_FIRINGS_PER_VISIT;
+  for (int p = lane(); p < u.n_in; p += 32) {
+    const int f = v.P[u.r[A_IN] + p];
+    k = min(k, occ(v, f) / fifo_row(v, f)[F_RATE]);
+  }
+  for (int p = lane(); p < u.n_out; p += 32) {
+    const int f = v.P[u.r[A_OUT] + p];
+    const int* fr = fifo_row(v, f);
+    k = min(k, (fr[F_BOUND] - occ(v, f)) / fr[F_RATE]);
+  }
+  return __reduce_min_sync(FULL, k);
+}
+
+// fire for the wide path: the bookkeeping of fire(), port by port; a body
+// writing a control output records its last command as that token's
+// writer (ctrl_wait).  Fills f; returns whether the firing has a body.
+__device__ bool fire_wide(const View& v, const Visit& u, const unsigned* in_en,
+                          const unsigned* out_en, long long seq, Firing* f) {
+  const int l = lane();
+  const int* r = u.r;
+  const int phases = u.kind == K_ROUTER || u.kind == K_EXPERT ? 2 : 1;
+  if (u.ctrl >= 0 && l == 0) {
+    const int c = u.ctrl;
+#ifdef MK_GUARDS
+    int t;
+    int bits = cursor_bits(v, c, 0, 1, &t);
+    if (t < 1) bits |= UNDERFLOW;
+    bits |= token_domain_bits(v, c, u.ctrl_base + v.ph[2 * c] * u.ctrl_words);
+    if (bits) atomicOr(&v.fault[c], bits);
+#endif
+    v.S[3 * c] += 1;
+    v.S[3 * c + 2] -= 1;
+    v.ph[2 * c] = next_phase(v.ph[2 * c], u.ctrl_nph);
+  }
+  __syncwarp();
+  long long w = v.alast[u.a];
+  for (int k = 0; k < WIDE_WORDS; ++k) {
+    const int p = 32 * k + l;
+    bool ph_bit = false;
+    if (p < u.n_in) {
+      const int fi = v.P[r[A_IN] + p];
+      const int* fr = fifo_row(v, fi);
+      const bool e = (in_en[k] >> l) & 1;
+      const int ph = v.ph[2 * fi];
+#ifdef MK_GUARDS
+      {
+        int t;
+        int bits = cursor_bits(v, fi, fr[F_DELAY], fr[F_RATE], &t);
+        if (e && t < fr[F_RATE]) bits |= UNDERFLOW;
+        if (bits) atomicOr(&v.fault[fi], bits);
+      }
+#endif
+      ph_bit = ph & 1;
+      if (!fr[F_CTRL]) w = max(w, last_writer(v, fi, ph));
+      if (e) {
+        v.S[3 * fi] += 1;
+        v.S[3 * fi + 2] -= fr[F_RATE];
+        v.ph[2 * fi] = next_phase(ph, fr[F_NPH]);
+      }
+    }
+    const unsigned bits = __ballot_sync(FULL, ph_bit);
+    if (l == 0) v.wide[2 * WIDE_WORDS + k] = bits;
+  }
+  __syncwarp();  // input cursors before output cursors
+  for (int k = 0; k < WIDE_WORDS; ++k) {
+    const int p = 32 * k + l;
+    bool ph_bit = false;
+    if (p < u.n_out) {
+      const int fo = v.P[r[A_OUT] + p];
+      const int* fr = fifo_row(v, fo);
+      const bool on = (out_en[k] >> l) & 1;
+      const int ph = v.ph[2 * fo + 1];
+#ifdef MK_GUARDS
+      {
+        int t;
+        int bits = cursor_bits(v, fo, fr[F_DELAY], fr[F_RATE], &t);
+        if (on && t + fr[F_RATE] > fr[F_BOUND]) bits |= OVERFLOW;
+        if (bits) atomicOr(&v.fault[fo], bits);
+        const int mark = t + (on ? fr[F_RATE] : 0);
+        if (mark > v.hw[fo]) v.hw[fo] = mark;
+      }
+#endif
+      ph_bit = ph & 1;
+      if (on && !fr[F_CTRL]) w = max(w, max(last_writer(v, fo, ph), last_reader(v, fo, ph)));
+      if (on) {
+        v.S[3 * fo + 1] += 1;
+        v.S[3 * fo + 2] += fr[F_RATE];
+        v.ph[2 * fo + 1] = next_phase(ph, fr[F_NPH]);
+      }
+    }
+    const unsigned bits = __ballot_sync(FULL, ph_bit);
+    if (l == 0) v.wide[3 * WIDE_WORDS + k] = bits;
+  }
+  if (l == 0) v.S[v.io_counts + u.a] += 1;
+  unsigned any = 0;
+  for (int k = 0; k < WIDE_WORDS; ++k) {
+    if (l == 0) {
+      v.wide[k] = in_en[k];
+      v.wide[WIDE_WORDS + k] = out_en[k];
+    }
+    any |= in_en[k] | out_en[k];
+  }
+  __syncwarp();
+  f->cb_mask = 0;
+  f->idx = f->n_idx = 0;
+  f->phases = phases;
+  if (u.ctrl >= 0 && !any) {
+    __syncwarp();
+    return false;
+  }
+  w = warp_max(w);  // every wait is read before this command's own segments count
+  const long long last = seq + phases - 1;
+  for (int k = 0; k < WIDE_WORDS; ++k) {
+    const int p = 32 * k + l;
+    if (p < u.n_in) {
+      const int fi = v.P[r[A_IN] + p];
+      if (!fifo_row(v, fi)[F_CTRL])
+        last_reader(v, fi, (v.wide[2 * WIDE_WORDS + k] >> l) & 1) = last;
+    }
+    if (p < u.n_out && ((out_en[k] >> l) & 1))
+      last_writer(v, v.P[r[A_OUT] + p], (v.wide[3 * WIDE_WORDS + k] >> l) & 1) = last;
+  }
+  if (phases > 1 && l == 0) v.alast[u.a] = last;
+  __syncwarp();
+  f->wait_for = w;
+  return true;
+}
+
+// One attempt of the wide path, out of line and given its operands by
+// value, so that the narrow path's scheduler state stays in registers:
+// -1 when the actor cannot fire, else whether the firing it made has a
+// body; the firing's wait goes to View::wide_wait.
+__device__ __noinline__ int wide_try(const View v, const Visit u, long long seq) {
+  unsigned in_en[WIDE_WORDS], out_en[WIDE_WORDS];
+  if (!can_fire_wide(v, u, in_en, out_en)) return -1;
+  Firing f;
+  const bool body = fire_wide(v, u, in_en, out_en, seq, &f);
+  if (lane() == 0) *v.wide_wait = f.wait_for;
+  __syncwarp();
+  return body ? 1 : 0;
+}
+
 #ifdef MK_TRACE
 // `times` events of the firing trace for actor a (the skipped attempts left
 // in a visit repeat one): block 0's scheduler warp writes [a, sweep, fired,
@@ -661,8 +936,11 @@ __device__ void trace_event(const View& v, Sched* s, int a, int fired, int times
 // Advance the sweep loop (run_dynamic) to the next firing with a body, or
 // to its end: returns true with the visited actor in *u and the firing in
 // *f, or false at the end of the run.
-__device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
-                              int max_sweeps, int multi_firing) {
+// MOE: the program has MoE kinds (H_MOE); without, the wide path and the
+// waits on body-written control tokens are compiled out.
+template <bool MOE>
+__device__ __forceinline__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
+                                              int max_sweeps, int multi_firing) {
   const int* visit = v.P + v.P[H_VISIT_OFF];
   const int n_visit = v.P[H_N_VISIT];
   for (;;) {
@@ -680,13 +958,20 @@ __device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
       s->vpos = -1;
       continue;
     }
+    bool wide_actor = false;
     if (s->left < 0) {
       visit_actor(v, visit[s->vpos], u);
-      s->left = multi_firing ? max_fireable(v, *u) : 1;
+      if constexpr (MOE) wide_actor = u->wide;
+      s->left = !multi_firing ? 1 : (wide_actor ? max_fireable_wide(v, *u) : max_fireable(v, *u));
     }
+    if constexpr (MOE) wide_actor = u->wide;
     unsigned in_en, out_en;
-    if (s->left == 0 || !can_fire(v, *u, &in_en, &out_en, s)) {
-      if (s->error) return false;
+    // The wide path fires in its attempt: -1 could not, 0 / 1 fired.
+    int wide = -1;
+    if constexpr (MOE)
+      if (s->left > 0 && wide_actor) wide = wide_try(v, *u, s->seq + 1);
+    const bool ok = s->left > 0 && (wide_actor ? wide >= 0 : can_fire<MOE>(v, *u, &in_en, &out_en));
+    if (!ok) {
 #ifdef MK_TRACE
       if (s->left > 0) trace_event(v, s, u->a, 0, s->left);
 #endif
@@ -696,13 +981,22 @@ __device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
     }
     s->left -= 1;
     s->fired_any = 1;
-    const bool body = fire(v, *u, in_en, out_en, s->seq + 1, f, s);
+    bool body;
+    if (wide_actor) {
+      body = wide == 1;
+      f->phases = u->kind == K_ROUTER || u->kind == K_EXPERT ? 2 : 1;
+      f->wait_for = *v.wide_wait;
+      f->cb_mask = 0;
+    } else {
+      f->phases = 1;
+      body = fire(v, *u, in_en, out_en, s->seq + 1, f, s);
+    }
     if (s->error) return false;
 #ifdef MK_TRACE
     trace_event(v, s, u->a, 1, 1);
 #endif
     if (body) {
-      s->seq += 1;
+      s->seq += f->phases;
       return true;
     }
   }
@@ -711,10 +1005,43 @@ __device__ bool schedule_next(const View& v, Visit* u, Firing* f, Sched* s,
 // Command slot c for firing f of the visited actor (number s->seq), by the
 // scheduler warp side by side: lane l fills input l, output l and adder
 // term l, and the body's parameters are spread over the first lanes.
-__device__ void fill(const View& v, const Visit& u, const Firing& f, const Sched* s,
-                     Cmd* c) {
+// The wide path's command, out of line with its operands by value: command
+// `first + phase` of a firing whose first command waits for `wait_for`.
+__device__ __noinline__ void fill_wide(const View v, const int* r, int kind, int n_in,
+                                       int n_out, long long first, long long wait_for,
+                                       int phase, Cmd* c) {
+  const int l = lane();
+  if (l < WIDE_WORDS) {
+    c->wen_in[l] = v.wide[l];
+    c->wen_out[l] = v.wide[WIDE_WORDS + l];
+    c->wph_in[l] = v.wide[2 * WIDE_WORDS + l];
+    c->wph_out[l] = v.wide[3 * WIDE_WORDS + l];
+  }
+  if (l == 0) {
+    c->seq = first + phase;
+    c->wait_for = phase == 0 ? wait_for : first + phase - 1;
+    c->kind = kind;
+    c->row = r;
+    c->phase = phase;
+    c->n_in = n_in;
+    c->n_out = n_out;
+    c->cb_mask = 0;
+    c->in_en = v.wide[0];
+    c->out_en = v.wide[WIDE_WORDS];
+  }
+}
+
+template <bool MOE>
+__device__ __forceinline__ void fill(const View& v, const Visit& u, const Firing& f,
+                                     const Sched* s, int phase, Cmd* c) {
   const int l = lane();
   const int* r = u.r;
+  if constexpr (MOE) {
+    if (u.wide) {
+      fill_wide(v, r, u.kind, u.n_in, u.n_out, s->seq - f.phases + 1, f.wait_for, phase, c);
+      return;
+    }
+  }
   if (u.fi >= 0) c->in[l] = u.ring_i + static_cast<long long>(f.in_off) * u.tokb_i;
   if (u.fo >= 0) {
     c->out[l] = u.data_o ? u.ring_o + static_cast<long long>(f.out_off) * u.tokb_o : nullptr;
@@ -781,34 +1108,43 @@ __device__ void fill(const View& v, const Visit& u, const Firing& f, const Sched
 // The scheduler warp: every command, then CMD_DONE, into the slot ring.
 // Returns its cycles deciding and filling | waiting for a free slot << 32
 // (counted with -DMK_CLOCK_SPLIT only).
+template <bool MOE>
 __device__ long long scheduler(const View& v, Cmd* slots, uint64_t* full, uint64_t* empty,
                                Sched* s, int max_sweeps, int multi_firing) {
   Visit u;
   long long busy = 0, full_wait = 0;
-  for (long long n = 0;; ++n) {
+  for (long long n = 0;;) {
 #ifdef MK_CLOCK_SPLIT
     const long long t0 = clock64();
 #endif
     Firing f;
-    const bool more = schedule_next(v, &u, &f, s, max_sweeps, multi_firing);
-    const int i = static_cast<int>(n % RING);
+    const bool more = schedule_next<MOE>(v, &u, &f, s, max_sweeps, multi_firing);
 #ifdef MK_CLOCK_SPLIT
     const long long t1 = clock64();
+    busy += t1 - t0;
 #endif
-    mbar_wait(&empty[i], static_cast<uint32_t>((n / RING) & 1) ^ 1);
+    // A firing of a multi-phase kind becomes one command per phase.
+    const int phases = MOE && more ? f.phases : 1;
+    for (int ph = 0; ph < phases; ++ph, ++n) {
+      const int i = static_cast<int>(n % RING);
 #ifdef MK_CLOCK_SPLIT
-    const long long t2 = clock64();
+      const long long t1b = clock64();
 #endif
-    if (more)
-      fill(v, u, f, s, &slots[i]);
-    else if (lane() == 0)
-      slots[i].kind = CMD_DONE;
-    __syncwarp();
-    if (lane() == 0) mbar_arrive(&full[i]);
+      mbar_wait(&empty[i], static_cast<uint32_t>((n / RING) & 1) ^ 1);
 #ifdef MK_CLOCK_SPLIT
-    busy += (t1 - t0) + (clock64() - t2);
-    full_wait += t2 - t1;
+      const long long t2 = clock64();
 #endif
+      if (more)
+        fill<MOE>(v, u, f, s, ph, &slots[i]);
+      else if (lane() == 0)
+        slots[i].kind = CMD_DONE;
+      __syncwarp();
+      if (lane() == 0) mbar_arrive(&full[i]);
+#ifdef MK_CLOCK_SPLIT
+      busy += clock64() - t2;
+      full_wait += t2 - t1b;
+#endif
+    }
     if (!more) return (busy & 0xffffffffLL) | (full_wait << 32);
   }
 }
@@ -817,15 +1153,20 @@ __device__ long long scheduler(const View& v, Cmd* slots, uint64_t* full, uint64
 // (every body warp arrived on its slot's `done`), publish k and free the
 // slot.  Off the body threads' path, so a command that waits for nothing
 // starts while the one before it is still being published.
+// With MOE it also keeps *local_done, this block's own progress, for the
+// scheduler's ctrl_wait.
+template <bool MOE>
 __device__ void publisher(const Cmd* slots, uint64_t* done, uint64_t* empty,
-                          unsigned long long* progress) {
+                          unsigned long long* progress, long long* local_done) {
   for (long long n = 0;; ++n) {
     const int i = static_cast<int>(n % RING);
     mbar_wait(&done[i], static_cast<uint32_t>((n / RING) & 1));
     if (slots[i].kind == CMD_DONE) return;
     if (lane() == 0) {
-      publish(progress + blockIdx.x, slots[i].seq);
+      const long long seq = slots[i].seq;
+      publish(progress + blockIdx.x, seq);
       mbar_arrive(&empty[i]);
+      if constexpr (MOE) store_release_cta(local_done, seq);
     }
     __syncwarp();
   }
@@ -1197,6 +1538,324 @@ __device__ __forceinline__ void run_body(const Cmd& c, Stage& st) {
   }
 }
 
+// ---- the MoE bodies (the wide kinds) ----------------------------------- //
+// Every product is float32 from bf16 weights, summed from 0 in the order of
+// the summed index with each product and each add rounded on its own
+// (__fmul_rn, __fadd_rn: no contraction), which is what the plain version
+// (ref.py's _dot) computes with torch's elementwise ops.  SIMT, no tensor
+// cores yet.
+#ifdef MK_GUARDS
+// Bit p: port p's float window held a NaN or an Inf (wide commands).
+__shared__ unsigned bad_win[WIDE_WORDS], bad_wout[WIDE_WORDS];
+#endif
+
+__device__ __forceinline__ float bf16f(unsigned short x) {
+  return __uint_as_float(static_cast<unsigned>(x) << 16);
+}
+__device__ __forceinline__ float fmac(float acc, float a, float b) {
+  return __fadd_rn(acc, __fmul_rn(a, b));
+}
+// Port p's window (out: an output port) at the phase the command ran from.
+__device__ __forceinline__ unsigned char* port_window(const View& v, const Cmd& c, bool out,
+                                                      int p) {
+  const int f = v.P[c.row[out ? A_OUT : A_IN] + p];
+  return ring(v, f, bit_of(out ? c.wph_out : c.wph_in, p) * fifo_row(v, f)[F_RATE]);
+}
+// A float store to output port p's window, tested for NaN and Inf under guards.
+__device__ __forceinline__ void put_moe(int p, float* at, float x) {
+#ifdef MK_GUARDS
+  if (nonfinite(x)) atomicOr(&bad_wout[p >> 5], 1u << (p & 31));
+#endif
+  *at = x;
+}
+
+// The router, phase 0: logits (N, E) = x (N, D) @ W (D, E) into its scratch.
+__device__ __noinline__ void router_logits(const View v, const Cmd& c) {
+  const int* r = c.row;
+  const int N = r[A_N0], D = r[A_N1], E = r[A_N2];
+  const float* x = reinterpret_cast<const float*>(port_window(v, c, false, 0));
+  const unsigned short* W = static_cast<const unsigned short*>(aptr(v, r[A_PTR0]));
+  float* logits = static_cast<float*>(aptr(v, r[A_PTR0] + 1));
+  for (long long o = grid_first(); o < static_cast<long long>(N) * E; o += grid_step()) {
+    const int n = static_cast<int>(o / E), e = static_cast<int>(o - static_cast<long long>(n) * E);
+    const float* xr = x + static_cast<long long>(n) * D;
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) acc = fmac(acc, __ldcg(xr + d), bf16f(__ldg(W + static_cast<long long>(d) * E + e)));
+    logits[o] = acc;
+  }
+}
+
+// The router, phase 1, in every block on its own (the scan is short, and
+// each block needs the counts in its own scheduler state): per token the
+// softmax (the max, expf, the sum in expert order), the top k (ties to the
+// lower expert), the weights over their sum (at least 1e-9); per expert the
+// ranks of its assignments in token-major order and the slots within
+// capacity.  Block 0 writes the slots, the weights and the packer's counts;
+// every block writes the counts into its own control ring words and its
+// share of the dispatched slabs (the token plus 0, as the reference's
+// scatter-add into zeros, or 0).
+__device__ __noinline__ void router_route(const View v, const Cmd& c) {
+  const int* r = c.row;
+  const int N = r[A_N0], D = r[A_N1], E = r[A_N2], C = r[A_N3], k = r[A_ORDER];
+  const int nk = N * k, tid = threadIdx.x;
+  const float* logits = static_cast<const float*>(aptr(v, r[A_PTR0] + 1));
+  int* ge = v.moe;
+  float* gw = reinterpret_cast<float*>(v.moe + nk);
+  int* slot = v.moe + 2 * nk;
+  int* inv = v.moe + 3 * nk;
+  int* cnt = inv + E * C;
+  for (int n = tid; n < N; n += BODY_THREADS) {
+    const float* l = logits + static_cast<long long>(n) * E;
+    float m = __ldcg(l);
+    for (int e = 1; e < E; ++e) m = fmaxf(m, __ldcg(l + e));
+    float sum = 0.f;
+    for (int e = 0; e < E; ++e) sum = __fadd_rn(sum, expf(__fsub_rn(__ldcg(l + e), m)));
+    float gsum = 0.f;
+    for (int j = 0; j < k; ++j) {
+      int best = -1;
+      float bv = 0.f;
+      for (int e = 0; e < E; ++e) {
+        bool taken = false;
+        for (int q = 0; q < j; ++q) taken |= ge[n * k + q] == e;
+        if (taken) continue;
+        const float pe = __fdiv_rn(expf(__fsub_rn(__ldcg(l + e), m)), sum);
+        if (best < 0 || pe > bv) {
+          best = e;
+          bv = pe;
+        }
+      }
+      ge[n * k + j] = best;
+      gw[n * k + j] = bv;
+      gsum = __fadd_rn(gsum, bv);
+    }
+    const float den = fmaxf(gsum, 1e-9f);
+    for (int j = 0; j < k; ++j) gw[n * k + j] = __fdiv_rn(gw[n * k + j], den);
+  }
+  body_sync();
+  for (int e = tid; e < E; e += BODY_THREADS) {
+    int seen = 0;
+    for (int i = 0; i < nk; ++i) {
+      if (ge[i] != e) continue;
+      const int rank = seen++;
+      slot[i] = rank < C ? e * C + rank : E * C;
+      if (rank < C) inv[e * C + rank] = i / k;
+    }
+    for (int q = min(seen, C); q < C; ++q) inv[e * C + q] = -1;
+    cnt[e] = min(seen, C);
+  }
+  body_sync();
+  if (blockIdx.x == 0) {
+    int* slot_o = reinterpret_cast<int*>(port_window(v, c, true, 2 * E));
+    float* w_o = reinterpret_cast<float*>(port_window(v, c, true, 2 * E + 1));
+    for (int i = tid; i < nk; i += BODY_THREADS) {
+      slot_o[i] = slot[i];
+      put_moe(2 * E + 1, w_o + i, __fmul_rn(gw[i], slot[i] < E * C ? 1.f : 0.f));
+    }
+    for (int e = tid; e < E; e += BODY_THREADS)
+      *reinterpret_cast<int*>(port_window(v, c, true, 2 * E + 2 + e)) = cnt[e];
+  }
+  for (int e = tid; e < E; e += BODY_THREADS) {
+    const int p = E + e;
+    v.S[ctrl_word(v, v.P[r[A_OUT] + p], bit_of(c.wph_out, p))] = cnt[e];
+  }
+  const float* x = reinterpret_cast<const float*>(port_window(v, c, false, 0));
+  for (int g = blockIdx.x; g < E * C; g += gridDim.x) {
+    const int e = g / C, q = g - e * C, tok = inv[g];
+    float* dst = reinterpret_cast<float*>(port_window(v, c, true, e)) + static_cast<long long>(q) * D;
+    const float* src = x + static_cast<long long>(tok) * D;
+    for (int d = tid; d < D; d += BODY_THREADS)
+      put_moe(e, dst + d, tok >= 0 ? __fadd_rn(0.f, __ldcg(src + d)) : 0.f);
+  }
+}
+
+// A tile of 16 columns (col0 ..) and up to 96 rows (row0 ..) of NB products
+// A (rows, K) float32 @ B (K, M) bf16 sharing A, by the 256 body threads:
+// thread (ty, tx) = (tid / 16, tid % 16) sums column col0 + tx of rows ty,
+// ty + 16, ...; A and B staged 32 k at a time in the stage tile.  epi(row,
+// col, sum0, sum1) takes each result.
+constexpr int GEMM_COLS = 16, GEMM_ROWS = 96, GEMM_K = 32, GEMM_RPT = GEMM_ROWS / 16;
+template <int NB, typename Epi>
+__device__ __forceinline__ void gemm_tile(const float* A, int lda, int row0, int rows, int K,
+                                          const unsigned short* B0, const unsigned short* B1,
+                                          int M, int col0, float* tile, Epi epi) {
+  float* As = tile;                             // GEMM_ROWS x GEMM_K
+  float* Bs = tile + GEMM_ROWS * GEMM_K;        // NB x GEMM_K x GEMM_COLS
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  float acc[NB][GEMM_RPT];
+#pragma unroll
+  for (int b = 0; b < NB; ++b)
+#pragma unroll
+    for (int j = 0; j < GEMM_RPT; ++j) acc[b][j] = 0.f;
+  for (int k0 = 0; k0 < K; k0 += GEMM_K) {
+    const int kc = min(GEMM_K, K - k0);
+    for (int i = tid; i < rows * GEMM_K; i += BODY_THREADS) {
+      const int rr = i / GEMM_K, kk = i - rr * GEMM_K;
+      As[i] = kk < kc ? __ldcg(A + static_cast<long long>(row0 + rr) * lda + k0 + kk) : 0.f;
+    }
+    for (int i = tid; i < NB * GEMM_K * GEMM_COLS; i += BODY_THREADS) {
+      const int b = i / (GEMM_K * GEMM_COLS), kk = (i / GEMM_COLS) % GEMM_K,
+                cc = i % GEMM_COLS;
+      const unsigned short* B = b ? B1 : B0;
+      const int col = col0 + cc;
+      Bs[i] = kk < kc && col < M ? bf16f(__ldg(B + static_cast<long long>(k0 + kk) * M + col))
+                                 : 0.f;
+    }
+    body_sync();
+    for (int kk = 0; kk < kc; ++kk) {
+      float b[NB];
+#pragma unroll
+      for (int q = 0; q < NB; ++q) b[q] = Bs[(q * GEMM_K + kk) * GEMM_COLS + tx];
+#pragma unroll
+      for (int j = 0; j < GEMM_RPT; ++j) {
+        const float a = As[(ty + 16 * j) * GEMM_K + kk];
+#pragma unroll
+        for (int q = 0; q < NB; ++q) acc[q][j] = fmac(acc[q][j], a, b[q]);
+      }
+    }
+    body_sync();
+  }
+#pragma unroll
+  for (int j = 0; j < GEMM_RPT; ++j) {
+    const int rr = ty + 16 * j, col = col0 + tx;
+    if (rr < rows && col < M) epi(row0 + rr, col, acc[0][j], acc[NB - 1][j]);
+  }
+}
+
+// Tiles t of a command's T, for this block: a rotation by the command's
+// number spreads consecutive commands (the experts) over the blocks.
+__device__ __forceinline__ int first_tile(const Cmd& c) {
+  const int G = gridDim.x;
+  return (static_cast<int>(blockIdx.x) + G - static_cast<int>(c.seq % G)) % G;
+}
+
+// An expert: phase 0 the hidden rows h = silu(slab @ Wg) * (slab @ Wu)
+// into its scratch (silu(g) = g * (1 / (1 + exp(-g)))), phase 1 the output
+// slab h @ Wd.
+__device__ __noinline__ void run_expert(const View v, const Cmd& c, float* tile) {
+  const int* r = c.row;
+  const int C = r[A_N0], D = r[A_N1], F = r[A_AUX];
+  const int base = r[A_PTR0];
+  float* h = static_cast<float*>(aptr(v, base + 3));
+  const int passes = (C + GEMM_ROWS - 1) / GEMM_ROWS;
+  if (c.phase == 0) {
+    const float* slab = reinterpret_cast<const float*>(port_window(v, c, false, 0));
+    const auto* wg = static_cast<const unsigned short*>(aptr(v, base));
+    const auto* wu = static_cast<const unsigned short*>(aptr(v, base + 1));
+    const int cols = (F + GEMM_COLS - 1) / GEMM_COLS, T = cols * passes;
+    for (int t = first_tile(c); t < T; t += gridDim.x) {
+      const int row0 = (t / cols) * GEMM_ROWS, col0 = (t % cols) * GEMM_COLS;
+      gemm_tile<2>(slab, D, row0, min(GEMM_ROWS, C - row0), D, wg, wu, F, col0, tile,
+                   [&](int row, int col, float g, float u) {
+                     const float s = __fdiv_rn(1.f, __fadd_rn(1.f, expf(-g)));
+                     h[static_cast<long long>(row) * F + col] = __fmul_rn(__fmul_rn(g, s), u);
+                   });
+    }
+    return;
+  }
+  float* y = reinterpret_cast<float*>(port_window(v, c, true, 0));
+  const auto* wd = static_cast<const unsigned short*>(aptr(v, base + 2));
+  const int cols = (D + GEMM_COLS - 1) / GEMM_COLS, T = cols * passes;
+  for (int t = first_tile(c); t < T; t += gridDim.x) {
+    const int row0 = (t / cols) * GEMM_ROWS, col0 = (t % cols) * GEMM_COLS;
+    gemm_tile<1>(h, F, row0, min(GEMM_ROWS, C - row0), F, wd, nullptr, D, col0, tile,
+                 [&](int row, int col, float acc, float) {
+                   put_moe(0, y + static_cast<long long>(row) * D + col, acc);
+                 });
+  }
+}
+
+// The combine: y[n] = sum over k of row(slot[n, k]) * w[n, k], from 0 in k
+// order; a dropped assignment (slot E C) or a disabled expert gives 0.
+__device__ __noinline__ void run_combine(const View v, const Cmd& c) {
+  const int* r = c.row;
+  const int N = r[A_N0], D = r[A_N1], E = r[A_N2], C = r[A_N3], k = r[A_ORDER];
+  const int* slot = reinterpret_cast<const int*>(port_window(v, c, false, E));
+  const float* w = reinterpret_cast<const float*>(port_window(v, c, false, E + 1));
+  float* out = reinterpret_cast<float*>(port_window(v, c, true, 0));
+  for (long long o = grid_first(); o < static_cast<long long>(N) * D; o += grid_step()) {
+    const int n = static_cast<int>(o / D), d = static_cast<int>(o - static_cast<long long>(n) * D);
+    float acc = 0.f;
+    for (int j = 0; j < k; ++j) {
+      const int sl = __ldcg(slot + n * k + j);
+      const float wt = __ldcg(w + n * k + j);
+      float x = 0.f;
+      if (sl >= 0 && sl < E * C) {
+        const int e = sl / C;
+        if (bit_of(c.wen_in, e))
+          x = __ldcg(reinterpret_cast<const float*>(port_window(v, c, false, e)) +
+                     static_cast<long long>(sl - e * C) * D + d);
+      }
+      acc = fmac(acc, x, wt);
+    }
+    put_moe(0, out + o, acc);
+  }
+}
+
+// The packer, in every block: the counts, twice, into its own control ring
+// words of the packed token.
+__device__ __noinline__ void run_packer(const View v, const Cmd& c) {
+  const int* r = c.row;
+  const int E = r[A_N2];
+  const int at = ctrl_word(v, v.P[r[A_OUT]], bit_of(c.wph_out, 0));
+  for (int e = threadIdx.x; e < E; e += BODY_THREADS) {
+    const int n = __ldcg(reinterpret_cast<const int*>(port_window(v, c, false, e)));
+    v.S[at + e] = n;
+    v.S[at + E + e] = n;
+  }
+}
+
+#ifdef MK_GUARDS
+// NONFINITE of a wide command's enabled float inputs (in its first phase).
+__device__ __noinline__ void scan_inputs_wide(const View v, const Cmd& c) {
+  for (int p = 0; p < c.n_in; ++p) {
+    if (!bit_of(c.wen_in, p)) continue;
+    const int f = v.P[c.row[A_IN] + p];
+    const int* fr = fifo_row(v, f);
+    if (fr[F_CTRL] || fr[F_ELEM] != ELEM_F32) continue;
+    const unsigned* w = reinterpret_cast<const unsigned*>(port_window(v, c, false, p));
+    const long long n = static_cast<long long>(fr[F_RATE]) * fr[F_TOKB] / 4;
+    bool bad = false;
+    for (long long j = grid_first(); j < n; j += grid_step()) bad |= nonfinite(__ldcg(w + j));
+    if (bad) atomicOr(&bad_win[p >> 5], 1u << (p & 31));
+  }
+}
+
+__device__ __noinline__ void flush_bad_wide(const View v, const Cmd& c, long long* fault) {
+  for (int side = 0; side < 2; ++side)
+    for (int k = 0; k < WIDE_WORDS; ++k) {
+      unsigned* word = side ? &bad_wout[k] : &bad_win[k];
+      for (unsigned m = *word; m; m &= m - 1) {
+        const int p = 32 * k + __ffs(m) - 1;
+        atomicOr(reinterpret_cast<unsigned long long*>(fault + v.P[c.row[side ? A_OUT : A_IN] + p]),
+                 static_cast<unsigned long long>(NONFINITE));
+      }
+      *word = 0;
+    }
+}
+#endif
+
+// The MoE bodies take the View by value: a View whose address is taken
+// would leave the kernel's registers for local memory.
+__device__ __noinline__ void run_moe(const View v, const Cmd& c, Stage& st) {
+  switch (c.kind) {
+    case K_ROUTER:
+      if (c.phase == 0)
+        router_logits(v, c);
+      else
+        router_route(v, c);
+      break;
+    case K_EXPERT:
+      run_expert(v, c, st.tile);
+      break;
+    case K_COMBINE:
+      run_combine(v, c);
+      break;
+    case K_PACKER:
+      run_packer(v, c);
+      break;
+  }
+}
+
 #ifdef MK_GUARDS
 // NONFINITE of the command's enabled float inputs: the block scans its share
 // of each window (every input window of a command is win bytes).
@@ -1231,6 +1890,10 @@ __device__ __noinline__ void run_body_copy_back(const Cmd& c, Stage& st) {
   run_body<true>(c, st);
 }
 
+// MOE: an instance with the MoE kinds (the wide path, body-written control
+// tokens, the MoE bodies); networks without them run the other, which has
+// none of that code.
+template <bool MOE>
 __global__ void __launch_bounds__(THREADS, 1)
 megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
            int io_len, int max_sweeps, int multi_firing,
@@ -1246,14 +1909,17 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   __shared__ uint64_t full[RING], done[RING], empty[RING];
   __shared__ Stage stage;
   __shared__ long long least;        // the watcher's: every block has passed it
+  __shared__ long long local_done;   // the publisher's: this block has run it
+  __shared__ unsigned wide_bits[4 * WIDE_WORDS];  // View::wide
+  __shared__ long long wide_wait;
   __shared__ volatile int finished;  // the body threads are done
   cg::grid_group grid = cg::this_grid();
   const int tid = threadIdx.x;
 
   // 1. Replicate the program, the io words and the addresses into this
   //    block: [program | io words | phases | guard words] as ints, then
-  //    [addresses | segment trackers] as 8-byte words (megakernel_run sizes
-  //    it).
+  //    [addresses | segment trackers | each actor's last command] as 8-byte
+  //    words, then the router's routing words (megakernel_run sizes it).
   const int len = prog[H_LEN];
   const int n_state = io_len - META_WORDS;
   long long* io = args + n_ptrs;
@@ -1274,15 +1940,24 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 #endif
   v.addr = words;
   v.trk = words + n_ptrs;
+  const int n_actors = prog[H_N_ACTORS];
+  v.alast = v.trk + 2 * SEGS * n_ptrs;
+  v.moe = reinterpret_cast<int*>(v.alast + n_actors);
+  v.local_done = &local_done;
+  v.wide = wide_bits;
+  v.wide_wait = &wide_wait;
   for (int i = tid; i < len; i += THREADS) smem[i] = prog[i];
   for (int i = tid; i < n_state; i += THREADS) v.S[i] = static_cast<int>(io[i]);
   for (int i = tid; i < n_ptrs; i += THREADS) words[i] = args[i];
   for (int i = tid; i < 2 * SEGS * n_ptrs; i += THREADS) v.trk[i] = 0;
+  for (int i = tid; i < n_actors; i += THREADS) v.alast[i] = 0;
   if (tid == 0) {
     least = 0;
+    local_done = 0;
     finished = 0;
 #ifdef MK_GUARDS
     bad_in = bad_out = 0;
+    for (int k = 0; k < WIDE_WORDS; ++k) bad_win[k] = bad_wout[k] = 0;
 #endif
     for (int i = 0; i < RING; ++i) {
       mbar_init(&full[i], 1);
@@ -1321,7 +1996,7 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
     return;
   }
   if (tid >= PUBLISH_TID) {
-    publisher(slots, done, empty, progress);
+    publisher<MOE>(slots, done, empty, progress, &local_done);
     return;
   }
   if (tid >= SCHED_TID) {
@@ -1329,8 +2004,16 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
     s.vpos = s.left = -1;
     s.fired_any = 1;
     [[maybe_unused]] const long long clk =
-        scheduler(v, slots, full, empty, &s, max_sweeps, multi_firing);
-    // 4. Block 0 writes the replicated state back.
+        scheduler<MOE>(v, slots, full, empty, &s, max_sweeps, multi_firing);
+    // 4. Block 0 writes the replicated state back, once its body threads
+    //    have written every control token a body writes.
+    if constexpr (MOE) {
+      if (blockIdx.x == 0) {
+        const long long since = clock64();
+        while (load_acquire_cta(&local_done) < s.seq) watchdog(since);
+        __syncwarp();
+      }
+    }
     if (blockIdx.x == 0) {
       for (int i = lane(); i < n_state; i += 32) io[i] = v.S[i];
       if (lane() == 0) {
@@ -1401,20 +2084,35 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 #ifdef MK_CLOCK_SPLIT
       const long long t2 = clock64();
 #endif
+      bool moe_cmd = false;
+      if constexpr (MOE) moe_cmd = cmd.kind >= K_ROUTER;
+      if (moe_cmd) {
 #ifdef MK_GUARDS
-      scan_inputs(cmd);
+        if (cmd.phase == 0) scan_inputs_wide(v, cmd);
 #endif
-      if (cmd.cb_mask)
-        run_body_copy_back(cmd, stage);
-      else
-        run_body<false>(cmd, stage);
+        run_moe(v, cmd, stage);
 #ifdef MK_GUARDS
-      body_sync();
-      if (tid == 0) flush_bad(cmd, io + io_len);
+        body_sync();
+        if (tid == 0) flush_bad_wide(v, cmd, io + io_len);
 #endif
+      } else {
+#ifdef MK_GUARDS
+        scan_inputs(cmd);
+#endif
+        if (cmd.cb_mask)
+          run_body_copy_back(cmd, stage);
+        else
+          run_body<false>(cmd, stage);
+#ifdef MK_GUARDS
+        body_sync();
+        if (tid == 0) flush_bad(cmd, io + io_len);
+#endif
+      }
 #ifdef MK_CLOCK_SPLIT
-      clk_kind[cmd.kind] += clock64() - t2;
-      n_kind[cmd.kind] += 1;
+      if (cmd.kind <= K_MED) {
+        clk_kind[cmd.kind] += clock64() - t2;
+        n_kind[cmd.kind] += 1;
+      }
 #endif
     }
     __syncwarp();
@@ -1437,7 +2135,9 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 
 // Launch B2 once on `stream` (PyTorch's current stream) as a cooperative
 // grid of one block per SM.  `prog` is the packed program (prog_len int32
-// words), `args` the run's block (n_ptrs addresses, then io_len io words),
+// words, with n_actors actors and H_SCRATCH = scratch_words, which size the
+// shared memory, and H_MOE = moe, which picks the kernel's instance), `args`
+// the run's block (n_ptrs addresses, then io_len io words),
 // `progress` n_progress 8-byte words of scratch (the blocks' progress, which
 // the kernel zeroes), all on the current device.  Returns
 // cudaGetLastError(), or the error of the failed query or refused launch.
@@ -1449,7 +2149,8 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
                               int n_ptrs, int io_len, int max_sweeps,
                               int multi_firing, unsigned long long* progress,
-                              int n_progress, void* stream
+                              int n_progress, void* stream, int n_actors,
+                              int scratch_words, int moe
 #ifdef MK_TRACE
                               , int* trace, int trace_cap
 #endif
@@ -1468,12 +2169,16 @@ extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
   // <= n_ptrs.
   const size_t ints =
       static_cast<size_t>(prog_len + io_len - META_WORDS + (2 + GUARD_INTS) * n_ptrs);
-  const size_t smem = (ints + 1) / 2 * 8 + static_cast<size_t>(1 + 2 * SEGS) * n_ptrs * 8;
-  err = cudaFuncSetAttribute(megakernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  const size_t smem = (ints + 1) / 2 * 8 +
+                      (static_cast<size_t>(1 + 2 * SEGS) * n_ptrs + n_actors) * 8 +
+                      static_cast<size_t>(scratch_words) * 4;
+  const void* kernel = moe ? reinterpret_cast<const void*>(megakernel<true>)
+                          : reinterpret_cast<const void*>(megakernel<false>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, megakernel, THREADS, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
 #ifdef MK_TRACE
@@ -1483,7 +2188,7 @@ extern "C" int megakernel_run(const int* prog, int prog_len, long long* args,
 #else
   void* kargs[] = {&prog, &args, &n_ptrs, &io_len, &max_sweeps, &multi_firing, &progress};
 #endif
-  err = cudaLaunchCooperativeKernel((const void*)megakernel, dim3(sms),
+  err = cudaLaunchCooperativeKernel(kernel, dim3(sms),
                                     dim3(THREADS), kargs, smem,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);

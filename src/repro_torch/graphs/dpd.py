@@ -22,7 +22,7 @@ device program tabulate the dynamic actors' rates.
 """
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +42,11 @@ def _branch_on(k: int, tok: Sequence[Any]) -> int:
     """0/1 enable of branch ``k`` given the configuration token — the one
     predicate behind fork.b_k, poly_k.in/out and adder.y_k."""
     return int(k < tok[0])
+
+
+def _branch_form(k: int) -> Tuple[int, int]:
+    """:func:`_branch_on` as a declared enable: ``tok[0] > k``."""
+    return (0, k)
 
 
 def default_active_schedule(n_firings: int, seed: int = 0,
@@ -141,7 +146,9 @@ def build_dpd(n_firings: int,
                             device_op=DeviceOp("fork"))
     else:
         fork = dynamic_actor("fork", "c", fork_control, ("in",), fork_outs,
-                             fork_fire, device_op=DeviceOp("fork"))
+                             fork_fire, device_op=DeviceOp("fork"),
+                             enables={"in": 1, **{f"b{k}": _branch_form(k)
+                                                  for k in range(n_branches)}})
 
     # -- Poly branches: basis + 10-tap complex FIR, 9-sample history ---- #
     def make_poly(k: int):
@@ -170,7 +177,9 @@ def build_dpd(n_firings: int,
             return static_actor(f"poly{k}", ("in",), ("out",), fire, init=init,
                                 cost_flops=flops, device_op=op)
         return dynamic_actor(f"poly{k}", "c", control, ("in",), ("out",), fire,
-                             init=init, cost_flops=flops, device_op=op)
+                             init=init, cost_flops=flops, device_op=op,
+                             enables={"in": _branch_form(k),
+                                      "out": _branch_form(k)})
 
     polys = [make_poly(k) for k in range(n_branches)]
 
@@ -197,7 +206,9 @@ def build_dpd(n_firings: int,
                              device_op=adder_op)
     else:
         adder = dynamic_actor("adder", "c", adder_control, add_ins, ("out",),
-                              adder_fire, device_op=adder_op)
+                              adder_fire, device_op=adder_op,
+                              enables={"out": 1, **{f"y{k}": _branch_form(k)
+                                                    for k in range(n_branches)}})
 
     # -- wiring (Eq. 1 capacities derived per channel) ------------------ #
     b = NetworkBuilder()

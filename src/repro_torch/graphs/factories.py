@@ -63,3 +63,20 @@ def make_motion_detection(n_frames: int = 12, rate: int = 4,
     video = rng.uniform(0, 255, (n_frames,) + tuple(frame_hw)).astype(np.float32)
     return build_motion_detection(n_frames, rate=rate, frame_hw=frame_hw,
                                   video=video, device=device), n_frames // rate
+
+
+def make_moe(n_firings: int = 3, n_tokens: int = 16, d_model: int = 32,
+             n_experts: int = 4, top_k: int = 2, d_ff: int = 64,
+             capacity_factor: float = 2.0, seed: int = 0,
+             device: DeviceLike = None) -> Tuple[Network, int]:
+    """The MoE layer as actors (idle experts fire at rate 0), with the
+    reference's defaults: ``moe_init`` weights from a ``torch.Generator``
+    seeded with ``seed`` and a seeded ``numpy`` normal token stream."""
+    from repro_torch.graphs.moe_as_actors import build_moe_network
+    from repro_torch.models.moe import moe_init
+    gen = torch.Generator().manual_seed(seed)
+    params = moe_init(d_model, n_experts, d_ff, gen)
+    xs = np.random.default_rng(seed).normal(
+        size=(n_firings * n_tokens, d_model)).astype(np.float32)
+    return build_moe_network(params, n_tokens, d_model, top_k, capacity_factor,
+                             n_firings, torch.from_numpy(xs), device=device), n_firings

@@ -3,6 +3,7 @@ CUDA card unless ``--device cpu`` is given.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-780m --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
 
 Weights are drawn from a seeded generator (``--seed``); prompts are random
 token ids from ``numpy.random.default_rng(0)``.

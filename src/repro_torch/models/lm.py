@@ -7,13 +7,15 @@ the layers in one ``nn.ModuleList`` in layer order, group by group, then
 the remainder (the JAX package stacks each group's parameters on a
 leading axis instead; ``repro_torch.convert`` maps one to the other).
 
-Block kinds: ``attn_local`` / ``attn_global`` (attention + SwiGLU MLP),
-``rec`` (RG-LRU + MLP) and ``ssd`` (mamba2).  The MoE, audio and vision
-families are not ported yet (ROADMAP A8b) and raise at construction.
+Block kinds: ``attn_local`` / ``attn_global`` (attention + SwiGLU MLP, or
+the MoE layer in the MoE family), ``rec`` (RG-LRU + MLP) and ``ssd``
+(mamba2).  The audio and vision families are not ported yet (ROADMAP A8b)
+and raise at construction.
 
-Entry points: :meth:`LM.forward` (modes "train" and "prefill"; the loss
-comes with the training slice), :meth:`LM.prefill`, :meth:`LM.decode_step`
-and :meth:`LM.serve_state`.  Serving state is a list with one dict per
+Entry points: :meth:`LM.forward` (modes "train" and "prefill", with the
+MoE layers' load-balance aux on request; the loss comes with the training
+slice), :meth:`LM.prefill`, :meth:`LM.decode_step` and
+:meth:`LM.serve_state`.  Serving state is a list with one dict per
 layer: ``{k, v, pos}`` ring caches, RG-LRU ``{conv, h}``, Mamba2
 ``{conv, ssm}``.
 """
@@ -28,6 +30,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as att
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (DTYPE, F32, RMSNorm, SwiGLU, embed_lookup,
@@ -63,9 +66,9 @@ def _cache_len(cfg: ArchConfig, kind: str, max_seq: int) -> int:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family in ("moe", "audio", "vlm") or cfg.moe is not None:
+    if cfg.family in ("audio", "vlm"):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (MoE experts, cross attention, "
+            f"{cfg.name}: the {cfg.family} family (cross attention, "
             "vision/audio frontends) is not ported yet (ROADMAP A8b)")
     if cfg.kv_quant_int8:
         raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not ported yet "
@@ -99,7 +102,11 @@ class Block(nn.Module):
             self.attn = att.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                       cfg.qkv_bias, gen, device)
         self.norm2 = RMSNorm(d, device)
-        self.mlp = SwiGLU(d, cfg.d_ff, gen, device)
+        if cfg.moe is not None:
+            self.mlp = moe_mod.MoE(d, cfg.moe.n_experts, cfg.moe.d_ff_expert, gen,
+                                   device)
+        else:
+            self.mlp = SwiGLU(d, cfg.d_ff, gen, device)
 
 
 class LM(nn.Module):
@@ -184,57 +191,83 @@ class LM(nn.Module):
                 k, v, _cache_len(cfg, kind, max_cache_len or x.shape[1]))
         return y, new_cache
 
-    def _mlp(self, blk: Block, x: torch.Tensor) -> torch.Tensor:
-        """The block's second norm and SwiGLU MLP, before the residual add
-        (every kind but ``ssd``)."""
-        h = rmsnorm(x, blk.norm2.scale, self.cfg.rms_eps)
-        return swiglu(h, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down)
+    def _mlp(self, blk: Block, x: torch.Tensor, routing=None
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The block's second norm and its SwiGLU MLP or MoE layer, before
+        the residual add (every kind but ``ssd``): (y, the MoE layer's
+        load-balance loss or None).  ``routing`` replaces the MoE layer's
+        own (``moe.moe_layer``)."""
+        cfg = self.cfg
+        h = rmsnorm(x, blk.norm2.scale, cfg.rms_eps)
+        if cfg.moe is not None:
+            y, aux = moe_mod.moe_layer(blk.mlp.params(), h, top_k=cfg.moe.top_k,
+                                       capacity_factor=cfg.moe.capacity_factor,
+                                       local_groups=cfg.moe.local_groups,
+                                       routing=routing)
+            return y, aux["load_balance_loss"]
+        return swiglu(h, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down), None
 
     def _block(self, blk: Block, x: torch.Tensor, *, mode: str, cache=None, pos=None,
-               max_cache_len: Optional[int] = None):
+               max_cache_len: Optional[int] = None, routing=None):
+        """(x, new cache, the MoE load-balance loss or None)."""
         y, new_cache = self._mixer(blk, x, mode=mode, cache=cache, pos=pos,
                                    max_cache_len=max_cache_len)
         x = x + y
+        aux = None
         if blk.kind != "ssd":
-            x = x + self._mlp(blk, x)
-        return x, new_cache
+            y, aux = self._mlp(blk, x, routing)
+            x = x + y
+        return x, new_cache, aux
 
     # ------------------------------------------------------------------ #
     def forward(self, tokens: torch.Tensor, *, mode: str = "train",
-                max_cache_len: Optional[int] = None):
+                max_cache_len: Optional[int] = None, return_aux: bool = False,
+                routing: Optional[List] = None):
         """tokens (B, S) -> (logits f32, caches).  "train": logits at every
         position, caches None; "prefill": logits (B, 1, V) of the last
-        position and the serving state."""
+        position and the serving state.  ``return_aux`` appends the MoE
+        layers' load-balance losses summed (float32 0 without MoE), as the
+        reference's forward returns them.  ``routing``, one
+        ``moe.Routing`` (or None) per layer, replaces the MoE layers' own:
+        the way to hold the rest of the model to another backend's whose
+        near-tied top-k may have gone the other way."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"forward: mode {mode!r} is 'train' or 'prefill'")
         x = self._embed(tokens.to(self.device))
         caches = []
-        for blk in self.layers:
-            x, c = self._block(blk, x, mode=mode, max_cache_len=max_cache_len)
+        aux = torch.zeros((), dtype=F32, device=self.device)
+        for i, blk in enumerate(self.layers):
+            x, c, a = self._block(blk, x, mode=mode, max_cache_len=max_cache_len,
+                                  routing=None if routing is None else routing[i])
             caches.append(c)
-        if mode == "prefill":
-            return self._logits(x[:, -1:]), caches
-        return self._logits(x), None
+            if a is not None:
+                aux = aux + a
+        out = (self._logits(x[:, -1:]), caches) if mode == "prefill" \
+            else (self._logits(x), None)
+        return out + (aux,) if return_aux else out
 
     @torch.inference_mode()
-    def prefill(self, tokens: torch.Tensor, *, max_cache_len: Optional[int] = None
-                ) -> Tuple[torch.Tensor, List[Cache]]:
+    def prefill(self, tokens: torch.Tensor, *, max_cache_len: Optional[int] = None,
+                routing: Optional[List] = None) -> Tuple[torch.Tensor, List[Cache]]:
         """``max_cache_len``: ring size of full-attention layers; it must
         cover the prompt and the decode budget (defaults to the prompt
-        length, which leaves no room to decode)."""
-        logits, caches = self.forward(tokens, mode="prefill", max_cache_len=max_cache_len)
+        length, which leaves no room to decode).  ``routing`` as
+        :meth:`forward`."""
+        logits, caches = self.forward(tokens, mode="prefill", max_cache_len=max_cache_len,
+                                      routing=routing)
         return logits[:, 0], caches
 
     @torch.inference_mode()
-    def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, caches: List[Cache]
-                    ) -> Tuple[torch.Tensor, List[Cache]]:
+    def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, caches: List[Cache],
+                    routing: Optional[List] = None) -> Tuple[torch.Tensor, List[Cache]]:
         """tokens (B, 1), pos (B,) -> (logits (B, V) f32, new caches).  Ring
-        KV caches are updated in place."""
+        KV caches are updated in place.  ``routing`` as :meth:`forward`."""
         x = self._embed(tokens.to(self.device))
         pos = pos.to(self.device)
         new = []
-        for blk, c in zip(self.layers, caches):
-            x, nc = self._block(blk, x, mode="decode", cache=c, pos=pos)
+        for i, (blk, c) in enumerate(zip(self.layers, caches)):
+            x, nc, _ = self._block(blk, x, mode="decode", cache=c, pos=pos,
+                                   routing=None if routing is None else routing[i])
             new.append(nc)
         return self._logits(x)[:, 0], new
 

@@ -47,7 +47,8 @@ from repro_torch.core.megakernel import (compile_megakernel, lower_network,
 from repro_torch.core.executor import run_dynamic
 from repro_torch.core.faultinject import (corrupt_cursor, inject_overflow,
                                           inject_underflow, poison_tokens)
-from repro_torch.core.megakernel.program import M_BLOCKS, M_ERROR, stage
+from repro_torch.core.megakernel.program import (H_MOE, H_SCRATCH, M_BLOCKS, M_ERROR,
+                                                 stage)
 from repro_torch.core.megakernel.ref import run_program
 from repro_torch.core.trace import decode_trace
 from repro_torch.graphs.dpd import default_active_schedule
@@ -424,7 +425,8 @@ def _b2_and_plain(net, cores=1, max_sweeps=1_000_000, specialize=True, state=Non
     layout = lower_network(net)
     part = partition_layout(net, layout, cores, forward_transients=specialize)
     dp = compile_megakernel(net, max_sweeps, layout=layout, partition=part).device_program
-    consts = [t.to(dev) for _, t in dp.consts]
+    consts = ([t.to(dev) for _, t in dp.consts]
+              + [torch.zeros(n, device=dev) for _, n in dp.scratch])
     if edit_consts is not None:
         edit_consts(consts)
     sides = []
@@ -435,7 +437,9 @@ def _b2_and_plain(net, cores=1, max_sweeps=1_000_000, specialize=True, state=Non
             ptrs = [0 if t is None else t.data_ptr() for t in tensors]
             args = torch.tensor(ptrs + io, dtype=torch.int64, device=dev)
             before = megakernel_cuda.launches
-            megakernel_cuda(dp.table.to(dev), args, dp.n_ptrs, max_sweeps, True)
+            megakernel_cuda(dp.table.to(dev), args, dp.n_ptrs, max_sweeps, True,
+                            n_actors=dp.n_actors, scratch_words=int(dp.table[H_SCRATCH]),
+                            moe=bool(dp.table[H_MOE]))
             assert megakernel_cuda.launches == before + 1
             io = args[dp.n_ptrs:].cpu().tolist()
         else:
@@ -484,9 +488,10 @@ def test_megakernel_motion_detection_bit_identical_to_plain(gen, rate, frame_hw,
 
 @pytest.mark.parametrize("cores", [1, 2])
 def test_megakernel_domain_error_mid_run(gen, cores):
-    """The config's 20th token is outside the fork's and the branches'
-    domain: the kernel stops with the plain version's error word, at the
-    same state."""
+    """Named for the error this checked while B2 tabulated rates over the
+    declared domain: the config's 20th token, 11, is outside the fork's and
+    the branches' domain 2..10, and the kernel now runs on with the
+    reference's rates (every branch on), as its plain version does."""
     net, _ = make_dpd(64, block_l=4096, seed=0, device="cuda",
                       active_schedule=default_active_schedule(64, seed=0))
 
@@ -494,8 +499,50 @@ def test_megakernel_domain_error_mid_run(gen, cores):
         consts[0][19] = 11
 
     dp, sides = _b2_and_plain(net, cores, edit_consts=plant)
-    assert sides[0][0][dp.io_meta + M_ERROR] == 1
+    assert sides[0][0][dp.io_meta + M_ERROR] == 0
     _assert_b2_bit_identical(dp, sides)
+
+
+# ---- B2's MoE bodies: router, expert, combine, packer ----------------------- #
+MOE_WIDTHS = {
+    "default": dict(),                                           # make_moe's
+    "middle": dict(d_model=256, n_experts=8),
+    "off_tile": dict(d_model=100, n_experts=5, d_ff=50, n_tokens=24, top_k=3),
+    "idle": dict(n_experts=16, top_k=1, n_tokens=8, d_ff=40),    # 8 of 16 get none
+}
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("width", sorted(MOE_WIDTHS))
+def test_megakernel_moe_bit_identical_to_plain(gen, width, cores):
+    """B2 on the MoE actor network equals its plain version bit for bit:
+    every ring (slabs, slots, weights, outputs), every cursor, count and
+    control token; at make_moe's width, at D 256 / E 8, at widths off the
+    16-column and 96-row tiles, and with experts that get no token."""
+    from repro_torch.graphs.factories import make_moe
+    net, _ = make_moe(3, seed=1, device="cuda", **MOE_WIDTHS[width])
+    dp, sides = _b2_and_plain(net, cores)
+    counts = sides[0][0][dp.io_counts:dp.io_counts + dp.n_actors]
+    assert counts == sides[1][0][dp.io_counts:dp.io_counts + dp.n_actors]
+    _assert_b2_bit_identical(dp, sides)
+
+
+@pytest.mark.parametrize("build", ["guards", "trace", "both"])
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_moe_guarded_traced_builds_match_plain_and_dynamic(gen, cores, build):
+    from repro_torch.graphs.factories import make_moe
+    net, _ = make_moe(3, d_model=256, n_experts=8, seed=2, device="cuda")
+    kw = dict(guards=build in ("guards", "both"), trace=build in ("trace", "both"))
+    dyn = net.compile(mode="dynamic", **kw).run()
+    prog = net.compile(mode="megakernel", cores=cores, specialize=False, **kw)
+    before = megakernel_cuda.launches
+    got = prog.run()
+    assert megakernel_cuda.launches == before + 1
+    assert (got.sweeps, got.fire_counts) == (dyn.sweeps, dyn.fire_counts)
+    if kw["guards"]:
+        assert got.diagnostics.ok and got.diagnostics.high_water == dyn.diagnostics.high_water
+    if kw["trace"]:
+        assert got.trace.attempt_counts() == dyn.trace.attempt_counts()
 
 
 @pytest.mark.parametrize("cores", [1, 2])

@@ -41,7 +41,7 @@ from repro_torch.core.network import Network
 from repro_torch.graphs.factories import (make_dpd, make_motion_detection,
                                          states_equal)
 from repro_torch.kernels import _build
-from test_torch_harness import assert_runs_match
+from test_torch_harness import assert_runs_match, jax_literal  # noqa: F401
 
 # One scrambled core map of DPD's 15 actors (config first).
 SCRAMBLED = {"config": 2, "source": 0, "fork": 3, "poly0": 1, "poly1": 0,
@@ -235,29 +235,66 @@ def test_control_rings_are_back_in_host_memory():
 
 
 def test_rate_table_is_control_over_domain():
+    """Named for the rate table the device program held until the actors
+    declared their enables: the rates it computes from the declared forms
+    are ``control``'s over the domain (2..10) and outside it."""
     net = _port()
     prog = compile_megakernel(net).device_program
     dynamic = [n for n, a in net.actors.items() if a.is_dynamic]
-    assert sorted(prog.rate_tables) == sorted(dynamic)
+    assert sorted(prog.enables) == sorted(dynamic)
     for name in dynamic:
         a = net.actors[name]
-        lo, hi = prog.domains[name]
-        assert (lo, hi) == (2, 10)
-        for v in range(lo, hi + 1):
-            assert prog.rates(name, v) == {p: int(bool(e))
-                                           for p, e in a.rates_for([v]).items()}
-    with pytest.raises(ValueError, match="declared domain"):
-        prog.rates("fork", 11)
+        for v in (-2 ** 31, -1, 0, 1, *range(2, 11), 11, 42, 2 ** 31 - 1):
+            assert prog.rates(name, [v]) == {p: int(bool(e))
+                                             for p, e in a.rates_for([v]).items()}
 
 
-def test_control_token_outside_domain_raises():
-    net = _port()
-    state = net.init_state()
+def _inject_fork_token(state, value):
+    """One extra control token ``value`` ahead of the config's on
+    ``f_c_fork`` (port state)."""
     ring = state.fifo("f_c_fork")
-    ring.buf[0, 0] = 42
+    ring.buf[0, 0] = value
     ring.occ, ring.wr = 1, 1
-    with pytest.raises(ValueError, match="token 42, outside"):
-        net.compile(mode="megakernel", specialize=False).run(state)
+    return state
+
+
+def test_control_token_outside_domain_raises(jax_literal):
+    """Named for the refusal this checked while B2 tabulated rates over the
+    declared domain.  A fork token of 42, outside DPD's domain 2..10, now
+    runs as the reference runs it: the unguarded megakernel run equals the
+    port's host dynamic run bit for bit and the reference's
+    ``compile_dynamic`` in every count, cursor and integer leaf (floats
+    within REL_TOL); the guarded runs flag DOMAIN on ``f_c_fork`` and
+    complete, with the host's diagnostics."""
+    from repro.core.faultinject import _replace_fifo
+    import jax.numpy as jnp
+    net = _port()
+    mega = net.compile(mode="megakernel", specialize=False).run(
+        _inject_fork_token(net.init_state(), 42))
+    dyn = net.compile(mode="dynamic").run(_inject_fork_token(net.init_state(), 42))
+    assert states_equal(mega.state, dyn.state)
+    assert (mega.sweeps, mega.fire_counts) == (dyn.sweeps, dyn.fire_counts)
+    ref_net, _ = ref_make_dpd(4, block_l=128)
+    ref_state = ref_net.init_state()
+    fi = list(ref_net.fifos).index("f_c_fork")
+    spec = ref_net.fifos["f_c_fork"]
+    ref_state = _replace_fifo(ref_state, fi, spec.write(
+        ref_state.fifos[fi], jnp.full((1, 1), 42, jnp.int32)))
+    ref = ref_net.compile(RefPlan(mode="dynamic")).run(ref_state)
+    assert_runs_match(ref, mega)
+    from repro_torch.core.health import DOMAIN, NetworkFaultError
+    diags = []
+    for mode in ("dynamic", "megakernel"):
+        kw = dict(specialize=False) if mode == "megakernel" else {}
+        with pytest.raises(NetworkFaultError) as err:
+            net.compile(mode=mode, guards=True, **kw).run(
+                _inject_fork_token(net.init_state(), 42))
+        d = err.value.diagnostics
+        bits = {f.fifo: int(f.bits) for f in d.faults}
+        assert bits["f_c_fork"] & DOMAIN
+        assert err.value.result.fire_counts == dyn.fire_counts
+        diags.append((bits, dict(d.high_water)))
+    assert diags[0] == diags[1]
 
 
 def _rebuilt(net: Network, actors=None, fifos=None) -> Network:
@@ -267,12 +304,19 @@ def _rebuilt(net: Network, actors=None, fifos=None) -> Network:
 
 
 def test_actor_without_device_op_raises_naming_a6_and_a8():
-    """Named for the items it named while motion detection (ROADMAP A6) had
-    no device ops; MoE (A8) is the one network left without them."""
+    """Named for the items it named while motion detection (ROADMAP A6) and
+    MoE (A8) had no device ops; every network of the port has them now, and
+    an actor without one is still refused, as is a dynamic actor that
+    declares no enable forms."""
     net = _port()
     actors = dict(net.actors)
     actors["adder"] = dataclasses.replace(actors["adder"], device_op=None)
-    with pytest.raises(NotImplementedError, match="DeviceOp.*MoE.*A8"):
+    with pytest.raises(NotImplementedError, match="declare no DeviceOp") as err:
+        _rebuilt(net, actors=actors).compile(mode="megakernel")
+    assert "MoE" not in str(err.value)
+    actors = dict(net.actors)
+    actors["adder"] = dataclasses.replace(actors["adder"], enables=None)
+    with pytest.raises(NotImplementedError, match="declare no enable forms"):
         _rebuilt(net, actors=actors).compile(mode="megakernel")
 
 
@@ -296,11 +340,17 @@ def test_delay_channel_raises_naming_a6():
 
 
 def test_control_channel_without_domain_raises():
+    """Named for the refusal it checked while B2 needed a domain to
+    tabulate rates: without domains the declared enables still give the
+    rates, and the run equals the host dynamic run."""
     net = _port()
     fifos = {n: dataclasses.replace(f, domain=None) if f.is_control else f
              for n, f in net.fifos.items()}
-    with pytest.raises(ValueError, match="no finite"):
-        _rebuilt(net, fifos=fifos).compile(mode="megakernel")
+    bare = _rebuilt(net, fifos=fifos)
+    got = bare.compile(mode="megakernel").run()
+    want = net.compile(mode="dynamic").run()
+    assert states_equal(got.state, want.state)
+    assert (got.sweeps, got.fire_counts) == (want.sweeps, want.fire_counts)
 
 
 def test_cpu_run_launches_no_kernel_and_collects_the_sink():
