@@ -161,6 +161,38 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     profile with the MoE layers' share of the prefill.  Phase 12 also
     holds B5 at olmoe's shape (q (4, 4096, 16, 128), causal, no window)
     against its plain version and times it beside SDPA;
+20. (run after 19) whisper-small (the audio family) served at its
+    published width (12 decoder and 12 encoder layers, d 768, 12 heads of
+    64, vocab 51 865, encoder n_ctx 1500; random weights from seed 0)
+    through ``LM.prefill(tokens, frames=...)`` and greedy
+    ``LM.decode_step``s (the Engine feeds tokens only): 8 requests, batch
+    4, prompts of 64-384 tokens from ``numpy.random.default_rng(0)``
+    left-padded to 384, stub frames (4, 1500, 768) standard normal from the
+    same generator, 32 new tokens; 48 B5 launches (24 a prefill: 12
+    non-causal in the encoder, counted inside ``LM.encode``, and 12
+    causal); times, tokens/s, its phase-15 profile; parity with the CPU on
+    a model cut to ``PARITY_FAMILY_LAYERS`` decoder and encoder layers:
+    every encoder layer's attention and MLP, every decoder layer's
+    self-attention, cross attention and MLP within 13's bar, the logits
+    at every position, the greedy run's logits and tokens;
+21. internvl2-1b (the vision family: 24 layers, d 896, 14 query heads on
+    2 KV heads of 64, vocab 151 655) served likewise with 256 stub vision
+    embeddings (4, 256, 896) before prompts of 1792-3840 tokens
+    left-padded to 3840 (S = 4096): 48 B5 launches, its profile and
+    parity at full depth; then served as text through the Engine (as 13:
+    48 B5 launches, tokens/s); then its decode on the int8 KV cache
+    (``kv_quant_int8=True``, the same weights) against the bf16 cache,
+    step by step in turns, with both caches' bytes; the card's int8 slots
+    equal to the CPU's quantization of the card's own bf16 k and v, bit for
+    bit; the card's int8 greedy run held to the CPU port's within the bf16
+    parity's last-position bar, tokens under the margin rule.  Phase 12
+    also holds B5 at whisper's encoder shape (q (4, 1500, 12, 64),
+    non-causal), at its decoder's (q (4, 384, 12, 64), causal) and at
+    internvl's (q (4, 4096, 14, 64), k/v (4, 4096, 2, 64), causal)
+    against its plain version and times each beside SDPA.
+    Phase 4 also checks that ``runtime_mode=RuntimeMode.STATIC_DAL`` refuses DPD's
+    dynamic network in static, dynamic and megakernel mode, and runs its
+    static all-10 rows under it.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -187,7 +219,8 @@ tree's B4 takes u8 frames, the same on u8 frames and the R probe: B4 built
 for R = 1, 2, 4 and 8 rows a thread, each checked and timed (a ``b4
 {...}`` line).  Run in turns from two
 trees they compare a kernel across commits on one card.
-``--lm`` runs phases 1 and 12-15 only (the LM path), for work on it.
+``--lm`` runs phases 1, 12-15 and 19-21 only (the LM path), for work on
+it.
 """
 from __future__ import annotations
 
@@ -266,6 +299,14 @@ A7_TRACE_CAPACITY = 4096   # the reference's TRACE_CAPACITY_DEFAULT
 # at least twice the largest sound reading (3.21e-6 on an H100, PERF.md).
 MOE_N, MOE_FIRINGS = 512, 8
 MOE_Y_TOL = 2.0 ** -17
+# Phases 20-21: the audio and vision families.  Prompt lengths (drawn in
+# the first..second, left-padded to the second): whisper's decoder prompts
+# plus the 32-token budget stay inside its 448-token text context;
+# internvl's text plus its 256 vision embeddings make S = 4096, as in
+# phases 13, 14 and 19.  whisper's parity model is cut to
+# PARITY_FAMILY_LAYERS decoder and encoder layers (the CPU's time).
+FAMILY_PROMPTS = {"whisper-small": (64, 384), "internvl2-1b": (1792, 3840)}
+PARITY_FAMILY_LAYERS = 4
 
 
 def log(msg: str) -> None:
@@ -1310,6 +1351,51 @@ def b7_reading(la, gx) -> float:
     return err
 
 
+def b5_at_shape(dev, gen, smi: str, label: str, B: int, S: int, H: int, Hkv: int,
+                hd: int, causal: bool) -> dict:
+    """B5 against its plain version at one model's prefill shape (bf16, no
+    window), within one bf16 step plus ``B5_ROW_TOL`` of the row's RMS;
+    timed by CUDA graph replay beside its plain version, SDPA with the same
+    boolean mask and ``enable_gqa=True``, and the operations bound (4 hd
+    flop per live (query, key) pair at the bf16 tensor-core rate)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (attention_mask, flash_attention,
+                                                     flash_attention_ref)
+    q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=dev).to(torch.bfloat16)
+               for n in (H, Hkv, Hkv))
+    got = flash_attention(q, k, v, causal=causal).float()
+    want = flash_attention_ref(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    excess = float(row_excess(got, want).max())
+    if not torch.isfinite(got).all() or not excess <= B5_ROW_TOL:
+        fail(f"B5 at {label}: {excess:.3g} row-RMS beyond one bf16 step > {B5_ROW_TOL}")
+    mask = attention_mask(S, causal, None, dev)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
+    del got, want
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal), inner=10)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal), reps=3, inner=1)
+    lib = cuda_ms(sdpa, reps=3, inner=5)
+    live = S * (S + 1) // 2 if causal else S * S          # (q, k) pairs per (b, h)
+    flops = 4 * hd * live * B * H
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    bound, by = bound_of(nbytes, flops, BF16_FLOP_PER_S)
+    log(f"B5 at {label}, q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, "
+        f"{'causal' if causal else 'non-causal'}, no window ({smi}): {ms:.4f} ms/launch "
+        f"(CUDA graph replay), plain {plain:.3f} ms, SDPA {lib:.4f} ms (max |diff| vs plain "
+        f"{lib_err:.3g}), bound {bound:.4f} ms ({by}: {flops:.4g} flop); max_abs_err "
+        f"{err:.3g}, row-RMS excess {excess:.4g} (bar {B5_ROW_TOL:.4g})")
+    return {"q": list(q.shape), "kv": list(k.shape), "causal": causal, "window": None,
+            "max_abs_err": err, "row_rms_excess": excess, "ms": ms, "plain_ms": plain,
+            "bound_ms": bound, "bound_by": by, "library_ms": lib,
+            "library_max_abs_err": lib_err}
+
+
 def lm_kernels(dev, smi: str) -> dict:
     """Phase 12: B5, B6 and B7 against their plain versions at the serving
     shapes, with their times and bounds; returns their records."""
@@ -1391,42 +1477,27 @@ def lm_kernels(dev, smi: str) -> dict:
                   "library": "torch.nn.functional.scaled_dot_product_attention "
                              "(boolean causal+window mask, enable_gqa=True)"}
 
-    # ---- B5 at olmoe-1b-7b's prefill: hd 128, full causal, no window ---- #
+    # ---- B5 at the other models' prefill shapes: no window ------------- #
+    # olmoe-1b-7b's (hd 128, causal); then whisper-small's encoder (hd 64,
+    # bidirectional, S = 1500: a partial last query and key tile with no
+    # causal mask to hide it) and internvl2-1b's (hd 64, causal, 14 query
+    # heads on 2 KV heads: G = 7), these two from their own generator so
+    # the draws of the phases after them stay as they were.
     oc = get_config("olmoe-1b-7b")
-    qo, ko, vo = (torch.randn((B, S, n, oc.hd), generator=gen, device=dev)
-                  .to(torch.bfloat16) for n in (oc.n_heads, oc.n_kv_heads, oc.n_kv_heads))
-    got = flash_attention(qo, ko, vo, causal=True).float()
-    want = flash_attention_ref(qo, ko, vo, causal=True).float()
-    torch.cuda.synchronize()
-    o_err = float((got - want).abs().max())
-    o_excess = float(row_excess(got, want).max())
-    if not torch.isfinite(got).all() or not o_excess <= B5_ROW_TOL:
-        fail(f"B5 at olmoe's shape: {o_excess:.3g} row-RMS beyond one bf16 step "
-             f"> {B5_ROW_TOL}")
-    omask = attention_mask(S, True, None, dev)
-    oq, okk, ov = (t.transpose(1, 2) for t in (qo, ko, vo))
-
-    def sdpa_o():
-        return F.scaled_dot_product_attention(oq, okk, ov, attn_mask=omask, enable_gqa=True)
-
-    o_lib_err = float((sdpa_o().transpose(1, 2).float() - want).abs().max())
-    del got, want
-    o_ms = graph_ms(lambda: flash_attention(qo, ko, vo, causal=True), inner=10)
-    o_plain = cuda_ms(lambda: flash_attention_ref(qo, ko, vo, causal=True), reps=3, inner=1)
-    o_lib = cuda_ms(sdpa_o, reps=3, inner=5)
-    o_flops = 4 * oc.hd * (S * (S + 1) // 2) * B * oc.n_heads
-    o_bytes = 2 * (2 * qo.numel() + ko.numel() + vo.numel())
-    o_bound, o_by = bound_of(o_bytes, o_flops, BF16_FLOP_PER_S)
-    log(f"B5 at olmoe-1b-7b's prefill, q {tuple(qo.shape)} bf16, causal, no window "
-        f"({smi}): {o_ms:.4f} ms/launch (CUDA graph replay), plain {o_plain:.3f} ms, "
-        f"SDPA {o_lib:.4f} ms (max |diff| vs plain {o_lib_err:.3g}), bound {o_bound:.4f} "
-        f"ms ({o_by}: {o_flops:.4g} flop); max_abs_err {o_err:.3g}, row-RMS excess "
-        f"{o_excess:.4g} (bar {B5_ROW_TOL:.4g})")
-    recs["B5"]["olmoe_shape"] = {
-        "q": list(qo.shape), "causal": True, "window": None, "max_abs_err": o_err,
-        "row_rms_excess": o_excess, "ms": o_ms, "plain_ms": o_plain, "bound_ms": o_bound,
-        "bound_by": o_by, "library_ms": o_lib, "library_max_abs_err": o_lib_err}
-    del qo, ko, vo, oq, okk, ov, omask
+    recs["B5"]["olmoe_shape"] = b5_at_shape(dev, gen, smi, "olmoe-1b-7b's prefill", B, S,
+                                            oc.n_heads, oc.n_kv_heads, oc.hd, True)
+    gen64 = torch.Generator(device=dev)
+    gen64.manual_seed(64)
+    wc, ic = get_config("whisper-small"), get_config("internvl2-1b")
+    recs["B5"]["whisper_enc_shape"] = b5_at_shape(
+        dev, gen64, smi, "whisper-small's encoder", B, wc.encoder.n_ctx, wc.encoder.n_heads,
+        wc.encoder.n_heads, wc.encoder.d_model // wc.encoder.n_heads, False)
+    recs["B5"]["whisper_dec_shape"] = b5_at_shape(
+        dev, gen64, smi, "whisper-small's decoder", B, FAMILY_PROMPTS["whisper-small"][1],
+        wc.n_heads, wc.n_kv_heads, wc.hd, True)
+    recs["B5"]["internvl_shape"] = b5_at_shape(
+        dev, gen64, smi, "internvl2-1b's prefill", B, S, ic.n_heads, ic.n_kv_heads, ic.hd,
+        True)
 
     # ---- B5's float32 and f16 route (flash_fwd_ffma), same shape -------- #
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -1686,23 +1757,104 @@ def bf16_step_noise(x: torch.Tensor) -> torch.Tensor:
     return (x.view(torch.int16) + sign.to(torch.int16)).view(torch.bfloat16)
 
 
+def stub_inputs(cfg, rng, n: int) -> dict:
+    """The frontend stub's inputs of the audio and vision families for n
+    sequences, standard normal from ``rng``, bf16 on the CPU: whisper's
+    frame embeddings (n, n_ctx, d), internvl's patch embeddings (n,
+    n_vision_tokens, d); nothing for the other families."""
+    if cfg.family == "audio":
+        shape, key = (n, cfg.encoder.n_ctx, cfg.encoder.d_model), "frames"
+    elif cfg.family == "vlm":
+        shape, key = (n, cfg.n_vision_tokens, cfg.d_model), "vision_embeds"
+    else:
+        return {}
+    return {key: torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+            .to(torch.bfloat16)}
+
+
+def greedy(model, toks: torch.Tensor, extra: dict, new: int) -> np.ndarray:
+    """Prefill ``toks`` (B, P) with the stub inputs ``extra`` (the vision
+    embeddings come before the tokens), then ``new - 1`` greedy decode
+    steps: the (B, new) generated tokens."""
+    B, P = toks.shape
+    if "vision_embeds" in extra:
+        P += extra["vision_embeds"].shape[1]
+    logits, caches = model.prefill(toks, max_cache_len=P + new, **extra)
+    nxt = torch.argmax(logits, dim=-1)[:, None]
+    out = [nxt]
+    pos = torch.full((B,), P, dtype=torch.int64, device=toks.device)
+    for _ in range(new - 1):
+        logits, caches = model.decode_step(nxt, pos, caches)
+        nxt = torch.argmax(logits, dim=-1)[:, None]
+        pos = pos + 1
+        out.append(nxt)
+    return torch.cat(out, dim=1).cpu().numpy()
+
+
+def left_pad(prompts: list, P: int) -> np.ndarray:
+    """Prompts left-padded with token 0 to P, as the Engine pads them."""
+    toks = np.zeros((len(prompts), P), np.int64)
+    for i, p in enumerate(prompts):
+        toks[i, P - len(p):] = p
+    return toks
+
+
+def compare_steps(cfg, g_tok, g_lg, c_tok, c_lg, bar_last) -> tuple:
+    """Greedy runs on the card (g) and the CPU (c): each step's logits
+    within the row's last-position bar, tokens identical while the CPU's
+    top-2 margin exceeds twice the step's largest logit difference (a row
+    is compared up to its first allowed flip).  Returns (largest
+    difference, tokens compared, allowed flips, steps whose bar is below
+    the logits' magnitude)."""
+    V = cfg.vocab
+    worst, compared, flips, step_power = 0.0, 0, 0, 0
+    for i in range(g_tok.shape[0]):
+        step_bar = float(bar_last[i])
+        for step in range(g_tok.shape[1]):
+            if step and not np.array_equal(g_tok[i, :step], c_tok[i, :step]):
+                break        # an allowed flip earlier: the paths differ now
+            g, c = g_lg[step][i].numpy()[:V], c_lg[step][i].numpy()[:V]
+            if not np.all(np.isfinite(g)):
+                fail(f"{cfg.name}: non-finite logits on the card")
+            e = float(np.abs(g - c).max())
+            if e > step_bar:
+                fail(f"{cfg.name} parity: row {i} step {step} logits differ by "
+                     f"{e:.3g} > {step_bar:.3g}")
+            worst = max(worst, e)
+            step_power += step_bar < float(np.abs(c).max())
+            top2 = np.sort(c)[-2:]
+            if top2[1] - top2[0] > 2 * e:
+                if g_tok[i, step] != c_tok[i, step]:
+                    fail(f"{cfg.name} parity: row {i} step {step} token "
+                         f"{g_tok[i, step]} vs {c_tok[i, step]}, margin "
+                         f"{top2[1] - top2[0]:.3g} > 2 x {e:.3g}")
+                compared += 1
+            elif g_tok[i, step] != c_tok[i, step]:
+                flips += 1
+    return worst, compared, flips, step_power
+
+
 def serve_parity(cfg, model, dev) -> dict:
     """The short full-width run on the card and on the CPU (the plain
     path), same weights.
 
-    * Every layer: the card's mixer (attention, RG-LRU or Mamba2) and MLP,
-      each fed the CPU's input, against the CPU's, element by element
-      before the residual add: within one bf16 step plus MIX_ROW_TOL of
-      the row's RMS.
-    * Logits at every prompt position (the card's own forward against the
+    * Every layer: the card's mixer (attention, RG-LRU or Mamba2), cross
+      attention (whisper's decoder) and MLP, and every whisper encoder
+      layer's attention and MLP, each fed the CPU's input, against the
+      CPU's, element by element before the residual add: within one bf16
+      step plus MIX_ROW_TOL of the row's RMS.
+    * Logits at every position (the card's own forward against the
       CPU's): within LOGIT_SENS times the CPU model's sensitivity at that
-      position (the change of its logits when the embedded prompt moves
-      one bf16 step at every element; random full-width weights amplify
-      rounding noise), never below LOGIT_TOL.  A position's bar has power
-      where it is below the logits' largest magnitude there; some must.
-    * The Engine on both: each step's logits within the last prompt
-      position's bar, and tokens identical while the CPU's top-2 margin
-      exceeds twice the step's largest logit difference."""
+      position (the change of its logits when its inputs, the embedded
+      prompt and the stub's embeddings, move one bf16 step at every
+      element; random full-width weights amplify rounding noise), never
+      below LOGIT_TOL.  A position's bar has power where it is below the
+      logits' largest magnitude there; some must.
+    * The Engine on both (the audio and vision families: prefill with
+      their stub inputs, then greedy decode steps): each step's logits
+      within the last position's bar, and tokens identical while the
+      CPU's top-2 margin exceeds twice the step's largest logit
+      difference."""
     from repro_torch.models import LM
     from repro_torch.models.layers import rmsnorm
     from repro_torch.models.moe import Routing, route, router_logits
@@ -1712,6 +1864,9 @@ def serve_parity(cfg, model, dev) -> dict:
     cpu.load_state_dict(model.state_dict())
     rng = np.random.default_rng(1)
     prompts = rng.integers(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT))
+    # The audio and vision families' stub inputs (CPU, bf16).
+    extra = stub_inputs(cfg, rng, PARITY_BATCH)
+    on_dev = {k: t.to(dev) for k, t in extra.items()}
     V = cfg.vocab
 
     # ---- layer by layer: each mixer and MLP fed the CPU's input ---------- #
@@ -1722,10 +1877,36 @@ def serve_parity(cfg, model, dev) -> dict:
     # (a near-tie top-k that goes the other way would cascade through the
     # capacity ranks: ROADMAP's margin rule holds the routing itself).
     cpu_routing: list = [None] * len(cpu.layers)
+
+    def check(i, key, fn, bg, bc, xc):
+        """Part ``key`` of layer ``i`` on the CPU and on the card, fed the
+        CPU's input: the CPU's output, after the card's is held to it."""
+        yc = fn(cpu, bc, xc)
+        ex = float(row_excess(fn(model, bg, xc.to(dev)).cpu(), yc).max())
+        mix_worst[key] = max(mix_worst.get(key, -1.0), ex)
+        if not ex <= MIX_ROW_TOL:
+            fail(f"{cfg.name} parity: layer {i} {key} is {ex:.3g} row-RMS beyond "
+                 f"one bf16 step of the CPU's (> {MIX_ROW_TOL})")
+        return yc
+
     with torch.inference_mode():
-        xc = cpu._embed(toks)
+        enc_c = None
+        if cfg.family == "audio":
+            # The encoder's layers (attention through B5, non-causal; the
+            # GELU MLP), then its final norm on the CPU's input.
+            ec = extra["frames"]
+            for i, (bg, bc) in enumerate(zip(model.encoder.blocks, cpu.encoder.blocks)):
+                ec = ec + check(i, "enc attn", lambda m, b, x: m._enc_attn(b, x), bg, bc, ec)
+                ec = ec + check(i, "enc mlp", lambda m, b, x: m._enc_mlp(b, x), bg, bc, ec)
+            enc_c = rmsnorm(ec, cpu.encoder.norm.scale, cfg.rms_eps)
+        xc = cpu._embed(toks, extra.get("vision_embeds"))
         for i, (bg, bc) in enumerate(zip(model.layers, cpu.layers)):
             parts = [("mixer", lambda m, b, x: m._mixer(b, x, mode="train")[0])]
+            if bc.kind == "xdec":
+                # Cross attention: the encoder output (the CPU's) projected
+                # and attended on each side.
+                parts.append(("cross", lambda m, b, x: m._cross(
+                    b, x, m._cross_kv(b, enc_c.to(x.device)))))
             if bc.kind != "ssd" and cfg.moe is not None:
                 # The MoE MLP in two parts: the router's logits within
                 # MOE_LOGIT_TOL of their largest magnitude of the CPU's, on
@@ -1751,14 +1932,7 @@ def serve_parity(cfg, model, dev) -> dict:
             elif bc.kind != "ssd":
                 parts.append(("mlp", lambda m, b, x: m._mlp(b, x)[0]))
             for part, fn in parts:
-                yc = fn(cpu, bc, xc)
-                ex = float(row_excess(fn(model, bg, xc.to(dev)).cpu(), yc).max())
-                key = f"{bc.kind} {part}"
-                mix_worst[key] = max(mix_worst.get(key, -1.0), ex)
-                if not ex <= MIX_ROW_TOL:
-                    fail(f"{cfg.name} parity: layer {i} {key} is {ex:.3g} row-RMS beyond "
-                         f"one bf16 step of the CPU's (> {MIX_ROW_TOL})")
-                xc = xc + yc
+                xc = xc + check(i, f"{bc.kind} {part}", fn, bg, bc, xc)
         cpu_lg = cpu._logits(xc)[..., :V].float()
 
         # ---- logits at every position, and the CPU's sensitivity ------- #
@@ -1766,10 +1940,14 @@ def serve_parity(cfg, model, dev) -> dict:
         if cfg.moe is not None:
             fed = [None if r is None else Routing(*(t.to(dev) for t in r))
                    for r in cpu_routing]
-        card_lg = model(toks.to(dev), mode="train", routing=fed)[0][..., :V].float().cpu()
-        x = bf16_step_noise(cpu._embed(toks))
+        card_lg = model(toks.to(dev), mode="train", routing=fed,
+                        **on_dev)[0][..., :V].float().cpu()
+        # One bf16 step at every input: the embedded prompt (the vision
+        # embeddings with it) and, for audio, the encoder's frames.
+        x = bf16_step_noise(cpu._embed(toks, extra.get("vision_embeds")))
+        enc_n = cpu.encode(bf16_step_noise(extra["frames"])) if enc_c is not None else None
         for i, bc in enumerate(cpu.layers):
-            x, _, _ = cpu._block(bc, x, mode="train", routing=cpu_routing[i])
+            x, _, _ = cpu._block(bc, x, mode="train", routing=cpu_routing[i], enc_out=enc_n)
         sens = (cpu._logits(x)[..., :V].float() - cpu_lg).abs().amax(-1)
     err = (card_lg - cpu_lg).abs().amax(-1)
     mag = cpu_lg.abs().amax(-1)
@@ -1777,7 +1955,7 @@ def serve_parity(cfg, model, dev) -> dict:
     if not bool(torch.isfinite(card_lg).all()):
         fail(f"{cfg.name}: non-finite logits on the card")
     if bool((err > bar).any()):
-        b, p = (int(t) for t in divmod(int((err - bar).argmax()), PARITY_PROMPT))
+        b, p = (int(t) for t in divmod(int((err - bar).argmax()), err.shape[1]))
         fail(f"{cfg.name} parity: row {b} position {p} logits differ by "
              f"{float(err[b, p]):.3g} > {float(bar[b, p]):.3g}")
     power = bar < mag
@@ -1813,36 +1991,20 @@ def serve_parity(cfg, model, dev) -> dict:
         if cfg.moe is not None:
             moe_mod.route = recorded if name == "cpu" else replayed
         try:
-            toks_out = [r.tokens for r in Engine(cfg, m, scfg).generate(reqs)]
+            if extra:
+                # The families with stub inputs: prefill with them, then
+                # greedy decode steps (the Engine feeds tokens only).
+                toks_out = greedy(m, toks.to(m.device), extra if name == "cpu" else on_dev,
+                                  PARITY_NEW)
+            else:
+                toks_out = np.stack([r.tokens for r in Engine(cfg, m, scfg).generate(reqs)])
         finally:
             moe_mod.route = own_route
         release_logits(m)
-        out[name] = (np.stack(toks_out), seen)
+        out[name] = (toks_out, seen)
     (g_tok, g_lg), (c_tok, c_lg) = out["gpu"], out["cpu"]
-    worst, compared, flips, step_power = 0.0, 0, 0, 0
-    for i in range(PARITY_BATCH):
-        step_bar = float(bar[i, -1])
-        for step in range(PARITY_NEW):
-            if step and not np.array_equal(g_tok[i, :step], c_tok[i, :step]):
-                break        # an allowed flip earlier: the paths differ now
-            g, c = g_lg[step][i].numpy()[:V], c_lg[step][i].numpy()[:V]
-            if not np.all(np.isfinite(g)):
-                fail(f"{cfg.name}: non-finite logits on the card")
-            e = float(np.abs(g - c).max())
-            if e > step_bar:
-                fail(f"{cfg.name} parity: row {i} step {step} logits differ by "
-                     f"{e:.3g} > {step_bar:.3g}")
-            worst = max(worst, e)
-            step_power += step_bar < float(np.abs(c).max())
-            top2 = np.sort(c)[-2:]
-            if top2[1] - top2[0] > 2 * e:
-                if g_tok[i, step] != c_tok[i, step]:
-                    fail(f"{cfg.name} parity: row {i} step {step} token "
-                         f"{g_tok[i, step]} vs {c_tok[i, step]}, margin "
-                         f"{top2[1] - top2[0]:.3g} > 2 x {e:.3g}")
-                compared += 1
-            elif g_tok[i, step] != c_tok[i, step]:
-                flips += 1
+    worst, compared, flips, step_power = compare_steps(cfg, g_tok, g_lg, c_tok, c_lg,
+                                                       bar[:, -1])
     del cpu
     return {"mixer_mlp_row_excess": mix_worst, "mixer_mlp_bar": MIX_ROW_TOL,
             "router_logit_err_over_max": router_worst[0] if cfg.moe is not None else None,
@@ -1860,28 +2022,10 @@ def serve_parity(cfg, model, dev) -> dict:
             "parity_s": time.perf_counter() - t0}
 
 
-def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict,
-                phase: int) -> dict:
-    """Phases 13 / 14 and this model's part of 15: full-width serving with
-    the launch counts, the card-vs-CPU parity run, and the profile."""
-    from repro_torch.configs import get_config
-    from repro_torch.models import LM
-    from repro_torch.serve import Engine, Request, ServeConfig
-    cfg = get_config(arch)
-    t0 = time.perf_counter()
-    model = LM(cfg, device=dev, seed=0)
-    model.head_f32()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in model.parameters())
-    rng = np.random.default_rng(0)
-    lens = rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)
-    reqs = [Request(rng.integers(0, cfg.vocab, int(n)).astype(np.int32), LM_NEW)
-            for n in lens]
-    engine = Engine(cfg, model, ServeConfig(batch_size=LM_BATCH, max_prompt=LM_PROMPT,
-                                            max_new=LM_NEW))
-
-    # ---- the main path, counted, with prefill and decode steps timed ---- #
+def timed_calls(model) -> dict:
+    """Wrap ``model.prefill`` and ``model.decode_step`` so each call's wall
+    (synchronised on both ends) is recorded in ms; ``del model.prefill,
+    model.decode_step`` removes the wrappers."""
     times: dict = {"prefill": [], "decode_step": []}
     for name in times:
         fn = getattr(model, name)
@@ -1894,57 +2038,14 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
             times[_name].append((time.perf_counter() - t) * 1e3)
             return out
         setattr(model, name, timed)
-    torch.cuda.reset_peak_memory_stats(dev)
-    torch.cuda.synchronize()
-    zero_counts()
-    t0 = time.perf_counter()
-    results = engine.generate(reqs)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = expect_counts(f"{arch} serving", want)
-    del model.prefill, model.decode_step
-    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    for r, n in zip(results, lens):
-        if r.tokens.shape != (LM_NEW,) or r.prompt_len != n \
-                or not ((r.tokens >= 0) & (r.tokens < cfg.vocab)).all():
-            fail(f"{arch}: result {r.tokens.shape} prompt {r.prompt_len}")
-    if engine.last_decode_steps != LM_NEW - 1:
-        fail(f"{arch}: {engine.last_decode_steps} decode steps, want {LM_NEW - 1}")
-    # Warm, untimed run: tokens/s over the whole generate.
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    again = engine.generate(reqs)
-    torch.cuda.synchronize()
-    warm = time.perf_counter() - t0
-    same = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(results, again))
-    n_tok = LM_REQUESTS * LM_NEW
-    rec = {"card": smi, "arch": arch, "params": n_params, "init_s": init_s,
-           "requests": LM_REQUESTS, "batch": LM_BATCH, "max_prompt": LM_PROMPT,
-           "max_new": LM_NEW, "prompt_lens": [int(n) for n in lens],
-           "launches": {k: v for k, v in counts.items() if v},
-           "prefill_ms": times["prefill"],
-           "decode_ms_per_step_median": float(np.median(times["decode_step"])),
-           "decode_ms_per_step_first_batch": times["decode_step"][:LM_NEW - 1],
-           "cold_wall_s": wall, "warm_wall_s": warm, "tokens": n_tok,
-           "tokens_per_s_warm": n_tok / warm, "repeat_tokens_equal": same,
-           "peak_memory_gb": peak_gb}
-    log(f"phase {phase} {arch} serving ({smi}): " + json.dumps(rec))
+    return times
 
-    # ---- 15. where a prefill and a decode step spend their time -------- #
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(2)
-    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen, device=dev)
-    caches = [None]
 
-    def prefill():
-        caches[0] = model.prefill(toks, max_cache_len=LM_PROMPT + LM_NEW)[1]
-
-    nxt = toks[:, -1:]
-    pos = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int64, device=dev)
-
-    def step():
-        model.decode_step(nxt, pos, caches[0])
-
+def lm_profile(arch: str, smi: str, prefill, step) -> dict:
+    """Phase 15: one prefill and one decode step (``prefill()`` and
+    ``step()`` run them) by the profiler: device time by kernel, B5-B7
+    each summed over its CUDA kernels, launches, and the busy share against
+    the median wall of warm runs."""
     prof = {"card": smi, "arch": arch}
     for name, fn, runs in (("prefill", prefill, 3), ("decode_step", step, 9)):
         walls = []
@@ -1970,6 +2071,163 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
                       "launches": sum(n for _, n, _ in kernels),
                       "top": [{"kernel": k, "count": n, "device_ms": ms}
                               for k, n, ms in kernels[:10]]}
+    return prof
+
+
+def lm_model(arch: str, dev) -> tuple:
+    """``arch`` at full width on the card, random weights from seed 0, its
+    LM head in float32; returns (model, seconds to build it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    t0 = time.perf_counter()
+    model = LM(get_config(arch), device=dev, seed=0)
+    model.head_f32()
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0
+
+
+def engine_traffic(model) -> tuple:
+    """The Engine's traffic (phases 13, 14, 19 and 21 as text):
+    LM_REQUESTS requests of LM_PROMPT_MIN..LM_PROMPT tokens from
+    ``numpy.random.default_rng(0)``, LM_NEW new tokens each, batch LM_BATCH.
+    Returns (generate, batches, record fields) for :func:`serve_run`; the
+    one batch is the whole request list, which the Engine batches."""
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), LM_NEW) for n in lens]
+    engine = Engine(cfg, model, ServeConfig(batch_size=LM_BATCH, max_prompt=LM_PROMPT,
+                                            max_new=LM_NEW))
+
+    def generate(batch):
+        out = engine.generate(batch)
+        if [r.prompt_len for r in out] != [len(r.prompt) for r in batch] \
+                or any(r.tokens.shape != (LM_NEW,) for r in out):
+            fail(f"{cfg.name}: results {[(r.prompt_len, r.tokens.shape) for r in out]}")
+        return np.stack([r.tokens for r in out])
+    return generate, [reqs], {"max_prompt": LM_PROMPT, "prompt_lens": lens}
+
+
+def stub_traffic(model) -> tuple:
+    """The audio and vision families' traffic (phases 20 and 21):
+    LM_REQUESTS prompts with lengths from ``numpy.random.default_rng(0)``
+    in ``FAMILY_PROMPTS``, left-padded, in batches of LM_BATCH with the
+    frontend stub's inputs (standard normal from the same generator),
+    each served by :func:`greedy` (``LM.prefill`` with the stub inputs,
+    LM_NEW - 1 ``LM.decode_step``s).  Returns (generate, batches, record
+    fields) for :func:`serve_run`."""
+    cfg, dev = model.cfg, model.device
+    rng = np.random.default_rng(0)
+    lo_len, P = FAMILY_PROMPTS[cfg.name]
+    lens = [int(n) for n in rng.integers(lo_len, P + 1, LM_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lens]
+    stub = stub_inputs(cfg, rng, LM_REQUESTS)
+    batches = [(torch.from_numpy(left_pad(prompts[lo:lo + LM_BATCH], P)).to(dev),
+                {k: t[lo:lo + LM_BATCH].to(dev) for k, t in stub.items()})
+               for lo in range(0, LM_REQUESTS, LM_BATCH)]
+    return (lambda batch: greedy(model, *batch, LM_NEW)), batches, {
+        "max_prompt": P, "prompt_lens": lens,
+        "stub": {k: list(t.shape) for k, t in stub.items()}}
+
+
+def serve_run(model, smi: str, zero_counts, expect_counts, want: dict, phase: int,
+              traffic: tuple, fields: dict) -> dict:
+    """Full-width serving (phases 13, 14 and 19-21): ``generate(batch)``
+    over every batch of ``traffic`` (from :func:`engine_traffic` or
+    :func:`stub_traffic`) with every launch count set to 0 just before and
+    held to ``want`` just after, each prefill and decode step timed, and
+    B5's launches inside ``LM.encode`` counted apart; then a warm, untimed
+    run of the same batches for tokens/s."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    cfg, dev = model.cfg, model.device
+    generate, batches, traffic_fields = traffic
+    n_batches = LM_REQUESTS // LM_BATCH
+    times = timed_calls(model)
+    enc_launches = [0]
+    encode = model.encode
+
+    def counted_encode(*a, **kw):
+        before = flash_attention_cuda.launches
+        out = encode(*a, **kw)
+        enc_launches[0] += flash_attention_cuda.launches - before
+        return out
+    model.encode = counted_encode
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    tokens = np.concatenate([generate(b) for b in batches])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_counts(f"{cfg.name} serving", want)
+    del model.prefill, model.decode_step, model.encode
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    if tokens.shape != (LM_REQUESTS, LM_NEW) \
+            or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
+        fail(f"{cfg.name}: generated tokens {tokens.shape}, in vocab "
+             f"{bool(((tokens >= 0) & (tokens < cfg.vocab)).all())}")
+    if len(times["prefill"]) != n_batches \
+            or len(times["decode_step"]) != n_batches * (LM_NEW - 1):
+        fail(f"{cfg.name}: {len(times['prefill'])} prefills and "
+             f"{len(times['decode_step'])} decode steps")
+    if cfg.family == "audio" and enc_launches[0] != n_batches * cfg.encoder.n_layers:
+        fail(f"{cfg.name}: {enc_launches[0]} B5 launches in the encoder")
+    # Warm, untimed run: tokens/s over the whole run.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = np.concatenate([generate(b) for b in batches])
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    n_tok = LM_REQUESTS * LM_NEW
+    rec = {"card": smi, "arch": cfg.name, **fields, "requests": LM_REQUESTS,
+           "batch": LM_BATCH, "max_new": LM_NEW, **traffic_fields,
+           "launches": {k: v for k, v in counts.items() if v},
+           "prefill_ms": times["prefill"],
+           "decode_ms_per_step_median": float(np.median(times["decode_step"])),
+           "decode_ms_per_step_first_batch": times["decode_step"][:LM_NEW - 1],
+           "cold_wall_s": wall, "warm_wall_s": warm, "tokens": n_tok,
+           "tokens_per_s_warm": n_tok / warm,
+           "repeat_tokens_equal": bool(np.array_equal(tokens, again)),
+           "peak_memory_gb": peak_gb}
+    if cfg.family == "audio":
+        rec["encoder_b5_launches"] = enc_launches[0]
+    log(f"phase {phase} {cfg.name} serving ({smi}): " + json.dumps(rec))
+    return rec
+
+
+def profile_and_parity(model, smi: str, phase: int, batch=None) -> tuple:
+    """Phase 15's profile of one prefill of ``batch`` (tokens and the stub
+    inputs; by default random tokens at the Engine's padded shape) and one
+    decode step, with the MoE layers' share of the prefill; then the parity
+    run against the CPU on the same weights (MoE models cut to
+    PARITY_MOE_LAYERS layers, whisper to PARITY_FAMILY_LAYERS decoder and
+    encoder layers).  Returns (profile, parity)."""
+    import dataclasses
+
+    from repro_torch.models import LM
+    cfg, dev = model.cfg, model.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    if batch is None:
+        batch = (torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT), generator=gen,
+                               device=dev), {})
+    toks, extra = batch
+    P_all = toks.shape[1] + (extra["vision_embeds"].shape[1] if "vision_embeds" in extra
+                             else 0)
+    caches = [None]
+
+    def prefill():
+        caches[0] = model.prefill(toks, max_cache_len=P_all + LM_NEW, **extra)[1]
+
+    nxt = toks[:, -1:]
+    pos = torch.full((toks.shape[0],), P_all, dtype=torch.int64, device=dev)
+
+    def step():
+        model.decode_step(nxt, pos, caches[0])
+
+    prof = lm_profile(cfg.name, smi, prefill, step)
+    del caches
     if cfg.moe is not None:
         # The MoE layers' share of the prefill: one layer's MLP at the
         # prefill's shape, by CUDA events, times the layer count.
@@ -1982,26 +2240,144 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
         prof["prefill"]["moe_share_of_device"] = cfg.n_layers * moe_ms / \
             prof["prefill"]["device_ms"]
         del h
-    log(f"phase 15 profile {arch} " + json.dumps(prof))
-    rec["profile"] = prof
+    log(f"phase 15 profile {cfg.name} " + json.dumps(prof))
+
     # ---- parity (after 15's profile): the same weights on the card and on the CPU ------------ #
+    cut = {}
     if cfg.moe is not None:
-        # The CPU's time: a model cut to PARITY_MOE_LAYERS layers, same
-        # widths and seed, held card against CPU.
-        import dataclasses
-        pcfg = dataclasses.replace(cfg, n_layers=PARITY_MOE_LAYERS)
+        cut = {"n_layers": PARITY_MOE_LAYERS}
+        depth = f"cut to {PARITY_MOE_LAYERS} of {cfg.n_layers} layers"
+    elif cfg.family == "audio":
+        cut = {"n_layers": PARITY_FAMILY_LAYERS,
+               "encoder": dataclasses.replace(cfg.encoder, n_layers=PARITY_FAMILY_LAYERS)}
+        depth = (f"cut to {PARITY_FAMILY_LAYERS} of {cfg.n_layers} decoder and "
+                 f"{PARITY_FAMILY_LAYERS} of {cfg.encoder.n_layers} encoder layers")
+    if cut:
+        # The CPU's time: a model cut in depth, same widths and seed.
+        pcfg = dataclasses.replace(cfg, **cut)
         pmodel = LM(pcfg, device=dev, seed=0)
         par = serve_parity(pcfg, pmodel, dev)
-        par["depth"] = f"cut to {PARITY_MOE_LAYERS} of {cfg.n_layers} layers"
+        par["depth"] = depth
         del pmodel
         torch.cuda.empty_cache()
     else:
         par = serve_parity(cfg, model, dev)
-    log(f"phase {phase} {arch} parity card vs CPU: " + json.dumps(par))
-    rec["parity"] = par
+    log(f"phase {phase} {cfg.name} parity card vs CPU: " + json.dumps(par))
+    return prof, par
 
-    del model, caches, engine
+
+def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict,
+                phase: int) -> dict:
+    """Phases 13, 14, 19 and 20 with this model's part of 15: ``arch``
+    served at full width (the Engine's traffic; whisper's through
+    ``LM.prefill(frames=)``), its profile and its parity run."""
+    model, init_s = lm_model(arch, dev)
+    traffic = (stub_traffic if model.cfg.family == "audio" else engine_traffic)(model)
+    rec = serve_run(model, smi, zero_counts, expect_counts, want, phase, traffic,
+                    {"params": sum(p.numel() for p in model.parameters()),
+                     "init_s": init_s})
+    batch = traffic[1][0] if model.cfg.family == "audio" else None
+    rec["profile"], rec["parity"] = profile_and_parity(model, smi, phase, batch)
+    del model, traffic
     torch.cuda.empty_cache()
+    return rec
+
+
+def cache_bytes(caches: list) -> int:
+    def leaves(c):
+        for v in c.values():
+            yield from (leaves(v) if isinstance(v, dict) else (v,))
+    return sum(t.numel() * t.element_size() for c in caches for t in leaves(c))
+
+
+def int8_decode(cfg, model, dev, smi: str, batches: list, bar_last) -> dict:
+    """Phase 21's int8 KV cache: the model's decode with
+    ``kv_quant_int8=True`` (the same weights) against its bf16 cache, step
+    by step in turns (LM_NEW - 1 steps from one batch's prefill, the order
+    swapped every step), with both caches' bytes; then the int8 path held
+    to the CPU port's: the card quantizing its own bf16 prefill k and v
+    gives the int8 slots and scales the CPU's quantization of the same
+    values gives, bit for bit; and the card's int8 greedy run (the parity
+    prompts) against the CPU's under the margin rule, within the bf16
+    parity's last-position bar ``bar_last``."""
+    import dataclasses
+
+    from repro_torch.models import LM
+    from repro_torch.models.attention import _quantize
+    qcfg = dataclasses.replace(cfg, kv_quant_int8=True)
+    qmodel = LM(qcfg, device=dev, seed=None)
+    qmodel.load_state_dict(model.state_dict())
+    toks, extra = batches[0]
+    P_all = toks.shape[1] + extra["vision_embeds"].shape[1]
+    lg, bf_c = model.prefill(toks, max_cache_len=P_all + LM_NEW, **extra)
+    lq, q_c = qmodel.prefill(toks, max_cache_len=P_all + LM_NEW, **extra)
+    if q_c[0]["k"].dtype != torch.int8 or not torch.equal(lg, lq):
+        fail(f"{cfg.name} int8: cache {q_c[0]['k'].dtype}; prefill logits equal to the "
+             f"bf16 model's: {bool(torch.equal(lg, lq))}")
+    # The card's int8 prefill slots against the CPU's quantization of the
+    # card's own bf16 k and v (the two prefills compute them alike).
+    for i, (c, q) in enumerate(zip(bf_c, q_c)):
+        for name in ("k", "v"):
+            want_q, want_s = _quantize(c[name].cpu())
+            live = c["pos"].cpu() >= 0
+            if not (torch.equal(q[name].cpu()[live], want_q[live])
+                    and torch.equal(q[f"{name}_scale"].cpu()[live], want_s[live])):
+                fail(f"{cfg.name} int8: layer {i} {name} slots differ from the CPU's "
+                     "quantization of the same bf16 values")
+    sizes = {"bf16": cache_bytes(bf_c), "int8": cache_bytes(q_c)}
+    pos = torch.full((LM_BATCH,), P_all, dtype=torch.int64, device=dev)
+    nxt = {"bf16": torch.argmax(lg, -1)[:, None], "int8": torch.argmax(lq, -1)[:, None]}
+    state = {"bf16": (model, bf_c), "int8": (qmodel, q_c)}
+    ms: dict = {"bf16": [], "int8": []}
+    agree = 0
+    for step in range(LM_NEW - 1):
+        order = ("bf16", "int8") if step % 2 == 0 else ("int8", "bf16")
+        for name in order:
+            m, c = state[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, c = m.decode_step(nxt[name], pos, c)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            state[name] = (m, c)
+            nxt[name] = torch.argmax(logits, -1)[:, None]
+        agree += int((nxt["bf16"] == nxt["int8"]).sum())
+        pos = pos + 1
+    # One more step of each under the profiler: device time, kernel
+    # launches and copies to the device.
+    split = {}
+    for name, (m, c) in state.items():
+        dev_ms, kernels, _ = profile_run(lambda: m.decode_step(nxt[name], pos, c))
+        split[name] = {"device_ms": dev_ms, "launches": sum(n for _, n, _ in kernels),
+                       "copies_to_device": sum(n for k, n, _ in kernels if "HtoD" in k)}
+    del bf_c, q_c, state
+
+    # ---- the int8 path, card against the CPU port ------------------------ #
+    cpu = LM(qcfg, device="cpu", seed=None)
+    cpu.load_state_dict(model.state_dict())
+    rng = np.random.default_rng(1)
+    prompts = torch.tensor(rng.integers(0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT)))
+    pextra = stub_inputs(cfg, rng, PARITY_BATCH)
+    out = {}
+    for name, m, kw in (("cpu", cpu, pextra),
+                        ("gpu", qmodel, {k: t.to(dev) for k, t in pextra.items()})):
+        seen = capture_logits(m)
+        toks_out = greedy(m, prompts.to(m.device), kw, PARITY_NEW)
+        release_logits(m)
+        out[name] = (toks_out, seen)
+    (g_tok, g_lg), (c_tok, c_lg) = out["gpu"], out["cpu"]
+    worst, compared, flips, power = compare_steps(qcfg, g_tok, g_lg, c_tok, c_lg, bar_last)
+    del cpu, qmodel
+    torch.cuda.empty_cache()
+    rec = {"card": smi, "decode_ms_per_step_median": {k: float(np.median(v))
+                                                      for k, v in ms.items()},
+           "decode_ms_per_step": ms, "profiled_step": split, "cache_bytes": sizes,
+           "greedy_tokens_equal_to_bf16": f"{agree} of {LM_BATCH * (LM_NEW - 1)}",
+           "slots_equal_cpu_quantization": True,
+           "parity": {"engine_max_abs_logit_diff": worst, "tokens_compared": compared,
+                      "allowed_flips": flips, "steps_with_power": power,
+                      "tokens_equal": bool(np.array_equal(g_tok, c_tok))}}
+    log(f"phase 21 {cfg.name} int8 KV cache ({smi}): " + json.dumps(rec))
     return rec
 
 
@@ -2037,8 +2413,8 @@ def serve_smoke(arch: str, dev, smi: str, zero_counts, expect_counts) -> dict:
 
 
 def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
-    """Phases 12-15; returns the kernels line's records of B5, B6 and B7 and
-    of B5's float route and B6's SIMT route."""
+    """Phases 12-15 and 19-21; returns the kernels line's records of B5, B6
+    and B7 and of B5's float route and B6's SIMT route."""
     recs = lm_kernels(dev, smi)
     torch.cuda.empty_cache()
     rg = serve_model("recurrentgemma-2b", dev, smi, zero_counts, expect_counts,
@@ -2046,8 +2422,46 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
     mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14)
     smoke = serve_smoke("mamba2-780m", dev, smi, zero_counts, expect_counts)
     ol = serve_model("olmoe-1b-7b", dev, smi, zero_counts, expect_counts, {"B5": 32}, 19)
+    # 20. whisper-small: 12 encoder (non-causal) and 12 decoder B5 launches
+    # a prefill, two batches.
+    wh = serve_model("whisper-small", dev, smi, zero_counts, expect_counts, {"B5": 48}, 20)
+    # 21. internvl2-1b: 24 B5 launches a prefill with the vision embeddings
+    # and served as text through the Engine, then the int8 KV cache.
+    imodel, init_s = lm_model("internvl2-1b", dev)
+    icfg = imodel.cfg
+    fields = {"params": sum(p.numel() for p in imodel.parameters()), "init_s": init_s}
+    vision = stub_traffic(imodel)
+    iv = serve_run(imodel, smi, zero_counts, expect_counts, {"B5": 48}, 21, vision, fields)
+    iv["profile"], iv["parity"] = profile_and_parity(imodel, smi, 21, vision[1][0])
+    it = serve_run(imodel, smi, zero_counts, expect_counts, {"B5": 48}, 21,
+                   engine_traffic(imodel), fields)
+    q8 = int8_decode(icfg, imodel, dev, smi, vision[1], iv["parity"]["logit_bar_last"])
+    del imodel, vision
+    torch.cuda.empty_cache()
+    log("phase 21 internvl2-1b summary " + json.dumps({
+        "card": smi, "vision_prefill_ms": iv["prefill_ms"],
+        "vision_decode_ms_per_step_median": iv["decode_ms_per_step_median"],
+        "vision_tokens_per_s_warm": iv["tokens_per_s_warm"],
+        "text_engine_prefill_ms": it["prefill_ms"],
+        "text_engine_decode_ms_per_step_median": it["decode_ms_per_step_median"],
+        "text_engine_tokens_per_s_warm": it["tokens_per_s_warm"],
+        "int8_decode_ms_per_step_median": q8["decode_ms_per_step_median"],
+        "int8_profiled_step": q8["profiled_step"],
+        "cache_bytes": q8["cache_bytes"]}))
     recs["B5"]["olmoe_shape"]["launches"] = ol["launches"]["B5"]
     recs["B5"]["olmoe_shape"]["launches_from"] = "phase 19: olmoe-1b-7b served"
+    recs["B5"]["whisper_enc_shape"]["launches"] = wh["encoder_b5_launches"]
+    recs["B5"]["whisper_enc_shape"]["launches_from"] = (
+        "phase 20: whisper-small served, counted inside LM.encode")
+    recs["B5"]["whisper_dec_shape"]["launches"] = \
+        wh["launches"]["B5"] - wh["encoder_b5_launches"]
+    recs["B5"]["whisper_dec_shape"]["launches_from"] = (
+        f"phase 20: whisper-small served, its {wh['launches']['B5']} B5 launches less "
+        "the encoder's")
+    recs["B5"]["internvl_shape"]["launches"] = iv["launches"]["B5"]
+    recs["B5"]["internvl_shape"]["launches_from"] = (
+        f"phase 21: internvl2-1b served with its vision embeddings ({it['launches']['B5']} "
+        "more at the same shape served as text through the Engine)")
     recs["B5"]["launches"] = rg["launches"]["B5"]
     recs["B7"]["launches"] = rg["launches"]["B7"]
     recs["B6"]["launches"] = mb["launches"]["B6"]
@@ -2347,6 +2761,7 @@ def main() -> None:
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
+    from repro_torch.core import RuntimeMode
     from repro_torch.core.megakernel import kernel as mk_kernel
     from repro_torch.core.megakernel import megakernel_cuda
     from repro_torch.graphs.dpd import default_active_schedule
@@ -2571,11 +2986,27 @@ def main() -> None:
         ("mixed", dict(active_schedule=mixed)),
         ("all10", dict(active_schedule=np.full(N_FIRINGS, 10, np.int32))),
     ]
+    # The paper's baseline framework (runtime_mode STATIC_DAL) refuses the
+    # dynamic network in every accelerated mode and takes the static
+    # all-10 one, which Table 4's static_all10 rows then run under it.
+    for mode in ("static", "dynamic", "megakernel"):
+        try:
+            net_gpu.compile(mode=mode, runtime_mode=RuntimeMode.STATIC_DAL,
+                            n_iterations=N_FIRINGS if mode == "static" else None)
+        except ValueError as e:
+            if "STATIC_DAL mode: dynamic-rate actors" not in str(e):
+                raise
+        else:
+            fail(f"runtime_mode static_dal took DPD's dynamic network in {mode} mode")
+    log("table4: runtime_mode static_dal refuses DPD's dynamic network in static, "
+        "dynamic and megakernel mode and takes the static all-10 network")
     rows = []
     for label, kw in variants:
         net, _ = make_dpd(N_FIRINGS, block_l=L, seed=1, device=dev, **kw)
+        dal = {"runtime_mode": RuntimeMode.STATIC_DAL} if label == "static_all10" else {}
         for mode in ("static", "dynamic", "megakernel"):
-            prog = net.compile(mode=mode, n_iterations=N_FIRINGS if mode == "static" else None)
+            prog = net.compile(mode=mode, n_iterations=N_FIRINGS if mode == "static" else None,
+                               **dal)
             base = prog.init_state()
             times = []
             for _ in range(8):

@@ -7,7 +7,7 @@ from typing import Dict
 
 from repro_torch.configs.base import (DECODE_SHAPES, SHAPES, ArchConfig,
                                       EncoderConfig, MoEConfig, RGLRUConfig,
-                                      SSMConfig)
+                                      SSMConfig, input_specs)
 from repro_torch.configs.gemma3_12b import CONFIG as _gemma3
 from repro_torch.configs.granite_8b import CONFIG as _granite
 from repro_torch.configs.granite_moe_3b_a800m import CONFIG as _granite_moe
@@ -68,4 +68,4 @@ def smoke_config(name: str) -> ArchConfig:
 
 __all__ = ["ArchConfig", "MoEConfig", "SSMConfig", "RGLRUConfig",
            "EncoderConfig", "REGISTRY", "get_config", "smoke_config",
-           "SHAPES", "DECODE_SHAPES"]
+           "SHAPES", "DECODE_SHAPES", "input_specs"]

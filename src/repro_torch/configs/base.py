@@ -3,14 +3,17 @@ package's ``configs/base.py``.
 
 Every supported architecture is a declarative :class:`ArchConfig`; the
 model in ``repro_torch.models`` consumes it and the serving launcher picks
-one with ``--arch <id>``.  The reference's ``input_specs`` (shape stand-ins
-for its dry-run) has no counterpart here: the port has no dry-run yet
-(ROADMAP A8b).
+one with ``--arch <id>``.  :func:`input_specs` gives the model's data
+inputs for each of the four assigned shapes as ``meta`` tensors (shape and
+dtype, no storage: the PyTorch form of the reference's
+``ShapeDtypeStruct``).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Optional, Tuple
+
+import torch
 
 # The four assigned LM shapes (seq_len, global_batch).
 SHAPES: Dict[str, Tuple[int, int]] = {
@@ -149,3 +152,40 @@ class ArchConfig:
 
     def shapes(self) -> Dict[str, Tuple[int, int]]:
         return {k: v for k, v in SHAPES.items() if k not in self.skip_shapes}
+
+
+# ---------------------------------------------------------------------- #
+# Input specs (meta tensors) per (arch, shape).
+# ---------------------------------------------------------------------- #
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name: str) -> Dict[str, torch.Tensor]:
+    """The model's data inputs for an assigned shape, as ``meta`` tensors.
+
+    Train and prefill shapes feed token ids (plus the frontend stubs'
+    embeddings for audio and vlm); decode shapes feed one token per
+    sequence and its position (the caches are serving state).  A shape the
+    config skips raises ``ValueError``.
+    """
+    if shape_name in cfg.skip_shapes:
+        raise ValueError(f"{cfg.name}: shape {shape_name} is skipped: {cfg.notes}")
+    seq, batch = SHAPES[shape_name]
+    specs: Dict[str, torch.Tensor] = {}
+    if shape_name in DECODE_SHAPES:
+        specs["tokens"] = _meta((batch, 1), torch.int32)
+        specs["pos"] = _meta((batch,), torch.int32)
+    else:
+        n_txt = seq
+        if cfg.family == "vlm":
+            n_txt = seq - cfg.n_vision_tokens
+            specs["vision_embeds"] = _meta((batch, cfg.n_vision_tokens, cfg.d_model),
+                                           torch.bfloat16)
+        specs["tokens"] = _meta((batch, n_txt), torch.int32)
+        if shape_name == "train_4k":
+            specs["labels"] = _meta((batch, n_txt), torch.int32)
+    if cfg.family == "audio":
+        e = cfg.encoder
+        specs["frames"] = _meta((batch, e.n_ctx, e.d_model), torch.bfloat16)
+    return specs

@@ -10,13 +10,15 @@ the reference's int32 scalars do.
 
 The LM's weights and serving state cross too: :func:`lm_params_from_numpy`
 turns the JAX package's ``init_params`` pytree (as numpy arrays) into an
-:class:`~repro_torch.models.LM` state dict, and
+:class:`~repro_torch.models.LM` state dict (the whisper encoder's blocks,
+stacked on a leading axis there, become ``encoder.blocks.<j>``), and
 :func:`serve_state_from_numpy` / :func:`serve_state_to_numpy` carry the
 serving caches between the JAX package's grouped layout
 (``{"groups": {"c<i>": leaves stacked over groups}, "rest": (...)}``) and
-the port's list of one dict per layer.  bf16 arrays reach numpy as
-``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses; they cross as
-their 16-bit patterns.
+the port's list of one dict per layer (nested for the whisper decoder's
+``{"kv", "cross"}``; the int8 cache's scales are leaves like the rest).
+bf16 arrays reach numpy as ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` refuses; they cross as their 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -111,13 +113,23 @@ def lm_params_from_numpy(cfg: ArchConfig, params: Mapping) -> Dict[str, torch.Te
     ``c<i>``, the remainder follows."""
     cycle, n_groups, rest = layer_plan(cfg)
     flat: Dict[str, Any] = {}
-    _flatten({k: v for k, v in params.items() if k not in ("groups", "rest")}, "", flat)
-    for i in range(len(cycle)):
+    _flatten({k: v for k, v in params.items() if k not in ("groups", "rest", "encoder")},
+             "", flat)
+
+    def unstack(tree: Mapping, n: int, name_of) -> None:
         block: Dict[str, Any] = {}
-        _flatten(params["groups"][f"c{i}"], "", block)
-        for g in range(n_groups):
+        _flatten(tree, "", block)
+        for g in range(n):
             for name, leaf in block.items():
-                flat[f"layers.{g * len(cycle) + i}.{name}"] = np.asarray(leaf)[g]
+                flat[f"{name_of(g)}.{name}"] = np.asarray(leaf)[g]
+
+    for i in range(len(cycle)):
+        unstack(params["groups"][f"c{i}"], n_groups,
+                lambda g, i=i: f"layers.{g * len(cycle) + i}")
+    if "encoder" in params:
+        unstack(params["encoder"]["blocks"], cfg.encoder.n_layers,
+                lambda j: f"encoder.blocks.{j}")
+        _flatten(params["encoder"]["norm"], "encoder.norm.", flat)
     for j, bp in enumerate(params["rest"]):
         _flatten(bp, f"layers.{n_groups * len(cycle) + j}.", flat)
     return {k: tensor_from_numpy(v) for k, v in flat.items()}
@@ -130,23 +142,37 @@ def moe_params_from_numpy(params: Mapping, device=None) -> Dict[str, torch.Tenso
             for k in ("router", "we_gate", "we_up", "we_down")}
 
 
+def _tree_map(fn, tree):
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack(trees: Sequence[Any]) -> Any:
+    """Per-layer states (nested dicts of tensors) stacked leaf by leaf into
+    numpy arrays with a leading layer axis."""
+    if isinstance(trees[0], Mapping):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([tensor_to_numpy(t) for t in trees])
+
+
 def serve_state_from_numpy(cfg: ArchConfig, caches: Mapping, device=None
-                           ) -> List[Dict[str, torch.Tensor]]:
+                           ) -> List[Dict[str, Any]]:
     """The JAX package's serving state (grouped as its ``serve_state`` and
     ``prefill`` group it, as numpy arrays) as the port's list of one dict
     per layer, on ``device``."""
     cycle, n_groups, rest = layer_plan(cfg)
-    layers: List[Dict[str, torch.Tensor]] = []
+    layers: List[Dict[str, Any]] = []
     for g in range(n_groups):
         for i in range(len(cycle)):
-            layers.append({k: tensor_from_numpy(np.asarray(v)[g], device)
-                           for k, v in caches["groups"][f"c{i}"].items()})
+            layers.append(_tree_map(lambda v: tensor_from_numpy(np.asarray(v)[g], device),
+                                    caches["groups"][f"c{i}"]))
     for c in caches["rest"]:
-        layers.append({k: tensor_from_numpy(v, device) for k, v in c.items()})
+        layers.append(_tree_map(lambda v: tensor_from_numpy(v, device), c))
     return layers
 
 
-def serve_state_to_numpy(cfg: ArchConfig, layers: Sequence[Mapping[str, torch.Tensor]]
+def serve_state_to_numpy(cfg: ArchConfig, layers: Sequence[Mapping[str, Any]]
                          ) -> Dict[str, Any]:
     """The port's per-layer serving state in the JAX package's grouped
     layout, as numpy arrays (the inverse of :func:`serve_state_from_numpy`)."""
@@ -154,8 +180,6 @@ def serve_state_to_numpy(cfg: ArchConfig, layers: Sequence[Mapping[str, torch.Te
     groups = {}
     for i in range(len(cycle)):
         per = [layers[g * len(cycle) + i] for g in range(n_groups)]
-        groups[f"c{i}"] = {k: np.stack([tensor_to_numpy(c[k]) for c in per])
-                           for k in per[0]} if per else {}
+        groups[f"c{i}"] = _stack(per) if per else {}
     tail = layers[n_groups * len(cycle):]
-    return {"groups": groups,
-            "rest": tuple({k: tensor_to_numpy(v) for k, v in c.items()} for c in tail)}
+    return {"groups": groups, "rest": tuple(_tree_map(tensor_to_numpy, c) for c in tail)}

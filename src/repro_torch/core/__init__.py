@@ -4,7 +4,8 @@ trace and fault injection)."""
 from repro_torch.core.actor import (ActorSpec, DeviceOp, apply_rate_gate,
                                     dynamic_actor, static_actor)
 from repro_torch.core.builder import BoundsReport, ChannelBounds, NetworkBuilder
-from repro_torch.core.executor import collect_sink, fire_actor, run_dynamic, run_static
+from repro_torch.core.executor import (RuntimeMode, assert_mode_allows, collect_sink,
+                                       fire_actor, run_dynamic, run_static)
 from repro_torch.core.faultinject import (corrupt_cursor, inject_overflow,
                                           inject_underflow, poison_tokens,
                                           truncate_feed)
@@ -14,7 +15,8 @@ from repro_torch.core.health import (CURSOR_INVALID, DOMAIN, NONFINITE, OVERFLOW
                                      HealthState, NetworkFaultError, StallReport,
                                      decode_health, diagnose_stall, fault_names,
                                      init_health)
-from repro_torch.core.network import Edge, Network, NetworkState
+from repro_torch.core.network import (Edge, Network, NetworkState, iteration_token_flops,
+                                      repetition_vector)
 from repro_torch.core.program import ExecutionPlan, Program, ProgramStats, RunResult
 from repro_torch.core.trace import (TRACE_CAPACITY_DEFAULT, Profile, Trace,
                                     TraceState, decode_trace, init_trace,
@@ -25,7 +27,8 @@ __all__ = [
     "NetworkBuilder", "NetworkState", "Program", "ProgramStats", "RunResult",
     "apply_rate_gate", "collect_sink", "dynamic_actor", "fire_actor",
     "run_dynamic", "run_static", "static_actor", "total_buffer_bytes",
-    "BoundsReport", "ChannelBounds",
+    "BoundsReport", "ChannelBounds", "RuntimeMode", "assert_mode_allows",
+    "iteration_token_flops", "repetition_vector",
     "OVERFLOW", "UNDERFLOW", "CURSOR_INVALID", "NONFINITE", "STALL", "DOMAIN",
     "ChannelFault", "Diagnostics", "HealthState", "NetworkFaultError",
     "StallReport", "decode_health", "diagnose_stall", "fault_names", "init_health",

@@ -33,6 +33,7 @@ Both update the state in place.
 """
 from __future__ import annotations
 
+import enum
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -46,6 +47,26 @@ from repro_torch.core.trace import init_trace
 # Worst-case firings of one actor per multi-firing visit (the reference's
 # bound: Eq. 1 caps a channel at 3 windows, 8 leaves slack).
 _MAX_FIRINGS_PER_VISIT = 8
+
+
+class RuntimeMode(enum.Enum):
+    PROPOSED = "proposed"        # this paper: dynamic rates allowed everywhere
+    STATIC_DAL = "static_dal"    # reference framework: SDF only on the accelerator
+
+
+def assert_mode_allows(network: Network, mode: RuntimeMode) -> None:
+    """DAL's OpenCL path rejects dynamic actors (paper §2.3 / §4.3): under
+    ``STATIC_DAL`` every actor must be static (every actor is on the
+    accelerator until the port has ``accelerated`` placement, ROADMAP
+    A11)."""
+    if mode is not RuntimeMode.STATIC_DAL:
+        return
+    bad = [n for n, a in network.actors.items() if a.is_dynamic]
+    if bad:
+        raise ValueError(
+            f"STATIC_DAL mode: dynamic-rate actors {bad} cannot be mapped to "
+            "the accelerator (SDF-only reference framework); rewrite them "
+            "statically or run them interpreted")
 
 
 def _forwarded(regs: Dict[int, Optional[torch.Tensor]], fi: int, spec,

@@ -208,6 +208,12 @@ class Network:
     def fifo_for_out_port(self, actor: str, port: str) -> FifoSpec:
         return self.fifos[self.out_fifo[(actor, port)]]
 
+    def sources(self) -> List[str]:
+        return [a.name for a in self.actors.values() if a.is_source]
+
+    def sinks(self) -> List[str]:
+        return [a.name for a in self.actors.values() if a.is_sink]
+
     def buffer_bytes(self) -> int:
         """Total communication-buffer memory — paper Table 1 accounting."""
         return total_buffer_bytes(self.fifos.values())
@@ -223,6 +229,83 @@ class Network:
             plan = dataclasses.replace(plan, **overrides)
         return Program(self, plan)
 
+    def to_dot(self, partition: Optional[Any] = None) -> str:
+        """The network as a Graphviz ``digraph``, string for string the
+        reference's.
+
+        Actors are nodes (dynamic actors double-bordered, sources and sinks
+        tinted); every channel is an edge labelled with its name, ports,
+        rate, Eq. 1 capacity and delay; control channels are dashed.  With
+        a ``partition`` (a megakernel ``GridPartition`` of this network)
+        each core's actors form one ``cluster`` subgraph, channels that
+        cross partitions are red with a ``[shared]`` marker and forwarded
+        transients carry ``[fwd]``.
+        """
+        def q(s: str) -> str:
+            return '"' + s.replace('"', '\\"') + '"'
+
+        names = list(self.actors)
+        lines = [
+            "digraph network {",
+            "  rankdir=LR;",
+            '  node [shape=box, style=rounded, fontname="Helvetica"];',
+        ]
+
+        def node_lines(subset, indent="  "):
+            out = []
+            for name in subset:
+                a = self.actors[name]
+                attrs = []
+                if a.is_dynamic:
+                    attrs.append("peripheries=2")
+                    label = f"{name}\\n(dynamic, ctrl={a.control_port})"
+                else:
+                    label = name
+                if a.is_source or a.is_sink:
+                    attrs.append('style="rounded,filled"')
+                    attrs.append('fillcolor="lightgrey"')
+                attrs.insert(0, f"label={q(label)}")
+                out.append(f"{indent}{q(name)} [{', '.join(attrs)}];")
+            return out
+
+        if partition is None:
+            lines += node_lines(names)
+        else:
+            if (len(partition.assignment) != len(names)
+                    or len(partition.fifo_cores) != len(self.fifos)):
+                raise ValueError(
+                    f"to_dot: partition covers {len(partition.assignment)} "
+                    f"actors / {len(partition.fifo_cores)} channels but the "
+                    f"network has {len(names)} / {len(self.fifos)}; pass "
+                    "the GridPartition built from this network")
+            for core, rows in enumerate(partition.core_rows):
+                lines.append(f"  subgraph cluster_core{core} {{")
+                lines.append(f'    label="core {core}"; style=dashed;')
+                lines += node_lines([names[i] for i in rows], indent="    ")
+                lines.append("  }")
+        forwarded = set(partition.forwarded_fifos) if partition is not None else set()
+        for e in self.edges:
+            f = self.fifos[e.fifo]
+            label = (f"{f.name}\\n{e.src_port}->{e.dst_port} "
+                     f"r={f.rate} cap={f.capacity_tokens}")
+            if f.delay:
+                label += f" delay={f.delay}"
+            attrs = []
+            if f.is_control:
+                attrs.append("style=dashed")
+            if partition is not None:
+                fi = self.fifo_index[e.fifo]
+                if partition.fifo_cores[fi] < 0:      # shared (crossing)
+                    label += " [shared]"
+                    attrs += ["color=red", "penwidth=2.0"]
+                elif fi in forwarded:
+                    label += " [fwd]"
+            attrs.insert(0, f"label={q(label)}")
+            lines.append(f"  {q(e.src_actor)} -> {q(e.dst_actor)} "
+                         f"[{', '.join(attrs)}];")
+        lines.append("}")
+        return "\n".join(lines)
+
     def init_state(self) -> NetworkState:
         """Fresh state: data rings on the network's device, control rings
         in host memory, actor states from each actor's ``init``."""
@@ -231,6 +314,15 @@ class Network:
         actor_states = [a.init_state() for a in self.actors.values()]
         return NetworkState(fifo_states, actor_states, tuple(self.fifos),
                             tuple(self.actors))
+
+    def state_from_dict(self, state: Mapping[str, Any]) -> NetworkState:
+        """A legacy ``{"fifos": {name: ...}, "actors": {name: ...}}`` dict
+        state as a :class:`NetworkState` (one is returned as it is)."""
+        if isinstance(state, NetworkState):
+            return state
+        return NetworkState([state["fifos"][n] for n in self.fifos],
+                            [state["actors"][n] for n in self.actors],
+                            tuple(self.fifos), tuple(self.actors))
 
     # ------------------------------------------------------------------ #
     def precedence_edges(self, ignore_delay: bool = True) -> List[Tuple[str, str]]:
@@ -353,3 +445,16 @@ class Network:
                     "cover a whole read window (delay < rate), so the "
                     "Fig. 2 copy-back races the remote reader's phase-0 "
                     f"window; assign both endpoints to one {unit}")
+
+
+def repetition_vector(network: Network) -> Dict[str, int]:
+    """The SDF repetition vector (Lee & Messerschmitt) of this MoC: both
+    ports of a channel carry its rate, so production equals consumption on
+    every edge and the minimal vector is all ones, for every connected
+    component alike."""
+    return {name: 1 for name in network.actors}
+
+
+def iteration_token_flops(network: Network) -> int:
+    """Static FLOP estimate of one iteration, from the actors' annotations."""
+    return int(sum(a.cost_flops for a in network.actors.values()))

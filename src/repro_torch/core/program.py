@@ -9,9 +9,10 @@ The port carries the reference's host-driven ``"static"``, ``"dynamic"``
 and ``"interpreted"`` modes and its ``"megakernel"`` mode (one launch of
 the persistent kernel B2 per run on the card; its plain version for CPU
 states), with the grid knobs ``cores``, ``assign`` and ``cut_objective``,
-and the health layer's ``guards``, ``trace``, ``trace_capacity`` and
-``profile``.  Every other mode or plan field of the reference raises with
-the ROADMAP item that ports it; none is silently ignored.
+the health layer's ``guards``, ``trace``, ``trace_capacity`` and
+``profile``, and ``runtime_mode``.  Every other mode or plan field of the
+reference raises with the ROADMAP item that ports it; none is silently
+ignored.
 """
 from __future__ import annotations
 
@@ -20,7 +21,8 @@ import time
 import warnings
 from typing import Any, Dict, Mapping, Optional, Tuple
 
-from repro_torch.core.executor import collect_sink, run_dynamic, run_static
+from repro_torch.core.executor import (RuntimeMode, assert_mode_allows, collect_sink,
+                                       run_dynamic, run_static)
 from repro_torch.core.health import Diagnostics, NetworkFaultError, decode_health
 from repro_torch.core.megakernel import (CUT_OBJECTIVES, compile_megakernel,
                                          lower_network, partition_layout,
@@ -35,7 +37,6 @@ _UNPORTED_FIELDS = {
     "donate": "A3 (the port updates rings in place; Program.run(state, "
               "in_place=True) is its form of donation)",
     "donate_threshold_bytes": "A3 (donation)",
-    "runtime_mode": "A3 (STATIC_DAL runtime mode)",
     "unroll_bound": "A3 (eager cursors need no phase unroll)",
     "accelerated": "A11 (heterogeneous mapping) and A9 (Program.stream)",
     "devices": "A12 (multi-device)",
@@ -65,6 +66,13 @@ class ExecutionPlan:
                      occupancy bound per visit.
       max_sweeps:    dynamic/megakernel mode sweep bound.
       order:         optional static firing order (defaults topological).
+      runtime_mode:  ``RuntimeMode.PROPOSED`` (this paper, the default) or
+                     ``RuntimeMode.STATIC_DAL`` (the reference framework,
+                     which refuses dynamic-rate actors on the accelerator);
+                     any other value raises ``ValueError``.  Judged when the program is
+                     built, in static, dynamic and megakernel mode;
+                     interpreted mode is the host-thread baseline, which
+                     the reference does not check either.
       cores:         megakernel mode: grid partitions of the firing table
                      (the reference's actor-to-core mapping).  The port's
                      kernel runs the partitions' visit order in one
@@ -105,7 +113,7 @@ class ExecutionPlan:
     order: Optional[Tuple[str, ...]] = None
     donate: Any = None
     donate_threshold_bytes: Any = None
-    runtime_mode: Any = None
+    runtime_mode: Any = RuntimeMode.PROPOSED
     unroll_bound: Any = None
     interpret: Any = None
     cores: int = 1
@@ -125,6 +133,10 @@ class ExecutionPlan:
         if mode not in _MODES:
             raise ValueError(
                 f"ExecutionPlan.mode must be one of {_MODES}, got {mode!r}")
+        if not isinstance(self.runtime_mode, RuntimeMode):
+            raise ValueError(
+                f"ExecutionPlan.runtime_mode must be one of {list(RuntimeMode)}, got "
+                f"{self.runtime_mode!r}")
         for field, item in _UNPORTED_FIELDS.items():
             if getattr(self, field) is not None:
                 raise NotImplementedError(
@@ -296,6 +308,8 @@ class Program:
     def __init__(self, network: Network, plan: ExecutionPlan):
         self.network = network
         self.plan = plan.validate(network)
+        if plan.mode != "interpreted":
+            assert_mode_allows(network, plan.runtime_mode)
         self._last: Optional[RunResult] = None
         self._layout = self._partition = self._runner = None
         if plan.mode == "megakernel":

@@ -6,7 +6,11 @@ CUDA card unless ``--device cpu`` is given.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b
 
 Weights are drawn from a seeded generator (``--seed``); prompts are random
-token ids from ``numpy.random.default_rng(0)``.
+token ids from ``numpy.random.default_rng(0)``.  ``--arch internvl2-1b``
+serves the vision model as text, as the JAX package's engine does; an
+audio arch (whisper-small) is refused by the engine, which feeds tokens
+only: it serves through ``LM.prefill(tokens, frames=...)`` and
+``LM.decode_step``.
 """
 from __future__ import annotations
 

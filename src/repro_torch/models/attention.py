@@ -1,17 +1,21 @@
-"""GQA attention with RoPE, causal and sliding-window masks, ring KV caches.
+"""GQA attention with RoPE, causal and sliding-window masks, ring KV
+caches, the optional int8 KV cache, and the whisper decoder's cross
+attention.
 
 Every layer's KV cache is a ring of ``cache_len`` slots: full-attention
 layers size it to the longest context, sliding-window layers to the
 window.  Slot = ``pos % cache_len``; a ``pos`` plane records the absolute
 position each slot holds (-1 = empty).  Keys are stored RoPE'd at their
-absolute position, so the ring never needs re-rotation.
+absolute position, so the ring never needs re-rotation.  The int8 cache
+(``kv_quant_int8``) stores k and v as int8 with one float32 absmax scale
+per (slot, kv head), as the JAX package's does.
 
-Prefill attention runs through kernel B5
+Prefill attention, causal or not (the whisper encoder is bidirectional),
+runs through kernel B5
 (:func:`repro_torch.kernels.flash_attention.flash_attention`); the
-one-token decode and the caches are plain PyTorch, as the JAX package
-computes them outside any Pallas kernel.  Decode writes its token into the
-cache in place.  The int8 KV cache (``kv_quant_int8``) and cross attention
-are not ported (ROADMAP A8b).
+one-token decode, the caches and cross attention are plain PyTorch, as
+the JAX package computes them outside any Pallas kernel.  Decode writes
+its token into the cache in place; a cross-attention cache is read only.
 """
 from __future__ import annotations
 
@@ -56,17 +60,19 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
 
 
 def attention(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
-              rope_theta: float, window: Optional[int] = None, return_kv: bool = False):
-    """Causal attention of positions 0..S-1, x: (B, S, D) -> (B, S, D),
-    through B5.  ``window``: SWA size (None = full).  With ``return_kv``
-    also returns the RoPE'd keys and the values, which
-    :func:`cache_from_kv` turns into the layer's ring cache."""
+              rope_theta: float, causal: bool = True, window: Optional[int] = None,
+              return_kv: bool = False):
+    """Attention of positions 0..S-1, x: (B, S, D) -> (B, S, D), through
+    B5; causal unless ``causal=False`` (the encoder).  ``window``: SWA size
+    (None = full).  With ``return_kv`` also returns the RoPE'd keys and the
+    values, which :func:`cache_from_kv` turns into the layer's ring
+    cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
-    o = flash_attention(q, k, v, causal=True, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window)
     out = o.reshape(B, S, n_heads * head_dim) @ p.wo
     return (out, k, v) if return_kv else out
 
@@ -76,28 +82,71 @@ def attention(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: in
 # ---------------------------------------------------------------------- #
 def cache_init(batch: int, cache_len: int, n_kv_heads: int, head_dim: int,
                dtype=DTYPE, quant: bool = False, device=None) -> Dict[str, torch.Tensor]:
-    if quant:
-        raise NotImplementedError("the int8 KV cache (kv_quant_int8) is not ported "
-                                  "yet (ROADMAP A8b)")
-    return {
-        "k": torch.zeros((batch, cache_len, n_kv_heads, head_dim), dtype=dtype, device=device),
-        "v": torch.zeros((batch, cache_len, n_kv_heads, head_dim), dtype=dtype, device=device),
+    """An empty ring; ``quant``: int8 k and v with float32 scales."""
+    kv_dtype = torch.int8 if quant else dtype
+    c = {
+        "k": torch.zeros((batch, cache_len, n_kv_heads, head_dim), dtype=kv_dtype,
+                         device=device),
+        "v": torch.zeros((batch, cache_len, n_kv_heads, head_dim), dtype=kv_dtype,
+                         device=device),
         "pos": torch.full((batch, cache_len), -1, dtype=torch.int32, device=device),
     }
+    if quant:
+        c["k_scale"] = torch.zeros((batch, cache_len, n_kv_heads), dtype=F32, device=device)
+        c["v_scale"] = torch.zeros((batch, cache_len, n_kv_heads), dtype=F32, device=device)
+    return c
 
 
-def cache_from_kv(k: torch.Tensor, v: torch.Tensor, cache_len: int) -> Dict[str, torch.Tensor]:
+_INT8_MAX: Dict[torch.device, torch.Tensor] = {}
+
+
+def _quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (..., hd) -> (int8 values, float32 absmax scale over hd); the
+    rounding is half to even, as ``jnp.round``'s.  The divisor is a tensor
+    on x's device, made once per device: PyTorch's CUDA division by a host
+    scalar multiplies by its reciprocal, which can miss the quotient's last
+    bit."""
+    xf = x.to(F32)
+    if x.device not in _INT8_MAX:
+        with torch.inference_mode(False):       # usable outside inference mode too
+            _INT8_MAX[x.device] = torch.tensor(127.0, dtype=F32, device=x.device)
+    scale = xf.abs().amax(-1) / _INT8_MAX[x.device]
+    q = torch.round(xf / torch.clamp(scale, min=1e-9)[..., None])
+    return q.to(torch.int8), scale
+
+
+def _deq_k(cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if "k_scale" in cache:
+        return cache["k"].to(F32) * cache["k_scale"][..., None]
+    return cache["k"].to(F32)
+
+
+def _deq_v(cache: Dict[str, torch.Tensor]) -> torch.Tensor:
+    if "v_scale" in cache:
+        return (cache["v"].to(F32) * cache["v_scale"][..., None]).to(DTYPE)
+    return cache["v"]
+
+
+def cache_from_kv(k: torch.Tensor, v: torch.Tensor, cache_len: int,
+                  quant: bool = False) -> Dict[str, torch.Tensor]:
     """The ring cache of a prefill (the JAX package's ``cache_prefill``,
     fed the k and v that :func:`attention` returns instead of projecting
     twice): k (RoPE'd) and v (B, S, Hkv, hd) of positions 0..S-1; keeps
-    the last ``cache_len`` tokens at slots ``pos % cache_len``."""
+    the last ``cache_len`` tokens at slots ``pos % cache_len``, quantized
+    to int8 under ``quant``."""
     B, S, Hkv, hd = k.shape
     keep = min(S, cache_len)
-    cache = cache_init(B, cache_len, Hkv, hd, k.dtype, device=k.device)
+    cache = cache_init(B, cache_len, Hkv, hd, k.dtype, quant=quant, device=k.device)
     pos = torch.arange(S - keep, S, dtype=torch.int32, device=k.device)
     slots = (pos % cache_len).long()
-    cache["k"][:, slots] = k[:, S - keep:]
-    cache["v"][:, slots] = v[:, S - keep:]
+    k_keep, v_keep = k[:, S - keep:], v[:, S - keep:]
+    if quant:
+        k_keep, k_scale = _quantize(k_keep)
+        v_keep, v_scale = _quantize(v_keep)
+        cache["k_scale"][:, slots] = k_scale
+        cache["v_scale"][:, slots] = v_scale
+    cache["k"][:, slots] = k_keep
+    cache["v"][:, slots] = v_keep
     cache["pos"][:, slots] = pos
     return cache
 
@@ -117,13 +166,19 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: to
 
     slot = (pos % cache_len).long()
     bidx = torch.arange(B, device=x.device)
-    cache["k"][bidx, slot] = k_new[:, 0]
-    cache["v"][bidx, slot] = v_new[:, 0]
+    k_new, v_new = k_new[:, 0], v_new[:, 0]
+    if "k_scale" in cache:
+        k_new, k_scale = _quantize(k_new)
+        v_new, v_scale = _quantize(v_new)
+        cache["k_scale"][bidx, slot] = k_scale
+        cache["v_scale"][bidx, slot] = v_scale
+    cache["k"][bidx, slot] = k_new
+    cache["v"][bidx, slot] = v_new
     cache["pos"][bidx, slot] = pos.to(torch.int32)
 
     G = n_heads // n_kv_heads
     qg = q.reshape(B, n_kv_heads, G, head_dim)
-    scores = torch.einsum("bkgh,btkh->bkgt", qg.to(F32), cache["k"].to(F32)) \
+    scores = torch.einsum("bkgh,btkh->bkgt", qg.to(F32), _deq_k(cache)) \
         / torch.sqrt(torch.tensor(head_dim, dtype=F32))
     cpos = cache["pos"]
     valid = (cpos >= 0) & (cpos <= pos[:, None])
@@ -132,7 +187,47 @@ def attention_decode(p, x: torch.Tensor, cache: Dict[str, torch.Tensor], pos: to
     scores = torch.where(valid[:, None, None, :], scores,
                          torch.tensor(NEG_INF, dtype=F32, device=x.device))
     probs = torch.softmax(scores, dim=-1)
-    vv = cache["v"]
+    vv = _deq_v(cache)
     og = torch.einsum("bkgt,btkh->bkgh", probs.to(vv.dtype), vv)
     o = og.reshape(B, 1, n_heads * head_dim)
     return o @ p.wo, cache
+
+
+# ---------------------------------------------------------------------- #
+# Cross attention (whisper decoder): the encoder's k and v are projected
+# once at prefill and read by every decode step.
+# ---------------------------------------------------------------------- #
+class XAttention(nn.Module):
+    """Cross-attention weights, named as the JAX package's ``xattn_init``
+    names them."""
+
+    def __init__(self, d_model: int, n_heads: int, head_dim: int, gen=None, device=None):
+        super().__init__()
+        self.wq = dense(d_model, n_heads * head_dim, gen, device)
+        self.wk = dense(d_model, n_heads * head_dim, gen, device)
+        self.wv = dense(d_model, n_heads * head_dim, gen, device)
+        self.wo = dense(n_heads * head_dim, d_model, gen, device)
+
+
+def cross_kv(p, enc_out: torch.Tensor, *, n_heads: int, head_dim: int
+             ) -> Dict[str, torch.Tensor]:
+    """The encoder output (B, T, D) projected to k and v (B, T, H, hd)."""
+    B, T, _ = enc_out.shape
+    return {"k": (enc_out @ p.wk).reshape(B, T, n_heads, head_dim),
+            "v": (enc_out @ p.wv).reshape(B, T, n_heads, head_dim)}
+
+
+def cross_attention(p, x: torch.Tensor, enc_kv: Dict[str, torch.Tensor], *,
+                    n_heads: int, head_dim: int) -> torch.Tensor:
+    """x: (B, S, D) attends every one of the T encoder positions of
+    ``enc_kv`` (k/v (B, T, H, hd)); the softmax in float32 over float32
+    scores, its weights cast to v's type for the value product, as the
+    reference's casts go."""
+    B, S, _ = x.shape
+    q = (x @ p.wq).reshape(B, S, n_heads, head_dim)
+    scores = torch.einsum("bshd,bthd->bhst", q.to(F32), enc_kv["k"].to(F32)) \
+        / torch.sqrt(torch.tensor(head_dim, dtype=F32))
+    probs = torch.softmax(scores, dim=-1)
+    v = enc_kv["v"]
+    o = torch.einsum("bhst,bthd->bshd", probs.to(v.dtype), v)
+    return o.reshape(B, S, n_heads * head_dim) @ p.wo

@@ -113,6 +113,21 @@ class SwiGLU(nn.Module):
         return swiglu(x, self.w_gate, self.w_up, self.w_down)
 
 
+class GeluMLP(nn.Module):
+    """The GELU MLP of the whisper encoder and decoder, named as the JAX
+    package's ``gelu_mlp_init`` names it (biases start at zero)."""
+
+    def __init__(self, d: int, f: int, gen=None, device=None):
+        super().__init__()
+        self.w_in = dense(d, f, gen, device)
+        self.b_in = filled((f,), 0.0, device=device)
+        self.w_out = dense(f, d, gen, device)
+        self.b_out = filled((d,), 0.0, device=device)
+
+    def forward(self, x):
+        return gelu_mlp(x, self.w_in, self.b_in, self.w_out, self.b_out)
+
+
 # ---------------------------------------------------------------------- #
 # Embedding / unembedding.
 # ---------------------------------------------------------------------- #

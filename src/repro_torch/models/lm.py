@@ -8,16 +8,22 @@ the remainder (the JAX package stacks each group's parameters on a
 leading axis instead; ``repro_torch.convert`` maps one to the other).
 
 Block kinds: ``attn_local`` / ``attn_global`` (attention + SwiGLU MLP, or
-the MoE layer in the MoE family), ``rec`` (RG-LRU + MLP) and ``ssd``
-(mamba2).  The audio and vision families are not ported yet (ROADMAP A8b)
-and raise at construction.
+the MoE layer in the MoE family), ``rec`` (RG-LRU + MLP), ``ssd``
+(mamba2) and ``xdec`` (the whisper decoder: causal self-attention, cross
+attention on the encoder's output, a GELU MLP).  The audio family runs
+:meth:`LM.encode` (a bidirectional transformer over the frontend stub's
+frame embeddings, ``frames=``) first; the vision family prepends the
+frontend stub's patch embeddings (``vision_embeds=``) to the token
+embeddings.
 
 Entry points: :meth:`LM.forward` (modes "train" and "prefill", with the
 MoE layers' load-balance aux on request; the loss comes with the training
-slice), :meth:`LM.prefill`, :meth:`LM.decode_step` and
+slice), :meth:`LM.prefill`, :meth:`LM.decode_step`, :meth:`LM.encode` and
 :meth:`LM.serve_state`.  Serving state is a list with one dict per
-layer: ``{k, v, pos}`` ring caches, RG-LRU ``{conv, h}``, Mamba2
-``{conv, ssm}``.
+layer: ``{k, v, pos}`` ring caches (int8 with ``k_scale`` / ``v_scale``
+under ``kv_quant_int8``), RG-LRU ``{conv, h}``, Mamba2 ``{conv, ssm}``,
+and for ``xdec`` ``{"kv": ring cache, "cross": {k, v}}``, the cross
+cache written by prefill and only read by decode.
 """
 from __future__ import annotations
 
@@ -33,7 +39,7 @@ from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (DTYPE, F32, RMSNorm, SwiGLU, embed_lookup,
+from repro_torch.models.layers import (DTYPE, F32, GeluMLP, RMSNorm, SwiGLU, embed_lookup,
                                        init_normal_, param, rmsnorm, swiglu, unembed)
 
 Cache = Dict[str, torch.Tensor]
@@ -65,16 +71,6 @@ def _cache_len(cfg: ArchConfig, kind: str, max_seq: int) -> int:
     return max_seq
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.family in ("audio", "vlm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (cross attention, "
-            "vision/audio frontends) is not ported yet (ROADMAP A8b)")
-    if cfg.kv_quant_int8:
-        raise NotImplementedError(f"{cfg.name}: the int8 KV cache is not ported yet "
-                                  "(ROADMAP A8b)")
-
-
 class Table(nn.Module):
     """An embedding table (V, D), bf16."""
 
@@ -101,12 +97,42 @@ class Block(nn.Module):
         else:
             self.attn = att.Attention(d, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
                                       cfg.qkv_bias, gen, device)
+        if kind == "xdec":
+            self.normx = RMSNorm(d, device)
+            self.xattn = att.XAttention(d, cfg.n_heads, cfg.hd, gen, device)
         self.norm2 = RMSNorm(d, device)
-        if cfg.moe is not None:
+        if kind == "xdec":
+            self.mlp = GeluMLP(d, cfg.d_ff, gen, device)
+        elif cfg.moe is not None:
             self.mlp = moe_mod.MoE(d, cfg.moe.n_experts, cfg.moe.d_ff_expert, gen,
                                    device)
         else:
             self.mlp = SwiGLU(d, cfg.d_ff, gen, device)
+
+
+class EncoderBlock(nn.Module):
+    """One whisper encoder layer (the JAX package's ``_enc_block_init``):
+    multi-head attention with as many kv heads as query heads, a GELU
+    MLP."""
+
+    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+        super().__init__()
+        e = cfg.encoder
+        self.norm1 = RMSNorm(e.d_model, device)
+        self.attn = att.Attention(e.d_model, e.n_heads, e.n_heads, e.d_model // e.n_heads,
+                                  gen=gen, device=device)
+        self.norm2 = RMSNorm(e.d_model, device)
+        self.mlp = GeluMLP(e.d_model, e.d_ff, gen, device)
+
+
+class Encoder(nn.Module):
+    """The audio family's encoder: its layers, then a final norm."""
+
+    def __init__(self, cfg: ArchConfig, gen=None, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(EncoderBlock(cfg, gen, device)
+                                    for _ in range(cfg.encoder.n_layers))
+        self.norm = RMSNorm(cfg.encoder.d_model, device)
 
 
 class LM(nn.Module):
@@ -120,7 +146,6 @@ class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, *, device: DeviceLike = None,
                  seed: Optional[int] = 0):
         super().__init__()
-        _check_ported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         self.device = dev
@@ -134,6 +159,8 @@ class LM(nn.Module):
         self.final_norm = RMSNorm(cfg.d_model, dev)
         self.kinds = layer_kinds(cfg)
         self.layers = nn.ModuleList(Block(cfg, kind, gen, dev) for kind in self.kinds)
+        if cfg.family == "audio":
+            self.encoder = Encoder(cfg, gen, dev)
         self._head_key = None
         self._head = None
 
@@ -149,8 +176,13 @@ class LM(nn.Module):
             self._head_key = key
         return self._head
 
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, tokens: torch.Tensor,
+               vision_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Token embeddings, the vision family's patch embeddings (cast to
+        bf16) before them, then gemma scaling, in the reference's order."""
         x = embed_lookup(self.embed.w, tokens).to(DTYPE)
+        if self.cfg.family == "vlm" and vision_embeds is not None:
+            x = torch.cat([vision_embeds.to(device=x.device, dtype=DTYPE), x], dim=1)
         if self.cfg.tie_embeddings:
             # gemma scaling: sqrt(d) rounded to bf16 first (50.5 at d 2560)
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=F32).to(DTYPE)
@@ -188,8 +220,21 @@ class LM(nn.Module):
         new_cache = None
         if mode == "prefill":
             new_cache = att.cache_from_kv(
-                k, v, _cache_len(cfg, kind, max_cache_len or x.shape[1]))
+                k, v, _cache_len(cfg, kind, max_cache_len or x.shape[1]),
+                quant=cfg.kv_quant_int8)
         return y, new_cache
+
+    def _cross(self, blk: Block, x: torch.Tensor, xkv: Cache) -> torch.Tensor:
+        """An ``xdec`` block's cross attention on the encoder's k and v,
+        before the residual add."""
+        cfg = self.cfg
+        h = rmsnorm(x, blk.normx.scale, cfg.rms_eps)
+        return att.cross_attention(blk.xattn, h, xkv, n_heads=cfg.n_heads, head_dim=cfg.hd)
+
+    def _cross_kv(self, blk: Block, enc_out: torch.Tensor) -> Cache:
+        """An ``xdec`` block's cross cache: the encoder output projected."""
+        return att.cross_kv(blk.xattn, enc_out, n_heads=self.cfg.n_heads,
+                            head_dim=self.cfg.hd)
 
     def _mlp(self, blk: Block, x: torch.Tensor, routing=None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -199,6 +244,8 @@ class LM(nn.Module):
         own (``moe.moe_layer``)."""
         cfg = self.cfg
         h = rmsnorm(x, blk.norm2.scale, cfg.rms_eps)
+        if blk.kind == "xdec":
+            return blk.mlp(h), None
         if cfg.moe is not None:
             y, aux = moe_mod.moe_layer(blk.mlp.params(), h, top_k=cfg.moe.top_k,
                                        capacity_factor=cfg.moe.capacity_factor,
@@ -208,11 +255,21 @@ class LM(nn.Module):
         return swiglu(h, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down), None
 
     def _block(self, blk: Block, x: torch.Tensor, *, mode: str, cache=None, pos=None,
-               max_cache_len: Optional[int] = None, routing=None):
-        """(x, new cache, the MoE load-balance loss or None)."""
-        y, new_cache = self._mixer(blk, x, mode=mode, cache=cache, pos=pos,
-                                   max_cache_len=max_cache_len)
+               max_cache_len: Optional[int] = None, routing=None,
+               enc_out: Optional[torch.Tensor] = None):
+        """(x, new cache, the MoE load-balance loss or None).  An ``xdec``
+        block reads the encoder output ``enc_out`` (train, prefill) or its
+        cross cache (decode)."""
+        xdec = blk.kind == "xdec"
+        y, new_cache = self._mixer(blk, x, mode=mode,
+                                   cache=cache["kv"] if xdec and mode == "decode" else cache,
+                                   pos=pos, max_cache_len=max_cache_len)
         x = x + y
+        if xdec:
+            xkv = cache["cross"] if mode == "decode" else self._cross_kv(blk, enc_out)
+            if mode != "train":
+                new_cache = {"kv": new_cache, "cross": xkv}
+            x = x + self._cross(blk, x, xkv)
         aux = None
         if blk.kind != "ssd":
             y, aux = self._mlp(blk, x, routing)
@@ -220,9 +277,39 @@ class LM(nn.Module):
         return x, new_cache, aux
 
     # ------------------------------------------------------------------ #
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """The audio family's encoder: frames (B, T, D) from the frontend
+        stub -> (B, T, D) bf16, bidirectional attention through B5 at
+        positions 0..T-1, then the encoder's final norm."""
+        x = frames.to(device=self.device, dtype=DTYPE)
+        for bp in self.encoder.blocks:
+            x = x + self._enc_attn(bp, x)
+            x = x + self._enc_mlp(bp, x)
+        return rmsnorm(x, self.encoder.norm.scale, self.cfg.rms_eps)
+
+    def _enc_attn(self, bp: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        e = cfg.encoder
+        h = rmsnorm(x, bp.norm1.scale, cfg.rms_eps)
+        return att.attention(bp.attn, h, n_heads=e.n_heads, n_kv_heads=e.n_heads,
+                             head_dim=e.d_model // e.n_heads, rope_theta=cfg.rope_theta,
+                             causal=False)
+
+    def _enc_mlp(self, bp: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
+        return bp.mlp(rmsnorm(x, bp.norm2.scale, self.cfg.rms_eps))
+
+    def _encode_if_audio(self, frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        if self.cfg.family != "audio":
+            return None
+        if frames is None:
+            raise ValueError(f"{self.cfg.name}: the audio family needs frames= "
+                             "(B, n_ctx, d_model), the frontend stub's embeddings")
+        return self.encode(frames)
+
     def forward(self, tokens: torch.Tensor, *, mode: str = "train",
                 max_cache_len: Optional[int] = None, return_aux: bool = False,
-                routing: Optional[List] = None):
+                routing: Optional[List] = None, frames: Optional[torch.Tensor] = None,
+                vision_embeds: Optional[torch.Tensor] = None):
         """tokens (B, S) -> (logits f32, caches).  "train": logits at every
         position, caches None; "prefill": logits (B, 1, V) of the last
         position and the serving state.  ``return_aux`` appends the MoE
@@ -230,15 +317,20 @@ class LM(nn.Module):
         reference's forward returns them.  ``routing``, one
         ``moe.Routing`` (or None) per layer, replaces the MoE layers' own:
         the way to hold the rest of the model to another backend's whose
-        near-tied top-k may have gone the other way."""
+        near-tied top-k may have gone the other way.  The audio family
+        takes ``frames`` (B, n_ctx, d_model); the vision family takes
+        ``vision_embeds`` (B, n_vision_tokens, d_model), placed before the
+        tokens (its logits cover both)."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"forward: mode {mode!r} is 'train' or 'prefill'")
-        x = self._embed(tokens.to(self.device))
+        enc_out = self._encode_if_audio(frames)
+        x = self._embed(tokens.to(self.device), vision_embeds)
         caches = []
         aux = torch.zeros((), dtype=F32, device=self.device)
         for i, blk in enumerate(self.layers):
             x, c, a = self._block(blk, x, mode=mode, max_cache_len=max_cache_len,
-                                  routing=None if routing is None else routing[i])
+                                  routing=None if routing is None else routing[i],
+                                  enc_out=enc_out)
             caches.append(c)
             if a is not None:
                 aux = aux + a
@@ -248,20 +340,25 @@ class LM(nn.Module):
 
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, max_cache_len: Optional[int] = None,
-                routing: Optional[List] = None) -> Tuple[torch.Tensor, List[Cache]]:
+                routing: Optional[List] = None, frames: Optional[torch.Tensor] = None,
+                vision_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, List[Cache]]:
         """``max_cache_len``: ring size of full-attention layers; it must
-        cover the prompt and the decode budget (defaults to the prompt
-        length, which leaves no room to decode).  ``routing`` as
+        cover the prompt (the vision embeddings included) and the decode
+        budget (defaults to the prompt length, which leaves no room to
+        decode).  ``routing``, ``frames`` and ``vision_embeds`` as
         :meth:`forward`."""
         logits, caches = self.forward(tokens, mode="prefill", max_cache_len=max_cache_len,
-                                      routing=routing)
+                                      routing=routing, frames=frames,
+                                      vision_embeds=vision_embeds)
         return logits[:, 0], caches
 
     @torch.inference_mode()
     def decode_step(self, tokens: torch.Tensor, pos: torch.Tensor, caches: List[Cache],
                     routing: Optional[List] = None) -> Tuple[torch.Tensor, List[Cache]]:
         """tokens (B, 1), pos (B,) -> (logits (B, V) f32, new caches).  Ring
-        KV caches are updated in place.  ``routing`` as :meth:`forward`."""
+        KV caches are updated in place; cross caches are read.  ``routing``
+        as :meth:`forward`."""
         x = self._embed(tokens.to(self.device))
         pos = pos.to(self.device)
         new = []
@@ -272,7 +369,8 @@ class LM(nn.Module):
         return self._logits(x)[:, 0], new
 
     def serve_state(self, batch: int, max_seq: int) -> List[Cache]:
-        """Empty ring caches and recurrent states for every layer."""
+        """Empty ring caches and recurrent states for every layer (zero
+        cross caches of the encoder's n_ctx positions for ``xdec``)."""
         cfg, dev = self.cfg, self.device
         out = []
         for kind in self.kinds:
@@ -281,6 +379,12 @@ class LM(nn.Module):
             elif kind == "rec":
                 out.append(rg_mod.rglru_state_init(batch, cfg.d_model, cfg.rglru, dev))
             else:
-                out.append(att.cache_init(batch, _cache_len(cfg, kind, max_seq),
-                                          cfg.n_kv_heads, cfg.hd, device=dev))
+                c = att.cache_init(batch, _cache_len(cfg, kind, max_seq), cfg.n_kv_heads,
+                                   cfg.hd, quant=cfg.kv_quant_int8, device=dev)
+                if kind == "xdec":
+                    shape = (batch, cfg.encoder.n_ctx, cfg.n_heads, cfg.hd)
+                    c = {"kv": c, "cross": {
+                        "k": torch.zeros(shape, dtype=DTYPE, device=dev),
+                        "v": torch.zeros(shape, dtype=DTYPE, device=dev)}}
+                out.append(c)
         return out

@@ -6,6 +6,11 @@ left-padded with token 0 to ``max_prompt`` (the padding is attended to:
 there is no padding mask, as in the reference).  Each batch runs one
 prefill and up to ``max_new - 1`` decode steps, under
 ``torch.inference_mode``.
+
+The engine feeds tokens only, as the reference's does: it serves the
+vision family as a text model (no ``vision_embeds``), and refuses the
+audio family, whose prefill needs the encoder's ``frames``; whisper serves
+through ``LM.prefill(tokens, frames=...)`` and ``LM.decode_step``.
 """
 from __future__ import annotations
 
@@ -46,6 +51,11 @@ class Result:
 
 class Engine:
     def __init__(self, cfg: ArchConfig, model: LM, scfg: ServeConfig):
+        if cfg.family == "audio":
+            raise ValueError(
+                f"Engine: {cfg.name} is an audio model and the engine feeds tokens "
+                "only; serve it through LM.prefill(tokens, frames=...) and "
+                "LM.decode_step")
         self.cfg = cfg
         self.model = model
         self.scfg = scfg

@@ -116,8 +116,7 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("donate", True), ("donate_threshold_bytes", 1), ("runtime_mode", "x"),
-    ("unroll_bound", 6), ("accelerated", ("poly0",)), ("devices", 2),
+    ("donate", True), ("donate_threshold_bytes", 1), ("unroll_bound", 6), ("accelerated", ("poly0",)), ("devices", 2),
     ("device_assign", {})])
 def test_unported_plan_fields_raise(field, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -79,7 +79,12 @@ def gen():
 # (63, 130, 257, 333, 517, 650, 700); windows shorter than a key tile and
 # not a multiple of it (1, 37, 40); the full-length tile walk (S 4096,
 # window 2048, B 1); Hkv 2 and 4 with G > 1; hd 16, 120 and 240 (zero fill
-# past hd and the store mask); S = 1; non-causal with and without a window.
+# past hd and the store mask); S = 1; non-causal with and without a window;
+# the families' hd 64 instance: whisper-small's encoder (non-causal, S 1500,
+# a partial last query and key tile with no causal mask to hide it), its
+# decoder's prefill (causal, S 384, B 4), and internvl2-1b's prefill (14
+# query heads on 2 KV heads, G = 7), also at an odd S and non-causal with
+# G = 7.
 @pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", [
     (1, 1, 1, 1, 16, True, None), (1, 63, 2, 1, 16, True, None),
     (2, 130, 6, 3, 120, False, None), (1, 96, 4, 4, 64, False, 40),
@@ -89,7 +94,10 @@ def gen():
     (1, 4096, 10, 1, 256, True, 2048), (2, 333, 8, 4, 256, True, 90),
     (2, 190, 6, 2, 120, True, 50), (1, 517, 4, 2, 16, True, 70),
     (1, 150, 4, 1, 240, False, None), (2, 1, 10, 1, 256, True, 2048),
-    (1, 129, 2, 2, 128, False, 1)])
+    (1, 129, 2, 2, 128, False, 1),
+    (1, 1500, 12, 12, 64, False, None), (2, 1500, 4, 4, 64, False, None),
+    (4, 384, 12, 12, 64, True, None), (1, 4096, 14, 2, 64, True, None), (2, 1001, 14, 2, 64, True, None),
+    (1, 777, 7, 1, 64, False, None)])
 def test_flash_attention_matches_plain(gen, B, S, H, Hkv, hd, causal, window):
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
@@ -704,3 +712,63 @@ def test_megakernel_guarded_traced_motion_detection(gen, cores):
     d = _health_and_trace(net, net.init_state(), lambda st: run_dynamic(
         net, st, guards=True, trace_capacity=4096), True, True)
     assert k == p == d and not any(k[4][0])
+
+
+# ---------------------------------------------------------------------- #
+# The families' plain-PyTorch attention on the card against the CPU port:
+# cross attention at whisper-small's widths, and the one-token decode on a
+# bf16 and an int8 cache at internvl2-1b's.  Bar: one bf16 step of |want|
+# plus 2^-4 of the RMS of want's row (chip_smoke.py's per-layer bar); int8
+# values written by the card within 1 of the CPU's (their bf16 inputs may
+# differ by a rounding step), scales within 2^-7 of the CPU's.
+# ---------------------------------------------------------------------- #
+def _row_bar_holds(got, want):
+    got, want = got.float().cpu(), want.float()
+    rms = want.pow(2).mean(-1, keepdim=True).sqrt()
+    excess = float((((got - want).abs() - 2.0 ** -7 * want.abs()) / rms).max())
+    assert bool(torch.isfinite(got).all()) and excess <= 2.0 ** -4, excess
+
+
+def test_cross_attention_on_the_card_matches_the_cpu(gen):
+    from repro_torch.models import attention as att
+    cpu_gen = torch.Generator().manual_seed(0)
+    mod = att.XAttention(768, 12, 64, gen=cpu_gen, device="cpu")
+    x = torch.randn((2, 33, 768), generator=cpu_gen).bfloat16()
+    enc = torch.randn((2, 1500, 768), generator=cpu_gen).bfloat16()
+    want = att.cross_attention(mod, x, att.cross_kv(mod, enc, n_heads=12, head_dim=64),
+                               n_heads=12, head_dim=64)
+    mod_c = mod.to("cuda")
+    got = att.cross_attention(mod_c, x.cuda(), att.cross_kv(mod_c, enc.cuda(), n_heads=12,
+                                                            head_dim=64),
+                              n_heads=12, head_dim=64)
+    _row_bar_holds(got, want)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_attention_decode_on_the_card_matches_the_cpu(gen, quant):
+    from repro_torch.models import attention as att
+    kw = dict(n_heads=14, n_kv_heads=2, head_dim=64, rope_theta=1_000_000.0)
+    cpu_gen = torch.Generator().manual_seed(1)
+    mod = att.Attention(896, 14, 2, 64, gen=cpu_gen, device="cpu")
+    k = torch.randn((2, 300, 2, 64), generator=cpu_gen).bfloat16()
+    v = torch.randn((2, 300, 2, 64), generator=cpu_gen).bfloat16()
+    cache = att.cache_from_kv(k, v, 332, quant=quant)
+    cache_c = {n: t.cuda() for n, t in cache.items()}
+    x = torch.randn((2, 1, 896), generator=cpu_gen).bfloat16()
+    pos = torch.tensor([300, 300])
+    want, cache = att.attention_decode(mod, x, cache, pos, **kw)
+    got, cache_c = att.attention_decode(mod.to("cuda"), x.cuda(), cache_c, pos.cuda(), **kw)
+    _row_bar_holds(got, want)
+    assert torch.equal(cache_c["pos"].cpu(), cache["pos"])
+    for n in ("k", "v"):
+        g, w = cache_c[n].cpu(), cache[n]
+        # Every slot but the one decode wrote (300) is untouched.
+        assert torch.equal(torch.cat([g[:, :300], g[:, 301:]], 1),
+                           torch.cat([w[:, :300], w[:, 301:]], 1))
+        if quant:
+            assert g.dtype == torch.int8
+            assert int((g[:, 300].int() - w[:, 300].int()).abs().max()) <= 1
+            s_g, s_w = cache_c[f"{n}_scale"].cpu(), cache[f"{n}_scale"]
+            assert float(((s_g - s_w).abs() / s_w.clamp(min=1e-30)).max()) <= 2.0 ** -7
+        else:
+            _row_bar_holds(g[:, 300], w[:, 300])

@@ -320,15 +320,16 @@ def test_gemma_embedding_scale_is_rounded_to_bf16():
 @pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m",
                                   "whisper-small", "internvl2-1b"])
 def test_unported_families_raise_naming_the_roadmap(arch, monkeypatch):
-    """The audio and vision families still raise; the MoE family, which
-    raised until ROADMAP A8b's MoE slice, builds and matches the JAX
-    package (``tests/test_torch_moe.py`` holds it in full)."""
+    """The MoE, audio and vision families, which raised until ROADMAP
+    A8b's slices ported them, build and hold their train logits to the
+    JAX package (``tests/test_torch_moe.py`` and
+    ``tests/test_torch_families.py`` hold them in full)."""
     if smoke_config(arch).family == "moe":
         from test_torch_moe import assert_train_logits_and_aux_match
         assert_train_logits_and_aux_match(arch, monkeypatch)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        LM(smoke_config(arch), device="cpu", seed=None)
+    from test_torch_families import assert_train_logits_match
+    assert_train_logits_match(arch)
 
 
 def test_model_runs_on_the_card_unless_told_otherwise():
@@ -339,9 +340,10 @@ def test_model_runs_on_the_card_unless_told_otherwise():
 
 
 def test_int8_kv_cache_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        att.cache_init(1, 4, 1, 16, quant=True)
-    import dataclasses
-    with pytest.raises(NotImplementedError, match="ROADMAP A8b"):
-        LM(dataclasses.replace(smoke_config("h2o-danube-3-4b"), kv_quant_int8=True),
-           device="cpu", seed=None)
+    """The int8 KV cache, which raised until ROADMAP A8b ported it: the
+    h2o-danube-3-4b smoke model with ``kv_quant_int8=True`` (the reference's
+    ``tests/test_perf_variants.py`` variant) holds its prefill logits, every
+    cache leaf (int8 values dequantized) and its decode logits to the JAX
+    package's (``tests/test_torch_families.py`` states the bars)."""
+    from test_torch_families import assert_prefill_and_decode_match
+    assert_prefill_and_decode_match("h2o-danube-3-4b", int8=True)

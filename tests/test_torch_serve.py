@@ -76,7 +76,9 @@ def _trajectory(jcfg, params, model, toks, max_new, cache_len):
     return np.stack(out, 1), np.stack(margins, 1), np.stack(errs, 1)
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m", "h2o-danube-3-4b"])
+# internvl2-1b: the vision model served as text, as both engines serve it.
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m", "h2o-danube-3-4b",
+                                  "internvl2-1b"])
 def test_engine_matches_reference_engine_under_the_margin_rule(arch):
     jcfg, params, cfg, model = _setup(arch)
     max_prompt, max_new, B = 32, 6, 2
