@@ -131,13 +131,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     B2 launch of that build per megakernel run), every leaf bit-identical
     to phase 3's and 8's states, and the diagnostics (fault words,
     high-water marks) and trace events equal across the host dynamic run,
-    B2 and B2's plain version on the card; then each of the four faults
-    (overflow, underflow, a corrupted cursor, NaN poison) injected on
-    DPD's ``f_in``, run by B2 at ``cores=1`` and ``2`` (no channel
-    forwarded), by its plain version and by the host dynamic executor,
-    guarded and traced: the same named diagnostics, the same trace events
-    and the same partial state, bit for bit, from all three; and B2's time
-    per run from the main build and the three health builds, in turns;
+    B2 and B2's plain version on the card; then each of five faults
+    (overflow, underflow, a corrupted cursor, NaN poison, and a window of
+    1e3 on ``f_in`` declaring the domain ``F_IN_DOMAIN``, which every clean
+    sample lies in: DOMAIN on a data channel) injected on DPD's ``f_in``,
+    run by B2 at ``cores=1`` and ``2`` (no channel forwarded), by its plain
+    version and by the host dynamic executor, guarded and traced: the same
+    named diagnostics, the same trace events and the same partial state,
+    bit for bit, from all three; and B2's time per run from the main build
+    and the three health builds, in turns;
 18. (run after 17) the MoE actor network (``graphs/moe_as_actors.py``)
     at one olmoe-1b-7b layer's published widths (D 2048, 64 experts,
     top-8, F 1024, capacity factor 1.25; 512 tokens a firing, 8 firings,
@@ -190,6 +192,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     non-causal), at its decoder's (q (4, 384, 12, 64), causal) and at
     internvl's (q (4, 4096, 14, 64), k/v (4, 4096, 2, 64), causal)
     against its plain version and times each beside SDPA.
+22. (run after 13) recurrentgemma-2b served through ``ActorEngine``
+    (``graphs/serving.py``'s admission/gate/decode/merge/retire network on
+    the host dynamic executor) at its published width, on phase 13's
+    traffic, eos_id None: the closed loop's tokens equal the ``Engine``'s
+    bit for bit; an open loop (budgets 32 and 8 in turn, arrivals
+    ``poisson_trace(8, 0.25, seed=7)``) gives each request its closed-loop
+    prefix; fire counts, sweeps, latency steps and statuses, and a guarded,
+    traced closed loop's high-water marks and trace events, equal a CPU run
+    of the port at the smoke config on the same budgets, arrivals, B and
+    N; ``expire_deadline``, ``queue_depth=0`` and a poisoned request
+    quarantined, each against that CPU run's statuses (the survivors keep
+    their closed-loop tokens); 8 B5 and 18 B7 launches per decode firing
+    that ran a prefill; out-of-range ids through ``embed_lookup`` and
+    argmax over NaN logits as on the CPU (C12); ``ActorEngine.generate``
+    timed against ``Engine.generate`` in turns, 3 each.
     Phase 4 also checks that ``runtime_mode=RuntimeMode.STATIC_DAL`` refuses DPD's
     dynamic network in static, dynamic and megakernel mode, and runs its
     static all-10 rows under it.
@@ -202,7 +219,8 @@ is a JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.  Exits non-zero with no result when no
 CUDA device is visible.
 
-``--b2 SRC`` times kernel B2 alone (as phases 6 and 9 do) from the
+``--b2 SRC`` times kernel B2 alone (as phases 6 and 9 do, and its
+``MK_GUARDS`` build as phase 17 does, where that tree has it) from the
 ``repro_torch`` package under ``SRC`` and prints one ``b2 {...}`` line;
 ``--b2-split SRC`` prints phase 16's split from ``SRC`` (a ``b2_split
 {...}`` line; the tree's wrapper must take ``clock_split``);
@@ -219,7 +237,7 @@ tree's B4 takes u8 frames, the same on u8 frames and the R probe: B4 built
 for R = 1, 2, 4 and 8 rows a thread, each checked and timed (a ``b4
 {...}`` line).  Run in turns from two
 trees they compare a kernel across commits on one card.
-``--lm`` runs phases 1, 12-15 and 19-21 only (the LM path), for work on
+``--lm`` runs phases 1, 12-15 and 19-22 only (the LM path), for work on
 it.
 """
 from __future__ import annotations
@@ -555,6 +573,21 @@ def diag_key(d) -> tuple:
     return (bool(d.ok), bool(d.stalled), faults, dict(d.high_water), stall)
 
 
+#: A domain every sample of DPD's staged normal signal lies in (phase 17's
+#: fifth fault puts one window of 1e3 outside it).
+F_IN_DOMAIN = (-16.0, 16.0)
+
+
+def with_domain(net, domains: dict):
+    """``net`` with each channel of ``domains`` declaring its domain."""
+    import dataclasses
+    from repro_torch.core import Network
+    fifos = [dataclasses.replace(s, domain=domains[n]) if n in domains else s
+             for n, s in net.fifos.items()]
+    return Network(list(net.actors.values()), fifos, list(net.edges),
+                   initial_tokens=net.initial_tokens, device=net.device)
+
+
 def state_bits(state) -> list:
     """Every leaf of a state as bytes (NaN compares by its bits)."""
     return [x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
@@ -571,8 +604,8 @@ def a7_phase(dev, smi: str, zero_counts, expect_counts, dpd: tuple, md: tuple,
     from repro_torch.core.executor import run_dynamic
     from repro_torch.core.faultinject import (corrupt_cursor, inject_overflow,
                                               inject_underflow, poison_tokens)
-    from repro_torch.core.health import (CURSOR_INVALID, NONFINITE, OVERFLOW, UNDERFLOW,
-                                         decode_health, fault_names)
+    from repro_torch.core.health import (CURSOR_INVALID, DOMAIN, NONFINITE, OVERFLOW,
+                                         UNDERFLOW, decode_health, fault_names)
     from repro_torch.core.megakernel import (compile_megakernel, lower_network,
                                              megakernel_cuda, partition_layout)
     from repro_torch.core.trace import decode_trace
@@ -633,14 +666,18 @@ def a7_phase(dev, smi: str, zero_counts, expect_counts, dpd: tuple, md: tuple,
             f"runs; {len(want_ev)} trace events kept, {dyn.trace.dropped} dropped")
 
     # Faults on DPD's f_in: B2 (no channel forwarded), plain, host dynamic.
-    net = dpd[0]
-    layout = lower_network(net)
-    faults = {"overflow": (inject_overflow, OVERFLOW),
-              "underflow": (inject_underflow, UNDERFLOW),
-              "cursor": (lambda n, s, f: corrupt_cursor(n, s, f, occ=1), CURSOR_INVALID),
-              "nonfinite": (poison_tokens, NONFINITE)}
+    # The fifth (C11) runs DPD with f_in declaring a domain every clean
+    # sample lies in, and one finite window of 1e3 appended.
+    dom_net = with_domain(dpd[0], {"f_in": F_IN_DOMAIN})
+    faults = {"overflow": (inject_overflow, OVERFLOW, dpd[0]),
+              "underflow": (inject_underflow, UNDERFLOW, dpd[0]),
+              "cursor": (lambda n, s, f: corrupt_cursor(n, s, f, occ=1), CURSOR_INVALID,
+                         dpd[0]),
+              "nonfinite": (poison_tokens, NONFINITE, dpd[0]),
+              "domain": (lambda n, s, f: poison_tokens(n, s, f, value=1e3), DOMAIN, dom_net)}
     fault_rec = {}
-    for name, (inject, bit) in faults.items():
+    for name, (inject, bit, net) in faults.items():
+        layout = lower_network(net)
         bad = inject(net, net.init_state(), "f_in")
         sides = {}
         dres = run_dynamic(net, bad.clone(), guards=True, trace_capacity=A7_TRACE_CAPACITY)
@@ -2412,13 +2449,246 @@ def serve_smoke(arch: str, dev, smi: str, zero_counts, expect_counts) -> dict:
     return rec
 
 
+def served_tokens(out) -> list:
+    return [r.tokens.tolist() for r in out]
+
+
+def actor_network_run(eng, reqs: list, plan, arrivals=None) -> tuple:
+    """The actor engine's network for ``reqs`` run once under ``plan``:
+    (per-request tokens, RunResult, the retire sink)."""
+    net = eng.build_network(reqs, arrivals=arrivals)
+    prog = net.compile(plan)
+    res = prog.run()
+    sink = {k: v.cpu().numpy() for k, v in prog.collect("retire", res.state).items()}
+    return ([sink["gen"][j, :sink["lens"][j]].tolist() for j in range(len(reqs))],
+            res, sink)
+
+
+def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 22: recurrentgemma-2b served through ``ActorEngine`` (the
+    admission/gate/decode/merge/retire network, host dynamic executor) at
+    its published width, random weights from seed 0, on phase 13's
+    traffic, eos_id None: closed loop (every budget 32, every arrival 0)
+    and open loop (budgets alternating 32 and 8, arrivals
+    ``poisson_trace(8, 0.25, seed=7)``).  Checks: the closed loop's tokens
+    equal the ``Engine``'s bit for bit, and decode, admission, merge and
+    retire fire equally often; each open-loop request's tokens equal its
+    closed-loop tokens up to its budget; fire counts, sweeps, latency steps
+    and statuses, and under ``guards=True, trace=True`` the high-water
+    marks and every trace event, equal a CPU run of the port at
+    ``smoke_config("recurrentgemma-2b")`` on the same budgets, arrivals, B
+    and N (prompts of 16); ``expire_deadline`` (request 2 a timeout with no
+    tokens), ``queue_depth=0`` (the requests beyond the first 4 shed) and
+    a poisoned request 3 under ``on_fault="quarantine"`` (retired as a
+    fault after one retry, the other 7 with their closed-loop tokens), each
+    against the CPU run's statuses; out-of-range ids give NaN rows and NaN
+    logits argmax to the first NaN, as on the CPU (C12).  Every count is
+    set to 0 just before each run: 8 B5 and 18 B7 launches per decode
+    firing that ran a prefill.  Then ``ActorEngine.generate`` and
+    ``Engine.generate`` on the closed loop, timed in turns, 3 each."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core.faultinject import POISON_VALUE, expire_deadline, poison_request
+    from repro_torch.graphs.serving import ServingWorkload, left_pad_prompts, poisson_trace
+    from repro_torch.models import LM
+    from repro_torch.models.layers import embed_lookup
+    from repro_torch.serve import ActorEngine, Engine, Request, ServeConfig
+
+    # C12 on the card: the lookup's NaN rows and argmax over NaN logits.
+    table = torch.arange(20, dtype=torch.float32).reshape(10, 2)
+    ids = torch.tensor([-2 ** 20, -10, -1, 0, 9, 10, 2 ** 20])
+    got, want = embed_lookup(table.to(dev), ids.to(dev)).cpu(), embed_lookup(table, ids)
+    if not torch.equal(torch.isnan(got), torch.isnan(want)) \
+            or not torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0)) \
+            or torch.isnan(want).any(-1).tolist() != [True, False, False, False, False,
+                                                        True, True]:
+        fail(f"embed_lookup on out-of-range ids: card {got.tolist()} vs CPU {want.tolist()}")
+    lg = torch.tensor([[1.0, float("nan"), 3.0], [float("nan")] * 3])
+    if torch.argmax(lg.to(dev), dim=-1).tolist() != [1, 0]:
+        fail(f"argmax over NaN logits on the card: {torch.argmax(lg.to(dev), -1).tolist()}")
+
+    model, init_s = lm_model("recurrentgemma-2b", dev)
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    budgets = {"closed": [LM_NEW] * LM_REQUESTS,
+               "open": [LM_NEW if i % 2 == 0 else 8 for i in range(LM_REQUESTS)]}
+    arrivals = {"closed": None, "open": poisson_trace(LM_REQUESTS, 0.25, seed=7)}
+    scfg = ServeConfig(batch_size=LM_BATCH, max_prompt=LM_PROMPT, max_new=LM_NEW)
+    reqs = {k: [Request(p, m) for p, m in zip(prompts, b)] for k, b in budgets.items()}
+    slab, plens = left_pad_prompts(prompts, LM_PROMPT)
+    workload = ServingWorkload(prompts=slab, prompt_lens=plens,
+                               budgets=np.asarray(budgets["closed"], np.int32),
+                               arrivals=np.zeros(LM_REQUESTS, np.int32))
+    deadlines = expire_deadline(workload, 2).deadlines
+    poisoned = list(reqs["closed"])
+    poisoned[3] = Request(poison_request(workload, 3).prompts[3], LM_NEW)
+    guarded = ExecutionPlan(mode="dynamic", guards=True)
+    traced = ExecutionPlan(mode="dynamic", guards=True, trace=True)
+
+    # The CPU run of the same structure: smoke config, prompts of 16.
+    ccfg = smoke_config("recurrentgemma-2b")
+    cmodel = LM(ccfg, device="cpu", seed=0)
+    crng = np.random.default_rng(1)
+    creqs = {k: [Request(crng.integers(0, ccfg.vocab, 16).astype(np.int32), m) for m in b]
+             for k, b in budgets.items()}
+    cscfg = ServeConfig(batch_size=LM_BATCH, max_prompt=16, max_new=LM_NEW)
+    cpu: dict = {}
+    ceng = ActorEngine(ccfg, cmodel, cscfg)
+    ceng.generate(creqs["open"], arrivals=arrivals["open"])
+    cpu["open"] = (ceng.last_fire_counts, ceng.last_sweeps,
+                   ceng.last_latency_steps.tolist(), ceng.last_status)
+    _, cres, _ = actor_network_run(ActorEngine(ccfg, cmodel, cscfg, plan=traced),
+                                   creqs["closed"], traced)
+    cpu["traced"] = (cres.diagnostics.high_water, cres.trace.events)
+    ceng.generate(creqs["closed"], deadlines=deadlines)
+    cpu["expire"] = ceng.last_status
+    shed = ActorEngine(ccfg, cmodel, cscfg, queue_depth=0)
+    shed.generate(creqs["closed"])
+    cpu["shed"] = shed.last_status
+    cbad = list(creqs["closed"])
+    cbad[3] = Request(np.full(16, POISON_VALUE, np.int32), LM_NEW)
+    cq = ActorEngine(ccfg, cmodel, cscfg, plan=guarded)
+    cq.generate(cbad, on_fault="quarantine")
+    cpu["quarantine"] = (cq.last_status, cq.last_retries)
+
+    # Decode firings that ran a prefill: LM.prefill is called by them only.
+    n_prefill = [0]
+    prefill = model.prefill
+
+    def counted_prefill(*a, **kw):
+        n_prefill[0] += 1
+        return prefill(*a, **kw)
+    model.prefill = counted_prefill
+
+    def counted(label: str, fn):
+        torch.cuda.synchronize()
+        zero_counts()
+        n_prefill[0] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"phase 22 {label}", {"B5": 8 * n_prefill[0], "B7": 18 * n_prefill[0]})
+        return out, wall, n_prefill[0]
+
+    engine = Engine(cfg, model, scfg)
+    want, _, _ = counted("Engine", lambda: served_tokens(engine.generate(reqs["closed"])))
+    actor = ActorEngine(cfg, model, scfg)
+    rec: dict = {"card": smi, "arch": cfg.name, "init_s": init_s, "requests": LM_REQUESTS,
+                 "batch": LM_BATCH, "max_prompt": LM_PROMPT, "max_new": LM_NEW,
+                 "prompt_lens": lens, "open_budgets": budgets["open"],
+                 "open_arrivals": arrivals["open"].tolist()}
+
+    # 1. Closed loop.
+    closed, wall, pf = counted("closed loop", lambda: served_tokens(
+        actor.generate(reqs["closed"])))
+    if closed != want:
+        bad = [i for i in range(LM_REQUESTS) if closed[i] != want[i]]
+        fail(f"phase 22: closed-loop tokens of requests {bad} differ from the Engine's")
+    fc = actor.last_fire_counts
+    if not fc["decode"] == fc["admission"] == fc["merge"] == fc["retire"]:
+        fail(f"phase 22: closed-loop fire counts {fc}")
+    rec["closed"] = {"wall_s": wall, "prefill_firings": pf, "fire_counts": fc,
+                     "sweeps": actor.last_sweeps, "b5": 8 * pf, "b7": 18 * pf,
+                     "latency_steps": actor.last_latency_steps.tolist()}
+
+    # 2. Open loop.
+    opened, wall, pf = counted("open loop", lambda: served_tokens(
+        actor.generate(reqs["open"], arrivals=arrivals["open"])))
+    for i, b in enumerate(budgets["open"]):
+        if opened[i] != closed[i][:b]:
+            fail(f"phase 22: open-loop request {i} tokens differ from its closed-loop prefix")
+    got = (actor.last_fire_counts, actor.last_sweeps, actor.last_latency_steps.tolist(),
+           actor.last_status)
+    if got != cpu["open"]:
+        fail(f"phase 22: open-loop structure {got} vs the CPU run's {cpu['open']}")
+    n_open = sum(budgets["open"])
+    rec["open"] = {"wall_s": wall, "prefill_firings": pf, "fire_counts": got[0],
+                   "sweeps": got[1], "latency_steps": got[2], "tokens": n_open,
+                   "tokens_per_s": n_open / wall}
+
+    # 3. Guards and trace on the closed loop.
+    (toks, res, _), wall, pf = counted("closed loop guarded+traced", lambda: actor_network_run(
+        ActorEngine(cfg, model, scfg, plan=traced), reqs["closed"], traced))
+    if toks != closed or not res.diagnostics.ok:
+        fail(f"phase 22: guarded closed loop: tokens equal {toks == closed}, "
+             f"{res.diagnostics.summary()}")
+    if res.diagnostics.high_water != cpu["traced"][0] \
+            or not np.array_equal(res.trace.events, cpu["traced"][1]):
+        fail("phase 22: guarded closed loop: high-water marks or trace events differ "
+             "from the CPU run's")
+    rec["guarded_traced"] = {"wall_s": wall, "events": int(res.trace.n_events),
+                             "high_water": res.diagnostics.high_water}
+
+    # 4. Resilience.
+    out, wall, pf = counted("expire_deadline", lambda: actor.generate(
+        reqs["closed"], deadlines=deadlines))
+    if actor.last_status != cpu["expire"] or actor.last_status[2] != "timeout" \
+            or out[2].tokens.size or [served_tokens(out)[i] for i in (0, 1, 3, 4, 5, 6, 7)] \
+            != [closed[i] for i in (0, 1, 3, 4, 5, 6, 7)]:
+        fail(f"phase 22: expire_deadline statuses {actor.last_status} vs {cpu['expire']}")
+    rec["expire"] = {"status": actor.last_status, "wall_s": wall}
+    shed = ActorEngine(cfg, model, scfg, queue_depth=0)
+    out, wall, pf = counted("queue_depth=0", lambda: shed.generate(reqs["closed"]))
+    if shed.last_status != cpu["shed"] or shed.last_status != ["ok"] * 4 + ["shed"] * 4 \
+            or served_tokens(out)[:4] != closed[:4] or any(r.tokens.size for r in out[4:]):
+        fail(f"phase 22: queue_depth=0 statuses {shed.last_status} vs {cpu['shed']}")
+    rec["shed"] = {"status": shed.last_status, "wall_s": wall}
+    quar = ActorEngine(cfg, model, scfg, plan=guarded)
+    out, wall, pf = counted("quarantine", lambda: quar.generate(poisoned,
+                                                                on_fault="quarantine"))
+    got = (quar.last_status, quar.last_retries)
+    if got != cpu["quarantine"] or quar.last_status[3] != "fault" \
+            or quar.last_retries != 1 or out[3].tokens.size \
+            or [served_tokens(out)[i] for i in range(LM_REQUESTS) if i != 3] \
+            != [closed[i] for i in range(LM_REQUESTS) if i != 3]:
+        fail(f"phase 22: quarantine {got} vs the CPU run's {cpu['quarantine']}")
+    rec["quarantine"] = {"status": quar.last_status, "retries": quar.last_retries,
+                         "prefill_firings": pf, "wall_s": wall}
+
+    # 5. Timing, in turns: ActorEngine, Engine, three each.
+    walls: dict = {"actor": [], "engine": []}
+    for _ in range(3):
+        for label, fn in (("actor", lambda: actor.generate(reqs["closed"])),
+                          ("engine", lambda: engine.generate(reqs["closed"]))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+    n_tok = LM_REQUESTS * LM_NEW
+    rec["timing"] = {
+        "walls_s": walls,
+        "tokens": n_tok,
+        "tokens_per_s": {k: n_tok / float(np.median(v)) for k, v in walls.items()},
+        "engine_decode_steps": engine.last_decode_steps * (LM_REQUESTS // LM_BATCH),
+        "engine_prefills": LM_REQUESTS // LM_BATCH,
+        "actor_decode_firings": actor.last_fire_counts["decode"],
+        "actor_prefill_firings": rec["closed"]["prefill_firings"],
+        "actor_sweeps": actor.last_sweeps}
+    del model.prefill
+    log("phase 22 recurrentgemma-2b through ActorEngine (" + smi + "): " + json.dumps(rec))
+    log(f"phase 22 closed loop: ActorEngine {np.median(walls['actor']):.3f} s vs Engine "
+        f"{np.median(walls['engine']):.3f} s (median of 3, in turns); "
+        f"{rec['closed']['prefill_firings']} prefill firings -> "
+        f"{8 * rec['closed']['prefill_firings']} B5 and "
+        f"{18 * rec['closed']['prefill_firings']} B7 launches")
+    del model, engine, actor, shed, quar
+    torch.cuda.empty_cache()
+    return rec
+
+
 def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
-    """Phases 12-15 and 19-21; returns the kernels line's records of B5, B6
+    """Phases 12-15 and 19-22; returns the kernels line's records of B5, B6
     and B7 and of B5's float route and B6's SIMT route."""
     recs = lm_kernels(dev, smi)
     torch.cuda.empty_cache()
     rg = serve_model("recurrentgemma-2b", dev, smi, zero_counts, expect_counts,
                      {"B5": 16, "B7": 36}, 13)
+    # 22. recurrentgemma-2b through the actor engine.
+    act = actor_serving(dev, smi, zero_counts, expect_counts)
     mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14)
     smoke = serve_smoke("mamba2-780m", dev, smi, zero_counts, expect_counts)
     ol = serve_model("olmoe-1b-7b", dev, smi, zero_counts, expect_counts, {"B5": 32}, 19)
@@ -2464,6 +2734,12 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
         "more at the same shape served as text through the Engine)")
     recs["B5"]["launches"] = rg["launches"]["B5"]
     recs["B7"]["launches"] = rg["launches"]["B7"]
+    for k, per in (("B5", 8), ("B7", 18)):
+        recs[k]["actor_serving"] = {
+            "launches": per * act["closed"]["prefill_firings"],
+            "launches_from": "phase 22: recurrentgemma-2b's closed loop through "
+                             f"ActorEngine, {per} per decode firing that ran a prefill "
+                             f"({act['closed']['prefill_firings']})"}
     recs["B6"]["launches"] = mb["launches"]["B6"]
     recs["B6_simt"]["launches"] = smoke["simt_launches"]
     recs["B6_simt"]["launches_from"] = "phase 14: mamba2-780m's smoke config served"
@@ -2498,22 +2774,32 @@ def card() -> str:
 def b2_turn(src: str) -> None:
     """``--b2 SRC``: B2's time per run (:func:`b2_timed`) from the
     ``repro_torch`` package under ``SRC``, on DPD's main path and on motion
-    detection's where that tree has it.  Run in turns from two trees
-    (parent, change, change, parent; a parent unpacked with ``git archive``
-    into a gitignored directory) it compares B2 across commits on one card."""
+    detection's where that tree has it, from the main build and, where that
+    tree has health builds, from the ``MK_GUARDS`` build.  Run in turns from
+    two trees (parent, change, change, parent; a parent unpacked with ``git
+    archive`` into a gitignored directory) it compares B2 across commits on
+    one card."""
+    from repro_torch.core.megakernel import kernel as mk_kernel
     from repro_torch.graphs.dpd import default_active_schedule
     from repro_torch.graphs.factories import make_dpd
     from repro_torch.kernels import _build
     smi = card()
+    guards = hasattr(mk_kernel, "build_defines")
     _build.build("megakernel")
+    if guards:
+        _build.build("megakernel", defines=mk_kernel.build_defines(guards=True))
     dev = torch.device("cuda", 0)
-    net, _ = make_dpd(N_FIRINGS, block_l=BLOCK_L, seed=0, device=dev,
-                      active_schedule=default_active_schedule(N_FIRINGS, seed=0))
-    rec = {"src": src, "card": smi, "dpd_ms": b2_timed(net, dev)[0]}
+    nets = {"dpd": make_dpd(N_FIRINGS, block_l=BLOCK_L, seed=0, device=dev,
+                            active_schedule=default_active_schedule(N_FIRINGS, seed=0))[0]}
     if (Path(src) / "repro_torch" / "graphs" / "motion_detection.py").exists():
         from repro_torch.graphs.motion_detection import bench_workload
-        md = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0, device=dev)
-        rec["md_ms"] = b2_timed(md, dev)[0]
+        nets["md"] = bench_workload(MD_FRAMES, rate=MD_RATE, frame_hw=MD_HW, seed=0,
+                                    device=dev)
+    rec = {"src": src, "card": smi}
+    for label, net in nets.items():
+        rec[f"{label}_ms"] = b2_timed(net, dev)[0]
+        if guards:
+            rec[f"{label}_guards_ms"] = b2_timed(net, dev, guards=True)[0]
     print("b2 " + json.dumps(rec), flush=True)
 
 

@@ -6,8 +6,9 @@ from repro_torch.core.actor import (ActorSpec, DeviceOp, apply_rate_gate,
 from repro_torch.core.builder import BoundsReport, ChannelBounds, NetworkBuilder
 from repro_torch.core.executor import (RuntimeMode, assert_mode_allows, collect_sink,
                                        fire_actor, run_dynamic, run_static)
-from repro_torch.core.faultinject import (corrupt_cursor, inject_overflow,
-                                          inject_underflow, poison_tokens,
+from repro_torch.core.faultinject import (corrupt_cursor, expire_deadline,
+                                          inject_overflow, inject_underflow,
+                                          poison_request, poison_tokens,
                                           truncate_feed)
 from repro_torch.core.fifo import FifoSpec, FifoState, total_buffer_bytes
 from repro_torch.core.health import (CURSOR_INVALID, DOMAIN, NONFINITE, OVERFLOW,
@@ -33,7 +34,7 @@ __all__ = [
     "ChannelFault", "Diagnostics", "HealthState", "NetworkFaultError",
     "StallReport", "decode_health", "diagnose_stall", "fault_names", "init_health",
     "corrupt_cursor", "inject_overflow", "inject_underflow", "poison_tokens",
-    "truncate_feed",
+    "poison_request", "expire_deadline", "truncate_feed",
     "TRACE_CAPACITY_DEFAULT", "Profile", "Trace", "TraceState", "decode_trace",
     "init_trace", "merge_traces", "validate_chrome_trace",
 ]

@@ -33,11 +33,12 @@ declares (``ActorSpec.enables``: the constant 0 or 1, or ``int(tok[word]
   when they agree on every value both domains admit, and either only when
   their control channels are fed by ports of one actor that provably emit
   the same value;
-* the feeder proof fires the feeding actor once from its initial state and
-  requires both ports to return the *same tensor object* — the eager
-  analogue of the reference's "same jaxpr variable" rule, equally
-  conservative on distinct-but-equal values.  Like the reference it
-  assumes the body's aliasing does not depend on the data.
+* the feeder proof fires the feeding actor once from its initial state,
+  on zero windows made on the network's device, and requires both ports
+  to return the *same tensor object* — the eager analogue of the
+  reference's "same jaxpr variable" rule, equally conservative on
+  distinct-but-equal values.  Like the reference it assumes the body's
+  aliasing does not depend on the data.
 
 Channels between two static actors are never marked (the reference keeps
 them buffered); static-producer control channels are register-allocated by
@@ -55,7 +56,7 @@ import torch
 from repro_torch.core.actor import ActorSpec, eval_enable
 from repro_torch.core.fifo import FifoSpec
 from repro_torch.core.network import Edge, Network
-from repro_torch.device import DeviceLike
+from repro_torch.device import DeviceLike, resolve_device
 
 # Largest control domain the proof enumerates.
 _MAX_DOMAIN_VALUES = 1 << 16
@@ -121,10 +122,11 @@ def _enable_expr(actor: ActorSpec, port: str,
 
 
 def _ports_provably_equal(actor: ActorSpec, p1: str, p2: str,
-                          in_specs: Dict[str, FifoSpec]) -> bool:
+                          in_specs: Dict[str, FifoSpec],
+                          device: torch.device) -> bool:
     """True when one firing of ``actor`` from its initial state returns the
-    very same tensor object on ``p1`` and ``p2`` (inputs: zero windows on
-    the CPU, every port enabled)."""
+    very same tensor object on ``p1`` and ``p2`` (inputs: zero windows where
+    the channels keep their rings on ``device``, every port enabled)."""
     if p1 == p2:
         return True
     ins = {}
@@ -133,7 +135,7 @@ def _ports_provably_equal(actor: ActorSpec, p1: str, p2: str,
         if spec is None:
             return False
         ins[p] = torch.zeros((spec.rate,) + tuple(spec.token_shape),
-                             dtype=spec.dtype)
+                             dtype=spec.dtype, device=spec.ring_device(device))
     ones = {p: 1 for p in (*actor.in_ports, *actor.out_ports)}
     _, outs = actor.fire(actor.init_state(), ins, ones)
     o1, o2 = outs.get(p1), outs.get(p2)
@@ -328,7 +330,8 @@ class NetworkBuilder:
                 name: Optional[str] = None,
                 matched_rates: Optional[bool] = None,
                 initial_token: Optional[Any] = None,
-                domain: Optional[Tuple[float, float]] = None) -> str:
+                domain: Optional[Tuple[float, float]] = None,
+                row_id_col: Optional[int] = None) -> str:
         """Declare one channel ``src("actor.port") -> dst("actor.port")``.
 
         ``name`` defaults to ``"src.port->dst.port"``; control channels
@@ -336,7 +339,9 @@ class NetworkBuilder:
         token; ``capacity`` is derived from Eq. 1 and only asserted;
         ``matched_rates=None`` defers to the derivation at ``build()``;
         ``domain=(lo, hi)`` declares the token values, which the
-        derivation enumerates.  Returns the channel name.
+        derivation enumerates; ``row_id_col`` names the id column of
+        record-row tokens (``FifoSpec.row_id_col``).  Returns the channel
+        name.
         """
         src_actor, src_port = self._parse(src, "source")
         dst_actor, dst_port = self._parse(dst, "destination")
@@ -394,7 +399,7 @@ class NetworkBuilder:
                 "used; pass a unique name=")
         spec = FifoSpec(name, rate, tuple(token_shape), dtype, delay=delay,
                         is_control=is_control, domain=domain,
-                        matched_rates=bool(matched_rates))
+                        matched_rates=bool(matched_rates), row_id_col=row_id_col)
         if capacity is not None and capacity != spec.capacity_tokens:
             raise ValueError(
                 f"connect({src!r}, {dst!r}): capacity={capacity} contradicts "
@@ -434,7 +439,7 @@ class NetworkBuilder:
                 return (e.src_actor, e.src_port), c.spec
         return None, None
 
-    def _derive_matched(self) -> Dict[str, bool]:
+    def _derive_matched(self, device: torch.device) -> Dict[str, bool]:
         in_specs: Dict[str, Dict[str, FifoSpec]] = {n: {} for n in self._actors}
         for c in self._connections:
             in_specs[c.edge.dst_actor][c.edge.dst_port] = c.spec
@@ -454,7 +459,7 @@ class NetworkBuilder:
             key = (actor_name, *sorted((pa, pb)))
             if key not in feeder_cache:
                 feeder_cache[key] = _ports_provably_equal(
-                    self._actors[actor_name], pa, pb, in_specs[actor_name])
+                    self._actors[actor_name], pa, pb, in_specs[actor_name], device)
             return feeder_cache[key]
 
         out: Dict[str, bool] = {}
@@ -511,12 +516,15 @@ class NetworkBuilder:
             return (v, v)
         return (0.0, 1.0)
 
-    def check_bounds(self) -> BoundsReport:
+    def check_bounds(self, device: DeviceLike = None) -> BoundsReport:
         """The per-channel bound analysis, without building: matched-rates
         proofs (``"balanced"``), constant enables and declared
         :meth:`rate_bounds` give each channel a :class:`ChannelBounds`
-        verdict.  The report is also kept as ``self.bounds_report``."""
-        matched = self._derive_matched()
+        verdict.  ``device`` is where the feeder proof makes its zero
+        windows: :meth:`build` passes the network's device; None makes them
+        on the CPU.  The report is also kept as ``self.bounds_report``."""
+        matched = self._derive_matched(torch.device("cpu") if device is None
+                                       else torch.device(device))
         env_cache: Dict[Tuple[str, str], Any] = {}
 
         def env(actor_name: str, port: str):
@@ -567,8 +575,9 @@ class NetworkBuilder:
         for a in self._actors.values():
             if a.enables is not None:
                 check_declared_enables(a, self._control_feed(a)[1])
+        dev = resolve_device(device)
         if check_bounds:
-            bad = self.check_bounds().violations()
+            bad = self.check_bounds(dev).violations()
             if bad:
                 raise ValueError(
                     "NetworkBuilder.build(check_bounds=True): the declared/"
@@ -577,7 +586,7 @@ class NetworkBuilder:
                     + "\n  ".join(c.describe() for c in bad)
                     + "\n(fix the graph, adjust rate_bounds(...), or build "
                     "with check_bounds=False and rely on runtime guards)")
-        matched = (self._derive_matched() if derive_matched
+        matched = (self._derive_matched(dev) if derive_matched
                    else {c.spec.name: bool(c.matched_override)
                          for c in self._connections})
         fifos = [dataclasses.replace(c.spec, matched_rates=matched[c.spec.name])
@@ -587,4 +596,4 @@ class NetworkBuilder:
                    if c.initial_token is not None}
         return Network(list(self._actors.values()), fifos,
                        [c.edge for c in self._connections],
-                       initial_tokens=initial or None, device=device)
+                       initial_tokens=initial or None, device=dev)

@@ -19,12 +19,18 @@ the channel, on the host dynamic executor and on kernel B2 alike.
 * :func:`truncate_feed` drops trailing windows from a host stream.
 
 Injectors never touch the network, only a state, and leave their input
-unchanged.  The reference's serving injectors (``poison_request``,
-``expire_deadline``) corrupt a serving workload and come with it (ROADMAP
-A9, A10).
+unchanged.  The serving injectors corrupt a staged serving workload
+(``graphs/serving.py``'s ``ServingWorkload``) instead and return a copy:
+
+* :func:`poison_request` writes an out-of-domain value into one request's
+  prompt row, so a guarded run flags ``DOMAIN`` where admission writes it
+  and ``ActorEngine(on_fault="quarantine")`` retires the request;
+* :func:`expire_deadline` gives one request a deadline already past, so
+  admission retires it as a timeout (a policy outcome, no fault).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
@@ -119,3 +125,50 @@ def truncate_feed(feeds: Mapping[str, Any], fifo: str,
         raise ValueError(f"truncate_feed: cannot drop {drop} of {n} windows")
     out[fifo] = arr[:n - drop] if isinstance(arr, torch.Tensor) else np.asarray(arr)[:n - drop]
     return out
+
+
+# --------------------------------------------------------------------- #
+# Serving-level injectors: corrupt the staged workload, not a ring.
+# --------------------------------------------------------------------- #
+POISON_VALUE = -(2 ** 20)
+
+
+def _check_slot(workload, slot: int) -> int:
+    n = int(np.asarray(workload.prompts).shape[0])
+    if not 0 <= slot < n:
+        raise ValueError(
+            f"request slot {slot} out of range for a workload of {n} requests")
+    return slot
+
+
+def poison_request(workload, slot: int, value: int = POISON_VALUE):
+    """Poison one staged request's prompt row with an out-of-domain value
+    (a corrupted or adversarial request).  Every slot-table channel
+    declares ``SLOT_DOMAIN``, so a guarded run flags ``DOMAIN`` the moment
+    admission writes the row; ``faulted_requests`` maps the fault back to
+    this slot."""
+    from repro_torch.graphs.serving import SLOT_DOMAIN
+    _check_slot(workload, slot)
+    lo, hi = SLOT_DOMAIN
+    if lo <= value <= hi:
+        raise ValueError(
+            f"poison_request: value {value} is inside SLOT_DOMAIN {SLOT_DOMAIN}; "
+            "an in-domain value is not a poison")
+    prompts = np.array(workload.prompts, np.int32, copy=True)
+    prompts[slot, :] = value
+    return dataclasses.replace(workload, prompts=prompts)
+
+
+def expire_deadline(workload, slot: int, at: int = 0):
+    """Give one staged request a deadline already past: it expires before
+    step ``at`` (default 0, before the network's first firing).  Admission
+    retires it as a ``STATUS_TIMEOUT`` rate-0 firing the first step it has
+    both arrived and expired; no fault is raised."""
+    from repro_torch.graphs.serving import NO_DEADLINE
+    _check_slot(workload, slot)
+    deadlines = (np.array(workload.deadlines, np.int32, copy=True)
+                 if workload.deadlines is not None
+                 else np.full((np.asarray(workload.prompts).shape[0],), NO_DEADLINE,
+                              np.int32))
+    deadlines[slot] = at - 1
+    return dataclasses.replace(workload, deadlines=deadlines)

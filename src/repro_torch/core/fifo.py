@@ -57,7 +57,10 @@ class FifoSpec:
     that two control-driven ports are enabled together.  ``matched_rates``
     declares (or, from the builder, records the proof) that the producing
     and consuming ports are always enabled together, which makes a
-    delay-free channel transient in the static schedule.
+    delay-free channel transient in the static schedule.  ``row_id_col``
+    names the column of record-row tokens (a row per slot, as serving's
+    slot table) that holds the row's id, so a fault report can name the
+    offending row's request.
     """
 
     name: str
@@ -68,6 +71,7 @@ class FifoSpec:
     is_control: bool = False
     domain: Optional[Tuple[float, float]] = None
     matched_rates: bool = False
+    row_id_col: Optional[int] = None
 
     def __post_init__(self) -> None:
         if self.rate < 1:
@@ -95,6 +99,16 @@ class FifoSpec:
                     f"fifo {self.name}: domain=({lo}, {hi}) is empty; "
                     "declare (lo, hi) with lo <= hi")
             object.__setattr__(self, "domain", (float(lo), float(hi)))
+        if self.row_id_col is not None:
+            if len(self.token_shape) < 2:
+                raise ValueError(
+                    f"fifo {self.name}: row_id_col names a column of "
+                    "record-row tokens, so the token shape must be >= 2-D, "
+                    f"got {self.token_shape}")
+            if not 0 <= int(self.row_id_col) < self.token_shape[-1]:
+                raise ValueError(
+                    f"fifo {self.name}: row_id_col={self.row_id_col} is "
+                    f"outside the token row width {self.token_shape[-1]}")
 
     # -- capacity law (Eq. 1) ------------------------------------------- #
     @property

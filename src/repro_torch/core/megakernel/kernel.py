@@ -232,14 +232,6 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
         partition = partition_layout(network, layout, cores)
     prog = build_device_program(network, layout, partition)
     if guards:
-        declared = [n for n, sp in network.fifos.items()
-                    if sp.domain is not None and not sp.is_control]
-        if declared:
-            raise NotImplementedError(
-                f"megakernel guards: data channels {declared} declare a "
-                "value domain; the kernel's DOMAIN guard reads control "
-                "tokens only (the serving graph brings data domains, "
-                "ROADMAP A9)")
         body_written = [n for n, sp in network.fifos.items()
                         if sp.is_control and sp.domain is not None
                         and network.actors[network.edge_of(n).src_actor]

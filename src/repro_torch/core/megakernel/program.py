@@ -13,8 +13,9 @@ run of the compiled program.
 * **Per channel**: rate, Eq. 1 capacity, token size in bytes, write
   phases, blocking bound, whether it is a control channel, whether it is
   forwarded, its delay (a Fig. 2 triple buffer writes one slot further on
-  and copies slot ``3r`` back to slot 0 after a phase-2 write) and its
-  element type.  Rings are addressed as bytes, so one kernel moves float32
+  and copies slot ``3r`` back to slot 0 after a phase-2 write), its
+  element type and its declared domain (the guarded build checks every
+  window of a data channel that declares one).  Rings are addressed as bytes, so one kernel moves float32
   (DPD) and uint8 (motion detection) tokens alike.
 * **Per actor**: its :class:`~repro_torch.core.actor.DeviceOp` kind, its
   control, input and output channels, its ready limit, and for a dynamic
@@ -32,7 +33,9 @@ run of the compiled program.
   ``(2E,)`` token), kept in the io words.  Config actors write theirs as
   the scheduler decides; the MoE router and packer write theirs from their
   bodies, and the scheduler waits for that body before it peeks the
-  token.  ``H_MOE`` marks a program with MoE kinds, which the kernel runs
+  token.  ``H_DOM`` marks a program with a data channel that declares a
+  domain (the guarded build's DOMAIN tests run only then).  ``H_MOE``
+  marks a program with MoE kinds, which the kernel runs
   in an instance of its own (the wide path and these waits; the other
   instance has none of that code).
 * **Scratch**: MoE bodies run in phases, each a command of its own, and
@@ -54,6 +57,7 @@ import dataclasses
 import struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core.actor import eval_enable
@@ -79,11 +83,11 @@ ELEM_CODES = {torch.float32: 0, torch.uint8: 1, torch.int32: 2}
 # ---- packed table layout (mirrored by csrc/megakernel.cu) --------------- #
 HEADER = 16
 H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF, \
-    H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN, H_SCRATCH, H_MOE = range(12)
+    H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN, H_SCRATCH, H_MOE, H_DOM = range(13)
 
-FIFO_FIELDS = 12
+FIFO_FIELDS = 13
 (F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
- F_ELEM, F_DLO, F_DHI) = range(12)
+ F_ELEM, F_DLO, F_DHI, F_DOM) = range(13)
 
 ACTOR_FIELDS = 20
 (A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
@@ -231,6 +235,17 @@ def fifo_row(spec: FifoSpec, forwarded: bool = False,
     if spec.is_control:
         # The declared domain as the guards compare control tokens with it.
         row[F_DLO], row[F_DHI] = int_domain(spec)
+    elif spec.domain is not None:
+        # A data channel's domain, each bound cast to the token type first
+        # as the reference casts it: float32 bits for a float channel, ints
+        # (clamped to int32) for u8 and int32 ones.
+        row[F_DOM] = 1
+        if spec.dtype == torch.float32:
+            row[F_DLO], row[F_DHI] = (int(np.array(x, np.float32).view(np.int32))
+                                      for x in spec.domain)
+        else:
+            row[F_DLO], row[F_DHI] = (min(max(x, -2 ** 31), 2 ** 31 - 1)
+                                      for x in int_domain(spec))
     return row
 
 
@@ -549,6 +564,7 @@ def build_device_program(network: Network, layout: MegakernelLayout,
             "tokens a firing or the experts")
     header[H_SCRATCH] = scratch_words
     header[H_MOE] = moe
+    header[H_DOM] = int(any(fifo_rows[FIFO_FIELDS * i + F_DOM] for i in range(n_fifos)))
     packed = header + fifo_rows + actor_rows + list(visit) + tail
     assert len(packed) == total
     return DeviceProgram(

@@ -44,7 +44,9 @@ With ``guards`` the scheduler also ORs each channel op's cursor fault bits
 (``core/health.py``, from the pre-op io words; the control tokens' DOMAIN)
 into the fault words after the meta words and keeps each channel's
 high-water mark, and :func:`execute` ORs NONFINITE for every enabled float
-window a body reads or writes, as kernel B2's ``MK_GUARDS`` build does.
+window a body reads or writes, and DOMAIN for every such window of a data
+channel with a declared domain (:func:`_check_domain`), as kernel B2's
+``MK_GUARDS`` build does.
 With a ``trace_ring`` the scheduler records one event per firing attempt,
 as the ``MK_TRACE`` build does (``core/trace.py``).
 
@@ -68,7 +70,7 @@ from repro_torch.core.megakernel.program import (
     A_AUX, A_CTRL, A_ENABLES, A_FPARAM, A_IN, A_KIND, A_N0, A_N2, A_N3,
     A_NAUX, A_NIN, A_NOUT, A_ORDER, A_OUT, A_PLANES, A_PTR0, A_PTR1, A_READY,
     A_SCALAR, ACTOR_FIELDS, ELEM_CODES, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL,
-    F_DELAY, F_DHI, F_DLO, F_ELEM, F_FWD, F_NPH, F_RATE, F_TOKB, FIFO_FIELDS,
+    F_DELAY, F_DHI, F_DLO, F_DOM, F_ELEM, F_FWD, F_NPH, F_RATE, F_TOKB, FIFO_FIELDS,
     H_ACTOR_OFF, H_FIFO_OFF, H_N_ACTORS, H_N_CTRL, H_N_FIFOS, H_N_SCALARS,
     H_N_VISIT, H_VISIT_OFF, KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE, M_ERROR,
     M_STALLED, M_SWEEPS, META_WORDS, PHASES)
@@ -501,6 +503,24 @@ def _check_finite(P: _Table, fault: torch.Tensor, f: int,
     fault[f:f + 1].bitwise_or_(bad)
 
 
+def _check_domain(P: _Table, fault: torch.Tensor, f: int,
+                  window: torch.Tensor) -> None:
+    """OR DOMAIN into ``fault[f]`` when a window of a data channel with a
+    declared domain holds an element outside ``[lo, hi]``: the row's bounds,
+    float32 bits for a float channel, ints otherwise.  ``lo <= x <= hi``
+    fails for a NaN too, as the reference's ``_domain_bit`` compares."""
+    row = P.fifo[f]
+    if row[F_CTRL] or not row[F_DOM]:
+        return
+    if row[F_ELEM] == ELEM_CODES[torch.float32]:
+        lo, hi = (struct.unpack("<f", struct.pack("<i", row[x]))[0] for x in (F_DLO, F_DHI))
+    else:
+        lo, hi = row[F_DLO], row[F_DHI]
+        window = window.to(torch.int64)
+    bad = (~((window >= lo) & (window <= hi))).any().to(torch.int32) * DOMAIN
+    fault[f:f + 1].bitwise_or_(bad)
+
+
 def _dot(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a (R, K) @ w (K, M)`` as the kernel sums it: float32, from 0, in
     the order of k, each product and each sum rounded on its own."""
@@ -606,6 +626,7 @@ def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             for e, f, w in zip(c.in_en, ins, win):
                 if e:
                     _check_finite(P, value_fault, f, w)
+                    _check_domain(P, value_fault, f, w)
         if kind in (SOURCE, SINK):
             # Plane p of window idx sits at p * stride + idx * wb of the slab.
             wb = r[A_N0]
@@ -679,6 +700,7 @@ def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             for e, f, d in zip(c.out_en, outs, dst):
                 if e and d is not None:
                     _check_finite(P, value_fault, f, d)
+                    _check_domain(P, value_fault, f, d)
         for on, f in zip(c.copy_back, outs):
             if on:
                 rings[f][0].copy_(rings[f][3 * fifo[f][F_RATE]])

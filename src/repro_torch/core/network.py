@@ -20,17 +20,22 @@ if TYPE_CHECKING:  # pragma: no cover - import cycle guard (program -> network)
     from repro_torch.core.program import ExecutionPlan, Program
 
 
-def _tree_leaves(x: Any) -> Iterator[Any]:
+def tree_leaves(x: Any) -> Iterator[Any]:
     if isinstance(x, (tuple, list)):
         for y in x:
-            yield from _tree_leaves(y)
+            yield from tree_leaves(y)
+    elif isinstance(x, dict):
+        for k in sorted(x):             # the reference's pytree order
+            yield from tree_leaves(x[k])
     else:
         yield x
 
 
-def _tree_map(fn: Callable[[Any], Any], x: Any) -> Any:
+def tree_map(fn: Callable[[Any], Any], x: Any) -> Any:
     if isinstance(x, (tuple, list)):
-        return type(x)(_tree_map(fn, y) for y in x)
+        return type(x)(tree_map(fn, y) for y in x)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, x[k]) for k in sorted(x)}
     return fn(x)
 
 
@@ -39,8 +44,8 @@ class NetworkState:
     """State of a whole network: channel states and actor states in network
     declaration order.
 
-    Actor states are tuples of tensors (on the network's device) and host
-    ints.  :meth:`leaves` flattens everything in the reference's pytree
+    Actor states are tuples, lists and dicts of tensors (on the network's
+    device) and host ints.  :meth:`leaves` flattens everything in the reference's pytree
     leaf order — per channel ``buf, rd, wr, occ``, then each actor's state
     depth first — which is what :mod:`repro_torch.convert` and the parity
     tests rely on.
@@ -62,7 +67,7 @@ class NetworkState:
         for f in self.fifos:
             out += [f.buf, f.rd, f.wr, f.occ]
         for a in self.actors:
-            out += list(_tree_leaves(a))
+            out += list(tree_leaves(a))
         return out
 
     def map_leaves(self, fn: Callable[[Any], Any]) -> "NetworkState":
@@ -70,7 +75,7 @@ class NetworkState:
         order."""
         fifos = [FifoState(fn(f.buf), fn(f.rd), fn(f.wr), fn(f.occ))
                  for f in self.fifos]
-        actors = [_tree_map(fn, a) for a in self.actors]
+        actors = [tree_map(fn, a) for a in self.actors]
         return NetworkState(fifos, actors, self.fifo_names, self.actor_names)
 
     def clone(self) -> "NetworkState":

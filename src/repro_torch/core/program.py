@@ -38,7 +38,7 @@ _UNPORTED_FIELDS = {
               "in_place=True) is its form of donation)",
     "donate_threshold_bytes": "A3 (donation)",
     "unroll_bound": "A3 (eager cursors need no phase unroll)",
-    "accelerated": "A11 (heterogeneous mapping) and A9 (Program.stream)",
+    "accelerated": "A11 (heterogeneous mapping and Program.stream)",
     "devices": "A12 (multi-device)",
     "device_assign": "A12 (multi-device)",
 }

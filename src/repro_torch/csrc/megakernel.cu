@@ -119,12 +119,18 @@
 //   shared memory, with the write's true occupancy after it as the
 //   high-water mark; a control token read or written is checked against its
 //   channel's domain (DOMAIN).  Every block keeps them, block 0 writes them
-//   out.  NONFINITE reads token values: before a body, the block scans its
-//   share of every enabled float input window (inputs stay put while a
-//   command runs); every store of an enabled float output (put) tests the
-//   word it stores.  A bad word sets its port's bit in a block word, and
-//   after the body thread 0 ORs NONFINITE into the channel's fault word in
-//   global memory.
+//   out.  NONFINITE and a data channel's DOMAIN read token values: before a
+//   body, the block scans its share of every enabled float input window for
+//   NaN and Inf (inputs stay put while a command runs); every store of an
+//   enabled float output (put) tests the word it stores.  In a program with
+//   a data channel that declares a domain (H_DOM) the block also scans every
+//   enabled input window of such a channel for an element outside [lo, hi],
+//   and a command with such an output runs bodies of their own (CB_DOM)
+//   whose stores test it; the body threads find those ports from the channel
+//   rows, not the scheduler warp, which bounds DPD, and a program without a
+//   domain runs what it ran before.  A bad word sets its port's bit in a
+//   block word, and after the body thread 0 ORs NONFINITE or DOMAIN into the
+//   channel's fault word in global memory.
 // * Built with -DMK_TRACE, block 0's scheduler warp writes one event per
 //   firing attempt (trace.py's row: actor, sweep, fired, then every
 //   channel's occupancy after the attempt) into a (capacity, 3 + channels)
@@ -166,11 +172,14 @@ namespace {
 
 // ---- packed table layout: mirrors core/megakernel/program.py ----------- //
 enum { H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF,
-       H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN, H_SCRATCH, H_MOE };
-constexpr int FIFO_FIELDS = 12;
+       H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN, H_SCRATCH, H_MOE, H_DOM };
+constexpr int FIFO_FIELDS = 13;
+// F_DOM: a data channel with a declared domain, [F_DLO, F_DHI] as float32
+// bits for float channels, as ints for u8 and int32 ones (control channels
+// always compare their int32 tokens with F_DLO and F_DHI).
 enum { F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
-       F_ELEM, F_DLO, F_DHI };
-enum { ELEM_F32 = 0 };
+       F_ELEM, F_DLO, F_DHI, F_DOM };
+enum { ELEM_F32 = 0, ELEM_U8 = 1, ELEM_I32 = 2 };
 constexpr int ACTOR_FIELDS = 20;
 enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
        A_ENABLES, A_N2, A_N3, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
@@ -1180,15 +1189,24 @@ __device__ __forceinline__ long long grid_step() {
   return static_cast<long long>(gridDim.x) * BODY_THREADS;
 }
 
-// Store word x at byte b of output o's window.  CB is set only for a firing
-// with a delay channel's enabled phase-2 write (cmd.cb_mask != 0): then x
-// also goes to its slot-0 place when o is that channel and b lies in the
-// window's last token (the Fig. 2 copy-back).  Every other firing runs the
-// CB = false bodies, whose stores test nothing.
+// Store word x at byte b of output o's window.  CB_COPY is set only for a
+// firing with a delay channel's enabled phase-2 write (cmd.cb_mask != 0):
+// then x also goes to its slot-0 place when o is that channel and b lies in
+// the window's last token (the Fig. 2 copy-back).  Every other firing runs
+// bodies without it, whose stores test nothing.  CB_DOM (the MK_GUARDS
+// build, a command with an output that declares a domain) tests each word
+// stored against its channel's domain.
+enum { CB_COPY = 1, CB_DOM = 2 };
 #ifdef MK_GUARDS
-// Bit k: input k's (output k's) window held a NaN or an Inf in the command
-// the block is running.
-__shared__ unsigned bad_in, bad_out;
+// Bit k: input k's (output k's) window held a NaN or an Inf (bad_in,
+// bad_out), or an element outside its channel's domain (dom_in, dom_out),
+// in the command the block is running.
+__shared__ unsigned bad_in, bad_out, dom_in, dom_out;
+// The channel rows (this block's replica of the program), for the body
+// threads' DOMAIN tests, and whether any data channel declares a domain
+// (H_DOM): without one, no command pays for the tests.
+__shared__ const int* dom_rows;
+__shared__ int dom_any;
 
 // Whether a word of float32 tokens holds a NaN or an Inf (every exponent
 // bit set).  Float channels move words of 4 or 16 bytes (their addresses
@@ -1204,15 +1222,53 @@ __device__ __forceinline__ bool nonfinite(float4 x) {
   return nonfinite(x.x) || nonfinite(x.y) || nonfinite(x.z) || nonfinite(x.w);
 }
 __device__ __forceinline__ bool nonfinite(unsigned char) { return false; }
+
+// Whether a word of a channel with a declared domain (row fr) holds an
+// element outside [lo, hi], compared as health.py compares it: lo <= x <= hi
+// fails for a NaN too.  A 4-byte word of a u8 channel holds four tokens.
+__device__ __forceinline__ bool out_of_domain(unsigned w, const int* fr) {
+  if (fr[F_ELEM] == ELEM_F32) {
+    const float x = __uint_as_float(w);
+    return !(x >= __int_as_float(fr[F_DLO]) && x <= __int_as_float(fr[F_DHI]));
+  }
+  if (fr[F_ELEM] == ELEM_I32) {
+    const int x = static_cast<int>(w);
+    return x < fr[F_DLO] || x > fr[F_DHI];
+  }
+  bool bad = false;
+  for (int i = 0; i < 4; ++i) {
+    const int x = static_cast<int>((w >> (8 * i)) & 0xffu);
+    bad |= x < fr[F_DLO] || x > fr[F_DHI];
+  }
+  return bad;
+}
+__device__ __forceinline__ bool out_of_domain(unsigned char x, const int* fr) {
+  return x < fr[F_DLO] || x > fr[F_DHI];
+}
+__device__ __forceinline__ bool out_of_domain(float x, const int* fr) {
+  return out_of_domain(__float_as_uint(x), fr);
+}
+__device__ __forceinline__ bool out_of_domain(uint4 x, const int* fr) {
+  return out_of_domain(x.x, fr) || out_of_domain(x.y, fr) || out_of_domain(x.z, fr) ||
+         out_of_domain(x.w, fr);
+}
+__device__ __forceinline__ bool out_of_domain(float4 x, const int* fr) {
+  return out_of_domain(make_uint4(__float_as_uint(x.x), __float_as_uint(x.y),
+                                  __float_as_uint(x.z), __float_as_uint(x.w)), fr);
+}
 #endif
 
-template <bool CB, typename T>
+template <int CB, typename T>
 __device__ __forceinline__ void put(const Cmd& c, int o, long long b, T x) {
 #ifdef MK_GUARDS
   if (((c.out_fl >> o) & 1) && nonfinite(x)) atomicOr(&bad_out, 1u << o);
+  if constexpr ((CB & CB_DOM) != 0) {
+    const int* fr = dom_rows + FIFO_FIELDS * c.out_f[o];
+    if (fr[F_DOM] && out_of_domain(x, fr)) atomicOr(&dom_out, 1u << o);
+  }
 #endif
   *reinterpret_cast<T*>(c.out[o] + b) = x;
-  if (CB && ((c.cb_mask >> o) & 1) && b >= c.cb_from[o])
+  if ((CB & CB_COPY) && ((c.cb_mask >> o) & 1) && b >= c.cb_from[o])
     *reinterpret_cast<T*>(c.slot0[o] + (b - c.cb_from[o])) = x;
 }
 
@@ -1223,7 +1279,7 @@ __device__ __forceinline__ int word_bytes(unsigned long long bits) {
 }
 
 // n bytes of src to byte `at` of every enabled output window.
-template <bool CB, typename T>
+template <int CB, typename T>
 __device__ void fan_out_words(const Cmd& c, const unsigned char* src, long long n,
                               long long at) {
   const T* s = reinterpret_cast<const T*>(src);
@@ -1235,13 +1291,13 @@ __device__ void fan_out_words(const Cmd& c, const unsigned char* src, long long 
   }
 }
 
-template <bool CB>
+template <int CB>
 __device__ void fan_out(const Cmd& c, const unsigned char* src, long long n, long long at) {
   unsigned long long bits = reinterpret_cast<uintptr_t>(src) | n | at;
   for (int o = 0; o < c.n_out; ++o) {
     if (!((c.out_en >> o) & 1)) continue;
     bits |= reinterpret_cast<uintptr_t>(c.out[o]);
-    if (CB && ((c.cb_mask >> o) & 1))
+    if ((CB & CB_COPY) && ((c.cb_mask >> o) & 1))
       bits |= reinterpret_cast<uintptr_t>(c.slot0[o]) | c.cb_from[o];
   }
   switch (word_bytes(bits)) {
@@ -1269,7 +1325,7 @@ __device__ void copy_bytes(unsigned char* dst, const unsigned char* src, long lo
   }
 }
 
-template <bool CB>
+template <int CB>
 __device__ void run_poly(const Cmd& c, float* sb_re, float* sb_im, float* sh_re,
                          float* sh_im) {
   const int L = c.n0;
@@ -1331,7 +1387,7 @@ __device__ void run_poly(const Cmd& c, float* sb_re, float* sb_im, float* sh_re,
 // from there.  Rows too wide for the tile read their neighbours from L2.
 // Motion detection's bodies stay out of line, so DPD's bodies keep their
 // code compact in the command loop.
-template <bool CB, typename Px>
+template <int CB, typename Px>
 __device__ __noinline__ void run_stencil(const Cmd& c, Px px, float* tile) {
   const int H = c.n0, W = c.n1, n_out = c.n_out;
   const unsigned out_en = c.out_en;
@@ -1405,12 +1461,12 @@ __device__ __forceinline__ unsigned thres4(unsigned cur, unsigned prev, float th
   return out;
 }
 
-template <bool CB>
+template <int CB>
 __device__ __noinline__ void run_thres(const Cmd& c) {
   unsigned long long bits = reinterpret_cast<uintptr_t>(c.in[0]) |
                             reinterpret_cast<uintptr_t>(c.in[1]) |
                             reinterpret_cast<uintptr_t>(c.out[0]) | c.win;
-  if (CB && (c.cb_mask & 1))
+  if ((CB & CB_COPY) && (c.cb_mask & 1))
     bits |= reinterpret_cast<uintptr_t>(c.slot0[0]) | c.cb_from[0];
   if ((bits & 15) == 0) {  // 16 pixels a thread
     const uint4* cur = reinterpret_cast<const uint4*>(c.in[0]);
@@ -1457,7 +1513,7 @@ __device__ __forceinline__ float4 fadd(float4 a, float4 b) {
 // The adder on words of T (float4 or float): its enabled inputs summed
 // from 0 in its terms' order, each add rounded on its own; the loads of 8
 // terms are in flight together.
-template <bool CB, typename T>
+template <int CB, typename T>
 __device__ void adder_words(const Cmd& c) {
   constexpr int BATCH = 8;
   for (long long j = grid_first(); j < c.win / static_cast<long long>(sizeof(T));
@@ -1481,12 +1537,12 @@ __device__ void adder_words(const Cmd& c) {
   }
 }
 
-template <bool CB>
+template <int CB>
 __device__ void run_adder(const Cmd& c) {
   unsigned long long bits = reinterpret_cast<uintptr_t>(c.out[0]) | c.win;
   for (int k = 0; k < c.n_in; ++k)
     if ((c.in_en >> k) & 1) bits |= reinterpret_cast<uintptr_t>(c.in[k]);
-  if (CB && (c.cb_mask & 1))
+  if ((CB & CB_COPY) && (c.cb_mask & 1))
     bits |= reinterpret_cast<uintptr_t>(c.slot0[0]) | c.cb_from[0];
   if ((bits & 15) == 0)
     adder_words<CB, float4>(c);
@@ -1504,7 +1560,7 @@ struct Stage {
   alignas(16) float tile[TILE_FLOATS];
 };
 
-template <bool CB>
+template <int CB>
 __device__ __forceinline__ void run_body(const Cmd& c, Stage& st) {
   switch (c.kind) {
     case K_SOURCE:
@@ -1545,8 +1601,11 @@ __device__ __forceinline__ void run_body(const Cmd& c, Stage& st) {
 // (ref.py's _dot) computes with torch's elementwise ops.  SIMT, no tensor
 // cores yet.
 #ifdef MK_GUARDS
-// Bit p: port p's float window held a NaN or an Inf (wide commands).
+// Bit p: port p's float window held a NaN or an Inf (bad_win, bad_wout), or
+// port p's window an element outside its channel's domain (dom_win,
+// dom_wout), in a wide command.
 __shared__ unsigned bad_win[WIDE_WORDS], bad_wout[WIDE_WORDS];
+__shared__ unsigned dom_win[WIDE_WORDS], dom_wout[WIDE_WORDS];
 #endif
 
 __device__ __forceinline__ float bf16f(unsigned short x) {
@@ -1561,10 +1620,28 @@ __device__ __forceinline__ unsigned char* port_window(const View& v, const Cmd& 
   const int f = v.P[c.row[out ? A_OUT : A_IN] + p];
   return ring(v, f, bit_of(out ? c.wph_out : c.wph_in, p) * fifo_row(v, f)[F_RATE]);
 }
-// A float store to output port p's window, tested for NaN and Inf under guards.
-__device__ __forceinline__ void put_moe(int p, float* at, float x) {
+// A float store to output port p's window, tested under guards for NaN and
+// Inf and, where its channel declares one, against the domain.
+__device__ __forceinline__ void put_moe(const View& v, const Cmd& c, int p, float* at,
+                                        float x) {
 #ifdef MK_GUARDS
   if (nonfinite(x)) atomicOr(&bad_wout[p >> 5], 1u << (p & 31));
+  if (dom_any) {
+    const int* fr = fifo_row(v, v.P[c.row[A_OUT] + p]);
+    if (fr[F_DOM] && out_of_domain(x, fr)) atomicOr(&dom_wout[p >> 5], 1u << (p & 31));
+  }
+#endif
+  *at = x;
+}
+// An int32 store to output port p's window, tested against its domain.
+__device__ __forceinline__ void put_moe_i(const View& v, const Cmd& c, int p, int* at,
+                                          int x) {
+#ifdef MK_GUARDS
+  if (dom_any) {
+    const int* fr = fifo_row(v, v.P[c.row[A_OUT] + p]);
+    if (fr[F_DOM] && out_of_domain(static_cast<unsigned>(x), fr))
+      atomicOr(&dom_wout[p >> 5], 1u << (p & 31));
+  }
 #endif
   *at = x;
 }
@@ -1648,11 +1725,12 @@ __device__ __noinline__ void router_route(const View v, const Cmd& c) {
     int* slot_o = reinterpret_cast<int*>(port_window(v, c, true, 2 * E));
     float* w_o = reinterpret_cast<float*>(port_window(v, c, true, 2 * E + 1));
     for (int i = tid; i < nk; i += BODY_THREADS) {
-      slot_o[i] = slot[i];
-      put_moe(2 * E + 1, w_o + i, __fmul_rn(gw[i], slot[i] < E * C ? 1.f : 0.f));
+      put_moe_i(v, c, 2 * E, slot_o + i, slot[i]);
+      put_moe(v, c, 2 * E + 1, w_o + i, __fmul_rn(gw[i], slot[i] < E * C ? 1.f : 0.f));
     }
     for (int e = tid; e < E; e += BODY_THREADS)
-      *reinterpret_cast<int*>(port_window(v, c, true, 2 * E + 2 + e)) = cnt[e];
+      put_moe_i(v, c, 2 * E + 2 + e,
+                reinterpret_cast<int*>(port_window(v, c, true, 2 * E + 2 + e)), cnt[e]);
   }
   for (int e = tid; e < E; e += BODY_THREADS) {
     const int p = E + e;
@@ -1664,7 +1742,7 @@ __device__ __noinline__ void router_route(const View v, const Cmd& c) {
     float* dst = reinterpret_cast<float*>(port_window(v, c, true, e)) + static_cast<long long>(q) * D;
     const float* src = x + static_cast<long long>(tok) * D;
     for (int d = tid; d < D; d += BODY_THREADS)
-      put_moe(e, dst + d, tok >= 0 ? __fadd_rn(0.f, __ldcg(src + d)) : 0.f);
+      put_moe(v, c, e, dst + d, tok >= 0 ? __fadd_rn(0.f, __ldcg(src + d)) : 0.f);
   }
 }
 
@@ -1759,7 +1837,7 @@ __device__ __noinline__ void run_expert(const View v, const Cmd& c, float* tile)
     const int row0 = (t / cols) * GEMM_ROWS, col0 = (t % cols) * GEMM_COLS;
     gemm_tile<1>(h, F, row0, min(GEMM_ROWS, C - row0), F, wd, nullptr, D, col0, tile,
                  [&](int row, int col, float acc, float) {
-                   put_moe(0, y + static_cast<long long>(row) * D + col, acc);
+                   put_moe(v, c, 0, y + static_cast<long long>(row) * D + col, acc);
                  });
   }
 }
@@ -1787,7 +1865,7 @@ __device__ __noinline__ void run_combine(const View v, const Cmd& c) {
       }
       acc = fmac(acc, x, wt);
     }
-    put_moe(0, out + o, acc);
+    put_moe(v, c, 0, out + o, acc);
   }
 }
 
@@ -1805,29 +1883,39 @@ __device__ __noinline__ void run_packer(const View v, const Cmd& c) {
 }
 
 #ifdef MK_GUARDS
-// NONFINITE of a wide command's enabled float inputs (in its first phase).
+// NONFINITE of a wide command's enabled float inputs and DOMAIN of those
+// whose channel declares one (in its first phase; the wide kinds' data
+// channels carry float32 or int32 tokens).
 __device__ __noinline__ void scan_inputs_wide(const View v, const Cmd& c) {
   for (int p = 0; p < c.n_in; ++p) {
     if (!bit_of(c.wen_in, p)) continue;
     const int f = v.P[c.row[A_IN] + p];
     const int* fr = fifo_row(v, f);
-    if (fr[F_CTRL] || fr[F_ELEM] != ELEM_F32) continue;
+    const bool fl = fr[F_ELEM] == ELEM_F32, dm = dom_any && fr[F_DOM];
+    if (fr[F_CTRL] || !(fl || dm)) continue;
     const unsigned* w = reinterpret_cast<const unsigned*>(port_window(v, c, false, p));
     const long long n = static_cast<long long>(fr[F_RATE]) * fr[F_TOKB] / 4;
-    bool bad = false;
-    for (long long j = grid_first(); j < n; j += grid_step()) bad |= nonfinite(__ldcg(w + j));
+    bool bad = false, dom = false;
+    for (long long j = grid_first(); j < n; j += grid_step()) {
+      const unsigned x = __ldcg(w + j);
+      bad |= fl && nonfinite(x);
+      dom |= dm && out_of_domain(x, fr);
+    }
     if (bad) atomicOr(&bad_win[p >> 5], 1u << (p & 31));
+    if (dom) atomicOr(&dom_win[p >> 5], 1u << (p & 31));
   }
 }
 
 __device__ __noinline__ void flush_bad_wide(const View v, const Cmd& c, long long* fault) {
-  for (int side = 0; side < 2; ++side)
+  for (int side = 0; side < 4; ++side)
     for (int k = 0; k < WIDE_WORDS; ++k) {
-      unsigned* word = side ? &bad_wout[k] : &bad_win[k];
+      unsigned* word = (side == 0 ? bad_win : side == 1 ? bad_wout
+                        : side == 2 ? dom_win : dom_wout) + k;
+      const int* ports = v.P + c.row[side & 1 ? A_OUT : A_IN];
       for (unsigned m = *word; m; m &= m - 1) {
         const int p = 32 * k + __ffs(m) - 1;
-        atomicOr(reinterpret_cast<unsigned long long*>(fault + v.P[c.row[side ? A_OUT : A_IN] + p]),
-                 static_cast<unsigned long long>(NONFINITE));
+        atomicOr(reinterpret_cast<unsigned long long*>(fault + ports[p]),
+                 static_cast<unsigned long long>(side < 2 ? NONFINITE : DOMAIN));
       }
       *word = 0;
     }
@@ -1870,25 +1958,69 @@ __device__ void scan_inputs(const Cmd& c) {
   }
 }
 
-// After a body: OR NONFINITE into the global fault word of every channel
-// the block saw a bad word on, and clear the block words (thread 0, after a
-// barrier; the next command's barrier orders the clear before its stores).
+// DOMAIN of the command's enabled inputs whose channel declares one, in a
+// program that has such a channel (H_DOM; the others never call it): the
+// block scans its share of each window, a u8 window a byte at a time.
+// Returns whether an enabled output declares a domain.
+__device__ __noinline__ bool scan_domains(const Cmd& c) {
+  const int* rows = dom_rows;
+  unsigned out_dm = 0;
+  for (int o = 0; o < c.n_out; ++o)
+    out_dm |= static_cast<unsigned>(rows[FIFO_FIELDS * c.out_f[o] + F_DOM] != 0) << o;
+  for (int k = 0; k < c.n_in; ++k) {
+    const int* fr = rows + FIFO_FIELDS * c.in_f[k];
+    if (!((c.in_en >> k) & 1) || !fr[F_DOM]) continue;
+    bool dom = false;
+    if (fr[F_ELEM] == ELEM_U8) {
+      for (long long j = grid_first(); j < c.win; j += grid_step())
+        dom |= out_of_domain(__ldcg(c.in[k] + j), fr);
+    } else {
+      const unsigned* w = reinterpret_cast<const unsigned*>(c.in[k]);
+      for (long long j = grid_first(); j < c.win / 4; j += grid_step())
+        dom |= out_of_domain(__ldcg(w + j), fr);
+    }
+    if (dom) atomicOr(&dom_in, 1u << k);
+  }
+  return (out_dm & c.out_en) != 0;
+}
+
+// After a body: OR NONFINITE and DOMAIN into the global fault word of every
+// channel the block saw a bad word on, and clear the block words (thread 0,
+// after a barrier; the next command's barrier orders the clear before its
+// stores).
+__device__ __forceinline__ void flush_bits(unsigned m, const int* ports, long long* fault,
+                                           int bit) {
+  for (; m; m &= m - 1)
+    atomicOr(reinterpret_cast<unsigned long long*>(fault + ports[__ffs(m) - 1]),
+             static_cast<unsigned long long>(bit));
+}
 __device__ void flush_bad(const Cmd& c, long long* fault) {
-  for (unsigned m = bad_in; m; m &= m - 1)
-    atomicOr(reinterpret_cast<unsigned long long*>(fault + c.in_f[__ffs(m) - 1]),
-             static_cast<unsigned long long>(NONFINITE));
-  for (unsigned m = bad_out; m; m &= m - 1)
-    atomicOr(reinterpret_cast<unsigned long long*>(fault + c.out_f[__ffs(m) - 1]),
-             static_cast<unsigned long long>(NONFINITE));
+  flush_bits(bad_in, c.in_f, fault, NONFINITE);
+  flush_bits(bad_out, c.out_f, fault, NONFINITE);
   bad_in = bad_out = 0;
+  if (dom_any) {
+    flush_bits(dom_in, c.in_f, fault, DOMAIN);
+    flush_bits(dom_out, c.out_f, fault, DOMAIN);
+    dom_in = dom_out = 0;
+  }
 }
 #endif
 
 // The bodies of a firing that writes a delay channel's phase 2, out of line
 // so that the command loop's common path keeps its code compact.
 __device__ __noinline__ void run_body_copy_back(const Cmd& c, Stage& st) {
-  run_body<true>(c, st);
+  run_body<CB_COPY>(c, st);
 }
+
+#ifdef MK_GUARDS
+// The bodies of a command with an output that declares a domain.
+__device__ __noinline__ void run_body_domain(const Cmd& c, Stage& st) {
+  if (c.cb_mask)
+    run_body<CB_COPY | CB_DOM>(c, st);
+  else
+    run_body<CB_DOM>(c, st);
+}
+#endif
 
 // MOE: an instance with the MoE kinds (the wide path, body-written control
 // tokens, the MoE bodies); networks without them run the other, which has
@@ -1956,8 +2088,8 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
     local_done = 0;
     finished = 0;
 #ifdef MK_GUARDS
-    bad_in = bad_out = 0;
-    for (int k = 0; k < WIDE_WORDS; ++k) bad_win[k] = bad_wout[k] = 0;
+    bad_in = bad_out = dom_in = dom_out = 0;
+    for (int k = 0; k < WIDE_WORDS; ++k) bad_win[k] = bad_wout[k] = dom_win[k] = dom_wout[k] = 0;
 #endif
     for (int i = 0; i < RING; ++i) {
       mbar_init(&full[i], 1);
@@ -1973,6 +2105,12 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   v.io_scal = 3 * v.P[H_N_FIFOS];
   v.io_ctrl = v.io_scal + 2 * v.P[H_N_SCALARS];
   v.io_counts = v.io_ctrl + v.P[H_N_CTRL];
+#ifdef MK_GUARDS
+  if (tid == 0) {
+    dom_rows = v.fifos;
+    dom_any = v.P[H_DOM];
+  }
+#endif
   for (int f = tid; f < v.P[H_N_FIFOS]; f += THREADS) {
     // Python's modulo: an injected cursor may be negative.
     const int nph = fifo_row(v, f)[F_NPH];
@@ -2098,11 +2236,14 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
       } else {
 #ifdef MK_GUARDS
         scan_inputs(cmd);
+        if (dom_any && scan_domains(cmd))
+          run_body_domain(cmd, stage);
+        else
 #endif
         if (cmd.cb_mask)
           run_body_copy_back(cmd, stage);
         else
-          run_body<false>(cmd, stage);
+          run_body<0>(cmd, stage);
 #ifdef MK_GUARDS
         body_sync();
         if (tid == 0) flush_bad(cmd, io + io_len);

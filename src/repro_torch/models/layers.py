@@ -132,7 +132,15 @@ class GeluMLP(nn.Module):
 # Embedding / unembedding.
 # ---------------------------------------------------------------------- #
 def embed_lookup(embed_w: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return embed_w[tokens]
+    """Rows of ``embed_w`` (V, D) for ``tokens``, as ``jnp.take``'s default
+    ``"fill"`` mode gives them: ids in ``[-V, V)`` index the table (negative
+    ones from the end), any other id gives a row of NaN.  Plain tensor ops,
+    so an id out of range costs no host sync and trips no device assert."""
+    V = embed_w.shape[0]
+    t = tokens.long()
+    inside = (t >= -V) & (t < V)
+    rows = embed_w[torch.where(inside, t.remainder(V), 0)]
+    return rows.masked_fill_(~inside[..., None], float("nan"))
 
 
 def unembed(x: torch.Tensor, w_f32: torch.Tensor) -> torch.Tensor:

@@ -368,10 +368,14 @@ class LM(nn.Module):
             new.append(nc)
         return self._logits(x)[:, 0], new
 
-    def serve_state(self, batch: int, max_seq: int) -> List[Cache]:
+    def serve_state(self, batch: int, max_seq: int,
+                    device: DeviceLike = None) -> List[Cache]:
         """Empty ring caches and recurrent states for every layer (zero
-        cross caches of the encoder's n_ctx positions for ``xdec``)."""
-        cfg, dev = self.cfg, self.device
+        cross caches of the encoder's n_ctx positions for ``xdec``), on
+        ``device`` (the model's when None; ``"meta"`` gives shapes and
+        types only)."""
+        cfg = self.cfg
+        dev = self.device if device is None else torch.device(device)
         out = []
         for kind in self.kinds:
             if kind == "ssd":

@@ -47,6 +47,10 @@ class Request:
 class Result:
     tokens: np.ndarray          # generated ids
     prompt_len: int
+    # Retirement status: "ok" | "timeout" | "shed" | "fault".  The
+    # fixed-batch engine always finishes its requests; only the actor
+    # engine's deadlines, shedding and quarantine set another value.
+    status: str = "ok"
 
 
 class Engine:

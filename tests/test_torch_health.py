@@ -237,6 +237,81 @@ def test_poison_is_pure_nonfinite(nets, backend):
 
 
 # --------------------------------------------------------------------------- #
+# DOMAIN on a data channel (C11): DPD's f_in declares a domain every clean
+# sample lies in, and one finite window outside it is appended.
+# --------------------------------------------------------------------------- #
+F_IN_DOMAIN = (-16.0, 16.0)
+
+
+def with_domain(net, fifo, domain, network_cls, **kw):
+    """``net`` with channel ``fifo`` declaring ``domain`` (either framework's
+    Network class; ``kw`` its extra arguments)."""
+    import dataclasses
+    fifos = [dataclasses.replace(s, domain=domain) if n == fifo else s
+             for n, s in net.fifos.items()]
+    return network_cls(list(net.actors.values()), fifos, list(net.edges),
+                       initial_tokens=net.initial_tokens, **kw)
+
+
+@pytest.fixture(scope="module")
+def domain_nets(nets):
+    from repro.core.network import Network as RefNetwork
+    from repro_torch.core import Network
+    return (with_domain(nets[0], "f_in", F_IN_DOMAIN, RefNetwork),
+            with_domain(nets[1], "f_in", F_IN_DOMAIN, Network, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def ref_domain(domain_nets):
+    cache = {}
+
+    def get(backend):
+        if backend not in cache:
+            net = domain_nets[0]
+            prog = net.compile(RefPlan(**_kw(backend, guards=True, trace=True)))
+            cache[backend] = _outcome(
+                prog, ref_fi.poison_tokens(net, net.init_state(), "f_in", value=1e3),
+                RefFaultError)
+        return cache[backend]
+
+    return get
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_data_channel_domain_named_like_reference(domain_nets, ref_domain, backend):
+    """The host dynamic executor and B2's plain version at cores 1 and 2
+    flag DOMAIN on f_in where the reference does, with its diagnostics,
+    structure and trace; a clean guarded run of the network is healthy."""
+    net = domain_nets[1]
+    prog = net.compile(ExecutionPlan(**_kw(backend, guards=True, trace=True)))
+    assert prog.run().diagnostics.ok
+    with pytest.raises(NetworkFaultError) as exc:
+        prog.run(fi.poison_tokens(net, net.init_state(), "f_in", value=1e3))
+    diag = exc.value.diagnostics
+    hit = {f.fifo: f for f in diag.faults}
+    assert "DOMAIN" in hit["f_in"].faults and "NONFINITE" not in hit["f_in"].faults
+    ref_res, ref_diag = ref_domain(backend)
+    assert _diag_tuple(diag) == _diag_tuple(ref_diag)
+    got = exc.value.result
+    assert got.sweeps == int(ref_res.sweeps)
+    assert got.fire_counts == {k: int(v) for k, v in ref_res.fire_counts.items()}
+    np.testing.assert_array_equal(got.trace.events, np.asarray(ref_res.trace.events))
+
+
+def test_data_channel_domain_partial_state_agrees_across_backends(domain_nets, ref_domain):
+    net = domain_nets[1]
+    states = []
+    for backend in BACKENDS:
+        prog = net.compile(ExecutionPlan(**_kw(backend, guards=True)))
+        res, diag = _outcome(prog, fi.poison_tokens(net, net.init_state(), "f_in",
+                                                    value=1e3), NetworkFaultError)
+        assert any("DOMAIN" in f.faults for f in diag.faults)
+        states.append(res.state)
+    assert _bits(states[0]) == _bits(states[1]) == _bits(states[2])
+    _assert_partial_states_match(ref_domain("dynamic")[0].state, states[0])
+
+
+# --------------------------------------------------------------------------- #
 # Stall: loud, with forensics.
 # --------------------------------------------------------------------------- #
 @pytest.fixture(scope="module")

@@ -554,6 +554,30 @@ def test_megakernel_moe_guarded_traced_builds_match_plain_and_dynamic(gen, cores
 
 
 @pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_moe_data_domains_match_dynamic(gen, cores):
+    """DOMAIN on the MoE network's data channels (C11, B2's wide path):
+    int32 slots and counts, float weights, expert outputs and the combined
+    output declaring domains they leave, an expert slab one it keeps.  B2's
+    guarded build names the same channels with the same high-water marks
+    as the host dynamic run."""
+    from repro_torch.core import NetworkFaultError
+    from repro_torch.graphs.factories import make_moe
+    net, _ = make_moe(3, d_model=256, n_experts=8, seed=2, device="cuda")
+    net = _with_domain(net, {"f_slot": (0.0, 7.0), "f_w": (0.0, 0.5), "f_out": (-1e-3, 1e-3),
+                             "f_cp0": (0.0, 3.0), "f_x1": (-100.0, 100.0),
+                             "f_y2": (-1e-3, 1e-3)})
+    diags = []
+    for kw in (dict(mode="dynamic"), dict(mode="megakernel", specialize=False, cores=cores)):
+        with pytest.raises(NetworkFaultError) as exc:
+            net.compile(guards=True, **kw).run()
+        d = exc.value.diagnostics
+        diags.append(([(f.fifo, f.faults) for f in d.faults], d.high_water))
+    assert diags[0] == diags[1]
+    assert {"f_slot", "f_w", "f_out", "f_y2"} <= {f for f, _ in diags[0][0]}
+    assert "f_x1" not in {f for f, _ in diags[0][0]}
+
+
+@pytest.mark.parametrize("cores", [1, 2])
 @pytest.mark.parametrize("max_sweeps", [1, 3, 5])
 def test_megakernel_sweep_budget_exhaustion(gen, max_sweeps, cores):
     net, _ = make_motion_detection(48, rate=4, frame_hw=(240, 320), seed=0,
@@ -698,6 +722,63 @@ def test_megakernel_guarded_traced_builds_match_plain_and_dynamic(gen, fault, co
     assert k == p == d
     if guards and fault != "clean":
         assert k[4][0][net.fifo_index["f_in"]] != 0
+
+
+def _with_domain(net, domains):
+    """``net`` with each channel of ``domains`` declaring its domain."""
+    import dataclasses
+    from repro_torch.core import Network
+    fifos = [dataclasses.replace(s, domain=domains[n]) if n in domains else s
+             for n, s in net.fifos.items()]
+    return Network(list(net.actors.values()), fifos, list(net.edges),
+                   initial_tokens=net.initial_tokens, device=net.device)
+
+
+@pytest.mark.parametrize("build", ["guards", "both"])
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("case", ["dpd_clean", "dpd_poisoned", "md_u8"])
+def test_megakernel_guarded_data_domain_matches_plain_and_dynamic(gen, case, cores, build):
+    """DOMAIN on data channels (C11): DPD's f_in declaring a domain every
+    clean sample lies in, clean and with one finite window of 1e3 appended
+    (float bounds); motion detection's u8 frame channels declaring a domain
+    the frames leave (u8 bounds, byte scans and byte stores).  B2's guarded
+    build, its plain version on the card and the host dynamic executor agree
+    on every state bit, count, sweep, fault word, high-water mark and trace
+    event."""
+    trace = build == "both"
+    if case.startswith("dpd"):
+        net, _ = make_dpd(16, block_l=4096, seed=0, device="cuda",
+                          active_schedule=default_active_schedule(16, seed=0))
+        net = _with_domain(net, {"f_in": (-16.0, 16.0)})
+        state = net.init_state()
+        if case == "dpd_poisoned":
+            state = poison_tokens(net, state, "f_in", value=1e3)
+    else:
+        net, _ = make_motion_detection(12, rate=4, frame_hw=(240, 320), seed=0,
+                                       device="cuda")
+        net = _with_domain(net, {"f_src_gauss": (0.0, 250.0), "f_thres_med": (0.0, 254.5)})
+        state = net.init_state()
+    cap = 64 if trace else None
+    layout = lower_network(net)
+    runner = compile_megakernel(net, layout=layout,
+                                partition=partition_layout(net, layout, cores,
+                                                           forward_transients=False),
+                                guards=True, trace_capacity=cap)
+    before = megakernel_cuda.launches
+    k = _health_and_trace(net, state, runner, True, trace)
+    assert megakernel_cuda.launches == before + 1
+    p = _health_and_trace(net, state, runner.plain, True, trace)
+    d = _health_and_trace(net, state, lambda st: run_dynamic(
+        net, st, guards=True, trace_capacity=cap), True, trace)
+    assert k == p == d
+    words = k[4][0]
+    if case == "dpd_clean":
+        assert not any(words)
+    elif case == "dpd_poisoned":
+        assert words[net.fifo_index["f_in"]] == 32     # DOMAIN alone
+    else:
+        assert words[net.fifo_index["f_src_gauss"]] == 32
+        assert words[net.fifo_index["f_thres_med"]] == 32
 
 
 @pytest.mark.parametrize("cores", [1, 2])

@@ -144,6 +144,28 @@ def test_embed_and_unembed_match_reference():
         jw, jnp.asarray(toks)), jw), 1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embed_lookup_out_of_range_ids_fill_nan_as_reference(dtype):
+    """``jnp.take``'s "fill" mode: ids in [-V, V) index the table (negative
+    from the end), any other id a NaN row; no IndexError on the CPU."""
+    V = 10
+    w = np.random.default_rng(5).normal(size=(V, 4)).astype(np.float32)
+    toks = np.array([[-2 ** 20, -V, -1, 0], [V - 1, V, 2 ** 20, 5]])
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    want = np.asarray(ref_layers.embed_lookup(jnp.asarray(w, jdt), jnp.asarray(toks)),
+                      np.float32)
+    got = layers.embed_lookup(torch.tensor(w).to(dtype), torch.tensor(toks))
+    assert got.dtype == dtype and tuple(got.shape) == want.shape
+    got = got.float().numpy()
+    assert np.array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(want[0, 0]).all() and np.isnan(want[1, 1:3]).all()
+    np.testing.assert_array_equal(got[~np.isnan(want)], want[~np.isnan(want)])
+    # argmax over NaN logits picks the first NaN, as jnp.argmax does.
+    lg = np.array([[1.0, np.nan, 3.0], [np.nan, np.nan, np.nan]], np.float32)
+    assert torch.argmax(torch.tensor(lg), dim=-1).tolist() == \
+        np.asarray(jnp.argmax(jnp.asarray(lg), axis=-1)).tolist() == [1, 0]
+
+
 # ---------------------------------------------------------------------- #
 # Blocks, prefill and decode.
 # ---------------------------------------------------------------------- #
