@@ -207,6 +207,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     that ran a prefill; out-of-range ids through ``embed_lookup`` and
     argmax over NaN logits as on the CPU (C12); ``ActorEngine.generate``
     timed against ``Engine.generate`` in turns, 3 each.
+23. durable and heterogeneous runs (ROADMAP A10, A11): (a, run after 17)
+    phase 3's network streamed (``accelerated`` = every actor but source
+    and sink, ``n_iterations=16``, 4 chunks) in megakernel mode
+    (``specialize=False``): 4 B2 launches chunked and 1 persistent, both
+    bit-identical to each other and to phase 6's sink slab as windows, fire
+    counts, sweeps and staged bytes equal the CPU port's stream; in dynamic
+    mode 398 B1 launches, bit-identical to phase 3; chunked against
+    persistent timed in turns, 3 each; (b) child processes killed by
+    SIGKILL from the snapshot hook and resumed by fresh ones: the
+    megakernel stream and a traced dynamic stream after chunk 2 of 4
+    (``resume_stream``: outputs, fire counts, sweeps and trace events
+    bit-identical), ``run_checkpointed`` in megakernel and dynamic mode
+    (at least 3 segments) after segment 1 (``resume_run``: every leaf,
+    counts and sweeps bit-identical to ``Program.run``); one segmented run
+    in this process makes one B2 launch a segment; (c, run after 14, on its
+    model) mamba2-780m as the LM stage network (4 stages of 12 layers, 4
+    microbatches of 4096 tokens from ``numpy.random.default_rng(0)``)
+    streamed in dynamic mode, 2 chunks, chunked and persistent: 192 B6
+    calls a stream, activations bit-identical to the static run, to
+    ``pipeline_reference`` and (as logits) to
+    ``pipeline_forward_reference``, the logits within phases 13-14's rule of
+    ``LM.forward`` at batch 4; a durable stream resumed by a fresh program
+    from its chunk-1 snapshot, bit-identical; walls and tokens/s.  Phase
+    12 also holds B6 at batch 1 (x (1, 4096, 48, 64)) against its plain
+    version and times it.
     Phase 4 also checks that ``runtime_mode=RuntimeMode.STATIC_DAL`` refuses DPD's
     dynamic network in static, dynamic and megakernel mode, and runs its
     static all-10 rows under it.
@@ -237,13 +262,15 @@ tree's B4 takes u8 frames, the same on u8 frames and the R probe: B4 built
 for R = 1, 2, 4 and 8 rows a thread, each checked and timed (a ``b4
 {...}`` line).  Run in turns from two
 trees they compare a kernel across commits on one card.
-``--lm`` runs phases 1, 12-15 and 19-22 only (the LM path), for work on
-it.
+``--lm`` runs phases 1, 12-15, 19-22 and 23(c) only (the LM path), for
+work on it.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1305,17 +1332,18 @@ def row_excess(got: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
                        excess / torch.where(zero, 1.0, rms))
 
 
-def b6_inputs(dev, gen, dtype, strong: bool = False) -> tuple:
-    """B6's operands at mamba2-780m's prefill shape (batch LM_BATCH, LM_PROMPT
-    steps, 48 heads of 64, state 128): x, B, C in ``dtype``; dt =
-    softplus(randn), A from -1 to -16, float32; or, ``strong``, dt uniform
-    in 0-5 at A = -16 (a chunk's cumsum of dt A reaches -1e4)."""
+def b6_inputs(dev, gen, dtype, strong: bool = False, batch: int = LM_BATCH) -> tuple:
+    """B6's operands at mamba2-780m's prefill shape (batch LM_BATCH, or
+    ``batch``, LM_PROMPT steps, 48 heads of 64, state 128): x, B, C in
+    ``dtype``; dt = softplus(randn), A from -1 to -16, float32; or,
+    ``strong``, dt uniform in 0-5 at A = -16 (a chunk's cumsum of dt A
+    reaches -1e4)."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     mc = get_config("mamba2-780m")
     s = mc.ssm
     nh, P, N = s.n_heads(mc.d_model), s.head_dim, s.state_dim
-    B, S = LM_BATCH, LM_PROMPT
+    B, S = batch, LM_PROMPT
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -1682,7 +1710,30 @@ def lm_kernels(dev, smi: str) -> dict:
         f"kernels per call (profiler: {b6_count} in {n_calls} calls), wrapper {b6_wrapper:.4f} ms/call, plain {b6_plain:.3f} ms, "
         f"bound {b6_bound:.4f} ms ({b6_by}: {b6_flops:.4g} flop, {b6_bytes} B); "
         f"by kernel (profiler) {json.dumps(b6_split)}")
+    # B6 at batch 1: the LM stage network's microbatch (phase 23(c)).
+    x1, dt1, A1, B1m, C1m = b6_inputs(dev, gen, torch.bfloat16, batch=1)
+    y1, h1 = ssd(x1, dt1, A1, B1m, C1m, chunk=c)
+    y1r, h1r = ssd_ref(x1, dt1, A1, B1m, C1m, c)
+    torch.cuda.synchronize()
+    r1y, r1h = b6_reading(y1, h1, y1r, h1r)
+    if not torch.isfinite(y1.float()).all() or not max(r1y, r1h) <= 1.0:
+        fail(f"B6 at batch 1: readings {r1y:.3g}, {r1h:.3g} over the bar")
+    b1_ms = graph_ms(lambda: ssd(x1, dt1, A1, B1m, C1m, chunk=c), inner=10)
+    b1_plain = cuda_ms(lambda: ssd_ref(x1, dt1, A1, B1m, C1m, c), reps=3, inner=1)
+    b1_flops = nc * (2 * tri * N + nh * (2 * tri * P + 4 * c * P * N))
+    b1_bytes = 2 * 2 * x1.numel() + 4 * dt1.numel() + 4 * nh + 2 * 2 * B1m.numel() \
+        + 4 * nh * P * N
+    b1_bound, b1_by = bound_of(b1_bytes, b1_flops, BF16_FLOP_PER_S)
+    batch1 = {"shape": [list(x1.shape), list(B1m.shape)], "ms": b1_ms, "plain_ms": b1_plain,
+              "bound_ms": b1_bound, "bound_by": b1_by,
+              "max_abs_err": float((y1.float() - y1r.float()).abs().max()),
+              "y_over_bar": r1y, "hT_over_bar": r1h}
+    log(f"B6 at batch 1 ({smi}): x {tuple(x1.shape)}, {b1_ms:.4f} ms/call (CUDA graph "
+        f"replay), plain {b1_plain:.3f} ms, bound {b1_bound:.4f} ms ({b1_by}); readings "
+        f"over the bar y {r1y:.3g}, hT {r1h:.3g}")
+    del x1, dt1, A1, B1m, C1m, y1, h1, y1r, h1r
     recs["B6"] = {"max_abs_err": b6_err["torch.bfloat16"]["y"], "errors": b6_err,
+                  "batch1": batch1,
                   "ms_by_kernel": b6_split,
                   "ms": b6_ms, "wrapper_ms": b6_wrapper, "plain_ms": b6_plain,
                   "bound_ms": b6_bound, "bound_by": b6_by, "library_ms": None,
@@ -1786,12 +1837,19 @@ def release_logits(model) -> None:
 
 
 def bf16_step_noise(x: torch.Tensor) -> torch.Tensor:
-    """``x`` (bf16) moved one representable step up or down at every
-    element, the sign drawn from a fixed seed: one rounding step of noise."""
+    """``x`` (bf16, finite) moved one representable step up or down in
+    magnitude at every element, the direction drawn from a fixed seed: one
+    rounding step of noise.  A zero steps up (a step down would give a NaN
+    bit pattern) and the largest finite value down."""
     gen = torch.Generator(device=x.device)
     gen.manual_seed(5)
-    sign = torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
-    return (x.view(torch.int16) + sign.to(torch.int16)).view(torch.bfloat16)
+    step = (torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1
+            ).to(torch.int16)
+    bits = x.view(torch.int16)
+    mag = bits & 0x7FFF
+    step = torch.where(mag == 0, torch.ones_like(step), step)
+    step = torch.where(mag == 0x7F7F, -torch.ones_like(step), step)
+    return (bits + step).view(torch.bfloat16)
 
 
 def stub_inputs(cfg, rng, n: int) -> dict:
@@ -1986,6 +2044,8 @@ def serve_parity(cfg, model, dev) -> dict:
         for i, bc in enumerate(cpu.layers):
             x, _, _ = cpu._block(bc, x, mode="train", routing=cpu_routing[i], enc_out=enc_n)
         sens = (cpu._logits(x)[..., :V].float() - cpu_lg).abs().amax(-1)
+    if not bool(torch.isfinite(sens).all()):
+        fail(f"{cfg.name} parity: the CPU model's sensitivity is not finite")
     err = (card_lg - cpu_lg).abs().amax(-1)
     mag = cpu_lg.abs().amax(-1)
     bar = torch.clamp(LOGIT_SENS * sens, min=LOGIT_TOL)
@@ -2304,10 +2364,11 @@ def profile_and_parity(model, smi: str, phase: int, batch=None) -> tuple:
 
 
 def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict,
-                phase: int) -> dict:
+                phase: int, after=None) -> dict:
     """Phases 13, 14, 19 and 20 with this model's part of 15: ``arch``
     served at full width (the Engine's traffic; whisper's through
-    ``LM.prefill(frames=)``), its profile and its parity run."""
+    ``LM.prefill(frames=)``), its profile and its parity run; then
+    ``after(model)``, whose result lands under ``"after"``."""
     model, init_s = lm_model(arch, dev)
     traffic = (stub_traffic if model.cfg.family == "audio" else engine_traffic)(model)
     rec = serve_run(model, smi, zero_counts, expect_counts, want, phase, traffic,
@@ -2315,6 +2376,8 @@ def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict
                      "init_s": init_s})
     batch = traffic[1][0] if model.cfg.family == "audio" else None
     rec["profile"], rec["parity"] = profile_and_parity(model, smi, phase, batch)
+    if after is not None:
+        rec["after"] = after(model)
     del model, traffic
     torch.cuda.empty_cache()
     return rec
@@ -2680,6 +2743,134 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     return rec
 
 
+LM_STAGES, LM_MICRO = 4, 4       # phase 23(c): 4 stages, 4 microbatches
+
+
+def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 23(c): mamba2-780m (phase 14's model and weights) as the LM
+    stage network, 4 stages of 12 layers, streamed in dynamic mode over 4
+    microbatches of LM_PROMPT tokens (2 chunks), chunked, persistent and
+    resumed from a snapshot; held to the static run, to
+    ``pipeline_forward_reference`` and to ``LM.forward`` at batch 4."""
+    import shutil
+    import tempfile
+    from repro_torch.core.pipeline import pipeline_reference
+    from repro_torch.graphs.lm_pipeline import (build_lm_stage_network, make_stage_fn,
+                                                pipeline_forward_reference,
+                                                stack_stage_params)
+    cfg, V = model.cfg, model.cfg.vocab
+    n_ssd = sum(k == "ssd" for k in model.kinds)
+    per_stream = n_ssd * LM_MICRO                      # B6 calls a stream
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_MICRO, LM_PROMPT)))
+    net = build_lm_stage_network(model, cfg, tokens, LM_STAGES)
+    accel = tuple(f"stage{s}" for s in range(LM_STAGES))
+    x = net.actors["source"].init()[0]                 # (4, S, D) bf16 embeddings
+    feeds = {"f_s0": x[:, None]}
+    prog = net.compile(mode="dynamic", n_iterations=LM_MICRO // 2, accelerated=accel)
+
+    def counted(label, fn, want):
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(label, {"B6": want})
+        return out, wall
+
+    chunked, wall_c = counted("phase 23 LM stage stream, chunked",
+                              lambda: prog.stream(feeds)["f_out"][:, 0], per_stream)
+    persistent, wall_p = counted("phase 23 LM stage stream, persistent",
+                                 lambda: prog.stream(feeds, persistent=True)["f_out"][:, 0],
+                                 per_stream)
+    full = net.compile(mode="static", n_iterations=LM_MICRO)
+    static, _ = counted("phase 23 LM stage network, static",
+                        lambda: full.collect("sink", full.run().state), per_stream)
+    oracle, _ = counted("phase 23 pipeline_reference",
+                        lambda: pipeline_reference(make_stage_fn(model),
+                                                   stack_stage_params(model, cfg, LM_STAGES),
+                                                   x), per_stream)
+    if not (torch.equal(chunked, persistent) and torch.equal(chunked, static)
+            and torch.equal(chunked, oracle)):
+        fail("phase 23 LM stages: the streamed activations differ from the static run "
+             "or pipeline_reference")
+    with torch.no_grad():
+        stage_lg = model._logits(chunked)[..., :V]
+    ref_lg, _ = counted("phase 23 pipeline_forward_reference",
+                        lambda: pipeline_forward_reference(model, cfg, tokens, LM_STAGES),
+                        per_stream)
+    if not torch.equal(stage_lg, ref_lg[..., :V]):
+        fail("phase 23 LM stages: logits differ from pipeline_forward_reference")
+    del ref_lg
+    # LM.forward at batch 4, and its own change when the embedded input
+    # moves one bf16 step: the logit bar of phases 13-14.
+    with torch.no_grad():
+        fwd = model(tokens.to(model.device), mode="train")[0][..., :V]
+        xn = bf16_step_noise(model._embed(tokens.to(model.device)))
+        for blk in model.layers:
+            xn, _, _ = model._block(blk, xn, mode="train")
+        sens = (model._logits(xn)[..., :V] - fwd).abs().amax(-1)
+        err = (stage_lg - fwd).abs().amax(-1)
+        mag = fwd.abs().amax(-1)
+    del xn
+    bar = torch.clamp(LOGIT_SENS * sens, min=LOGIT_TOL)
+    if not bool(torch.isfinite(sens).all()):
+        fail("phase 23 LM stages: LM.forward's sensitivity is not finite")
+    if not bool(torch.isfinite(stage_lg).all()) or bool((err > bar).any()):
+        fail(f"phase 23 LM stages: logits differ from LM.forward by {float(err.max()):.3g}, "
+             f"bar {float(bar.min()):.3g}-{float(bar.max()):.3g}")
+    logit = {"err_max": float(err.max()), "err_over_bar_max": float((err / bar).max()),
+             "sensitivity_max": float(sens.max()), "logit_mag_min": float(mag.min()),
+             "positions_with_power": int((bar < mag).sum())}
+    del stage_lg, fwd, sens, err, mag, bar
+    # Durable: a snapshot a chunk; a fresh program resumes from chunk 1's.
+    d = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        _, wall_ck = counted("phase 23 LM stage stream, checkpointed",
+                             lambda: prog.stream(feeds, checkpoint_dir=os.path.join(d, "all"),
+                                                 checkpoint_every=1), per_stream)
+        snap = os.path.join(d, "all", "chunk_00000001")
+        snap_bytes = sum(os.path.getsize(os.path.join(snap, f)) for f in os.listdir(snap))
+        shutil.copytree(snap, os.path.join(d, "one", "chunk_00000001"))
+        fresh = net.compile(mode="dynamic", n_iterations=LM_MICRO // 2, accelerated=accel)
+        resumed, wall_r = counted(
+            "phase 23 LM stage stream, resumed",
+            lambda: fresh.resume_stream(os.path.join(d, "one"), feeds)["f_out"][:, 0],
+            per_stream // 2)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if not torch.equal(resumed, chunked):
+        fail("phase 23 LM stages: the resumed stream differs from the uninterrupted one")
+    walls = {"chunked": [], "persistent": []}
+    for _ in range(3):
+        for label, kw in (("chunked", {}), ("persistent", {"persistent": True})):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prog.stream(feeds, **kw)
+            torch.cuda.synchronize()
+            walls[label].append((time.perf_counter() - t0) * 1e3)
+    n_tok = LM_MICRO * LM_PROMPT
+    rec = {"card": smi, "model": cfg.name, "stages": LM_STAGES, "microbatches": LM_MICRO,
+           "tokens": n_tok, "b6_calls_per_stream": per_stream,
+           "b6_cuda_launches_per_stream": per_stream * 3,
+           "walls_ms": walls, "first_walls_ms": {"chunked": wall_c * 1e3,
+                                                "persistent": wall_p * 1e3,
+                                                "checkpointed": wall_ck * 1e3,
+                                                "resumed": wall_r * 1e3},
+           "tokens_per_s": {k: n_tok / (float(np.median(v)) / 1e3) for k, v in walls.items()},
+           "snapshot_bytes_chunk1": snap_bytes, "logits_vs_forward": logit,
+           "bit_identical": ["persistent", "static run", "pipeline_reference",
+                             "pipeline_forward_reference logits", "resumed from chunk 1"]}
+    log("phase 23 lm_stages " + json.dumps(rec))
+    log(f"phase 23 LM stages ({smi}): mamba2-780m in {LM_STAGES} stages, "
+        f"{n_tok} tokens: chunked {np.median(walls['chunked']):.1f} ms "
+        f"({rec['tokens_per_s']['chunked']:.0f} tokens/s), persistent "
+        f"{np.median(walls['persistent']):.1f} ms, {per_stream} B6 calls a stream; "
+        f"snapshot {snap_bytes} B")
+    return rec
+
+
 def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
     """Phases 12-15 and 19-22; returns the kernels line's records of B5, B6
     and B7 and of B5's float route and B6's SIMT route."""
@@ -2689,7 +2880,9 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
                      {"B5": 16, "B7": 36}, 13)
     # 22. recurrentgemma-2b through the actor engine.
     act = actor_serving(dev, smi, zero_counts, expect_counts)
-    mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14)
+    # 23(c). mamba2-780m's stage network, on phase 14's model.
+    mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14,
+                     after=lambda m: lm_stage_phase(m, smi, zero_counts, expect_counts))
     smoke = serve_smoke("mamba2-780m", dev, smi, zero_counts, expect_counts)
     ol = serve_model("olmoe-1b-7b", dev, smi, zero_counts, expect_counts, {"B5": 32}, 19)
     # 20. whisper-small: 12 encoder (non-causal) and 12 decoder B5 launches
@@ -2741,6 +2934,11 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
                              f"ActorEngine, {per} per decode firing that ran a prefill "
                              f"({act['closed']['prefill_firings']})"}
     recs["B6"]["launches"] = mb["launches"]["B6"]
+    recs["B6"]["lm_stage"] = {
+        "launches": mb["after"]["b6_calls_per_stream"],
+        "launches_from": "phase 23(c): mamba2-780m's 4-stage network streamed, per stream "
+                         "(48 calls a microbatch at batch 1)",
+        "walls_ms": mb["after"]["walls_ms"], "tokens_per_s": mb["after"]["tokens_per_s"]}
     recs["B6_simt"]["launches"] = smoke["simt_launches"]
     recs["B6_simt"]["launches_from"] = "phase 14: mamba2-780m's smoke config served"
     out = [{"name": "flash_attention", "route": "cuda",
@@ -2762,6 +2960,290 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
             "replaces": "src/repro/kernels/ssd/kernel.py:63",
             "function": "ssd_pallas (any head and state width)", **recs["B6_simt"]}]
     return out
+
+
+# ---- 23. durable and heterogeneous runs -------------------------------- #
+STREAM_CHUNK = 16          # windows a chunk: 4 chunks of phase 3's 64 firings
+
+# The child processes of phase 23(b): each resumes the job the last child
+# left killed, then starts the next one and is killed from the snapshot
+# hook (``repro_torch.core.program.save_stream_checkpoint``), as the
+# reference's kill tests do (tests/test_resilience.py:262-272).
+DURABLE_CHILD = r"""
+import os, signal, sys
+import torch
+sys.path.insert(0, SRC)
+from repro_torch.core import ExecutionPlan
+from repro_torch.graphs.dpd import default_active_schedule
+from repro_torch.graphs.factories import make_dpd
+import repro_torch.core.program as P
+
+net, _ = make_dpd(N, block_l=L, seed=0, device=DEV,
+                  active_schedule=default_active_schedule(N, seed=0))
+accel = tuple(a for a in net.actors if a not in ("source", "sink"))
+wins = net.init_state().actor("source")[0].reshape(2, N, L).permute(1, 0, 2)
+feeds = {"f_in": wins.contiguous()[:, None]}
+PLANS = {
+    "mk_stream": ExecutionPlan(mode="megakernel", n_iterations=CHUNK,
+                               accelerated=accel, specialize=False),
+    "dyn_stream": ExecutionPlan(mode="dynamic", n_iterations=CHUNK,
+                                accelerated=accel, trace=True),
+    "mk_run": ExecutionPlan(mode="megakernel", specialize=False),
+    "dyn_run": ExecutionPlan(mode="dynamic"),
+}
+
+
+def resume(job):
+    prog = net.compile(PLANS[job])
+    ck = os.path.join(D, job)
+    if job.endswith("stream"):
+        out = prog.resume_stream(ck, feeds, checkpoint_every=1)["f_out"]
+        tr = prog.last_stream_trace
+        res = {"out": out.cpu(), "counts": prog.last_stream_fire_counts,
+               "sweeps": prog.last_stream_sweeps,
+               "events": None if tr is None else torch.from_numpy(tr.events)}
+    else:
+        r = prog.resume_run(ck)
+        res = {"leaves": [x.cpu() if isinstance(x, torch.Tensor) else x
+                          for x in r.state.leaves()],
+               "counts": r.fire_counts, "sweeps": r.sweeps}
+    torch.save(res, os.path.join(D, job + ".pt"))
+
+
+def kill(job, after):
+    orig = P.save_stream_checkpoint
+    n = [0]
+
+    def hooked(*a, **k):
+        r = orig(*a, **k)
+        n[0] += 1
+        if n[0] == after:
+            os.kill(os.getpid(), signal.SIGKILL)
+        return r
+
+    P.save_stream_checkpoint = hooked
+    prog = net.compile(PLANS[job])
+    ck = os.path.join(D, job)
+    if job.endswith("stream"):
+        prog.stream(feeds, checkpoint_dir=ck, checkpoint_every=1)
+    else:
+        prog.run_checkpointed(ck, every_sweeps=EVERY)
+    raise SystemExit(job + " finished without being killed")
+
+
+if RESUME:
+    resume(RESUME)
+if KILL:
+    kill(*KILL)
+"""
+
+
+def durable_child(dev, d: str, every: int, resume_job, kill_job) -> float:
+    """One child of phase 23(b): resume ``resume_job`` (results saved under
+    ``d``), then run ``kill_job`` = (job, n) and check it died by SIGKILL
+    after its n-th snapshot.  Returns the child's wall in seconds."""
+    import signal
+    head = (f"SRC = {str(Path(__file__).resolve().parent / 'src')!r}\nD = {d!r}\n"
+            f"DEV = {str(dev)!r}\n"
+            f"N, L, CHUNK, EVERY = {N_FIRINGS}, {BLOCK_L}, {STREAM_CHUNK}, {every}\n"
+            f"RESUME = {resume_job!r}\nKILL = {kill_job!r}\n")
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", head + DURABLE_CHILD],
+                         capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    want = -signal.SIGKILL if kill_job else 0
+    if out.returncode != want:
+        fail(f"phase 23 child (resume {resume_job}, kill {kill_job}) exited "
+             f"{out.returncode}, want {want}\nstdout:\n{out.stdout[-2000:]}\n"
+             f"stderr:\n{out.stderr[-4000:]}")
+    return wall
+
+
+def same_leaves(a: list, b: list) -> bool:
+    """Two states' leaves (tensors on any device, host ints) bit for bit."""
+    if len(a) != len(b):
+        return False
+    for x, y in zip(a, b):
+        if isinstance(x, torch.Tensor) != isinstance(y, torch.Tensor):
+            return False
+        if isinstance(x, torch.Tensor):
+            if x.dtype != y.dtype or not torch.equal(x.cpu(), y.cpu()):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def stream_phase(dev, smi: str, zero_counts, expect_counts, net_gpu, res_gpu,
+                 mk_sink: torch.Tensor, n_b1: int) -> dict:
+    """Phase 23(a) and (b): DPD streamed at full width through B2 (chunked
+    and persistent) and B1, then killed and resumed in child processes
+    (``stream(checkpoint_dir=...)`` and ``run_checkpointed``)."""
+    import shutil
+    import tempfile
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.graphs.factories import make_dpd
+    from repro_torch.graphs.dpd import default_active_schedule
+
+    L, n, chunk = BLOCK_L, N_FIRINGS, STREAM_CHUNK
+    n_chunks = n // chunk
+    accel = tuple(a for a in net_gpu.actors if a not in ("source", "sink"))
+    wins = net_gpu.init_state().actor("source")[0].reshape(2, n, L).permute(1, 0, 2)
+    wins = wins.contiguous()[:, None]                     # (64, 1, 2, L)
+
+    def as_windows(sink_slab):
+        return sink_slab.reshape(2, n, L).permute(1, 0, 2)[:, None]
+
+    def stream(prog, zero=True, **kw):
+        torch.cuda.synchronize()
+        if zero:
+            zero_counts()
+        t0 = time.perf_counter()
+        out = prog.stream({"f_in": wins}, **kw)["f_out"]
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # ---- (a) megakernel: 4 launches chunked, 1 persistent ---------------- #
+    mk_plan = ExecutionPlan(mode="megakernel", n_iterations=chunk, accelerated=accel,
+                            specialize=False)
+    prog = net_gpu.compile(mk_plan)
+    out_c, wall_c = stream(prog)
+    expect_counts("phase 23 DPD stream, megakernel, chunked", {"B2": n_chunks})
+    st_c = prog.stats()
+    counts_c, sweeps_c = prog.last_stream_fire_counts, prog.last_stream_sweeps
+    out_p, wall_p = stream(prog, persistent=True)
+    expect_counts("phase 23 DPD stream, megakernel, persistent", {"B2": 1})
+    st_p = prog.stats()
+    if not torch.equal(out_c, out_p):
+        fail("phase 23: the persistent stream differs from the chunked one")
+    if not torch.equal(out_c, as_windows(mk_sink)):
+        fail("phase 23: the megakernel stream differs from phase 6's Program.run")
+    sweeps_p = prog.last_stream_sweeps        # one run: fewer sweeps than 4
+    if prog.last_stream_fire_counts != counts_c:
+        fail(f"phase 23: persistent counts {prog.last_stream_fire_counts} vs "
+             f"chunked {counts_c}")
+    # The CPU port's stream at the same configuration (B2's plain version).
+    net_cpu, _ = make_dpd(n, block_l=L, seed=0, device="cpu",
+                          active_schedule=default_active_schedule(n, seed=0))
+    cpu = net_cpu.compile(mk_plan)
+    cpu_out = cpu.stream({"f_in": wins.cpu()})["f_out"]
+    cpu_st = cpu.stats()
+    if (cpu.last_stream_fire_counts != counts_c or cpu.last_stream_sweeps != sweeps_c
+            or cpu_st.last_stream_staged_bytes_per_chunk
+            != st_c.last_stream_staged_bytes_per_chunk
+            or cpu_st.last_stream_total_staged_bytes != st_c.last_stream_total_staged_bytes):
+        fail(f"phase 23: the card's stream structure differs from the CPU port's: "
+             f"counts {counts_c} vs {cpu.last_stream_fire_counts}, sweeps {sweeps_c} vs "
+             f"{cpu.last_stream_sweeps}, staged {st_c.last_stream_staged_bytes_per_chunk}"
+             f"/{st_c.last_stream_total_staged_bytes} vs "
+             f"{cpu_st.last_stream_staged_bytes_per_chunk}/"
+             f"{cpu_st.last_stream_total_staged_bytes}")
+    cpu_p = cpu.stream({"f_in": wins.cpu()}, persistent=True)
+    cpu_st_p = cpu.stats()
+    if (cpu_st_p.last_stream_staged_bytes_per_chunk != st_p.last_stream_staged_bytes_per_chunk
+            or cpu_st_p.last_stream_total_staged_bytes != st_p.last_stream_total_staged_bytes
+            or cpu.last_stream_sweeps != sweeps_p):
+        fail("phase 23: the persistent stream's staged bytes or sweeps differ from the "
+             "CPU port's")
+    cpu_err = plane_rel_err(cpu_out.numpy(), out_c.cpu().numpy())
+    del cpu_p, cpu_out, net_cpu, cpu
+    if cpu_err > REL_TOL:
+        fail(f"phase 23: the stream differs from the CPU port's by {cpu_err:.3g} * max|y|")
+    # ---- (a) dynamic mode: B1 launches, bit-identical to phase 3 --------- #
+    dyn_plan = ExecutionPlan(mode="dynamic", n_iterations=chunk, accelerated=accel)
+    dprog = net_gpu.compile(dyn_plan)
+    out_d, wall_d = stream(dprog)
+    expect_counts("phase 23 DPD stream, dynamic", {"B1": n_b1})
+    if not torch.equal(out_d, as_windows(res_gpu.state.actor("sink")[0])):
+        fail("phase 23: the dynamic stream differs from phase 3's run")
+    # Chunked against persistent in turns, 3 each.
+    walls = {"chunked": [], "persistent": []}
+    for _ in range(3):
+        for label, kw in (("chunked", {}), ("persistent", {"persistent": True})):
+            walls[label].append(stream(prog, zero=False, **kw)[1] * 1e3)
+    a_rec = {
+        "card": smi, "chunks": n_chunks, "chunk_windows": chunk,
+        "b2_launches": {"chunked": n_chunks, "persistent": 1}, "b1_launches_dynamic": n_b1,
+        "fire_counts": counts_c, "sweeps": {"chunked": sweeps_c, "persistent": sweeps_p},
+        "staged_bytes_per_chunk": {"chunked": st_c.last_stream_staged_bytes_per_chunk,
+                                   "persistent": st_p.last_stream_staged_bytes_per_chunk},
+        "total_staged_bytes": {"chunked": st_c.last_stream_total_staged_bytes,
+                               "persistent": st_p.last_stream_total_staged_bytes},
+        "walls_ms": walls, "first_walls_ms": {"chunked": wall_c * 1e3,
+                                             "persistent": wall_p * 1e3,
+                                             "dynamic": wall_d * 1e3},
+        "cpu_port_float_err_over_max": cpu_err}
+    log("phase 23 stream " + json.dumps(a_rec))
+    log(f"phase 23 stream ({smi}): megakernel chunked {np.median(walls['chunked']):.2f} ms "
+        f"({n_chunks} B2 launches, {st_c.last_stream_staged_bytes_per_chunk} B staged a "
+        f"chunk, {st_c.last_stream_total_staged_bytes} B in all), persistent "
+        f"{np.median(walls['persistent']):.2f} ms (1 launch, "
+        f"{st_p.last_stream_staged_bytes_per_chunk} B a chunk, "
+        f"{st_p.last_stream_total_staged_bytes} B in all); dynamic {wall_d * 1e3:.1f} ms "
+        f"with {n_b1} B1 launches; all bit-identical to phases 3 and 6")
+
+    # ---- (b) kill -> resume in child processes ---------------------------- #
+    # The uninterrupted references, in this process.
+    tr_prog = net_gpu.compile(dataclasses.replace(dyn_plan, trace=True))
+    out_t, _ = stream(tr_prog)
+    expect_counts("phase 23 DPD stream, dynamic, traced", {"B1": n_b1})
+    if not torch.equal(out_t, out_d):
+        fail("phase 23: the traced dynamic stream differs from the untraced one")
+    every = max(1, res_gpu.sweeps // 3)
+    n_segments = -(-res_gpu.sweeps // every)
+    mk_run_plan = ExecutionPlan(mode="megakernel", specialize=False)
+    torch.cuda.synchronize()
+    zero_counts()
+    mk_ref = net_gpu.compile(mk_run_plan).run()
+    expect_counts("phase 23 DPD megakernel run", {"B2": 1})
+    refs = {"mk_stream": {"out": out_c, "counts": counts_c, "sweeps": sweeps_c},
+            "dyn_stream": {"out": out_t, "counts": tr_prog.last_stream_fire_counts,
+                           "sweeps": tr_prog.last_stream_sweeps,
+                           "events": tr_prog.last_stream_trace.events},
+            "mk_run": {"leaves": mk_ref.state.leaves(), "counts": mk_ref.fire_counts,
+                       "sweeps": mk_ref.sweeps},
+            "dyn_run": {"leaves": res_gpu.state.leaves(), "counts": res_gpu.fire_counts,
+                        "sweeps": res_gpu.sweeps}}
+    d = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    try:
+        # One segmented run here: a B2 launch per segment, bit-identical.
+        torch.cuda.synchronize()
+        zero_counts()
+        seg = net_gpu.compile(mk_run_plan).run_checkpointed(os.path.join(d, "segments"),
+                                                            every_sweeps=every)
+        torch.cuda.synchronize()
+        seg_launches = expect_counts("phase 23 DPD run_checkpointed, megakernel",
+                                     {"B2": n_segments})["B2"]
+        if (seg.sweeps != mk_ref.sweeps or seg.fire_counts != mk_ref.fire_counts
+                or not same_leaves(seg.state.leaves(), mk_ref.state.leaves())):
+            fail("phase 23: run_checkpointed differs from Program.run in megakernel mode")
+        chain = [(None, ("mk_stream", 2)), ("mk_stream", ("dyn_stream", 2)),
+                 ("dyn_stream", ("mk_run", 1)), ("mk_run", ("dyn_run", 1)),
+                 ("dyn_run", None)]
+        child_walls = [durable_child(dev, d, every, r, k) for r, k in chain]
+        checked = {}
+        for job, ref in refs.items():
+            got = torch.load(os.path.join(d, job + ".pt"))
+            ok = got["counts"] == ref["counts"] and got["sweeps"] == ref["sweeps"]
+            if "out" in ref:
+                ok = ok and torch.equal(got["out"], ref["out"].cpu())
+            if "events" in ref:
+                ok = ok and np.array_equal(got["events"].numpy(), ref["events"])
+            if "leaves" in ref:
+                ok = ok and same_leaves(got["leaves"], ref["leaves"])
+            if not ok:
+                fail(f"phase 23: {job} killed and resumed differs from the "
+                     "uninterrupted run")
+            checked[job] = "bit-identical"
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    b_rec = {"card": smi, "every_sweeps": every, "segments": n_segments,
+             "run_checkpointed_b2_launches": seg_launches, "resumed": checked,
+             "child_walls_s": child_walls,
+             "killed_after": {"mk_stream": "chunk 2 of 4", "dyn_stream": "chunk 2 of 4",
+                              "mk_run": "segment 1", "dyn_run": "segment 1"}}
+    log("phase 23 durable " + json.dumps(b_rec))
+    return {"stream": a_rec, "durable": b_rec}
 
 
 def card() -> str:
@@ -3229,6 +3711,8 @@ def main() -> None:
         if b2_err != 0.0 or not states_equal(res_mk.state, plain_state):
             fail(f"megakernel cores={cores}: differs from its plain version "
                  f"on the card, max_abs_err {b2_err}")
+        if cores == 1:
+            mk_sink = res_mk.state.actor("sink")[0].clone()
         log(f"DPD megakernel cores={cores} on the card: {wall * 1e3:.2f} ms cold, "
             f"sweeps {res_mk.sweeps}, B2 launches {mk_launches}, B1 launches 0; "
             "every leaf bit-identical to the dynamic run and to the plain version")
@@ -3411,6 +3895,10 @@ def main() -> None:
                    "md": (md["B2"]["bound_ms"], md["B2"]["bound_by"])})
     del md["net"], md["result"]
     torch.cuda.empty_cache()
+    # ---- 23(a, b). DPD streamed, killed and resumed ---------------------- #
+    durable = stream_phase(dev, smi, zero_counts, expect_counts, net_gpu, res_gpu,
+                           mk_sink, expected)
+    torch.cuda.empty_cache()
     moe = moe_phase(dev, smi, zero_counts, expect_counts)
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
 
@@ -3425,6 +3913,8 @@ def main() -> None:
         **b1,
         "device_ms": fir_ms,
         "library_ms": None,
+        "stream_launches": durable["stream"]["b1_launches_dynamic"],
+        "stream_launches_from": "phase 23: DPD streamed in dynamic mode, 4 chunks",
     }, {
         "name": "megakernel.b2",
         "route": "cuda",
@@ -3441,6 +3931,12 @@ def main() -> None:
         "library_ms": None,
         "network": "dpd",
         "motion_detection": md["B2"],
+        "stream": {"launches_chunked": durable["stream"]["b2_launches"]["chunked"],
+                   "launches_persistent": durable["stream"]["b2_launches"]["persistent"],
+                   "launches_run_checkpointed":
+                       durable["durable"]["run_checkpointed_b2_launches"],
+                   "walls_ms": durable["stream"]["walls_ms"],
+                   "from": "phase 23: DPD streamed (4 chunks) and run in segments"},
     }, {
         "name": "megakernel.b2.moe",
         "route": "cuda",

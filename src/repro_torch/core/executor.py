@@ -54,14 +54,15 @@ class RuntimeMode(enum.Enum):
     STATIC_DAL = "static_dal"    # reference framework: SDF only on the accelerator
 
 
-def assert_mode_allows(network: Network, mode: RuntimeMode) -> None:
+def assert_mode_allows(network: Network, mode: RuntimeMode,
+                       accelerated: Optional[List[str]] = None) -> None:
     """DAL's OpenCL path rejects dynamic actors (paper §2.3 / §4.3): under
-    ``STATIC_DAL`` every actor must be static (every actor is on the
-    accelerator until the port has ``accelerated`` placement, ROADMAP
-    A11)."""
+    ``STATIC_DAL`` every accelerated actor (every actor when
+    ``accelerated`` is None) must be static."""
     if mode is not RuntimeMode.STATIC_DAL:
         return
-    bad = [n for n, a in network.actors.items() if a.is_dynamic]
+    accel = accelerated if accelerated is not None else list(network.actors)
+    bad = [n for n in accel if network.actors[n].is_dynamic]
     if bad:
         raise ValueError(
             f"STATIC_DAL mode: dynamic-rate actors {bad} cannot be mapped to "

@@ -113,7 +113,10 @@ ERR_SLAB = 2
 
 _UNSUPPORTED = ("the megakernel backend runs actors through the device "
                 "functions they declare (ActorSpec.device_op): give each "
-                "actor one")
+                "actor one.  Actors that run a language model (the serving "
+                "network's decode, the LM stage network's stages) have none: "
+                "B2 runs a fixed set of device bodies and an LM step is not "
+                "one of them, the open design of ROADMAP A9b")
 
 #: Words of routing state the router keeps in shared memory per block, at
 #: most (``H_SCRATCH``).

@@ -119,6 +119,16 @@ def test_no_device_and_no_gpu_raises(monkeypatch):
     ("donate", True), ("donate_threshold_bytes", 1), ("unroll_bound", 6), ("accelerated", ("poly0",)), ("devices", 2),
     ("device_assign", {})])
 def test_unported_plan_fields_raise(field, value):
+    if field == "accelerated":
+        # Ported with heterogeneous placement (ROADMAP A11): the plan
+        # constructs, the network judges it (the feed and fetch slabs need
+        # n_iterations), and it runs.
+        net, _ = make_dpd(n_firings=2, block_l=32, device="cpu")
+        with pytest.raises(ValueError, match="pass n_iterations"):
+            net.compile(mode="dynamic", **{field: value})
+        prog = net.compile(mode="dynamic", n_iterations=2, **{field: value})
+        assert prog.plan.accelerated == value and "__feed_f_b0" in prog.network.actors
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ExecutionPlan(mode="dynamic", **{field: value})
     net, _ = make_dpd(n_firings=2, block_l=32, device="cpu")

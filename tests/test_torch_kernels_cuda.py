@@ -33,7 +33,10 @@ f16 step of |want| plus 2^-10 of the row's RMS.  B6's SIMT route (any
 (2^-10 |y|) for f16 inputs.  B2's guarded and traced builds: every fault word, high-water mark
 and trace event equal to its plain version's and the host dynamic run's,
 and every ring, cursor and actor tensor bit for bit, clean and with each
-injected fault.
+injected fault.  B2 re-entered from every chunk boundary of a stream, and
+its feed and fetch bodies (source and sink at one plane), bit for bit
+against its plain version and the host dynamic run; B6 at batch 1 (the LM
+stage network's microbatch) at its bar.
 """
 from __future__ import annotations
 
@@ -853,3 +856,87 @@ def test_attention_decode_on_the_card_matches_the_cpu(gen, quant):
             assert float(((s_g - s_w).abs() / s_w.clamp(min=1e-30)).max()) <= 2.0 ** -7
         else:
             _row_bar_holds(g[:, 300], w[:, 300])
+
+
+# ---- B2 re-entered mid-stream, its feed and fetch bodies, B6 at batch 1 --- #
+def _stream_states(sub, feed, fetch, windows, chunk):
+    """The state entering each chunk of a stream of ``windows`` through the
+    split network ``sub`` (feed staged, fetch zeroed), each from the host
+    dynamic run of the chunks before it."""
+    state, out = sub.init_state(), []
+    for c in range(windows.shape[0] // chunk):
+        base = state.clone()
+        base.actors[base.actor_names.index(feed)] = (
+            windows[c * chunk:(c + 1) * chunk].contiguous(), 0)
+        base.actors[base.actor_names.index(fetch)] = (
+            torch.zeros_like(base.actor(fetch)[0]), 0)
+        out.append(base)
+        state = run_dynamic(sub, base.clone())[0]
+    return out
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_reentered_at_every_chunk_boundary(gen, cores):
+    """DPD's accelerated subnetwork (phase 23's stream at block 4096): B2
+    entered from the state at each chunk boundary (non-zero cursors, the
+    feed's index back at 0, the config mid-schedule) equals its plain
+    version bit for bit, and its run equals the host dynamic run's."""
+    from repro_torch.core.mapping import heterogeneous_split
+    from repro_torch.graphs.factories import states_equal
+    n, L, chunk = 64, 4096, 16
+    net, _ = make_dpd(n, block_l=L, seed=0, device="cuda",
+                      active_schedule=default_active_schedule(n, seed=0))
+    accel = [a for a in net.actors if a not in ("source", "sink")]
+    sub, (feed,), (fetch,) = heterogeneous_split(net, accel, chunk)
+    wins = net.init_state().actor("source")[0].reshape(2, n, L).permute(1, 0, 2)[:, None]
+    prog = sub.compile(mode="megakernel", specialize=False, cores=cores)
+    for c, base in enumerate(_stream_states(sub, feed, fetch, wins.contiguous(), chunk)):
+        dp, sides = _b2_and_plain(sub, cores, specialize=False, state=base)
+        assert sides[0][0][dp.io_meta] >= 1, c
+        _assert_b2_bit_identical(dp, sides)
+        before = megakernel_cuda.launches
+        got = prog.run(base)
+        assert megakernel_cuda.launches == before + 1
+        want = run_dynamic(sub, base.clone())
+        assert got.fire_counts == want[1] and got.sweeps == want[2], c
+        assert states_equal(got.state, want[0]), c
+
+
+@pytest.mark.parametrize("graph", ["dpd_129", "md_rate4"])
+def test_megakernel_feed_and_fetch_bodies_at_one_plane(gen, graph):
+    """The feed (B2's source) and fetch (its sink) at planes=1 on
+    window-major slabs: DPD's (2, 129) float32 windows (rows off 16 bytes)
+    and motion detection's rate-4 u8 frames, bit for bit against the plain
+    version and the host dynamic run."""
+    from repro_torch.core.mapping import heterogeneous_split
+    if graph == "dpd_129":
+        net, _ = make_dpd(8, block_l=129, seed=0, device="cuda")
+        accel = [a for a in net.actors if a not in ("source", "sink")]
+        sub, (feed,), (fetch,) = heterogeneous_split(net, accel, 8)
+        wins = torch.randn((8, 1, 2, 129), generator=gen, device="cuda")
+    else:
+        net, _ = make_motion_detection(48, rate=4, frame_hw=(20, 322), seed=4,
+                                       device="cuda")
+        sub, (feed,), (fetch,) = heterogeneous_split(net, ["gauss", "thres", "med"], 12)
+        wins = torch.randint(0, 256, (12, 4, 20, 322), generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.uint8)
+    assert sub.actors[feed].device_op.params["planes"] == 1
+    (base,) = _stream_states(sub, feed, fetch, wins, wins.shape[0])
+    dp, sides = _b2_and_plain(sub, 1, specialize=False, state=base)
+    _assert_b2_bit_identical(dp, sides)
+    got = sub.compile(mode="megakernel", specialize=False).run(base)
+    want = run_dynamic(sub, base.clone())[0]
+    assert torch.equal(got.state.actor(fetch)[0], want.actor(fetch)[0])
+    assert got.state.actor(feed)[1] == wins.shape[0] == got.state.actor(fetch)[1]
+
+
+def test_ssd_at_batch_one_matches_plain(gen):
+    """B6 at the LM stage network's shape: one microbatch of mamba2-780m,
+    x (1, 4096, 48, 64) bf16, B/C (1, 4096, 128), chunk 256."""
+    B, L, H = 1, 4096, 48
+    x = torch.randn((B, L, H, 64), generator=gen, device="cuda").to(torch.bfloat16)
+    dt = F.softplus(torch.randn((B, L, H), generator=gen, device="cuda"))
+    A = -torch.linspace(1.0, 16.0, H, device="cuda")
+    Bm = torch.randn((B, L, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    Cm = torch.randn((B, L, 128), generator=gen, device="cuda").to(torch.bfloat16)
+    _ssd_holds_the_bar(x, dt, A, Bm, Cm)
