@@ -9,6 +9,7 @@
     python3 chip_smoke.py --b1 SRC    # B1's time, wrapper and DPD's wall, from SRC
     python3 chip_smoke.py --b3 SRC    # B3's time, wrapper and MD's wall, from SRC
     python3 chip_smoke.py --b4 SRC    # B4's time, wrapper and R probe, from SRC
+    python3 chip_smoke.py --train     # phase 24 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -235,6 +236,36 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     Phase 4 also checks that ``runtime_mode=RuntimeMode.STATIC_DAL`` refuses DPD's
     dynamic network in static, dynamic and megakernel mode, and runs its
     static all-10 rows under it.
+24. (run after 14's smoke config and 19-21) training on the card
+    (ROADMAP A13a), mamba2-780m at its published widths (48 SSD layers, d
+    1536, 48 heads of 64, state 128, vocab 50 280, 0.86 B parameters;
+    weights from seed 0, data ``SyntheticLM`` seed 0): (a) cut to
+    ``TRAIN_CUT`` layers, one ``LM.train_loss`` and backward of a 2 x 512
+    batch (``kernel_impl="xla"``: no kernel launches, counted) on the card
+    and on the CPU on the same weights, ce within ``CE_REL`` and every
+    gradient row within ``GRAD_ROW_SENS`` times the CPU model's own change
+    under a bf16 step at its embedded input (the CPU tests' bars), the
+    worst leaf printed; one ``train_step`` whole and one in 2 microbatches
+    (float32 grads, no warmup): each step's gradient, read from its first
+    AdamW moment, under the same row rule against the CPU's (the
+    microbatched one against the whole batch's), ``grad_norm`` within the
+    rule's norm, and AdamW on the card within the CPU tests' bars of the
+    CPU's on the same inputs; (b) full depth through
+    ``Trainer``: 8 steps of 8 x 2048 tokens (AdamW lr 1e-3, warmup 2,
+    remat, bf16 grads, a checkpoint every 4 steps into a temporary
+    directory), each loss (finite; the last two's mean at least 0.2 below
+    the first), the median step time over steps 2-8, tokens/s and the peak
+    memory; one more step profiled (its busy share, launches and the device
+    time of its ``train_step.loss_and_grad`` and ``train_step.adamw``
+    spans, all from that step); (c) at the cut, a
+    failure injected at step 6 and recovered from the step-4 checkpoint
+    against an uninterrupted run, under deterministic algorithms: params
+    bit for bit or within rtol = atol = 1e-5; (d) (b)'s trained weights
+    served: one prefill of phase 14's first 4 prompts (left-padded to
+    4096) through B6 (48 launches, counted) and through the plain
+    versions, the logits within phase 14's rule (``LOGIT_SENS`` times the
+    plain run's change under a bf16 step at its embedded input, at least
+    ``LOGIT_TOL``).
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -262,8 +293,9 @@ tree's B4 takes u8 frames, the same on u8 frames and the R probe: B4 built
 for R = 1, 2, 4 and 8 rows a thread, each checked and timed (a ``b4
 {...}`` line).  Run in turns from two
 trees they compare a kernel across commits on one card.
-``--lm`` runs phases 1, 12-15, 19-22 and 23(c) only (the LM path), for
-work on it.
+``--lm`` runs phases 1, 12-15, 19-22, 23(c) and 24 only (the LM path), for
+work on it; ``--train`` runs phases 1 and 24 (building B6 only) and prints
+phase 24's record before the last line.
 """
 from __future__ import annotations
 
@@ -2071,12 +2103,12 @@ def serve_parity(cfg, model, dev) -> dict:
     import repro_torch.models.moe as moe_mod
     own_route, routes, at = moe_mod.route, [], [0]
 
-    def recorded(logits, k):
-        r = own_route(logits, k)
+    def recorded(logits, k, gate_e=None):
+        r = own_route(logits, k, gate_e)
         routes.append(r)
         return r
 
-    def replayed(logits, k):
+    def replayed(logits, k, gate_e=None):
         r = routes[at[0]]
         at[0] += 1
         if tuple(r.probs.shape) != tuple(logits.shape):
@@ -2872,7 +2904,7 @@ def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
 
 
 def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
-    """Phases 12-15 and 19-22; returns the kernels line's records of B5, B6
+    """Phases 12-15, 19-22 and 24; returns the kernels line's records of B5, B6
     and B7 and of B5's float route and B6's SIMT route."""
     recs = lm_kernels(dev, smi)
     torch.cuda.empty_cache()
@@ -2941,6 +2973,13 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
         "walls_ms": mb["after"]["walls_ms"], "tokens_per_s": mb["after"]["tokens_per_s"]}
     recs["B6_simt"]["launches"] = smoke["simt_launches"]
     recs["B6_simt"]["launches_from"] = "phase 14: mamba2-780m's smoke config served"
+    # 24. mamba2-780m trained on the card, its trained weights served.
+    train = train_phase(dev, smi, zero_counts, expect_counts)
+    recs["B6"]["trained_weights"] = {
+        "launches": train["d"]["b6_launches"],
+        "launches_from": "phase 24(d): mamba2-780m's weights after phase 24(b)'s 8 steps, "
+                         "one prefill of 4 x 4096 tokens",
+        "logit_err": train["d"]["logit_err"], "bar": train["d"]["bar"]}
     out = [{"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
@@ -3246,6 +3285,372 @@ def stream_phase(dev, smi: str, zero_counts, expect_counts, net_gpu, res_gpu,
     return {"stream": a_rec, "durable": b_rec}
 
 
+# ---- 24. training on one card ---------------------------------------------- #
+TRAIN_ARCH = "mamba2-780m"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 2048      # (b): 16 384 tokens a step
+TRAIN_CUT = 4                                         # layers in (a) and (c)
+TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 512         # (a)
+TRAIN_FT_BATCH, TRAIN_FT_SEQ = 4, 1024                # (c)
+# (a)'s bars are the CPU tests' (tests/test_torch_train_grads.py): every
+# gradient row (a leaf's slice along its first axis) within GRAD_ROW_SENS
+# times the CPU model's own change of that row when its embedded input
+# moves one bf16 step; ce within CE_REL of the CPU's.  The same rule holds
+# the train step's own float32 gradient (read from its first AdamW moment)
+# to the CPU's and the microbatched step's to the whole batch's, and
+# grad_norm within GRAD_ROW_SENS times the norm of the CPU's one-step
+# change, and within GRAD_NORM_REL of the norm of the step's own gradient
+# (two float32 sums of 1.4e8 squares in different orders).  AdamW on the card against the CPU's on the same inputs: m and v
+# within ADAMW_REL of the leaf's largest magnitude, bf16 params within one
+# step (tests/test_torch_train.py's bars against the reference).  (b)'s
+# loss falls by TRAIN_DROP (tests/test_train.py:44's margin); (c) within
+# the reference's rtol = atol = 1e-5 (tests/test_fault_tolerance.py:82-85)
+# or bit for bit.
+GRAD_ROW_SENS = 8.0
+CE_REL = 2.0 ** -11
+GRAD_NORM_REL = 2.0 ** -16
+ADAMW_REL = 1e-6
+TRAIN_DROP = 0.2
+TRAIN_FT_TOL = 1e-5
+
+
+def as_batch(b: dict, dev) -> dict:
+    """A numpy batch as int64 tensors on ``dev``."""
+    return {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in b.items()}
+
+
+def stepped_embed(model) -> None:
+    """``model``'s embedded input moved one bf16 step at every element
+    (:func:`bf16_step_noise`); the gradient passes as through the plain
+    embedding."""
+    embed = model._embed
+
+    def noisy(*a, **kw):
+        x = embed(*a, **kw)
+        return x + (bf16_step_noise(x.detach()) - x).detach()
+    model._embed = noisy
+
+
+def loss_and_grads(cfg, params: dict, batch: dict, dev, stepped: bool = False) -> tuple:
+    """``LM.train_loss`` (``kernel_impl="xla"``, remat) of ``batch`` on
+    ``dev`` and every parameter's gradient (CPU tensors); ``stepped``:
+    with the embedded input one bf16 step off."""
+    from repro_torch.models import LM
+    model = LM(cfg, device=dev, seed=None)
+    model.load_state_dict(params)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    if stepped:
+        stepped_embed(model)
+    total, parts = model.train_loss(batch["tokens"].to(dev), batch["labels"].to(dev))
+    total.backward()
+    return float(parts["ce"].detach()), {n: p.grad.cpu() for n, p in model.named_parameters()}
+
+
+def grad_row_readings(want: dict, got: dict, base: dict, stepped: dict) -> dict:
+    """Per leaf, the largest ratio over its rows of ``got``'s error from
+    ``want`` to the change from ``base`` to ``stepped`` (the CPU gradient
+    under a bf16 step at the input); 0 where the error is 0."""
+    out = {}
+    for name, w in want.items():
+        rows = w.shape[0] if w.dim() > 1 else 1
+        row = lambda t: t.float().reshape(rows, -1)  # noqa: E731
+        err = (row(got[name]) - row(w)).norm(dim=1)
+        sens = (row(stepped[name]) - row(base[name])).norm(dim=1)
+        out[name] = float(torch.where(err == 0, 0.0, err / sens).max())
+    return out
+
+
+def step_grads(opt, state: dict, metrics: dict) -> dict:
+    """A train step's float32 gradient (CPU tensors), read from its first
+    AdamW moment: from zero moments ``m = (1 - b1) g s`` with the clip
+    scale ``s = min(1, clip_norm / grad_norm)``."""
+    s = min(1.0, opt.clip_norm / max(float(metrics["grad_norm"]), 1e-9))
+    return {k: (m / ((1 - opt.betas[0]) * s)).cpu() for k, m in state["m"].items()}
+
+
+def adamw_readings(card: tuple, cpu: tuple) -> dict:
+    """``adamw_update``'s (params, state) on the card against the CPU's:
+    m and v's largest error over the leaf's largest magnitude, and the
+    params' largest error in units of one bf16 step of the CPU's value
+    (for float32 params, and at least, ADAMW_REL of the leaf's largest
+    magnitude)."""
+    (pg, sg), (pc, sc) = card, cpu
+    mv = max(float((sg[x][k].cpu() - sc[x][k]).abs().max() / sc[x][k].abs().max()
+                   .clamp(min=1e-30)) for x in ("m", "v") for k in sc["m"])
+    steps = 0.0
+    for k, c in pc.items():
+        c = c.float()
+        unit = torch.full_like(c, ADAMW_REL * float(c.abs().max().clamp(min=1e-30)))
+        if pc[k].dtype == torch.bfloat16:
+            unit = torch.maximum(unit, torch.ldexp(torch.ones_like(c),
+                                                   torch.frexp(c)[1] - 8) * (c != 0))
+        steps = max(steps, float(((pg[k].cpu().float() - c).abs() / unit).max()))
+    return {"mv_rel": mv, "param_steps": steps}
+
+
+def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 24: mamba2-780m trained on the card (ROADMAP A13a).
+
+    (a) At full width cut to TRAIN_CUT layers: one ``train_loss`` and
+    backward of a TRAIN_PARITY_BATCH x TRAIN_PARITY_SEQ batch on the card
+    and on the CPU, same weights (no kernel launches: the plain versions);
+    one ``train_step`` whole and one in 2 microbatches (float32 grads),
+    their gradients, ``grad_norm`` and AdamW updates held to the CPU's.
+    (b) At full depth through ``Trainer``: TRAIN_STEPS steps of
+    TRAIN_BATCH x TRAIN_SEQ tokens, remat, bf16 grads, a checkpoint every
+    4 steps into a temporary directory; each step's loss, the median step
+    time over steps 2-8, tokens/s, the peak memory; one more step profiled
+    (busy share, launches, the two spans of the step).  (c) At the cut: a failure injected at step 6 and
+    recovered from the step-4 checkpoint, against an uninterrupted run,
+    under deterministic algorithms.  (d) (b)'s trained weights served: one
+    prefill of phase 14's first LM_BATCH prompts through B6 (counted) and
+    through the plain versions, the logits within phase 14's rule."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import LM
+    from repro_torch.optim import AdamWConfig, adamw_update, global_norm, init_opt_state
+    from repro_torch.train import (Trainer, TrainerConfig, TrainOptions, init_params,
+                                   make_train_step)
+    rec: dict = {"card": smi, "arch": TRAIN_ARCH}
+    full = get_config(TRAIN_ARCH)
+    cut = dataclasses.replace(full, n_layers=TRAIN_CUT)
+
+    # ---- (a) parity at full width, cut in depth --------------------------- #
+    t0 = time.perf_counter()
+    params = init_params(cut, device=dev, seed=0)
+    src = SyntheticLM(DataConfig(vocab=cut.vocab, seq_len=TRAIN_PARITY_SEQ,
+                                 global_batch=TRAIN_PARITY_BATCH, seed=0))
+    batch = as_batch(src.batch(0), "cpu")
+    zero_counts()
+    ce_g, g_g = loss_and_grads(cut, params, batch, dev)
+    torch.cuda.synchronize()
+    expect_counts("phase 24(a) train_loss and backward on the card", {})
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    ce_c, g_c = loss_and_grads(cut, cpu_params, batch, "cpu")
+    _, g_s = loss_and_grads(cut, cpu_params, batch, "cpu", stepped=True)
+    if not all(bool(torch.isfinite(g.float()).all()) for g in g_g.values()):
+        fail("phase 24(a): non-finite gradients on the card")
+    if not abs(ce_g - ce_c) <= CE_REL * abs(ce_c):
+        fail(f"phase 24(a): ce {ce_g} on the card vs {ce_c} on the CPU (> {CE_REL} rel)")
+    readings = grad_row_readings(g_c, g_g, g_c, g_s)
+    worst = max(readings, key=readings.get)
+    if readings[worst] > GRAD_ROW_SENS:
+        fail(f"phase 24(a): gradient {worst} reads {readings[worst]:.3g} x the CPU's "
+             f"one-bf16-step change (> {GRAD_ROW_SENS})")
+    # The train step itself: its float32 gradient, whole and in 2
+    # microbatches, its grad_norm and its AdamW update (no warmup, so the
+    # first update is lr 1e-3, several bf16 steps of most weights).
+    opt_a = AdamWConfig(lr=1e-3, warmup_steps=0)
+    b_dev = as_batch(src.batch(0), dev)
+    zero_counts()
+    p1, s1, m1 = make_train_step(cut, opt_a, TrainOptions(grad_dtype="f32"))(
+        params, init_opt_state(params), b_dev)
+    p2, s2, m2 = make_train_step(cut, opt_a, TrainOptions(microbatches=2, grad_dtype="f32"))(
+        params, init_opt_state(params), b_dev)
+    torch.cuda.synchronize()
+    expect_counts("phase 24(a) train steps on the card", {})
+    G1, G2 = step_grads(opt_a, s1, m1), step_grads(opt_a, s2, m2)
+    step_rd = grad_row_readings(g_c, G1, g_c, g_s)
+    mb_rd = grad_row_readings(G1, G2, g_c, g_s)
+    gn_c = float(global_norm(g_c.values()))
+    gn_bar = GRAD_ROW_SENS * float(global_norm(g_s[k].float() - g_c[k].float() for k in g_c))
+    gn = {"card": float(m1["grad_norm"]), "card_microbatched": float(m2["grad_norm"]),
+          "cpu": gn_c, "bar": gn_bar,
+          "own_rel_err": max(abs(float(m["grad_norm"]) - float(global_norm(G.values())))
+                             / float(global_norm(G.values())) for m, G in ((m1, G1), (m2, G2))),
+          "own_bar": GRAD_NORM_REL}
+    for what, rd in (("the step's gradient", step_rd), ("the microbatched gradient", mb_rd)):
+        w = max(rd, key=rd.get)
+        if rd[w] > GRAD_ROW_SENS:
+            fail(f"phase 24(a): {what} at {w} reads {rd[w]:.3g} x the CPU's "
+                 f"one-bf16-step change (> {GRAD_ROW_SENS})")
+    if not (abs(gn["card"] - gn_c) <= gn_bar and abs(gn["card_microbatched"] - gn["card"])
+            <= gn_bar and gn["own_rel_err"] <= GRAD_NORM_REL):
+        fail(f"phase 24(a): grad_norm {gn}")
+    # AdamW on the card against the CPU's: the step's first update (from
+    # the step's own gradient) and a second update from s1's moments.
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    first = adamw_readings((p1, s1), adamw_update(opt_a, cpu_params, G1,
+                                                  init_opt_state(cpu_params))[:2])
+    second_g = adamw_update(opt_a, p1, {k: g.to(dev) for k, g in G2.items()}, s1)[:2]
+    s1_cpu = {"m": {k: v.cpu() for k, v in s1["m"].items()},
+              "v": {k: v.cpu() for k, v in s1["v"].items()}, "count": s1["count"].cpu()}
+    second = adamw_readings(second_g, adamw_update(
+        opt_a, {k: v.cpu() for k, v in p1.items()}, G2, s1_cpu)[:2])
+    moved = float(np.mean([float((p1[k] != params[k]).float().mean()) for k in params]))
+    if first["param_steps"] > 1 or second["param_steps"] > 1 or second["mv_rel"] > ADAMW_REL:
+        fail(f"phase 24(a): AdamW on the card against the CPU: first {first}, "
+             f"second {second}")
+    rec["a"] = {"layers": TRAIN_CUT, "batch": [TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ],
+                "ce_card": ce_g, "ce_cpu": ce_c, "ce_rel_err": abs(ce_g - ce_c) / abs(ce_c),
+                "ce_bar": CE_REL, "worst_leaf": worst, "worst_row_reading": readings[worst],
+                "step_worst_row_reading": max(step_rd.values()),
+                "microbatch_worst_row_reading": max(mb_rd.values()),
+                "microbatch_worst_leaf": max(mb_rd, key=mb_rd.get),
+                "row_bar": GRAD_ROW_SENS, "grad_norm": gn,
+                "loss": [float(m1["loss"]), float(m2["loss"])],
+                "adamw_first": first, "adamw_second": second, "adamw_mv_bar": ADAMW_REL,
+                "share_of_params_moved_by_step": moved, "s": time.perf_counter() - t0}
+    log("phase 24(a) " + json.dumps(rec["a"]))
+    del params, cpu_params, p1, p2, s1, s2, G1, G2, second_g, b_dev, g_g, g_c, g_s
+    torch.cuda.empty_cache()
+
+    # ---- (b) full depth through the Trainer ------------------------------- #
+    opt_b = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    step = make_train_step(full, opt_b, TrainOptions(grad_dtype="bf16"))
+    data = SyntheticLM(DataConfig(vocab=full.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=0))
+
+    def init_full():
+        p = init_params(full, device=dev, seed=0)
+        return {"params": p, "opt": init_opt_state(p)}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        trainer = Trainer(TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=4,
+                                        checkpoint_dir=d, keep=1, log_every=1),
+                          step, data, init_full, log=log)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        params, opt_state = trainer.run()
+        torch.cuda.synchronize()
+        expect_counts("phase 24(b) training at full depth", {})
+        peak = torch.cuda.max_memory_allocated()
+    run_s = time.perf_counter() - t0
+    hist = trainer.metrics_history
+    losses = [h["loss"] for h in hist]
+    dts = [h["dt"] * 1e3 for h in hist]
+    if len(losses) != TRAIN_STEPS or not np.all(np.isfinite(losses)):
+        fail(f"phase 24(b): losses {losses}")
+    if not np.mean(losses[-2:]) <= losses[0] - TRAIN_DROP:
+        fail(f"phase 24(b): the loss fell from {losses[0]} to {losses[-2:]}, "
+             f"not by {TRAIN_DROP}")
+    step_ms = float(np.median(dts[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # One more step under the profiler: its busy share, launches and the
+    # device time of its two spans, all from that one step.
+    from torch.profiler import ProfilerActivity, profile
+    b8 = as_batch(data.batch(TRAIN_STEPS), dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(params, opt_state, b8)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t1) * 1e3
+    # The step's two spans show on the device's timeline too (from their
+    # first kernel's start to their last one's end); they are not kernels.
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("train_step.")]
+    if not kernels:
+        fail("phase 24(b): the profiler saw no device time")
+    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    spans = {e.key: e.device_time_total / 1e3 for e in events
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and e.key.startswith("train_step.")}
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    rec["b"] = {"layers": full.n_layers, "params": sum(p.numel() for p in params.values()),
+                "batch": [TRAIN_BATCH, TRAIN_SEQ], "tokens_per_step": tokens,
+                "losses": losses, "step_ms": dts, "median_step_ms_2_to_8": step_ms,
+                "tokens_per_s": tokens / step_ms * 1e3,
+                "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
+                "profiled_step_wall_ms": profiled_ms, "device_ms": device_ms,
+                "busy_share": device_ms / profiled_ms,
+                "launches": sum(e.count for e in kernels), "kernels": len(kernels),
+                "span_device_ms": spans,
+                "span_share": {k: v / profiled_ms for k, v in spans.items()},
+                "top": [{"kernel": e.key[:80], "count": e.count,
+                         "device_ms": e.self_device_time_total / 1e3} for e in kernels[:12]]}
+    log("phase 24(b) " + json.dumps(rec["b"]))
+    del opt_state, b8, prof
+    torch.cuda.empty_cache()
+
+    # ---- (c) failure and restore at the cut --------------------------------- #
+    step_c = make_train_step(cut, opt_b, TrainOptions(grad_dtype="bf16"))
+    data_c = SyntheticLM(DataConfig(vocab=cut.vocab, seq_len=TRAIN_FT_SEQ,
+                                    global_batch=TRAIN_FT_BATCH, seed=0))
+
+    def init_cut():
+        p = init_params(cut, device=dev, seed=0)
+        return {"params": p, "opt": init_opt_state(p)}
+
+    fired: list = []
+
+    def boom(s):
+        if s == 6 and not fired:
+            fired.append(s)
+            raise RuntimeError("injected device failure")
+
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for hook in (boom, None):
+            with tempfile.TemporaryDirectory() as d:
+                t = Trainer(TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=4,
+                                          checkpoint_dir=d, log_every=TRAIN_STEPS),
+                            step_c, data_c, init_cut, failure_hook=hook, log=lambda s: None)
+                runs.append((t.run()[0], t.restarts))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (pa, ra), (pb, rb) = runs
+    if (ra, rb) != (1, 0):
+        fail(f"phase 24(c): restarts {ra} and {rb}, want 1 and 0")
+    bits = all(torch.equal(pa[k], pb[k]) for k in pa)
+    ft_diff = max(float((pa[k].float() - pb[k].float()).abs().max()) for k in pa)
+    close = all(torch.allclose(pa[k].float(), pb[k].float(), rtol=TRAIN_FT_TOL,
+                               atol=TRAIN_FT_TOL) for k in pa)
+    if not (bits or close):
+        fail(f"phase 24(c): the recovered run's params differ by {ft_diff}")
+    rec["c"] = {"layers": TRAIN_CUT, "batch": [TRAIN_FT_BATCH, TRAIN_FT_SEQ],
+                "failure_at_step": 6, "restarts": ra, "deterministic_algorithms": True,
+                "bit_identical": bits, "max_abs_diff": ft_diff, "tol": TRAIN_FT_TOL,
+                "s": time.perf_counter() - t0}
+    log("phase 24(c) " + json.dumps(rec["c"]))
+    del runs, pa, pb
+    torch.cuda.empty_cache()
+
+    # ---- (d) the trained weights serve through B6 ----------------------------- #
+    model = LM(full, device=dev, seed=None)
+    model.load_state_dict(params)
+    del params
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
+    prompts = [rng.integers(0, full.vocab, n) for n in lens][:LM_BATCH]
+    toks = torch.from_numpy(left_pad(prompts, LM_PROMPT)).to(dev)
+    V = full.vocab
+    zero_counts()
+    lg_k = model.prefill(toks)[0][:, :V].float()
+    torch.cuda.synchronize()
+    b6 = expect_counts("phase 24(d) the trained weights served", {"B6": full.n_layers})["B6"]
+    lg_x = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
+    stepped_embed(model)
+    lg_s = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
+    del model
+    torch.cuda.empty_cache()
+    sens = (lg_s - lg_x).abs().amax(-1)
+    err = (lg_k - lg_x).abs().amax(-1)
+    bar = torch.clamp(LOGIT_SENS * sens, min=LOGIT_TOL)
+    mag = lg_x.abs().amax(-1)
+    if not (bool(torch.isfinite(lg_k).all()) and bool(torch.isfinite(sens).all())):
+        fail("phase 24(d): non-finite logits")
+    if bool((err > bar).any()):
+        fail(f"phase 24(d): B6's logits differ from the plain versions' by "
+             f"{err.tolist()} > {bar.tolist()}")
+    rec["d"] = {"prompts": lens[:LM_BATCH], "padded_to": LM_PROMPT, "b6_launches": b6,
+                "logit_err": err.tolist(), "sensitivity": sens.tolist(),
+                "bar": bar.tolist(), "max_abs_logit": mag.tolist(),
+                "rows_with_power": int((bar < mag).sum()),
+                "top1_equal": bool(torch.equal(lg_k.argmax(-1), lg_x.argmax(-1)))}
+    log("phase 24(d) " + json.dumps(rec["d"]))
+    return rec
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -3525,7 +3930,8 @@ def main() -> None:
         turns[sys.argv[1]](sys.argv[2])
         return
     lm_only = sys.argv[1:] == ["--lm"]
-    if len(sys.argv) > 1 and not lm_only:
+    train_only = sys.argv[1:] == ["--train"]
+    if len(sys.argv) > 1 and not (lm_only or train_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -3578,6 +3984,8 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = ("dyn_fir", "megakernel", "gauss5x5", "motion_post", "flash_attention",
             "ssd", "rglru")
+    if train_only:
+        libs = ("ssd",)
     # Phase 16's build of B2 with the clock split and phase 17's three
     # health builds, beside the seven.
     other_builds = [threading.Thread(target=_build.build, args=("megakernel",),
@@ -3586,11 +3994,11 @@ def main() -> None:
                               mk_kernel.build_defines(guards=True),
                               mk_kernel.build_defines(trace=True),
                               mk_kernel.build_defines(guards=True, trace=True))]
-    if not lm_only:
+    if not (lm_only or train_only):
         for t in other_builds:
             t.start()
     nvcc_out = _build.build(*libs)
-    if not lm_only:
+    if not (lm_only or train_only):
         for t in other_builds:
             t.join()
         for d in ((mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
@@ -3603,6 +4011,14 @@ def main() -> None:
         for line in text.splitlines():
             log(f"  nvcc[{lib}]: {line}")
 
+    if train_only:
+        train = train_phase(dev, smi, zero_counts, expect_counts)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_24": train}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
     if lm_only:
         lm = lm_serving(dev, smi, zero_counts, expect_counts)
         log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -183,3 +183,14 @@ def serve_state_to_numpy(cfg: ArchConfig, layers: Sequence[Mapping[str, Any]]
         groups[f"c{i}"] = _stack(per) if per else {}
     tail = layers[n_groups * len(cycle):]
     return {"groups": groups, "rest": tuple(_tree_map(tensor_to_numpy, c) for c in tail)}
+
+
+def opt_state_from_numpy(cfg: ArchConfig, opt: Mapping) -> Dict[str, Any]:
+    """The JAX package's AdamW state of ``cfg`` (``init_opt_state``'s tree
+    as numpy arrays: ``m``, ``v``, ``count`` and an optional ``feedback``)
+    as the port's: each moment tree through :func:`lm_params_from_numpy`,
+    ``count`` a 0-d int32 tensor (CPU tensors)."""
+    out: Dict[str, Any] = {k: lm_params_from_numpy(cfg, opt[k])
+                           for k in ("m", "v", "feedback") if k in opt}
+    out["count"] = torch.tensor(np.asarray(opt["count"]), dtype=torch.int32)
+    return out

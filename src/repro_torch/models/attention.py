@@ -61,10 +61,13 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
 
 def attention(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
               rope_theta: float, causal: bool = True, window: Optional[int] = None,
-              return_kv: bool = False):
+              return_kv: bool = False, kernel_impl: Optional[str] = None):
     """Attention of positions 0..S-1, x: (B, S, D) -> (B, S, D), through
-    B5; causal unless ``causal=False`` (the encoder).  ``window``: SWA size
-    (None = full).  With ``return_kv`` also returns the RoPE'd keys and the
+    B5 (``kernel_impl`` is its entry's ``impl``: None the device rule,
+    ``"xla"`` the plain version, which training differentiates; it stands
+    for both of the reference's XLA routes, the einsum at S <= 2048 and
+    ``_flash_scan`` above); causal unless ``causal=False`` (the encoder).
+    ``window``: SWA size (None = full).  With ``return_kv`` also returns the RoPE'd keys and the
     values, which :func:`cache_from_kv` turns into the layer's ring
     cache."""
     B, S, _ = x.shape
@@ -72,7 +75,7 @@ def attention(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: in
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window)
+    o = flash_attention(q, k, v, causal=causal, window=window, impl=kernel_impl)
     out = o.reshape(B, S, n_heads * head_dim) @ p.wo
     return (out, k, v) if return_kv else out
 

@@ -21,7 +21,10 @@ F32 = torch.float32
 
 # ---------------------------------------------------------------------- #
 # Seeded initialisers.  ``gen`` is None for a module built only to load a
-# state dict: its parameters are left uninitialised.
+# state dict: its parameters are left uninitialised.  Parameters do not
+# require grad: serving never differentiates, and training differentiates
+# its own params dict (``repro_torch.train.train_step``), which it hands
+# to the model through ``torch.func.functional_call``.
 # ---------------------------------------------------------------------- #
 def param(shape, dtype=DTYPE, device=None) -> nn.Parameter:
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
@@ -150,3 +153,16 @@ def unembed(x: torch.Tensor, w_f32: torch.Tensor) -> torch.Tensor:
     which is PyTorch's default (``torch.backends.cuda.matmul.allow_tf32``
     is False); the model never turns it on."""
     return x.to(F32) @ w_f32.T
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore_id: int = -1) -> torch.Tensor:
+    """Mean cross entropy over the positions whose label is not
+    ``ignore_id``; logits float32 (..., V).  The gold logit is taken by the
+    reference's masked sum (its ``models/layers.py``), not a gather."""
+    logz = torch.logsumexp(logits, dim=-1)
+    col = torch.arange(logits.shape[-1], device=logits.device)
+    sel = col == labels[..., None].clamp(min=0)
+    gold = torch.where(sel, logits, 0.0).sum(-1)
+    mask = (labels != ignore_id).to(F32)
+    return torch.sum((logz - gold) * mask) / torch.clamp(mask.sum(), min=1.0)

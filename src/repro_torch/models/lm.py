@@ -17,8 +17,9 @@ frontend stub's patch embeddings (``vision_embeds=``) to the token
 embeddings.
 
 Entry points: :meth:`LM.forward` (modes "train" and "prefill", with the
-MoE layers' load-balance aux on request; the loss comes with the training
-slice), :meth:`LM.prefill`, :meth:`LM.decode_step`, :meth:`LM.encode` and
+MoE layers' load-balance aux on request), :meth:`LM.train_loss` (the
+causal LM loss, differentiated by ``repro_torch.train``),
+:meth:`LM.prefill`, :meth:`LM.decode_step`, :meth:`LM.encode` and
 :meth:`LM.serve_state`.  Serving state is a list with one dict per
 layer: ``{k, v, pos}`` ring caches (int8 with ``k_scale`` / ``v_scale``
 under ``kv_quant_int8``), RG-LRU ``{conv, h}``, Mamba2 ``{conv, ssm}``,
@@ -27,11 +28,13 @@ cache written by prefill and only read by decode.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
@@ -39,8 +42,9 @@ from repro_torch.models import attention as att
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rg_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (DTYPE, F32, GeluMLP, RMSNorm, SwiGLU, embed_lookup,
-                                       init_normal_, param, rmsnorm, swiglu, unembed)
+from repro_torch.models.layers import (DTYPE, F32, GeluMLP, RMSNorm, SwiGLU, cross_entropy,
+                                       embed_lookup, init_normal_, param, rmsnorm, swiglu,
+                                       unembed)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -168,8 +172,12 @@ class LM(nn.Module):
     def head_f32(self) -> torch.Tensor:
         """The unembedding table in float32, cast once and kept until the
         weights change (tied recurrentgemma-2b: 256 000 x 2560 floats,
-        2.62 GB beside the 1.31 GB bf16 table)."""
+        2.62 GB beside the 1.31 GB bf16 table).  A table that is being
+        differentiated (grad mode on, the weight requiring grad) is cast
+        afresh and not kept, so the gradient reaches it."""
         w = (self.embed if self.cfg.tie_embeddings else self.lm_head).w
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.to(F32)
         key = (w.data_ptr(), 0 if w.is_inference() else w._version)
         if self._head_key != key:
             self._head = w.detach().to(F32)
@@ -203,20 +211,23 @@ class LM(nn.Module):
                     window=cfg.swa_window if kind == "attn_local" else None)
 
     def _mixer(self, blk: Block, x: torch.Tensor, *, mode: str, cache=None, pos=None,
-               max_cache_len: Optional[int] = None):
+               max_cache_len: Optional[int] = None, kernel_impl: Optional[str] = None):
         """The block's norm and mixer (attention, RG-LRU or Mamba2): (y, new
         cache), y before the residual add."""
         cfg = self.cfg
         kind = blk.kind
         if kind == "ssd":
             h = rmsnorm(x, blk.norm.scale, cfg.rms_eps)
-            return ssm_mod.mamba2_block(blk.mixer, h, cfg.ssm, mode=mode, state=cache)
+            return ssm_mod.mamba2_block(blk.mixer, h, cfg.ssm, mode=mode, state=cache,
+                                        kernel_impl=kernel_impl)
         h = rmsnorm(x, blk.norm1.scale, cfg.rms_eps)
         if kind == "rec":
-            return rg_mod.rglru_block(blk.mixer, h, mode=mode, state=cache)
+            return rg_mod.rglru_block(blk.mixer, h, mode=mode, state=cache,
+                                      kernel_impl=kernel_impl)
         if mode == "decode":
             return att.attention_decode(blk.attn, h, cache, pos, **self._attn_kw(kind))
-        y, k, v = att.attention(blk.attn, h, return_kv=True, **self._attn_kw(kind))
+        y, k, v = att.attention(blk.attn, h, return_kv=True, kernel_impl=kernel_impl,
+                                **self._attn_kw(kind))
         new_cache = None
         if mode == "prefill":
             new_cache = att.cache_from_kv(
@@ -236,12 +247,13 @@ class LM(nn.Module):
         return att.cross_kv(blk.xattn, enc_out, n_heads=self.cfg.n_heads,
                             head_dim=self.cfg.hd)
 
-    def _mlp(self, blk: Block, x: torch.Tensor, routing=None
+    def _mlp(self, blk: Block, x: torch.Tensor, routing=None, experts=None
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """The block's second norm and its SwiGLU MLP or MoE layer, before
         the residual add (every kind but ``ssd``): (y, the MoE layer's
         load-balance loss or None).  ``routing`` replaces the MoE layer's
-        own (``moe.moe_layer``)."""
+        own and ``experts`` fixes its experts (``moe.moe_layer``'s
+        ``routing`` and ``gate_e``)."""
         cfg = self.cfg
         h = rmsnorm(x, blk.norm2.scale, cfg.rms_eps)
         if blk.kind == "xdec":
@@ -250,20 +262,21 @@ class LM(nn.Module):
             y, aux = moe_mod.moe_layer(blk.mlp.params(), h, top_k=cfg.moe.top_k,
                                        capacity_factor=cfg.moe.capacity_factor,
                                        local_groups=cfg.moe.local_groups,
-                                       routing=routing)
+                                       routing=routing, gate_e=experts)
             return y, aux["load_balance_loss"]
         return swiglu(h, blk.mlp.w_gate, blk.mlp.w_up, blk.mlp.w_down), None
 
     def _block(self, blk: Block, x: torch.Tensor, *, mode: str, cache=None, pos=None,
-               max_cache_len: Optional[int] = None, routing=None,
-               enc_out: Optional[torch.Tensor] = None):
+               max_cache_len: Optional[int] = None, routing=None, experts=None,
+               enc_out: Optional[torch.Tensor] = None, kernel_impl: Optional[str] = None):
         """(x, new cache, the MoE load-balance loss or None).  An ``xdec``
         block reads the encoder output ``enc_out`` (train, prefill) or its
         cross cache (decode)."""
         xdec = blk.kind == "xdec"
         y, new_cache = self._mixer(blk, x, mode=mode,
                                    cache=cache["kv"] if xdec and mode == "decode" else cache,
-                                   pos=pos, max_cache_len=max_cache_len)
+                                   pos=pos, max_cache_len=max_cache_len,
+                                   kernel_impl=kernel_impl)
         x = x + y
         if xdec:
             xkv = cache["cross"] if mode == "decode" else self._cross_kv(blk, enc_out)
@@ -272,44 +285,50 @@ class LM(nn.Module):
             x = x + self._cross(blk, x, xkv)
         aux = None
         if blk.kind != "ssd":
-            y, aux = self._mlp(blk, x, routing)
+            y, aux = self._mlp(blk, x, routing, experts)
             x = x + y
         return x, new_cache, aux
 
     # ------------------------------------------------------------------ #
-    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+    def encode(self, frames: torch.Tensor, kernel_impl: Optional[str] = None
+               ) -> torch.Tensor:
         """The audio family's encoder: frames (B, T, D) from the frontend
         stub -> (B, T, D) bf16, bidirectional attention through B5 at
-        positions 0..T-1, then the encoder's final norm."""
-        x = frames.to(device=self.device, dtype=DTYPE)
+        positions 0..T-1 (``kernel_impl`` as :meth:`forward`), then the
+        encoder's final norm."""
+        x = frames.to(device=self.embed.w.device, dtype=DTYPE)
         for bp in self.encoder.blocks:
-            x = x + self._enc_attn(bp, x)
+            x = x + self._enc_attn(bp, x, kernel_impl)
             x = x + self._enc_mlp(bp, x)
         return rmsnorm(x, self.encoder.norm.scale, self.cfg.rms_eps)
 
-    def _enc_attn(self, bp: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
+    def _enc_attn(self, bp: EncoderBlock, x: torch.Tensor,
+                  kernel_impl: Optional[str] = None) -> torch.Tensor:
         cfg = self.cfg
         e = cfg.encoder
         h = rmsnorm(x, bp.norm1.scale, cfg.rms_eps)
         return att.attention(bp.attn, h, n_heads=e.n_heads, n_kv_heads=e.n_heads,
                              head_dim=e.d_model // e.n_heads, rope_theta=cfg.rope_theta,
-                             causal=False)
+                             causal=False, kernel_impl=kernel_impl)
 
     def _enc_mlp(self, bp: EncoderBlock, x: torch.Tensor) -> torch.Tensor:
         return bp.mlp(rmsnorm(x, bp.norm2.scale, self.cfg.rms_eps))
 
-    def _encode_if_audio(self, frames: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    def _encode_if_audio(self, frames: Optional[torch.Tensor],
+                         kernel_impl: Optional[str] = None) -> Optional[torch.Tensor]:
         if self.cfg.family != "audio":
             return None
         if frames is None:
             raise ValueError(f"{self.cfg.name}: the audio family needs frames= "
                              "(B, n_ctx, d_model), the frontend stub's embeddings")
-        return self.encode(frames)
+        return self.encode(frames, kernel_impl)
 
     def forward(self, tokens: torch.Tensor, *, mode: str = "train",
                 max_cache_len: Optional[int] = None, return_aux: bool = False,
                 routing: Optional[List] = None, frames: Optional[torch.Tensor] = None,
-                vision_embeds: Optional[torch.Tensor] = None):
+                vision_embeds: Optional[torch.Tensor] = None,
+                kernel_impl: Optional[str] = None, remat: bool = False,
+                experts: Optional[List] = None):
         """tokens (B, S) -> (logits f32, caches).  "train": logits at every
         position, caches None; "prefill": logits (B, 1, V) of the last
         position and the serving state.  ``return_aux`` appends the MoE
@@ -317,20 +336,36 @@ class LM(nn.Module):
         reference's forward returns them.  ``routing``, one
         ``moe.Routing`` (or None) per layer, replaces the MoE layers' own:
         the way to hold the rest of the model to another backend's whose
-        near-tied top-k may have gone the other way.  The audio family
+        near-tied top-k may have gone the other way.  ``experts``, one
+        int64 top-k tensor (or None) per layer, fixes the MoE layers'
+        experts only (``moe.moe_layer``'s ``gate_e``), so a gradient still
+        reaches their routers.  The audio family
         takes ``frames`` (B, n_ctx, d_model); the vision family takes
         ``vision_embeds`` (B, n_vision_tokens, d_model), placed before the
-        tokens (its logits cover both)."""
+        tokens (its logits cover both).
+
+        ``kernel_impl`` is the kernel entries' ``impl`` for B5-B7: None the
+        device rule (the kernels on the card), ``"xla"`` the plain
+        versions, which autograd differentiates (the kernels have no
+        backward, and their entries refuse operands that require grad).
+        ``remat`` (mode "train" under grad mode) recomputes each block in
+        the backward pass (``torch.utils.checkpoint``) instead of keeping
+        its activations.  The device is the weights'."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"forward: mode {mode!r} is 'train' or 'prefill'")
-        enc_out = self._encode_if_audio(frames)
-        x = self._embed(tokens.to(self.device), vision_embeds)
+        dev = self.embed.w.device
+        enc_out = self._encode_if_audio(frames, kernel_impl)
+        x = self._embed(tokens.to(dev), vision_embeds)
         caches = []
-        aux = torch.zeros((), dtype=F32, device=self.device)
+        aux = torch.zeros((), dtype=F32, device=dev)
+        remat = remat and mode == "train" and torch.is_grad_enabled()
         for i, blk in enumerate(self.layers):
-            x, c, a = self._block(blk, x, mode=mode, max_cache_len=max_cache_len,
-                                  routing=None if routing is None else routing[i],
-                                  enc_out=enc_out)
+            block = functools.partial(
+                self._block, blk, mode=mode, max_cache_len=max_cache_len,
+                routing=None if routing is None else routing[i],
+                experts=None if experts is None else experts[i], enc_out=enc_out,
+                kernel_impl=kernel_impl)
+            x, c, a = checkpoint(block, x, use_reentrant=False) if remat else block(x)
             caches.append(c)
             if a is not None:
                 aux = aux + a
@@ -338,19 +373,42 @@ class LM(nn.Module):
             else (self._logits(x), None)
         return out + (aux,) if return_aux else out
 
+    def train_loss(self, tokens: torch.Tensor, labels: torch.Tensor, *,
+                   kernel_impl: Optional[str] = "xla", remat: bool = True,
+                   aux_weight: float = 0.01, frames: Optional[torch.Tensor] = None,
+                   vision_embeds: Optional[torch.Tensor] = None,
+                   routing: Optional[List] = None, experts: Optional[List] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's ``train_loss``: the mean cross entropy of the
+        logits against ``labels`` (the vision family's logits past its
+        ``n_vision_tokens`` embeddings), plus ``aux_weight`` times the MoE
+        layers' load-balance losses.  Returns ``(total, {"ce", "aux"})``.
+        ``kernel_impl`` defaults to the plain versions, as the reference's
+        training does; ``"pallas"`` or None on operands that require grad
+        is refused by the kernel entries.  ``routing`` and ``experts`` as
+        :meth:`forward`."""
+        logits, _, aux = self.forward(tokens, mode="train", return_aux=True,
+                                      kernel_impl=kernel_impl, remat=remat,
+                                      frames=frames, vision_embeds=vision_embeds,
+                                      routing=routing, experts=experts)
+        if self.cfg.family == "vlm":
+            logits = logits[:, self.cfg.n_vision_tokens:]
+        ce = cross_entropy(logits, labels.to(logits.device))
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
+
     @torch.inference_mode()
     def prefill(self, tokens: torch.Tensor, *, max_cache_len: Optional[int] = None,
                 routing: Optional[List] = None, frames: Optional[torch.Tensor] = None,
-                vision_embeds: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, List[Cache]]:
+                vision_embeds: Optional[torch.Tensor] = None,
+                kernel_impl: Optional[str] = None) -> Tuple[torch.Tensor, List[Cache]]:
         """``max_cache_len``: ring size of full-attention layers; it must
         cover the prompt (the vision embeddings included) and the decode
         budget (defaults to the prompt length, which leaves no room to
-        decode).  ``routing``, ``frames`` and ``vision_embeds`` as
-        :meth:`forward`."""
+        decode).  ``routing``, ``frames``, ``vision_embeds`` and
+        ``kernel_impl`` as :meth:`forward`."""
         logits, caches = self.forward(tokens, mode="prefill", max_cache_len=max_cache_len,
                                       routing=routing, frames=frames,
-                                      vision_embeds=vision_embeds)
+                                      vision_embeds=vision_embeds, kernel_impl=kernel_impl)
         return logits[:, 0], caches
 
     @torch.inference_mode()

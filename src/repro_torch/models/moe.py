@@ -81,18 +81,25 @@ def router_logits(router: torch.Tensor, xt: torch.Tensor) -> torch.Tensor:
     return xt.to(F32) @ router.to(F32)
 
 
-def route(logits: torch.Tensor, top_k: int) -> Routing:
-    """Softmax, top-k with ties to the lower expert, weights over their sum
-    (at least 1e-9), and ranks by an exclusive cumsum over the assignments
-    in token-major order, per leading group.  ``logits``: (..., N, E)."""
+def route(logits: torch.Tensor, top_k: int,
+          gate_e: Optional[torch.Tensor] = None) -> Routing:
+    """Softmax, top-k with ties to the lower expert (or the experts
+    ``gate_e`` given), weights over their sum (at least 1e-9), and ranks by
+    an exclusive cumsum over the assignments in token-major order, per
+    leading group.  ``logits``: (..., N, E)."""
     E = logits.shape[-1]
     probs = torch.softmax(logits, dim=-1)
-    order = torch.sort(probs, dim=-1, descending=True, stable=True).indices
-    gate_e = order[..., :top_k]
+    if gate_e is None:
+        gate_e = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :top_k]
     gate_w = torch.gather(probs, -1, gate_e)
     gate_w = gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9)
-    lead = logits.shape[:-2]
-    N = logits.shape[-2]
+    return Routing(probs, gate_e, gate_w, _ranks(gate_e, E))
+
+
+def _ranks(gate_e: torch.Tensor, E: int) -> torch.Tensor:
+    """Each assignment's rank within its expert, ``gate_e`` (..., N, k)."""
+    lead = gate_e.shape[:-2]
+    N, top_k = gate_e.shape[-2:]
     # The reference's exclusive cumsum of one-hot rows, as a stable sort:
     # an assignment's rank is its place among its expert's assignments in
     # token-major order (the same integers, without the (N k, E) scan).
@@ -103,8 +110,16 @@ def route(logits: torch.Tensor, top_k: int) -> Routing:
     start = torch.cumsum(cnt, -1) - cnt
     pos = (torch.arange(N * top_k, device=fe.device).expand_as(fe)
            - torch.gather(start, -1, torch.gather(fe, -1, order)))
-    rank = torch.empty_like(fe).scatter_(-1, order, pos).reshape(*lead, N, top_k)
-    return Routing(probs, gate_e, gate_w, rank)
+    return torch.empty_like(fe).scatter_(-1, order, pos).reshape(*lead, N, top_k)
+
+
+def _decide(params, xt: torch.Tensor, top_k: int, routing: Optional[Routing],
+            gate_e: Optional[torch.Tensor]) -> Routing:
+    """``routing`` as given, else :func:`route` of this layer's logits
+    (with the experts ``gate_e``, where given)."""
+    if routing is not None:
+        return routing
+    return route(router_logits(params["router"], xt), top_k, gate_e)
 
 
 def _aux(probs: torch.Tensor, gate_e: torch.Tensor, keep: torch.Tensor
@@ -159,16 +174,17 @@ def dispatch_combine(params: Dict[str, torch.Tensor], xt: torch.Tensor,
     return torch.einsum("nkd,nk->nd", per_k, w)
 
 
-def _dispatch_combine(params, xt, top_k, C, routing: Optional[Routing] = None):
+def _dispatch_combine(params, xt, top_k, C, routing: Optional[Routing] = None,
+                      gate_e: Optional[torch.Tensor] = None):
     """The shared scatter/experts/gather core: ``xt`` (N, D) -> (y, aux)."""
-    r = routing if routing is not None else route(
-        router_logits(params["router"], xt), top_k)
+    r = _decide(params, xt, top_k, routing, gate_e)
     y = dispatch_combine(params, xt, r, C)
     return y, _aux(r.probs, r.gate_e, r.rank < C)
 
 
 def _dispatch_combine_grouped(params, xt, top_k, C, G,
-                              routing: Optional[Routing] = None):
+                              routing: Optional[Routing] = None,
+                              gate_e: Optional[torch.Tensor] = None):
     """Local dispatch: ranks and drops within ``G`` groups of tokens, each
     with capacity ``C // G`` rounded up to 8, the slabs of all groups in
     one batched product per weight."""
@@ -177,8 +193,7 @@ def _dispatch_combine_grouped(params, xt, top_k, C, G,
     Ng = N // G
     Cg = max(8, -(-(C // G) // 8) * 8)
     xg = xt.reshape(G, Ng, D)
-    r = routing if routing is not None else route(
-        router_logits(params["router"], xg), top_k)
+    r = _decide(params, xg, top_k, routing, gate_e)
     keep = r.rank < Cg
     stride = E * Cg + 1
     gidx = torch.arange(G, device=xt.device)[:, None, None]
@@ -201,23 +216,30 @@ def _dispatch_combine_grouped(params, xt, top_k, C, G,
 
 def moe_layer(params: Dict[str, torch.Tensor], x: torch.Tensor, *, top_k: int,
               capacity_factor: float = 1.25, local_groups: int = 0,
-              routing: Optional[Routing] = None
+              routing: Optional[Routing] = None, gate_e: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """``x`` (B, S, D) -> (y, aux), aux holding the load-balance loss and
     the dropped share.  Capacity counts every token of the batch, padding
     included, as the reference does.  ``local_groups > 0`` (dividing B S)
     ranks and drops within that many groups.  ``routing`` replaces the
     layer's own (:func:`route` of :func:`router_logits`; grouped ``(G,
-    N/G, ...)`` leaves with ``local_groups``)."""
+    N/G, ...)`` leaves with ``local_groups``).  ``gate_e`` (int64, shaped
+    as ``routing.gate_e``) fixes the experts only: their probabilities,
+    weights and ranks come from the layer's own logits, so a gradient
+    reaches the router.  At most one of the two is given."""
+    if routing is not None and gate_e is not None:
+        raise ValueError("moe_layer: give routing= or gate_e=, not both")
+    if gate_e is not None:
+        gate_e = gate_e.to(x.device)
     B, S, D = x.shape
     N = B * S
     C = capacity_for(N, params["router"].shape[1], top_k, capacity_factor)
     xt = x.reshape(N, D)
     if local_groups and N % local_groups == 0:
         y, aux = _dispatch_combine_grouped(params, xt, top_k, C, local_groups,
-                                           routing)
+                                           routing, gate_e)
     else:
-        y, aux = _dispatch_combine(params, xt, top_k, C, routing)
+        y, aux = _dispatch_combine(params, xt, top_k, C, routing, gate_e)
     return y.reshape(B, S, D), aux
 
 

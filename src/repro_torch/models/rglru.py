@@ -8,7 +8,10 @@
 The block: two input linears (recurrent branch and gate branch), a short
 causal depthwise conv on the recurrent branch, the RG-LRU and a gated
 output projection.  Prefill runs the recurrence through kernel B7
-(:func:`repro_torch.kernels.rglru.rglru`); the one-step decode is plain.
+(:func:`repro_torch.kernels.rglru.rglru`); at ``kernel_impl="xla"`` its
+entry runs the JAX package's log-space associative scan
+(:func:`~repro_torch.kernels.rglru.rglru_scan`), as the reference's block
+does, which training differentiates.  The one-step decode is plain.
 """
 from __future__ import annotations
 
@@ -47,8 +50,9 @@ class RGLRUBlock(nn.Module):
             self.lam.copy_(torch.linspace(0.5, 4.0, w, dtype=F32))
         self.out = dense(w, d_model, gen, device)
 
-    def forward(self, x, *, mode: str = "train", state=None):
-        return rglru_block(self, x, mode=mode, state=state)
+    def forward(self, x, *, mode: str = "train", state=None,
+                kernel_impl: Optional[str] = None):
+        return rglru_block(self, x, mode=mode, state=state, kernel_impl=kernel_impl)
 
 
 def rglru_gates(p, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -77,9 +81,12 @@ def _conv(x, w, b, state: Optional[torch.Tensor] = None):
 
 
 def rglru_block(p, x: torch.Tensor, *, mode: str = "train",
-                state: Optional[Dict[str, torch.Tensor]] = None):
+                state: Optional[Dict[str, torch.Tensor]] = None,
+                kernel_impl: Optional[str] = None):
     """x: (B, L, D).  ``mode`` "train" or "prefill" runs the whole sequence
-    through B7; "decode" takes L == 1 and ``state`` {'conv', 'h'}.
+    through B7's entry (``kernel_impl`` its ``impl``: None the device rule,
+    "xla" the associative scan ``rglru_scan``); "decode" takes L == 1 and
+    ``state`` {'conv', 'h'}.
     Returns (y, new state); the new state is None in "train"."""
     gate = F.gelu((x @ p.in_gate).to(F32), approximate="tanh").to(x.dtype)
     u = x @ p.in_x
@@ -90,7 +97,7 @@ def rglru_block(p, x: torch.Tensor, *, mode: str = "train",
         hs = h[:, None]
         new_state = {"conv": new_conv, "h": h}
     else:
-        hs, hT = rglru(log_a, gx)
+        hs, hT = rglru(log_a, gx, impl=kernel_impl)
         new_state = {"conv": new_conv, "h": hT} if mode == "prefill" else None
     y = hs.to(x.dtype) * gate
     return y @ p.out, new_state

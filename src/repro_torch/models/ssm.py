@@ -67,8 +67,11 @@ def _split_proj(z, di, nstate, nh):
 
 
 def mamba2_block(p, x: torch.Tensor, s: SSMConfig, *, mode: str = "train",
-                 state: Optional[Dict[str, torch.Tensor]] = None):
-    """x: (B, L, D).  "train"/"prefill": the whole sequence through B6;
+                 state: Optional[Dict[str, torch.Tensor]] = None,
+                 kernel_impl: Optional[str] = None):
+    """x: (B, L, D).  "train"/"prefill": the whole sequence through B6
+    (``kernel_impl`` is its entry's ``impl``: None the device rule, "xla"
+    the plain chunked scan, which training differentiates);
     "decode": L == 1 with ``state`` {'conv', 'ssm'}.  Returns (y, new state);
     the new state is None in "train"."""
     B, L, D = x.shape
@@ -98,7 +101,7 @@ def mamba2_block(p, x: torch.Tensor, s: SSMConfig, *, mode: str = "train",
         y = y.reshape(B, 1, nh, s.head_dim).to(x.dtype)
         new_state = {"conv": conv_state, "ssm": h_new}
     else:
-        y, hT = ssd(xh, dt, A, B_, C_, chunk=s.chunk)
+        y, hT = ssd(xh, dt, A, B_, C_, chunk=s.chunk, impl=kernel_impl)
         new_state = {"conv": conv_state, "ssm": hT} if mode == "prefill" else None
 
     y = y + p.D.to(F32)[None, None, :, None] * xh.to(F32)

@@ -940,3 +940,164 @@ def test_ssd_at_batch_one_matches_plain(gen):
     Bm = torch.randn((B, L, 128), generator=gen, device="cuda").to(torch.bfloat16)
     Cm = torch.randn((B, L, 128), generator=gen, device="cuda").to(torch.bfloat16)
     _ssd_holds_the_bar(x, dt, A, Bm, Cm)
+
+
+# ---------------------------------------------------------------------- #
+# The kernel entries on the card (ROADMAP C13, C14) and a train step.
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("dtype,shape,order", [
+    (torch.float32, (1033,), 3), (torch.float64, (4, 1033), 10),
+    (torch.float32, (3, 40), 1), (torch.bfloat16, (2, 3, 137), 5),
+    (torch.float16, (3, 300), 7), (torch.float32, (4, 1033), 0),
+    (torch.float64, (3, 40), 11)])
+def test_dpd_branch_entry_takes_batches_types_and_orders(gen, dtype, shape, order):
+    """B1's entry: streams of every float type are cast to float32; at
+    orders 1..10 they launch the kernel once a row, bit for bit the plain
+    version on the float32 cast; other orders run the plain version."""
+    from repro_torch.kernels.dyn_fir import branch_ref, dpd_branch
+    xr, xi = (torch.randn(shape, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    hr, hi = (torch.randn(10, generator=gen, device="cuda").to(dtype) for _ in range(2))
+    for impl in (None, "pallas"):
+        before = dpd_branch_cuda.launches
+        got = dpd_branch(xr, xi, hr, hi, order=order, impl=impl, block=shape[-1] - 9)
+        rows = int(np.prod(shape[:-1])) if 1 <= order <= 10 else 0
+        assert dpd_branch_cuda.launches == before + rows
+        want = branch_ref(*(t.to(torch.float32) for t in (xr, xi, hr, hi)), order)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == shape[:-1] + (shape[-1] - 9,)
+            assert torch.equal(g, w)
+
+
+def test_impl_xla_runs_the_plain_versions_on_the_card(gen):
+    from repro_torch.kernels.dyn_fir import branch_ref, dpd_branch
+    from repro_torch.kernels.gauss5x5 import gauss5x5, gauss5x5_ref
+    from repro_torch.kernels.rglru import rglru_scan
+    r = lambda *s: torch.randn(s, generator=gen, device="cuda")  # noqa: E731
+    q, k = r(1, 64, 2, 32).bfloat16(), r(1, 64, 1, 32).bfloat16()
+    la, gx = -r(2, 40, 16).abs(), r(2, 40, 16)
+    x, dt, A, Bm = r(1, 64, 2, 16), r(1, 64, 2).abs() * 0.1, -r(2).abs(), r(1, 64, 8)
+    f = r(2, 24, 32) * 100
+    xs, h = r(1033), r(10)
+    wrappers = (flash_attention_cuda, rglru_cuda, ssd_cuda, gauss5x5_cuda,
+                motion_post_cuda, dpd_branch_cuda)
+    before = [w.launches for w in wrappers]
+    assert torch.equal(flash_attention(q, k, k, impl="xla"), flash_attention_ref(q, k, k))
+    assert all(torch.equal(a, b) for a, b in zip(rglru(la, gx, impl="xla"),
+                                                  rglru_scan(la, gx)))
+    assert all(torch.equal(a, b) for a, b in zip(ssd(x, dt, A, Bm, Bm, impl="xla"),
+                                                  ssd_ref(x, dt, A, Bm, Bm, 256)))
+    assert torch.equal(gauss5x5(f, impl="xla"), gauss5x5_ref(f))
+    assert torch.equal(motion_post(f, f * 0.5, impl="xla"), motion_post_ref(f, f * 0.5))
+    assert all(torch.equal(a, b) for a, b in zip(dpd_branch(xs, xs, h, h, order=3, impl="xla"),
+                                                  branch_ref(xs, xs, h, h, 3)))
+    assert [w.launches for w in wrappers] == before
+
+
+def test_kernel_entries_refuse_autograd_on_the_card(gen):
+    q = torch.randn((1, 64, 2, 32), generator=gen, device="cuda").bfloat16().requires_grad_()
+    la = torch.randn((1, 8, 4), generator=gen, device="cuda").requires_grad_()
+    before = flash_attention_cuda.launches, rglru_cuda.launches
+    for impl in (None, "pallas"):
+        with pytest.raises(ValueError, match="kernel_impl='xla'"):
+            flash_attention(q, q, q, impl=impl)
+        with pytest.raises(ValueError, match="kernel_impl='xla'"):
+            rglru(la, la, impl=impl)
+    assert (flash_attention_cuda.launches, rglru_cuda.launches) == before
+    flash_attention(q, q, q, impl="xla").float().sum().backward()
+    assert q.grad is not None and bool(torch.isfinite(q.grad.float()).all())
+
+
+def _bf16_step(x):
+    """``x`` (bf16) one representable step up or down at every element,
+    signs from a fixed seed (a zero steps up): one rounding step."""
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    step = (torch.randint(0, 2, x.shape, generator=gen, device=x.device) * 2 - 1).short()
+    bits = x.view(torch.int16)
+    step = torch.where((bits & 0x7FFF) == 0, torch.ones_like(step), step)
+    return (bits + step).view(torch.bfloat16)
+
+
+def _lm_grads(cfg, params, batch, stepped=False):
+    """``train_loss`` (``kernel_impl="xla"``) on the CPU and the gradient
+    of every parameter; ``stepped``: the embedded input one bf16 step off."""
+    from repro_torch.models import LM
+    model = LM(cfg, device="cpu", seed=None)
+    model.load_state_dict(params)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    if stepped:
+        embed = model._embed
+        model._embed = lambda *a, **kw: (lambda x: x + (_bf16_step(x.detach()) - x).detach())(
+            embed(*a, **kw))
+    total = model.train_loss(batch["tokens"], batch["labels"])[0]
+    total.backward()
+    return float(total.detach()), {n: p.grad.float() for n, p in model.named_parameters()}
+
+
+def _row_readings(want, got, base, stepped):
+    """Per leaf, the largest ratio over its rows (slices along the first
+    axis) of ``got``'s error from ``want`` to ``stepped - base``."""
+    out = {}
+    for name, w in want.items():
+        rows = w.shape[0] if w.dim() > 1 else 1
+        row = lambda t: t.float().reshape(rows, -1)  # noqa: E731
+        err = (row(got[name]) - row(w)).norm(dim=1)
+        sens = (row(stepped[name]) - row(base[name])).norm(dim=1)
+        out[name] = float(torch.where(err == 0, 0.0, err / sens).max())
+    return out
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "recurrentgemma-2b"])
+def test_smoke_train_step_on_the_card_matches_the_cpu(gen, arch):
+    """One train step of the smoke config on the card, whole and in 2
+    microbatches (float32 grads, no warmup), from the CPU's weights and
+    batch: no kernel launch (the plain versions); the loss within 2^-11
+    relative of the CPU's ``train_loss`` (the CPU tests' ce bar); the
+    step's gradient, read from its first AdamW moment (``m = (1 - b1) g
+    s``, s the clip scale), row by row within 8x the CPU gradient's change
+    under a bf16 step at the embedded input (tests/test_torch_train_grads.py's
+    rule), the microbatched one likewise against the whole batch's;
+    ``grad_norm`` within 8x the norm of that change, and within 2^-16 of
+    the norm of the step's own gradient; and the step's params
+    within one bf16 step of the CPU's ``adamw_update`` on the step's own
+    gradient (tests/test_torch_train.py's bar), float32 params within 1e-6
+    of the leaf's largest magnitude."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import AdamWConfig, adamw_update, global_norm, init_opt_state
+    from repro_torch.train import TrainOptions, init_params, make_train_step
+    cfg = smoke_config(arch)
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0)
+    params = init_params(cfg, device="cpu", seed=0)
+    raw = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64, global_batch=4)).batch(0)
+    batch = {k: torch.from_numpy(v.astype(np.int64)) for k, v in raw.items()}
+    (loss_c, g_c), (_, g_s) = (_lm_grads(cfg, params, batch, stepped=st)
+                               for st in (False, True))
+    p_dev = {k: v.cuda() for k, v in params.items()}
+    b_dev = {k: v.cuda() for k, v in batch.items()}
+    wrappers = (flash_attention_cuda, rglru_cuda, ssd_cuda)
+    before = [w.launches for w in wrappers]
+    outs = [make_train_step(cfg, opt, TrainOptions(microbatches=n, grad_dtype="f32"))(
+        p_dev, init_opt_state(p_dev), b_dev) for n in (1, 2)]
+    assert [w.launches for w in wrappers] == before
+    grads = []
+    for _, state, metrics in outs:
+        s = min(1.0, opt.clip_norm / float(metrics["grad_norm"]))
+        grads.append({k: m.cpu() / ((1 - opt.betas[0]) * s) for k, m in state["m"].items()})
+    assert abs(float(outs[0][2]["loss"]) - loss_c) <= 2.0 ** -11 * abs(loss_c)
+    assert max(_row_readings(g_c, grads[0], g_c, g_s).values()) <= 8.0
+    assert max(_row_readings(grads[0], grads[1], g_c, g_s).values()) <= 8.0
+    gn_bar = 8.0 * float(global_norm(g_s[k] - g_c[k] for k in g_c))
+    for (_, _, metrics), g in zip(outs, grads):
+        gn, own = float(metrics["grad_norm"]), float(global_norm(g.values()))
+        assert abs(gn - float(global_norm(g_c.values()))) <= gn_bar
+        assert abs(gn - own) <= 2.0 ** -16 * own
+    want = adamw_update(opt, params, grads[0], init_opt_state(params))[0]
+    for k, w in want.items():
+        got, w = outs[0][0][k].cpu().float(), w.float()
+        unit = torch.full_like(w, 1e-6 * float(w.abs().max().clamp(min=1e-30)))
+        if params[k].dtype == torch.bfloat16:
+            unit = torch.maximum(unit, torch.ldexp(torch.ones_like(w),
+                                                   torch.frexp(w)[1] - 8) * (w != 0))
+        assert float(((got - w).abs() / unit).max()) <= 1.0, k
+

@@ -1,0 +1,211 @@
+"""The port's training against the JAX package's, on the CPU.
+
+First the JAX package's own training tests (``tests/test_train.py``) on
+the port, each held to the reference's bar: the schedule, the loss going
+down (default, microbatched, float32 grads), microbatch equivalence, error
+feedback and deterministic replay.  Then each port value against the
+reference's on the same inputs: batches bit for bit; ``schedule`` within
+one float32 ulp plus one ulp of its cosine carried through;
+``adamw_update`` (m and v within 1e-6 of the leaf's largest magnitude,
+bf16 params within one bf16 step, float32 params within 1e-6);
+``rglru_scan`` within B7's bar (1e-5).  ``LM.train_loss`` with its
+gradient for every arch of the registry is in
+``test_torch_train_grads.py``.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.data import DataConfig as RefDataConfig
+from repro.data import FileTokens as RefFileTokens
+from repro.data import SyntheticLM as RefSyntheticLM
+from repro.models.rglru import rglru_scan as ref_rglru_scan
+from repro.optim.adamw import AdamWConfig as RefAdamWConfig
+from repro.optim.adamw import adamw_update as ref_adamw_update
+from repro.optim.adamw import schedule as ref_schedule
+from repro_torch.configs import smoke_config
+from repro_torch.convert import tensor_from_numpy, tensor_to_numpy
+from repro_torch.data import DataConfig, FileTokens, SyntheticLM
+from repro_torch.kernels.rglru import rglru_scan
+from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state, schedule
+from repro_torch.train import TrainOptions, init_params, make_train_step
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Smoke-size steps are many tiny ops, which run fastest on one thread
+    and slow down badly when the suite's workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _to_dev(b):
+    return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+
+
+# ---------------------------------------------------------------------- #
+# The reference's tests/test_train.py, on the port.
+# ---------------------------------------------------------------------- #
+def test_schedule_warmup_cosine():
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=100, min_lr_frac=0.1)
+    assert float(schedule(cfg, torch.tensor(0, dtype=torch.int32))) == 0.0
+    assert abs(float(schedule(cfg, torch.tensor(10, dtype=torch.int32))) - 1e-3) < 1e-9
+    assert abs(float(schedule(cfg, torch.tensor(100, dtype=torch.int32))) - 1e-4) < 1e-9
+
+
+@pytest.mark.parametrize("opts", [
+    TrainOptions(),
+    TrainOptions(microbatches=2),
+    TrainOptions(grad_dtype="f32"),
+], ids=["default", "microbatched", "f32-grads"])
+def test_loss_decreases(opts):
+    cfg = smoke_config("granite-8b")
+    params = init_params(cfg, device="cpu", seed=0)
+    step = make_train_step(cfg, AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=60), opts)
+    opt_state = init_opt_state(params)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    losses = []
+    for i in range(25):
+        params, opt_state, m = step(params, opt_state, _to_dev(data.batch(i)))
+        losses.append(float(m["loss"]))
+    assert np.isfinite(losses).all()
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2, losses
+
+
+def test_microbatch_equivalence():
+    """Grad accumulation over 2 microbatches ~= one big batch; the step
+    leaves its inputs as they were, so both start from the same params."""
+    cfg = smoke_config("granite-8b")
+    params = init_params(cfg, device="cpu", seed=0)
+    before = {k: v.clone() for k, v in params.items()}
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4))
+    batch = _to_dev(data.batch(0))
+    s1 = make_train_step(cfg, AdamWConfig(lr=1e-3), TrainOptions(grad_dtype="f32"))
+    s2 = make_train_step(cfg, AdamWConfig(lr=1e-3),
+                         TrainOptions(microbatches=2, grad_dtype="f32"))
+    p1, _, _ = s1(params, init_opt_state(params), batch)
+    p2, _, _ = s2(params, init_opt_state(params), batch)
+    assert all(torch.equal(before[k], params[k]) for k in params)
+    d = max(float((p1[k].float() - p2[k].float()).abs().max()) for k in p1)
+    assert d < 5e-2
+
+
+def test_error_feedback_state_threads():
+    cfg = smoke_config("granite-8b")
+    params = init_params(cfg, device="cpu", seed=0)
+    step = make_train_step(cfg, AdamWConfig(),
+                           TrainOptions(grad_dtype="bf16", error_feedback=True))
+    opt_state = init_opt_state(params)
+    opt_state["feedback"] = {k: torch.zeros(p.shape) for k, p in params.items()}
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=2))
+    params, opt_state, m = step(params, opt_state, _to_dev(data.batch(0)))
+    assert "feedback" in opt_state
+    assert np.isfinite(float(m["loss"]))
+
+
+def test_data_pipeline_deterministic_replay():
+    """Batch i is a pure function of (seed, i): restart replay safety."""
+    cfg = DataConfig(vocab=1000, seq_len=64, global_batch=8, seed=3)
+    a, b = SyntheticLM(cfg), SyntheticLM(cfg)
+    for i in [0, 5, 17]:
+        np.testing.assert_array_equal(a.batch(i)["tokens"], b.batch(i)["tokens"])
+    assert not np.array_equal(a.batch(0)["tokens"], a.batch(1)["tokens"])
+    ba = a.batch(2)
+    np.testing.assert_array_equal(ba["tokens"][:, 1:], ba["labels"][:, :-1])
+
+
+def test_zero1_is_refused_naming_a13b():
+    with pytest.raises(ValueError, match="A13b"):
+        make_train_step(smoke_config("granite-8b"), AdamWConfig(), TrainOptions(zero1=True))
+
+
+# ---------------------------------------------------------------------- #
+# Values against the reference's.
+# ---------------------------------------------------------------------- #
+@pytest.mark.parametrize("kw", [dict(vocab=503, seq_len=32, global_batch=4),
+                                dict(vocab=50280, seq_len=64, global_batch=8, seed=3),
+                                dict(vocab=1000, seq_len=16, global_batch=8, host_id=1,
+                                     n_hosts=2)])
+def test_batches_match_the_reference_bit_for_bit(kw, tmp_path):
+    mine, ref = SyntheticLM(DataConfig(**kw)), RefSyntheticLM(RefDataConfig(**kw))
+    for i in (0, 1, 7):
+        a, b = mine.batch(i), ref.batch(i)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+    path = tmp_path / "tokens.bin"
+    np.random.default_rng(0).integers(0, kw["vocab"], 4000).astype(np.uint32).tofile(path)
+    mine = FileTokens(DataConfig(**kw, path=str(path)))
+    ref = RefFileTokens(RefDataConfig(**kw, path=str(path)))
+    for i in (0, 3):
+        for k in ("tokens", "labels"):
+            assert np.array_equal(mine.batch(i)[k], ref.batch(i)[k])
+
+
+@pytest.mark.parametrize("kw", [dict(lr=1e-3, warmup_steps=10, total_steps=100),
+                                dict(lr=3e-4, warmup_steps=2, total_steps=8, min_lr_frac=0.0),
+                                dict()])
+def test_schedule_within_one_ulp_of_the_reference(kw):
+    """One ulp of the result, plus one float32 ulp of cos(pi t) carried
+    through: torch's and XLA's float32 cos differ by an ulp at some t, and
+    1 + cos cancels near t = 1 (readings up to 3 ulp of the result)."""
+    cfg = AdamWConfig(**kw)
+    got = np.array([float(schedule(cfg, torch.tensor(s, dtype=torch.int32)))
+                    for s in range(121)], np.float32)
+    want = np.array([np.asarray(ref_schedule(RefAdamWConfig(**kw), jnp.int32(s)))
+                     for s in range(121)], np.float32)
+    t = np.clip((np.arange(121) - cfg.warmup_steps)
+                / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos_ulp = np.spacing(np.abs(np.cos(np.pi * t)).astype(np.float32))
+    bar = np.spacing(np.abs(want)) + cfg.lr * (1 - cfg.min_lr_frac) * 0.5 * cos_ulp
+    assert np.all(np.abs(got.astype(np.float64) - want) <= bar)
+
+
+@pytest.mark.parametrize("gscale", [0.01, 10.0], ids=["unclipped", "clipped"])
+def test_adamw_update_matches_the_reference(rng, gscale):
+    shapes = {"a": ((8, 16), ml_dtypes.bfloat16), "b": ((5,), np.float32),
+              "c.d": ((3, 4), ml_dtypes.bfloat16)}
+    params = {k: rng.normal(size=s).astype(t) for k, (s, t) in shapes.items()}
+    grads = {k: (rng.normal(size=s) * gscale).astype(ml_dtypes.bfloat16)
+             for k, (s, _) in shapes.items()}
+    m = {k: (rng.normal(size=s) * 0.01).astype(np.float32) for k, (s, _) in shapes.items()}
+    v = {k: (rng.uniform(size=s) * 1e-4).astype(np.float32) for k, (s, _) in shapes.items()}
+    cfg = dict(lr=1e-3, warmup_steps=2, total_steps=10, weight_decay=0.1)
+    state = {"m": m, "v": v, "count": np.int32(3)}
+    rp, rs, rm = ref_adamw_update(RefAdamWConfig(**cfg), jax.tree.map(jnp.asarray, params),
+                                  jax.tree.map(jnp.asarray, grads),
+                                  jax.tree.map(jnp.asarray, state))
+    T = lambda tree: {k: tensor_from_numpy(a) for k, a in tree.items()}  # noqa: E731
+    tp, ts, tm = adamw_update(AdamWConfig(**cfg), T(params), T(grads),
+                              {"m": T(m), "v": T(v), "count": torch.tensor(3, dtype=torch.int32)})
+    assert int(ts["count"]) == 4 and ts["count"].dtype == torch.int32
+    for k in shapes:
+        for mine, ref in ((ts["m"][k], rs["m"][k]), (ts["v"][k], rs["v"][k])):
+            ref = np.asarray(ref)
+            assert mine.dtype == torch.float32
+            assert np.abs(mine.numpy() - ref).max() <= 1e-6 * np.abs(ref).max()
+        ref_p = np.asarray(rp[k])
+        if ref_p.dtype == np.float32:
+            assert np.abs(tp[k].numpy() - ref_p).max() <= 1e-6 * np.abs(ref_p).max()
+        else:
+            steps = np.abs(tensor_to_numpy(tp[k]).view(np.int16).astype(np.int32)
+                           - ref_p.view(np.int16).astype(np.int32))
+            assert tp[k].dtype == torch.bfloat16 and steps.max() <= 1
+    for key in ("grad_norm", "lr"):
+        assert abs(float(tm[key]) - float(rm[key])) <= 1e-6 * abs(float(rm[key]))
+
+
+@pytest.mark.parametrize("B,L,W", [(2, 64, 32), (1, 100, 8), (3, 33, 16)])
+def test_rglru_scan_matches_the_reference(rng, B, L, W):
+    la = -rng.uniform(0.01, 2.0, (B, L, W)).astype(np.float32)
+    gx = rng.normal(size=(B, L, W)).astype(np.float32)
+    hs, hT = rglru_scan(torch.tensor(la), torch.tensor(gx))
+    rs, rT = ref_rglru_scan(jnp.asarray(la), jnp.asarray(gx))
+    np.testing.assert_allclose(hs.numpy(), np.asarray(rs), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(hT.numpy(), np.asarray(rT), rtol=1e-5, atol=1e-5)
