@@ -10,6 +10,7 @@
     python3 chip_smoke.py --b3 SRC    # B3's time, wrapper and MD's wall, from SRC
     python3 chip_smoke.py --b4 SRC    # B4's time, wrapper and R probe, from SRC
     python3 chip_smoke.py --train     # phase 24 alone (with phase 1)
+    python3 chip_smoke.py --shard     # phase 25 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -266,6 +267,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     versions, the logits within phase 14's rule (``LOGIT_SENS`` times the
     plain run's change under a bf16 step at its embedded input, at least
     ``LOGIT_TOL``).
+25. (run last) the multi-device runtime (ROADMAP A12): each sub-phase
+    in k ranks spawned on this one card (``repro_torch.launch.group.
+    spawn_group``: a gloo group through a ``file://`` rendezvous, rings
+    staged through host buffers, a deadline; a failure in any rank fails
+    the run), the kernels built by phase 1 before the spawn: (a) phase 3's
+    DPD at ``devices`` 1 (this process), 2 and 4: every rank's state bit
+    for bit the single-process run's (sha256 per leaf), fire counts equal,
+    B1's launches summed over the ranks 398; rounds, collective bytes per
+    sweep, the wall (median of ``SHARD_RUNS`` after a warm-up) and each
+    rank's B1 launches; at 2 ranks ``device_assign`` and guards plus trace
+    (clean, merged trace counts equal to the fire counts); (b)
+    recurrentgemma-2b through ``ActorEngine(plan=ExecutionPlan(devices=2))``
+    on phase 22's closed loop, tokens bit for bit the single-device
+    ActorEngine's (rank 0), B5 and B7 launches summed equal to its, walls
+    in turns; (c) mamba2-780m through ``pipeline_forward``, 4 stages of 12
+    layers on 4 ranks, 4 microbatches of 4096 tokens: every rank's logits
+    bit for bit ``pipeline_forward_reference`` run in one process (rank 0,
+    the others waiting; in turns, for the walls), 48 B6 calls a rank (192
+    in all). DPD's runs also give each rank's host time by part (visit,
+    exchange, flag, merge) (a ``phase 25 shard {...}`` line).
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -295,7 +316,9 @@ for R = 1, 2, 4 and 8 rows a thread, each checked and timed (a ``b4
 trees they compare a kernel across commits on one card.
 ``--lm`` runs phases 1, 12-15, 19-22, 23(c) and 24 only (the LM path), for
 work on it; ``--train`` runs phases 1 and 24 (building B6 only) and prints
-phase 24's record before the last line.
+phase 24's record before the last line; ``--shard`` runs phases 1 and 25
+(building B1, B5, B6 and B7) and prints phase 25's record before the last
+line.
 """
 from __future__ import annotations
 
@@ -3651,6 +3674,360 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     return rec
 
 
+# ---- 25. the multi-device runtime (devices=k, pipeline_forward) -------- #
+SHARD_RUNS = 5             # timed runs after a warm-up, each k
+SHARD_TIMEOUT = 600        # a group's deadline and its collectives' timeout (s)
+SHARD_TURNS = 2            # (b): single-device and sharded generate, in turns
+
+
+def leaf_digests(leaves: list) -> list:
+    """sha256 of each leaf's dtype, shape and bytes: equal digests, equal
+    bits."""
+    import hashlib
+    return [hashlib.sha256(f"{a.dtype}{a.shape}".encode() + np.ascontiguousarray(a)
+                           .tobytes()).hexdigest() for a in leaves]
+
+
+def tensor_digest(t: torch.Tensor) -> str:
+    return leaf_digests([t.detach().cpu().contiguous().view(torch.uint8).numpy()])[0]
+
+
+def dpd_runs(prog, snapshot, barrier=None, after=None) -> tuple:
+    """A warm-up and SHARD_RUNS timed runs of ``prog`` from fresh states,
+    each started together on every rank (``barrier``): (the warm-up's
+    result, ``snapshot()`` of the kernel counts just after it, the walls in
+    ms, ``after()`` after each timed run).  The caller zeroes the counts
+    first."""
+    walls, extra, first, launches = [], [], None, None
+    for i in range(1 + SHARD_RUNS):
+        st = prog.init_state()
+        torch.cuda.synchronize()
+        if barrier is not None:
+            barrier()
+        t0 = time.perf_counter()
+        res = prog.run(st, in_place=True)
+        torch.cuda.synchronize()
+        if i == 0:
+            first, launches = res, snapshot()
+        else:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if after is not None:
+                extra.append(after())
+    return first, launches, walls, extra
+
+
+def shard_rank(rank: int, world: int, src: str) -> dict:
+    """One rank of a phase-25 group (``spawn_group``): DPD at full width at
+    ``devices=world``; at 2 ranks also ``device_assign``, guards and trace,
+    and recurrentgemma-2b through the sharded ActorEngine; at 4 ranks
+    mamba2-780m through ``pipeline_forward``.  Every kernel count is zeroed
+    just before each path and read just after."""
+    sys.path.insert(0, src)
+    import torch.distributed as dist
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.graphs.dpd import default_active_schedule
+    from repro_torch.graphs.factories import make_dpd
+    from repro_torch.kernels.dyn_fir import dpd_branch_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru import rglru_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+    wrappers = {"B1": dpd_branch_cuda, "B5": flash_attention_cuda, "B6": ssd_cuda,
+                "B7": rglru_cuda}
+
+    def zero() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts() -> dict:
+        return {k: w.launches for k, w in wrappers.items()}
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: dict = {"rank": rank, "device": str(dev)}
+    sched = default_active_schedule(N_FIRINGS, seed=0)
+    net, _ = make_dpd(N_FIRINGS, block_l=BLOCK_L, seed=0, active_schedule=sched, device=dev)
+    prog = net.compile(mode="dynamic", devices=world)
+    zero()
+    # The runner's host seconds by part after each timed run (visit,
+    # exchange, flag, merge; core/shard.py).
+    res, launches, walls, splits = dpd_runs(prog, counts, dist.barrier,
+                                            lambda: dict(prog._runner.last_split))
+    out["dpd"] = {"launches": launches, "digests": leaf_digests(state_to_numpy(res.state)),
+                  "counts": res.fire_counts, "rounds": res.sweeps, "walls_ms": walls,
+                  "split_ms": {k: float(np.median([x[k] for x in splits])) * 1e3
+                               for k in splits[0]},
+                  "stats": prog.stats().to_json()}
+    if world == 2:
+        names = list(net.actors)
+        cut = {n: (0 if i < len(names) // 2 else 1) for i, n in enumerate(names)}
+        for label, plan in (("assign", ExecutionPlan(mode="dynamic", devices=2,
+                                                     device_assign=cut)),
+                            ("guards_trace", ExecutionPlan(mode="dynamic", devices=2,
+                                                           guards=True, trace=True,
+                                                           trace_capacity=1 << 16))):
+            p = net.compile(plan)
+            zero()
+            r = p.run()
+            torch.cuda.synchronize()
+            rec = {"launches": counts(), "digests": leaf_digests(state_to_numpy(r.state)),
+                   "counts": r.fire_counts, "rounds": r.sweeps,
+                   "parts": p.stats().device_partition_actors}
+            if r.trace is not None:
+                rec.update(diag_ok=r.diagnostics.ok, fired=r.trace.firing_counts(),
+                           dropped=r.trace.dropped)
+            out[label] = rec
+            if label == "assign":
+                out[label]["cut"] = cut
+    del net, prog, res
+    torch.cuda.empty_cache()
+    if world == 2:
+        out["serve"] = shard_serve(rank, dev, zero, counts)
+    if world == 4:
+        out["pipeline"] = shard_pipeline(rank, dev, zero, counts)
+    return out
+
+
+def shard_serve(rank: int, dev, zero, counts) -> dict:
+    """Phase 25(b) in one rank: phase 22's closed loop (LM_REQUESTS
+    requests, budget LM_NEW) through the ActorEngine at devices=2, and on
+    rank 0 through the single-device ActorEngine, in turns."""
+    import torch.distributed as dist
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.serve import ActorEngine, Request, ServeConfig
+    model, init_s = lm_model("recurrentgemma-2b", dev)
+    cfg = model.cfg
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
+    reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), LM_NEW) for n in lens]
+    scfg = ServeConfig(batch_size=LM_BATCH, max_prompt=LM_PROMPT, max_new=LM_NEW)
+    single = ActorEngine(cfg, model, scfg)
+    sharded = ActorEngine(cfg, model, scfg, plan=ExecutionPlan(mode="dynamic", devices=2))
+    rec: dict = {"init_s": init_s, "walls_s": {"single": [], "sharded": []}}
+
+    def timed(eng) -> tuple:
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        toks = served_tokens(eng.generate(reqs))
+        torch.cuda.synchronize()
+        return toks, time.perf_counter() - t0, counts()
+
+    for _ in range(SHARD_TURNS):
+        dist.barrier()
+        if rank == 0:
+            toks, wall, launches = timed(single)
+            rec["walls_s"]["single"].append(wall)
+            rec["single"] = {"tokens": toks, "launches": launches,
+                             "counts": single.last_fire_counts,
+                             "sweeps": single.last_sweeps}
+        dist.barrier()
+        toks, wall, launches = timed(sharded)
+        rec["walls_s"]["sharded"].append(wall)
+        rec["sharded"] = {"tokens": toks, "launches": launches,
+                          "counts": sharded.last_fire_counts, "rounds": sharded.last_sweeps,
+                          "collective_bytes_per_sweep": sharded.last_collective_bytes_per_sweep,
+                          "parts": sharded.last_program.stats().device_partition_actors}
+    return rec
+
+
+def shard_pipeline(rank: int, dev, zero, counts) -> dict:
+    """Phase 25(c) in one rank: mamba2-780m's logits through
+    ``pipeline_forward`` (stage ``rank`` of 4 on this rank) on phase
+    23(c)'s traffic, in turns with ``pipeline_forward_reference`` in one
+    process (rank 0, the others waiting), SHARD_TURNS each."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.graphs.lm_pipeline import pipeline_forward, pipeline_forward_reference
+    mesh = init_device_mesh("cpu", (LM_STAGES,), mesh_dim_names=("stage",))
+    model, init_s = lm_model("mamba2-780m", dev)
+    cfg = model.cfg
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (LM_MICRO, LM_PROMPT)))
+    walls, ref_walls, out = [], [], {}
+    for i in range(SHARD_TURNS):
+        torch.cuda.synchronize()
+        dist.barrier()
+        if rank == 0:
+            zero()
+            t0 = time.perf_counter()
+            ref = pipeline_forward_reference(model, cfg, tokens, LM_STAGES)
+            torch.cuda.synchronize()
+            ref_walls.append(time.perf_counter() - t0)
+            out.update(reference_launches=counts(), reference_digest=tensor_digest(ref))
+            del ref
+        torch.cuda.synchronize()
+        dist.barrier()
+        zero()
+        t0 = time.perf_counter()
+        logits = pipeline_forward(model, cfg, tokens, mesh, n_stages=LM_STAGES)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i == 0:
+            out["launches"] = counts()
+    return {**out, "init_s": init_s, "n_ssd": sum(k == "ssd" for k in model.kinds),
+            "walls_s": walls, "reference_walls_s": ref_walls,
+            "finite": bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+            "shape": list(logits.shape), "digest": tensor_digest(logits)}
+
+
+def shard_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 25: the multi-device runtime, each sub-phase in k ranks
+    spawned on the one card (a gloo group through a ``file://``
+    rendezvous, a deadline, every rank's failure the script's):
+
+    (a) DPD at full width (phase 3's network) at devices 1 (this process),
+        2 and 4: every rank's state bit-identical to the single-process
+        run, fire counts equal, B1's launches summed over the ranks equal
+        its 398; rounds, collective bytes, the wall (median of
+        SHARD_RUNS after a warm-up) and each rank's B1 launches; at 2 ranks
+        ``device_assign`` (half and half) and guards plus trace (clean,
+        merged trace counts equal the fire counts);
+    (b) recurrentgemma-2b through the ActorEngine at devices=2 on phase
+        22's closed loop: tokens bit-identical to the single-device
+        ActorEngine's on rank 0, walls in turns;
+    (c) mamba2-780m through ``pipeline_forward``, 4 stages of 12 layers, 4
+        microbatches of LM_PROMPT tokens: every rank's logits bit-identical
+        to ``pipeline_forward_reference`` run in one process (rank 0, in
+        turns), 48 B6 calls a rank."""
+    import tempfile
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.graphs.dpd import default_active_schedule
+    from repro_torch.graphs.factories import make_dpd
+    from repro_torch.launch.group import spawn_group
+    t_phase = time.perf_counter()
+    src = str(Path(__file__).resolve().parent / "src")
+    sched = default_active_schedule(N_FIRINGS, seed=0)
+    expected = int(sched.sum())
+    net, _ = make_dpd(N_FIRINGS, block_l=BLOCK_L, seed=0, active_schedule=sched, device=dev)
+    prog = net.compile(mode="dynamic")
+    zero_counts()
+    res1, _, walls1, _ = dpd_runs(prog, lambda: expect_counts("phase 25(a) DPD devices=1",
+                                                              {"B1": expected}))
+    one = {"digests": leaf_digests(state_to_numpy(res1.state)), "counts": res1.fire_counts,
+           "rounds": res1.sweeps}
+    del net, prog, res1
+    torch.cuda.empty_cache()
+    groups = {}
+    with tempfile.TemporaryDirectory(prefix="phase25_") as tmp:
+        for k in (2, 4):
+            t0 = time.perf_counter()
+            try:
+                groups[k] = spawn_group("chip_smoke:shard_rank", k, tmp, args=(src,),
+                                        timeout=SHARD_TIMEOUT)
+            except RuntimeError as err:
+                fail(f"phase 25: the group of {k} ranks failed: {err}")
+            log(f"phase 25: group of {k} ranks done in {time.perf_counter() - t0:.1f} s")
+    rec: dict = {"card": smi, "dpd": {1: {"rounds": one["rounds"], "walls_ms": walls1,
+                                          "wall_ms": float(np.median(walls1)),
+                                          "b1_launches": [expected]}}}
+    for k, ranks in groups.items():
+        d = [r["dpd"] for r in ranks]
+        b1 = [r["launches"]["B1"] for r in d]
+        for r, x in enumerate(d):
+            if x["digests"] != one["digests"]:
+                bad = [i for i, (a, b) in enumerate(zip(x["digests"], one["digests"]))
+                       if a != b]
+                fail(f"phase 25(a) devices={k} rank {r}: state leaves {bad} differ from "
+                     "the single-process run")
+            if x["counts"] != one["counts"]:
+                fail(f"phase 25(a) devices={k} rank {r}: fire counts {x['counts']} vs "
+                     f"{one['counts']}")
+            if any(v for key, v in x["launches"].items() if key != "B1"):
+                fail(f"phase 25(a) devices={k} rank {r}: launches {x['launches']}")
+        if sum(b1) != expected:
+            fail(f"phase 25(a) devices={k}: B1 launches {b1} sum to {sum(b1)}, not {expected}")
+        st = d[0]["stats"]
+        rec["dpd"][k] = {"rounds": d[0]["rounds"],
+                         "collective_bytes_per_sweep": st["collective_bytes_per_sweep"],
+                         "device_partition_actors": st["device_partition_actors"],
+                         "walls_ms": [x["walls_ms"] for x in d],
+                         "wall_ms": float(np.median(d[0]["walls_ms"])),
+                         "split_ms": [x["split_ms"] for x in d],
+                         "b1_launches": b1}
+        log(f"phase 25(a) DPD devices={k} ({smi}): rounds {d[0]['rounds']}, "
+            f"collective_bytes_per_sweep {st['collective_bytes_per_sweep']}, wall "
+            f"{rec['dpd'][k]['wall_ms']:.2f} ms (median of {SHARD_RUNS}; devices=1 "
+            f"{rec['dpd'][1]['wall_ms']:.2f} ms), B1 launches per rank {b1}; every rank "
+            "bit-identical to the single-process run; host ms by part per rank (median) "
+            + json.dumps(rec["dpd"][k]["split_ms"]))
+    a = groups[2]
+    for label in ("assign", "guards_trace"):
+        for r, x in enumerate(a):
+            x = x[label]
+            if x["digests"] != one["digests"] or x["counts"] != one["counts"]:
+                fail(f"phase 25(a) {label} rank {r}: differs from the single-process run")
+            if label == "guards_trace" and not (x["diag_ok"] and x["dropped"] == 0
+                                                and x["fired"] == one["counts"]):
+                fail(f"phase 25(a) guards and trace rank {r}: ok {x['diag_ok']}, dropped "
+                     f"{x['dropped']}, trace counts {x['fired']}")
+            if label == "assign" and set(x["parts"][0]) != {
+                    n for n, dv in x["cut"].items() if dv == 0}:
+                fail(f"phase 25(a) device_assign rank {r}: partition {x['parts']}")
+        rec[label] = {"rounds": a[0][label]["rounds"],
+                      "b1_launches": [x[label]["launches"]["B1"] for x in a]}
+    log(f"phase 25(a) device_assign and guards+trace at devices=2: bit-identical, "
+        f"clean, trace counts equal the fire counts ({json.dumps(rec['assign'])}, "
+        f"{json.dumps(rec['guards_trace'])})")
+
+    s = [x["serve"] for x in a]
+    single, sharded = s[0]["single"], [x["sharded"] for x in s]
+    for r, x in enumerate(sharded):
+        if x["tokens"] != single["tokens"]:
+            bad = [i for i, (p, q) in enumerate(zip(x["tokens"], single["tokens"])) if p != q]
+            fail(f"phase 25(b) rank {r}: tokens of requests {bad} differ from the "
+                 "single-device ActorEngine's")
+        c = x["counts"]
+        if not c["decode"] == c["admission"] == c["merge"]:
+            fail(f"phase 25(b) rank {r}: fire counts {c}")
+    launches_b = [x["launches"] for x in sharded]
+    for key in ("B5", "B7"):
+        if sum(x[key] for x in launches_b) != single["launches"][key]:
+            fail(f"phase 25(b): {key} launches {[x[key] for x in launches_b]} vs the "
+                 f"single-device run's {single['launches'][key]}")
+    rec["serve"] = {
+        "arch": "recurrentgemma-2b", "requests": LM_REQUESTS, "max_new": LM_NEW,
+        "init_s": [x["init_s"] for x in s],
+        "collective_bytes_per_sweep": sharded[0]["collective_bytes_per_sweep"],
+        "rounds": sharded[0]["rounds"], "single_sweeps": single["sweeps"],
+        "device_partition_actors": sharded[0]["parts"],
+        "walls_s": s[0]["walls_s"], "launches": launches_b,
+        "single_launches": single["launches"]}
+    log(f"phase 25(b) recurrentgemma-2b ActorEngine devices=2 ({smi}): tokens bit-identical "
+        f"to the single-device run; collective_bytes_per_sweep "
+        f"{rec['serve']['collective_bytes_per_sweep']}, rounds {rec['serve']['rounds']} "
+        f"(single-device sweeps {single['sweeps']}); walls in turns single "
+        f"{s[0]['walls_s']['single']} s, sharded {s[0]['walls_s']['sharded']} s; "
+        f"launches per rank {launches_b}")
+
+    p = [x["pipeline"] for x in groups[4]]
+    for r, x in enumerate(p):
+        if x["digest"] != p[0]["reference_digest"] or not x["finite"]:
+            fail(f"phase 25(c) rank {r}: logits differ from pipeline_forward_reference's "
+                 f"in one process (or are not finite: {x['finite']})")
+    b6 = [x["launches"]["B6"] for x in p]
+    n_ssd = p[0]["n_ssd"]
+    per_rank = n_ssd // LM_STAGES * LM_MICRO
+    if b6 != [per_rank] * LM_STAGES or p[0]["reference_launches"]["B6"] != n_ssd * LM_MICRO \
+            or any(v for x in p for key, v in x["launches"].items() if key != "B6"):
+        fail(f"phase 25(c): launches per rank {[x['launches'] for x in p]}, want B6 "
+             f"{per_rank} each (reference {p[0]['reference_launches']})")
+    rec["pipeline"] = {"arch": "mamba2-780m", "stages": LM_STAGES, "microbatches": LM_MICRO,
+                       "tokens": LM_PROMPT, "b6_launches": b6,
+                       "reference_b6_launches": p[0]["reference_launches"]["B6"],
+                       "walls_s": [x["walls_s"] for x in p],
+                       "reference_walls_s": p[0]["reference_walls_s"],
+                       "init_s": [x["init_s"] for x in p], "shape": p[0]["shape"]}
+    log(f"phase 25(c) mamba2-780m pipeline_forward, {LM_STAGES} ranks ({smi}): logits "
+        f"bit-identical to pipeline_forward_reference in one process, on every rank; B6 "
+        f"calls per rank {b6}; in turns, pipeline_forward {p[0]['walls_s']} s, the "
+        f"reference alone on the card {p[0]['reference_walls_s']} s")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log("phase 25 shard " + json.dumps(rec))
+    return rec
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -3931,7 +4308,8 @@ def main() -> None:
         return
     lm_only = sys.argv[1:] == ["--lm"]
     train_only = sys.argv[1:] == ["--train"]
-    if len(sys.argv) > 1 and not (lm_only or train_only):
+    shard_only = sys.argv[1:] == ["--shard"]
+    if len(sys.argv) > 1 and not (lm_only or train_only or shard_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -3986,6 +4364,8 @@ def main() -> None:
             "ssd", "rglru")
     if train_only:
         libs = ("ssd",)
+    if shard_only:
+        libs = ("dyn_fir", "flash_attention", "ssd", "rglru")
     # Phase 16's build of B2 with the clock split and phase 17's three
     # health builds, beside the seven.
     other_builds = [threading.Thread(target=_build.build, args=("megakernel",),
@@ -3994,11 +4374,11 @@ def main() -> None:
                               mk_kernel.build_defines(guards=True),
                               mk_kernel.build_defines(trace=True),
                               mk_kernel.build_defines(guards=True, trace=True))]
-    if not (lm_only or train_only):
+    if not (lm_only or train_only or shard_only):
         for t in other_builds:
             t.start()
     nvcc_out = _build.build(*libs)
-    if not (lm_only or train_only):
+    if not (lm_only or train_only or shard_only):
         for t in other_builds:
             t.join()
         for d in ((mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
@@ -4015,6 +4395,14 @@ def main() -> None:
         train = train_phase(dev, smi, zero_counts, expect_counts)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_24": train}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
+    if shard_only:
+        shard = shard_phase(dev, smi, zero_counts, expect_counts)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_25": shard}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
@@ -4317,6 +4705,21 @@ def main() -> None:
     torch.cuda.empty_cache()
     moe = moe_phase(dev, smi, zero_counts, expect_counts)
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
+    # ---- 25. the multi-device runtime ------------------------------------ #
+    torch.cuda.empty_cache()
+    shard = shard_phase(dev, smi, zero_counts, expect_counts)
+    shard_from = ("phase 25: k ranks of a gloo group on this one card "
+                  "(ExecutionPlan(devices=k), pipeline_forward), per rank")
+    for row in lm:
+        if row["name"] in ("flash_attention", "rglru"):
+            row["shard_launches"] = [x["B5" if row["name"] == "flash_attention" else "B7"]
+                                     for x in shard["serve"]["launches"]]
+            row["shard_launches_from"] = (shard_from + "; (b) recurrentgemma-2b through "
+                                          "ActorEngine at devices=2, one generate")
+        if row["name"] == "ssd":
+            row["shard_launches"] = shard["pipeline"]["b6_launches"]
+            row["shard_launches_from"] = (shard_from + "; (c) mamba2-780m through "
+                                          "pipeline_forward, 4 stages")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{
@@ -4331,6 +4734,8 @@ def main() -> None:
         "library_ms": None,
         "stream_launches": durable["stream"]["b1_launches_dynamic"],
         "stream_launches_from": "phase 23: DPD streamed in dynamic mode, 4 chunks",
+        "shard_launches": {str(k): shard["dpd"][k]["b1_launches"] for k in (2, 4)},
+        "shard_launches_from": "phase 25(a): DPD at devices 2 and 4, one run, per rank",
     }, {
         "name": "megakernel.b2",
         "route": "cuda",

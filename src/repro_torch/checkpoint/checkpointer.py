@@ -14,9 +14,9 @@ Two stores:
 
   Saves snapshot the leaves to host memory at once and write them on a
   thread (``wait()`` joins it); ``step_XXXX.tmp`` -> ``os.replace`` makes
-  a save atomic, and the newest ``keep`` steps are kept.  The port has one
-  device, so a leaf is one shard; the reference's restore onto a different
-  mesh is ROADMAP A12/A13.
+  a save atomic, and the newest ``keep`` steps are kept.  A leaf is saved
+  as one shard; the reference's restore onto a different mesh
+  (``shardings=``) comes with the sharded train step, ROADMAP A13b.
 
 * The durable stream snapshots (:func:`save_stream_checkpoint`,
   :func:`load_stream_checkpoint`): ``chunk_%08d/manifest.json`` with
@@ -225,12 +225,12 @@ class Checkpointer:
         leaf's device (the CPU for ``meta``) with the stored dtype.  Stored
         shards are assembled from their index files, whatever their split.
 
-        ``shardings`` (a restore onto a different mesh) is ROADMAP A12/A13.
+        ``shardings`` (a restore onto a different mesh) is ROADMAP A13b.
         """
         if shardings is not None:
             raise NotImplementedError(
                 "Checkpointer.restore(shardings=...): restoring onto a mesh is "
-                "not ported yet: ROADMAP A12 (multi-device) and A13 (training)")
+                "not ported yet: ROADMAP A13b (the sharded train step)")
         root = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(root, "manifest.json")) as f:
             manifest = json.load(f)

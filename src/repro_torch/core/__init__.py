@@ -24,7 +24,8 @@ from repro_torch.core.pipeline import pipeline_reference, pipeline_spmd
 from repro_torch.core.program import ExecutionPlan, Program, ProgramStats, RunResult
 from repro_torch.core.trace import (TRACE_CAPACITY_DEFAULT, Profile, Trace,
                                     TraceState, decode_trace, init_trace,
-                                    merge_traces, validate_chrome_trace)
+                                    merge_device_traces, merge_traces,
+                                    validate_chrome_trace)
 
 __all__ = [
     "ActorSpec", "DeviceOp", "Edge", "ExecutionPlan", "FifoSpec", "FifoState", "Network",
@@ -39,7 +40,7 @@ __all__ = [
     "corrupt_cursor", "inject_overflow", "inject_underflow", "poison_tokens",
     "poison_request", "expire_deadline", "truncate_feed",
     "TRACE_CAPACITY_DEFAULT", "Profile", "Trace", "TraceState", "decode_trace",
-    "init_trace", "merge_traces", "validate_chrome_trace",
+    "init_trace", "merge_device_traces", "merge_traces", "validate_chrome_trace",
     "Placement", "boundary_fifos", "heterogeneous_split", "partition_actors",
     "stage_feed", "pipeline_reference", "pipeline_spmd",
 ]

@@ -42,7 +42,7 @@ from repro_torch.core.health import (HealthState, init_health, read_guard_bits,
                                      true_occupancy, write_guard_bits)
 from repro_torch.core.network import Network, NetworkState
 from repro_torch.core.schedule import validate_single_appearance
-from repro_torch.core.trace import init_trace
+from repro_torch.core.trace import TraceState, init_trace
 
 # Worst-case firings of one actor per multi-firing visit (the reference's
 # bound: Eq. 1 caps a channel at 3 windows, 8 leaves slack).
@@ -267,6 +267,36 @@ class DynamicResult(tuple):
         return self
 
 
+def visit_actors(network: Network, names: List[str], state: NetworkState,
+                 counts: Dict[str, int], sweep: int, multi_firing: bool = True,
+                 health: Optional[HealthState] = None,
+                 trace: Optional[TraceState] = None) -> bool:
+    """One pass over ``names`` in order, in place: each actor fires while
+    :func:`_can_fire` holds, up to its occupancy bound with
+    ``multi_firing`` (else once), adding to ``counts``.  Returns whether
+    anything fired.  The per-actor visit body of both dynamic executors
+    (the reference's ``_make_visit_body``): :func:`run_dynamic` passes
+    every actor, the sharded executor (``core/shard.py``) its device's
+    partition."""
+    fired_any = False
+    for nm in names:
+        k = _max_fireable(network, nm, state) if multi_firing else 1
+        for i in range(k):
+            if not _can_fire(network, nm, state):
+                if trace is not None:
+                    row = [f.occ for f in state.fifos]
+                    for _ in range(k - i):
+                        trace.record(network.actor_index[nm], sweep, 0, row)
+                break
+            fire_actor(network, nm, state, health=health)
+            counts[nm] += 1
+            fired_any = True
+            if trace is not None:
+                trace.record(network.actor_index[nm], sweep, 1,
+                             [f.occ for f in state.fifos])
+    return fired_any
+
+
 def run_dynamic(network: Network, state: NetworkState,
                 max_sweeps: int = 1_000_000, multi_firing: bool = True,
                 guards: bool = False, trace_capacity: Optional[int] = None
@@ -292,28 +322,11 @@ def run_dynamic(network: Network, state: NetworkState,
     n_fifos = len(network.fifos)
     health = init_health(n_fifos, network.device) if guards else None
     trace = init_trace(n_fifos, trace_capacity) if trace_capacity else None
-
-    def occs() -> List[int]:
-        return [f.occ for f in state.fifos]
-
     sweeps = 0
     fired_any = True
     while fired_any and sweeps < max_sweeps:
-        fired_any = False
-        for nm in names:
-            k = _max_fireable(network, nm, state) if multi_firing else 1
-            for i in range(k):
-                if not _can_fire(network, nm, state):
-                    if trace is not None:
-                        row = occs()
-                        for _ in range(k - i):
-                            trace.record(network.actor_index[nm], sweeps, 0, row)
-                    break
-                fire_actor(network, nm, state, health=health)
-                counts[nm] += 1
-                fired_any = True
-                if trace is not None:
-                    trace.record(network.actor_index[nm], sweeps, 1, occs())
+        fired_any = visit_actors(network, names, state, counts, sweeps,
+                                 multi_firing, health, trace)
         sweeps += 1
     stalled = fired_any and sweeps >= max_sweeps
     return DynamicResult(state, counts, sweeps, stalled, health, trace)

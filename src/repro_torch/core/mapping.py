@@ -11,8 +11,10 @@ The paper maps each actor to a GPP core or to the OpenCL device.  Here:
   ``"sink"`` device functions on a window-major slab ``(n_iterations, r,
   *token_shape)`` (one plane: window ``idx`` is the contiguous run at
   ``idx * r * token_size``), so the megakernel runs them too.
-* :class:`Placement` pins an actor to a mesh axis slice in the reference;
-  the port has one device, and placement on a mesh is ROADMAP A12.
+* :class:`Placement` names a mesh axis slice for an actor.  It is a
+  record only, in the reference as here: nothing reads it.  Placement on
+  devices is ``ExecutionPlan(devices=k, device_assign=...)``
+  (``core/shard.py``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,8 @@ from repro_torch.core.network import Edge, Network, NetworkState
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """Actor placement: mesh axis name + index (None = free mapping).  A
-    record only: the port runs no mesh yet (ROADMAP A12)."""
+    record only, as in the reference; ``ExecutionPlan(device_assign=...)``
+    places actors on devices."""
 
     axis: Optional[str] = None
     index: Optional[int] = None

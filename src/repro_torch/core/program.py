@@ -22,6 +22,10 @@ stream) and durable (``checkpoint_dir=``, :meth:`Program.resume_stream`).
 :meth:`Program.run_checkpointed` and :meth:`Program.resume_run` run to
 quiescence in segments of a sweep budget with a snapshot after each.
 
+``devices=k`` shards a dynamic-mode network across the ``k`` ranks of a
+``torch.distributed`` process group (:mod:`repro_torch.core.shard`), one
+process per device, each rank compiling and running the same program.
+
 Every other plan field of the reference raises with the ROADMAP item that
 ports it; none is silently ignored.
 """
@@ -47,6 +51,8 @@ from repro_torch.core.megakernel import (CUT_OBJECTIVES, compile_megakernel,
                                          partition_layout, state_hbm_bytes)
 from repro_torch.core.network import Network, NetworkState, tree_leaves, tree_map
 from repro_torch.core.schedule import phase_unroll_period
+from repro_torch.core.shard import (build_device_partition, collective_bytes_per_sweep,
+                                    compile_sharded, decode_device_trace)
 from repro_torch.core.trace import (TRACE_CAPACITY_DEFAULT, Trace, decode_trace,
                                     merge_traces)
 
@@ -58,8 +64,6 @@ _UNPORTED_FIELDS = {
               "in_place=True) is its form of donation)",
     "donate_threshold_bytes": "A3 (donation)",
     "unroll_bound": "A3 (eager cursors need no phase unroll)",
-    "devices": "A12 (multi-device)",
-    "device_assign": "A12 (multi-device)",
 }
 
 #: The reference's default ``unroll_bound``: the phase-period rule of
@@ -143,6 +147,23 @@ class ExecutionPlan:
                      ``cut_objective="profile"``: a ``Profile``, its
                      ``as_cut_weights()`` mapping, or the frozen pair
                      tuples a plan normalises it to.
+      devices:       dynamic mode: shard the network across ``devices``
+                     ranks of a ``torch.distributed`` process group
+                     (:mod:`repro_torch.core.shard`), one process per
+                     device: the crossing-bytes cut of the megakernel grid
+                     with ``cores`` = devices, each rank sweeping only its
+                     actors, crossing channels exchanging rings and
+                     cursors at sweep barriers, quiescence an all-reduce
+                     of the ranks' fired flags.  States, rings, cursors and
+                     fire counts equal the single-device dynamic run's bit
+                     for bit; sweeps count barrier rounds.  Every rank
+                     compiles and runs the same program, in a group of
+                     exactly ``devices`` ranks.  ``devices=1`` is exactly
+                     the plain dynamic path.
+      device_assign: explicit actor -> device map for ``devices > 1``
+                     (covering every actor; a delay channel with ``delay <
+                     rate`` may not cross devices).  Default: the crossing
+                     cut.
 
     The reference's other fields exist so a plan written for it
     constructs; any value but the default ``None`` raises, naming the
@@ -168,8 +189,8 @@ class ExecutionPlan:
     trace: bool = False
     trace_capacity: Optional[int] = None
     profile: Optional[Any] = None
-    devices: Any = None
-    device_assign: Any = None
+    devices: int = 1
+    device_assign: Optional[Any] = None
 
     def __post_init__(self) -> None:
         mode = getattr(self.mode, "value", self.mode)
@@ -194,10 +215,15 @@ class ExecutionPlan:
                 or self.cores < 1):
             raise ValueError(
                 f"ExecutionPlan.cores must be an int >= 1, got {self.cores!r}")
-        if self.assign is not None:
-            # A sorted pair tuple keeps the frozen plan immutable.
-            object.__setattr__(self, "assign", tuple(sorted(
-                (str(k), int(v)) for k, v in dict(self.assign).items())))
+        if (not isinstance(self.devices, int) or isinstance(self.devices, bool)
+                or self.devices < 1):
+            raise ValueError(
+                f"ExecutionPlan.devices must be an int >= 1, got {self.devices!r}")
+        for field in ("assign", "device_assign"):
+            if getattr(self, field) is not None:
+                # A sorted pair tuple keeps the frozen plan immutable.
+                object.__setattr__(self, field, tuple(sorted(
+                    (str(k), int(v)) for k, v in dict(getattr(self, field)).items())))
         if self.cut_objective not in CUT_OBJECTIVES:
             raise ValueError(
                 f"ExecutionPlan.cut_objective must be one of "
@@ -285,6 +311,28 @@ class ExecutionPlan:
                 f"ExecutionPlan.profile is only consumed by "
                 f"cut_objective='profile', but the plan says "
                 f"{self.cut_objective!r}")
+        if self.devices > 1 and self.cores != 1:
+            raise ValueError(
+                f"ExecutionPlan(devices={self.devices}, cores={self.cores}): "
+                "devices= (the mesh axis) and cores= (the megakernel grid "
+                "axis) are exclusive — pick one partition axis per plan")
+        if self.device_assign is not None and self.devices == 1:
+            raise ValueError(
+                "ExecutionPlan(device_assign=..., devices=1): device_assign "
+                "places actors on mesh devices, so it requires devices > 1 "
+                "(use assign= for the megakernel grid's core map)")
+        if self.devices > 1 and self.mode != "dynamic":
+            raise ValueError(
+                f"ExecutionPlan(mode={self.mode!r}, devices={self.devices}): "
+                "multi-device sharding runs the token-driven dynamic "
+                "executor per device; use mode='dynamic' (one megakernel "
+                "per device is a ROADMAP item, not a plan knob yet)")
+        if self.devices > 1 and self.accelerated is not None:
+            raise ValueError(
+                f"ExecutionPlan(devices={self.devices}, accelerated=[...]): "
+                "sharding and heterogeneous host/accelerator placement are "
+                "exclusive — the mesh IS the accelerator set under "
+                "devices=, so drop accelerated= (or stream with devices=1)")
         if self.accelerated is not None and self.n_iterations is None:
             raise ValueError(
                 f"ExecutionPlan(mode={self.mode!r}, accelerated=[...]): pass "
@@ -302,6 +350,9 @@ class ExecutionPlan:
             # Under accelerated= the executed network is the split
             # subnetwork, which partition_layout validates the map against.
             network.validate_partition(dict(self.assign), self.cores)
+        if self.device_assign is not None:
+            network.validate_partition(dict(self.device_assign), self.devices,
+                                       unit="device")
         if (stream_persistent is not None or stream_on_fault is not None
                 or stream_checkpoint_dir is not None):
             if self.accelerated is None:
@@ -345,7 +396,14 @@ class ProgramStats:
     fields describe the last :meth:`Program.stream`: its chunks, whether it
     ran persistent, and the bytes staged per chunk and in all (the feed and
     fetch slabs every chunk, plus B2's ring and cursor scratch on every
-    kernel entry: each chunk when chunked, once when persistent)."""
+    kernel entry: each chunk when chunked, once when persistent).
+
+    ``devices`` is always present (1 unsharded).  A sharded program
+    (``plan.devices > 1``) also reports ``device_partition_actors`` (actor
+    names per device, visit order), ``collective_bytes_per_sweep`` (what
+    one barrier round moves: each crossing channel's ring and rd/wr pair,
+    plus the fired flag) and ``quiescence_allreduces`` (the last run's
+    barrier rounds, one all-reduce each)."""
 
     mode: str
     n_actors: int
@@ -371,6 +429,10 @@ class ProgramStats:
     last_stream_persistent: Optional[bool] = None
     last_stream_staged_bytes_per_chunk: Optional[int] = None
     last_stream_total_staged_bytes: Optional[int] = None
+    devices: int = 1
+    device_partition_actors: Optional[Tuple[Tuple[str, ...], ...]] = None
+    collective_bytes_per_sweep: Optional[int] = None
+    quiescence_allreduces: Optional[int] = None
 
     #: Version of the :meth:`to_json` schema: the reference's (v2).
     SCHEMA_VERSION = 2
@@ -476,6 +538,19 @@ class Program:
         self._persistent_progs: Dict[int, "Program"] = {}
         self._segment_progs: Dict[int, "Program"] = {}
         self._layout = self._partition = self._runner = None
+        self._shard_layout = self._shard_partition = None
+        if plan.devices > 1:
+            # One rank per device: the partition is cut and this rank's
+            # runner built (the group checked) now, as the reference does.
+            self._shard_layout, self._shard_partition = build_device_partition(
+                self.network, plan.devices,
+                device_assign=(dict(plan.device_assign)
+                               if plan.device_assign is not None else None),
+                cut_objective=plan.cut_objective)
+            self._runner = compile_sharded(
+                self.network, self._shard_layout, self._shard_partition,
+                plan.max_sweeps, plan.runtime_mode, plan.multi_firing,
+                guards=plan.guards, trace_capacity=self._trace_capacity)
         if plan.mode == "megakernel":
             # Lower and partition once, as the reference does.
             self._layout = lower_network(self.network)
@@ -518,7 +593,7 @@ class Program:
         self._last_is_stream_chunk = False
         if plan.mode in ("dynamic", "megakernel"):
             t0 = time.perf_counter()
-            if plan.mode == "dynamic":
+            if plan.mode == "dynamic" and self._shard_partition is None:
                 res = run_dynamic(self.network, st, plan.max_sweeps,
                                   plan.multi_firing, guards=plan.guards,
                                   trace_capacity=self._trace_capacity)
@@ -526,7 +601,13 @@ class Program:
                 res = self._runner(st)
             st, counts, sweeps, stalled = res
             trace = None
-            if res.trace is not None:
+            if res.trace is not None and self._shard_partition is not None:
+                # One ring per rank, gathered: decoded and interleaved by
+                # barrier round, actor_cores naming each actor's device.
+                trace = decode_device_trace(self.network, res.trace,
+                                            self._shard_partition,
+                                            wall_time_s=time.perf_counter() - t0)
+            elif res.trace is not None:
                 # The run ended with its results on the host, so this clock
                 # covers it; firings get a proportional share of it.
                 cores = None
@@ -974,7 +1055,7 @@ class Program:
             "kind": "stream", "chunk": int(done_chunks),
             "n_chunks": int(n_chunks), "chunk_windows": int(chunk),
             "total_windows": int(total), "mode": self.plan.mode,
-            "devices": 1,
+            "devices": int(self.plan.devices),
             "feed_fifos": sorted(self._feed_by_fifo),
             "fetch_fifos": sorted(self._fetch_by_fifo),
         }
@@ -1183,8 +1264,8 @@ class Program:
             meta = {"kind": "run", "segment": int(segment),
                     "every_sweeps": int(every_sweeps),
                     "done": bool(done or over_budget),
-                    "mode": self.plan.mode, "devices": 1}
-            save_stream_checkpoint(checkpoint_dir, segment, payload, meta, keep=keep)
+                    "mode": self.plan.mode, "devices": int(self.plan.devices)}
+            self._commit_run_snapshot(checkpoint_dir, segment, payload, meta, keep)
             if over_budget:
                 # run()'s contract on the whole budget (the segment budget is
                 # an implementation detail).
@@ -1203,6 +1284,20 @@ class Program:
                 self._last = final
                 self._last_is_stream_chunk = False
                 return final
+
+    def _commit_run_snapshot(self, checkpoint_dir: str, segment: int,
+                             payload: Dict[str, Any], meta: Dict[str, Any],
+                             keep: int) -> None:
+        """Write one segment's snapshot.  A sharded run's state is
+        replicated on every rank, so rank 0 writes it and the ranks meet
+        at a barrier: no rank runs on past a snapshot not yet committed."""
+        if self._shard_partition is None:
+            save_stream_checkpoint(checkpoint_dir, segment, payload, meta, keep=keep)
+            return
+        import torch.distributed as dist
+        if dist.get_rank() == 0:
+            save_stream_checkpoint(checkpoint_dir, segment, payload, meta, keep=keep)
+        dist.barrier()
 
     @staticmethod
     def _final_run_result(st: NetworkState, counts: Optional[Dict[str, int]],
@@ -1284,6 +1379,17 @@ class Program:
                 mega["partition_fire_counts"] = tuple(
                     sum(last.fire_counts[names[i]] for i in rows)
                     for rows in part.core_rows)
+        shard: Dict[str, Any] = {}
+        if self._shard_partition is not None:
+            names = tuple(net.actors)
+            shard = dict(
+                device_partition_actors=tuple(
+                    tuple(names[i] for i in rows)
+                    for rows in self._shard_partition.core_rows),
+                collective_bytes_per_sweep=collective_bytes_per_sweep(
+                    self._shard_layout, self._shard_partition),
+                quiescence_allreduces=(int(last.sweeps) if last is not None
+                                       and last.sweeps is not None else None))
         ls = self._last_stream or {}
         return ProgramStats(
             mode=self.plan.mode,
@@ -1298,4 +1404,5 @@ class Program:
             last_stream_persistent=ls.get("persistent"),
             last_stream_staged_bytes_per_chunk=ls.get("staged_bytes_per_chunk"),
             last_stream_total_staged_bytes=ls.get("total_staged_bytes"),
-            **mega)
+            devices=self.plan.devices,
+            **mega, **shard)

@@ -230,6 +230,33 @@ def merge_traces(traces: Sequence[Trace]) -> Optional[Trace]:
     return out
 
 
+def merge_device_traces(traces: Sequence[Trace]) -> Optional[Trace]:
+    """Interleave the per-device traces of ONE sharded run
+    (``ExecutionPlan(devices=k)``) into one timeline.
+
+    Unlike :func:`merge_traces`, sweep numbers are not offset: the devices
+    ran the same barrier rounds together, so round ``r`` is one instant
+    everywhere.  Events are stable-sorted by round (device order breaks
+    ties) and drop counts summed.  Each device records only its own
+    actors' attempts, so the merged ``firing_counts`` are exact; occupancy
+    samples keep each recording device's local view (conservative between
+    barriers).
+    """
+    traces = [t for t in traces if t is not None]
+    if not traces:
+        return None
+    first = traces[0]
+    for t in traces[1:]:
+        if (t.actor_names != first.actor_names
+                or t.fifo_names != first.fifo_names):
+            raise ValueError("merge_device_traces: traces come from "
+                             "different networks")
+    events = np.concatenate([t.events for t in traces], axis=0)
+    order = np.argsort(events[:, COL_SWEEP], kind="stable")
+    return dataclasses.replace(first, events=events[order],
+                               dropped=sum(t.dropped for t in traces))
+
+
 # --------------------------------------------------------------------------- #
 # Derived profile -> partition weights.
 # --------------------------------------------------------------------------- #

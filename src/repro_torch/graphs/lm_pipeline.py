@@ -11,9 +11,13 @@ of the host executors, including ``accelerated=[stages...]`` with
 it launches the kernels :func:`pipeline_forward_reference` launches, at
 the same shapes (B6 once a layer for mamba2).
 
-Not ported: :func:`pipeline_forward` over a mesh (ROADMAP A12), and the
-network in megakernel mode, where kernel B2 runs a fixed set of device
-bodies and an LM stage is none of them (the open design of ROADMAP A9b).
+:func:`pipeline_forward` runs the same stages one per rank of a mesh
+dimension through :func:`~repro_torch.core.pipeline.pipeline_spmd`, the
+embedding and the unembedding replicated on every rank.
+
+Not ported: the network in megakernel mode, where kernel B2 runs a fixed
+set of device bodies and an LM stage is none of them (the open design of
+ROADMAP A9b).
 """
 from __future__ import annotations
 
@@ -24,7 +28,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import NetworkBuilder, static_actor
 from repro_torch.core.network import Network
-from repro_torch.core.pipeline import pipeline_reference
+from repro_torch.core.pipeline import pipeline_reference, pipeline_spmd
 from repro_torch.models.lm import LM, layer_plan
 
 
@@ -59,12 +63,21 @@ def make_stage_fn(model: LM) -> Callable[[List[Any], torch.Tensor], torch.Tensor
 
 def pipeline_forward(model: LM, cfg: ArchConfig, tokens: torch.Tensor, mesh: Any,
                      n_stages: int, axis: str = "stage") -> torch.Tensor:
-    """The reference's forward with the stages on a mesh axis; not ported
-    yet (ROADMAP A12)."""
-    raise NotImplementedError(
-        "pipeline_forward places one stage per device of a mesh axis; "
-        "multi-device is not ported yet: ROADMAP A12 (the stage actor "
-        "network, build_lm_stage_network, runs the same stages on one device)")
+    """Logits ``(n_micro, S, V)`` with the block stack as pipeline stages,
+    one per rank of ``mesh``'s dimension ``axis`` (its size must be
+    ``n_stages``).
+
+    ``tokens`` is ``(n_micro, S)``, one sequence per microbatch, the same
+    on every rank; each rank holds the whole model and runs its stage's
+    layers on its own device.  The embedding and the unembedding (the
+    network's source and sink) run replicated on every rank, and every
+    rank returns the logits.
+    """
+    x = _embedded(model, tokens)
+    y = pipeline_spmd(make_stage_fn(model), stack_stage_params(model, cfg, n_stages),
+                      x, mesh, axis=axis)
+    with torch.no_grad():
+        return model._logits(y)
 
 
 def _embedded(model: LM, tokens: torch.Tensor) -> torch.Tensor:

@@ -23,6 +23,11 @@ turn overload into timeout and shed retirements, and
 ``faulted_requests``, retires them with ``status="fault"`` and runs the
 survivors again from the initial state, with bounded retries.
 
+``plan=ExecutionPlan(mode="dynamic", devices=k)`` shards the network
+across the ``k`` ranks of a process group (every rank builds the engine
+and calls ``generate`` with the same requests; every rank returns the same
+results).
+
 The serving network in megakernel mode is not ported (ROADMAP A9b): the
 reference traces the whole LM into its megakernel, while the port's B2
 runs a fixed set of device bodies, of which a decode step is none.
@@ -87,8 +92,9 @@ class ActorEngine:
         #: Decoded firing trace of the last generate() call (None unless
         #: the plan says trace=True).
         self.last_trace = None
-        #: Bytes each sweep-barrier exchange moves across devices: None
-        #: until multi-device plans are ported (ROADMAP A12).
+        #: Sharding telemetry of the last generate() call (None unless the
+        #: plan says devices > 1): bytes each sweep-barrier exchange moves
+        #: across devices, from Program.stats().
         self.last_collective_bytes_per_sweep: Optional[int] = None
 
     # ------------------------------------------------------------------ #
@@ -169,6 +175,9 @@ class ActorEngine:
             self.last_fire_counts = dict(res.fire_counts)
             self.last_sweeps = int(res.sweeps)
             self.last_trace = res.trace
+            self.last_collective_bytes_per_sweep = (
+                prog.stats().collective_bytes_per_sweep
+                if self.plan.devices > 1 else None)
             sink = prog.collect("retire", res.state)
             done = sink["done"].cpu().numpy()
             if not done.all():

@@ -129,6 +129,17 @@ def test_unported_plan_fields_raise(field, value):
         prog = net.compile(mode="dynamic", n_iterations=2, **{field: value})
         assert prog.plan.accelerated == value and "__feed_f_b0" in prog.network.actors
         return
+    if field in ("devices", "device_assign"):
+        # Ported with the multi-device runtime (ROADMAP A12): the plan
+        # constructs; without a process group devices=2 is refused when the
+        # program is built, and device_assign needs devices > 1.
+        net, _ = make_dpd(n_firings=2, block_l=32, device="cpu")
+        plan = ExecutionPlan(mode="dynamic", **{field: value})
+        with pytest.raises(RuntimeError if field == "devices" else ValueError,
+                           match=("init_process_group" if field == "devices"
+                                  else "requires devices > 1")):
+            net.compile(plan)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ExecutionPlan(mode="dynamic", **{field: value})
     net, _ = make_dpd(n_firings=2, block_l=32, device="cpu")

@@ -133,9 +133,11 @@ def test_unported_and_refused_plans_name_their_items():
     cfg = smoke_config("granite-8b")
     model = LM(cfg, device="cpu", seed=0)
     tokens = torch.zeros((2, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    # Ported (ROADMAP A12, test_torch_pipeline_mesh.py): without a mesh
+    # both refuse, naming what they need.
+    with pytest.raises(ValueError, match="DeviceMesh"):
         pipeline_forward(model, cfg, tokens, mesh=None, n_stages=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         pipeline_spmd(lambda p, v: v, [None], tokens[:, None], mesh=None)
     net = build_lm_stage_network(model, cfg, tokens, n_stages=2)
     with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
