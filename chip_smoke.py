@@ -11,6 +11,7 @@
     python3 chip_smoke.py --b4 SRC    # B4's time, wrapper and R probe, from SRC
     python3 chip_smoke.py --train     # phase 24 alone (with phase 1)
     python3 chip_smoke.py --shard     # phase 25 alone (with phase 1)
+    python3 chip_smoke.py --mesh      # phase 26 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -287,6 +288,22 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     the others waiting; in turns, for the walls), 48 B6 calls a rank (192
     in all). DPD's runs also give each rank's host time by part (visit,
     exchange, flag, merge) (a ``phase 25 shard {...}`` line).
+26. (after 25) training over a mesh (ROADMAP A13b): mamba2-780m at full
+    width on a (data 2, model 2) mesh of 4 gloo ranks on this card
+    (``make_train_step(..., mesh=)``, ``zero1``, bf16 grads, AdamW lr 1e-3
+    without warmup, 4 x 2048 tokens a step, 2 rows a data rank, under
+    deterministic algorithms): (a) every rank's local shapes are their
+    placements', and step 1's params, moments, count and metrics, compared
+    shard by shard by a 64-bit fingerprint of their bits, equal the
+    single-process step with ``microbatches=2`` run in a fresh process
+    (where a bit differs, phase 24(a)'s row rule on the gradient read from
+    the first moment, the record saying which bar held); (b) the group's
+    step-2 checkpoint (each distinct shard written once) restored in that
+    fresh process onto a 1x1 mesh, whose step 3 equals the group's; (c)
+    the restored weights' prefill through B6 (48 calls, counted there)
+    within phase 14's bar; (d) a ``phase 26 mesh {...}`` line: step walls,
+    each rank's seconds in gather, compute, reduce and AdamW, the bytes it
+    sends a step by collective, its peak memory.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -318,7 +335,7 @@ trees they compare a kernel across commits on one card.
 work on it; ``--train`` runs phases 1 and 24 (building B6 only) and prints
 phase 24's record before the last line; ``--shard`` runs phases 1 and 25
 (building B1, B5, B6 and B7) and prints phase 25's record before the last
-line.
+line; ``--mesh`` runs phases 1 and 26 (building B6 only) the same way.
 """
 from __future__ import annotations
 
@@ -3433,7 +3450,6 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.models import LM
     from repro_torch.optim import AdamWConfig, adamw_update, global_norm, init_opt_state
     from repro_torch.train import (Trainer, TrainerConfig, TrainOptions, init_params,
                                    make_train_step)
@@ -3638,19 +3654,30 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     torch.cuda.empty_cache()
 
     # ---- (d) the trained weights serve through B6 ----------------------------- #
-    model = LM(full, device=dev, seed=None)
+    rec["d"] = trained_prefill(full, params, dev, zero_counts, expect_counts, "phase 24(d)")
+    log("phase 24(d) " + json.dumps(rec["d"]))
+    return rec
+
+
+def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: str) -> dict:
+    """Trained weights served: one prefill of phase 14's first LM_BATCH
+    prompts through B6 (counted: one call a layer) and through the plain
+    versions, the logits within phase 14's rule (LOGIT_SENS times the
+    model's own change under one bf16 step at its embedded input)."""
+    from repro_torch.models import LM
+    model = LM(cfg, device=dev, seed=None)
     model.load_state_dict(params)
     del params
     torch.cuda.empty_cache()
     rng = np.random.default_rng(0)
     lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
-    prompts = [rng.integers(0, full.vocab, n) for n in lens][:LM_BATCH]
+    prompts = [rng.integers(0, cfg.vocab, n) for n in lens][:LM_BATCH]
     toks = torch.from_numpy(left_pad(prompts, LM_PROMPT)).to(dev)
-    V = full.vocab
+    V = cfg.vocab
     zero_counts()
     lg_k = model.prefill(toks)[0][:, :V].float()
     torch.cuda.synchronize()
-    b6 = expect_counts("phase 24(d) the trained weights served", {"B6": full.n_layers})["B6"]
+    b6 = expect_counts(f"{label} the trained weights served", {"B6": cfg.n_layers})["B6"]
     lg_x = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
     stepped_embed(model)
     lg_s = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
@@ -3661,17 +3688,15 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     bar = torch.clamp(LOGIT_SENS * sens, min=LOGIT_TOL)
     mag = lg_x.abs().amax(-1)
     if not (bool(torch.isfinite(lg_k).all()) and bool(torch.isfinite(sens).all())):
-        fail("phase 24(d): non-finite logits")
+        fail(f"{label}: non-finite logits")
     if bool((err > bar).any()):
-        fail(f"phase 24(d): B6's logits differ from the plain versions' by "
+        fail(f"{label}: B6's logits differ from the plain versions' by "
              f"{err.tolist()} > {bar.tolist()}")
-    rec["d"] = {"prompts": lens[:LM_BATCH], "padded_to": LM_PROMPT, "b6_launches": b6,
-                "logit_err": err.tolist(), "sensitivity": sens.tolist(),
-                "bar": bar.tolist(), "max_abs_logit": mag.tolist(),
-                "rows_with_power": int((bar < mag).sum()),
-                "top1_equal": bool(torch.equal(lg_k.argmax(-1), lg_x.argmax(-1)))}
-    log("phase 24(d) " + json.dumps(rec["d"]))
-    return rec
+    return {"prompts": lens[:LM_BATCH], "padded_to": LM_PROMPT, "b6_launches": b6,
+            "logit_err": err.tolist(), "sensitivity": sens.tolist(),
+            "bar": bar.tolist(), "max_abs_logit": mag.tolist(),
+            "rows_with_power": int((bar < mag).sum()),
+            "top1_equal": bool(torch.equal(lg_k.argmax(-1), lg_x.argmax(-1)))}
 
 
 # ---- 25. the multi-device runtime (devices=k, pipeline_forward) -------- #
@@ -4028,6 +4053,325 @@ def shard_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     return rec
 
 
+# ---- 26. training over a mesh (sharded step, elastic resume) ----------- #
+MESH_ARCH = "mamba2-780m"
+MESH_SHAPE = (2, 2)              # (data, model): 4 gloo ranks on the one card
+MESH_BATCH, MESH_SEQ = 4, 2048   # 2 rows a data rank
+MESH_STEPS, MESH_SAVE_AT = 3, 2
+MESH_TIMEOUT = 900
+
+
+def mesh_opts() -> tuple:
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import TrainOptions
+    return (AdamWConfig(lr=1e-3, warmup_steps=0),
+            TrainOptions(zero1=True, grad_dtype="bf16"))
+
+
+def fingerprint(t: torch.Tensor) -> str:
+    """A 64-bit fingerprint of a tensor's bits, computed on its device
+    (equal bits, equal fingerprints; a differing bit changes it but with
+    odds of 2^-64): the bytes as int64 words, each mixed with its index,
+    summed with wrap-around."""
+    b = t.detach().contiguous().reshape(-1).view(torch.uint8)
+    pad = (-b.numel()) % 8
+    if pad:
+        b = torch.cat([b, torch.zeros(pad, dtype=torch.uint8, device=b.device)])
+    w = b.view(torch.int64)
+    i = torch.arange(w.numel(), dtype=torch.int64, device=w.device)
+    h = ((w ^ (i * -7046029254386353131)) * -4658895280553007687).sum()
+    return f"{int(h) & (2 ** 64 - 1):016x}:{b.numel()}:{t.dtype}"
+
+
+def mesh_regions(cfg, params: dict, opt: dict, batch: dict) -> list:
+    """For each rank of the (data, model) mesh, every state leaf's region at
+    phase 26's placements (no process group: the spec functions take the
+    axis sizes)."""
+    from repro_torch.train import sharding as shd
+    from repro_torch.train import train_shardings
+    axes = dict(zip(("data", "model"), MESH_SHAPE))
+    specs, _ = train_shardings(cfg, axes, params, opt, batch, mesh_opts()[1])
+    out = []
+    for r in range(MESH_SHAPE[0] * MESH_SHAPE[1]):
+        coord = (r // MESH_SHAPE[1], r % MESH_SHAPE[1])
+        reg = {}
+        for tree, key, sp in ((params, "params", specs[0]), (opt["m"], "m", specs[1]["m"]),
+                              (opt["v"], "v", specs[1]["v"])):
+            for k, x in tree.items():
+                reg[f"{key}.{k}"] = shd.local_region(x.shape, shd.placements(sp[k], axes),
+                                                     MESH_SHAPE, coord)
+        out.append(reg)
+    return out
+
+
+def state_prints(params: dict, opt: dict, metrics: dict, regions: dict = None) -> dict:
+    """Fingerprints of a state's leaves (each DTensor's local shard, or with
+    ``regions`` each full tensor's region), its count and metrics."""
+    from torch.distributed.tensor import DTensor
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+    out = {}
+    for tree, key in ((params, "params"), (opt["m"], "m"), (opt["v"], "v")):
+        for k, x in tree.items():
+            name = f"{key}.{k}"
+            out[name] = fingerprint(local(x)[regions[name]] if regions else local(x))
+    out["count"] = fingerprint(local(opt["count"]))
+    for k, v in metrics.items():
+        out[f"metric.{k}"] = fingerprint(v)
+    return out
+
+
+def mesh_rank(rank: int, world: int, src: str, tmp: str) -> dict:
+    """One rank of phase 26's group: MESH_STEPS sharded steps of mamba2-780m
+    at (data 2, model 2), ``zero1``, bf16 grads, a checkpoint after step
+    MESH_SAVE_AT; fingerprints of the local shards after steps 1 and
+    MESH_STEPS, the first moment's local shards after step 1 written for
+    the row rule, walls and the step's own account."""
+    sys.path.insert(0, src)
+    import torch.distributed as dist
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import (init_params, make_train_step, shard_batch,
+                                   shard_train_state, train_shardings)
+    from repro_torch.train import sharding as shd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(MESH_ARCH)
+    opt_cfg, opts = mesh_opts()
+    mesh = make_test_mesh(MESH_SHAPE, device_type="cuda")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MESH_SEQ,
+                                  global_batch=MESH_BATCH, seed=0))
+    params = init_params(cfg, device=dev, seed=0)
+    opt = init_opt_state(params)
+    specs, dropped = train_shardings(cfg, mesh, params, opt, data.batch(0), opts)
+    p, o = shard_train_state(params, opt, specs, mesh)
+    del params, opt
+    torch.cuda.empty_cache()
+    sizes, coord = tuple(mesh.mesh.shape), shd.mesh_coordinate(mesh)
+    shapes_ok = all(
+        tuple(x.to_local().shape) == tuple(r.stop - r.start for r in shd.local_region(
+            x.shape, shd.placements(sp[k], mesh), sizes, coord))
+        for tree, sp in ((p, specs[0]), (o["m"], specs[1]["m"]), (o["v"], specs[1]["v"]))
+        for k, x in tree.items())
+    step = make_train_step(cfg, opt_cfg, opts, mesh=mesh)
+    out: dict = {"rank": rank, "coord": coord, "shapes_ok": shapes_ok, "dropped": dropped,
+                 "walls_s": [], "stats": []}
+    torch.cuda.reset_peak_memory_stats()
+    ssd_cuda.launches = 0
+    for i in range(MESH_STEPS):
+        b = shard_batch(data.batch(i), mesh, dev)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        p, o, m = step(p, o, b)
+        torch.cuda.synchronize()
+        out["walls_s"].append(time.perf_counter() - t0)
+        out["stats"].append(dict(step.stats))
+        if i == 0:
+            out["step1"] = state_prints(p, o, m)
+            torch.save({k: x.to_local().cpu() for k, x in o["m"].items()},
+                       os.path.join(tmp, f"m1_rank{rank}.pt"))
+            out["grad_norm_1"] = float(m["grad_norm"])
+        if i + 1 == MESH_SAVE_AT:
+            t0 = time.perf_counter()
+            Checkpointer(os.path.join(tmp, "ckpt")).save(MESH_SAVE_AT, {"params": p, "opt": o})
+            out["save_s"] = time.perf_counter() - t0
+    out["launches"] = {"B6": ssd_cuda.launches}
+    out["last"] = state_prints(p, o, m)
+    out["losses"] = float(m["loss"])
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def mesh_fresh(rank: int, world: int, src: str, tmp: str, group: list) -> dict:
+    """Phase 26 in a fresh single process (a world of 1): (a) the
+    single-process step with ``microbatches=2`` on the same params and
+    batch, each rank's regions held to the group's step 1 (bit for bit, or
+    phase 24(a)'s row rule where a bit differs); (b) the step-2 checkpoint
+    restored onto a 1x1 mesh and step 3 run, held to the group's step 3;
+    (c) the restored weights served through B6."""
+    sys.path.insert(0, src)
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.dyn_fir import dpd_branch_cuda
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.rglru import rglru_cuda
+    from repro_torch.kernels.ssd import ssd_cuda
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import (TrainOptions, init_params, make_train_step, shard_batch,
+                                   train_shardings)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    wrappers = {"B1": dpd_branch_cuda, "B5": flash_attention_cuda, "B6": ssd_cuda,
+                "B7": rglru_cuda}
+
+    def zero_counts() -> None:
+        for w in wrappers.values():
+            w.launches = 0
+
+    def expect_counts(path: str, want: dict) -> dict:
+        got = {k: w.launches for k, w in wrappers.items()}
+        want = {k: want.get(k, 0) for k in wrappers}
+        if got != want:
+            fail(f"{path}: kernel launches {got}, want {want}")
+        return got
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = get_config(MESH_ARCH)
+    opt_cfg, opts = mesh_opts()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MESH_SEQ,
+                                  global_batch=MESH_BATCH, seed=0))
+    out: dict = {}
+    # (a) the single-process step.
+    params = init_params(cfg, device=dev, seed=0)
+    b0 = as_batch(data.batch(0), dev)
+    regions = mesh_regions(cfg, params, init_opt_state(params), data.batch(0))
+    one = TrainOptions(microbatches=MESH_SHAPE[0], grad_dtype="bf16")
+    zero_counts()
+    t0 = time.perf_counter()
+    p1, o1, m1 = make_train_step(cfg, opt_cfg, one)(params, init_opt_state(params), b0)
+    torch.cuda.synchronize()
+    out["single_step_s"] = time.perf_counter() - t0
+    expect_counts("phase 26(a) the single-process step", {})
+    bad = {}
+    for r, g in enumerate(group):
+        want = state_prints(p1, o1, m1, regions[r])
+        bad[r] = sorted(k for k in want if want[k] != g["step1"][k])
+    out["a_bits"] = not any(bad.values())
+    out["a_differing"] = {r: v[:8] for r, v in bad.items() if v}
+    if not out["a_bits"]:
+        # Phase 24(a)'s row rule on the step's float32 gradient, read from
+        # the first moment, against the card's own change under one bf16
+        # step at the embedded input.
+        full_m = {k: torch.empty(x.shape, dtype=torch.float32) for k, x in o1["m"].items()}
+        for r in range(len(group)):
+            shard = torch.load(os.path.join(tmp, f"m1_rank{r}.pt"))
+            for k, x in shard.items():
+                full_m[k][regions[r][f"m.{k}"]] = x
+        got = step_grads(opt_cfg, {"m": full_m}, {"grad_norm": group[0]["grad_norm_1"]})
+        want = step_grads(opt_cfg, o1, m1)
+        _, g_b = loss_and_grads(cfg, params, b0, dev)
+        _, g_s = loss_and_grads(cfg, params, b0, dev, stepped=True)
+        rd = grad_row_readings(want, got, g_b, g_s)
+        worst = max(rd, key=rd.get)
+        out["a_row_reading"], out["a_row_worst"] = rd[worst], worst
+        if rd[worst] > GRAD_ROW_SENS:
+            fail(f"phase 26(a): the sharded step's gradient at {worst} reads {rd[worst]:.3g} "
+                 f"x the one-bf16-step change (> {GRAD_ROW_SENS})")
+    out["loss_1"] = float(m1["loss"])
+    del params, p1, o1, m1
+    torch.cuda.empty_cache()
+    # (b) elastic resume onto a 1x1 mesh.
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    skeleton = init_params(cfg, device="meta", seed=None)
+    opt_abs = init_opt_state(skeleton)
+    specs, _ = train_shardings(cfg, mesh, skeleton, opt_abs, data.batch(0), opts)
+    t0 = time.perf_counter()
+    st = Checkpointer(os.path.join(tmp, "ckpt")).restore(
+        MESH_SAVE_AT, {"params": skeleton, "opt": opt_abs},
+        shardings={"params": specs[0], "opt": specs[1]}, mesh=mesh)
+    out["restore_s"] = time.perf_counter() - t0
+    step = make_train_step(cfg, opt_cfg, dataclasses.replace(opts, microbatches=MESH_SHAPE[0]),
+                           mesh=mesh)
+    zero_counts()
+    p3, o3, m3 = step(st["params"], st["opt"], shard_batch(data.batch(MESH_SAVE_AT), mesh, dev))
+    torch.cuda.synchronize()
+    expect_counts("phase 26(b) step 3 after the restore", {})
+    full3 = ({k: x.to_local() for k, x in p3.items()},
+             {"m": {k: x.to_local() for k, x in o3["m"].items()},
+              "v": {k: x.to_local() for k, x in o3["v"].items()}, "count": o3["count"]})
+    bad = {}
+    for r, g in enumerate(group):
+        want = state_prints(*full3, m3, regions[r])
+        bad[r] = sorted(k for k in want if want[k] != g["last"][k])
+    out["b_bits"] = not any(bad.values())
+    out["b_differing"] = {r: v[:8] for r, v in bad.items() if v}
+    out["loss_3"] = float(m3["loss"])
+    restored = {k: x.to_local() for k, x in st["params"].items()}
+    del st, p3, o3, m3, full3
+    torch.cuda.empty_cache()
+    # (c) the restored weights served.
+    out["c"] = trained_prefill(cfg, restored, dev, zero_counts, expect_counts, "phase 26(c)")
+    return out
+
+
+def mesh_phase(dev, smi: str) -> dict:
+    """Phase 26: mamba2-780m trained over a (data 2, model 2) mesh of 4
+    gloo ranks on the one card (``make_train_step(..., mesh=)``, ``zero1``,
+    bf16 grads, MESH_BATCH x MESH_SEQ tokens a step, 2 rows a data rank):
+    (a) step 1's params, moments, count and metrics on every rank's shards
+    equal the single-process step with ``microbatches=2`` (a fresh process;
+    bit for bit, else phase 24(a)'s row rule, and the record says which
+    held), every local shape its placement's; (b) a checkpoint of the
+    group's step 2 restored in the fresh process onto a 1x1 mesh, whose
+    step 3 equals the group's; (c) the restored weights' prefill through B6
+    (48 calls) within phase 14's bar; (d) a ``phase 26 mesh`` record: step
+    walls, each rank's seconds in gather, compute, reduce and AdamW, bytes
+    sent a step, peak memory."""
+    import tempfile
+    from repro_torch.launch.group import spawn_group
+    t_phase = time.perf_counter()
+    src = str(Path(__file__).resolve().parent / "src")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="phase26_") as tmp:
+        try:
+            t0 = time.perf_counter()
+            group = spawn_group("chip_smoke:mesh_rank", MESH_SHAPE[0] * MESH_SHAPE[1], tmp,
+                                args=(src, tmp), timeout=MESH_TIMEOUT)
+            group_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            fresh = spawn_group("chip_smoke:mesh_fresh", 1, tmp, args=(src, tmp, group),
+                                timeout=MESH_TIMEOUT)[0]
+            fresh_s = time.perf_counter() - t0
+        except RuntimeError as err:
+            fail(f"phase 26: {err}")
+    for g in group:
+        if not g["shapes_ok"]:
+            fail(f"phase 26(a) rank {g['rank']}: local shapes differ from the placements")
+        if g["launches"]["B6"]:
+            fail(f"phase 26 rank {g['rank']}: B6 launched {g['launches']['B6']} times in "
+                 "training (the plain versions train)")
+    if not (fresh["a_bits"] or "a_row_reading" in fresh):
+        fail("phase 26(a): no bar held")
+    if not fresh["b_bits"]:
+        fail(f"phase 26(b): the restored step 3 differs from the group's at "
+             f"{fresh['b_differing']}")
+
+    def med(key: str) -> list:
+        return [float(np.median([s[key] for s in g["stats"]])) for g in group]
+    rec = {
+        "card": smi, "arch": MESH_ARCH, "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
+        "ranks_on_one_card": MESH_SHAPE[0] * MESH_SHAPE[1], "backend": "gloo",
+        "batch": [MESH_BATCH, MESH_SEQ], "zero1": True, "grad_dtype": "bf16",
+        "a_bar": "bits" if fresh["a_bits"] else "rows",
+        "a_row_reading": fresh.get("a_row_reading"), "a_differing": fresh["a_differing"],
+        "b_bits": fresh["b_bits"], "losses_1_3": [fresh["loss_1"], fresh["loss_3"]],
+        "step_walls_s": [g["walls_s"] for g in group],
+        "median_step_wall_s": float(np.median([max(w) for w in zip(
+            *[g["walls_s"] for g in group])])),
+        "gather_s": med("gather_s"), "compute_s": med("compute_s"),
+        "reduce_s": med("reduce_s"), "adamw_s": med("adamw_s"),
+        "bytes_sent_per_step": [g["stats"][-1]["bytes_sent"] for g in group],
+        "full_param_bytes": group[0]["stats"][-1]["full_param_bytes"],
+        "peak_bytes": [g["peak_bytes"] for g in group],
+        "save_s": [g["save_s"] for g in group], "restore_s": fresh["restore_s"],
+        "single_step_s": fresh["single_step_s"], "group_s": group_s, "fresh_s": fresh_s,
+        "c": fresh["c"], "dropped": group[0]["dropped"],
+        "s": time.perf_counter() - t_phase}
+    log("phase 26 mesh " + json.dumps(rec))
+    return rec
+
+
 def card() -> str:
     """The card's name and power limit, as ``nvidia-smi`` gives them."""
     return subprocess.run(
@@ -4309,7 +4653,8 @@ def main() -> None:
     lm_only = sys.argv[1:] == ["--lm"]
     train_only = sys.argv[1:] == ["--train"]
     shard_only = sys.argv[1:] == ["--shard"]
-    if len(sys.argv) > 1 and not (lm_only or train_only or shard_only):
+    mesh_only = sys.argv[1:] == ["--mesh"]
+    if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -4362,7 +4707,7 @@ def main() -> None:
     t0 = time.perf_counter()
     libs = ("dyn_fir", "megakernel", "gauss5x5", "motion_post", "flash_attention",
             "ssd", "rglru")
-    if train_only:
+    if train_only or mesh_only:
         libs = ("ssd",)
     if shard_only:
         libs = ("dyn_fir", "flash_attention", "ssd", "rglru")
@@ -4374,11 +4719,12 @@ def main() -> None:
                               mk_kernel.build_defines(guards=True),
                               mk_kernel.build_defines(trace=True),
                               mk_kernel.build_defines(guards=True, trace=True))]
-    if not (lm_only or train_only or shard_only):
+    one_phase = lm_only or train_only or shard_only or mesh_only
+    if not one_phase:
         for t in other_builds:
             t.start()
     nvcc_out = _build.build(*libs)
-    if not (lm_only or train_only or shard_only):
+    if not one_phase:
         for t in other_builds:
             t.join()
         for d in ((mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
@@ -4395,6 +4741,14 @@ def main() -> None:
         train = train_phase(dev, smi, zero_counts, expect_counts)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_24": train}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
+    if mesh_only:
+        mesh = mesh_phase(dev, smi)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_26": mesh}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
@@ -4720,6 +5074,14 @@ def main() -> None:
             row["shard_launches"] = shard["pipeline"]["b6_launches"]
             row["shard_launches_from"] = (shard_from + "; (c) mamba2-780m through "
                                           "pipeline_forward, 4 stages")
+    # ---- 26. training over a mesh ---------------------------------------- #
+    mesh = mesh_phase(dev, smi)
+    for row in lm:
+        if row["name"] == "ssd":
+            row["mesh_launches"] = mesh["c"]["b6_launches"]
+            row["mesh_launches_from"] = ("phase 26(c): mamba2-780m's weights trained on a "
+                                         "(data 2, model 2) mesh, restored in a fresh "
+                                         "process, one prefill")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

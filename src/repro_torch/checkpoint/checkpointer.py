@@ -14,9 +14,16 @@ Two stores:
 
   Saves snapshot the leaves to host memory at once and write them on a
   thread (``wait()`` joins it); ``step_XXXX.tmp`` -> ``os.replace`` makes
-  a save atomic, and the newest ``keep`` steps are kept.  A leaf is saved
-  as one shard; the reference's restore onto a different mesh
-  (``shardings=``) comes with the sharded train step, ROADMAP A13b.
+  a save atomic, and the newest ``keep`` steps are kept.  A tensor leaf is
+  saved as one shard.  A tree with DTensor leaves (a sharded train state)
+  is saved by every rank of the process group together, in the caller's
+  thread: each distinct shard is written once, with its global index, by
+  the rank at coordinate 0 on the mesh dims where the shard is replicated
+  (``shard_j``, ``j`` the shard's row-major position over the mesh dims
+  that split it); rank 0 commits the step after a barrier.
+  ``restore(..., shardings=)`` places each leaf on a mesh, reading only
+  the stored chunks that cover this rank's shard, whatever mesh wrote them
+  (the reference's elastic restore).
 
 * The durable stream snapshots (:func:`save_stream_checkpoint`,
   :func:`load_stream_checkpoint`): ``chunk_%08d/manifest.json`` with
@@ -150,6 +157,9 @@ class Checkpointer:
         here with ``blocking=True``)."""
         self.wait()
         leaves, skeleton = _flatten(tree)
+        if any(_is_dtensor(leaf) for leaf in leaves):
+            self._save_sharded(step, leaves, skeleton)
+            return
         # Host copies taken now, so the caller may update its tensors while
         # the writer runs.
         snaps = [(_host_array(leaf).copy(), _dtype_name(leaf)) for leaf in leaves]
@@ -192,6 +202,50 @@ class Checkpointer:
         self._thread = threading.Thread(target=guarded, daemon=True)
         self._thread.start()
 
+    def _save_sharded(self, step: int, leaves: List[Any], skeleton: Any) -> None:
+        """Every rank writes the shards it owns into one ``.tmp`` directory;
+        rank 0 writes the manifest and commits after a barrier."""
+        import torch.distributed as dist
+        rank = dist.get_rank()
+        shards = []      # per leaf: [(j, index, host array)] this rank writes
+        metas = []
+        for leaf in leaves:
+            metas.append({"shape": list(leaf.shape), "dtype": _dtype_name(leaf)})
+            if _is_dtensor(leaf):
+                owns, j, region = _shard_of(leaf)
+                arr = _host_array(leaf.to_local()).copy() if owns else None
+                shards.append([(j, [[r.start, r.stop] for r in region], arr)] if owns else [])
+            elif rank == 0:
+                arr = _host_array(leaf).copy()
+                shards.append([(0, [[0, n] for n in arr.shape], arr)])
+            else:
+                shards.append([])
+        tmp = os.path.join(self.dir, f"step_{step:08d}.tmp")
+        final = os.path.join(self.dir, f"step_{step:08d}")
+        if rank == 0:
+            if os.path.exists(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        dist.barrier()
+        for i, owned in enumerate(shards):
+            d = os.path.join(tmp, _leaf_dirname(i))
+            os.makedirs(d, exist_ok=True)
+            for j, index, arr in owned:
+                np.save(os.path.join(d, f"shard_{j}.npy"), arr)
+                with open(os.path.join(d, f"shard_{j}.idx.json"), "w") as f:
+                    json.dump({"index": index}, f)
+        dist.barrier()
+        if rank == 0:
+            manifest = {"step": step, "treedef": json.dumps(skeleton),
+                        "n_leaves": len(leaves), "leaves": metas}
+            with open(os.path.join(tmp, "manifest.json"), "w") as f:
+                json.dump(manifest, f)
+            if os.path.exists(final):
+                shutil.rmtree(final)
+            os.replace(tmp, final)
+            self._gc()
+        dist.barrier()
+
     def wait(self) -> None:
         """Join the writer; raise what it raised."""
         if self._thread is not None:
@@ -218,19 +272,19 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: PyTree, shardings: Optional[PyTree] = None
-                ) -> PyTree:
+    def restore(self, step: int, target: PyTree, shardings: Optional[PyTree] = None,
+                mesh: Any = None) -> PyTree:
         """Restore into the structure of ``target`` (tensors, ``meta``
-        tensors included, giving shapes): each leaf lands on its target
-        leaf's device (the CPU for ``meta``) with the stored dtype.  Stored
-        shards are assembled from their index files, whatever their split.
+        tensors included, giving shapes) with the stored dtypes.
 
-        ``shardings`` (a restore onto a different mesh) is ROADMAP A13b.
+        Without ``shardings`` each leaf is assembled whole from its stored
+        shards, whatever their split, on its target leaf's device (the CPU
+        for ``meta``).  ``shardings`` is a tree shaped like ``target`` of
+        ``(mesh, placements)`` pairs, or of specs (``train.sharding``) with
+        ``mesh``; a ``None`` there restores that leaf whole.  A placed leaf
+        comes back as a DTensor on the mesh's device whose local shard is
+        read from the stored chunks that cover it.
         """
-        if shardings is not None:
-            raise NotImplementedError(
-                "Checkpointer.restore(shardings=...): restoring onto a mesh is "
-                "not ported yet: ROADMAP A13b (the sharded train step)")
         root = os.path.join(self.dir, f"step_{step:08d}")
         with open(os.path.join(root, "manifest.json")) as f:
             manifest = json.load(f)
@@ -239,25 +293,106 @@ class Checkpointer:
             raise ValueError(
                 f"checkpoint has {manifest['n_leaves']} leaves, target has "
                 f"{len(leaves)} — structure mismatch")
+        places = (_leaves_like(target, shardings) if shardings is not None
+                  else [None] * len(leaves))
         out = []
-        for i, (leaf, meta) in enumerate(zip(leaves, manifest["leaves"])):
+        for i, (leaf, meta, place) in enumerate(zip(leaves, manifest["leaves"], places)):
             d = os.path.join(root, _leaf_dirname(i))
             shape = tuple(meta["shape"])
             if tuple(leaf.shape) != shape:
                 raise ValueError(f"leaf {i}: stored {shape} != target {tuple(leaf.shape)}")
-            full = torch.empty(shape, dtype=_torch_dtype(meta["dtype"]))
-            j = 0
-            while os.path.exists(os.path.join(d, f"shard_{j}.npy")):
-                data = _load_leaf(os.path.join(d, f"shard_{j}.npy"), meta["dtype"])
-                with open(os.path.join(d, f"shard_{j}.idx.json")) as f:
-                    idx = json.load(f)["index"]
-                full[tuple(slice(a, b) for a, b in idx)] = data
-                j += 1
+            if place is not None:
+                out.append(_restore_placed(d, meta, place, mesh))
+                continue
+            full = _read_region(d, meta, tuple(slice(0, n) for n in shape))
             dev = getattr(leaf, "device", None)
             if isinstance(dev, torch.device) and dev.type != "meta":
                 full = full.to(dev)
             out.append(full)
         return _unflatten(target, out)
+
+
+def _is_dtensor(x: Any) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _shard_of(x: Any) -> Tuple[bool, int, Tuple[slice, ...]]:
+    """(whether this rank writes a DTensor's local shard, the shard's
+    number, its global region)."""
+    from repro_torch.train.sharding import local_region, mesh_coordinate
+    mesh = x.device_mesh
+    sizes = tuple(mesh.mesh.shape)
+    coord = mesh_coordinate(mesh)
+    owns = all(c == 0 for c, p in zip(coord, x.placements) if not p.is_shard())
+    j = 0
+    for i, p in enumerate(x.placements):
+        if p.is_shard():
+            j = j * sizes[i] + coord[i]
+    return owns, j, local_region(x.shape, x.placements, sizes, coord)
+
+
+def _leaves_like(target: PyTree, tree: PyTree) -> List[Any]:
+    """The nodes of ``tree`` at ``target``'s leaves, in ``_flatten`` order
+    (a spec or a ``(mesh, placements)`` pair is a leaf of ``tree``)."""
+    out: List[Any] = []
+
+    def walk(t: Any, s: Any) -> None:
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], None if s is None else s[k])
+        elif isinstance(t, (list, tuple)):
+            for i, v in enumerate(t):
+                walk(v, None if s is None else s[i])
+        else:
+            out.append(s)
+
+    walk(target, tree)
+    return out
+
+
+def _from_host(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    """A (memory-mapped) stored chunk as a tensor of the leaf's dtype."""
+    if dtype_name == "bfloat16":
+        return torch.from_numpy(np.array(arr, np.float32, order="C")).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr, np.dtype(dtype_name), order="C"))
+
+
+def _read_region(d: str, meta: Dict[str, Any], region: Tuple[slice, ...]) -> torch.Tensor:
+    """The stored leaf's values in ``region`` (a CPU tensor), read from the
+    shards whose index meets it."""
+    out = torch.empty(tuple(r.stop - r.start for r in region),
+                      dtype=_torch_dtype(meta["dtype"]))
+    j = 0
+    while os.path.exists(os.path.join(d, f"shard_{j}.npy")):
+        with open(os.path.join(d, f"shard_{j}.idx.json")) as f:
+            idx = json.load(f)["index"]
+        meet = [(max(a, r.start), min(b, r.stop)) for (a, b), r in zip(idx, region)]
+        if all(lo < hi for lo, hi in meet):
+            arr = np.load(os.path.join(d, f"shard_{j}.npy"), mmap_mode="r")
+            src = tuple(slice(lo - a, hi - a) for (lo, hi), (a, _) in zip(meet, idx))
+            dst = tuple(slice(lo - r.start, hi - r.start) for (lo, hi), r in zip(meet, region))
+            out[dst] = _from_host(arr[src], meta["dtype"])
+        j += 1
+    return out
+
+
+def _restore_placed(d: str, meta: Dict[str, Any], place: Any, mesh: Any) -> Any:
+    """One leaf as a DTensor at ``place`` (a spec with ``mesh``, or a
+    ``(mesh, placements)`` pair)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train.sharding import local_region, mesh_coordinate, placements
+    if mesh is not None:
+        m, pl = mesh, placements(place, mesh)
+    else:
+        m, pl = place
+        pl = list(pl)
+    shape = tuple(meta["shape"])
+    region = local_region(shape, pl, tuple(m.mesh.shape), mesh_coordinate(m))
+    local = _read_region(d, meta, region)
+    dev = (torch.device("cuda", torch.cuda.current_device()) if m.device_type == "cuda"
+           else torch.device(m.device_type))
+    return DTensor.from_local(local.to(dev), m, pl, run_check=False)
 
 
 # --------------------------------------------------------------------------- #

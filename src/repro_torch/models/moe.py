@@ -148,11 +148,12 @@ def scatter_rows(slot: torch.Tensor, rows: torch.Tensor, n: int, dummy: int = 0
     (which turns -0 into +0), written by assignment; the dummy slots
     (the last row of each ``dummy``-row group, or the last row) sum the
     dropped rows, which nothing reads, and stay 0."""
-    out = torch.zeros((n, rows.shape[1]), dtype=rows.dtype, device=rows.device)
     last = (slot + 1) % dummy == 0 if dummy else slot == n - 1
-    kept = ~last
-    out[slot[kept]] = rows[kept] + 0.0
-    return out
+    # Dropped rows go to a spare row n, cut off after: no boolean indexing,
+    # so the shapes do not depend on the routing (a meta-tensor dry run).
+    out = torch.zeros((n + 1, rows.shape[1]), dtype=rows.dtype, device=rows.device)
+    out.index_put_((torch.where(last, torch.full_like(slot, n), slot),), rows + 0.0)
+    return out[:n]
 
 
 def dispatch_combine(params: Dict[str, torch.Tensor], xt: torch.Tensor,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -67,16 +67,20 @@ def global_norm(tensors) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
-                 grads: Mapping[str, torch.Tensor], state: Mapping[str, object]
+                 grads: Mapping[str, torch.Tensor], state: Mapping[str, object],
+                 gnorm: Optional[torch.Tensor] = None
                  ) -> Tuple[Params, Dict[str, object], Dict[str, torch.Tensor]]:
     """One AdamW step: clip by the global norm, update the float32 moments,
     bias-correct, decoupled weight decay.  Grads may be bf16.  Returns new
     tensors (params in their own type, the state, and the metrics
-    ``grad_norm`` and ``lr``); the inputs are not changed."""
+    ``grad_norm`` and ``lr``); the inputs are not changed.  ``gnorm``, when
+    given, is the global norm to clip by (a sharded step updates slices of
+    the leaves and takes the norm of the whole gradient)."""
     count = state["count"] + 1
     b1, b2 = cfg.betas
     lr = schedule(cfg, count)
-    gnorm = global_norm(grads[k] for k in params)
+    if gnorm is None:
+        gnorm = global_norm(grads[k] for k in params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     cf = count.to(F32)
     new_p, new_m, new_v = {}, {}, {}

@@ -84,13 +84,16 @@ class Trainer:
                  init_state_fn: Callable[[], Dict[str, PyTree]],
                  failure_hook: Optional[Callable[[int], None]] = None,
                  to_device: Optional[Callable[[Dict], Dict]] = None,
-                 log: Callable[[str], None] = print):
+                 log: Callable[[str], None] = print,
+                 shardings: Optional[PyTree] = None, mesh: Any = None):
         """``step_fn(params, opt_state, batch) -> (params, opt_state,
         metrics)``; ``init_state_fn() -> {"params", "opt"}``;
         ``failure_hook(step)`` may raise to simulate a failure.
         ``to_device`` turns a numpy batch into the step's; by default each
         array becomes an int64 tensor (float arrays keep their type) on the
-        params' device."""
+        params' device.  ``shardings`` (and ``mesh``), a sharded run's
+        placements of ``{"params", "opt"}``, are passed to
+        ``Checkpointer.restore`` when the run resumes."""
         self.cfg = cfg
         self.step_fn = step_fn
         self.data = data_source
@@ -98,6 +101,8 @@ class Trainer:
         self.failure_hook = failure_hook
         self.to_device = to_device
         self.log = log
+        self.shardings = shardings
+        self.mesh = mesh
         self.ckpt = Checkpointer(cfg.checkpoint_dir, keep=cfg.keep)
         self.monitor = StragglerMonitor()
         self.restarts = 0
@@ -111,7 +116,7 @@ class Trainer:
         self.log(f"[trainer] restoring step {latest}")
         template = self.init_state_fn()
         tree = {"params": template["params"], "opt": template["opt"]}
-        restored = self.ckpt.restore(latest, tree)
+        restored = self.ckpt.restore(latest, tree, shardings=self.shardings, mesh=self.mesh)
         return latest, restored["params"], restored["opt"]
 
     def _batch(self, step: int, device: torch.device) -> Dict:

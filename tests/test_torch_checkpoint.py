@@ -156,8 +156,11 @@ def test_checkpoint_roundtrip(tmp_path):
     assert torch.equal(restored["b"]["c"], tree["b"]["c"])
     assert restored["b"]["d"].dtype == torch.bfloat16
     assert torch.equal(restored["b"]["d"], tree["b"]["d"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        ckpt.restore(3, target, shardings=object())
+    # A shardings tree of None places no leaf: every leaf comes back whole,
+    # as without one (placed restores are in test_torch_train_mesh.py).
+    none = ckpt.restore(3, target, shardings={"a": None, "b": {"c": None, "d": None}})
+    assert all(torch.equal(none[k], restored[k]) for k in ("a",))
+    assert torch.equal(none["b"]["d"], restored["b"]["d"])
 
 
 def test_checkpoint_store_interoperates_with_the_reference(jax_literal, tmp_path):

@@ -121,8 +121,19 @@ def test_data_pipeline_deterministic_replay():
 
 
 def test_zero1_is_refused_naming_a13b():
-    with pytest.raises(ValueError, match="A13b"):
-        make_train_step(smoke_config("granite-8b"), AdamWConfig(), TrainOptions(zero1=True))
+    """``zero1`` is no longer refused: without a mesh it has nothing to shard
+    and the step equals the ``zero1=False`` step bit for bit (the sharded
+    step is in test_torch_train_mesh.py)."""
+    cfg = smoke_config("granite-8b")
+    params = init_params(cfg, device="cpu", seed=0)
+    batch = _to_dev(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                           global_batch=2)).batch(0))
+    outs = [make_train_step(cfg, AdamWConfig(), TrainOptions(zero1=z))(
+        params, init_opt_state(params), batch) for z in (True, False)]
+    for k in params:
+        assert torch.equal(outs[0][0][k], outs[1][0][k])
+        assert torch.equal(outs[0][1]["m"][k], outs[1][1]["m"][k])
+    assert torch.equal(outs[0][2]["loss"], outs[1][2]["loss"])
 
 
 # ---------------------------------------------------------------------- #

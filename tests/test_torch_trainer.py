@@ -94,9 +94,17 @@ def test_launch_train_smoke_on_the_cpu(tmp_path, capsys):
                        "--seq", "16", "--batch", "2", "--ckpt-dir", str(tmp_path)])
     out = capsys.readouterr().out
     assert "device: cpu" in out and "done: loss" in out
-    with pytest.raises(ValueError, match="A13b"):
-        launch_train.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--zero1",
-                           "--ckpt-dir", str(tmp_path / "z")])
+    # --zero1 runs: with no process group the mesh is 1x1 and the run is the
+    # one-device run; a larger --mesh needs torchrun (the sharded launcher
+    # runs in test_torch_train_mesh.py).
+    launch_train.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--zero1",
+                       "--steps", "2", "--seq", "16", "--batch", "2",
+                       "--ckpt-dir", str(tmp_path / "z")])
+    out = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 1}" in out and "done: loss" in out
+    with pytest.raises(RuntimeError, match="torchrun"):
+        launch_train.main(["--arch", "granite-8b", "--smoke", "--device", "cpu", "--mesh",
+                           "2x1", "--ckpt-dir", str(tmp_path / "m")])
 
 
 def test_trainer_default_batches_land_on_the_params_device(tmp_path):
