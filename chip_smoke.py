@@ -12,6 +12,7 @@
     python3 chip_smoke.py --train     # phase 24 alone (with phase 1)
     python3 chip_smoke.py --shard     # phase 25 alone (with phase 1)
     python3 chip_smoke.py --mesh      # phase 26 alone (with phase 1)
+    python3 chip_smoke.py --serve-mk  # phases 22 and 23(c) with 27 (and 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -288,8 +289,31 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     the others waiting; in turns, for the walls), 48 B6 calls a rank (192
     in all). DPD's runs also give each rank's host time by part (visit,
     exchange, flag, merge) (a ``phase 25 shard {...}`` line).
+27. the LM actors in megakernel mode (ROADMAP A9b): (a, inside phase 22,
+    on its model and traffic) recurrentgemma-2b through ``ActorEngine(plan=
+    ExecutionPlan(mode="megakernel"))``: kernel B2 runs admission, gate,
+    merge and retire and stops at each decode firing that runs the model,
+    the runner runs that decode step and launches B2 again.  Closed and
+    open loop: tokens bit for bit phase 22's dynamic runs (and the
+    Engine's), fire counts, sweeps, latency steps and statuses equal, the
+    same B5 and B7 launches, B2 launches equal to the decode steps plus
+    one a run; the guarded, traced closed loop's high-water marks and every
+    trace event equal the dynamic run's; ``expire_deadline``,
+    ``queue_depth=0`` and the quarantined poisoned request give the dynamic
+    runs' statuses.  B2 bit for bit against its plain version on the card
+    on the smoke config's network (open loop) at cores 1 and 2; B2's device
+    time a segment (CUDA events) beside its plain version's, the host time
+    of a decode step between launches, the bytes the serving bodies move a
+    segment and their bound; the ``generate`` walls in megakernel mode join
+    phase 22's turns (a ``phase 27(a) ...`` line).  (b, inside phase 23(c))
+    mamba2-780m's 4-stage network in megakernel mode, unspecialized: 17 B2
+    launches (one a stage firing, plus one), 192 B6 calls, activations bit
+    for bit the static run's; walls in turns with the static run, 3 each (a
+    ``phase 27(b) ...`` line).  The kernels line's
+    ``megakernel.b2.serving`` row carries both.
 26. (after 25) training over a mesh (ROADMAP A13b): mamba2-780m at full
-    width on a (data 2, model 2) mesh of 4 gloo ranks on this card
+    width, its depth cut to MESH_LAYERS (12 of 48) for the run's time, on
+    a (data 2, model 2) mesh of 4 gloo ranks on this card
     (``make_train_step(..., mesh=)``, ``zero1``, bf16 grads, AdamW lr 1e-3
     without warmup, 4 x 2048 tokens a step, 2 rows a data rank, under
     deterministic algorithms): (a) every rank's local shapes are their
@@ -300,7 +324,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     the first moment, the record saying which bar held); (b) the group's
     step-2 checkpoint (each distinct shard written once) restored in that
     fresh process onto a 1x1 mesh, whose step 3 equals the group's; (c)
-    the restored weights' prefill through B6 (48 calls, counted there)
+    the restored weights' prefill through B6 (a call a layer, counted there)
     within phase 14's bar; (d) a ``phase 26 mesh {...}`` line: step walls,
     each rank's seconds in gather, compute, reduce and AdamW, the bytes it
     sends a step by collective, its peak memory.
@@ -335,10 +359,13 @@ trees they compare a kernel across commits on one card.
 work on it; ``--train`` runs phases 1 and 24 (building B6 only) and prints
 phase 24's record before the last line; ``--shard`` runs phases 1 and 25
 (building B1, B5, B6 and B7) and prints phase 25's record before the last
-line; ``--mesh`` runs phases 1 and 26 (building B6 only) the same way.
+line; ``--mesh`` runs phases 1 and 26 (building B6 only) the same way;
+``--serve-mk`` runs phases 1, 22 with 27(a) and 23(c) with 27(b) (building
+B2, B5, B6 and B7) and prints the ``megakernel.b2.serving`` row.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import json
@@ -546,6 +573,35 @@ def profile_run(run) -> tuple:
             wall)
 
 
+@contextlib.contextmanager
+def b2_events():
+    """Every launch of B2 inside the block bracketed by CUDA events: yields
+    the list of ``(start, end)`` pairs it fills.  The runner's module is
+    given a timing wrapper for the block; the wrapped launcher counts its
+    launches under its own module-level name, so the wrapper carries that
+    count and hands it back."""
+    from repro_torch.core.megakernel import kernel as mk
+    launch, events = mk.megakernel_cuda, []
+
+    def timed(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        launch(*args, **kw)
+        end.record()
+        events.append((start, end))
+
+    timed.launches = launch.launches
+    timed.build_launches = launch.build_launches
+    mk.megakernel_cuda = timed
+    try:
+        yield events
+    finally:
+        mk.megakernel_cuda = launch
+        launch.launches = timed.launches
+        launch.build_launches = timed.build_launches
+
+
 def profile_program(prog, runs: int) -> tuple:
     """:func:`profile_run` over ``runs`` runs of ``prog`` from fresh states
     made beforehand: ``(device ms per run, kernels, wall ms per run, B2 ms
@@ -557,34 +613,15 @@ def profile_program(prog, runs: int) -> tuple:
     dropped single B2 launches on an H100, so its list is kept as the
     breakdown only.  The run's two small copies are left out of it.
 
-    The runner's module is given a timing wrapper for these runs; the
-    wrapped launcher counts its launches under its own module-level name,
-    so the wrapper carries that count and hands it back."""
-    from repro_torch.core.megakernel import kernel as mk
+    The launches are timed by :func:`b2_events`."""
     states = [prog.init_state() for _ in range(runs)]
-    launch, events = mk.megakernel_cuda, []
-
-    def timed(*args, **kw):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        launch(*args, **kw)
-        end.record()
-        events.append((start, end))
 
     def run():
         for st in states:
             prog.run(st, in_place=True)
 
-    timed.launches = launch.launches
-    timed.build_launches = launch.build_launches
-    mk.megakernel_cuda = timed
-    try:
+    with b2_events() as events:
         device_ms, kernels, wall = profile_run(run)
-    finally:
-        mk.megakernel_cuda = launch
-        launch.launches = timed.launches
-        launch.build_launches = timed.build_launches
     b2_ms = [start.elapsed_time(end) for start, end in events]
     if prog.plan.mode == "megakernel":
         if len(b2_ms) != runs:
@@ -2599,6 +2636,215 @@ def actor_network_run(eng, reqs: list, plan, arrivals=None) -> tuple:
             res, sink)
 
 
+def serving_window_bytes(net, prog, commands) -> int:
+    """Bytes the serving bodies' commands must move: every enabled data
+    window each reads and writes, once (the rows retire scatters and the
+    prompts admission copies are in their windows' bytes already)."""
+    total = 0
+    for c in commands:
+        name = prog.actor_names[c.actor]
+        for specs, en in ((net.in_port_specs[name], c.in_en),
+                          (net.out_port_specs[name], c.out_en)):
+            for (_, spec, _), e in zip(specs, en):
+                if e and not spec.is_control:
+                    total += spec.rate * spec.token_size_bytes
+    return total
+
+
+def megakernel_serving(dev, smi: str, zero_counts, expect_counts, model, scfg, reqs: dict,
+                       arrivals: dict, deadlines, poisoned: list, dyn: dict,
+                       n_prefill: list, smoke: tuple) -> dict:
+    """Phase 27(a): recurrentgemma-2b (phase 22's model and traffic) through
+    ``ActorEngine(plan=ExecutionPlan(mode="megakernel"))``: kernel B2 runs
+    admission, gate, merge and retire as device bodies and stops at each
+    decode firing that runs the model; the runner runs the decode step on
+    the card and launches B2 again.  Checks against phase 22's dynamic
+    runs: closed-loop tokens bit for bit (and so the Engine's), fire counts,
+    sweeps, latency steps and statuses of the closed and the open loop,
+    the same B5 and B7 launches, B2 launches equal to the decode steps plus
+    one a run; the guarded, traced closed loop's high-water marks and
+    every trace event; ``expire_deadline``, ``queue_depth=0`` and the
+    quarantined poisoned request's statuses.  Then B2 bit for bit against
+    its plain version on the card (every ring, cursor, control token,
+    decode cache, count and sweep) on the smoke config's network at cores 1
+    and 2 and on the closed loop's network at full width, and B2's device
+    time a segment beside its plain version's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core import ExecutionPlan
+    from repro_torch.core.megakernel import compile_megakernel
+    from repro_torch.core.megakernel import ref as mkref
+    from repro_torch.models import LM
+    from repro_torch.serve import ActorEngine
+
+    t_phase = time.perf_counter()
+    mk_plan = ExecutionPlan(mode="megakernel")
+    traced = ExecutionPlan(mode="megakernel", guards=True, trace=True)
+    guarded = ExecutionPlan(mode="megakernel", guards=True)
+    n_steps = [0]
+    decode_step = model.decode_step
+
+    def counted_step(*a, **kw):
+        n_steps[0] += 1
+        return decode_step(*a, **kw)
+    model.decode_step = counted_step
+
+    def counted(label: str, fn, runs: int = 1, per: tuple = (8, 18)):
+        """``fn`` with every count zeroed just before; B2 launches must be
+        the decode steps plus one a run, B5 and B7 ``per`` a prefill (the
+        model's attention and recurrent layers)."""
+        torch.cuda.synchronize()
+        zero_counts()
+        n_prefill[0] = n_steps[0] = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"phase 27 {label}", {"B2": n_steps[0] + runs,
+                                            "B5": per[0] * n_prefill[0],
+                                            "B7": per[1] * n_prefill[0]})
+        return out, wall, n_prefill[0], n_steps[0]
+
+    rec: dict = {"card": smi, "arch": model.cfg.name}
+    mk = ActorEngine(model.cfg, model, scfg, plan=mk_plan)
+    for loop in ("closed", "open"):
+        kw = {} if arrivals[loop] is None else {"arrivals": arrivals[loop]}
+        toks, wall, pf, steps = counted(f"{loop} loop", lambda: served_tokens(
+            mk.generate(reqs[loop], **kw)))
+        got = (mk.last_fire_counts, mk.last_sweeps, mk.last_latency_steps.tolist(),
+               mk.last_status)
+        if toks != dyn[loop]["tokens"] or got != dyn[loop]["structure"] \
+                or pf != dyn[loop]["prefill_firings"]:
+            fail(f"phase 27 {loop} loop: tokens equal {toks == dyn[loop]['tokens']}, "
+                 f"structure {got} vs dynamic {dyn[loop]['structure']}, prefill firings "
+                 f"{pf} vs {dyn[loop]['prefill_firings']}")
+        rec[loop] = {"wall_s": wall, "b2_launches": steps + 1, "decode_steps": steps,
+                     "b5": 8 * pf, "b7": 18 * pf, "fire_counts": got[0], "sweeps": got[1]}
+    (toks, res, _), wall, pf, steps = counted("closed loop guarded+traced", lambda:
+                                              actor_network_run(ActorEngine(
+                                                  model.cfg, model, scfg, plan=traced),
+                                                  reqs["closed"], traced))
+    if toks != dyn["closed"]["tokens"] or not res.diagnostics.ok \
+            or res.diagnostics.high_water != dyn["traced"][0] \
+            or not np.array_equal(res.trace.events, dyn["traced"][1]):
+        fail("phase 27 guarded, traced closed loop: tokens, high-water marks or trace "
+             "events differ from phase 22's dynamic run")
+    rec["guarded_traced"] = {"wall_s": wall, "events": int(res.trace.n_events),
+                             "b2_launches": steps + 1}
+    _, _, _, _ = counted("expire_deadline", lambda: mk.generate(reqs["closed"],
+                                                                 deadlines=deadlines))
+    shed = ActorEngine(model.cfg, model, scfg, plan=mk_plan, queue_depth=0)
+    counted("queue_depth=0", lambda: shed.generate(reqs["closed"]))
+    quar = ActorEngine(model.cfg, model, scfg, plan=guarded)
+    out, _, _, _ = counted("quarantine", lambda: quar.generate(poisoned, on_fault="quarantine"),
+                           runs=2)
+    got = {"expire": mk.last_status, "shed": shed.last_status,
+           "quarantine": (quar.last_status, quar.last_retries)}
+    if got != dyn["resilience"] or out[3].tokens.size:
+        fail(f"phase 27 resilience: {got} vs the dynamic runs' {dyn['resilience']}")
+    rec["resilience"] = got
+
+    # B2 against its plain version on the card at the smoke config.
+    ccfg, creqs, cscfg, carrivals = smoke
+    cmodel = LM(ccfg, device=dev, seed=0)
+    per = (sum(k.startswith("attn") for k in cmodel.kinds),
+           sum(k == "rec" for k in cmodel.kinds))
+    # The smoke model's own prefill and decode steps, counted as above.
+    cprefill, cstep = cmodel.prefill, cmodel.decode_step
+
+    def cprefill_counted(*a, **kw):
+        n_prefill[0] += 1
+        return cprefill(*a, **kw)
+
+    def cstep_counted(*a, **kw):
+        n_steps[0] += 1
+        return cstep(*a, **kw)
+    cmodel.prefill, cmodel.decode_step = cprefill_counted, cstep_counted
+    cnet = ActorEngine(ccfg, cmodel, cscfg).build_network(creqs, arrivals=carrivals)
+
+    def held(label: str, got_k, got_p, launches: int) -> dict:
+        """B2's run against its plain version's: every leaf bit for bit,
+        counts, sweeps and the stall flag equal."""
+        for a, b in zip(state_bits(got_k[0]), state_bits(got_p[0])):
+            if a != b:
+                fail(f"phase 27 {label}: B2's state differs from its plain version's")
+        if got_k[1:4] != got_p[1:4]:
+            fail(f"phase 27 {label}: counts or sweeps {got_k[1:4]} vs plain {got_p[1:4]}")
+        err = 0.0
+        for a, b in zip(got_k[0].leaves(), got_p[0].leaves()):
+            if isinstance(a, torch.Tensor) and a.numel():
+                err = max(err, float((a.double() - b.double()).abs().nan_to_num(0.0).max()))
+        return {"b2_launches": launches, "sweeps": got_k[2], "max_abs_err": err}
+
+    rec["bits"] = {}
+    for cores in (1, 2):
+        runner = compile_megakernel(cnet, cores=cores)
+        got_k, _, _, steps = counted(f"smoke config cores={cores}",
+                                     lambda: runner(cnet.init_state()), per=per)
+        got_p = runner.plain(cnet.init_state())
+        torch.cuda.synchronize()
+        rec["bits"][f"smoke cores={cores}"] = held(f"smoke config cores={cores}",
+                                                   got_k, got_p, steps + 1)
+    del cmodel, cnet
+
+    # B2 against its plain version at the main path's shapes: the closed
+    # loop's network at full width, run by each; each launch timed by CUDA
+    # events, each plain segment and the kernel run's step firings' host
+    # time by the clock; the bytes the serving bodies must move, from the plain run's
+    # commands.
+    from repro_torch.core.megakernel import kernel as mkk
+    net = mk.build_network(reqs["closed"])
+    runner = compile_megakernel(net)
+    run_program, run_step, execute = mkk.run_program, mkk.run_step, mkref.execute
+    plain_ms, step_s, commands = [], [], []
+
+    def plain_timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_program(*a, **kw)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def step_timed(*a, **kw):
+        t0 = time.perf_counter()
+        run_step(*a, **kw)
+        step_s.append(time.perf_counter() - t0)
+
+    def recorded(table, tensors, cmds, *a, **kw):
+        commands.extend(cmds)
+        return execute(table, tensors, cmds, *a, **kw)
+    n_steps[0] = 0
+    mkk.run_step = step_timed
+    try:
+        with b2_events() as events:
+            got_k = runner(net.init_state())
+            torch.cuda.synchronize()
+        k_steps = n_steps[0]
+        mkk.run_step, mkk.run_program, mkref.execute = run_step, plain_timed, recorded
+        got_p = runner.plain(net.init_state())
+        torch.cuda.synchronize()
+    finally:
+        mkk.run_program, mkk.run_step, mkref.execute = run_program, run_step, execute
+    segments = len(events)
+    if segments != k_steps + 1 or len(plain_ms) != n_steps[0] - k_steps + 1:
+        fail(f"phase 27 closed loop at full width: {segments} B2 launches for {k_steps} "
+             f"decode steps, {len(plain_ms)} plain segments for {n_steps[0] - k_steps}")
+    rec["bits"]["closed loop"] = held("closed loop at full width", got_k, got_p, segments)
+    b2_ms = [a.elapsed_time(b) for a, b in events]
+    nbytes = serving_window_bytes(net, runner.device_program, commands) / segments
+    bound_ms, bound_by = bound_of(nbytes, 0.0, FP32_FLOP_PER_S)
+    rec["segments"] = {
+        "segments": segments, "b2_ms": b2_ms, "b2_ms_median": float(np.median(b2_ms)),
+        "plain_ms_median": float(np.median(plain_ms)),
+        "step_host_ms_median": float(np.median(step_s)) * 1e3,
+        "commands": len(commands), "bytes_per_segment": nbytes,
+        "bound_ms": bound_ms, "bound_by": bound_by}
+    del model.decode_step
+    rec["seconds"] = time.perf_counter() - t_phase
+    log("phase 27(a) recurrentgemma-2b through ActorEngine in megakernel mode (" + smi
+        + "): " + json.dumps(rec))
+    return rec
+
+
 def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     """Phase 22: recurrentgemma-2b served through ``ActorEngine`` (the
     admission/gate/decode/merge/retire network, host dynamic executor) at
@@ -2728,6 +2974,8 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     rec["closed"] = {"wall_s": wall, "prefill_firings": pf, "fire_counts": fc,
                      "sweeps": actor.last_sweeps, "b5": 8 * pf, "b7": 18 * pf,
                      "latency_steps": actor.last_latency_steps.tolist()}
+    dyn = {"closed": {"tokens": closed, "prefill_firings": pf, "structure": (
+        fc, actor.last_sweeps, actor.last_latency_steps.tolist(), actor.last_status)}}
 
     # 2. Open loop.
     opened, wall, pf = counted("open loop", lambda: served_tokens(
@@ -2740,6 +2988,7 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     if got != cpu["open"]:
         fail(f"phase 22: open-loop structure {got} vs the CPU run's {cpu['open']}")
     n_open = sum(budgets["open"])
+    dyn["open"] = {"tokens": opened, "prefill_firings": pf, "structure": got}
     rec["open"] = {"wall_s": wall, "prefill_firings": pf, "fire_counts": got[0],
                    "sweeps": got[1], "latency_steps": got[2], "tokens": n_open,
                    "tokens_per_s": n_open / wall}
@@ -2756,6 +3005,7 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
              "from the CPU run's")
     rec["guarded_traced"] = {"wall_s": wall, "events": int(res.trace.n_events),
                              "high_water": res.diagnostics.high_water}
+    dyn["traced"] = (res.diagnostics.high_water, res.trace.events)
 
     # 4. Resilience.
     out, wall, pf = counted("expire_deadline", lambda: actor.generate(
@@ -2782,11 +3032,21 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
         fail(f"phase 22: quarantine {got} vs the CPU run's {cpu['quarantine']}")
     rec["quarantine"] = {"status": quar.last_status, "retries": quar.last_retries,
                          "prefill_firings": pf, "wall_s": wall}
+    dyn["resilience"] = {"expire": rec["expire"]["status"], "shed": shed.last_status,
+                         "quarantine": (quar.last_status, quar.last_retries)}
 
-    # 5. Timing, in turns: ActorEngine, Engine, three each.
-    walls: dict = {"actor": [], "engine": []}
+    # 27(a). The same network in megakernel mode, on this model and traffic.
+    rec["megakernel"] = megakernel_serving(
+        dev, smi, zero_counts, expect_counts, model, scfg, reqs, arrivals, deadlines,
+        poisoned, dyn, n_prefill, (ccfg, creqs["open"], cscfg, arrivals["open"]))
+    mk_actor = ActorEngine(cfg, model, scfg, plan=ExecutionPlan(mode="megakernel"))
+
+    # 5. Timing, in turns: ActorEngine in dynamic and in megakernel mode
+    #    (phase 27(a)'s walls), Engine, three each.
+    walls: dict = {"actor": [], "megakernel": [], "engine": []}
     for _ in range(3):
         for label, fn in (("actor", lambda: actor.generate(reqs["closed"])),
+                          ("megakernel", lambda: mk_actor.generate(reqs["closed"])),
                           ("engine", lambda: engine.generate(reqs["closed"]))):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2806,11 +3066,12 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     del model.prefill
     log("phase 22 recurrentgemma-2b through ActorEngine (" + smi + "): " + json.dumps(rec))
     log(f"phase 22 closed loop: ActorEngine {np.median(walls['actor']):.3f} s vs Engine "
-        f"{np.median(walls['engine']):.3f} s (median of 3, in turns); "
+        f"{np.median(walls['engine']):.3f} s (median of 3, in turns); phase 27: in "
+        f"megakernel mode {np.median(walls['megakernel']):.3f} s; "
         f"{rec['closed']['prefill_firings']} prefill firings -> "
         f"{8 * rec['closed']['prefill_firings']} B5 and "
         f"{18 * rec['closed']['prefill_firings']} B7 launches")
-    del model, engine, actor, shed, quar
+    del model, engine, actor, shed, quar, mk_actor
     torch.cuda.empty_cache()
     return rec
 
@@ -2841,14 +3102,14 @@ def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
     feeds = {"f_s0": x[:, None]}
     prog = net.compile(mode="dynamic", n_iterations=LM_MICRO // 2, accelerated=accel)
 
-    def counted(label, fn, want):
+    def counted(label, fn, want, b2=0):
         torch.cuda.synchronize()
         zero_counts()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        expect_counts(label, {"B6": want})
+        expect_counts(label, {"B6": want, "B2": b2})
         return out, wall
 
     chunked, wall_c = counted("phase 23 LM stage stream, chunked",
@@ -2867,6 +3128,30 @@ def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
             and torch.equal(chunked, oracle)):
         fail("phase 23 LM stages: the streamed activations differ from the static run "
              "or pipeline_reference")
+    # 27(b). The network in megakernel mode: B2 runs the source and the sink
+    # and stops at each stage firing (16 of them), the runner runs the stage.
+    t_phase = time.perf_counter()
+    mk_prog = net.compile(mode="megakernel", specialize=False)
+    n_b2 = LM_STAGES * LM_MICRO + 1
+    mk_y, wall_mk = counted("phase 27 LM stage network, megakernel",
+                            lambda: mk_prog.collect("sink", mk_prog.run().state),
+                            per_stream, b2=n_b2)
+    if not torch.equal(mk_y, static):
+        fail("phase 27 LM stages: the megakernel run's activations differ from the "
+             "static run's")
+    mk_walls = {"megakernel": [], "static": []}
+    for _ in range(3):
+        for label, p in (("megakernel", mk_prog), ("static", full)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.run()
+            torch.cuda.synchronize()
+            mk_walls[label].append((time.perf_counter() - t0) * 1e3)
+    mk_rec = {"card": smi, "b2_launches": n_b2, "b6_calls": per_stream,
+              "first_wall_ms": wall_mk * 1e3, "walls_ms": mk_walls,
+              "bit_identical": "static run", "seconds": time.perf_counter() - t_phase}
+    log("phase 27(b) LM stage network in megakernel mode " + json.dumps(mk_rec))
+    del mk_y
     with torch.no_grad():
         stage_lg = model._logits(chunked)[..., :V]
     ref_lg, _ = counted("phase 23 pipeline_forward_reference",
@@ -2932,6 +3217,7 @@ def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
                                                 "resumed": wall_r * 1e3},
            "tokens_per_s": {k: n_tok / (float(np.median(v)) / 1e3) for k, v in walls.items()},
            "snapshot_bytes_chunk1": snap_bytes, "logits_vs_forward": logit,
+           "megakernel": mk_rec,
            "bit_identical": ["persistent", "static run", "pipeline_reference",
                              "pipeline_forward_reference logits", "resumed from chunk 1"]}
     log("phase 23 lm_stages " + json.dumps(rec))
@@ -3037,8 +3323,35 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
             **recs["B5_ffma"]},
            {"name": "ssd.simt", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:63",
-            "function": "ssd_pallas (any head and state width)", **recs["B6_simt"]}]
+            "function": "ssd_pallas (any head and state width)", **recs["B6_simt"]},
+           serving_row(act["megakernel"], mb["after"]["megakernel"])]
     return out
+
+
+def serving_row(mk: dict, stages: dict) -> dict:
+    """The kernels line's row of B2's serving bodies (phase 27)."""
+    seg = mk["segments"]
+    return {"name": "megakernel.b2.serving", "route": "cuda",
+            "source": "src/repro_torch/csrc/megakernel.cu",
+            "replaces": "src/repro/core/megakernel/kernel.py:780",
+            "function": "compile_megakernel (the serving network's admission, gate, merge "
+                        "and retire bodies; a stop at each decode step)",
+            "launches": mk["closed"]["b2_launches"],
+            "launches_from": "phase 27(a): recurrentgemma-2b's closed loop through "
+                             "ActorEngine in megakernel mode, one generate (decode steps "
+                             f"{mk['closed']['decode_steps']} + 1)",
+            "max_abs_err": max(b["max_abs_err"] for b in mk["bits"].values()),
+            "max_abs_err_at": "B2 against its plain version on the card, every leaf: the "
+                              "closed loop's serving network at full width, and the smoke "
+                              "config's at cores 1 and 2",
+            "ms": seg["b2_ms_median"], "ms_is": "B2's device time a segment (median)",
+            "plain_ms": seg["plain_ms_median"], "bound_ms": seg["bound_ms"],
+            "bound_by": seg["bound_by"], "bytes_per_segment": seg["bytes_per_segment"],
+            "library_ms": None, "step_host_ms": seg["step_host_ms_median"],
+            "stage_network": {"launches": stages["b2_launches"],
+                              "launches_from": "phase 27(b): mamba2-780m's 4-stage "
+                                               "network, 4 microbatches, one run",
+                              "walls_ms": stages["walls_ms"]}}
 
 
 # ---- 23. durable and heterogeneous runs -------------------------------- #
@@ -4055,6 +4368,7 @@ def shard_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
 
 # ---- 26. training over a mesh (sharded step, elastic resume) ----------- #
 MESH_ARCH = "mamba2-780m"
+MESH_LAYERS = 12                 # the published width, depth cut from 48 (the run's time)
 MESH_SHAPE = (2, 2)              # (data, model): 4 gloo ranks on the one card
 MESH_BATCH, MESH_SEQ = 4, 2048   # 2 rows a data rank
 MESH_STEPS, MESH_SAVE_AT = 3, 2
@@ -4143,7 +4457,7 @@ def mesh_rank(rank: int, world: int, src: str, tmp: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.use_deterministic_algorithms(True, warn_only=True)
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_config(MESH_ARCH)
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
     opt_cfg, opts = mesh_opts()
     mesh = make_test_mesh(MESH_SHAPE, device_type="cuda")
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MESH_SEQ,
@@ -4227,7 +4541,7 @@ def mesh_fresh(rank: int, world: int, src: str, tmp: str, group: list) -> dict:
         return got
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    cfg = get_config(MESH_ARCH)
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=MESH_LAYERS)
     opt_cfg, opts = mesh_opts()
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=MESH_SEQ,
                                   global_batch=MESH_BATCH, seed=0))
@@ -4315,7 +4629,7 @@ def mesh_phase(dev, smi: str) -> dict:
     held), every local shape its placement's; (b) a checkpoint of the
     group's step 2 restored in the fresh process onto a 1x1 mesh, whose
     step 3 equals the group's; (c) the restored weights' prefill through B6
-    (48 calls) within phase 14's bar; (d) a ``phase 26 mesh`` record: step
+    (a call a layer) within phase 14's bar; (d) a ``phase 26 mesh`` record: step
     walls, each rank's seconds in gather, compute, reduce and AdamW, bytes
     sent a step, peak memory."""
     import tempfile
@@ -4350,7 +4664,8 @@ def mesh_phase(dev, smi: str) -> dict:
     def med(key: str) -> list:
         return [float(np.median([s[key] for s in g["stats"]])) for g in group]
     rec = {
-        "card": smi, "arch": MESH_ARCH, "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
+        "card": smi, "arch": MESH_ARCH, "layers": MESH_LAYERS,
+        "mesh": {"data": MESH_SHAPE[0], "model": MESH_SHAPE[1]},
         "ranks_on_one_card": MESH_SHAPE[0] * MESH_SHAPE[1], "backend": "gloo",
         "batch": [MESH_BATCH, MESH_SEQ], "zero1": True, "grad_dtype": "bf16",
         "a_bar": "bits" if fresh["a_bits"] else "rows",
@@ -4654,7 +4969,9 @@ def main() -> None:
     train_only = sys.argv[1:] == ["--train"]
     shard_only = sys.argv[1:] == ["--shard"]
     mesh_only = sys.argv[1:] == ["--mesh"]
-    if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only):
+    serve_mk_only = sys.argv[1:] == ["--serve-mk"]
+    if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only
+                                  or serve_mk_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -4711,27 +5028,28 @@ def main() -> None:
         libs = ("ssd",)
     if shard_only:
         libs = ("dyn_fir", "flash_attention", "ssd", "rglru")
+    if serve_mk_only:
+        libs = ("megakernel", "flash_attention", "ssd", "rglru")
     # Phase 16's build of B2 with the clock split and phase 17's three
     # health builds, beside the seven.
+    other_defines = [(mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
+                     mk_kernel.build_defines(trace=True),
+                     mk_kernel.build_defines(guards=True, trace=True)]
+    one_phase = lm_only or train_only or shard_only or mesh_only or serve_mk_only
+    if serve_mk_only:       # phase 27's guarded and guarded, traced runs
+        other_defines = other_defines[1:2] + other_defines[3:]
+    elif one_phase:
+        other_defines = []
     other_builds = [threading.Thread(target=_build.build, args=("megakernel",),
-                                     kwargs={"defines": d})
-                    for d in ((mk_kernel.CLOCK_SPLIT_DEFINE,),
-                              mk_kernel.build_defines(guards=True),
-                              mk_kernel.build_defines(trace=True),
-                              mk_kernel.build_defines(guards=True, trace=True))]
-    one_phase = lm_only or train_only or shard_only or mesh_only
-    if not one_phase:
-        for t in other_builds:
-            t.start()
+                                     kwargs={"defines": d}) for d in other_defines]
+    for t in other_builds:
+        t.start()
     nvcc_out = _build.build(*libs)
-    if not one_phase:
-        for t in other_builds:
-            t.join()
-        for d in ((mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
-                  mk_kernel.build_defines(trace=True),
-                  mk_kernel.build_defines(guards=True, trace=True)):
-            if not _build.library_path("megakernel", d).exists():
-                fail(f"megakernel build {d} failed")
+    for t in other_builds:
+        t.join()
+    for d in other_defines:
+        if not _build.library_path("megakernel", d).exists():
+            fail(f"megakernel build {d} failed")
     log(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
     for lib, text in nvcc_out.items():
         for line in text.splitlines():
@@ -4757,6 +5075,18 @@ def main() -> None:
         shard = shard_phase(dev, smi, zero_counts, expect_counts)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_25": shard}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
+    if serve_mk_only:
+        act = actor_serving(dev, smi, zero_counts, expect_counts)
+        mmodel, _ = lm_model("mamba2-780m", dev)
+        stages = lm_stage_phase(mmodel, smi, zero_counts, expect_counts)
+        del mmodel
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": [serving_row(act["megakernel"],
+                                                  stages["megakernel"])]}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
@@ -5079,9 +5409,9 @@ def main() -> None:
     for row in lm:
         if row["name"] == "ssd":
             row["mesh_launches"] = mesh["c"]["b6_launches"]
-            row["mesh_launches_from"] = ("phase 26(c): mamba2-780m's weights trained on a "
-                                         "(data 2, model 2) mesh, restored in a fresh "
-                                         "process, one prefill")
+            row["mesh_launches_from"] = (f"phase 26(c): mamba2-780m's weights ({MESH_LAYERS} "
+                                         "layers) trained on a (data 2, model 2) mesh, "
+                                         "restored in a fresh process, one prefill")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

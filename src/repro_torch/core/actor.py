@@ -39,7 +39,7 @@ EnableForm = Union[int, Tuple[int, int]]
 #: Op kinds the persistent scheduler kernel (B2) runs as device functions.
 DEVICE_OP_KINDS = ("source", "config", "fork", "poly", "adder", "sink",
                    "gauss", "thres", "med", "router", "expert", "combine",
-                   "packer")
+                   "packer", "admission", "gate", "merge", "retire", "step")
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -76,6 +76,23 @@ class DeviceOp:
     ``k``, ``C``, ``E``, ``D``: the weighted gather of the enabled experts'
     rows) and ``"packer"`` (``E``: the counts, twice, as one control
     token).
+
+    The serving network's (``graphs/serving.py``): ``"admission"``
+    (``prompts`` (R, P), ``budgets``, ``arrivals`` and ``deadlines`` (R,),
+    int32 tensors, and ``B``, ``P``, ``N``, ``R``, ``qd``; its state is
+    ``taken`` (R,) int32 and the ints ``t`` and ``retired``: frees the
+    finished slots, admits, sheds and times out, writes the slot table to
+    its first two outputs, the finished rows to its third and one control
+    token ``[n_active, n_finished, n_admitted]`` to every other output; it
+    is ready while ``retired < R``), ``"gate"`` (input k copied to output k
+    under its enables), ``"merge"`` (``eos``, ``P``, ``N``: the decoded
+    tokens folded into the slot table, EOS or an exhausted budget
+    detected) and ``"retire"`` (``R``, ``P``, ``N``: the finished rows
+    scattered into its five (R, .) int32 state tensors by request id, rows
+    that are not finished dropped).  ``"step"`` runs no device body: the
+    kernel stops at an enabled firing, the runner calls the actor's own
+    ``fire`` on the staged windows, and the kernel goes on where it stopped
+    (a decode step, an LM stage).
 
     A source's or sink's slab holds its windows in ``planes`` planes, each
     the run of every window's part of that plane: DPD's ``(2, k * L)``

@@ -6,6 +6,15 @@ kernel ``csrc/megakernel.cu``: every firing of every actor happens inside
 it, Poly's arithmetic included.  For a state on the CPU the runner runs the
 kernel's plain PyTorch version (:mod:`.ref`) on the same device program.
 
+A network with step actors (``DeviceOp("step")``: the serving network's
+decode, the LM stage network's stages) is one launch per enabled step
+firing, plus one.  The reference traces such an actor's ``fire`` into its
+kernel (``_hoist_fn``); here the kernel ends at the firing with its
+scheduler saved in the io words, the runner calls the actor's own
+``fire`` on the firing's windows and writes its enabled outputs into the
+rings, and launches the kernel again, which resumes where it stopped.  The
+plain version runs the same loop.
+
 :func:`megakernel_cuda` is the ctypes wrapper: it checks its operands,
 launches on PyTorch's current stream without synchronising, raises on a
 refused launch, and adds one to ``megakernel_cuda.launches`` per launch.
@@ -32,13 +41,15 @@ from repro_torch.core.megakernel.lower import (GridPartition, MegakernelLayout,
 import numpy as np
 
 from repro_torch.core.executor import DynamicResult
-from repro_torch.core.megakernel.program import (H_MOE, H_SCRATCH, KIND_CODES, M_CLK_KIND,
+from repro_torch.core.megakernel.program import (BODY_CTRL_KINDS, H_MOE, H_SCRATCH,
+                                                 HALF_DTYPES, KIND_CODES, M_CLK_KIND,
                                                  M_CLK_LOOP, M_CLK_SCHED,
-                                                 M_CLK_STALL,
+                                                 M_CLK_STALL, MAX_STEP_PORTS,
+                                                 Y_OFF, Y_PENDING,
                                                  DeviceProgram,
                                                  build_device_program, health_of,
                                                  stage, unstage)
-from repro_torch.core.megakernel.ref import run_program
+from repro_torch.core.megakernel.ref import run_program, step_windows
 from repro_torch.core.network import Network, NetworkState
 from repro_torch.core.trace import COL_OCC, TraceState
 from repro_torch.kernels import _build
@@ -185,13 +196,40 @@ def decode_clock_split(meta) -> Dict[str, Any]:
     waiting for a free command slot (``sched_full``) are its own."""
     stall, loop = int(meta[M_CLK_STALL]), int(meta[M_CLK_LOOP])
     sched = int(meta[M_CLK_SCHED])
-    kinds = [k for k in KIND_CODES if k != "config"]
+    kinds = [k for k in list(KIND_CODES)[:KIND_CODES["med"] + 1] if k != "config"]
     words = [int(w) for w in meta[M_CLK_KIND:M_CLK_KIND + len(kinds)]]
     return {"stall_sched": stall & 0xFFFFFFFF, "stall_wait": stall >> 32,
             "loop": loop & ((1 << 40) - 1), "waits": loop >> 40,
             "sched_busy": sched & 0xFFFFFFFF, "sched_full": sched >> 32,
             "bodies": {k: {"cycles": w & ((1 << 40) - 1), "count": w >> 40}
                        for k, w in zip(kinds, words)}}
+
+
+def run_step(network: Network, prog: DeviceProgram, table: List[int],
+             state: NetworkState, tensors: List[Optional[torch.Tensor]],
+             io: List[int]) -> None:
+    """The pending step firing of ``io``'s yield words, as the dynamic
+    executor fires it: the actor's ``fire`` on its windows (views of the
+    rings) and rates, its new state stored, each enabled output written at
+    the offset the firing took, a delay channel's phase-2 write copied back
+    to slot 0 (Fig. 2).  The firing's cursors already moved in the kernel."""
+    a, in_en, out_en, wins, outw = step_windows(table, tensors, io)
+    name = prog.actor_names[a]
+    spec = network.actors[name]
+    rates = {**dict(zip(spec.in_ports, in_en)), **dict(zip(spec.out_ports, out_en))}
+    idx = network.actor_index[name]
+    new_st, outs = spec.fire(state.actors[idx], dict(zip(spec.in_ports, wins)), rates)
+    missing = set(spec.out_ports) - set(outs)
+    if missing:
+        raise ValueError(f"actor {name}: fire() missing outputs {sorted(missing)}")
+    state.actors[idx] = new_st
+    offs = io[prog.io_yield + Y_OFF + MAX_STEP_PORTS:]
+    for (p, fspec, fi), e, w, off in zip(network.out_port_specs[name], out_en, outw, offs):
+        if not e:
+            continue
+        w.copy_(outs[p].reshape(w.shape))
+        if fspec.delay and (off - fspec.delay) // fspec.rate == 2:
+            tensors[fi][0].copy_(tensors[fi][3 * fspec.rate])
 
 
 def _state_device(prog: DeviceProgram, state: NetworkState,
@@ -235,13 +273,20 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
         body_written = [n for n, sp in network.fifos.items()
                         if sp.is_control and sp.domain is not None
                         and network.actors[network.edge_of(n).src_actor]
-                        .device_op.kind in ("router", "packer")]
+                        .device_op.kind in BODY_CTRL_KINDS]
         if body_written:
             raise NotImplementedError(
                 f"megakernel guards: control channels {body_written} are "
                 "written by bodies and declare a domain; the kernel checks "
                 "the domain of scheduler-written control tokens only")
+        half = [n for n, sp in network.fifos.items() if sp.dtype in HALF_DTYPES]
+        if half:
+            raise NotImplementedError(
+                f"megakernel guards: data channels {half} carry bf16 or f16 "
+                "tokens; the guarded build tests float32 tokens for NaN and "
+                "Inf only (run them guarded in mode='dynamic')")
     health_words = guards or bool(trace_capacity)
+    host_table = prog.table.tolist()
     on_device: Dict[torch.device, Tuple[torch.Tensor, List[torch.Tensor]]] = {}
 
     def device_operands(device: torch.device) -> Tuple[torch.Tensor, List[torch.Tensor]]:
@@ -275,17 +320,28 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
             if trace_capacity:
                 ring = torch.zeros((trace_capacity, COL_OCC + prog.n_fifos),
                                    dtype=torch.int32, device=device)
-            megakernel_cuda(table, args, prog.n_ptrs, max_sweeps, multi_firing,
-                            io_len=prog.io_len, guards=guards, trace=ring,
-                            n_actors=prog.n_actors,
-                            scratch_words=int(prog.table[H_SCRATCH]),
-                            moe=bool(prog.table[H_MOE]))
-            io = args[prog.n_ptrs:].cpu().tolist()
+
+            def segment() -> List[int]:
+                """One launch of B2 (a fresh run, or a resume when the io
+                words in ``args`` hold a pending step); its io words."""
+                megakernel_cuda(table, args, prog.n_ptrs, max_sweeps, multi_firing,
+                                io_len=prog.io_len, guards=guards, trace=ring,
+                                n_actors=prog.n_actors,
+                                scratch_words=int(prog.table[H_SCRATCH]),
+                                moe=bool(prog.table[H_MOE]))
+                return args[prog.n_ptrs:].cpu().tolist()
         else:
             if trace_capacity:
                 ring = np.zeros((trace_capacity, COL_OCC + prog.n_fifos), np.int32)
-            run_program(prog.table.tolist(), tensors, io, max_sweeps,
-                        multi_firing, guards=guards, trace_ring=ring)
+
+            def segment() -> List[int]:
+                run_program(host_table, tensors, io, max_sweeps,
+                            multi_firing, guards=guards, trace_ring=ring)
+                return io
+        io = segment()
+        while io[prog.io_yield + Y_PENDING]:
+            run_step(network, prog, host_table, state, tensors, io)
+            io = segment()
         counts, sweeps, stalled = unstage(prog, state, io)
         return DynamicResult(
             state, counts, sweeps, stalled,

@@ -31,13 +31,14 @@ run of the compiled program.
   ``(2, k L)`` slab has 2 planes, motion detection's video 1).
 * **Control tokens** are int32 vectors of any length (MoE's packed
   ``(2E,)`` token), kept in the io words.  Config actors write theirs as
-  the scheduler decides; the MoE router and packer write theirs from their
-  bodies, and the scheduler waits for that body before it peeks the
-  token.  ``H_DOM`` marks a program with a data channel that declares a
-  domain (the guarded build's DOMAIN tests run only then).  ``H_MOE``
-  marks a program with MoE kinds, which the kernel runs
-  in an instance of its own (the wide path and these waits; the other
-  instance has none of that code).
+  the scheduler decides; the MoE router and packer and the serving
+  network's admission write theirs from their bodies, and the scheduler
+  waits for that body before it peeks the token.  ``H_DOM`` marks a
+  program with a data channel that declares a domain (the guarded build's
+  DOMAIN tests run only then).  ``H_MOE`` marks a program with MoE,
+  serving or step kinds, which the kernel runs in an instance of its own
+  (the wide path, these waits, the serving bodies and the yield; the
+  other instance has none of that code).
 * **Scratch**: MoE bodies run in phases, each a command of its own, and
   hand results from one phase to the next through a float32 tensor per
   actor (the router's logits, an expert's hidden rows), made once per
@@ -49,7 +50,23 @@ Per run the kernel also takes an int64 argument block (see
 tensors, then the int32 values of the cursor block, the actor states' int
 scalars, the control rings, the fire counts and the run's result words.
 
-Networks the kernel cannot run raise here, naming the ROADMAP item.
+* **The serving network** (``graphs/serving.py``): admission, gate, merge
+  and retire are device bodies.  Admission writes its control tokens from
+  its body, as the MoE router does; its ints ``retired`` and ``t`` are its
+  scalar slot's two words, its ``taken`` flags R words after the control
+  rings, replicated in every block like the rest of the io words.
+* **Step actors** (``DeviceOp("step")``: the serving network's decode, the
+  LM stage network's stages) have no device body.  At an enabled firing
+  the kernel does the firing's bookkeeping, saves its scheduler in the
+  io's yield words with the firing's actor, enables and window offsets,
+  and ends; the runner (``kernel.py``) runs the actor's ``fire`` on those
+  windows and launches the kernel again, which goes on from the saved
+  scheduler.  A rate-0 firing stays the kernel's own.
+* **Element types**: float32, uint8 and int32 tokens everywhere; bf16 and
+  f16 tokens on channels that only copy bodies (source, sink, fork, gate)
+  and step actors touch.
+
+Networks the kernel cannot run raise here.
 """
 from __future__ import annotations
 
@@ -69,16 +86,29 @@ from repro_torch.kernels.dyn_fir.ref import N_TAPS
 
 KIND_CODES = {"source": 0, "config": 1, "fork": 2, "poly": 3, "adder": 4,
               "sink": 5, "gauss": 6, "thres": 7, "med": 8, "router": 9,
-              "expert": 10, "combine": 11, "packer": 12}
+              "expert": 10, "combine": 11, "packer": 12, "admission": 13,
+              "gate": 14, "merge": 15, "retire": 16, "step": 17}
 
 #: The kinds that take more than 32 ports a side (the scheduler's wide path).
 WIDE_KINDS = ("router", "expert", "combine", "packer")
+#: The serving network's device bodies (graphs/serving.py).
+SERVING_KINDS = ("admission", "gate", "merge", "retire")
+#: Kinds whose body writes control tokens (the scheduler waits for it).
+BODY_CTRL_KINDS = ("router", "packer", "admission")
+#: Kinds the kernel runs in its extended instance (``H_MOE``).
+EXT_KINDS = WIDE_KINDS + SERVING_KINDS + ("step",)
+#: Kinds that only copy bytes (or run no body): they may move bf16 and f16
+#: tokens.
+COPY_KINDS = ("source", "sink", "fork", "gate", "step")
 #: Kernel commands one firing of each kind becomes; the phases of one
 #: firing run in order, each after the last in every block.
 PHASES = {"router": 2, "expert": 2}
 
 #: Element types of a channel row.
-ELEM_CODES = {torch.float32: 0, torch.uint8: 1, torch.int32: 2}
+ELEM_CODES = {torch.float32: 0, torch.uint8: 1, torch.int32: 2, torch.bfloat16: 3,
+              torch.float16: 4}
+#: The 16-bit float types, which only copy bodies and step actors touch.
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 # ---- packed table layout (mirrored by csrc/megakernel.cu) --------------- #
 HEADER = 16
@@ -106,6 +136,17 @@ META_WORDS = 17
 #: Error code of the run: a source or sink index past its slab.
 ERR_SLAB = 2
 
+#: Yield words, after the fire counts: whether a step firing is pending
+#: (the kernel ended at it and resumes from these words when launched
+#: again), the scheduler's sweeps, visit position, firings left in the
+#: visit, whether the sweep fired, commands emitted, then the step
+#: firing's actor, enables (bit p: port p) and the first slot of each
+#: input's and each output's window (``MAX_STEP_PORTS`` each).
+MAX_STEP_PORTS = 8
+(Y_PENDING, Y_SWEEPS, Y_VPOS, Y_LEFT, Y_FIRED, Y_SEQ, Y_ACTOR, Y_IN_EN,
+ Y_OUT_EN, Y_OFF) = range(10)
+YIELD_WORDS = Y_OFF + 2 * MAX_STEP_PORTS
+
 #: Words after the meta words of a guarded or traced run: per channel its
 #: fault word, then per channel its high-water mark, then the trace's event
 #: count (``DeviceProgram.io_fault`` and on).  Only the ``MK_GUARDS`` and
@@ -113,10 +154,9 @@ ERR_SLAB = 2
 
 _UNSUPPORTED = ("the megakernel backend runs actors through the device "
                 "functions they declare (ActorSpec.device_op): give each "
-                "actor one.  Actors that run a language model (the serving "
-                "network's decode, the LM stage network's stages) have none: "
-                "B2 runs a fixed set of device bodies and an LM step is not "
-                "one of them, the open design of ROADMAP A9b")
+                "actor one, DeviceOp('step') for an actor whose own fire "
+                "the runner calls between launches (a decode step, an LM "
+                "stage)")
 
 #: Words of routing state the router keeps in shared memory per block, at
 #: most (``H_SCRATCH``).
@@ -126,8 +166,9 @@ MAX_SCRATCH_WORDS = 1 << 15
 @dataclasses.dataclass(frozen=True)
 class ActorSlots:
     """Where one actor's state meets the kernel: its int scalar slot, its
-    tensor pointer slots, and for a source or sink its slab's element type
-    and window (planes, bytes per plane)."""
+    tensor pointer slots, for a source or sink its slab's element type and
+    window (planes, bytes per plane), and for admission where its taken
+    flags sit among the replicated io words."""
 
     kind: str
     scalar: int = -1            # slot in the io scalar area, -1 for none
@@ -135,6 +176,7 @@ class ActorSlots:
     dtype: Any = None
     planes: int = 0
     plane_bytes: int = 0
+    words: int = -1             # admission's taken flags: first word after io_ctrl
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -147,7 +189,8 @@ class DeviceProgram:
     each dynamic actor's declared forms.  The per-run block is
     ``[ring addresses (n_fifos) | actor tensor addresses (n_aptrs) | io]``
     with ``io = [cursors (3 n_fifos) | scalars (2 per slot: value, bound) |
-    control rings (n_ctrl) | fire counts (n_actors) | meta (META_WORDS)]``.
+    control rings and admission's taken flags (n_ctrl) | fire counts
+    (n_actors) | yield (YIELD_WORDS) | meta (META_WORDS)]``.
     """
 
     table: torch.Tensor
@@ -186,8 +229,12 @@ class DeviceProgram:
         return self.io_ctrl + self.n_ctrl
 
     @property
-    def io_meta(self) -> int:
+    def io_yield(self) -> int:
         return self.io_counts + self.n_actors
+
+    @property
+    def io_meta(self) -> int:
+        return self.io_yield + YIELD_WORDS
 
     @property
     def io_len(self) -> int:
@@ -243,7 +290,7 @@ def fifo_row(spec: FifoSpec, forwarded: bool = False,
         # as the reference casts it: float32 bits for a float channel, ints
         # (clamped to int32) for u8 and int32 ones.
         row[F_DOM] = 1
-        if spec.dtype == torch.float32:
+        if spec.dtype.is_floating_point:
             row[F_DLO], row[F_DHI] = (int(np.array(x, np.float32).view(np.int32))
                                       for x in spec.domain)
         else:
@@ -254,7 +301,8 @@ def fifo_row(spec: FifoSpec, forwarded: bool = False,
 
 def _check_channels(network: Network) -> None:
     """Element types the kernel moves: float32, uint8 or int32 data tokens,
-    int32 control tokens."""
+    bf16 and f16 ones between copy bodies and step actors only, int32
+    control tokens."""
     for name, spec in network.fifos.items():
         if spec.is_control:
             if spec.dtype != torch.int32:
@@ -264,7 +312,17 @@ def _check_channels(network: Network) -> None:
         elif spec.dtype not in ELEM_CODES:
             raise NotImplementedError(
                 f"megakernel: data channel {name!r} carries {spec.dtype}; the "
-                "device functions take float32, uint8 and int32 tokens")
+                "device functions take float32, uint8 and int32 tokens, and "
+                "bf16 and f16 tokens between copy bodies and step actors")
+        elif spec.dtype in HALF_DTYPES:
+            edge = network.edge_of(name)
+            kinds = {network.actors[a].device_op.kind
+                     for a in (edge.src_actor, edge.dst_actor)}
+            if not kinds <= set(COPY_KINDS):
+                raise NotImplementedError(
+                    f"megakernel: data channel {name!r} carries {spec.dtype} "
+                    f"between {sorted(kinds)} actors; only copy bodies "
+                    f"{COPY_KINDS} touch bf16 and f16 tokens")
 
 
 #: Regular ports per side an actor may have (the kernel's enable masks):
@@ -277,29 +335,39 @@ _PORTS = {  # kind -> (inputs, outputs): exact counts, or None for >= 1
     "poly": (1, 1), "adder": (None, 1), "sink": (1, 0),
     "gauss": (1, None), "thres": (2, 1), "med": (1, 1),
     "router": (1, None), "expert": (1, 1), "combine": (None, 1),
-    "packer": (None, 1)}
+    "packer": (None, 1), "admission": (1, None), "gate": (None, None),
+    "merge": (2, 1), "retire": (1, 0), "step": (None, None)}
 
 
 def _check_ports(network: Network, name: str, kind: str) -> None:
     a = network.actors[name]
     want_in, want_out = _PORTS[kind]
-    most = MAX_WIDE_PORTS if kind in WIDE_KINDS else MAX_PORTS
+    most = {**{k: MAX_WIDE_PORTS for k in WIDE_KINDS},
+            "step": MAX_STEP_PORTS}.get(kind, MAX_PORTS)
+    least = 0 if kind == "step" else 1
     for want, have, what in ((want_in, len(a.in_ports), "inputs"),
                              (want_out, len(a.out_ports), "outputs")):
-        if ((want is None and not 1 <= have <= most)
+        if ((want is None and not least <= have <= most)
                 or (want is not None and have != want)):
             raise ValueError(
                 f"megakernel: {kind} actor {name!r} has {have} {what}, its "
                 f"device function takes "
-                f"{f'1..{most}' if want is None else want}")
-    if kind in ("router", "packer"):
-        return          # _check_moe checks which of their ports are control
+                f"{f'{least}..{most}' if want is None else want}")
+    if kind == "step" and any(sp.is_control for _, sp, _ in network.in_port_specs[name]):
+        raise ValueError(f"megakernel: step actor {name!r} reads a control "
+                         "channel on a regular port; its windows are data")
+    if kind == "gate" and len(a.in_ports) != len(a.out_ports):
+        raise ValueError(f"megakernel: gate actor {name!r} copies input k to "
+                         "output k; give it as many outputs as inputs")
+    if kind in BODY_CTRL_KINDS:
+        return          # _check_moe / _check_serving check which ports are control
     for p, spec, _ in network.out_port_specs[name]:
         if spec.is_control != (kind == "config"):
             raise ValueError(
                 f"megakernel: {kind} actor {name!r} port {p!r}: only config "
-                "actors and the MoE router and packer write control channels, "
-                "and config actors write nothing else")
+                "actors, the MoE router and packer and the serving network's "
+                "admission write control channels, and config actors write "
+                "nothing else")
         if spec.is_control and spec.token_size_bytes != 4:
             raise ValueError(f"megakernel: config actor {name!r} port {p!r} "
                              "writes one-word control tokens only")
@@ -352,12 +420,13 @@ def _check_tokens(network: Network, name: str, kind: str) -> Tuple[int, int]:
     Poly's ``(L, 0)``, a frame's ``(H, W)``, else ``(0, 0)``."""
     specs = ([s for _, s, _ in network.in_port_specs[name]]
              + [s for _, s, _ in network.out_port_specs[name] if not s.is_control])
-    if not specs or kind in ("source", "sink") or kind in WIDE_KINDS:
+    if (not specs or kind in ("source", "sink", "step") or kind in WIDE_KINDS
+            or kind in ("admission", "merge", "retire")):
         return 0, 0
     first = specs[0]
     want = {"poly": "rate-1 (2, L) float32", "adder": "float32",
             "gauss": "(H, W) uint8", "thres": "(H, W) uint8",
-            "med": "(H, W) uint8", "fork": None}[kind]
+            "med": "(H, W) uint8", "fork": None, "gate": None}[kind]
     shape = tuple(first.token_shape)
     ok = all((s.rate, tuple(s.token_shape), s.dtype)
              == (first.rate, shape, first.dtype) for s in specs)
@@ -379,6 +448,62 @@ def _check_tokens(network: Network, name: str, kind: str) -> Tuple[int, int]:
     if kind in ("gauss", "med"):
         return shape
     return 0, 0
+
+
+#: The slot table's header columns (graphs/serving.py's HEADER).
+SLOT_HEADER = 12
+
+
+def _check_serving(network: Network, name: str, kind: str,
+                   op_params: Dict[str, Any]) -> Dict[int, int]:
+    """The serving kinds' channels against their parameters (the slot table
+    (B, HEADER + P + N) int32 of ``graphs/serving.py``); returns the actor
+    row's fields: ``A_N0`` P, ``A_N1`` N, ``A_N2`` B, ``A_N3`` R, and
+    ``A_ORDER`` admission's queue depth or merge's EOS id."""
+    p = {k: int(op_params[k]) for k in ("B", "P", "N", "R", "qd", "eos")
+         if k in op_params}
+    ins = [s for _, s, _ in network.in_port_specs[name]]
+    outs = [s for _, s, _ in network.out_port_specs[name]]
+    i32 = torch.int32
+
+    def table(spec: FifoSpec) -> Tuple[int, int]:
+        shape = tuple(spec.token_shape)
+        ok = (spec.rate == 1 and spec.dtype == i32 and not spec.is_control
+              and len(shape) == 2 and shape[1] > SLOT_HEADER)
+        return shape if ok else (0, 0)
+    B, W = table(ins[0])
+    ok = B > 0 and all(table(s) == (B, W) for s in ins[:1] + outs[:3]
+                       if not s.is_control)
+    P, N = p.get("P", 0), p.get("N", 0)
+    ok = ok and P >= 0 and N >= 1 and W == SLOT_HEADER + P + N
+    fields = {A_N0: P, A_N1: N, A_N2: B}
+    if kind == "admission":
+        R, qd = p.get("R", 0), p.get("qd", -1)
+        ok = (ok and p.get("B") == B and R >= 1 and qd >= 0 and len(outs) >= 4
+              and not any(s.is_control for s in outs[:3])
+              and all(s.is_control and s.rate == 1 and tuple(s.token_shape) == (3,)
+                      for s in outs[3:]))
+        for key, shape in (("prompts", (R, P)), ("budgets", (R,)),
+                           ("arrivals", (R,)), ("deadlines", (R,))):
+            t = op_params.get(key)
+            ok = ok and (isinstance(t, torch.Tensor) and t.dtype == i32
+                         and tuple(t.shape) == shape)
+        fields.update({A_N3: R, A_ORDER: qd})
+    elif kind == "merge":
+        ok = (ok and ins[1].rate == 1 and ins[1].dtype == i32
+              and tuple(ins[1].token_shape) == (B,) and "eos" in p)
+        fields[A_ORDER] = p.get("eos", 0)
+    else:
+        R = p.get("R", 0)
+        ok = ok and R >= 1
+        fields[A_N3] = R
+    if not ok:
+        raise ValueError(
+            f"megakernel: {kind} actor {name!r} has channels or parameters "
+            f"{p} that do not fit graphs/serving.py's layout: rate-1 (B, "
+            f"{SLOT_HEADER} + P + N) int32 slot tables, decoded tokens (B,) "
+            "int32, admission's control tokens of 3 int32 words")
+    return fields
 
 
 def _float_bits(x: float) -> int:
@@ -460,7 +585,7 @@ def build_device_program(network: Network, layout: MegakernelLayout,
         ptrs: Tuple[int, ...] = ()
         scalar = -1
         window: Dict[str, Any] = {}
-        if kind in ("source", "config", "sink"):
+        if kind in ("source", "config", "sink", "admission"):
             scalar = n_scalars
             n_scalars += 1
         if kind in ("source", "sink"):
@@ -525,6 +650,26 @@ def build_device_program(network: Network, layout: MegakernelLayout,
                 ptrs = tuple(range(n_aptrs, n_aptrs + len(weights) + 1))
             if kind == "router":
                 scratch_words = max(scratch_words, router_scratch_words(N, E, C, k))
+            moe = 1
+        elif kind in ("admission", "merge", "retire"):
+            for field, value in _check_serving(network, row.name, kind,
+                                               op.params).items():
+                r[field] = value
+            if kind == "admission":
+                # Ready while fewer than R requests retired; the taken flags
+                # follow the control rings; the body ranks slots in shared
+                # memory (the j-th admitted and the j-th shed request).
+                r[A_READY] = r[A_N3]
+                r[A_AUX] = window["words"] = n_ctrl
+                n_ctrl += r[A_N3]
+                ptrs = tuple(range(n_aptrs, n_aptrs + 4))
+                for j, key in enumerate(("prompts", "budgets", "arrivals",
+                                         "deadlines")):
+                    consts.append((n_aptrs + j, op.params[key].contiguous()))
+                scratch_words = max(scratch_words, 2 * r[A_N2])
+            elif kind == "retire":
+                ptrs = tuple(range(n_aptrs, n_aptrs + 5))   # its state tensors
+        if kind in EXT_KINDS:
             moe = 1
         n_aptrs += len(ptrs)
         r[A_SCALAR] = scalar
@@ -646,6 +791,19 @@ def stage(prog: DeviceProgram, state: Any, device: torch.device,
             aptr[sl.ptrs[0]] = slab
         elif sl.kind == "config":
             io[prog.io_scalars + 2 * sl.scalar] = int(st)
+        elif sl.kind == "admission":
+            taken, t, retired = st
+            io[prog.io_scalars + 2 * sl.scalar] = int(retired)
+            io[prog.io_scalars + 2 * sl.scalar + 1] = int(t)
+            words = [int(x) for x in taken.tolist()]
+            io[prog.io_ctrl + sl.words:prog.io_ctrl + sl.words + len(words)] = words
+        elif sl.kind == "retire":
+            for t, slot in zip(st, sl.ptrs):
+                if (t.dtype != torch.int32 or not t.is_contiguous()
+                        or t.device != device):
+                    raise ValueError(f"megakernel: retire {name!r} state must be "
+                                     f"contiguous int32 tensors on {device}")
+                aptr[slot] = t
         elif sl.kind == "poly":
             hist, taps = st
             for t, n, slot in ((hist, N_TAPS - 1, sl.ptrs[0]),
@@ -681,7 +839,13 @@ def unstage(prog: DeviceProgram, state: Any, io: Sequence[int]
             continue
         idx = int(io[prog.io_scalars + 2 * sl.scalar])
         st = state.actors[j]
-        state.actors[j] = idx if sl.kind == "config" else (st[0], idx)
+        if sl.kind == "admission":
+            base = prog.io_ctrl + sl.words
+            taken = torch.tensor(list(io[base:base + st[0].numel()]), dtype=torch.int32,
+                                 device=st[0].device)
+            state.actors[j] = (taken, int(io[prog.io_scalars + 2 * sl.scalar + 1]), idx)
+        else:
+            state.actors[j] = idx if sl.kind == "config" else (st[0], idx)
     counts = {n: int(io[prog.io_counts + j])
               for j, n in enumerate(prog.actor_names)}
     return counts, int(io[meta + M_SWEEPS]), bool(io[meta + M_STALLED])

@@ -32,7 +32,16 @@ which the kernel overlaps and this version runs one after the other:
   u8 rounding, and the MoE bodies in the kernel's arithmetic order: every
   product term by term in float32, ``acc + x * w`` with each operation
   rounded, in the order of the summed index (:func:`moe_router`,
-  :func:`moe_expert`, :func:`moe_combine`, :func:`moe_packer`).
+  :func:`moe_expert`, :func:`moe_combine`, :func:`moe_packer`), and the
+  serving network's admission, gate, merge and retire, all int32, in the
+  kernel's order of ranks (:func:`serving_admission`, :func:`serving_merge`,
+  :func:`serving_retire`).
+
+A step actor (``DeviceOp("step")``) has no body: :func:`schedule` stops at
+its enabled firings with the scheduler saved in the io's yield words, the
+caller fires the actor (``kernel.run_step``) and calls :func:`run_program`
+again, which resumes there (:func:`step_windows` gives the firing's
+windows).
 
 The kernel's blocks each run their share of every command in order, and
 start command k only once every block has finished command ``wait_for``
@@ -67,13 +76,15 @@ import torch
 from repro_torch.core.health import (CURSOR_INVALID, DOMAIN, NONFINITE,
                                      OVERFLOW, UNDERFLOW)
 from repro_torch.core.megakernel.program import (
-    A_AUX, A_CTRL, A_ENABLES, A_FPARAM, A_IN, A_KIND, A_N0, A_N2, A_N3,
+    A_AUX, A_CTRL, A_ENABLES, A_FPARAM, A_IN, A_KIND, A_N0, A_N1, A_N2, A_N3,
     A_NAUX, A_NIN, A_NOUT, A_ORDER, A_OUT, A_PLANES, A_PTR0, A_PTR1, A_READY,
     A_SCALAR, ACTOR_FIELDS, ELEM_CODES, ERR_SLAB, F_BOUND, F_CBASE, F_CTRL,
     F_DELAY, F_DHI, F_DLO, F_DOM, F_ELEM, F_FWD, F_NPH, F_RATE, F_TOKB, FIFO_FIELDS,
     H_ACTOR_OFF, H_FIFO_OFF, H_N_ACTORS, H_N_CTRL, H_N_FIFOS, H_N_SCALARS,
     H_N_VISIT, H_VISIT_OFF, KIND_CODES, M_ERR_ACTOR, M_ERR_VALUE, M_ERROR,
-    M_STALLED, M_SWEEPS, META_WORDS, PHASES)
+    M_STALLED, M_SWEEPS, MAX_STEP_PORTS, META_WORDS, PHASES, SLOT_HEADER,
+    Y_ACTOR, Y_FIRED, Y_IN_EN, Y_LEFT, Y_OFF, Y_OUT_EN, Y_PENDING, Y_SEQ,
+    Y_SWEEPS, Y_VPOS, YIELD_WORDS)
 from repro_torch.kernels.dyn_fir.ref import poly_ref
 from repro_torch.kernels.gauss5x5.ref import gauss5x5_u8_ref, to_u8
 from repro_torch.kernels.motion_post.ref import med_ref, thres_ref
@@ -83,9 +94,14 @@ from repro_torch.models.moe import scatter_rows
 MAX_FIRINGS_PER_VISIT = 8
 
 SOURCE, CONFIG, FORK, POLY, ADDER, SINK, GAUSS, THRES, MED, ROUTER, \
-    EXPERT, COMBINE, PACKER = (KIND_CODES[k] for k in (
-        "source", "config", "fork", "poly", "adder", "sink", "gauss", "thres",
-        "med", "router", "expert", "combine", "packer"))
+    EXPERT, COMBINE, PACKER, ADMISSION, GATE, MERGE, RETIRE, STEP = (
+        KIND_CODES[k] for k in (
+            "source", "config", "fork", "poly", "adder", "sink", "gauss", "thres",
+            "med", "router", "expert", "combine", "packer", "admission", "gate",
+            "merge", "retire", "step"))
+#: Kinds whose firings keep state a later firing reads: a command of one
+#: runs after the actor's previous command (``Command.after``).
+STATEFUL = (POLY, ADMISSION, RETIRE)
 #: Kernel commands a firing of each kind becomes.
 KIND_PHASES = {KIND_CODES[k]: n for k, n in PHASES.items()}
 
@@ -199,7 +215,8 @@ class _Table:
         self.io_scal = 3 * self.n_fifos
         self.io_ctrl = self.io_scal + 2 * t[H_N_SCALARS]
         self.io_counts = self.io_ctrl + t[H_N_CTRL]
-        self.io_meta = self.io_counts + self.n_actors
+        self.io_yield = self.io_counts + self.n_actors
+        self.io_meta = self.io_yield + YIELD_WORDS
         self.io_fault = self.io_meta + META_WORDS
         self.io_hw = self.io_fault + self.n_fifos
         self.io_events = self.io_hw + self.n_fifos
@@ -246,13 +263,16 @@ def hazard_waits(commands: Sequence[Command],
 
 
 def permitted_order(commands: Sequence[Command],
-                    rng: Optional[random.Random] = None) -> List[Command]:
+                    rng: Optional[random.Random] = None,
+                    done_before: int = 0) -> List[Command]:
     """An order of whole commands the kernel permits: command k only after
     every command up to its ``wait_for`` and after its ``after``; among the
-    commands ready, a random one (``rng``), or the latest without one."""
+    commands ready, a random one (``rng``), or the latest without one.
+    ``done_before``: every command numbered up to it has run already (the
+    commands a scheduler's wait on a body ran, or an earlier launch's)."""
     n = commands[-1].last if commands else 0
-    done = [True] + [False] * n     # done[0]: "no command"
-    prefix = 0                       # every command <= prefix is done
+    done = [True] * (done_before + 1) + [False] * max(0, n - done_before)
+    prefix = done_before             # every command <= prefix is done
     todo = list(commands)
     order: List[Command] = []
     while todo:
@@ -285,29 +305,50 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
     ``(capacity, 3 + n_fifos)`` int32 array) takes one event per attempt,
     the count in the io word after the high-water marks.  ``flush(commands,
     seq)`` must run the commands through number ``seq`` (those not run
-    yet) before a control token a body writes is peeked; a program whose
-    bodies write none never calls it."""
+    yet) before a control token or a ready scalar a body writes is peeked;
+    a program whose bodies write none never calls it.
+
+    The loop is the kernel's state machine (``schedule_next``): the sweep
+    count, the visit position, the firings left in the visit and whether
+    the sweep fired.  At an enabled firing of a step actor it stops after
+    the firing's bookkeeping and its trace event, with that state, the
+    firing's actor, enables and window offsets in the yield words
+    (``Y_PENDING`` set); called again on such io words it goes on from
+    there."""
     P = _Table(table)
     t, fifo, actor = P.t, P.fifo, P.actor
     aptr = tensors[P.n_fifos:]
     schedules = {a: aptr[actor[a][A_PTR0]].tolist()
                  for a in range(P.n_actors) if actor[a][A_KIND] == CONFIG}
+    Y = P.io_yield
     commands: List[Command] = []
-    last_poly: Dict[int, int] = {}
+    last_cmd: Dict[int, int] = {}       # stateful actor -> its last command
     last_fire: Dict[int, int] = {}      # MoE actor -> its last command
     pending: Dict[Tuple[int, int], int] = {}   # (control channel, phase) -> writer
-    seq_next = 1
+    if io[Y + Y_PENDING]:
+        sweeps, vpos, left, fired_any = (io[Y + w] for w in (Y_SWEEPS, Y_VPOS, Y_LEFT,
+                                                             Y_FIRED))
+        seq_next = io[Y + Y_SEQ] + 1
+        io[Y + Y_PENDING] = 0
+    else:
+        sweeps, vpos, left, fired_any = 0, -1, -1, 1
+        seq_next = 1
+
+    def wait_body(writer: int) -> None:
+        """Run the commands through ``writer`` (0: none), whose body wrote
+        what the scheduler reads next."""
+        if not writer:
+            return
+        if flush is None:
+            raise RuntimeError("ref.schedule: a body writes the control "
+                               "token or scalar read here; pass flush=")
+        flush(commands, writer)
 
     def token(c: int) -> List[int]:
         """The control token at channel c's read phase; waits for (runs)
         the body that writes it."""
         ph = read_offset(fifo[c], io[3 * c])
-        writer = pending.pop((c, ph), 0)
-        if writer:
-            if flush is None:
-                raise RuntimeError("ref.schedule: a body writes the control "
-                                   "token peeked here; pass flush=")
-            flush(commands, writer)
+        wait_body(pending.pop((c, ph), 0))
         at = P.ctrl_word(c, ph)
         return io[at:at + P.words(c)]
 
@@ -363,8 +404,11 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
 
     def can_fire(a: int) -> bool:
         r = actor[a]
-        if r[A_READY] >= 0 and io[P.io_scal + 2 * r[A_SCALAR]] >= r[A_READY]:
-            return False
+        if r[A_READY] >= 0:
+            if r[A_KIND] == ADMISSION:      # its body writes the ready scalar
+                wait_body(last_cmd.get(a, 0))
+            if io[P.io_scal + 2 * r[A_SCALAR]] >= r[A_READY]:
+                return False
         if r[A_CTRL] >= 0 and occ(r[A_CTRL]) < 1:
             return False
         en = rates(a)
@@ -389,7 +433,9 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             k = min(k, (fifo[f][F_BOUND] - occ(f)) // fifo[f][F_RATE])
         return k
 
-    def fire(a: int) -> None:
+    def fire(a: int) -> bool:
+        """One firing's bookkeeping and its command; True when it is an
+        enabled firing of a step actor, whose yield words it wrote."""
         nonlocal seq_next
         r = actor[a]
         kind = r[A_KIND]
@@ -443,7 +489,16 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
                 io[3 * f + 2] += fifo[f][F_RATE]
         io[P.io_counts + a] += 1
         if not body or kind == CONFIG:
-            return
+            return False
+        in_off = [ph * fifo[f][F_RATE] for f, ph in zip(ins, in_ph)]
+        out_off = [write_offset(fifo[f], ph) for f, ph in zip(outs, out_ph)]
+        if kind == STEP:
+            io[Y + Y_ACTOR] = a
+            io[Y + Y_IN_EN] = sum(e << i for i, e in enumerate(en[:len(ins)]))
+            io[Y + Y_OUT_EN] = sum(e << i for i, e in enumerate(out_en))
+            io[Y + Y_OFF:Y + Y_OFF + len(ins)] = in_off
+            io[Y + Y_OFF + MAX_STEP_PORTS:Y + Y_OFF + MAX_STEP_PORTS + len(outs)] = out_off
+            return True
         # What the body touches: every input window (an adder only its
         # enabled terms), every enabled data output window, and slot 0 of a
         # delay channel on its phase-2 write.
@@ -456,39 +511,52 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
         seq_next += phases
         commands.append(Command(
             seq=seq, actor=a, in_en=list(en[:len(ins)]), out_en=list(out_en),
-            in_off=[ph * fifo[f][F_RATE] for f, ph in zip(ins, in_ph)],
-            out_off=[write_offset(fifo[f], ph) for f, ph in zip(outs, out_ph)],
+            in_off=in_off, out_off=out_off,
             copy_back=cb, idx=idx, n_idx=n_idx, reads=reads, writes=writes,
             copy_back_writes=tuple((f, COPY_BACK_SEGMENT)
                                    for f, on in zip(outs, cb) if on),
-            after=last_poly.get(a, 0) if kind == POLY else 0,
+            after=last_cmd.get(a, 0) if kind in STATEFUL else 0,
             phases=phases, serial=last_fire.get(a, 0), ctrl_out=tuple(ctrl_out)))
-        if kind == POLY:
-            last_poly[a] = seq
+        if kind in STATEFUL:
+            last_cmd[a] = seq
         if phases > 1:
             last_fire[a] = seq + phases - 1
+        return False
 
-    sweeps = 0
-    fired_any = True
+    stopped = False
     try:
-        while fired_any and sweeps < max_sweeps:
-            fired_any = False
-            for a in P.visit:
-                k = max_fireable(a) if multi_firing else 1
-                for i in range(k):
-                    if not can_fire(a):
-                        if trace_ring is not None:
-                            record(a, sweeps, 0, k - i)
-                        break
-                    fire(a)
-                    fired_any = True
-                    if trace_ring is not None:
-                        record(a, sweeps, 1)
-            sweeps += 1
+        while True:
+            if vpos < 0:        # between sweeps
+                if not fired_any or sweeps >= max_sweeps:
+                    break
+                fired_any, vpos, left = 0, 0, -1
+            if vpos == len(P.visit):
+                sweeps += 1
+                vpos = -1
+                continue
+            a = P.visit[vpos]
+            if left < 0:
+                left = max_fireable(a) if multi_firing else 1
+            if left <= 0 or not can_fire(a):
+                if left > 0 and trace_ring is not None:
+                    record(a, sweeps, 0, left)
+                vpos, left = vpos + 1, -1
+                continue
+            left -= 1
+            fired_any = 1
+            step = fire(a)
+            if trace_ring is not None:
+                record(a, sweeps, 1)
+            if step:
+                io[Y + Y_PENDING] = 1
+                io[Y + Y_SWEEPS], io[Y + Y_VPOS], io[Y + Y_LEFT] = sweeps, vpos, left
+                io[Y + Y_FIRED], io[Y + Y_SEQ] = fired_any, seq_next - 1
+                stopped = True
+                break
     except _Stop:
-        pass
+        stopped = True
     io[P.io_meta + M_SWEEPS] = sweeps
-    io[P.io_meta + M_STALLED] = int(fired_any and sweeps >= max_sweeps)
+    io[P.io_meta + M_STALLED] = int(not stopped and fired_any and sweeps >= max_sweeps)
     hazard_waits(commands)
     return commands
 
@@ -602,6 +670,125 @@ def moe_combine(ys: Sequence[Optional[torch.Tensor]], slot: torch.Tensor,
     return acc
 
 
+# ---- the serving network's bodies (graphs/serving.py) ------------------- #
+# The slot table's columns and status codes, as graphs/serving.py numbers
+# them; a row is HEADER columns, P prompt columns, N generated-token columns.
+(C_ACTIVE, C_REQ, C_POS, C_PROD, C_BUDGET, C_FIN, C_LAST, C_NEW, C_LAT,
+ C_STATUS, C_DEADLINE, C_AGE) = range(SLOT_HEADER)
+STATUS_OK, STATUS_TIMEOUT, STATUS_SHED = 0, 1, 2
+
+
+def _i32(x: int) -> int:
+    """``x`` wrapped to int32, as the actors' int32 arithmetic wraps."""
+    return (x + 2 ** 31) % 2 ** 32 - 2 ** 31
+
+
+def serving_admission(fb: List[List[int]], taken: List[int], t: int,
+                      prompts: List[List[int]], budgets: List[int],
+                      arrivals: List[int], deadlines: List[int], P: int, N: int,
+                      qd: int) -> Tuple[List[List[int]], List[List[int]], List[int],
+                                        List[int]]:
+    """Admission's firing on the slot table ``fb`` (B rows), as the kernel
+    computes it: ranks by counting in request and slot order.  Returns the
+    new table, the finished rows, the control token ``[n_active,
+    n_finished, n_admitted]`` and the new taken flags (``t`` and
+    ``retired`` move by 1 and by the token's second word)."""
+    B, R, W = len(fb), len(taken), SLOT_HEADER + P + N
+    expired = [row[C_ACTIVE] > 0 and row[C_DEADLINE] < t for row in fb]
+    fin = [e or row[C_FIN] > 0 for e, row in zip(expired, fb)]
+    free = [f or row[C_ACTIVE] == 0 for f, row in zip(fin, fb)]
+    n_fin = sum(fin)
+    waiting = [taken[i] == 0 and arrivals[i] <= t for i in range(R)]
+    exp_wait = [w and deadlines[i] < t for i, w in enumerate(waiting)]
+    admissible = [w and not e for w, e in zip(waiting, exp_wait)]
+    k = min(sum(admissible), sum(free))
+    # The j-th admitted request goes to the j-th free slot, the j-th shed
+    # record (of at most B - n_fin) to the j-th slot that did not finish.
+    by_adm: List[int] = []
+    by_shed: List[int] = []
+    new_taken = list(taken)
+    a_rank = s_rank = 0
+    for i in range(R):
+        overflow = False
+        if admissible[i]:
+            if a_rank < k:
+                by_adm.append(i)
+                new_taken[i] = 1
+            overflow = a_rank >= k + qd
+            a_rank += 1
+        if exp_wait[i] or overflow:
+            if s_rank < B - n_fin:
+                by_shed.append(i)
+                new_taken[i] = 1
+            s_rank += 1
+    table: List[List[int]] = []
+    fins: List[List[int]] = []
+    f_rank = r_rank = 0
+    for b, row in enumerate(fb):
+        if free[b] and f_rank < k:
+            i = by_adm[f_rank]
+            table.append([1, i, P - 1, 0, budgets[i], 0, 0, 1, 0, STATUS_OK,
+                          deadlines[i], 0] + list(prompts[i]) + [0] * N)
+        elif fin[b]:
+            table.append([0] * W)
+        else:
+            table.append(list(row))
+        if not fin[b] and r_rank < len(by_shed):
+            i = by_shed[r_rank]
+            status = STATUS_TIMEOUT if deadlines[i] < t else STATUS_SHED
+            fins.append([0, i, 0, 0, budgets[i], 1, 0, 0, _i32(t - arrivals[i]), status,
+                         deadlines[i], 0] + [0] * (P + N))
+        elif fin[b]:
+            out = list(row)
+            if expired[b]:
+                out[C_FIN], out[C_STATUS] = 1, STATUS_TIMEOUT
+            out[C_LAT] = _i32(t - 1 - arrivals[min(max(row[C_REQ], 0), R - 1)])
+            fins.append(out)
+        else:
+            fins.append([0] * W)
+        f_rank += free[b]
+        r_rank += not fin[b]
+    ctl = [sum(row[C_ACTIVE] > 0 for row in table), n_fin + len(by_shed), k]
+    return table, fins, ctl, new_taken
+
+
+def serving_merge(tbl: List[List[int]], y: List[int], eos: int, P: int,
+                  N: int) -> List[List[int]]:
+    """Merge's firing: each active row takes its decoded token at column
+    ``HEADER + P + produced``, advances, and finishes on EOS or its
+    budget."""
+    out = []
+    for row, yb in zip(tbl, y):
+        active = row[C_ACTIVE] > 0
+        act = int(active)
+        produced = row[C_PROD]
+        gen = list(row[SLOT_HEADER + P:])
+        if active and 0 <= produced < N:
+            gen[produced] = yb
+        produced = _i32(produced + act)
+        fin = active and (yb == eos or produced >= row[C_BUDGET])
+        out.append([int(active and not fin), row[C_REQ], _i32(row[C_POS] + act),
+                    produced, row[C_BUDGET], int(fin), yb if active else row[C_LAST],
+                    0, row[C_LAT], row[C_STATUS], row[C_DEADLINE],
+                    _i32(row[C_AGE] + act)] + list(row[SLOT_HEADER:SLOT_HEADER + P]) + gen)
+    return out
+
+
+def serving_retire(rows: List[List[int]], R: int, P: int
+                   ) -> List[Tuple[int, List[int], int, int, int]]:
+    """Retire's firing: ``(request, generated tokens, produced, latency,
+    status)`` of each finished row with a request id in ``[0, R)``, in row
+    order (a later row wins)."""
+    return [(row[C_REQ], list(row[SLOT_HEADER + P:]), row[C_PROD], row[C_LAT],
+             row[C_STATUS]) for row in rows
+            if row[C_FIN] > 0 and 0 <= row[C_REQ] < R]
+
+
+def _rows(t: List, like: torch.Tensor) -> torch.Tensor:
+    """Lists of ints as an int32 tensor on ``like``'s device."""
+    return torch.tensor(t, dtype=torch.int32, device=like.device)
+
+
 def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             commands: Sequence[Command],
             value_fault: Optional[torch.Tensor] = None,
@@ -696,6 +883,37 @@ def execute(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
             E = r[A_N2]
             counts = [int(x) for x in torch.cat([w.reshape(-1) for w in win]).tolist()]
             _write_ctrl(io, c.ctrl_out[:1], [counts + counts])
+        elif kind == GATE:
+            for e, w, d in zip(c.out_en, win, dst):
+                if e:
+                    d.copy_(w)
+        elif kind == ADMISSION:
+            if io is None:
+                raise RuntimeError("ref.execute: admission keeps its state in "
+                                   "the io words; pass io=")
+            Pn, Nn, R = r[A_N0], r[A_N1], r[A_N3]
+            s = P.io_scal + 2 * r[A_SCALAR]
+            base = P.io_ctrl + r[A_AUX]
+            retired, t_now = io[s], io[s + 1]
+            consts = [aptr[r[A_PTR0] + j].tolist() for j in range(4)]
+            tbl, fins, ctl, taken = serving_admission(
+                win[0][0].tolist(), io[base:base + R], t_now, *consts, Pn, Nn, r[A_ORDER])
+            for d, rows in zip(dst[:3], (tbl, tbl, fins)):
+                d[0].copy_(_rows(rows, d))
+            io[s], io[s + 1] = retired + ctl[1], t_now + 1
+            io[base:base + R] = taken
+            _write_ctrl(io, c.ctrl_out[3:], [ctl] * len(c.ctrl_out[3:]))
+        elif kind == MERGE:
+            rows = serving_merge(win[0][0].tolist(), win[1][0].tolist(), r[A_ORDER],
+                                 r[A_N0], r[A_N1])
+            dst[0][0].copy_(_rows(rows, dst[0]))
+        elif kind == RETIRE:
+            gen, lens, lat, status, done = (aptr[r[A_PTR0] + j] for j in range(5))
+            for req, toks, n, lt, st in serving_retire(win[0][0].tolist(), r[A_N3],
+                                                       r[A_N0]):
+                gen[req].copy_(_rows(toks, gen))
+                for buf, v in ((lens, n), (lat, lt), (status, st), (done, 1)):
+                    buf[req] = v
         if value_fault is not None:
             for e, f, d in zip(c.out_en, outs, dst):
                 if e and d is not None:
@@ -728,21 +946,56 @@ def zero_forwarded(table: Sequence[int], tensors: List[Optional[torch.Tensor]]) 
             _bytes(tensors[f]).zero_()
 
 
+def step_windows(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
+                 io: Sequence[int]) -> Tuple[int, List[int], List[int],
+                                             List[torch.Tensor], List[torch.Tensor]]:
+    """The pending step firing of ``io``'s yield words: ``(actor, input
+    enables, output enables, input windows, output windows)``, each window
+    a view of its ring at the offset the firing took (every input's, as a
+    masked read hands it over; every output's)."""
+    P = _Table(table)
+    Y = P.io_yield
+    a = io[Y + Y_ACTOR]
+    ins, outs = P.ports(a)
+    in_en = [(io[Y + Y_IN_EN] >> i) & 1 for i in range(len(ins))]
+    out_en = [(io[Y + Y_OUT_EN] >> o) & 1 for o in range(len(outs))]
+    wins = [tensors[f][o:o + P.fifo[f][F_RATE]]
+            for f, o in zip(ins, io[Y + Y_OFF:Y + Y_OFF + len(ins)])]
+    outw = [tensors[f][o:o + P.fifo[f][F_RATE]]
+            for f, o in zip(outs, io[Y + Y_OFF + MAX_STEP_PORTS:
+                                     Y + Y_OFF + MAX_STEP_PORTS + len(outs)])]
+    return a, in_en, out_en, wins, outw
+
+
 def run_program(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
                 io: List[int], max_sweeps: int, multi_firing: bool,
                 guards: bool = False,
                 trace_ring: Optional[np.ndarray] = None) -> None:
     """Run the device program to quiescence on ``tensors`` (rings, then
-    actor tensors) and ``io`` (the io block), in place.  With ``guards``
-    or a ``trace_ring``, ``io`` holds the health and trace words after the
-    meta words (``stage(..., health_words=True)``)."""
-    zero_forwarded(table, tensors)
-    value_fault = None
+    actor tensors) and ``io`` (the io block), in place, or to the next
+    enabled firing of a step actor (``Y_PENDING`` set in the yield words).
+    Called again on such io words it resumes: forwarded rings keep what
+    they hold, and with ``guards`` the step firing's windows (which the
+    caller has run the actor on) are checked first, its enabled inputs and
+    outputs for NONFINITE and DOMAIN, as the kernel's first command after a
+    resume does.  With ``guards`` or a ``trace_ring``, ``io`` holds the
+    health and trace words after the meta words (``stage(...,
+    health_words=True)``)."""
     P = _Table(table)
+    value_fault = None
     if guards:
         device = next((x.device for x in tensors[:P.n_fifos] if x is not None),
                       torch.device("cpu"))
         value_fault = torch.zeros(P.n_fifos, dtype=torch.int32, device=device)
+    if not io[P.io_yield + Y_PENDING]:
+        zero_forwarded(table, tensors)
+    elif value_fault is not None:
+        a, in_en, out_en, wins, outw = step_windows(table, tensors, io)
+        ins, outs = P.ports(a)
+        for e, f, w in zip(in_en + out_en, ins + outs, wins + outw):
+            if e and not P.fifo[f][F_CTRL]:
+                _check_finite(P, value_fault, f, w)
+                _check_domain(P, value_fault, f, w)
     ran = 0      # commands run so far
 
     def flush(commands: List[Command], upto: int) -> None:

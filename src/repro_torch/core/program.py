@@ -7,8 +7,10 @@
 
 The port carries the reference's host-driven ``"static"``, ``"dynamic"``
 and ``"interpreted"`` modes and its ``"megakernel"`` mode (one launch of
-the persistent kernel B2 per run on the card; its plain version for CPU
-states), with the grid knobs ``cores``, ``assign`` and ``cut_objective``,
+the persistent kernel B2 per run on the card, plus one for each enabled
+firing of a step actor, which the runner fires between launches; its plain
+version for CPU states), with the grid knobs ``cores``, ``assign`` and
+``cut_objective``,
 the health layer's ``guards``, ``trace``, ``trace_capacity`` and
 ``profile``, and ``runtime_mode``.
 
@@ -93,7 +95,8 @@ class ExecutionPlan:
                      3's multicore baseline), ``"dynamic"`` (token-driven
                      sweeps to quiescence, driven from the host) or
                      ``"megakernel"`` (the same sweeps in one launch of the
-                     persistent kernel B2).
+                     persistent kernel B2, stopping at step actors'
+                     firings).
       n_iterations:  iteration count of static and interpreted mode, and
                      the chunk length of :meth:`Program.stream` (required
                      with ``accelerated``, which sizes the feed and fetch

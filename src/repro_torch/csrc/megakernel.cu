@@ -157,6 +157,32 @@
 //   in the order of its index, each product and add rounded alone, as the
 //   plain version sums (ref.py).  Combine: an output a thread, the k
 //   weighted rows in order.  Packer: every block, its own control words.
+// * The serving network's bodies (graphs/serving.py; all int32, bit for
+//   bit the actors' fire): gate copies input k to output k under its
+//   enables, merge folds the decoded tokens into the slot table (grid
+//   stride; its feedback window copies back on phase 2), retire scatters
+//   the finished rows into its state tensors (warp 0 of block 0, rows in
+//   order).  Admission runs in warp 0 of every block: each block keeps its
+//   own replica of admission's control token, its two scalars (retired,
+//   the ready limit's, and the step t) and its taken flags among the io
+//   words, so its scheduler waits for its own block's body before it reads
+//   them (ctrl_wait, local_wait); block 0 writes the table and the
+//   finished rows.  Ranks come from ballots in request and slot order.
+// * Step actors (a decode step, an LM stage) have no body here.  At an
+//   enabled firing of one, after its bookkeeping and its trace event, the
+//   scheduler stops the run (ERR_YIELD): the yield words after the fire
+//   counts take the scheduler (sweeps, visit position, firings left,
+//   fired_any, commands emitted) and the firing's actor, enables and window
+//   offsets, and every block ends (the kernel's end is the wait for every
+//   earlier command in every block).  The runner fires the actor between
+//   launches.  A launch on io words with a step pending resumes: it
+//   restores the scheduler, numbers commands on from the saved count (the
+//   progress words start there), keeps the forwarded rings as they are
+//   and, in the MK_GUARDS build, first checks the step's windows (NONFINITE,
+//   DOMAIN) as dynamic mode's guards read them; the high-water marks and
+//   the trace count go on from the io words.  A rate-0 step firing is the
+//   scheduler's own (no stop).  These kinds, like the MoE ones, run in the
+//   instance with MOE set.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -179,7 +205,7 @@ constexpr int FIFO_FIELDS = 13;
 // always compare their int32 tokens with F_DLO and F_DHI).
 enum { F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
        F_ELEM, F_DLO, F_DHI, F_DOM };
-enum { ELEM_F32 = 0, ELEM_U8 = 1, ELEM_I32 = 2 };
+enum { ELEM_F32 = 0, ELEM_U8 = 1, ELEM_I32 = 2, ELEM_BF16 = 3, ELEM_F16 = 4 };
 constexpr int ACTOR_FIELDS = 20;
 enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
        A_ENABLES, A_N2, A_N3, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
@@ -188,8 +214,21 @@ constexpr int META_WORDS = 17;
 enum { M_SWEEPS, M_STALLED, M_ERROR, M_ERR_ACTOR, M_ERR_VALUE, M_BLOCKS,
        M_CLK_STALL, M_CLK_LOOP, M_CLK_SCHED, M_CLK_KIND };
 enum { K_SOURCE, K_CONFIG, K_FORK, K_POLY, K_ADDER, K_SINK, K_GAUSS, K_THRES,
-       K_MED, K_ROUTER, K_EXPERT, K_COMBINE, K_PACKER };
-enum { ERR_SLAB = 2 };
+       K_MED, K_ROUTER, K_EXPERT, K_COMBINE, K_PACKER, K_ADMISSION, K_GATE,
+       K_MERGE, K_RETIRE, K_STEP };
+// ERR_YIELD: not an error, the run stopped at an enabled step firing.
+enum { ERR_SLAB = 2, ERR_YIELD = 3 };
+// Yield words, after the fire counts (program.py's Y_*): a step firing is
+// pending, the saved scheduler, the step firing's actor, enables and the
+// first slot of each of its windows.
+constexpr int MAX_STEP_PORTS = 8;
+enum { Y_PENDING, Y_SWEEPS, Y_VPOS, Y_LEFT, Y_FIRED, Y_SEQ, Y_ACTOR, Y_IN_EN, Y_OUT_EN,
+       Y_OFF };
+// The serving network's slot table (graphs/serving.py): a row is
+// SLOT_HEADER columns, P prompt columns, N generated-token columns.
+enum { C_ACTIVE, C_REQ, C_POS, C_PROD, C_BUDGET, C_FIN, C_LAST, C_NEW, C_LAT, C_STATUS,
+       C_DEADLINE, C_AGE, SLOT_HEADER };
+enum { STATUS_OK = 0, STATUS_TIMEOUT = 1, STATUS_SHED = 2 };
 // Fault bits (core/health.py).  After the meta words: a fault word per
 // channel, a high-water mark per channel, the trace's event count.
 enum { OVERFLOW = 1, UNDERFLOW = 2, CURSOR_INVALID = 4, NONFINITE = 8, DOMAIN = 32 };
@@ -235,7 +274,8 @@ struct Cmd {
   unsigned cb_mask;
   unsigned char* slot0[MAX_PORTS];
   long long cb_from[MAX_PORTS];
-  int terms[MAX_PORTS];
+  int terms[MAX_PORTS];     // the adder's term order; admission: each output's
+                            // control token io word
   unsigned char* slab;     // source/sink: window idx of the slab's plane 0
   long long slab_stride;   // source/sink: bytes between the slab's planes
   float* hist;
@@ -247,7 +287,8 @@ struct Cmd {
 #endif
   // The MoE kinds (the wide path): the actor's row, which phase of the
   // firing this command runs, and per port its enable and its window's
-  // phase (delay-free channels have two), bit p % 32 of word p / 32.
+  // phase (delay-free channels have two), bit p % 32 of word p / 32.  The
+  // serving kinds take their parameters from the row too.
   const int* row;
   int phase;
   unsigned wen_in[WIDE_WORDS], wen_out[WIDE_WORDS];
@@ -489,7 +530,7 @@ __device__ __forceinline__ void visit_actor(const View& v, int a, Visit* u) {
   u->n_in = r[A_NIN];
   u->n_out = r[A_NOUT];
   u->ctrl = r[A_CTRL];
-  u->wide = u->kind >= K_ROUTER;
+  u->wide = u->kind >= K_ROUTER && u->kind <= K_PACKER;
   if (u->ctrl >= 0) {
     const int* fc = fifo_row(v, u->ctrl);
     u->ctrl_base = v.io_ctrl + fc[F_CBASE];
@@ -541,6 +582,14 @@ __device__ __noinline__ void ctrl_wait(long long* writer, long long* reader,
   __syncwarp();
 }
 
+// Wait until this block has run command w (admission's body writes the
+// scalar its ready limit reads).
+__device__ __noinline__ void local_wait(long long w, const long long* local_done) {
+  const long long since = clock64();
+  while (load_acquire_cta(local_done) < w) watchdog(since);
+  __syncwarp();
+}
+
 // A port's declared enable on token `tok`: (word, threshold) is tok[word]
 // > threshold, (-1, v) the constant v.
 __device__ __forceinline__ bool enable_of(const int* form, const int* tok) {
@@ -572,7 +621,11 @@ __device__ __forceinline__ void rates(const View& v, const Visit& u, unsigned* i
 template <bool MOE>
 __device__ __forceinline__ bool can_fire(const View& v, const Visit& u, unsigned* in_en,
                                          unsigned* out_en) {
-  if (u.ready >= 0 && v.S[v.io_scal + 2 * u.scalar] >= u.ready) return false;
+  if (u.ready >= 0) {
+    if constexpr (MOE)
+      if (u.kind == K_ADMISSION) local_wait(v.alast[u.a], v.local_done);
+    if (v.S[v.io_scal + 2 * u.scalar] >= u.ready) return false;
+  }
   if (u.ctrl >= 0 && occ(v, u.ctrl) < 1) return false;
   rates<MOE>(v, u, in_en, out_en);
   const int l = lane();
@@ -608,6 +661,10 @@ __device__ __forceinline__ void write_segments(int delay, int rate, int ph, int*
 // reads, the actor's scalar state, masked output writes, and for a firing
 // with a body its wait (hazard_waits in ref.py) as command `seq`.  Fills
 // `f`; returns true when the firing has a body for the body threads to run.
+// With MOE, an enabled firing of a step actor writes its actor, enables and
+// window offsets into the yield words and sets s->error to ERR_YIELD: the
+// run stops there, and the runner fires the actor.
+template <bool MOE>
 __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out_en,
                      long long seq, Firing* f, Sched* s) {
   const int l = lane();
@@ -704,6 +761,21 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
     __syncwarp();
     return false;
   }
+  if constexpr (MOE) {
+    if (kind == K_STEP) {
+      int* y = v.S + v.io_counts + v.P[H_N_ACTORS];
+      if (fi >= 0) y[Y_OFF + l] = f->in_off;
+      if (fo >= 0) y[Y_OFF + MAX_STEP_PORTS + l] = f->out_off;
+      if (l == 0) {
+        y[Y_ACTOR] = u.a;
+        y[Y_IN_EN] = static_cast<int>(in_en);
+        y[Y_OUT_EN] = static_cast<int>(out_en);
+      }
+      s->error = ERR_YIELD;  // in every lane: the scheduler is replicated per lane
+      __syncwarp();
+      return false;
+    }
+  }
 
   // What the body touches: every input window (an adder only its enabled
   // terms), every enabled data output window, and slot 0 on a copy-back.
@@ -723,6 +795,14 @@ __device__ bool fire(const View& v, const Visit& u, unsigned in_en, unsigned out
   if (w0 >= 0) last_writer(v, fo, w0) = seq;
   if (w1 >= 0) last_writer(v, fo, w1) = seq;
   if (cb) last_writer(v, fo, 0) = seq;
+  if constexpr (MOE) {
+    // Admission's body writes its control tokens and its ready scalar:
+    // their readers wait for this command (ctrl_wait, local_wait).
+    if (kind == K_ADMISSION) {
+      if (fo >= 0 && on && !u.data_o) last_writer(v, fo, out_ph) = seq;
+      if (l == 0) v.alast[u.a] = seq;
+    }
+  }
   __syncwarp();
   f->wait_for = w;
   return true;
@@ -998,9 +1078,14 @@ __device__ __forceinline__ bool schedule_next(const View& v, Visit* u, Firing* f
       f->cb_mask = 0;
     } else {
       f->phases = 1;
-      body = fire(v, *u, in_en, out_en, s->seq + 1, f, s);
+      body = fire<MOE>(v, *u, in_en, out_en, s->seq + 1, f, s);
     }
-    if (s->error) return false;
+    if (s->error) {
+#ifdef MK_TRACE
+      if (s->error == ERR_YIELD) trace_event(v, s, u->a, 1, 1);  // the step's attempt
+#endif
+      return false;
+    }
 #ifdef MK_TRACE
     trace_event(v, s, u->a, 1, 1);
 #endif
@@ -1060,6 +1145,11 @@ __device__ __forceinline__ void fill(const View& v, const Visit& u, const Firing
     }
   }
   if (u.kind == K_ADDER && l < r[A_NAUX]) c->terms[l] = v.P[r[A_AUX] + l];
+  if constexpr (MOE) {
+    if (u.kind == K_ADMISSION && u.fo >= 0 && !u.data_o)
+      c->terms[l] = v.io_ctrl + u.cbase_o + f.out_off * (u.tokb_o >> 2);
+    if (l == 7) c->row = r;
+  }
 #ifdef MK_GUARDS
   {
     const bool fl_i = u.fi >= 0 && u.data_i && fifo_row(v, u.fi)[F_ELEM] == ELEM_F32;
@@ -1121,6 +1211,9 @@ template <bool MOE>
 __device__ long long scheduler(const View& v, Cmd* slots, uint64_t* full, uint64_t* empty,
                                Sched* s, int max_sweeps, int multi_firing) {
   Visit u;
+  // A resumed run stopped inside a visit: load the visited actor again.
+  if (s->vpos >= 0 && s->vpos < v.P[H_N_VISIT] && s->left >= 0)
+    visit_actor(v, v.P[v.P[H_VISIT_OFF] + s->vpos], &u);
   long long busy = 0, full_wait = 0;
   for (long long n = 0;;) {
 #ifdef MK_CLOCK_SPLIT
@@ -1882,6 +1975,258 @@ __device__ __noinline__ void run_packer(const View v, const Cmd& c) {
   }
 }
 
+
+// ---- the serving network's bodies (graphs/serving.py) ------------------ //
+// All int32, each the actor's fire bit for bit (ref.py's serving_*).  Simple
+// code: gate and merge are grid-stride loops over the window; admission runs
+// in warp 0 of every block (each block keeps its own control token, scalars
+// and taken flags, as the scheduler needs them), block 0 alone writing its
+// windows; retire runs in warp 0 of block 0, rows in order.
+
+// Gate: input k to output k, for each enabled output.
+template <int CB>
+__device__ __noinline__ void run_gate(const Cmd& c) {
+  for (int o = 0; o < c.n_out; ++o) {
+    if (!((c.out_en >> o) & 1)) continue;
+    if (((reinterpret_cast<uintptr_t>(c.in[o]) | reinterpret_cast<uintptr_t>(c.out[o]) |
+          c.win) & 3) == 0) {
+      const unsigned* src = reinterpret_cast<const unsigned*>(c.in[o]);
+      for (long long j = grid_first(); j < c.win / 4; j += grid_step())
+        put<CB, unsigned>(c, o, 4 * j, __ldcg(src + j));
+    } else {
+      for (long long j = grid_first(); j < c.win; j += grid_step())
+        put<CB, unsigned char>(c, o, j, __ldcg(c.in[o] + j));
+    }
+  }
+}
+
+__device__ __forceinline__ int add_i32(int a, int b) {  // int32 wraps, as torch's
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+// Merge: each active row takes its decoded token y[b] at generated column
+// C_PROD, advances, and finishes on EOS or its budget; into output 0 (the
+// feedback channel, a delay channel: CB_COPY copies phase 2 back).
+template <int CB>
+__device__ __noinline__ void run_merge(const Cmd& c) {
+  const int* r = c.row;
+  const int P = r[A_N0], N = r[A_N1], B = r[A_N2], eos = r[A_ORDER];
+  const int W = SLOT_HEADER + P + N;
+  const int* tbl = reinterpret_cast<const int*>(c.in[0]);
+  const int* y = reinterpret_cast<const int*>(c.in[1]);
+  for (long long j = grid_first(); j < static_cast<long long>(B) * W; j += grid_step()) {
+    const int b = static_cast<int>(j / W), col = static_cast<int>(j - static_cast<long long>(b) * W);
+    const int* row = tbl + static_cast<long long>(b) * W;
+    const bool active = __ldcg(row + C_ACTIVE) > 0;
+    const int act = active ? 1 : 0, yb = __ldcg(y + b);
+    const int produced = __ldcg(row + C_PROD);
+    int x;
+    if (col >= SLOT_HEADER + P) {
+      x = active && col - SLOT_HEADER - P == produced ? yb : __ldcg(row + col);
+    } else if (col >= SLOT_HEADER) {
+      x = __ldcg(row + col);
+    } else {
+      const int now = add_i32(produced, act);
+      const bool fin = active && (yb == eos || now >= __ldcg(row + C_BUDGET));
+      switch (col) {
+        case C_ACTIVE: x = active && !fin; break;
+        case C_POS: x = add_i32(__ldcg(row + C_POS), act); break;
+        case C_PROD: x = now; break;
+        case C_FIN: x = fin; break;
+        case C_LAST: x = active ? yb : __ldcg(row + C_LAST); break;
+        case C_NEW: x = 0; break;
+        case C_AGE: x = add_i32(__ldcg(row + C_AGE), act); break;
+        default: x = __ldcg(row + col);  // REQ, BUDGET, LAT, STATUS, DEADLINE
+      }
+    }
+    put<CB, unsigned>(c, 0, 4 * j, static_cast<unsigned>(x));
+  }
+}
+
+// Retire: each finished row with a request id in [0, R) into the actor's five
+// (R, .) state tensors (generated tokens, produced, latency, status, done),
+// rows in order: warp 0 of block 0.
+__device__ __noinline__ void run_retire(const View v, const Cmd& c) {
+  if (blockIdx.x != 0 || threadIdx.x >= 32) return;
+  const int* r = c.row;
+  const int P = r[A_N0], N = r[A_N1], B = r[A_N2], R = r[A_N3];
+  const int W = SLOT_HEADER + P + N;
+  int* gen = static_cast<int*>(aptr(v, r[A_PTR0]));
+  int* lens = static_cast<int*>(aptr(v, r[A_PTR0] + 1));
+  int* lat = static_cast<int*>(aptr(v, r[A_PTR0] + 2));
+  int* status = static_cast<int*>(aptr(v, r[A_PTR0] + 3));
+  int* done = static_cast<int*>(aptr(v, r[A_PTR0] + 4));
+  const int* rows = reinterpret_cast<const int*>(c.in[0]);
+  for (int b = 0; b < B; ++b) {
+    const int* row = rows + static_cast<long long>(b) * W;
+    const int req = __ldcg(row + C_REQ);
+    if (__ldcg(row + C_FIN) <= 0 || req < 0 || req >= R) continue;
+    for (int j = lane(); j < N; j += 32)
+      gen[static_cast<long long>(req) * N + j] = __ldcg(row + SLOT_HEADER + P + j);
+    if (lane() == 0) {
+      lens[req] = __ldcg(row + C_PROD);
+      lat[req] = __ldcg(row + C_LAT);
+      status[req] = __ldcg(row + C_STATUS);
+      done[req] = 1;
+    }
+    __syncwarp();
+  }
+}
+
+// A slot of admission's input table: finished (EOS or budget last step, or
+// its deadline passed), free once freed.
+__device__ __forceinline__ void slot_state(const int* row, int t, bool* expired, bool* fin,
+                                           bool* fre) {
+  const int act = __ldcg(row + C_ACTIVE);
+  *expired = act > 0 && __ldcg(row + C_DEADLINE) < t;
+  *fin = *expired || __ldcg(row + C_FIN) > 0;
+  *fre = *fin || act == 0;
+}
+
+// Admission, in warp 0 of every block: free the finished slots, admit the
+// waiting requests in order into the free slots, shed and time out what it
+// must (at most B - n_fin records ride the rows that did not finish), then
+// the new table to outputs 0 and 1 and the finished rows to output 2
+// (block 0), the control token [n_active, n_fin + n_shed, k] to every other
+// output and the scalars retired += token[1], t += 1 (every block, its own
+// io words).  Ranks come from ballots in request and slot order; the j-th
+// admitted and the j-th shed request are kept in shared memory.
+template <int CB>
+__device__ __noinline__ void run_admission(const View v, const Cmd& c) {
+  if (threadIdx.x >= 32) return;
+  const int* r = c.row;
+  const int P = r[A_N0], N = r[A_N1], B = r[A_N2], R = r[A_N3], qd = r[A_ORDER];
+  const int W = SLOT_HEADER + P + N, l = lane();
+  const unsigned below = (1u << l) - 1;
+  int* sc = v.S + v.io_scal + 2 * r[A_SCALAR];
+  const int retired = sc[0], t = sc[1];
+  int* taken = v.S + v.io_ctrl + r[A_AUX];
+  const int* prompts = static_cast<const int*>(aptr(v, r[A_PTR0]));
+  const int* budgets = static_cast<const int*>(aptr(v, r[A_PTR0] + 1));
+  const int* arrivals = static_cast<const int*>(aptr(v, r[A_PTR0] + 2));
+  const int* deadlines = static_cast<const int*>(aptr(v, r[A_PTR0] + 3));
+  const int* fb = reinterpret_cast<const int*>(c.in[0]);
+  int* by_adm = v.moe;
+  int* by_shed = v.moe + B;
+  int n_fin = 0, n_free = 0, n_adm = 0;
+  for (int b = l; b - l < B; b += 32) {
+    bool e = false, fin = false, fre = false;
+    if (b < B) slot_state(fb + static_cast<long long>(b) * W, t, &e, &fin, &fre);
+    n_fin += __popc(__ballot_sync(FULL, fin));
+    n_free += __popc(__ballot_sync(FULL, fre));
+  }
+  for (int i = l; i - l < R; i += 32) {
+    const bool adm = i < R && taken[i] == 0 && __ldg(arrivals + i) <= t &&
+                     !(__ldg(deadlines + i) < t);
+    n_adm += __popc(__ballot_sync(FULL, adm));
+  }
+  const int k = min(n_adm, n_free);
+  int a_rank = 0, s_rank = 0, n_shed = 0;
+  for (int i = l; i - l < R; i += 32) {
+    bool wait = false, expw = false;
+    if (i < R) {
+      wait = taken[i] == 0 && __ldg(arrivals + i) <= t;
+      expw = wait && __ldg(deadlines + i) < t;
+    }
+    const bool adm = wait && !expw;
+    const unsigned am = __ballot_sync(FULL, adm);
+    const int ar = a_rank + __popc(am & below);
+    const bool admit = adm && ar < k;
+    const bool shed = expw || (adm && ar >= k + qd);
+    const unsigned sm = __ballot_sync(FULL, shed);
+    const int sr = s_rank + __popc(sm & below);
+    const bool emit = shed && sr < B - n_fin;
+    if (admit) by_adm[ar] = i;
+    if (emit) by_shed[sr] = i;
+    if (admit || emit) taken[i] = 1;
+    a_rank += __popc(am);
+    s_rank += __popc(sm);
+    n_shed += __popc(__ballot_sync(FULL, emit));
+  }
+  __syncwarp();
+  int f_rank = 0, r_rank = 0, n_active = 0;
+  for (int b = 0; b < B; ++b) {
+    const int* row = fb + static_cast<long long>(b) * W;
+    bool expired, fin, fre;
+    slot_state(row, t, &expired, &fin, &fre);
+    const bool admit = fre && f_rank < k;
+    const bool take = !fin && r_rank < n_shed;
+    const int ai = admit ? by_adm[f_rank] : 0, si = take ? by_shed[r_rank] : 0;
+    n_active += admit ? 1 : (!fin && __ldcg(row + C_ACTIVE) > 0);
+    if (blockIdx.x == 0) {
+      for (int col = l; col < W; col += 32) {
+        int x = 0, y = 0;  // the table's word, the finished rows' word
+        if (admit) {
+          switch (col) {
+            case C_ACTIVE: case C_NEW: x = 1; break;
+            case C_REQ: x = ai; break;
+            case C_POS: x = P - 1; break;
+            case C_BUDGET: x = __ldg(budgets + ai); break;
+            case C_STATUS: x = STATUS_OK; break;
+            case C_DEADLINE: x = __ldg(deadlines + ai); break;
+            default:
+              if (col >= SLOT_HEADER && col < SLOT_HEADER + P)
+                x = __ldg(prompts + static_cast<long long>(ai) * P + col - SLOT_HEADER);
+          }
+        } else if (!fin) {
+          x = __ldcg(row + col);
+        }
+        if (take) {
+          switch (col) {
+            case C_REQ: y = si; break;
+            case C_BUDGET: y = __ldg(budgets + si); break;
+            case C_FIN: y = 1; break;
+            case C_LAT: y = add_i32(t, -__ldg(arrivals + si)); break;
+            case C_STATUS: y = __ldg(deadlines + si) < t ? STATUS_TIMEOUT : STATUS_SHED; break;
+            case C_DEADLINE: y = __ldg(deadlines + si); break;
+          }
+        } else if (fin) {
+          y = __ldcg(row + col);
+          if (expired && col == C_FIN) y = 1;
+          if (expired && col == C_STATUS) y = STATUS_TIMEOUT;
+          if (col == C_LAT)
+            y = add_i32(t - 1, -__ldg(arrivals + min(max(__ldcg(row + C_REQ), 0), R - 1)));
+        }
+        const long long at = 4 * (static_cast<long long>(b) * W + col);
+        put<CB, unsigned>(c, 0, at, static_cast<unsigned>(x));
+        put<CB, unsigned>(c, 1, at, static_cast<unsigned>(x));
+        put<CB, unsigned>(c, 2, at, static_cast<unsigned>(y));
+      }
+    }
+    f_rank += fre;
+    r_rank += !fin;
+  }
+  if (l < c.n_out - 3) {
+    int* tok = v.S + c.terms[3 + l];
+    tok[0] = n_active;
+    tok[1] = n_fin + n_shed;
+    tok[2] = k;
+  }
+  if (l == 0) {
+    sc[0] = retired + n_fin + n_shed;
+    sc[1] = t + 1;
+  }
+  __syncwarp();
+}
+
+template <int CB>
+__device__ __forceinline__ void run_serving(const View& v, const Cmd& c) {
+  switch (c.kind) {
+    case K_ADMISSION:
+      run_admission<CB>(v, c);
+      break;
+    case K_GATE:
+      run_gate<CB>(c);
+      break;
+    case K_MERGE:
+      run_merge<CB>(c);
+      break;
+    case K_RETIRE:
+      run_retire(v, c);
+      break;
+  }
+}
+
 #ifdef MK_GUARDS
 // NONFINITE of a wide command's enabled float inputs and DOMAIN of those
 // whose channel declares one (in its first phase; the wide kinds' data
@@ -1945,8 +2290,14 @@ __device__ __noinline__ void run_moe(const View v, const Cmd& c, Stage& st) {
 }
 
 #ifdef MK_GUARDS
+// Bytes of a window of the channel with row fr.
+__device__ __forceinline__ long long window_bytes(const int* fr) {
+  return static_cast<long long>(fr[F_RATE]) * fr[F_TOKB];
+}
+
 // NONFINITE of the command's enabled float inputs: the block scans its share
-// of each window (every input window of a command is win bytes).
+// of each window (every float input window of a command is win bytes: the
+// serving kinds, whose windows differ, have none).
 __device__ void scan_inputs(const Cmd& c) {
   const unsigned m = c.in_fl & c.in_en;
   for (int k = 0; k < c.n_in; ++k) {
@@ -1971,12 +2322,13 @@ __device__ __noinline__ bool scan_domains(const Cmd& c) {
     const int* fr = rows + FIFO_FIELDS * c.in_f[k];
     if (!((c.in_en >> k) & 1) || !fr[F_DOM]) continue;
     bool dom = false;
+    const long long n = window_bytes(fr);
     if (fr[F_ELEM] == ELEM_U8) {
-      for (long long j = grid_first(); j < c.win; j += grid_step())
+      for (long long j = grid_first(); j < n; j += grid_step())
         dom |= out_of_domain(__ldcg(c.in[k] + j), fr);
     } else {
       const unsigned* w = reinterpret_cast<const unsigned*>(c.in[k]);
-      for (long long j = grid_first(); j < c.win / 4; j += grid_step())
+      for (long long j = grid_first(); j < n / 4; j += grid_step())
         dom |= out_of_domain(__ldcg(w + j), fr);
     }
     if (dom) atomicOr(&dom_in, 1u << k);
@@ -2002,6 +2354,72 @@ __device__ void flush_bad(const Cmd& c, long long* fault) {
     flush_bits(dom_in, c.in_f, fault, DOMAIN);
     flush_bits(dom_out, c.out_f, fault, DOMAIN);
     dom_in = dom_out = 0;
+  }
+}
+#endif
+
+
+// The serving kinds' commands, with the narrow path's guards (their outputs
+// test DOMAIN on store, merge's feedback window copies back on phase 2).
+__device__ __noinline__ void run_ext(const View v, const Cmd& c, long long* fault) {
+#ifdef MK_GUARDS
+  scan_inputs(c);
+  if (dom_any && scan_domains(c)) {
+    if (c.cb_mask)
+      run_serving<CB_COPY | CB_DOM>(v, c);
+    else
+      run_serving<CB_DOM>(v, c);
+  } else
+#endif
+  if (c.cb_mask)
+    run_serving<CB_COPY>(v, c);
+  else
+    run_serving<0>(v, c);
+#ifdef MK_GUARDS
+  body_sync();
+  if (threadIdx.x == 0) flush_bad(c, fault);
+#else
+  (void)fault;
+#endif
+}
+
+#ifdef MK_GUARDS
+// At a resume, the step firing the runner ran: NONFINITE of its enabled
+// float32 windows and DOMAIN of those whose channel declares one, inputs and
+// outputs, each block its share (the values dynamic mode's guards read at
+// that firing).
+__device__ __noinline__ void scan_step(const View v, long long* fault) {
+  const int* y = v.S + v.io_counts + v.P[H_N_ACTORS];
+  const int* r = actor_row(v, y[Y_ACTOR]);
+  for (int side = 0; side < 2; ++side) {
+    const unsigned en = static_cast<unsigned>(y[side ? Y_OUT_EN : Y_IN_EN]);
+    for (int p = 0; p < r[side ? A_NOUT : A_NIN]; ++p) {
+      if (!((en >> p) & 1)) continue;
+      const int f = v.P[r[side ? A_OUT : A_IN] + p];
+      const int* fr = fifo_row(v, f);
+      const bool fl = fr[F_ELEM] == ELEM_F32, dm = fr[F_DOM] != 0;
+      if (fr[F_CTRL] || !(fl || dm)) continue;
+      const unsigned char* w = ring(v, f, y[Y_OFF + side * MAX_STEP_PORTS + p]);
+      const long long n = window_bytes(fr);
+      bool bad = false, dom = false;
+      if (fr[F_ELEM] == ELEM_U8) {
+        for (long long j = grid_first(); j < n; j += grid_step())
+          dom |= out_of_domain(__ldcg(w + j), fr);
+      } else {
+        const unsigned* ws = reinterpret_cast<const unsigned*>(w);
+        for (long long j = grid_first(); j < n / 4; j += grid_step()) {
+          const unsigned x = __ldcg(ws + j);
+          bad |= fl && nonfinite(x);
+          dom |= dm && out_of_domain(x, fr);
+        }
+      }
+      if (bad)
+        atomicOr(reinterpret_cast<unsigned long long*>(fault + f),
+                 static_cast<unsigned long long>(NONFINITE));
+      if (dom)
+        atomicOr(reinterpret_cast<unsigned long long*>(fault + f),
+                 static_cast<unsigned long long>(DOMAIN));
+    }
   }
 }
 #endif
@@ -2055,6 +2473,12 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   const int len = prog[H_LEN];
   const int n_state = io_len - META_WORDS;
   long long* io = args + n_ptrs;
+  // io words with a pending step firing: this launch resumes that run from
+  // its saved scheduler, numbering commands on from seq0.
+  const int io_yield = 3 * prog[H_N_FIFOS] + 2 * prog[H_N_SCALARS] + prog[H_N_CTRL] +
+                       prog[H_N_ACTORS];
+  const bool resume = MOE && io[io_yield + Y_PENDING] != 0;
+  const long long seq0 = resume ? io[io_yield + Y_SEQ] : 0;
   View v;
   v.P = smem;
   v.S = smem + len;
@@ -2062,9 +2486,13 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   long long* words = reinterpret_cast<long long*>(
       smem + ((len + n_state + (2 + GUARD_INTS) * n_ptrs + 1) & ~1));
 #ifdef MK_GUARDS
+  // The high-water marks go on from the io words (a resumed run's so far).
   v.fault = v.ph + 2 * n_ptrs;
   v.hw = v.fault + n_ptrs;
-  for (int i = tid; i < 2 * n_ptrs; i += THREADS) v.fault[i] = 0;
+  for (int i = tid; i < n_ptrs; i += THREADS) {
+    v.fault[i] = 0;
+    v.hw[i] = i < prog[H_N_FIFOS] ? static_cast<int>(io[io_len + prog[H_N_FIFOS] + i]) : 0;
+  }
 #endif
 #ifdef MK_TRACE
   v.trace = trace;
@@ -2084,8 +2512,8 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
   for (int i = tid; i < 2 * SEGS * n_ptrs; i += THREADS) v.trk[i] = 0;
   for (int i = tid; i < n_actors; i += THREADS) v.alast[i] = 0;
   if (tid == 0) {
-    least = 0;
-    local_done = 0;
+    least = seq0;
+    local_done = seq0;
     finished = 0;
 #ifdef MK_GUARDS
     bad_in = bad_out = dom_in = dom_out = 0;
@@ -2096,7 +2524,7 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
       mbar_init(&done[i], BODY_THREADS / 32);
       mbar_init(&empty[i], 1);
     }
-    progress[blockIdx.x] = 0;
+    progress[blockIdx.x] = seq0;
   }
   __syncthreads();
   v.fifos = v.P + v.P[H_FIFO_OFF];
@@ -2118,13 +2546,19 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
     v.ph[2 * f + 1] = (v.S[3 * f + 1] % nph + nph) % nph;
   }
 
-  // 2. Forwarded data rings start from zeros (the dead-slot rule).
-  if (tid < BODY_THREADS)
+  // 2. Forwarded data rings start from zeros (the dead-slot rule), except in
+  //    a resumed run, which goes on with what they hold; there the guards
+  //    first check the step firing's windows.
+  if (tid < BODY_THREADS && !resume)
     for (int f = 0; f < v.P[H_N_FIFOS]; ++f) {
       const int* fr = fifo_row(v, f);
       if (!fr[F_FWD] || fr[F_CTRL]) continue;
       copy_bytes(ring(v, f, 0), nullptr, static_cast<long long>(fr[F_CAP]) * fr[F_TOKB]);
     }
+#ifdef MK_GUARDS
+  if constexpr (MOE)
+    if (tid < BODY_THREADS && resume) scan_step(v, io + io_len);
+#endif
   grid.sync();
 
   // 3. The scheduler warp decides; the body threads run the commands; the
@@ -2141,6 +2575,17 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
     Sched s = {};
     s.vpos = s.left = -1;
     s.fired_any = 1;
+    if (resume) {
+      const int* y = v.S + io_yield;
+      s.sweeps = y[Y_SWEEPS];
+      s.vpos = y[Y_VPOS];
+      s.left = y[Y_LEFT];
+      s.fired_any = y[Y_FIRED];
+      s.seq = seq0;
+    }
+#ifdef MK_TRACE
+    s.events = io[io_len + 2 * v.n_fifos];
+#endif
     [[maybe_unused]] const long long clk =
         scheduler<MOE>(v, slots, full, empty, &s, max_sweeps, multi_firing);
     // 4. Block 0 writes the replicated state back, once its body threads
@@ -2153,12 +2598,27 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
       }
     }
     if (blockIdx.x == 0) {
+      if constexpr (MOE) {
+        // A yield: the scheduler to resume from.
+        if (lane() == 0) {
+          int* y = v.S + io_yield;
+          y[Y_PENDING] = s.error == ERR_YIELD;
+          if (s.error == ERR_YIELD) {
+            y[Y_SWEEPS] = s.sweeps;
+            y[Y_VPOS] = s.vpos;
+            y[Y_LEFT] = s.left;
+            y[Y_FIRED] = s.fired_any;
+            y[Y_SEQ] = static_cast<int>(s.seq);
+          }
+        }
+        __syncwarp();
+      }
       for (int i = lane(); i < n_state; i += 32) io[i] = v.S[i];
       if (lane() == 0) {
         long long* meta = io + n_state;
         meta[M_SWEEPS] = s.sweeps;
         meta[M_STALLED] = s.stalled;
-        meta[M_ERROR] = s.error;
+        meta[M_ERROR] = s.error == ERR_YIELD ? 0 : s.error;
         meta[M_ERR_ACTOR] = s.err_actor;
         meta[M_ERR_VALUE] = s.err_value;
         meta[M_BLOCKS] = gridDim.x;
@@ -2224,7 +2684,9 @@ megakernel(const int* __restrict__ prog, long long* args, int n_ptrs,
 #endif
       bool moe_cmd = false;
       if constexpr (MOE) moe_cmd = cmd.kind >= K_ROUTER;
-      if (moe_cmd) {
+      if (moe_cmd && cmd.kind > K_PACKER) {
+        run_ext(v, cmd, io + io_len);
+      } else if (moe_cmd) {
 #ifdef MK_GUARDS
         if (cmd.phase == 0) scan_inputs_wide(v, cmd);
 #endif

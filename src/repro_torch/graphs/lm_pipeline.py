@@ -15,9 +15,11 @@ the same shapes (B6 once a layer for mamba2).
 dimension through :func:`~repro_torch.core.pipeline.pipeline_spmd`, the
 embedding and the unembedding replicated on every rank.
 
-Not ported: the network in megakernel mode, where kernel B2 runs a fixed
-set of device bodies and an LM stage is none of them (the open design of
-ROADMAP A9b).
+In megakernel mode the source and the sink are kernel B2's ``"source"``
+and ``"sink"`` bodies (a window of the staged ``(n_micro, S, D)`` slab
+each), and each stage is a ``"step"``: B2 stops at each stage firing and
+the runner calls the stage's ``fire`` on the card between launches, one
+launch a stage firing plus one.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from typing import Any, Callable, List, Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import NetworkBuilder, static_actor
+from repro_torch.core import DeviceOp, NetworkBuilder, static_actor
 from repro_torch.core.network import Network
 from repro_torch.core.pipeline import pipeline_reference, pipeline_spmd
 from repro_torch.models.lm import LM, layer_plan
@@ -105,7 +107,8 @@ def build_lm_stage_network(model: LM, cfg: ArchConfig, tokens: torch.Tensor,
         return (data, idx + 1), {"out": data[idx][None]}
 
     source = static_actor("source", (), ("out",), src_fire,
-                          init=lambda: (x, 0), ready=lambda st: st[1] < n_micro)
+                          init=lambda: (x, 0), ready=lambda st: st[1] < n_micro,
+                          device_op=DeviceOp("source", dict(n_firings=n_micro, planes=1)))
 
     def sink_fire(state, inputs, rates):
         data, idx = state
@@ -115,7 +118,8 @@ def build_lm_stage_network(model: LM, cfg: ArchConfig, tokens: torch.Tensor,
     sink = static_actor("sink", ("in",), (), sink_fire,
                         init=lambda: (torch.zeros((n_micro, S, D), dtype=x.dtype,
                                                   device=x.device), 0),
-                        finish=lambda st: st[0])
+                        finish=lambda st: st[0],
+                        device_op=DeviceOp("sink", dict(planes=1)))
 
     b = NetworkBuilder()
     b.actor(source)
@@ -127,7 +131,7 @@ def build_lm_stage_network(model: LM, cfg: ArchConfig, tokens: torch.Tensor,
             return state, {"out": stage_fn(layers, inputs["in"][0])[None]}
 
         b.actor(static_actor(f"stage{s}", ("in",), ("out",), fire,
-                             cost_flops=2 * S * n_params))
+                             cost_flops=2 * S * n_params, device_op=DeviceOp("step")))
         b.connect(prev, f"stage{s}.in", token_shape=(S, D), dtype=x.dtype,
                   name=f"f_s{s}")
         prev = f"stage{s}.out"

@@ -39,6 +39,12 @@ The actors declare their enables (``ActorSpec.enables``): ``gate.xa``,
 control channels are fed by one tensor object, so the build proves every
 channel ``balanced``.
 
+For the megakernel backend each actor declares its device function
+(``ActorSpec.device_op``): admission, gate, merge and retire are kernel
+B2's bodies of those names, bit for bit these ``fire`` functions (all
+int32); decode is a ``"step"``: B2 stops at its enabled firings and the
+runner calls ``decode_fire`` on the card between launches.
+
 Token identity: per-request greedy tokens equal the port ``Engine``'s.
 Both engines call the same ``prefill`` and ``decode_step`` at the same
 (B, P) and (B, 1) shapes, and the rows of a dense model are computed
@@ -55,7 +61,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import Network, NetworkBuilder, dynamic_actor, static_actor
+from repro_torch.core import DeviceOp, Network, NetworkBuilder, dynamic_actor, static_actor
 from repro_torch.core.network import tree_leaves, tree_map
 
 # Slot-table header columns (one row per slot, int32).  After the header:
@@ -329,7 +335,10 @@ def build_serving_network(cfg: ArchConfig, model, workload: ServingWorkload, *,
     admission = static_actor(
         "admission", ["fb"],
         ["table", "x", "fin", "c_gate", "c_dec", "c_merge", "c_ret"],
-        admission_fire, init=admission_init, ready=lambda st: st[2] < R)
+        admission_fire, init=admission_init, ready=lambda st: st[2] < R,
+        device_op=DeviceOp("admission", dict(
+            prompts=prompts, budgets=budgets, arrivals=arrivals, deadlines=deadlines,
+            B=B, P=P, N=N, R=R, qd=qd)))
 
     # -- gate: rate-converts admission's static writes to dynamic reads ----
     def gate_control(tok):
@@ -340,7 +349,7 @@ def build_serving_network(cfg: ArchConfig, model, workload: ServingWorkload, *,
         return st, {"xa": ins["x"][0], "fina": ins["fin"][0]}
 
     gate = dynamic_actor("gate", "c", gate_control, ["x", "fin"], ["xa", "fina"],
-                         gate_fire,
+                         gate_fire, device_op=DeviceOp("gate"),
                          enables={"x": 1, "fin": 1, "xa": (0, 0), "fina": (1, 0)})
 
     # -- decode: the model actor (the caches are its state) ----------------
@@ -376,6 +385,7 @@ def build_serving_network(cfg: ArchConfig, model, workload: ServingWorkload, *,
 
     decode = dynamic_actor("decode", "c", decode_control, ["x"], ["y"], decode_fire,
                            init=decode_init, enables={"x": (0, 0), "y": (0, 0)},
+                           device_op=DeviceOp("step"),
                            cost_flops=2 * cfg.d_model * cfg.d_model
                            * max(cfg.n_layers, 1) * B)
 
@@ -412,7 +422,8 @@ def build_serving_network(cfg: ArchConfig, model, workload: ServingWorkload, *,
         return st, {"fb": torch.cat([header, tbl[:, HEADER:HEADER + P], gen], dim=1)}
 
     merge = dynamic_actor("merge", "c", merge_control, ["table", "y"], ["fb"],
-                          merge_fire, enables={"table": 1, "y": (0, 0), "fb": 1})
+                          merge_fire, enables={"table": 1, "y": (0, 0), "fb": 1},
+                          device_op=DeviceOp("merge", dict(eos=eos, P=P, N=N)))
 
     # -- retire: dynamic sink collecting finished sequences ----------------
     # State: (gen (R, N), lens, lat, status, done (R,)), int32 on the device.
@@ -440,7 +451,7 @@ def build_serving_network(cfg: ArchConfig, model, workload: ServingWorkload, *,
 
     retire = dynamic_actor(
         "retire", "c", retire_control, ["fin"], [], retire_fire, init=retire_init,
-        enables={"fin": (1, 0)},
+        enables={"fin": (1, 0)}, device_op=DeviceOp("retire", dict(R=R, P=P, N=N)),
         finish=lambda st: dict(zip(("gen", "lens", "lat", "status", "done"), st)))
 
     # -- wiring ------------------------------------------------------------

@@ -28,9 +28,12 @@ across the ``k`` ranks of a process group (every rank builds the engine
 and calls ``generate`` with the same requests; every rank returns the same
 results).
 
-The serving network in megakernel mode is not ported (ROADMAP A9b): the
-reference traces the whole LM into its megakernel, while the port's B2
-runs a fixed set of device bodies, of which a decode step is none.
+``plan=ExecutionPlan(mode="megakernel")`` runs the network through kernel
+B2: admission, gate, merge and retire are its device bodies, and at each
+firing of decode that runs the model B2 stops, the runner calls the decode
+step on the card, and B2 goes on (one launch a decode firing that runs
+the model, plus one), with guards, trace and ``on_fault="quarantine"`` as
+in dynamic mode.
 """
 from __future__ import annotations
 
@@ -68,13 +71,7 @@ class ActorEngine:
         self.scfg = scfg
         self.queue_depth = queue_depth
         self.plan = plan if plan is not None else ExecutionPlan(mode="dynamic")
-        if self.plan.mode == "megakernel":
-            raise NotImplementedError(
-                "ActorEngine: the serving network in megakernel mode is not "
-                "ported: ROADMAP A9b (kernel B2 runs a fixed set of device "
-                "bodies, and an LM decode step is not one of them); use "
-                "ExecutionPlan(mode='dynamic')")
-        if self.plan.mode != "dynamic":
+        if self.plan.mode not in ("dynamic", "megakernel"):
             raise ValueError(
                 f"ActorEngine: plan mode {self.plan.mode!r} cannot run the "
                 "serving feedback loop to data-dependent quiescence; use "

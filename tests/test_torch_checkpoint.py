@@ -383,11 +383,34 @@ print("RESUME_RUN_OK")
     assert "RESUME_RUN_OK" in out
 
 
-def test_serving_megakernel_and_devices_plans_raise_naming_their_items():
-    """The reference's other two kill/resume cells: the serving network in
-    megakernel mode is ROADMAP A9b; ``devices=2`` is ported (kill/resume at
-    devices=2 is in test_torch_shard.py) and, with no process group
-    started, refused naming how to start one."""
+def test_serving_megakernel_and_devices_plans_raise_naming_their_items(tmp_path):
+    """The reference's other two kill/resume cells
+    (``tests/test_resilience.py:347-351``).  Megakernel mode (unspecialized,
+    as there): the serving network through run_checkpointed in segments of
+    5 sweeps, each segment a B2 run with its yields at the decode steps
+    (its plain version here), killed after the first snapshot and resumed
+    in a fresh process: final state, fire counts and sweeps bit for bit the
+    uninterrupted run's and the dynamic run's.  ``devices=2`` is ported
+    (kill/resume at devices=2 is in test_torch_shard.py) and, with no
+    process group started, refused naming how to start one."""
+    ck = str(tmp_path / "ck")
+    setup = _SERVING_SETUP.replace(
+        "@PLAN@", "ExecutionPlan(mode='megakernel', specialize=False)")
+    _run_child(setup + _KILL_HOOK.replace("@KILL_AFTER@", "1") + f"""
+prog.run_checkpointed({ck!r}, every_sweeps=5)
+raise SystemExit("run finished without being killed")
+""", expect_kill=True)
+    assert os.listdir(ck) == ["chunk_00000001"]
+    out = _run_child(setup + f"""
+ref = prog.run()
+dyn = net.compile(ExecutionPlan(mode="dynamic")).run()
+got = net.compile(plan).resume_run({ck!r})
+assert got.sweeps == ref.sweeps == dyn.sweeps > 5, (got.sweeps, ref.sweeps)
+assert got.fire_counts == ref.fire_counts == dyn.fire_counts
+assert states_equal(got.state, ref.state) and states_equal(ref.state, dyn.state)
+print("RESUME_RUN_OK")
+""")
+    assert "RESUME_RUN_OK" in out
     from repro_torch.configs import smoke_config
     from repro_torch.models import LM
     from repro_torch.serve import ActorEngine, Request, ServeConfig
@@ -395,7 +418,5 @@ def test_serving_megakernel_and_devices_plans_raise_naming_their_items():
     eng = ActorEngine(cfg, LM(cfg, device="cpu", seed=0),
                       ServeConfig(batch_size=2, max_prompt=6, max_new=3, eos_id=7))
     net = eng.build_network([Request(prompt=np.arange(1, 5, dtype=np.int32), max_new=3)])
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        net.compile(ExecutionPlan(mode="megakernel", specialize=False))
     with pytest.raises(RuntimeError, match="init_process_group"):
         net.compile(ExecutionPlan(mode="dynamic", devices=2))

@@ -1101,3 +1101,149 @@ def test_smoke_train_step_on_the_card_matches_the_cpu(gen, arch):
                                                    torch.frexp(w)[1] - 8) * (w != 0))
         assert float(((got - w).abs() / unit).max()) <= 1.0, k
 
+
+
+# ---- B2's serving bodies and the yield: the LM actors in megakernel mode ---- #
+@pytest.fixture(scope="module")
+def serving_lm():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels run only there")
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import LM
+    cfg = smoke_config("granite-8b")
+    return cfg, LM(cfg, device="cuda", seed=0)
+
+
+#: Serving workloads: bench_serving.py's fast one (R 6, B 2, budgets 6 and
+#: 1, Poisson arrivals), every request at step 0 with queue_depth 0 (sheds),
+#: a deadline expired before the first firing and one mid-flight, and R 9
+#: requests on B 3 slots with an EOS id inside the argmax range.
+SERVING_CASES = ("bench", "shed", "expire", "burst")
+
+
+def _serving_net(serving_lm, case, poison=None):
+    from repro_torch.graphs import serving
+    cfg, model = serving_lm
+    rng = np.random.default_rng(9)
+    R = 9 if case == "burst" else 6
+    prompts = [rng.integers(1, cfg.vocab, size=7 - (i % 3)).astype(np.int32)
+               for i in range(R)]
+    slab, lens = serving.left_pad_prompts(prompts, 8)
+    if poison is not None:
+        slab[poison] = -7
+    deadlines = None
+    if case == "expire":
+        deadlines = np.full(R, serving.NO_DEADLINE, np.int32)
+        deadlines[2], deadlines[4] = -1, 4
+    wl = serving.ServingWorkload(
+        prompts=slab, prompt_lens=lens,
+        budgets=np.array([6 if i % 2 == 0 else 1 for i in range(R)], np.int32),
+        arrivals=(np.zeros(R, np.int32) if case == "shed"
+                  else serving.poisson_trace(R, 2.0, seed=7)),
+        deadlines=deadlines)
+    return serving.build_serving_network(
+        cfg, model, wl, batch_size=3 if case == "burst" else 2, max_prompt=8, max_new=6,
+        eos_id=5 if case == "burst" else None, queue_depth=0 if case == "shed" else None)
+
+
+def _serving_sides(net, model, cores, guards=False, trace=False, specialize=True):
+    """The serving network run by B2 (with its yields), by its plain version
+    on the card and by the host dynamic executor, from one fresh state:
+    each side's result (:func:`_health_and_trace`), B2 launches and decode
+    steps run."""
+    layout = lower_network(net)
+    part = partition_layout(net, layout, cores, forward_transients=specialize)
+    cap = 4096 if trace else None
+    runner = compile_megakernel(net, layout=layout, partition=part, guards=guards,
+                                trace_capacity=cap)
+    steps = [0]
+    step = model.decode_step
+
+    def counted(*a, **kw):
+        steps[0] += 1
+        return step(*a, **kw)
+    model.decode_step = counted
+    out = {}
+    try:
+        for label, run in (("b2", runner), ("plain", runner.plain),
+                           ("dynamic", lambda st: run_dynamic(
+                               net, st, 1_000_000, True, guards=guards,
+                               trace_capacity=cap))):
+            steps[0], before = 0, megakernel_cuda.launches
+            out[label] = (_health_and_trace(net, net.init_state(), run, guards, trace),
+                          megakernel_cuda.launches - before, steps[0])
+    finally:
+        del model.decode_step
+    return out
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("case", SERVING_CASES)
+def test_megakernel_serving_bit_identical_to_plain_and_dynamic(serving_lm, case, cores):
+    """B2's admission, gate, merge and retire bodies and its yield at every
+    decode firing that runs the model: every ring, cursor, control token,
+    actor state (the decode caches included), fire count and sweep equal to
+    its plain version's and the host dynamic run's bit for bit; one launch
+    a decode step, plus one."""
+    net = _serving_net(serving_lm, case)
+    sides = _serving_sides(net, serving_lm[1], cores)
+    (b2, launches, steps), (plain, p_launches, p_steps) = sides["b2"], sides["plain"]
+    assert b2 == plain == sides["dynamic"][0]
+    assert steps == p_steps == sides["dynamic"][2] > 0
+    assert launches == steps + 1 and p_launches == 0
+
+
+@pytest.mark.parametrize("build", ["guards", "trace", "both"])
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_serving_guarded_traced_builds_match_plain_and_dynamic(
+        serving_lm, cores, build):
+    """The MK_GUARDS and MK_TRACE builds carry their words across the
+    yields: fault words, high-water marks and every trace event (the
+    decode step's attempt once) equal to the plain version's and the host
+    dynamic run's, unspecialized as the reference's resilience tests run."""
+    net = _serving_net(serving_lm, "bench")
+    kw = dict(guards=build in ("guards", "both"), trace=build in ("trace", "both"))
+    sides = _serving_sides(net, serving_lm[1], cores, specialize=False, **kw)
+    assert sides["b2"][0] == sides["plain"][0] == sides["dynamic"][0]
+    assert sides["b2"][1] == sides["b2"][2] + 1
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_serving_poisoned_request_faults_as_dynamic(serving_lm, cores):
+    """A request whose prompt leaves SLOT_DOMAIN: the guarded build flags
+    DOMAIN on the channels the dynamic run flags (admission's outputs by
+    their stores, gate's and decode's windows, the decode step's checked
+    at the resume after it), with the same high-water marks, and every
+    leaf, NaN caches included, bit for bit."""
+    net = _serving_net(serving_lm, "bench", poison=3)
+    sides = _serving_sides(net, serving_lm[1], cores, guards=True, specialize=False)
+    assert sides["b2"][0] == sides["plain"][0] == sides["dynamic"][0]
+    faults, _ = sides["b2"][0][4]
+    assert any(faults)
+
+
+@pytest.mark.parametrize("specialize", [True, False])
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_lm_stage_network_matches_static(gen, cores, specialize):
+    """mamba2-780m's smoke config as 2 stages over 4 microbatches: the
+    source and sink bodies on bf16 windows, a yield at each of the 8 stage
+    firings (9 launches), activations bit for bit the static run's and the
+    plain version's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.graphs.lm_pipeline import build_lm_stage_network
+    from repro_torch.models import LM
+    cfg = smoke_config("mamba2-780m")
+    model = LM(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(0))
+    net = build_lm_stage_network(model, cfg, tokens, 2)
+    static = net.compile(mode="static", n_iterations=4)
+    want = static.collect("sink", static.run().state)
+    prog = net.compile(mode="megakernel", cores=cores, specialize=specialize)
+    before = megakernel_cuda.launches
+    res = prog.run()
+    assert megakernel_cuda.launches == before + 9
+    assert res.fire_counts == {"source": 4, "stage0": 4, "stage1": 4, "sink": 4}
+    got = prog.collect("sink", res.state)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    plain = compile_megakernel(net, cores=cores).plain(net.init_state())
+    assert torch.equal(plain[0].actor("sink")[0], want)

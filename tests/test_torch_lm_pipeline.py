@@ -140,14 +140,43 @@ def test_unported_and_refused_plans_name_their_items():
     with pytest.raises(ValueError, match="DeviceMesh"):
         pipeline_spmd(lambda p, v: v, [None], tokens[:, None], mesh=None)
     net = build_lm_stage_network(model, cfg, tokens, n_stages=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        net.compile(mode="megakernel", specialize=False)
+    # Megakernel mode runs (ported): a B2 run that stops at each stage firing.
+    full = net.compile(mode="static", n_iterations=2)
+    mk = net.compile(mode="megakernel", specialize=False)
+    assert torch.equal(mk.collect("sink", mk.run().state),
+                       full.collect("sink", full.run().state))
     with pytest.raises(ValueError, match="accelerated"):
         lm_stage_network_forward(model, cfg, tokens, 2,
                                  plan=ExecutionPlan(mode="static", n_iterations=2,
                                                     accelerated=STAGES))
     with pytest.raises(ValueError, match="not divisible into 3 stages"):
         stack_stage_params(model, cfg, 3)
+
+
+@pytest.mark.parametrize("arch", ["granite-8b", "mamba2-780m"])
+def test_lm_stage_network_in_megakernel_mode_is_the_static_run(arch):
+    """The stage network in megakernel mode (kernel B2's plain version on
+    the CPU: the source and sink as B2's copy bodies on bf16 windows, each
+    stage a step the runner fires between launches), specialized or not
+    and at two grid cores, and its megakernel stream, chunked and
+    persistent: activations bit for bit the static run's, every stage
+    firing once a microbatch."""
+    cfg, model = _models(arch)[2:4]
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab, (4, 8)))
+    net = build_lm_stage_network(model, cfg, tokens, n_stages=2)
+    full = net.compile(mode="static", n_iterations=4)
+    want = full.collect("sink", full.run().state)
+    for kw in (dict(), dict(specialize=False), dict(cores=2)):
+        prog = net.compile(ExecutionPlan(mode="megakernel", **kw))
+        res = prog.run()
+        assert res.fire_counts == dict.fromkeys(("source", "stage0", "stage1", "sink"), 4)
+        assert torch.equal(prog.collect("sink", res.state), want), kw
+    prog = net.compile(mode="megakernel", n_iterations=2, accelerated=STAGES,
+                       specialize=False)
+    feeds = {"f_s0": net.actors["source"].init()[0][:, None]}
+    for persistent in (False, True):
+        got = prog.stream(feeds, persistent=persistent)["f_out"][:, 0]
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want), persistent
 
 
 def test_rest_plans_refused_as_the_reference(jax_literal):

@@ -17,6 +17,11 @@ reference's weights converted by ``lm_params_from_numpy``.
 * Resilience against the reference: ``expire_deadline``, shedding at
   ``queue_depth=0``, ``poison_request`` with ``faulted_requests`` and the
   quarantine loop.
+* The same in megakernel mode (kernel B2's plain version on the CPU, a
+  launch a decode step plus one) against the JAX ``ActorEngine`` in
+  megakernel mode: structure on the bench workload, high-water marks and
+  trace events of the guarded, traced run, and the resilience matrix
+  (``tests/test_resilience.py:94-135``, unspecialized as there).
 
 The reference's ``NetworkBuilder.build`` reads ``jax.core.Literal`` (C1);
 the module-scoped ``ref`` fixture aliases it while it runs the reference
@@ -56,6 +61,8 @@ ARCH = "granite-8b"
 # bench_serving.py's fast workload.
 BENCH_R, BENCH = 6, dict(batch_size=2, max_prompt=8, max_new=6, eos_id=None)
 GUARDED_TRACED = dict(mode="dynamic", guards=True, trace=True)
+#: The reference's resilience tests run megakernel plans unspecialized.
+MK_PLAN = dict(mode="megakernel", specialize=False)
 
 
 def _port_model(arch, params=None, **overrides):
@@ -145,6 +152,26 @@ def ref(lm):
         qt = q.generate(bad, arrivals=arrivals, on_fault="quarantine")
         out["quarantine"] = dict(status=q.last_status, retries=q.last_retries,
                                  tokens=[r.tokens.tolist() for r in qt])
+        # Megakernel mode.
+        mk = RefActorEngine(jcfg, params, scfg, plan=RefPlan(mode="megakernel"))
+        mk.generate(reqs, arrivals=arrivals)
+        out["bench_mk"] = dict(sweeps=mk.last_sweeps, counts=mk.last_fire_counts,
+                               lat=mk.last_latency_steps.tolist(), status=mk.last_status)
+        res = net.compile(RefPlan(mode="megakernel", **{
+            k: v for k, v in GUARDED_TRACED.items() if k != "mode"})).run()
+        out["traced_mk"] = dict(high_water=res.diagnostics.high_water,
+                                events=np.asarray(res.trace.events))
+        mk = RefActorEngine(jcfg, params, scfg, plan=RefPlan(**MK_PLAN))
+        mk.generate(reqs, arrivals=arrivals, deadlines=dl)
+        out["expire_mk"] = dict(status=mk.last_status, lat=mk.last_latency_steps.tolist(),
+                                counts=mk.last_fire_counts, sweeps=mk.last_sweeps)
+        mk = RefActorEngine(jcfg, params, scfg, plan=RefPlan(**MK_PLAN), queue_depth=0)
+        mk.generate(reqs)
+        out["shed_mk"] = dict(status=mk.last_status, lat=mk.last_latency_steps.tolist(),
+                              counts=mk.last_fire_counts, sweeps=mk.last_sweeps)
+        mk = RefActorEngine(jcfg, params, scfg, plan=RefPlan(guards=True, **MK_PLAN))
+        mk.generate(bad, arrivals=arrivals, on_fault="quarantine")
+        out["quarantine_mk"] = dict(status=mk.last_status, retries=mk.last_retries)
     return out
 
 
@@ -172,10 +199,11 @@ def engine_tokens(lm, requests, scfg):
     return [r.tokens for r in Engine(cfg, model, scfg).generate(requests)]
 
 
-@pytest.mark.parametrize("guards", [False, True])
-def test_actor_engine_matches_engine(lm, requests, scfg, engine_tokens, guards):
+@pytest.mark.parametrize("mode,guards", [("dynamic", False), ("dynamic", True),
+                                         ("megakernel", False), ("megakernel", True)])
+def test_actor_engine_matches_engine(lm, requests, scfg, engine_tokens, mode, guards):
     _, _, cfg, model = lm
-    eng = ActorEngine(cfg, model, scfg, plan=ExecutionPlan(mode="dynamic", guards=guards))
+    eng = ActorEngine(cfg, model, scfg, plan=ExecutionPlan(mode=mode, guards=guards))
     got = eng.generate(requests)
     for want, have in zip(engine_tokens, got):
         np.testing.assert_array_equal(want, have.tokens)
@@ -239,8 +267,11 @@ def test_serving_bounds_all_balanced(lm, requests, scfg, ref):
 
 def test_plans_and_families_the_engine_refuses(lm, scfg):
     _, _, cfg, model = lm
-    with pytest.raises(NotImplementedError, match="A9b"):
-        ActorEngine(cfg, model, scfg, plan=ExecutionPlan(mode="megakernel"))
+    # Megakernel mode runs (kernel B2's plain version on the CPU).
+    eng = ActorEngine(cfg, model, scfg, plan=ExecutionPlan(mode="megakernel"))
+    out = eng.generate([Request(np.array([1, 2], np.int32), 2)])
+    assert out[0].status == "ok" and out[0].tokens.size == 2
+    assert eng.last_program.plan.mode == "megakernel"
     with pytest.raises(ValueError, match="quiescence"):
         ActorEngine(cfg, model, scfg, plan=ExecutionPlan(mode="static", n_iterations=2))
     with pytest.raises(ValueError, match="guarded plan"):
@@ -384,6 +415,76 @@ def test_injector_validation(lm, bench):
     ew = expire_deadline(wl, 2, at=5)
     assert wl.deadlines is None and int(ew.deadlines[2]) == 4
     assert (np.delete(ew.deadlines, 2) == serving.NO_DEADLINE).all()
+
+
+# --------------------------------------------------------------------------- #
+# Megakernel mode against the JAX ActorEngine in megakernel mode.
+# --------------------------------------------------------------------------- #
+def test_bench_structure_equals_reference_in_megakernel_mode(lm, bench, ref, port_bench):
+    """Sweeps, fire counts, latency steps and statuses of the bench workload
+    equal the reference megakernel's exactly, and the tokens the port's
+    dynamic mode gives."""
+    _, _, cfg, model = lm
+    reqs, arrivals = bench
+    eng = ActorEngine(cfg, model, ServeConfig(**BENCH), plan=ExecutionPlan(mode="megakernel"))
+    toks = eng.generate(reqs, arrivals=arrivals)
+    want = ref["bench_mk"]
+    assert eng.last_sweeps == want["sweeps"] == ref["bench"]["sweeps"]
+    assert eng.last_fire_counts == {k: int(v) for k, v in want["counts"].items()}
+    assert eng.last_latency_steps.tolist() == want["lat"]
+    assert eng.last_status == want["status"]
+    assert [r.tokens.tolist() for r in toks] == port_bench[1]
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+def test_bench_guarded_trace_equals_reference_in_megakernel_mode(lm, bench, ref, cores):
+    """High-water marks and every trace event of the guarded, traced run in
+    megakernel mode (the decode step's attempt recorded once, before its
+    yield) equal the reference megakernel's, at one core and two."""
+    _, _, cfg, model = lm
+    reqs, arrivals = bench
+    eng = ActorEngine(cfg, model, ServeConfig(**BENCH), plan=ExecutionPlan(
+        mode="megakernel", guards=True, trace=True, cores=cores))
+    eng.generate(reqs, arrivals=arrivals)
+    res = eng.last_program._last
+    assert res.diagnostics.ok
+    want = ref["traced_mk"]
+    assert res.diagnostics.high_water == {k: int(v) for k, v in want["high_water"].items()}
+    np.testing.assert_array_equal(eng.last_trace.events, want["events"])
+    np.testing.assert_array_equal(want["events"], ref["traced"]["events"])
+
+
+@pytest.mark.parametrize("case", ["expire", "shed", "quarantine"])
+def test_resilience_in_megakernel_mode_as_reference(lm, bench, ref, port_bench, case):
+    """The reference's chaos matrix in megakernel mode (unspecialized, as
+    ``tests/test_resilience.py`` runs it): an expired deadline retires as a
+    timeout, ``queue_depth=0`` sheds, a poisoned request is quarantined after
+    one retry; statuses (and latency steps, fire counts and sweeps) equal
+    the reference megakernel's, survivors keep their tokens."""
+    _, _, cfg, model = lm
+    reqs, arrivals = bench
+    plan = ExecutionPlan(**MK_PLAN, guards=case == "quarantine")
+    eng = ActorEngine(cfg, model, ServeConfig(**BENCH), plan=plan,
+                      queue_depth=0 if case == "shed" else None)
+    want = ref[f"{case}_mk"]
+    if case == "quarantine":
+        bad = list(reqs)
+        bad[3] = Request(np.full(4, POISON_VALUE, np.int32), reqs[3].max_new)
+        out = eng.generate(bad, arrivals=arrivals, on_fault="quarantine")
+        assert (eng.last_status, eng.last_retries) == (want["status"], want["retries"]) \
+            == (ref["quarantine"]["status"], 1)
+        keep = [i for i in range(BENCH_R) if i != 3]
+    else:
+        kw = dict(arrivals=arrivals, deadlines=expire_deadline(_stage(eng, bench), 2).deadlines) \
+            if case == "expire" else {}
+        out = eng.generate(reqs, **kw)
+        assert eng.last_status == want["status"] == ref[case]["status"]
+        assert eng.last_latency_steps.tolist() == want["lat"]
+        assert eng.last_fire_counts == {k: int(v) for k, v in want["counts"].items()}
+        assert eng.last_sweeps == want["sweeps"]
+        keep = [i for i, st in enumerate(eng.last_status) if st == "ok"]
+    assert all(out[i].tokens.tolist() == port_bench[1][i] for i in keep)
+    assert all(out[i].tokens.size == 0 for i in range(BENCH_R) if i not in keep)
 
 
 # --------------------------------------------------------------------------- #

@@ -251,3 +251,37 @@ def test_stats_to_json_roundtrip(graphs, backend):
     assert json.loads(json.dumps(doc)) == doc
     if backend == "grid2":
         assert doc["grid_cores"] == 2 and isinstance(doc["partition_actors"], list)
+
+
+# --------------------------------------------------------------------------- #
+# The serving network (tests/test_trace.py:78-90): the trace observes the
+# megakernel's yields too.
+# --------------------------------------------------------------------------- #
+@pytest.fixture(scope="module")
+def serving_net():
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import LM
+    from repro_torch.serve import ActorEngine, Request, ServeConfig
+    cfg = smoke_config("granite-8b")
+    rng = np.random.default_rng(1)
+    reqs = [Request(prompt=rng.integers(1, cfg.vocab, size=int(n)).astype(np.int32),
+                    max_new=m) for n, m in [(5, 3), (3, 2), (6, 3)]]
+    eng = ActorEngine(cfg, LM(cfg, device="cpu", seed=0),
+                      ServeConfig(batch_size=2, max_prompt=8, max_new=3, eos_id=7))
+    return eng.build_network(reqs)
+
+
+@pytest.mark.parametrize("backend", BACKENDS)
+def test_serving_trace_off_path_bit_identical(serving_net, backend):
+    """Tracing the serving network changes no state, sweep or fire count in
+    any backend (in megakernel mode a B2 run per decode step, its attempt
+    recorded once before the yield), and every backend records the host
+    dynamic run's events."""
+    off = serving_net.compile(ExecutionPlan(**_kw(backend))).run()
+    on = serving_net.compile(ExecutionPlan(**_kw(backend, trace=True))).run()
+    assert states_equal(off.state, on.state)
+    assert (off.sweeps, off.fire_counts) == (on.sweeps, on.fire_counts)
+    assert off.trace is None and on.trace.n_events > 0
+    assert on.trace.firing_counts() == on.fire_counts
+    dyn = serving_net.compile(ExecutionPlan(**_kw("dynamic", trace=True))).run()
+    np.testing.assert_array_equal(on.trace.events, dyn.trace.events)
