@@ -13,6 +13,7 @@
     python3 chip_smoke.py --shard     # phase 25 alone (with phase 1)
     python3 chip_smoke.py --mesh      # phase 26 alone (with phase 1)
     python3 chip_smoke.py --serve-mk  # phases 22 and 23(c) with 27 (and 1)
+    python3 chip_smoke.py --registry  # phases 12 and 28 with 28's profiles (and 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -161,7 +162,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     (16 layers, d 2048, 16 heads of 128, 64 experts top-8, vocab 50 304,
     6.9 B parameters, random weights from seed 0): 32 B5 launches (16 a
     prefill), prefill and decode times, tokens/s; parity with the CPU on
-    a model cut to ``PARITY_MOE_LAYERS`` layers, its MoE MLPs held in two
+    a model cut to its ``PARITY_LAYERS`` depth, its MoE MLPs held in two
     parts (the router's logits within ``MOE_LOGIT_TOL``; dispatch, experts
     and combine fed the CPU's routing, within 13's bar); its phase-15
     profile with the MoE layers' share of the prefill.  Phase 12 also
@@ -177,7 +178,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     same generator, 32 new tokens; 48 B5 launches (24 a prefill: 12
     non-causal in the encoder, counted inside ``LM.encode``, and 12
     causal); times, tokens/s, its phase-15 profile; parity with the CPU on
-    a model cut to ``PARITY_FAMILY_LAYERS`` decoder and encoder layers:
+    a model cut to its ``PARITY_LAYERS`` decoder and encoder layers:
     every encoder layer's attention and MLP, every decoder layer's
     self-attention, cross attention and MLP within 13's bar, the logits
     at every position, the greedy run's logits and tokens;
@@ -253,7 +254,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     AdamW moment, under the same row rule against the CPU's (the
     microbatched one against the whole batch's), ``grad_norm`` within the
     rule's norm, and AdamW on the card within the CPU tests' bars of the
-    CPU's on the same inputs; (b) full depth through
+    CPU's on the same inputs; (b) at ``TRAIN_LAYERS`` = 24 of its 48 layers
+    (the depth cut for the script's time) through
     ``Trainer``: 8 steps of 8 x 2048 tokens (AdamW lr 1e-3, warmup 2,
     remat, bf16 grads, a checkpoint every 4 steps into a temporary
     directory), each loss (finite; the last two's mean at least 0.2 below
@@ -265,7 +267,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     against an uninterrupted run, under deterministic algorithms: params
     bit for bit or within rtol = atol = 1e-5; (d) (b)'s trained weights
     served: one prefill of phase 14's first 4 prompts (left-padded to
-    4096) through B6 (48 launches, counted) and through the plain
+    4096) through B6 (a launch a layer, counted) and through the plain
     versions, the logits within phase 14's rule (``LOGIT_SENS`` times the
     plain run's change under a bf16 step at its embedded input, at least
     ``LOGIT_TOL``).
@@ -328,6 +330,34 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     within phase 14's bar; (d) a ``phase 26 mesh {...}`` line: step walls,
     each rank's seconds in gather, compute, reduce and AdamW, the bytes it
     sends a step by collective, its peak memory.
+28. (after 24) the registry's other five models served at their
+    published widths (random weights from seed 0; qwen2-72b's QKV bias
+    drawn, ``seeded_model``) on phase 13's traffic through the Engine:
+    gemma3-12b (48 layers, 40 local with window 1024 and 8 global, 16
+    heads on 8 KV heads of 240, vocab 262 144, tied), granite-8b (36
+    layers, 32 on 8 heads of 128), h2o-danube-3-4b (24 layers, 32 on 8
+    heads of 120, window 4096: the prompts of 4096 and 32 new tokens wrap
+    it in decode), granite-moe-3b-a800m (32 layers, 24 on 8 heads of 64,
+    40 experts top-8 of F 512) and qwen2-72b at 16 of its 80 layers
+    (``REGISTRY_LAYERS``: 64 on 8 heads of 128, QKV bias): (a) one B5
+    launch a layer a prefill and nothing else, tallied by window; prefill
+    ms, decode ms, tokens/s; each dense model's first batch served again
+    greedily and every step's logits held to a card forward over prompt +
+    tokens (``decode_vs_forward``: ``LOGIT_TOL``, or ``LOGIT_SENS`` times
+    the card model's own sensitivity to a bf16 step where larger), and
+    every attention layer's decode over its ring held to B5's rows on the
+    same inputs (``ring_decode_check``, the parity's layer bar); (b) 13's
+    parity against the CPU on a model cut to ``PARITY_LAYERS``
+    (gemma3-12b keeps 6, its first global layer; the MoE layers as 19's);
+    (c) gemma3-12b's one request of ``LONG_PROMPT`` = 32 768 tokens at
+    batch 1, 32 new: 48 B5 launches, its caches' bytes against the ring
+    layout's count, every ring's positions, each step against the card
+    forward and every attention layer's ring as in (a); then ``repro_torch.launch.serve.main(["--arch",
+    "h2o-danube-3-4b"])`` in this process on the card (48 B5 launches, its
+    line).  Phase 12 also holds B5 at their six prefill shapes (gemma3-12b
+    local and global apart), each with its window in the plain version,
+    SDPA's mask and the bound's live pairs, and the kernels line gives
+    each shape its launches from phase 28.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -361,7 +391,10 @@ phase 24's record before the last line; ``--shard`` runs phases 1 and 25
 (building B1, B5, B6 and B7) and prints phase 25's record before the last
 line; ``--mesh`` runs phases 1 and 26 (building B6 only) the same way;
 ``--serve-mk`` runs phases 1, 22 with 27(a) and 23(c) with 27(b) (building
-B2, B5, B6 and B7) and prints the ``megakernel.b2.serving`` row.
+B2, B5, B6 and B7) and prints the ``megakernel.b2.serving`` row;
+``--registry`` runs phases 1, 12 and 28, with phase 15's profile of each of
+28's models (building B5, B6 and B7), and prints the ``flash_attention``
+row.
 """
 from __future__ import annotations
 
@@ -424,10 +457,8 @@ LOGIT_TOL = 3e-2
 # MoE layers in the parity run (phase 19): the router's logits on the card
 # (float32 product of the bf16 operands) within MOE_LOGIT_TOL of their
 # largest magnitude of the CPU's (the same rule; reading 2.47e-7 on an
-# H100); olmoe-1b-7b's parity model is cut to PARITY_MOE_LAYERS layers (the
-# CPU's time), same widths.
+# H100).
 MOE_LOGIT_TOL = 2.0 ** -20
-PARITY_MOE_LAYERS = 4
 # B5's float32 and f16 route against the plain version (float32 softmax):
 # float32 within rtol = atol = 2e-4 (tests/test_kernels.py's float32 bar);
 # f16 within one f16 step at |want| (2^-10 |want|: two float32 results that
@@ -447,14 +478,36 @@ MOE_Y_TOL = 2.0 ** -17
 # the first..second, left-padded to the second): whisper's decoder prompts
 # plus the 32-token budget stay inside its 448-token text context;
 # internvl's text plus its 256 vision embeddings make S = 4096, as in
-# phases 13, 14 and 19.  whisper's parity model is cut to
-# PARITY_FAMILY_LAYERS decoder and encoder layers (the CPU's time).
+# phases 13, 14 and 19.
 FAMILY_PROMPTS = {"whisper-small": (64, 384), "internvl2-1b": (1792, 3840)}
-PARITY_FAMILY_LAYERS = 4
+# The depth of an arch's parity model (the CPU's time; the widths stay):
+# whisper-small's encoder is cut to the same count as its decoder;
+# gemma3-12b keeps 6 layers, so its first global layer, index 5, is held.
+# An arch not named here is held at full depth.
+PARITY_LAYERS = {"olmoe-1b-7b": 4, "whisper-small": 4, "gemma3-12b": 6, "granite-8b": 2,
+                 "h2o-danube-3-4b": 2, "granite-moe-3b-a800m": 2, "qwen2-72b": 2}
+# Phase 28: the registry's other five models, served at their published
+# widths on phase 13's traffic.  REGISTRY_LAYERS cuts a depth the card
+# cannot hold (qwen2-72b's 80 layers are 145 GB of bf16 weights; 16 layers
+# and its tables are 38 GB with the float32 head).  QKV_BIAS_STD: the
+# spread of qwen2-72b's drawn QKV bias (``seeded_model``).  LONG_PROMPT:
+# gemma3-12b's long request, the dry run's decode_32k length, at batch 1.
+REGISTRY_ARCHS = ("gemma3-12b", "granite-8b", "h2o-danube-3-4b", "granite-moe-3b-a800m",
+                  "qwen2-72b")
+REGISTRY_LAYERS = {"qwen2-72b": 16}
+REGISTRY_REQUESTS = 4            # one batch: phase 13's 8, cut for the script's time
+QKV_BIAS_STD = 0.5
+LONG_PROMPT = 32768
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def clock(what: str) -> None:
+    """A line with the process clock after ``what``: where the script's
+    seconds go."""
+    log(f"clock {time.perf_counter():.1f} s after {what}")
 
 
 def fail(msg: str) -> None:
@@ -1526,25 +1579,26 @@ def b7_reading(la, gx) -> float:
 
 
 def b5_at_shape(dev, gen, smi: str, label: str, B: int, S: int, H: int, Hkv: int,
-                hd: int, causal: bool) -> dict:
-    """B5 against its plain version at one model's prefill shape (bf16, no
-    window), within one bf16 step plus ``B5_ROW_TOL`` of the row's RMS;
-    timed by CUDA graph replay beside its plain version, SDPA with the same
-    boolean mask and ``enable_gqa=True``, and the operations bound (4 hd
-    flop per live (query, key) pair at the bf16 tensor-core rate)."""
+                hd: int, causal: bool, window=None) -> dict:
+    """B5 against its plain version at one model's prefill shape (bf16;
+    ``window`` the sliding window or None), within one bf16 step plus
+    ``B5_ROW_TOL`` of the row's RMS; timed by CUDA graph replay beside its
+    plain version, SDPA with the same boolean mask (the window in it) and
+    ``enable_gqa=True``, and the operations bound (4 hd flop per live
+    (query, key) pair under the mask, at the bf16 tensor-core rate)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (attention_mask, flash_attention,
                                                      flash_attention_ref)
     q, k, v = (torch.randn((B, S, n, hd), generator=gen, device=dev).to(torch.bfloat16)
                for n in (H, Hkv, Hkv))
-    got = flash_attention(q, k, v, causal=causal).float()
-    want = flash_attention_ref(q, k, v, causal=causal).float()
+    got = flash_attention(q, k, v, causal=causal, window=window).float()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window).float()
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     excess = float(row_excess(got, want).max())
     if not torch.isfinite(got).all() or not excess <= B5_ROW_TOL:
         fail(f"B5 at {label}: {excess:.3g} row-RMS beyond one bf16 step > {B5_ROW_TOL}")
-    mask = attention_mask(S, causal, None, dev)
+    mask = attention_mask(S, causal, window, dev)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
 
     def sdpa():
@@ -1552,19 +1606,22 @@ def b5_at_shape(dev, gen, smi: str, label: str, B: int, S: int, H: int, Hkv: int
 
     lib_err = float((sdpa().transpose(1, 2).float() - want).abs().max())
     del got, want
-    ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal), inner=10)
-    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal), reps=3, inner=1)
+    ms = graph_ms(lambda: flash_attention(q, k, v, causal=causal, window=window), inner=10)
+    plain = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal, window=window),
+                    reps=3, inner=1)
     lib = cuda_ms(sdpa, reps=3, inner=5)
-    live = S * (S + 1) // 2 if causal else S * S          # (q, k) pairs per (b, h)
+    live = int(mask.sum())                                # (q, k) pairs per (b, h)
     flops = 4 * hd * live * B * H
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     bound, by = bound_of(nbytes, flops, BF16_FLOP_PER_S)
     log(f"B5 at {label}, q {tuple(q.shape)} k/v {tuple(k.shape)} bf16, "
-        f"{'causal' if causal else 'non-causal'}, no window ({smi}): {ms:.4f} ms/launch "
+        f"{'causal' if causal else 'non-causal'}, "
+        f"{'no window' if window is None else f'window {window}'} ({smi}): {ms:.4f} ms/launch "
         f"(CUDA graph replay), plain {plain:.3f} ms, SDPA {lib:.4f} ms (max |diff| vs plain "
         f"{lib_err:.3g}), bound {bound:.4f} ms ({by}: {flops:.4g} flop); max_abs_err "
         f"{err:.3g}, row-RMS excess {excess:.4g} (bar {B5_ROW_TOL:.4g})")
-    return {"q": list(q.shape), "kv": list(k.shape), "causal": causal, "window": None,
+    return {"q": list(q.shape), "kv": list(k.shape), "causal": causal, "window": window,
+            "live_pairs": live,
             "max_abs_err": err, "row_rms_excess": excess, "ms": ms, "plain_ms": plain,
             "bound_ms": bound, "bound_by": by, "library_ms": lib,
             "library_max_abs_err": lib_err}
@@ -1572,7 +1629,8 @@ def b5_at_shape(dev, gen, smi: str, label: str, B: int, S: int, H: int, Hkv: int
 
 def lm_kernels(dev, smi: str) -> dict:
     """Phase 12: B5, B6 and B7 against their plain versions at the serving
-    shapes, with their times and bounds; returns their records."""
+    shapes (B5 also at phase 28's), with their times and bounds; returns
+    their records."""
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import (attention_mask, flash_attention,
@@ -1672,6 +1730,16 @@ def lm_kernels(dev, smi: str) -> dict:
     recs["B5"]["internvl_shape"] = b5_at_shape(
         dev, gen64, smi, "internvl2-1b's prefill", B, S, ic.n_heads, ic.n_kv_heads, ic.hd,
         True)
+    # Phase 28's five models' prefill shapes (gemma3-12b's local and global
+    # layers apart), from their own generator.
+    gen28 = torch.Generator(device=dev)
+    gen28.manual_seed(28)
+    for key, arch, window in registry_b5_shapes():
+        rcfg = get_config(arch)
+        torch.cuda.empty_cache()
+        recs["B5"][key] = b5_at_shape(
+            dev, gen28, smi, f"{arch}'s prefill" + (f" (window {window})" if window else ""),
+            B, S, rcfg.n_heads, rcfg.n_kv_heads, rcfg.hd, True, window)
 
     # ---- B5's float32 and f16 route (flash_fwd_ffma), same shape -------- #
     from repro_torch.kernels.flash_attention import flash_attention_cuda
@@ -2280,28 +2348,48 @@ def lm_profile(arch: str, smi: str, prefill, step) -> dict:
     return prof
 
 
-def lm_model(arch: str, dev) -> tuple:
-    """``arch`` at full width on the card, random weights from seed 0, its
-    LM head in float32; returns (model, seconds to build it)."""
-    from repro_torch.configs import get_config
+def seeded_model(cfg, dev):
+    """``LM(cfg)`` on ``dev``, random weights from seed 0; a QKV bias (both
+    packages initialise it to 0, which would hide it) drawn from
+    N(0, QKV_BIAS_STD^2) by a generator seeded 1."""
     from repro_torch.models import LM
+    model = LM(cfg, device=dev, seed=0)
+    if cfg.qkv_bias:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        with torch.no_grad():
+            for blk in model.layers:
+                for name in ("bq", "bk", "bv"):
+                    b = getattr(blk.attn, name)
+                    b.copy_(QKV_BIAS_STD * torch.randn(b.shape, generator=gen, device=dev))
+    return model
+
+
+def lm_model(arch: str, dev, n_layers=None) -> tuple:
+    """``arch`` at full width on the card (``n_layers`` cuts its depth),
+    random weights (:func:`seeded_model`), its LM head in float32;
+    returns (model, seconds to build it)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
-    model = LM(get_config(arch), device=dev, seed=0)
+    model = seeded_model(cfg, dev)
     model.head_f32()
     torch.cuda.synchronize()
     return model, time.perf_counter() - t0
 
 
-def engine_traffic(model) -> tuple:
-    """The Engine's traffic (phases 13, 14, 19 and 21 as text):
-    LM_REQUESTS requests of LM_PROMPT_MIN..LM_PROMPT tokens from
+def engine_traffic(model, requests: int = LM_REQUESTS) -> tuple:
+    """The Engine's traffic (phases 13, 14, 19, 21 as text and 28):
+    ``requests`` requests of LM_PROMPT_MIN..LM_PROMPT tokens from
     ``numpy.random.default_rng(0)``, LM_NEW new tokens each, batch LM_BATCH.
     Returns (generate, batches, record fields) for :func:`serve_run`; the
     one batch is the whole request list, which the Engine batches."""
     from repro_torch.serve import Engine, Request, ServeConfig
     cfg = model.cfg
     rng = np.random.default_rng(0)
-    lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
+    lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, requests)]
     reqs = [Request(rng.integers(0, cfg.vocab, n).astype(np.int32), LM_NEW) for n in lens]
     engine = Engine(cfg, model, ServeConfig(batch_size=LM_BATCH, max_prompt=LM_PROMPT,
                                             max_new=LM_NEW))
@@ -2312,7 +2400,8 @@ def engine_traffic(model) -> tuple:
                 or any(r.tokens.shape != (LM_NEW,) for r in out):
             fail(f"{cfg.name}: results {[(r.prompt_len, r.tokens.shape) for r in out]}")
         return np.stack([r.tokens for r in out])
-    return generate, [reqs], {"max_prompt": LM_PROMPT, "prompt_lens": lens}
+    return generate, [reqs], {"requests": requests, "max_prompt": LM_PROMPT,
+                              "prompt_lens": lens}
 
 
 def stub_traffic(model) -> tuple:
@@ -2338,17 +2427,19 @@ def stub_traffic(model) -> tuple:
 
 
 def serve_run(model, smi: str, zero_counts, expect_counts, want: dict, phase: int,
-              traffic: tuple, fields: dict) -> dict:
-    """Full-width serving (phases 13, 14 and 19-21): ``generate(batch)``
+              traffic: tuple, fields: dict, counted=contextlib.nullcontext) -> dict:
+    """Full-width serving (phases 13, 14, 19-21 and 28): ``generate(batch)``
     over every batch of ``traffic`` (from :func:`engine_traffic` or
     :func:`stub_traffic`) with every launch count set to 0 just before and
     held to ``want`` just after, each prefill and decode step timed, and
-    B5's launches inside ``LM.encode`` counted apart; then a warm, untimed
-    run of the same batches for tokens/s."""
+    B5's launches inside ``LM.encode`` counted apart; ``counted()`` is a
+    context entered around that run only (phase 28 tallies B5 by window
+    in it); then a warm, untimed run of the same batches for tokens/s."""
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     cfg, dev = model.cfg, model.device
     generate, batches, traffic_fields = traffic
-    n_batches = LM_REQUESTS // LM_BATCH
+    n_req = traffic_fields.get("requests", LM_REQUESTS)
+    n_batches = n_req // LM_BATCH
     times = timed_calls(model)
     enc_launches = [0]
     encode = model.encode
@@ -2363,13 +2454,14 @@ def serve_run(model, smi: str, zero_counts, expect_counts, want: dict, phase: in
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    tokens = np.concatenate([generate(b) for b in batches])
-    torch.cuda.synchronize()
+    with counted():
+        tokens = np.concatenate([generate(b) for b in batches])
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = expect_counts(f"{cfg.name} serving", want)
     del model.prefill, model.decode_step, model.encode
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
-    if tokens.shape != (LM_REQUESTS, LM_NEW) \
+    if tokens.shape != (n_req, LM_NEW) \
             or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
         fail(f"{cfg.name}: generated tokens {tokens.shape}, in vocab "
              f"{bool(((tokens >= 0) & (tokens < cfg.vocab)).all())}")
@@ -2385,8 +2477,8 @@ def serve_run(model, smi: str, zero_counts, expect_counts, want: dict, phase: in
     again = np.concatenate([generate(b) for b in batches])
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
-    n_tok = LM_REQUESTS * LM_NEW
-    rec = {"card": smi, "arch": cfg.name, **fields, "requests": LM_REQUESTS,
+    n_tok = n_req * LM_NEW
+    rec = {"card": smi, "arch": cfg.name, **fields, "requests": n_req,
            "batch": LM_BATCH, "max_new": LM_NEW, **traffic_fields,
            "launches": {k: v for k, v in counts.items() if v},
            "prefill_ms": times["prefill"],
@@ -2402,16 +2494,46 @@ def serve_run(model, smi: str, zero_counts, expect_counts, want: dict, phase: in
     return rec
 
 
-def profile_and_parity(model, smi: str, phase: int, batch=None) -> tuple:
+def profile_and_parity(model, smi: str, phase: int, batch=None,
+                       profile: bool = True) -> tuple:
     """Phase 15's profile of one prefill of ``batch`` (tokens and the stub
     inputs; by default random tokens at the Engine's padded shape) and one
-    decode step, with the MoE layers' share of the prefill; then the parity
-    run against the CPU on the same weights (MoE models cut to
-    PARITY_MOE_LAYERS layers, whisper to PARITY_FAMILY_LAYERS decoder and
-    encoder layers).  Returns (profile, parity)."""
-    import dataclasses
+    decode step, with the MoE layers' share of the prefill (None unless
+    ``profile``); then the parity run against the CPU on the same weights,
+    cut to the arch's ``PARITY_LAYERS`` depth where it has one (an encoder
+    to the same count).  Returns (profile, parity)."""
+    cfg, dev = model.cfg, model.device
+    prof = lm_phase15(model, smi, batch) if profile else None
 
-    from repro_torch.models import LM
+    # ---- parity (after 15's profile): the same weights on the card and on the CPU ------------ #
+    n = PARITY_LAYERS.get(cfg.name, cfg.n_layers)
+    cut = {}
+    if n < cfg.n_layers:
+        cut = {"n_layers": n}
+        depth = f"cut to {n} of {cfg.n_layers} layers"
+        if cfg.encoder is not None:
+            cut["encoder"] = dataclasses.replace(cfg.encoder, n_layers=n)
+            depth = (f"cut to {n} of {cfg.n_layers} decoder and {n} of "
+                     f"{cfg.encoder.n_layers} encoder layers")
+    if cut:
+        # The CPU's time: a model cut in depth, same widths and seed.
+        pcfg = dataclasses.replace(cfg, **cut)
+        pmodel = seeded_model(pcfg, dev)
+        par = serve_parity(pcfg, pmodel, dev)
+        par["depth"] = depth
+        del pmodel
+        torch.cuda.empty_cache()
+    else:
+        par = serve_parity(cfg, model, dev)
+    log(f"phase {phase} {cfg.name} parity card vs CPU: " + json.dumps(par))
+    return prof, par
+
+
+def lm_phase15(model, smi: str, batch=None) -> dict:
+    """Phase 15's profile of ``model``: one prefill of ``batch`` (tokens and
+    the stub inputs; by default random tokens at the Engine's padded shape)
+    and one decode step (:func:`lm_profile`), with the MoE layers' share of
+    the prefill."""
     cfg, dev = model.cfg, model.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -2447,29 +2569,7 @@ def profile_and_parity(model, smi: str, phase: int, batch=None) -> tuple:
             prof["prefill"]["device_ms"]
         del h
     log(f"phase 15 profile {cfg.name} " + json.dumps(prof))
-
-    # ---- parity (after 15's profile): the same weights on the card and on the CPU ------------ #
-    cut = {}
-    if cfg.moe is not None:
-        cut = {"n_layers": PARITY_MOE_LAYERS}
-        depth = f"cut to {PARITY_MOE_LAYERS} of {cfg.n_layers} layers"
-    elif cfg.family == "audio":
-        cut = {"n_layers": PARITY_FAMILY_LAYERS,
-               "encoder": dataclasses.replace(cfg.encoder, n_layers=PARITY_FAMILY_LAYERS)}
-        depth = (f"cut to {PARITY_FAMILY_LAYERS} of {cfg.n_layers} decoder and "
-                 f"{PARITY_FAMILY_LAYERS} of {cfg.encoder.n_layers} encoder layers")
-    if cut:
-        # The CPU's time: a model cut in depth, same widths and seed.
-        pcfg = dataclasses.replace(cfg, **cut)
-        pmodel = LM(pcfg, device=dev, seed=0)
-        par = serve_parity(pcfg, pmodel, dev)
-        par["depth"] = depth
-        del pmodel
-        torch.cuda.empty_cache()
-    else:
-        par = serve_parity(cfg, model, dev)
-    log(f"phase {phase} {cfg.name} parity card vs CPU: " + json.dumps(par))
-    return prof, par
+    return prof
 
 
 def serve_model(arch: str, dev, smi: str, zero_counts, expect_counts, want: dict,
@@ -3229,23 +3329,37 @@ def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
     return rec
 
 
+def b5_row(b5: dict) -> dict:
+    """The kernels line's row of B5 from its phase-12 records."""
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
+            "function": "flash_attention_pallas", **b5}
+
+
 def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
     """Phases 12-15, 19-22 and 24; returns the kernels line's records of B5, B6
     and B7 and of B5's float route and B6's SIMT route."""
     recs = lm_kernels(dev, smi)
+    clock("phase 12")
     torch.cuda.empty_cache()
     rg = serve_model("recurrentgemma-2b", dev, smi, zero_counts, expect_counts,
                      {"B5": 16, "B7": 36}, 13)
     # 22. recurrentgemma-2b through the actor engine.
+    clock("phase 13")
     act = actor_serving(dev, smi, zero_counts, expect_counts)
+    clock("phases 22 and 27(a)")
     # 23(c). mamba2-780m's stage network, on phase 14's model.
     mb = serve_model("mamba2-780m", dev, smi, zero_counts, expect_counts, {"B6": 96}, 14,
                      after=lambda m: lm_stage_phase(m, smi, zero_counts, expect_counts))
     smoke = serve_smoke("mamba2-780m", dev, smi, zero_counts, expect_counts)
+    clock("phases 14, 23(c) and 27(b)")
     ol = serve_model("olmoe-1b-7b", dev, smi, zero_counts, expect_counts, {"B5": 32}, 19)
     # 20. whisper-small: 12 encoder (non-causal) and 12 decoder B5 launches
     # a prefill, two batches.
+    clock("phase 19")
     wh = serve_model("whisper-small", dev, smi, zero_counts, expect_counts, {"B5": 48}, 20)
+    clock("phase 20")
     # 21. internvl2-1b: 24 B5 launches a prefill with the vision embeddings
     # and served as text through the Engine, then the int8 KV cache.
     imodel, init_s = lm_model("internvl2-1b", dev)
@@ -3259,6 +3373,7 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
     q8 = int8_decode(icfg, imodel, dev, smi, vision[1], iv["parity"]["logit_bar_last"])
     del imodel, vision
     torch.cuda.empty_cache()
+    clock("phase 21")
     log("phase 21 internvl2-1b summary " + json.dumps({
         "card": smi, "vision_prefill_ms": iv["prefill_ms"],
         "vision_decode_ms_per_step_median": iv["decode_ms_per_step_median"],
@@ -3301,15 +3416,13 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
     recs["B6_simt"]["launches_from"] = "phase 14: mamba2-780m's smoke config served"
     # 24. mamba2-780m trained on the card, its trained weights served.
     train = train_phase(dev, smi, zero_counts, expect_counts)
+    clock("phase 24")
     recs["B6"]["trained_weights"] = {
         "launches": train["d"]["b6_launches"],
         "launches_from": "phase 24(d): mamba2-780m's weights after phase 24(b)'s 8 steps, "
                          "one prefill of 4 x 4096 tokens",
         "logit_err": train["d"]["logit_err"], "bar": train["d"]["bar"]}
-    out = [{"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:89",
-            "function": "flash_attention_pallas", **recs["B5"]},
+    out = [b5_row(recs["B5"]),
            {"name": "ssd", "route": "cuda", "source": "src/repro_torch/csrc/ssd.cu",
             "replaces": "src/repro/kernels/ssd/kernel.py:63",
             "function": "ssd_pallas", **recs["B6"]},
@@ -3352,6 +3465,337 @@ def serving_row(mk: dict, stages: dict) -> dict:
                               "launches_from": "phase 27(b): mamba2-780m's 4-stage "
                                                "network, 4 microbatches, one run",
                               "walls_ms": stages["walls_ms"]}}
+
+
+# ---- 28. the registry's other five models -------------------------------- #
+def layer_windows(cfg) -> dict:
+    """{window (None: global): layers} of ``cfg``'s attention layers, the
+    windowed first."""
+    from repro_torch.models import layer_kinds
+    out: dict = {}
+    for kind in layer_kinds(cfg):
+        w = cfg.swa_window if kind == "attn_local" else None
+        out[w] = out.get(w, 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: kv[0] is None))
+
+
+def registry_b5_shapes() -> list:
+    """Phase 28's B5 prefill shapes: (record key, arch, window), one for
+    each distinct window among an arch's layers (gemma3-12b's local and
+    global layers apart)."""
+    from repro_torch.configs import get_config
+    out = []
+    for arch in REGISTRY_ARCHS:
+        windows = layer_windows(get_config(arch))
+        for w in windows:
+            tag = "" if len(windows) == 1 else ("_local" if w else "_global")
+            out.append((f"{arch}{tag}_shape", arch, w))
+    return out
+
+
+@contextlib.contextmanager
+def b5_by_window(tally: dict):
+    """While open, every call of the models' attention entry
+    (``models.attention.flash_attention``) adds the B5 launches it made to
+    ``tally[window]``."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models import attention as att
+    own = att.flash_attention
+
+    def tallied(*a, **kw):
+        before = flash_attention_cuda.launches
+        out = own(*a, **kw)
+        w = kw.get("window")
+        tally[w] = tally.get(w, 0) + flash_attention_cuda.launches - before
+        return out
+    att.flash_attention = tallied
+    try:
+        yield tally
+    finally:
+        att.flash_attention = own
+
+
+def forward_hidden(model, toks: torch.Tensor, noise: bool = False) -> torch.Tensor:
+    """The card model's hidden states after its last layer over ``toks``
+    (B, S), through the prefill path (B5); ``noise`` moves the embedded
+    tokens one bf16 step first (:func:`bf16_step_noise`)."""
+    with torch.inference_mode():
+        x = model._embed(toks)
+        if noise:
+            x = bf16_step_noise(x)
+        for blk in model.layers:
+            x = model._block(blk, x, mode="train")[0]
+    return x
+
+
+def decode_vs_forward(model, toks: torch.Tensor, seen: list, gen: np.ndarray) -> dict:
+    """A greedy run's logits at each step (``seen``: the prefill's, then
+    each decode step's, (B, V) on the CPU) against the same position of
+    one card forward over the prompt ``toks`` (B, P) and the generated
+    tokens ``gen`` (B, n): the ring caches' decode path against the
+    prefill path, as ``tests/test_torch_lm.py``'s
+    ``test_decode_matches_full_forward`` holds them on the CPU.  Bar:
+    LOGIT_TOL, or LOGIT_SENS times the card model's own change at that
+    position when its embedded input moves one bf16 step, where larger
+    (random full-width weights amplify rounding noise: phase 13's rule,
+    the sensitivity taken on the card)."""
+    V, P, n = model.cfg.vocab, toks.shape[1], gen.shape[1]
+    full = torch.cat([toks, torch.from_numpy(gen[:, :-1]).to(toks)], 1)
+    with torch.inference_mode():
+        lg = model._logits(forward_hidden(model, full)[:, P - 1:])[..., :V].float()
+        ln = model._logits(forward_hidden(model, full, noise=True)[:, P - 1:])[..., :V].float()
+        sens = (ln - lg).abs().amax(-1).cpu()
+        lg = lg.cpu()
+    del ln
+    err = torch.stack([(seen[t][:, :V] - lg[:, t]).abs().amax(-1) for t in range(n)], 1)
+    bar = torch.clamp(LOGIT_SENS * sens, min=LOGIT_TOL)
+    if not bool(torch.isfinite(lg).all()) or not bool(torch.isfinite(sens).all()):
+        fail(f"{model.cfg.name}: non-finite logits or sensitivity in the forward check")
+    if bool((err > bar).any()):
+        b, t = (int(x) for x in divmod(int((err - bar).argmax()), n))
+        fail(f"{model.cfg.name}: step {t} of row {b} differs from the forward over prompt "
+             f"+ tokens by {float(err[b, t]):.3g} > {float(bar[b, t]):.3g}")
+    return {"steps": n, "rows": int(err.shape[0]), "logit_err_max": float(err.max()),
+            "logit_err_by_step": [float(x) for x in err.amax(0)],
+            "within_logit_tol": bool((err <= LOGIT_TOL).all()),
+            "steps_over_logit_tol": int((err > LOGIT_TOL).sum()),
+            "sensitivity_max": float(sens.max()), "bar_max": float(bar.max()),
+            "logit_tol": LOGIT_TOL, "logit_sens": LOGIT_SENS,
+            "max_abs_logit": float(lg.abs().max())}
+
+
+def ring_decode_check(model, toks: torch.Tensor, gen: np.ndarray) -> dict:
+    """The ring caches held layer by layer, where nothing amplifies the
+    rounding: for every attention layer, fed the card's own hidden states
+    over the prompt ``toks`` (B, P) and the generated ``gen`` (B, n), the
+    layer's ring cache built from its prefill k and v over the prompt
+    (``attention.cache_from_kv``, the serving cache's size) and
+    ``attention_decode`` run at each of the n - 1 decode positions (the
+    local rings wrap), against the prefill path's attention (B5) over all
+    positions at the same rows: within one bf16 step plus MIX_ROW_TOL of
+    the row's RMS (the parity's layer bar).  Returns, by attention kind,
+    the layers held, the worst layer and its reading, and every layer's."""
+    from repro_torch.models import attention as att
+    from repro_torch.models.layers import rmsnorm
+    from repro_torch.models.lm import _cache_len
+    cfg = model.cfg
+    P, n = toks.shape[1], gen.shape[1]
+    full = torch.cat([toks, torch.from_numpy(gen[:, :-1]).to(toks)], 1)
+    last = max(i for i, k in enumerate(model.kinds) if k.startswith("attn"))
+    out = {}
+    with torch.inference_mode():
+        x = model._embed(full)
+        for i, blk in enumerate(model.layers):
+            if blk.kind.startswith("attn"):
+                kw = model._attn_kw(blk.kind)
+                h = rmsnorm(x, blk.norm1.scale, cfg.rms_eps)
+                want = att.attention(blk.attn, h, **kw)
+                _, k, v = att.attention(blk.attn, h[:, :P], return_kv=True, **kw)
+                slots = _cache_len(cfg, blk.kind, P + n)
+                cache = att.cache_from_kv(k, v, slots)
+                worst = torch.zeros((), device=x.device)
+                for t in range(n - 1):
+                    pos = torch.full((full.shape[0],), P + t, dtype=torch.int64,
+                                     device=full.device)
+                    got, cache = att.attention_decode(blk.attn, h[:, P + t:P + t + 1], cache,
+                                                      pos, **kw)
+                    worst = torch.maximum(worst, row_excess(got[:, 0], want[:, P + t]).max())
+                worst = float(worst)
+                if not worst <= MIX_ROW_TOL:
+                    fail(f"{cfg.name}: layer {i} ({blk.kind}) decode over its ring of {slots} "
+                         f"slots is {worst:.3g} row-RMS beyond one bf16 step of the prefill "
+                         f"path's (> {MIX_ROW_TOL})")
+                r = out.setdefault(blk.kind, {"layers": 0, "ring_slots": slots,
+                                              "decode_positions": [P, P + n - 2],
+                                              "wraps": P + n - 1 > slots, "bar": MIX_ROW_TOL,
+                                              "row_excess_max": -1.0, "worst_layer": None,
+                                              "row_excess_by_layer": {}})
+                r["layers"] += 1
+                r["row_excess_by_layer"][i] = worst
+                if worst > r["row_excess_max"]:
+                    r["row_excess_max"], r["worst_layer"] = worst, i
+                del want, k, v, cache
+            if i == last:
+                break
+            x = model._block(blk, x, mode="train")[0]
+    return out
+
+
+def long_request(model, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 28(c): one request of LONG_PROMPT random tokens
+    (``default_rng(28)``) at batch 1, LM_NEW greedy tokens through
+    ``LM.prefill`` and ``LM.decode_step`` with every count set to 0 just
+    before (one B5 launch a layer); the cache bytes against the ring
+    layout's count (local rings of the window's slots, global ones of the
+    whole context); every ring's position plane after the last step; each
+    step's logits against a card forward over prompt + tokens
+    (:func:`decode_vs_forward`)."""
+    cfg, dev = model.cfg, model.device
+    P, n = LONG_PROMPT, LM_NEW
+    toks = torch.from_numpy(np.random.default_rng(28).integers(0, cfg.vocab, (1, P))).to(dev)
+    seen, out, dec_ms = [], [], []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    lg, caches = model.prefill(toks, max_cache_len=P + n)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    got_bytes = cache_bytes(caches)
+    slots = [min(cfg.swa_window, P + n) if k == "attn_local" else P + n for k in model.kinds]
+    want_bytes = sum(s * (2 * 2 * cfg.n_kv_heads * cfg.hd + 4) for s in slots)
+    if got_bytes != want_bytes:
+        fail(f"{cfg.name} long request: caches of {got_bytes} B, the ring layout counts "
+             f"{want_bytes}")
+    pos = torch.full((1,), P, dtype=torch.int64, device=dev)
+    for step in range(n):
+        seen.append(lg.float().cpu())
+        nxt = torch.argmax(lg, dim=-1)[:, None]
+        out.append(nxt)
+        if step == n - 1:
+            break
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, caches = model.decode_step(nxt, pos, caches)
+        torch.cuda.synchronize()
+        dec_ms.append((time.perf_counter() - t0) * 1e3)
+        pos = pos + 1
+    counts = expect_counts(f"{cfg.name} long request", {"B5": len(model.kinds)})
+    last = P + n - 2                       # the last position written
+    for i, (c, s) in enumerate(zip(caches, slots)):
+        want = torch.arange(last + 1 - min(s, last + 1), last + 1, device=dev)
+        got = c["pos"][0].long()
+        if not (torch.equal(torch.sort(got[got >= 0]).values, want)
+                and int((got < 0).sum()) == s - want.numel()):
+            fail(f"{cfg.name} long request: layer {i}'s ring of {s} slots does not hold "
+                 f"positions {int(want[0])}..{last}")
+    del caches
+    gen = torch.cat(out, 1).cpu().numpy()
+    check = decode_vs_forward(model, toks, seen, gen)
+    rings = ring_decode_check(model, toks, gen)
+    torch.cuda.empty_cache()
+    rec = {"card": smi, "prompt": P, "batch": 1, "new": n, "b5_launches": counts["B5"],
+           "prefill_ms": prefill_ms, "decode_ms_per_step_median": float(np.median(dec_ms)),
+           "decode_ms_per_step": dec_ms, "cache_bytes": got_bytes,
+           "cache_bytes_predicted": want_bytes,
+           "ring_slots": {str(s): slots.count(s) for s in sorted(set(slots))},
+           "local_ring_wraps": (P + n - 1) // min(slots), "decode_vs_forward": check,
+           "ring_decode": rings}
+    log(f"phase 28(c) {cfg.name} long request ({smi}): " + json.dumps(rec))
+    return rec
+
+
+def serve_registry(arch: str, dev, smi: str, zero_counts, expect_counts,
+                   profile: bool) -> dict:
+    """Phase 28 for ``arch``: (a) served at its published widths
+    (``REGISTRY_LAYERS`` cuts qwen2-72b's depth) on phase 13's traffic
+    through the Engine, one B5 launch a layer a prefill and nothing else,
+    tallied by window; a dense arch's first batch served again greedily and
+    each step held to a card forward over prompt + tokens
+    (:func:`decode_vs_forward`: h2o-danube-3-4b's window of 4096 wraps in
+    decode, gemma3-12b's of 1024 in the prefill and decode); with
+    ``profile``, phase 15's profile; (b) the parity run against the CPU at
+    ``PARITY_LAYERS``; (c) gemma3-12b's :func:`long_request`."""
+    from repro_torch.configs import get_config
+    model, init_s = lm_model(arch, dev, REGISTRY_LAYERS.get(arch))
+    cfg = model.cfg
+    traffic = engine_traffic(model, REGISTRY_REQUESTS)
+    n_batches = REGISTRY_REQUESTS // LM_BATCH
+    tally: dict = {}
+    rec = serve_run(model, smi, zero_counts, expect_counts,
+                    {"B5": n_batches * len(model.kinds)}, 28, traffic,
+                    {"params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
+                     "layers": cfg.n_layers, "published_layers": get_config(arch).n_layers},
+                    counted=lambda: b5_by_window(tally))
+    want = {w: n_batches * c for w, c in layer_windows(cfg).items()}
+    if tally != want:
+        fail(f"{arch}: B5 launches by window {tally}, want {want}")
+    rec["b5_launches_by_window"] = {str(w): c for w, c in tally.items()}
+    slots = sorted({c["k"].shape[1] for c in
+                    model.serve_state(LM_BATCH, LM_PROMPT + LM_NEW, device="meta")})
+    rec["ring_slots"] = slots
+    rec["positions_written"] = LM_PROMPT + LM_NEW - 1
+    if cfg.moe is None:
+        # MoE layers are left out: the capacity, and so the dropped tokens,
+        # depends on the tokens a call routes (4 a decode step, 16 508 in
+        # the forward).
+        reqs = traffic[1][0][:LM_BATCH]
+        toks = torch.from_numpy(left_pad([r.prompt for r in reqs], LM_PROMPT)).to(dev)
+        seen = capture_logits(model)
+        gen = greedy(model, toks, {}, LM_NEW)
+        release_logits(model)
+        rec["decode_vs_forward"] = decode_vs_forward(model, toks, seen, gen)
+        rec["ring_decode"] = ring_decode_check(model, toks, gen)
+        del seen
+    del traffic
+    torch.cuda.empty_cache()
+    rec["profile"], rec["parity"] = profile_and_parity(model, smi, 28, profile=profile)
+    if arch == "gemma3-12b":
+        rec["long"] = long_request(model, smi, zero_counts, expect_counts)
+    del model
+    torch.cuda.empty_cache()
+    log(f"phase 28 {arch} summary " + json.dumps({
+        **{k: rec[k] for k in ("card", "arch", "layers", "published_layers", "params",
+                               "prefill_ms", "decode_ms_per_step_median",
+                               "tokens_per_s_warm", "peak_memory_gb",
+                               "b5_launches_by_window", "ring_slots")},
+        "decode_vs_forward": rec.get("decode_vs_forward"),
+        "ring_decode": rec.get("ring_decode"),
+        "parity_s": rec["parity"]["parity_s"], "parity_depth": rec["parity"].get("depth")}))
+    return rec
+
+
+def launcher_entry(smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 28's entry point: ``repro_torch.launch.serve.main(["--arch",
+    "h2o-danube-3-4b"])`` in this process, on the card at full width (its
+    defaults: 8 requests of under 32 tokens, batch 4, 16 new tokens), with
+    every count set to 0 just before: one B5 launch a layer a prefill, and
+    its line."""
+    import io
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import main as serve_main
+    arch = "h2o-danube-3-4b"
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_main(["--arch", arch])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_counts(f"launch.serve --arch {arch}",
+                           {"B5": 2 * get_config(arch).n_layers})
+    line = buf.getvalue().strip()
+    if not re.fullmatch(rf"{arch} on cuda:\d+: 8 requests -> 128 tokens in [\d.]+s", line):
+        fail(f"launch.serve --arch {arch} printed {line!r}")
+    torch.cuda.empty_cache()
+    rec = {"card": smi, "argv": ["--arch", arch], "line": line, "b5_launches": counts["B5"],
+           "wall_s": wall}
+    log(f"phase 28 entry point ({smi}): " + json.dumps(rec))
+    return rec
+
+
+def registry_phase(dev, smi: str, zero_counts, expect_counts, profile: bool) -> dict:
+    """Phase 28: :func:`serve_registry` for each of ``REGISTRY_ARCHS``, then
+    :func:`launcher_entry`; returns the records by arch (and ``entry``)."""
+    t0 = time.perf_counter()
+    recs = {arch: serve_registry(arch, dev, smi, zero_counts, expect_counts, profile)
+            for arch in REGISTRY_ARCHS}
+    recs["entry"] = launcher_entry(smi, zero_counts, expect_counts)
+    log(f"phase 28 took {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+def registry_launches(row: dict, reg: dict) -> None:
+    """Phase 28's launches into the kernels line's B5 row, shape by shape."""
+    for key, arch, window in registry_b5_shapes():
+        r = reg[arch]
+        row[key]["launches"] = r["b5_launches_by_window"][str(window)]
+        row[key]["launches_from"] = (
+            f"phase 28: {arch} served at {r['layers']} of {r['published_layers']} layers, "
+            f"{REGISTRY_REQUESTS // LM_BATCH} prefill(s) of {LM_BATCH} x {LM_PROMPT}; its "
+            "layers "
+            + ("without a window" if window is None else f"with window {window}"))
 
 
 # ---- 23. durable and heterogeneous runs -------------------------------- #
@@ -3642,6 +4086,7 @@ def stream_phase(dev, smi: str, zero_counts, expect_counts, net_gpu, res_gpu,
 TRAIN_ARCH = "mamba2-780m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 2048      # (b): 16 384 tokens a step
 TRAIN_CUT = 4                                         # layers in (a) and (c)
+TRAIN_LAYERS = 24       # (b) and (d): the published width, depth cut from 48 (the script's time)
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 512         # (a)
 TRAIN_FT_BATCH, TRAIN_FT_SEQ = 4, 1024                # (c)
 # (a)'s bars are the CPU tests' (tests/test_torch_train_grads.py): every
@@ -3749,7 +4194,7 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     and on the CPU, same weights (no kernel launches: the plain versions);
     one ``train_step`` whole and one in 2 microbatches (float32 grads),
     their gradients, ``grad_norm`` and AdamW updates held to the CPU's.
-    (b) At full depth through ``Trainer``: TRAIN_STEPS steps of
+    (b) At TRAIN_LAYERS of its 48 layers through ``Trainer``: TRAIN_STEPS steps of
     TRAIN_BATCH x TRAIN_SEQ tokens, remat, bf16 grads, a checkpoint every
     4 steps into a temporary directory; each step's loss, the median step
     time over steps 2-8, tokens/s, the peak memory; one more step profiled
@@ -3769,6 +4214,7 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     rec: dict = {"card": smi, "arch": TRAIN_ARCH}
     full = get_config(TRAIN_ARCH)
     cut = dataclasses.replace(full, n_layers=TRAIN_CUT)
+    deep = dataclasses.replace(full, n_layers=TRAIN_LAYERS)
 
     # ---- (a) parity at full width, cut in depth --------------------------- #
     t0 = time.perf_counter()
@@ -3850,14 +4296,14 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     del params, cpu_params, p1, p2, s1, s2, G1, G2, second_g, b_dev, g_g, g_c, g_s
     torch.cuda.empty_cache()
 
-    # ---- (b) full depth through the Trainer ------------------------------- #
+    # ---- (b) TRAIN_LAYERS deep through the Trainer ----------------------- #
     opt_b = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
-    step = make_train_step(full, opt_b, TrainOptions(grad_dtype="bf16"))
-    data = SyntheticLM(DataConfig(vocab=full.vocab, seq_len=TRAIN_SEQ,
+    step = make_train_step(deep, opt_b, TrainOptions(grad_dtype="bf16"))
+    data = SyntheticLM(DataConfig(vocab=deep.vocab, seq_len=TRAIN_SEQ,
                                   global_batch=TRAIN_BATCH, seed=0))
 
     def init_full():
-        p = init_params(full, device=dev, seed=0)
+        p = init_params(deep, device=dev, seed=0)
         return {"params": p, "opt": init_opt_state(p)}
 
     t0 = time.perf_counter()
@@ -3870,7 +4316,7 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
         zero_counts()
         params, opt_state = trainer.run()
         torch.cuda.synchronize()
-        expect_counts("phase 24(b) training at full depth", {})
+        expect_counts(f"phase 24(b) training at {TRAIN_LAYERS} layers", {})
         peak = torch.cuda.max_memory_allocated()
     run_s = time.perf_counter() - t0
     hist = trainer.metrics_history
@@ -3905,7 +4351,7 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
              if e.device_type == torch.autograd.DeviceType.CUDA
              and e.key.startswith("train_step.")}
     kernels.sort(key=lambda e: -e.self_device_time_total)
-    rec["b"] = {"layers": full.n_layers, "params": sum(p.numel() for p in params.values()),
+    rec["b"] = {"layers": deep.n_layers, "params": sum(p.numel() for p in params.values()),
                 "batch": [TRAIN_BATCH, TRAIN_SEQ], "tokens_per_step": tokens,
                 "losses": losses, "step_ms": dts, "median_step_ms_2_to_8": step_ms,
                 "tokens_per_s": tokens / step_ms * 1e3,
@@ -3967,7 +4413,7 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     torch.cuda.empty_cache()
 
     # ---- (d) the trained weights serve through B6 ----------------------------- #
-    rec["d"] = trained_prefill(full, params, dev, zero_counts, expect_counts, "phase 24(d)")
+    rec["d"] = trained_prefill(deep, params, dev, zero_counts, expect_counts, "phase 24(d)")
     log("phase 24(d) " + json.dumps(rec["d"]))
     return rec
 
@@ -4970,8 +5416,9 @@ def main() -> None:
     shard_only = sys.argv[1:] == ["--shard"]
     mesh_only = sys.argv[1:] == ["--mesh"]
     serve_mk_only = sys.argv[1:] == ["--serve-mk"]
+    registry_only = sys.argv[1:] == ["--registry"]
     if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only
-                                  or serve_mk_only):
+                                  or serve_mk_only or registry_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -5009,6 +5456,7 @@ def main() -> None:
         return got
 
     t_start = time.perf_counter()
+    clock("start")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -5030,12 +5478,15 @@ def main() -> None:
         libs = ("dyn_fir", "flash_attention", "ssd", "rglru")
     if serve_mk_only:
         libs = ("megakernel", "flash_attention", "ssd", "rglru")
+    if registry_only:
+        libs = ("flash_attention", "ssd", "rglru")
     # Phase 16's build of B2 with the clock split and phase 17's three
     # health builds, beside the seven.
     other_defines = [(mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
                      mk_kernel.build_defines(trace=True),
                      mk_kernel.build_defines(guards=True, trace=True)]
-    one_phase = lm_only or train_only or shard_only or mesh_only or serve_mk_only
+    one_phase = (lm_only or train_only or shard_only or mesh_only or serve_mk_only
+                 or registry_only)
     if serve_mk_only:       # phase 27's guarded and guarded, traced runs
         other_defines = other_defines[1:2] + other_defines[3:]
     elif one_phase:
@@ -5051,6 +5502,7 @@ def main() -> None:
         if not _build.library_path("megakernel", d).exists():
             fail(f"megakernel build {d} failed")
     log(f"built {', '.join(libs)} in {time.perf_counter() - t0:.1f} s")
+    clock("phase 1")
     for lib, text in nvcc_out.items():
         for line in text.splitlines():
             log(f"  nvcc[{lib}]: {line}")
@@ -5087,6 +5539,20 @@ def main() -> None:
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"kernels": [serving_row(act["megakernel"],
                                                   stages["megakernel"])]}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
+    if registry_only:
+        b5 = lm_kernels(dev, smi)["B5"]
+        torch.cuda.empty_cache()
+        reg = registry_phase(dev, smi, zero_counts, expect_counts, profile=True)
+        row = b5_row(b5)
+        registry_launches(row, reg)
+        row["launches"] = sum(row[key]["launches"] for key, _, _ in registry_b5_shapes())
+        row["launches_from"] = "phase 28 (the --registry run): the five models served"
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"kernels": [row]}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
@@ -5363,7 +5829,9 @@ def main() -> None:
                          "the predicates")}
     log("host " + json.dumps(host_rec))
 
+    clock("phases 2-6")
     md = motion_detection(dev, smi, zero_counts, expect_counts)
+    clock("phases 7-11")
 
     # ---- 16. B2's clock split ------------------------------------------- #
     from repro_torch.graphs.motion_detection import bench_workload
@@ -5383,15 +5851,26 @@ def main() -> None:
                    "md": (md["B2"]["bound_ms"], md["B2"]["bound_by"])})
     del md["net"], md["result"]
     torch.cuda.empty_cache()
+    clock("phases 16 and 17")
     # ---- 23(a, b). DPD streamed, killed and resumed ---------------------- #
     durable = stream_phase(dev, smi, zero_counts, expect_counts, net_gpu, res_gpu,
                            mk_sink, expected)
     torch.cuda.empty_cache()
+    clock("phase 23(a, b)")
     moe = moe_phase(dev, smi, zero_counts, expect_counts)
+    clock("phase 18")
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
+    # ---- 28. the registry's other five models ------------------------------ #
+    torch.cuda.empty_cache()
+    reg = registry_phase(dev, smi, zero_counts, expect_counts, profile=False)
+    for row in lm:
+        if row["name"] == "flash_attention":
+            registry_launches(row, reg)
+    clock("phase 28")
     # ---- 25. the multi-device runtime ------------------------------------ #
     torch.cuda.empty_cache()
     shard = shard_phase(dev, smi, zero_counts, expect_counts)
+    clock("phase 25")
     shard_from = ("phase 25: k ranks of a gloo group on this one card "
                   "(ExecutionPlan(devices=k), pipeline_forward), per rank")
     for row in lm:

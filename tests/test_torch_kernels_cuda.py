@@ -100,7 +100,15 @@ def gen():
     (1, 129, 2, 2, 128, False, 1),
     (1, 1500, 12, 12, 64, False, None), (2, 1500, 4, 4, 64, False, None),
     (4, 384, 12, 12, 64, True, None), (1, 4096, 14, 2, 64, True, None), (2, 1001, 14, 2, 64, True, None),
-    (1, 777, 7, 1, 64, False, None)])
+    (1, 777, 7, 1, 64, False, None),
+    # The registry's GQA groups with their windows, at reduced batch and
+    # length: gemma3-12b's G 2 at hd 240 with window 1024 (and its global
+    # layers' no window), h2o-danube-3-4b's G 4 at hd 120 with window 4096
+    # over S above 4096, granite-moe-3b-a800m's G 3 at hd 64, qwen2-72b's G
+    # 8 at hd 128 (granite-8b's G 4 at hd 128 too).
+    (1, 2100, 4, 2, 240, True, 1024), (1, 1300, 4, 2, 240, True, None),
+    (1, 4400, 8, 2, 120, True, 4096), (2, 700, 6, 2, 64, True, None),
+    (1, 1100, 16, 2, 128, True, None), (1, 900, 8, 2, 128, True, None)])
 def test_flash_attention_matches_plain(gen, B, S, H, Hkv, hd, causal, window):
     q = torch.randn((B, S, H, hd), generator=gen, device="cuda").bfloat16()
     k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").bfloat16()
