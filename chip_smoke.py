@@ -14,6 +14,7 @@
     python3 chip_smoke.py --mesh      # phase 26 alone (with phase 1)
     python3 chip_smoke.py --serve-mk  # phases 22 and 23(c) with 27 (and 1)
     python3 chip_smoke.py --registry  # phases 12 and 28 with 28's profiles (and 1)
+    python3 chip_smoke.py --train-rg  # phase 29 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -101,8 +102,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     with every count set to 0 just before: 16 B5 and 36 B7 launches (8 and
     18 per prefill) and none of B1-B4 or B6; logs prefill ms per batch,
     decode ms per step and tokens/s; then a short run (batch 2, prompt 256,
-    4 new tokens, the same weights) on the card and on the CPU (the plain
-    path): every layer's mixer and MLP, fed the CPU's input, element by
+    4 new tokens, the same seed, the depth cut to ``PARITY_LAYERS``: two
+    (rec, rec, local attention) groups) on the card and on the CPU (the
+    plain path): every layer's mixer and MLP, fed the CPU's input, element by
     element within one bf16 step plus ``MIX_ROW_TOL`` of the row's RMS;
     logits at every prompt position within ``LOGIT_SENS`` times the CPU
     model's own sensitivity there to one bf16 step at its input (random
@@ -111,8 +113,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     logits within the last position's bar and its tokens identical
     wherever the CPU's top-2 margin exceeds twice the step's largest logit
     difference;
-14. the same for mamba2-780m: 96 B6 launches (48 per prefill) and no B5 or
-    B7; then mamba2's smoke configuration served on the card (B6's SIMT
+14. the same for mamba2-780m (its parity at 12 of 48 layers): 96 B6
+    launches (48 per prefill) and no B5 or B7; then mamba2's smoke configuration served on the card (B6's SIMT
     route, one launch a layer a prefill) and held to the CPU model on the
     same weights as in 13 (each layer, the logits, the Engine);
 15. profiles one prefill (4 x 4096 tokens) and one decode step of each
@@ -254,7 +256,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     AdamW moment, under the same row rule against the CPU's (the
     microbatched one against the whole batch's), ``grad_norm`` within the
     rule's norm, and AdamW on the card within the CPU tests' bars of the
-    CPU's on the same inputs; (b) at ``TRAIN_LAYERS`` = 24 of its 48 layers
+    CPU's on the same inputs; (b) at ``TRAIN_LAYERS`` = 12 of its 48 layers
     (the depth cut for the script's time) through
     ``Trainer``: 8 steps of 8 x 2048 tokens (AdamW lr 1e-3, warmup 2,
     remat, bf16 grads, a checkpoint every 4 steps into a temporary
@@ -314,7 +316,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     ``phase 27(b) ...`` line).  The kernels line's
     ``megakernel.b2.serving`` row carries both.
 26. (after 25) training over a mesh (ROADMAP A13b): mamba2-780m at full
-    width, its depth cut to MESH_LAYERS (12 of 48) for the run's time, on
+    width, its depth cut to MESH_LAYERS (6 of 48) for the run's time, on
     a (data 2, model 2) mesh of 4 gloo ranks on this card
     (``make_train_step(..., mesh=)``, ``zero1``, bf16 grads, AdamW lr 1e-3
     without warmup, 4 x 2048 tokens a step, 2 rows a data rank, under
@@ -347,8 +349,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     the card model's own sensitivity to a bf16 step where larger), and
     every attention layer's decode over its ring held to B5's rows on the
     same inputs (``ring_decode_check``, the parity's layer bar); (b) 13's
-    parity against the CPU on a model cut to ``PARITY_LAYERS``
-    (gemma3-12b keeps 6, its first global layer; the MoE layers as 19's);
+    parity against the CPU on a model cut to ``PARITY_LAYERS`` (gemma3-12b
+    6 layers, through its first global one, the others 1; the MoE layers
+    as 19's);
     (c) gemma3-12b's one request of ``LONG_PROMPT`` = 32 768 tokens at
     batch 1, 32 new: 48 B5 launches, its caches' bytes against the ring
     layout's count, every ring's positions, each step against the card
@@ -358,6 +361,21 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     local and global apart), each with its window in the plain version,
     SDPA's mask and the bound's live pairs, and the kernels line gives
     each shape its launches from phase 28.
+29. (after 28) recurrentgemma-2b trained on the card at train_4k's
+    length (4096 > ``FLASH_SCAN_THRESHOLD``, so its local-attention layers
+    take the reference's blocked scan, ``_flash_scan``): (a) at full width,
+    on the card and on the CPU, phase 24(a)'s bars: the first
+    local-attention layer's norm and attention alone on 2 x 4096 positions
+    (the scan), its gradient by its weights and its input, and the model
+    cut to one (rec, rec, local attention) group, one ``train_loss`` and
+    backward of 1 x 128 tokens (the dense route); (b) all 26 layers through
+    ``Trainer``, 4 steps of 2 x 4096 tokens in 2 microbatches (AdamW lr
+    3e-4, remat, bf16 grads, no checkpoints, the allocator's expandable
+    segments), the loss falling by ``TRAIN_DROP``, step ms, tokens/s,
+    peak memory, the scan's query blocks a step and one profiled step; (c)
+    (b)'s weights served: one prefill of
+    phase 13's first batch through B5 (8 launches) and B7 (18), counted,
+    against the plain versions within phase 13's rule.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -394,7 +412,8 @@ line; ``--mesh`` runs phases 1 and 26 (building B6 only) the same way;
 B2, B5, B6 and B7) and prints the ``megakernel.b2.serving`` row;
 ``--registry`` runs phases 1, 12 and 28, with phase 15's profile of each of
 28's models (building B5, B6 and B7), and prints the ``flash_attention``
-row.
+row; ``--train-rg`` runs phases 1 and 29 (building B5 and B7) and prints
+phase 29's record before the last line.
 """
 from __future__ import annotations
 
@@ -481,11 +500,16 @@ MOE_Y_TOL = 2.0 ** -17
 # phases 13, 14 and 19.
 FAMILY_PROMPTS = {"whisper-small": (64, 384), "internvl2-1b": (1792, 3840)}
 # The depth of an arch's parity model (the CPU's time; the widths stay):
-# whisper-small's encoder is cut to the same count as its decoder;
-# gemma3-12b keeps 6 layers, so its first global layer, index 5, is held.
-# An arch not named here is held at full depth.
-PARITY_LAYERS = {"olmoe-1b-7b": 4, "whisper-small": 4, "gemma3-12b": 6, "granite-8b": 2,
-                 "h2o-danube-3-4b": 2, "granite-moe-3b-a800m": 2, "qwen2-72b": 2}
+# whisper-small's encoder is cut to the same count as its decoder.  Cut for
+# the script's time, each keeping every layer kind of its arch:
+# recurrentgemma-2b from 26 to two (rec, rec, local attention) groups,
+# mamba2-780m from 48 to 12, phase 28's four from 2 to 1 (global attention
+# is held at parity in granite-8b, granite-moe-3b-a800m and qwen2-72b);
+# gemma3-12b's 6 hold its first global layer, index 5.  An arch not named
+# here is held at full depth.
+PARITY_LAYERS = {"recurrentgemma-2b": 6, "mamba2-780m": 12, "olmoe-1b-7b": 4,
+                 "whisper-small": 4, "gemma3-12b": 6, "granite-8b": 1, "h2o-danube-3-4b": 1,
+                 "granite-moe-3b-a800m": 1, "qwen2-72b": 1}
 # Phase 28: the registry's other five models, served at their published
 # widths on phase 13's traffic.  REGISTRY_LAYERS cuts a depth the card
 # cannot hold (qwen2-72b's 80 layers are 145 GB of bf16 weights; 16 layers
@@ -605,6 +629,22 @@ def md_kernel_frames(dev) -> tuple:
             torch.tensor(prev_u8.astype(np.uint8), device=dev))
 
 
+def device_times(prof) -> list:
+    """``[(name, count, device ms), ...]`` of every device-side event of
+    ``prof``, by time: read from the profiler's raw results, since building
+    its event tree (``key_averages``) took about 30 s for a train step of
+    49 416 launches, against 0.6 s for the raw read of 50 000 launches."""
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                or getattr(e, "is_hidden_event", lambda: False)()):
+            continue
+        rec = by_name.setdefault(e.name(), [0, 0.0])
+        rec[0] += 1
+        rec[1] += e.duration_ns() / 1e6
+    return sorted(((k, n, ms) for k, (n, ms) in by_name.items()), key=lambda t: -t[2])
+
+
 def profile_run(run) -> tuple:
     """Device time by kernel of one ``run()`` under ``torch.profiler``:
     ``(total device ms, [(name, count, device ms), ...] by time, wall ms
@@ -616,14 +656,10 @@ def profile_run(run) -> tuple:
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_times(prof)
     if not events:
         fail("the profiler saw no device time")
-    events.sort(key=lambda e: -e.self_device_time_total)
-    return (sum(e.self_device_time_total for e in events) / 1e3,
-            [(e.key[:80], e.count, e.self_device_time_total / 1e3) for e in events],
-            wall)
+    return (sum(ms for _, _, ms in events), [(k[:80], n, ms) for k, n, ms in events], wall)
 
 
 @contextlib.contextmanager
@@ -3418,7 +3454,7 @@ def lm_serving(dev, smi: str, zero_counts, expect_counts) -> list:
     train = train_phase(dev, smi, zero_counts, expect_counts)
     clock("phase 24")
     recs["B6"]["trained_weights"] = {
-        "launches": train["d"]["b6_launches"],
+        "launches": train["d"]["launches"]["B6"],
         "launches_from": "phase 24(d): mamba2-780m's weights after phase 24(b)'s 8 steps, "
                          "one prefill of 4 x 4096 tokens",
         "logit_err": train["d"]["logit_err"], "bar": train["d"]["bar"]}
@@ -4086,7 +4122,7 @@ def stream_phase(dev, smi: str, zero_counts, expect_counts, net_gpu, res_gpu,
 TRAIN_ARCH = "mamba2-780m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 2048      # (b): 16 384 tokens a step
 TRAIN_CUT = 4                                         # layers in (a) and (c)
-TRAIN_LAYERS = 24       # (b) and (d): the published width, depth cut from 48 (the script's time)
+TRAIN_LAYERS = 12       # (b) and (d): the published width, depth cut from 48 (the script's time)
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 512         # (a)
 TRAIN_FT_BATCH, TRAIN_FT_SEQ = 4, 1024                # (c)
 # (a)'s bars are the CPU tests' (tests/test_torch_train_grads.py): every
@@ -4226,9 +4262,12 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     ce_g, g_g = loss_and_grads(cut, params, batch, dev)
     torch.cuda.synchronize()
     expect_counts("phase 24(a) train_loss and backward on the card", {})
+    card_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
     cpu_params = {k: v.cpu() for k, v in params.items()}
     ce_c, g_c = loss_and_grads(cut, cpu_params, batch, "cpu")
     _, g_s = loss_and_grads(cut, cpu_params, batch, "cpu", stepped=True)
+    cpu_s = time.perf_counter() - t1
     if not all(bool(torch.isfinite(g.float()).all()) for g in g_g.values()):
         fail("phase 24(a): non-finite gradients on the card")
     if not abs(ce_g - ce_c) <= CE_REL * abs(ce_c):
@@ -4291,7 +4330,8 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
                 "row_bar": GRAD_ROW_SENS, "grad_norm": gn,
                 "loss": [float(m1["loss"]), float(m2["loss"])],
                 "adamw_first": first, "adamw_second": second, "adamw_mv_bar": ADAMW_REL,
-                "share_of_params_moved_by_step": moved, "s": time.perf_counter() - t0}
+                "share_of_params_moved_by_step": moved, "card_grads_s": card_s,
+                "cpu_grads_s": cpu_s, "s": time.perf_counter() - t0}
     log("phase 24(a) " + json.dumps(rec["a"]))
     del params, cpu_params, p1, p2, s1, s2, G1, G2, second_g, b_dev, g_g, g_c, g_s
     torch.cuda.empty_cache()
@@ -4329,42 +4369,15 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
              f"not by {TRAIN_DROP}")
     step_ms = float(np.median(dts[1:]))
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    # One more step under the profiler: its busy share, launches and the
-    # device time of its two spans, all from that one step.
-    from torch.profiler import ProfilerActivity, profile
-    b8 = as_batch(data.batch(TRAIN_STEPS), dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t1 = time.perf_counter()
-        step(params, opt_state, b8)
-        torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t1) * 1e3
-    # The step's two spans show on the device's timeline too (from their
-    # first kernel's start to their last one's end); they are not kernels.
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("train_step.")]
-    if not kernels:
-        fail("phase 24(b): the profiler saw no device time")
-    device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    spans = {e.key: e.device_time_total / 1e3 for e in events
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and e.key.startswith("train_step.")}
-    kernels.sort(key=lambda e: -e.self_device_time_total)
     rec["b"] = {"layers": deep.n_layers, "params": sum(p.numel() for p in params.values()),
                 "batch": [TRAIN_BATCH, TRAIN_SEQ], "tokens_per_step": tokens,
                 "losses": losses, "step_ms": dts, "median_step_ms_2_to_8": step_ms,
                 "tokens_per_s": tokens / step_ms * 1e3,
                 "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
-                "profiled_step_wall_ms": profiled_ms, "device_ms": device_ms,
-                "busy_share": device_ms / profiled_ms,
-                "launches": sum(e.count for e in kernels), "kernels": len(kernels),
-                "span_device_ms": spans,
-                "span_share": {k: v / profiled_ms for k, v in spans.items()},
-                "top": [{"kernel": e.key[:80], "count": e.count,
-                         "device_ms": e.self_device_time_total / 1e3} for e in kernels[:12]]}
+                **profiled_step(step, params, opt_state, as_batch(data.batch(TRAIN_STEPS), dev),
+                                "phase 24(b)")}
     log("phase 24(b) " + json.dumps(rec["b"]))
-    del opt_state, b8, prof
+    del opt_state
     torch.cuda.empty_cache()
 
     # ---- (c) failure and restore at the cut --------------------------------- #
@@ -4418,11 +4431,45 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     return rec
 
 
-def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: str) -> dict:
+def profiled_step(step, params: dict, opt_state: dict, batch: dict, label: str) -> dict:
+    """One more train step under the profiler: its busy share, launches
+    and the device time of its two spans, all from that one step
+    (:func:`device_times`)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t1) * 1e3
+        t2 = time.perf_counter()
+    t3 = time.perf_counter()
+    # The step's two spans show on the device's timeline too (from their
+    # first kernel's start to their last one's end); they are not kernels.
+    events = device_times(prof)
+    spans = {k: ms for k, _, ms in events if k.startswith("train_step.")}
+    kernels = [e for e in events if not e[0].startswith("train_step.")]
+    if not kernels:
+        fail(f"{label}: the profiler saw no device time")
+    device_ms = sum(ms for _, _, ms in kernels)
+    return {"profiled_step_wall_ms": profiled_ms, "device_ms": device_ms,
+            "busy_share": device_ms / profiled_ms,
+            "launches": sum(n for _, n, _ in kernels), "kernels": len(kernels),
+            "span_device_ms": spans,
+            "span_share": {k: v / profiled_ms for k, v in spans.items()},
+            "top": [{"kernel": k[:80], "count": n, "device_ms": ms}
+                    for k, n, ms in kernels[:12]],
+            "profiler_stop_s": t3 - t2, "events_read_s": time.perf_counter() - t3}
+
+
+def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: str,
+                    want: dict = None) -> dict:
     """Trained weights served: one prefill of phase 14's first LM_BATCH
-    prompts through B6 (counted: one call a layer) and through the plain
-    versions, the logits within phase 14's rule (LOGIT_SENS times the
-    model's own change under one bf16 step at its embedded input)."""
+    prompts (phase 13's for recurrentgemma-2b) through the model's kernels
+    (``want``, launches by kernel; B6 a layer by default), counted, and
+    through the plain versions, the logits within phases 13-14's rule
+    (LOGIT_SENS times the model's own change under one bf16 step at its
+    embedded input)."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)
     model.load_state_dict(params)
@@ -4436,7 +4483,8 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
     zero_counts()
     lg_k = model.prefill(toks)[0][:, :V].float()
     torch.cuda.synchronize()
-    b6 = expect_counts(f"{label} the trained weights served", {"B6": cfg.n_layers})["B6"]
+    want = want or {"B6": cfg.n_layers}
+    got = expect_counts(f"{label} the trained weights served", want)
     lg_x = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
     stepped_embed(model)
     lg_s = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
@@ -4449,13 +4497,268 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
     if not (bool(torch.isfinite(lg_k).all()) and bool(torch.isfinite(sens).all())):
         fail(f"{label}: non-finite logits")
     if bool((err > bar).any()):
-        fail(f"{label}: B6's logits differ from the plain versions' by "
+        fail(f"{label}: the kernels' logits differ from the plain versions' by "
              f"{err.tolist()} > {bar.tolist()}")
-    return {"prompts": lens[:LM_BATCH], "padded_to": LM_PROMPT, "b6_launches": b6,
+    return {"prompts": lens[:LM_BATCH], "padded_to": LM_PROMPT,
+            "launches": {k: got[k] for k in want},
             "logit_err": err.tolist(), "sensitivity": sens.tolist(),
             "bar": bar.tolist(), "max_abs_logit": mag.tolist(),
             "rows_with_power": int((bar < mag).sum()),
             "top1_equal": bool(torch.equal(lg_k.argmax(-1), lg_x.argmax(-1)))}
+
+
+# ---- 29. an attention model trained on one card ---------------------------- #
+RG_ARCH = "recurrentgemma-2b"
+RG_STEPS = 4            # (b): cut from 6 for the script's time
+RG_BATCH, RG_SEQ = 2, 4096                  # (b): 2 rows of train_4k a step
+RG_MICROBATCHES = 2                         # (b): a row each (peak 65 GB; PERF.md)
+RG_CUT = 3                                  # (a): one (rec, rec, local attention) group
+RG_BLOCK_BATCH = 2                          # (a): the local-attention mixer at 2 x RG_SEQ
+RG_PARITY_BATCH, RG_PARITY_SEQ = 1, 128     # (a): the cut model (the CPU's time)
+RG_LR = 3e-4            # (b): AdamWConfig's default; at 1e-3 the loss rose again by step 3
+
+
+class NoCheckpoints:
+    """A ``Checkpointer`` that keeps nothing, for phase 29(b)'s Trainer:
+    its end state (bf16 params, float32 moments) is 29 GB to write, and
+    phase 24(c) already holds saving and restoring."""
+
+    def latest_step(self):
+        return None
+
+    def save(self, step, tree, blocking=False) -> None:
+        pass
+
+    def wait(self) -> None:
+        pass
+
+
+@contextlib.contextmanager
+def scan_tally():
+    """Counts the attention scan's calls and query blocks (``S // bq`` a
+    call, as the reference's ``_flash_scan`` maps over them) inside the
+    block."""
+    from repro_torch.models import attention as att
+    real, tally = att._flash_scan, {"calls": 0, "q_blocks": 0}
+
+    def counted(q, k, v, *, causal, window, bq=512, bk=512):
+        tally["calls"] += 1
+        tally["q_blocks"] += q.shape[1] // att._divisor_block(bq, q.shape[1])
+        return real(q, k, v, causal=causal, window=window, bq=bq, bk=bk)
+    att._flash_scan = counted
+    try:
+        yield tally
+    finally:
+        att._flash_scan = real
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator maps segments that grow, inside the block,
+    and goes back to the setting it had (the one PYTORCH_CUDA_ALLOC_CONF
+    or PYTORCH_ALLOC_CONF gave it) after it: with fixed segments, phase
+    29(b)'s logit-sized tensors (4 or 8 GB) left 10-30 GB free only in
+    pieces, and a full-depth step ran out of memory with 62 GB (whole
+    batch) and 47 GB (2 microbatches) allocated (PERF.md, phase 29).
+    ``launch/train.py`` at that shape needs
+    ``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` likewise."""
+    conf = ",".join(os.environ.get(k, "") for k in ("PYTORCH_ALLOC_CONF",
+                                                    "PYTORCH_CUDA_ALLOC_CONF"))
+    before = "True" if re.search(r"expandable_segments\s*:\s*True", conf) else "False"
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(f"expandable_segments:{before}")
+
+
+def mixer_grads(cfg, params: dict, x: torch.Tensor, dev, index: int,
+                stepped: bool = False) -> tuple:
+    """Layer ``index`` of ``LM(cfg)``'s mixer alone on ``dev`` (its norm and
+    attention in mode "train", the plain routes): the mean square of its
+    float32 output for the input ``x`` (one bf16 step off under
+    ``stepped``), and the gradient of that by the mixer's parameters and by
+    ``x`` ("input"), as CPU tensors."""
+    from repro_torch.models import LM
+    model = LM(cfg, device=dev, seed=None)     # only the held layer's weights loaded
+    pre = f"layers.{index}."
+    blk = model.layers[index]
+    blk.load_state_dict({k[len(pre):]: v for k, v in params.items() if k.startswith(pre)})
+    for p in blk.parameters():
+        p.requires_grad_(True)
+    x = x.to(dev)
+    x = (bf16_step_noise(x) if stepped else x).requires_grad_(True)
+    y, _ = model._mixer(blk, x, mode="train", kernel_impl="xla")
+    value = y.float().square().mean()
+    value.backward()
+    grads = {n: p.grad.cpu() for n, p in blk.named_parameters() if p.grad is not None}
+    grads["input"] = x.grad.cpu()
+    return float(value.detach()), grads
+
+
+def rg_train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
+    """Phase 29: recurrentgemma-2b trained on the card, at train_4k's
+    length, where its local-attention layers take the reference's blocked
+    scan (``models/attention.py``'s ``_flash_scan``: window 2048, 2560 of
+    4096 keys a block of 512 queries).
+
+    (a) At full width, on the card and on the CPU with the same weights,
+    phase 24(a)'s bars: the first local-attention layer's mixer (its norm
+    and attention) alone on a RG_BLOCK_BATCH x RG_SEQ input (the scan
+    route; the mean square of its output within CE_REL, every gradient
+    row, of its weights and of its input, within GRAD_ROW_SENS times the
+    CPU's own change when the input moves one bf16 step), and the model
+    cut to RG_CUT layers, one ``train_loss`` and backward of
+    RG_PARITY_BATCH x RG_PARITY_SEQ tokens (the dense route; ce within
+    CE_REL, the rows as 24(a)).  On the CPU the cut model at the scan's
+    length took 105 s (its float32 head is 256 000 x 2560) and the whole
+    layer at 2 x 4096 53 s (its MLP), so the scan is held in the mixer.
+    (b) At full depth through ``Trainer``: RG_STEPS steps of RG_BATCH x
+    RG_SEQ tokens in RG_MICROBATCHES microbatches, remat, bf16 grads, no
+    checkpoints (:class:`NoCheckpoints`); the loss falls by TRAIN_DROP;
+    the median step time from step 2 on, tokens/s, the peak memory, the
+    scan's query blocks a step (8 a local-attention layer, pass and
+    microbatch), one more step profiled.  (c) (b)'s weights served: one
+    prefill of phase 13's first batch through B5 and B7 (a launch a layer
+    of each kind, counted) and through the plain versions, within phase
+    13's rule."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import layer_kinds
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import (Trainer, TrainerConfig, TrainOptions, init_params,
+                                   make_train_step)
+    import tempfile
+    full = get_config(RG_ARCH)
+    cut = dataclasses.replace(full, n_layers=RG_CUT)
+    rec: dict = {"card": smi, "arch": RG_ARCH}
+
+    # ---- (a) parity at full width: the scan layer alone, the cut model --- #
+    t0 = time.perf_counter()
+    params = init_params(cut, device=dev, seed=0)
+    local = layer_kinds(cut).index("attn_local")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (RG_BLOCK_BATCH, RG_SEQ, cut.d_model), dtype=np.float32)).to(torch.bfloat16)
+    src = SyntheticLM(DataConfig(vocab=cut.vocab, seq_len=RG_PARITY_SEQ,
+                                 global_batch=RG_PARITY_BATCH, seed=0))
+    batch = as_batch(src.batch(0), "cpu")
+    zero_counts()
+    with scan_tally() as scans:
+        v_g, gb_g = mixer_grads(cut, params, x, dev, local)
+        torch.cuda.synchronize()
+    with scan_tally() as dense_scans:
+        ce_g, g_g = loss_and_grads(cut, params, batch, dev)
+        torch.cuda.synchronize()
+    expect_counts("phase 29(a) the layer's and the model's backward on the card", {})
+    card_s = time.perf_counter() - t0
+    cpu_params = {k: v.cpu() for k, v in params.items()}
+    del params
+    t1 = time.perf_counter()
+    v_c, gb_c = mixer_grads(cut, cpu_params, x, "cpu", local)
+    _, gb_s = mixer_grads(cut, cpu_params, x, "cpu", local, stepped=True)
+    block_cpu_s = time.perf_counter() - t1
+    ce_c, g_c = loss_and_grads(cut, cpu_params, batch, "cpu")
+    _, g_s = loss_and_grads(cut, cpu_params, batch, "cpu", stepped=True)
+    cpu_s = time.perf_counter() - t1
+    for what, got in (("the layer's", gb_g), ("the model's", g_g)):
+        if not all(bool(torch.isfinite(g.float()).all()) for g in got.values()):
+            fail(f"phase 29(a): non-finite gradients of {what} on the card")
+    for what, got, want in (("the layer's mean square", v_g, v_c), ("ce", ce_g, ce_c)):
+        if not abs(got - want) <= CE_REL * abs(want):
+            fail(f"phase 29(a): {what} {got} on the card vs {want} on the CPU "
+                 f"(> {CE_REL} rel)")
+    block_rd = grad_row_readings(gb_c, gb_g, gb_c, gb_s)
+    readings = grad_row_readings(g_c, g_g, g_c, g_s)
+    for what, rd in (("the layer's gradient", block_rd), ("the model's gradient", readings)):
+        w = max(rd, key=rd.get)
+        if rd[w] > GRAD_ROW_SENS:
+            fail(f"phase 29(a): {what} at {w} reads {rd[w]:.3g} x the CPU's "
+                 f"one-bf16-step change (> {GRAD_ROW_SENS})")
+    # The layer at RG_SEQ: one forward of RG_SEQ // 512 query blocks (no
+    # remat outside LM.forward); the model at RG_PARITY_SEQ: the dense route.
+    if scans != {"calls": 1, "q_blocks": RG_SEQ // 512} or dense_scans["calls"]:
+        fail(f"phase 29(a): the scan ran {scans} for the layer, {dense_scans} for the model")
+    rec["a"] = {"layer": {"index": local, "input": [RG_BLOCK_BATCH, RG_SEQ, cut.d_model],
+                          "scan": scans, "mean_square_card": v_g, "mean_square_cpu": v_c,
+                          "rel_err": abs(v_g - v_c) / abs(v_c),
+                          "worst_leaf": max(block_rd, key=block_rd.get),
+                          "worst_row_reading": max(block_rd.values()), "cpu_s": block_cpu_s},
+                "model": {"layers": RG_CUT, "batch": [RG_PARITY_BATCH, RG_PARITY_SEQ],
+                          "ce_card": ce_g, "ce_cpu": ce_c,
+                          "ce_rel_err": abs(ce_g - ce_c) / abs(ce_c),
+                          "worst_leaf": max(readings, key=readings.get),
+                          "worst_row_reading": max(readings.values()),
+                          "cpu_s": cpu_s - block_cpu_s},
+                "bar": CE_REL, "row_bar": GRAD_ROW_SENS, "card_s": card_s,
+                "s": time.perf_counter() - t0}
+    log("phase 29(a) " + json.dumps(rec["a"]))
+    clock("phase 29(a)")
+    del cpu_params, x, gb_g, gb_c, gb_s, g_g, g_c, g_s
+    torch.cuda.empty_cache()
+
+    # (b) and (c) with segments that grow (:func:`expandable_segments`).
+    with expandable_segments():
+        # ---- (b) full depth through the Trainer ------------------------------ #
+        opt_b = AdamWConfig(lr=RG_LR, warmup_steps=2, total_steps=RG_STEPS)
+        step = make_train_step(full, opt_b, TrainOptions(grad_dtype="bf16",
+                                                         microbatches=RG_MICROBATCHES))
+        data = SyntheticLM(DataConfig(vocab=full.vocab, seq_len=RG_SEQ,
+                                      global_batch=RG_BATCH, seed=0))
+
+        def init_full():
+            p = init_params(full, device=dev, seed=0)
+            return {"params": p, "opt": init_opt_state(p)}
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            trainer = Trainer(TrainerConfig(total_steps=RG_STEPS, checkpoint_every=RG_STEPS,
+                                            checkpoint_dir=d, max_restarts=0, log_every=1),
+                              step, data, init_full, log=log)
+            trainer.ckpt = NoCheckpoints()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with scan_tally() as scans:
+                params, opt_state = trainer.run()
+            torch.cuda.synchronize()
+            expect_counts(f"phase 29(b) training at {full.n_layers} layers", {})
+            peak = torch.cuda.max_memory_allocated()
+        run_s = time.perf_counter() - t0
+        losses = [h["loss"] for h in trainer.metrics_history]
+        dts = [h["dt"] * 1e3 for h in trainer.metrics_history]
+        if len(losses) != RG_STEPS or not np.all(np.isfinite(losses)):
+            fail(f"phase 29(b): losses {losses}")
+        if not np.mean(losses[-2:]) <= losses[0] - TRAIN_DROP:
+            fail(f"phase 29(b): the loss fell from {losses[0]} to {losses[-2:]}, "
+                 f"not by {TRAIN_DROP}")
+        kinds = layer_kinds(full)
+        blocks = kinds.count("attn_local") * 2 * RG_MICROBATCHES * (RG_SEQ // 512)
+        if scans["q_blocks"] != blocks * RG_STEPS:
+            fail(f"phase 29(b): the scan ran {scans} in {RG_STEPS} steps, want {blocks} "
+                 "query blocks a step")
+        step_ms = float(np.median(dts[1:]))
+        tokens = RG_BATCH * RG_SEQ
+        rec["b"] = {"layers": full.n_layers, "params": sum(p.numel() for p in params.values()),
+                    "batch": [RG_BATCH, RG_SEQ], "microbatches": RG_MICROBATCHES,
+                    "tokens_per_step": tokens,
+                    "scan_q_blocks_per_step": scans["q_blocks"] // RG_STEPS,
+                    "losses": losses, "step_ms": dts, "median_step_ms_from_2": step_ms,
+                    "tokens_per_s": tokens / step_ms * 1e3,
+                    "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
+                    **profiled_step(step, params, opt_state, as_batch(data.batch(RG_STEPS), dev),
+                                    "phase 29(b)")}
+        log("phase 29(b) " + json.dumps(rec["b"]))
+        clock("phase 29(b)")
+        del opt_state, trainer
+        torch.cuda.empty_cache()
+
+        # ---- (c) the trained weights serve through B5 and B7 ----------------- #
+        rec["c"] = trained_prefill(full, params, dev, zero_counts, expect_counts, "phase 29(c)",
+                                   {"B5": kinds.count("attn_local"), "B7": kinds.count("rec")})
+        log("phase 29(c) " + json.dumps(rec["c"]))
+    return rec
 
 
 # ---- 25. the multi-device runtime (devices=k, pipeline_forward) -------- #
@@ -4814,7 +5117,7 @@ def shard_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
 
 # ---- 26. training over a mesh (sharded step, elastic resume) ----------- #
 MESH_ARCH = "mamba2-780m"
-MESH_LAYERS = 12                 # the published width, depth cut from 48 (the run's time)
+MESH_LAYERS = 6                  # the published width, depth cut from 48 (the run's time)
 MESH_SHAPE = (2, 2)              # (data, model): 4 gloo ranks on the one card
 MESH_BATCH, MESH_SEQ = 4, 2048   # 2 rows a data rank
 MESH_STEPS, MESH_SAVE_AT = 3, 2
@@ -5417,8 +5720,9 @@ def main() -> None:
     mesh_only = sys.argv[1:] == ["--mesh"]
     serve_mk_only = sys.argv[1:] == ["--serve-mk"]
     registry_only = sys.argv[1:] == ["--registry"]
+    train_rg_only = sys.argv[1:] == ["--train-rg"]
     if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only
-                                  or serve_mk_only or registry_only):
+                                  or serve_mk_only or registry_only or train_rg_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -5480,13 +5784,15 @@ def main() -> None:
         libs = ("megakernel", "flash_attention", "ssd", "rglru")
     if registry_only:
         libs = ("flash_attention", "ssd", "rglru")
+    if train_rg_only:
+        libs = ("flash_attention", "rglru")
     # Phase 16's build of B2 with the clock split and phase 17's three
     # health builds, beside the seven.
     other_defines = [(mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
                      mk_kernel.build_defines(trace=True),
                      mk_kernel.build_defines(guards=True, trace=True)]
     one_phase = (lm_only or train_only or shard_only or mesh_only or serve_mk_only
-                 or registry_only)
+                 or registry_only or train_rg_only)
     if serve_mk_only:       # phase 27's guarded and guarded, traced runs
         other_defines = other_defines[1:2] + other_defines[3:]
     elif one_phase:
@@ -5511,6 +5817,14 @@ def main() -> None:
         train = train_phase(dev, smi, zero_counts, expect_counts)
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_24": train}), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+            flush=True)
+        return
+    if train_rg_only:
+        rg = rg_train_phase(dev, smi, zero_counts, expect_counts)
+        log(f"total {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"phase_29": rg}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
@@ -5867,6 +6181,18 @@ def main() -> None:
         if row["name"] == "flash_attention":
             registry_launches(row, reg)
     clock("phase 28")
+    # ---- 29. recurrentgemma-2b trained on the card -------------------------- #
+    torch.cuda.empty_cache()
+    rg = rg_train_phase(dev, smi, zero_counts, expect_counts)
+    for row in lm:
+        if row["name"] in ("flash_attention", "rglru"):
+            row["trained_weights"] = {
+                "launches": rg["c"]["launches"]["B5" if row["name"] == "flash_attention"
+                                                else "B7"],
+                "launches_from": "phase 29(c): recurrentgemma-2b's weights after phase "
+                                 f"29(b)'s {RG_STEPS} steps, one prefill of 4 x 4096 tokens",
+                "logit_err": rg["c"]["logit_err"], "bar": rg["c"]["bar"]}
+    clock("phase 29")
     # ---- 25. the multi-device runtime ------------------------------------ #
     torch.cuda.empty_cache()
     shard = shard_phase(dev, smi, zero_counts, expect_counts)
@@ -5887,7 +6213,7 @@ def main() -> None:
     mesh = mesh_phase(dev, smi)
     for row in lm:
         if row["name"] == "ssd":
-            row["mesh_launches"] = mesh["c"]["b6_launches"]
+            row["mesh_launches"] = mesh["c"]["launches"]["B6"]
             row["mesh_launches_from"] = (f"phase 26(c): mamba2-780m's weights ({MESH_LAYERS} "
                                          "layers) trained on a (data 2, model 2) mesh, "
                                          "restored in a fresh process, one prefill")

@@ -11,6 +11,9 @@
   with ``kernel_impl="xla"``.
 * ``"pallas"`` launches the kernel on a CUDA operand; a CPU operand takes
   the port's CPU path, the plain version.
+* ``"flash_scan"`` names one of attention's plain routes (the models'
+  ``attention`` takes it before it reaches B5's entry); every other entry
+  runs its plain version under it, as under ``"xla"``.
 
 Any other value raises ``ValueError`` (the reference sends any value but
 ``"pallas"`` to XLA).  ``interpret`` is taken as a bool and has no effect:
@@ -31,7 +34,7 @@ from typing import Optional, Sequence
 
 import torch
 
-IMPLS = (None, "xla", "pallas")
+IMPLS = (None, "xla", "pallas", "flash_scan")
 
 
 def kernel_route(entry: str, impl: Optional[str], interpret: bool,
@@ -43,7 +46,7 @@ def kernel_route(entry: str, impl: Optional[str], interpret: bool,
         raise ValueError(f"{entry}: impl {impl!r} is not one of {IMPLS}")
     if not isinstance(interpret, bool):
         raise ValueError(f"{entry}: interpret must be a bool, got {interpret!r}")
-    if impl == "xla":
+    if impl in ("xla", "flash_scan"):
         return False
     if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         raise ValueError(

@@ -11,11 +11,15 @@ absolute position, so the ring never needs re-rotation.  The int8 cache
 per (slot, kv head), as the JAX package's does.
 
 Prefill attention, causal or not (the whisper encoder is bidirectional),
-runs through kernel B5
-(:func:`repro_torch.kernels.flash_attention.flash_attention`); the
-one-token decode, the caches and cross attention are plain PyTorch, as
-the JAX package computes them outside any Pallas kernel.  Decode writes
-its token into the cache in place; a cross-attention cache is read only.
+takes one of the reference's three routes (:func:`attention`): kernel B5
+(:func:`repro_torch.kernels.flash_attention.flash_attention`), or one of
+its two plain routes, the dense einsum with probabilities in v's type
+(:func:`_dense_attention`) and the blocked online-softmax scan above
+``FLASH_SCAN_THRESHOLD`` positions (:func:`_flash_scan`), which training
+differentiates.  The one-token decode, the caches and cross attention
+are plain PyTorch, as the JAX package computes them outside any Pallas
+kernel.  Decode writes its token into the cache in place; a
+cross-attention cache is read only.
 """
 from __future__ import annotations
 
@@ -23,8 +27,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.flash_attention import NEG_INF, flash_attention
+from repro_torch.kernels.flash_attention import NEG_INF, attention_mask, flash_attention
 from repro_torch.models.layers import DTYPE, F32, apply_rope, dense, filled
 
 
@@ -59,23 +64,132 @@ def _project_qkv(p, x, n_heads, n_kv_heads, head_dim):
             v.reshape(B, S, n_kv_heads, head_dim))
 
 
+# Above this many query positions the plain route replaces the dense
+# (S, S) scores by the blocked scan, whose memory is O(S * block).
+FLASH_SCAN_THRESHOLD = 2048
+
+
+def _divisor_block(b: int, S: int) -> int:
+    """``b`` capped at S, else the largest divisor of S below it."""
+    b = min(b, S)
+    return next(d for d in range(b, 0, -1) if S % d == 0)
+
+
+def _flash_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                window: Optional[int], bq: int = 512, bk: int = 512) -> torch.Tensor:
+    """The reference's ``_flash_scan``: blocked attention (GQA) in float32,
+    cast to q's type at the end.  A windowed layer attends, per block of
+    ``bq`` queries, only the ``min(window + bq, S)`` keys that can be in
+    its window (keys left-padded by that span; the mask is causal and
+    windowed whatever ``causal`` says, as the reference's), so it is
+    O(S * window) in memory and work.  Otherwise an online softmax runs
+    over blocks of ``bk`` keys; every query row takes the reference's
+    steps, so all ``S // bq`` query blocks go through each key block at
+    once, which leaves S // bk Python steps instead of (S // bq) * (S //
+    bk).  Under grad mode each key block's scores run under
+    ``torch.utils.checkpoint``: autograd holds O(S) a block (and q, k and
+    v once), not the O(S * bk) scores.  q: (B, S, H, hd); k/v: (B, S,
+    Hkv, hd).  Plain loops over blocks, so autograd differentiates it."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    dev = q.device
+    scale = 1.0 / torch.sqrt(torch.tensor(float(hd), dtype=F32, device=dev))
+    neg = torch.tensor(NEG_INF, dtype=F32, device=dev)
+    if window is not None:
+        bq = _divisor_block(bq, S)
+        span = min(window + bq, S)
+        qb = q.reshape(B, S // bq, bq, Hkv, G, hd).to(F32)
+        kp = torch.nn.functional.pad(k.to(F32), (0, 0, 0, 0, span, 0))
+        vp = torch.nn.functional.pad(v.to(F32), (0, 0, 0, 0, span, 0))
+        blocks = []
+        for i in range(S // bq):
+            start = i * bq + bq                         # in the padded keys
+            rows = i * bq + torch.arange(bq, device=dev)[:, None]
+            cols = (i * bq + bq - span) + torch.arange(span, device=dev)[None, :]
+            mask = (cols >= 0) & (cols <= rows) & (rows - cols < window)
+            s = torch.einsum("bqkgh,btkh->bkgqt", qb[:, i], kp[:, start:start + span]) * scale
+            probs = torch.softmax(torch.where(mask, s, neg), dim=-1)
+            blocks.append(torch.einsum("bkgqt,btkh->bqkgh", probs, vp[:, start:start + span]))
+        return torch.stack(blocks, 1).reshape(B, S, H, hd).to(q.dtype)
+
+    bk = _divisor_block(bk, S)
+    qg = q.reshape(B, S, Hkv, G, hd).to(F32)
+    kb = k.reshape(B, S // bk, bk, Hkv, hd)
+    vb = v.reshape(B, S // bk, bk, Hkv, hd)
+    rows = torch.arange(S, device=dev)[:, None]
+
+    def block(j, qg, kj, vj, m):
+        """Key block j against every query row: the new row maxima, and
+        the block's probability sums and value product at those maxima."""
+        s = torch.einsum("bqkgh,btkh->bkgqt", qg, kj.to(F32)) * scale
+        if causal:
+            cols = j * bk + torch.arange(bk, device=dev)[None, :]
+            s = torch.where(cols <= rows, s, neg)
+        m_new = torch.maximum(m, s.amax(-1))
+        probs = torch.exp(s - m_new[..., None])
+        return m_new, probs.sum(-1), torch.einsum("bkgqt,btkh->bkgqh", probs, vj.to(F32))
+
+    m = torch.full((B, Hkv, G, S), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros((B, Hkv, G, S), dtype=F32, device=dev)
+    acc = torch.zeros((B, Hkv, G, S, hd), dtype=F32, device=dev)
+    for j in range(S // bk):
+        if torch.is_grad_enabled():
+            # Autograd keeps the block's inputs (float32 q, k and v in
+            # their own type, the row maxima), not its (S, bk) scores,
+            # which the backward pass recomputes.
+            m_new, p_sum, pv = checkpoint(block, j, qg, kb[:, j], vb[:, j], m,
+                                          use_reentrant=False)
+        else:
+            m_new, p_sum, pv = block(j, qg, kb[:, j], vb[:, j], m)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p_sum
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-20)[..., None]       # (B, Hkv, G, S, hd)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, hd).to(q.dtype)
+
+
+def _dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+                    window: Optional[int]) -> torch.Tensor:
+    """The reference's dense route: float32 scores and softmax over the
+    (S, S) mask, the probabilities cast to v's type for the value product
+    (B5's plain version keeps them in float32).  Shapes as
+    :func:`_flash_scan`; returns v's type."""
+    B, S, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, hd).to(F32)
+    scores = torch.einsum("bskgh,btkh->bkgst", qg, k.to(F32)) \
+        / torch.sqrt(torch.tensor(float(hd), dtype=F32, device=q.device))
+    scores = torch.where(attention_mask(S, causal, window, q.device), scores,
+                         torch.tensor(NEG_INF, dtype=F32, device=q.device))
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bkgst,btkh->bskgh", probs.to(v.dtype), v).reshape(B, S, H, hd)
+
+
 def attention(p, x: torch.Tensor, *, n_heads: int, n_kv_heads: int, head_dim: int,
               rope_theta: float, causal: bool = True, window: Optional[int] = None,
               return_kv: bool = False, kernel_impl: Optional[str] = None):
-    """Attention of positions 0..S-1, x: (B, S, D) -> (B, S, D), through
-    B5 (``kernel_impl`` is its entry's ``impl``: None the device rule,
-    ``"xla"`` the plain version, which training differentiates; it stands
-    for both of the reference's XLA routes, the einsum at S <= 2048 and
-    ``_flash_scan`` above); causal unless ``causal=False`` (the encoder).
-    ``window``: SWA size (None = full).  With ``return_kv`` also returns the RoPE'd keys and the
-    values, which :func:`cache_from_kv` turns into the layer's ring
-    cache."""
+    """Attention of positions 0..S-1, x: (B, S, D) -> (B, S, D); causal
+    unless ``causal=False`` (the encoder); ``window``: SWA size (None =
+    full).  ``kernel_impl`` picks the reference's route: None (the device
+    rule) and ``"pallas"`` go to B5's entry; ``"flash_scan"``, or
+    ``"xla"`` above ``FLASH_SCAN_THRESHOLD`` positions, to
+    :func:`_flash_scan`; ``"xla"`` at or below it to
+    :func:`_dense_attention`.  Any other value is refused by B5's entry.
+    With ``return_kv`` also returns the RoPE'd keys and the values, which
+    :func:`cache_from_kv` turns into the layer's ring cache."""
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, n_heads, n_kv_heads, head_dim)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     q = apply_rope(q, pos, rope_theta)
     k = apply_rope(k, pos, rope_theta)
-    o = flash_attention(q, k, v, causal=causal, window=window, impl=kernel_impl)
+    if kernel_impl == "flash_scan" or (kernel_impl == "xla" and S > FLASH_SCAN_THRESHOLD):
+        o = _flash_scan(q, k, v, causal=causal, window=window)
+    elif kernel_impl == "xla":
+        o = _dense_attention(q, k, v, causal=causal, window=window)
+    else:
+        o = flash_attention(q, k, v, causal=causal, window=window, impl=kernel_impl)
     out = o.reshape(B, S, n_heads * head_dim) @ p.wo
     return (out, k, v) if return_kv else out
 

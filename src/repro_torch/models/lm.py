@@ -344,10 +344,13 @@ class LM(nn.Module):
         ``vision_embeds`` (B, n_vision_tokens, d_model), placed before the
         tokens (its logits cover both).
 
-        ``kernel_impl`` is the kernel entries' ``impl`` for B5-B7: None the
-        device rule (the kernels on the card), ``"xla"`` the plain
-        versions, which autograd differentiates (the kernels have no
-        backward, and their entries refuse operands that require grad).
+        ``kernel_impl`` picks the routes of B5-B7: None the device rule
+        (the kernels on the card), ``"xla"`` the reference's plain routes
+        (attention's dense einsum, or its blocked scan above
+        ``attention.FLASH_SCAN_THRESHOLD`` positions), ``"flash_scan"``
+        the scan at every length, both differentiated by autograd (the
+        kernels have no backward, and their entries refuse operands that
+        require grad).
         ``remat`` (mode "train" under grad mode) recomputes each block in
         the backward pass (``torch.utils.checkpoint``) instead of keeping
         its activations.  The device is the weights'."""

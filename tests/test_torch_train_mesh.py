@@ -6,9 +6,10 @@
   error feedback, equals the single-process step with ``microbatches=2``
   bit for bit: the gathered params, ``m``, ``v``, ``count``, ``feedback``
   and every metric.  Two planted faults (the data-parallel reduction
-  skipped; the norm summed from shards) break that equality, and the test
-  asserts that they do.  In the same group: a checkpoint saved on (2, 2)
-  restores on (4, 1) and with no ``shardings``, every full tensor
+  skipped; the norm summed shard by shard from bf16-rounded gradients)
+  break that equality, and the test asserts that they do.  In the same
+  group: a checkpoint saved on (2, 2) restores on (4, 1) and with no
+  ``shardings``, every full tensor
   identical, the placements the ones requested; a checkpoint the JAX
   package wrote from a tree sharded on its 8-device CPU mesh restores.
 * A world of 1: the 1x1 mesh's step equals today's step bit for bit, and
@@ -182,9 +183,12 @@ def body_2x2(rank, world, ckpt_dir, ref_ckpt):
         return gather_list(x, group, account, kind)
 
     def from_shards(tensors):
+        # The squares summed shard by shard, of the gradients rounded to
+        # bf16 first: a norm a few parts in 10^4 off.  (The reorder alone
+        # leaves the float32 sum's bits as they were on some gradients.)
         sq = []
         for x in tensors:
-            for part in x.to(torch.float32).chunk(2, dim=0):
+            for part in x.to(torch.bfloat16).to(torch.float32).chunk(2, dim=0):
                 sq.append(torch.sum(torch.square(part)))
         return torch.sqrt(torch.sum(torch.stack(sq)))
 
