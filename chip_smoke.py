@@ -15,6 +15,7 @@
     python3 chip_smoke.py --serve-mk  # phases 22 and 23(c) with 27 (and 1)
     python3 chip_smoke.py --registry  # phases 12 and 28 with 28's profiles (and 1)
     python3 chip_smoke.py --train-rg  # phase 29 alone (with phase 1)
+    python3 chip_smoke.py --train-registry  # phase 30 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -101,8 +102,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     batch 4, 32 new tokens, no EOS, through ``repro_torch.serve.Engine``,
     with every count set to 0 just before: 16 B5 and 36 B7 launches (8 and
     18 per prefill) and none of B1-B4 or B6; logs prefill ms per batch,
-    decode ms per step and tokens/s; then a short run (batch 2, prompt 256,
-    4 new tokens, the same seed, the depth cut to ``PARITY_LAYERS``: two
+    decode ms per step and tokens/s; then a short run (``PARITY_BATCH`` 1,
+    cut from 2 for the script's time, prompt 256, 4 new tokens, the same
+    seed, the depth cut to ``PARITY_LAYERS``: two
     (rec, rec, local attention) groups) on the card and on the CPU (the
     plain path): every layer's mixer and MLP, fed the CPU's input, element by
     element within one bf16 step plus ``MIX_ROW_TOL`` of the row's RMS;
@@ -188,7 +190,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     2 KV heads of 64, vocab 151 655) served likewise with 256 stub vision
     embeddings (4, 256, 896) before prompts of 1792-3840 tokens
     left-padded to 3840 (S = 4096): 48 B5 launches, its profile and
-    parity at full depth; then served as text through the Engine (as 13:
+    parity on 4 of its layers (``PARITY_LAYERS``); then served as text through the Engine (as 13:
     48 B5 launches, tokens/s); then its decode on the int8 KV cache
     (``kv_quant_int8=True``, the same weights) against the bf16 cache,
     step by step in turns, with both caches' bytes; the card's int8 slots
@@ -201,7 +203,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     against its plain version and times each beside SDPA.
 22. (run after 13) recurrentgemma-2b served through ``ActorEngine``
     (``graphs/serving.py``'s admission/gate/decode/merge/retire network on
-    the host dynamic executor) at its published width, on phase 13's
+    the host dynamic executor) at its published width (``ACTOR_LAYERS`` = 6
+    of its 26 layers, for the script's time), on phase 13's
     traffic, eos_id None: the closed loop's tokens equal the ``Engine``'s
     bit for bit; an open loop (budgets 32 and 8 in turn, arrivals
     ``poisson_trace(8, 0.25, seed=7)``) gives each request its closed-loop
@@ -210,8 +213,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     of the port at the smoke config on the same budgets, arrivals, B and
     N; ``expire_deadline``, ``queue_depth=0`` and a poisoned request
     quarantined, each against that CPU run's statuses (the survivors keep
-    their closed-loop tokens); 8 B5 and 18 B7 launches per decode firing
-    that ran a prefill; out-of-range ids through ``embed_lookup`` and
+    their closed-loop tokens); a B5 launch an attention layer and a B7
+    launch a recurrent layer per decode firing that ran a prefill
+    (2 and 4 at 6 layers); out-of-range ids through ``embed_lookup`` and
     argmax over NaN logits as on the CPU (C12); ``ActorEngine.generate``
     timed against ``Engine.generate`` in turns, 3 each.
 23. durable and heterogeneous runs (ROADMAP A10, A11): (a, run after 17)
@@ -256,7 +260,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     AdamW moment, under the same row rule against the CPU's (the
     microbatched one against the whole batch's), ``grad_norm`` within the
     rule's norm, and AdamW on the card within the CPU tests' bars of the
-    CPU's on the same inputs; (b) at ``TRAIN_LAYERS`` = 12 of its 48 layers
+    CPU's on the same inputs; (b) at ``TRAIN_LAYERS`` = 6 of its 48 layers
     (the depth cut for the script's time) through
     ``Trainer``: 8 steps of 8 x 2048 tokens (AdamW lr 1e-3, warmup 2,
     remat, bf16 grads, a checkpoint every 4 steps into a temporary
@@ -284,8 +288,9 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     sweep, the wall (median of ``SHARD_RUNS`` after a warm-up) and each
     rank's B1 launches; at 2 ranks ``device_assign`` and guards plus trace
     (clean, merged trace counts equal to the fire counts); (b)
-    recurrentgemma-2b through ``ActorEngine(plan=ExecutionPlan(devices=2))``
-    on phase 22's closed loop, tokens bit for bit the single-device
+    recurrentgemma-2b (``ACTOR_LAYERS`` layers) through
+    ``ActorEngine(plan=ExecutionPlan(devices=2))`` on phase 22's closed loop,
+    tokens bit for bit the single-device
     ActorEngine's (rank 0), B5 and B7 launches summed equal to its, walls
     in turns; (c) mamba2-780m through ``pipeline_forward``, 4 stages of 12
     layers on 4 ranks, 4 microbatches of 4096 tokens: every rank's logits
@@ -376,6 +381,26 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     (b)'s weights served: one prefill of
     phase 13's first batch through B5 (8 launches) and B7 (18), counted,
     against the plain versions within phase 13's rule.
+30. (run last, after 26) granite-moe-3b-a800m (32 layers, d 1536, 24 heads on 8 KV
+    heads of 64, 40 experts top-8 of F 512, no window: its scan recomputes
+    each key block's scores under a checkpoint inside the layer remat's)
+    and h2o-danube-3-4b (24 layers, d 3840, 32 on 8 heads of 120, window
+    4096) trained at their published widths and full depth, each by
+    phase 29's function and its ``TRAIN_ARCHS`` entry: (a) the first
+    attention layer's mixer alone at 1 x 4096 (the scan), granite-moe's
+    MoE MLP in that layer at 1 x 4096 (the card's experts fed to the CPU,
+    ``moe_layer(gate_e=)``), the model cut to 2 layers at 1 x 128 (the
+    card's experts fed by ``train_loss(experts=)``), phase 24(a)'s bars;
+    the cut model's gradients on the card with remat on and off bit for
+    bit under deterministic algorithms, each layer's recomputed experts
+    its forward's; (b) 4 steps of 2 x 4096 tokens through ``Trainer`` (1
+    microbatch for granite-moe, 2 for h2o; 512 and 768 scan query blocks
+    a step), the loss falling by ``TRAIN_DROP``, step ms, tokens/s, peak
+    memory, one profiled step; (c) the trained weights' prefill through
+    B5 (32 and 24 launches, counted) against the plain versions within
+    phase 13's rule, granite-moe's plain runs taking the kernel run's
+    experts (``LM.prefill(experts=)``).  One record per arch and part
+    (``phase 30(a) <arch> {...}`` lines).
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -413,10 +438,12 @@ B2, B5, B6 and B7) and prints the ``megakernel.b2.serving`` row;
 ``--registry`` runs phases 1, 12 and 28, with phase 15's profile of each of
 28's models (building B5, B6 and B7), and prints the ``flash_attention``
 row; ``--train-rg`` runs phases 1 and 29 (building B5 and B7) and prints
-phase 29's record before the last line.
+phase 29's record before the last line; ``--train-registry`` runs phases 1
+and 30 (building B5) and prints phase 30's records the same way.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import inspect
@@ -450,7 +477,7 @@ GAUSS_FLOP_PER_PX = 20  # separable 5 + 5 multiply-adds per interior pixel
 # LM serving (phases 12-15).
 LM_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW = 8, 4, 4096, 32
 LM_PROMPT_MIN = 2048       # prompt lengths drawn in LM_PROMPT_MIN..LM_PROMPT
-PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 2, 256, 4
+PARITY_BATCH, PARITY_PROMPT, PARITY_NEW = 1, 256, 4   # batch cut from 2 (the script's time)
 # B5 (bf16 out): |got - want| <= 2^-7 |want| + B5_ROW_TOL * rms, rms the
 # RMS of want's (batch, position, head) row: one bf16 step at |want| (the
 # two sides may round to neighbours), plus a term in the row's own scale
@@ -505,11 +532,11 @@ FAMILY_PROMPTS = {"whisper-small": (64, 384), "internvl2-1b": (1792, 3840)}
 # recurrentgemma-2b from 26 to two (rec, rec, local attention) groups,
 # mamba2-780m from 48 to 12, phase 28's four from 2 to 1 (global attention
 # is held at parity in granite-8b, granite-moe-3b-a800m and qwen2-72b);
-# gemma3-12b's 6 hold its first global layer, index 5.  An arch not named
-# here is held at full depth.
+# gemma3-12b's 6 hold its first global layer, index 5; internvl2-1b from
+# 24 to 4.  An arch not named here is held at full depth.
 PARITY_LAYERS = {"recurrentgemma-2b": 6, "mamba2-780m": 12, "olmoe-1b-7b": 4,
                  "whisper-small": 4, "gemma3-12b": 6, "granite-8b": 1, "h2o-danube-3-4b": 1,
-                 "granite-moe-3b-a800m": 1, "qwen2-72b": 1}
+                 "granite-moe-3b-a800m": 1, "qwen2-72b": 1, "internvl2-1b": 4}
 # Phase 28: the registry's other five models, served at their published
 # widths on phase 13's traffic.  REGISTRY_LAYERS cuts a depth the card
 # cannot hold (qwen2-72b's 80 layers are 145 GB of bf16 weights; 16 layers
@@ -522,6 +549,15 @@ REGISTRY_LAYERS = {"qwen2-72b": 16}
 REGISTRY_REQUESTS = 4            # one batch: phase 13's 8, cut for the script's time
 QKV_BIAS_STD = 0.5
 LONG_PROMPT = 32768
+# The script's cuts for its time, each with its seconds in PERF.md §5:
+# PARITY_BATCH, PARITY_LAYERS and REGISTRY_REQUESTS above, ACTOR_LAYERS
+# here, and beside
+# their phases TRAIN_LAYERS (24), TRAIN_ARCHS's steps (29) and MESH_LAYERS
+# (26).  ACTOR_LAYERS: recurrentgemma-2b through the ActorEngine (phases 22,
+# 27(a) and 25(b)) at two (rec, rec, local attention) groups of its 26
+# layers, as in its parity; every decode step launches a kernel a layer
+# from the host, so those phases' seconds go with the depth.
+ACTOR_LAYERS = 6
 
 
 def log(msg: str) -> None:
@@ -2824,7 +2860,9 @@ def megakernel_serving(dev, smi: str, zero_counts, expect_counts, model, scfg, r
         return decode_step(*a, **kw)
     model.decode_step = counted_step
 
-    def counted(label: str, fn, runs: int = 1, per: tuple = (8, 18)):
+    model_per = (sum(k.startswith("attn") for k in model.kinds), model.kinds.count("rec"))
+
+    def counted(label: str, fn, runs: int = 1, per: tuple = model_per):
         """``fn`` with every count zeroed just before; B2 launches must be
         the decode steps plus one a run, B5 and B7 ``per`` a prefill (the
         model's attention and recurrent layers)."""
@@ -2854,7 +2892,8 @@ def megakernel_serving(dev, smi: str, zero_counts, expect_counts, model, scfg, r
                  f"structure {got} vs dynamic {dyn[loop]['structure']}, prefill firings "
                  f"{pf} vs {dyn[loop]['prefill_firings']}")
         rec[loop] = {"wall_s": wall, "b2_launches": steps + 1, "decode_steps": steps,
-                     "b5": 8 * pf, "b7": 18 * pf, "fire_counts": got[0], "sweeps": got[1]}
+                     "b5": model_per[0] * pf, "b7": model_per[1] * pf,
+                     "fire_counts": got[0], "sweeps": got[1]}
     (toks, res, _), wall, pf, steps = counted("closed loop guarded+traced", lambda:
                                               actor_network_run(ActorEngine(
                                                   model.cfg, model, scfg, plan=traced),
@@ -3000,8 +3039,8 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     fault after one retry, the other 7 with their closed-loop tokens), each
     against the CPU run's statuses; out-of-range ids give NaN rows and NaN
     logits argmax to the first NaN, as on the CPU (C12).  Every count is
-    set to 0 just before each run: 8 B5 and 18 B7 launches per decode
-    firing that ran a prefill.  Then ``ActorEngine.generate`` and
+    set to 0 just before each run: a B5 launch an attention layer and a B7
+    launch a recurrent layer per decode firing that ran a prefill.  Then ``ActorEngine.generate`` and
     ``Engine.generate`` on the closed loop, timed in turns, 3 each."""
     from repro_torch.configs import smoke_config
     from repro_torch.core import ExecutionPlan
@@ -3024,8 +3063,9 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     if torch.argmax(lg.to(dev), dim=-1).tolist() != [1, 0]:
         fail(f"argmax over NaN logits on the card: {torch.argmax(lg.to(dev), -1).tolist()}")
 
-    model, init_s = lm_model("recurrentgemma-2b", dev)
+    model, init_s = lm_model("recurrentgemma-2b", dev, n_layers=ACTOR_LAYERS)
     cfg = model.cfg
+    per = (sum(k.startswith("attn") for k in model.kinds), model.kinds.count("rec"))
     rng = np.random.default_rng(0)
     lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
     prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
@@ -3087,7 +3127,8 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        expect_counts(f"phase 22 {label}", {"B5": 8 * n_prefill[0], "B7": 18 * n_prefill[0]})
+        expect_counts(f"phase 22 {label}", {"B5": per[0] * n_prefill[0],
+                                             "B7": per[1] * n_prefill[0]})
         return out, wall, n_prefill[0]
 
     engine = Engine(cfg, model, scfg)
@@ -3108,7 +3149,7 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
     if not fc["decode"] == fc["admission"] == fc["merge"] == fc["retire"]:
         fail(f"phase 22: closed-loop fire counts {fc}")
     rec["closed"] = {"wall_s": wall, "prefill_firings": pf, "fire_counts": fc,
-                     "sweeps": actor.last_sweeps, "b5": 8 * pf, "b7": 18 * pf,
+                     "sweeps": actor.last_sweeps, "b5": per[0] * pf, "b7": per[1] * pf,
                      "latency_steps": actor.last_latency_steps.tolist()}
     dyn = {"closed": {"tokens": closed, "prefill_firings": pf, "structure": (
         fc, actor.last_sweeps, actor.last_latency_steps.tolist(), actor.last_status)}}
@@ -3205,8 +3246,8 @@ def actor_serving(dev, smi: str, zero_counts, expect_counts) -> dict:
         f"{np.median(walls['engine']):.3f} s (median of 3, in turns); phase 27: in "
         f"megakernel mode {np.median(walls['megakernel']):.3f} s; "
         f"{rec['closed']['prefill_firings']} prefill firings -> "
-        f"{8 * rec['closed']['prefill_firings']} B5 and "
-        f"{18 * rec['closed']['prefill_firings']} B7 launches")
+        f"{per[0] * rec['closed']['prefill_firings']} B5 and "
+        f"{per[1] * rec['closed']['prefill_firings']} B7 launches")
     del model, engine, actor, shed, quar, mk_actor
     torch.cuda.empty_cache()
     return rec
@@ -4122,7 +4163,7 @@ def stream_phase(dev, smi: str, zero_counts, expect_counts, net_gpu, res_gpu,
 TRAIN_ARCH = "mamba2-780m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 2048      # (b): 16 384 tokens a step
 TRAIN_CUT = 4                                         # layers in (a) and (c)
-TRAIN_LAYERS = 12       # (b) and (d): the published width, depth cut from 48 (the script's time)
+TRAIN_LAYERS = 6        # (b) and (d): the published width, depth cut from 48 (the script's time)
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 512         # (a)
 TRAIN_FT_BATCH, TRAIN_FT_SEQ = 4, 1024                # (c)
 # (a)'s bars are the CPU tests' (tests/test_torch_train_grads.py): every
@@ -4164,10 +4205,12 @@ def stepped_embed(model) -> None:
     model._embed = noisy
 
 
-def loss_and_grads(cfg, params: dict, batch: dict, dev, stepped: bool = False) -> tuple:
-    """``LM.train_loss`` (``kernel_impl="xla"``, remat) of ``batch`` on
-    ``dev`` and every parameter's gradient (CPU tensors); ``stepped``:
-    with the embedded input one bf16 step off."""
+def loss_and_grads(cfg, params: dict, batch: dict, dev, stepped: bool = False,
+                   remat: bool = True, experts: list = None) -> tuple:
+    """``LM.train_loss`` (``kernel_impl="xla"``, ``remat``, the MoE layers'
+    ``experts``) of ``batch`` on ``dev`` and every parameter's gradient
+    (CPU tensors); ``stepped``: with the embedded input one bf16 step
+    off."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)
     model.load_state_dict(params)
@@ -4175,7 +4218,8 @@ def loss_and_grads(cfg, params: dict, batch: dict, dev, stepped: bool = False) -
         p.requires_grad_(True)
     if stepped:
         stepped_embed(model)
-    total, parts = model.train_loss(batch["tokens"].to(dev), batch["labels"].to(dev))
+    total, parts = model.train_loss(batch["tokens"].to(dev), batch["labels"].to(dev),
+                                    remat=remat, experts=experts)
     total.backward()
     return float(parts["ce"].detach()), {n: p.grad.cpu() for n, p in model.named_parameters()}
 
@@ -4397,17 +4441,14 @@ def train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
             raise RuntimeError("injected device failure")
 
     t0 = time.perf_counter()
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        runs = []
+    runs = []
+    with deterministic_algorithms():
         for hook in (boom, None):
             with tempfile.TemporaryDirectory() as d:
                 t = Trainer(TrainerConfig(total_steps=TRAIN_STEPS, checkpoint_every=4,
                                           checkpoint_dir=d, log_every=TRAIN_STEPS),
                             step_c, data_c, init_cut, failure_hook=hook, log=lambda s: None)
                 runs.append((t.run()[0], t.restarts))
-    finally:
-        torch.use_deterministic_algorithms(False)
     (pa, ra), (pb, rb) = runs
     if (ra, rb) != (1, 0):
         fail(f"phase 24(c): restarts {ra} and {rb}, want 1 and 0")
@@ -4469,7 +4510,8 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
     (``want``, launches by kernel; B6 a layer by default), counted, and
     through the plain versions, the logits within phases 13-14's rule
     (LOGIT_SENS times the model's own change under one bf16 step at its
-    embedded input)."""
+    embedded input).  An MoE model's plain runs take the kernel run's
+    experts (``LM.prefill(experts=)``)."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)
     model.load_state_dict(params)
@@ -4481,13 +4523,15 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
     toks = torch.from_numpy(left_pad(prompts, LM_PROMPT)).to(dev)
     V = cfg.vocab
     zero_counts()
-    lg_k = model.prefill(toks)[0][:, :V].float()
-    torch.cuda.synchronize()
+    with routes_seen() as experts:
+        lg_k = model.prefill(toks)[0][:, :V].float()
+        torch.cuda.synchronize()
     want = want or {"B6": cfg.n_layers}
     got = expect_counts(f"{label} the trained weights served", want)
-    lg_x = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
+    fed = experts or None
+    lg_x = model.prefill(toks, kernel_impl="xla", experts=fed)[0][:, :V].float()
     stepped_embed(model)
-    lg_s = model.prefill(toks, kernel_impl="xla")[0][:, :V].float()
+    lg_s = model.prefill(toks, kernel_impl="xla", experts=fed)[0][:, :V].float()
     del model
     torch.cuda.empty_cache()
     sens = (lg_s - lg_x).abs().amax(-1)
@@ -4500,28 +4544,57 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
         fail(f"{label}: the kernels' logits differ from the plain versions' by "
              f"{err.tolist()} > {bar.tolist()}")
     return {"prompts": lens[:LM_BATCH], "padded_to": LM_PROMPT,
-            "launches": {k: got[k] for k in want},
+            "launches": {k: got[k] for k in want}, **({"experts_fed": True} if fed else {}),
             "logit_err": err.tolist(), "sensitivity": sens.tolist(),
             "bar": bar.tolist(), "max_abs_logit": mag.tolist(),
             "rows_with_power": int((bar < mag).sum()),
             "top1_equal": bool(torch.equal(lg_k.argmax(-1), lg_x.argmax(-1)))}
 
 
-# ---- 29. an attention model trained on one card ---------------------------- #
+# ---- 29-30. registry models trained on one card at train_4k's length ------ #
+@dataclasses.dataclass(frozen=True)
+class TrainArch:
+    """One arch's constants in :func:`train_arch_phase`."""
+
+    phase: int
+    cut: int              # (a): the model cut to this many layers
+    block_batch: int      # (a): the first attention layer alone at block_batch x TRAIN_4K_SEQ
+    steps: int            # (b)
+    microbatches: int     # (b)
+    lr: float             # (b)
+    remat_check: bool     # (a): the cut model's gradients, remat on and off, bit for bit
+    donate: bool          # (b): AdamW in place (TrainOptions.donate): one copy of the moments
+
+
+TRAIN_4K_BATCH, TRAIN_4K_SEQ = 2, 4096       # (b): 2 rows of train_4k a step
+TRAIN_4K_PARITY = (1, 128)                   # (a): the cut model (the CPU's time)
 RG_ARCH = "recurrentgemma-2b"
-RG_STEPS = 4            # (b): cut from 6 for the script's time
-RG_BATCH, RG_SEQ = 2, 4096                  # (b): 2 rows of train_4k a step
-RG_MICROBATCHES = 2                         # (b): a row each (peak 65 GB; PERF.md)
-RG_CUT = 3                                  # (a): one (rec, rec, local attention) group
-RG_BLOCK_BATCH = 2                          # (a): the local-attention mixer at 2 x RG_SEQ
-RG_PARITY_BATCH, RG_PARITY_SEQ = 1, 128     # (a): the cut model (the CPU's time)
-RG_LR = 3e-4            # (b): AdamWConfig's default; at 1e-3 the loss rose again by step 3
+# The one table of the trained archs.  recurrentgemma-2b: one (rec, rec,
+# local attention) group in (a); (b) 4 steps, cut from 6 for the script's
+# time, a row a microbatch (peak 65 GB; PERF.md), lr AdamWConfig's default
+# (at 1e-3 the loss rose again by step 3).  granite-moe-3b-a800m and
+# h2o-danube-3-4b: full depth, 4 steps, AdamW in place (the functional
+# update holds two copies of the moments: 75 GB for granite-moe, out of
+# memory for h2o); granite-moe in one microbatch, h2o in two.  Adam's
+# first steps move every weight by about lr whatever its gradient:
+# h2o-danube-3-4b's loss rose from 11.2 to 19.0 in 4 steps at 3e-4 and
+# to 13.1 by step 3 at 1e-4, and an update of 5e-5 or more raised it, so
+# it takes 2e-5.
+TRAIN_ARCHS = {
+    "recurrentgemma-2b": TrainArch(29, cut=3, block_batch=2, steps=4, microbatches=2,
+                                   lr=3e-4, remat_check=False, donate=False),
+    "granite-moe-3b-a800m": TrainArch(30, cut=2, block_batch=1, steps=4, microbatches=1,
+                                      lr=3e-4, remat_check=True, donate=True),
+    "h2o-danube-3-4b": TrainArch(30, cut=2, block_batch=1, steps=4, microbatches=2,
+                                 lr=2e-5, remat_check=True, donate=True),
+}
+AUX_WEIGHT = 0.01        # LM.train_loss's weight of the MoE load-balance loss
 
 
 class NoCheckpoints:
-    """A ``Checkpointer`` that keeps nothing, for phase 29(b)'s Trainer:
-    its end state (bf16 params, float32 moments) is 29 GB to write, and
-    phase 24(c) already holds saving and restoring."""
+    """A ``Checkpointer`` that keeps nothing, for phases 29(b) and 30(b)'s
+    Trainer: its end state (bf16 params, float32 moments) is 29-40 GB to
+    write, and phase 24(c) already holds saving and restoring."""
 
     def latest_step(self):
         return None
@@ -4533,23 +4606,50 @@ class NoCheckpoints:
         pass
 
 
+UNTALLIED = threading.local()      # .on: this thread's calls stay out of the tallies
+
+
 @contextlib.contextmanager
 def scan_tally():
     """Counts the attention scan's calls and query blocks (``S // bq`` a
     call, as the reference's ``_flash_scan`` maps over them) inside the
-    block."""
+    block, but for those of a thread marked ``UNTALLIED`` (phases 29-30
+    run their CPU side in one; a card's backward pass runs on autograd's
+    own thread)."""
     from repro_torch.models import attention as att
     real, tally = att._flash_scan, {"calls": 0, "q_blocks": 0}
 
     def counted(q, k, v, *, causal, window, bq=512, bk=512):
-        tally["calls"] += 1
-        tally["q_blocks"] += q.shape[1] // att._divisor_block(bq, q.shape[1])
+        if not getattr(UNTALLIED, "on", False):
+            tally["calls"] += 1
+            tally["q_blocks"] += q.shape[1] // att._divisor_block(bq, q.shape[1])
         return real(q, k, v, causal=causal, window=window, bq=bq, bk=bk)
     att._flash_scan = counted
     try:
         yield tally
     finally:
         att._flash_scan = real
+
+
+@contextlib.contextmanager
+def routes_seen():
+    """The top-k experts (``gate_e``) of every MoE routing decided inside
+    the block, in call order: the layers' forward and, under remat, their
+    recomputes in the backward pass (in reverse layer order); none of a
+    thread marked ``UNTALLIED``, as :func:`scan_tally`."""
+    from repro_torch.models import moe as moe_mod
+    real, seen = moe_mod.route, []
+
+    def recorded(logits, top_k, gate_e=None):
+        r = real(logits, top_k, gate_e)
+        if not getattr(UNTALLIED, "on", False):
+            seen.append(r.gate_e.detach().clone())
+        return r
+    moe_mod.route = recorded
+    try:
+        yield seen
+    finally:
+        moe_mod.route = real
 
 
 @contextlib.contextmanager
@@ -4574,13 +4674,27 @@ def expandable_segments():
         torch.cuda.memory._set_allocator_settings(f"expandable_segments:{before}")
 
 
-def mixer_grads(cfg, params: dict, x: torch.Tensor, dev, index: int,
-                stepped: bool = False) -> tuple:
-    """Layer ``index`` of ``LM(cfg)``'s mixer alone on ``dev`` (its norm and
-    attention in mode "train", the plain routes): the mean square of its
-    float32 output for the input ``x`` (one bf16 step off under
-    ``stepped``), and the gradient of that by the mixer's parameters and by
-    ``x`` ("input"), as CPU tensors."""
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms`` inside the block (warnings
+    where an op has no deterministic kernel)."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def part_grads(cfg, params: dict, x: torch.Tensor, dev, index: int, part: str = "mixer",
+               stepped: bool = False, experts: torch.Tensor = None) -> tuple:
+    """Layer ``index`` of ``LM(cfg)``'s ``part`` alone on ``dev``: "mixer",
+    its norm and attention in mode "train" (the plain routes), or "mlp",
+    its norm and MLP (an MoE layer's experts fixed to ``experts`` where
+    given, ``moe_layer``'s ``gate_e``).  Returns a value, the mean square
+    of the part's float32 output for the input ``x`` (one bf16 step off
+    under ``stepped``) plus AUX_WEIGHT times an MoE layer's load-balance
+    loss, and the gradient of that by the part's parameters and by ``x``
+    ("input"), as CPU tensors."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)     # only the held layer's weights loaded
     pre = f"layers.{index}."
@@ -4590,40 +4704,67 @@ def mixer_grads(cfg, params: dict, x: torch.Tensor, dev, index: int,
         p.requires_grad_(True)
     x = x.to(dev)
     x = (bf16_step_noise(x) if stepped else x).requires_grad_(True)
-    y, _ = model._mixer(blk, x, mode="train", kernel_impl="xla")
+    if part == "mixer":
+        y, aux = model._mixer(blk, x, mode="train", kernel_impl="xla")[0], None
+    else:
+        y, aux = model._mlp(blk, x, experts=experts)
     value = y.float().square().mean()
+    if aux is not None:
+        value = value + AUX_WEIGHT * aux
     value.backward()
     grads = {n: p.grad.cpu() for n, p in blk.named_parameters() if p.grad is not None}
     grads["input"] = x.grad.cpu()
     return float(value.detach()), grads
 
 
-def rg_train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
-    """Phase 29: recurrentgemma-2b trained on the card, at train_4k's
-    length, where its local-attention layers take the reference's blocked
-    scan (``models/attention.py``'s ``_flash_scan``: window 2048, 2560 of
-    4096 keys a block of 512 queries).
+def worst_row(what: str, rd: dict) -> None:
+    """Fails where a gradient row of ``rd`` (:func:`grad_row_readings`)
+    reads over GRAD_ROW_SENS."""
+    w = max(rd, key=rd.get)
+    if rd[w] > GRAD_ROW_SENS:
+        fail(f"{what} at {w} reads {rd[w]:.3g} x the CPU's one-bf16-step change "
+             f"(> {GRAD_ROW_SENS})")
+
+
+def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> dict:
+    """Phase 29 (recurrentgemma-2b) or 30 (granite-moe-3b-a800m,
+    h2o-danube-3-4b): ``arch`` trained on the card at its published widths
+    and train_4k's length, where its attention layers take the
+    reference's blocked scan (``models/attention.py``'s ``_flash_scan``:
+    recurrentgemma-2b's window 2048 reads 2560 of 4096 keys a block of 512
+    queries, h2o-danube-3-4b's window 4096 all of them; granite-moe's
+    layers have no window, so each key block's scores are recomputed in
+    the backward pass under ``torch.utils.checkpoint``, inside the layer
+    remat's).  Its constants are its ``TRAIN_ARCHS`` entry.
 
     (a) At full width, on the card and on the CPU with the same weights,
-    phase 24(a)'s bars: the first local-attention layer's mixer (its norm
-    and attention) alone on a RG_BLOCK_BATCH x RG_SEQ input (the scan
+    phase 24(a)'s bars: the first attention layer's mixer (its norm and
+    attention) alone on a ``block_batch`` x TRAIN_4K_SEQ input (the scan
     route; the mean square of its output within CE_REL, every gradient
     row, of its weights and of its input, within GRAD_ROW_SENS times the
-    CPU's own change when the input moves one bf16 step), and the model
-    cut to RG_CUT layers, one ``train_loss`` and backward of
-    RG_PARITY_BATCH x RG_PARITY_SEQ tokens (the dense route; ce within
-    CE_REL, the rows as 24(a)).  On the CPU the cut model at the scan's
-    length took 105 s (its float32 head is 256 000 x 2560) and the whole
-    layer at 2 x 4096 53 s (its MLP), so the scan is held in the mixer.
-    (b) At full depth through ``Trainer``: RG_STEPS steps of RG_BATCH x
-    RG_SEQ tokens in RG_MICROBATCHES microbatches, remat, bf16 grads, no
+    CPU's own change when the input moves one bf16 step); an MoE arch's
+    MLP in that layer alone on the same input, the card's experts fed to
+    the CPU (``moe_layer(gate_e=)``) for its plain and its stepped run;
+    and the model cut to ``cut`` layers, one ``train_loss`` and backward
+    of TRAIN_4K_PARITY tokens (the dense route; ce within CE_REL, the rows
+    as 24(a); the card's experts, the forward's, fed to the CPU by
+    ``train_loss(experts=)``).  ``remat_check``: the cut model's gradients
+    on the card with remat on and off, bit for bit under deterministic
+    algorithms (whether they are without them is recorded), and under
+    remat the experts of each layer's recompute equal to its forward's.
+    On the CPU recurrentgemma-2b's cut model at the scan's length took 105
+    s (its float32 head is 256 000 x 2560) and its whole layer at 2 x 4096
+    53 s (its MLP), so the scan is held in the mixer.  (b) At full depth
+    through ``Trainer``: ``steps`` steps of TRAIN_4K_BATCH x TRAIN_4K_SEQ
+    tokens in ``microbatches`` microbatches, remat, bf16 grads, no
     checkpoints (:class:`NoCheckpoints`); the loss falls by TRAIN_DROP;
     the median step time from step 2 on, tokens/s, the peak memory, the
-    scan's query blocks a step (8 a local-attention layer, pass and
+    scan's query blocks a step (8 an attention layer, pass and
     microbatch), one more step profiled.  (c) (b)'s weights served: one
-    prefill of phase 13's first batch through B5 and B7 (a launch a layer
-    of each kind, counted) and through the plain versions, within phase
-    13's rule."""
+    prefill of phase 13's first batch through the kernels (a launch a
+    layer of each kind, counted) and through the plain versions, within
+    phase 13's rule (an MoE arch's plain runs take the kernel run's
+    experts)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import layer_kinds
@@ -4631,133 +4772,232 @@ def rg_train_phase(dev, smi: str, zero_counts, expect_counts) -> dict:
     from repro_torch.train import (Trainer, TrainerConfig, TrainOptions, init_params,
                                    make_train_step)
     import tempfile
-    full = get_config(RG_ARCH)
-    cut = dataclasses.replace(full, n_layers=RG_CUT)
-    rec: dict = {"card": smi, "arch": RG_ARCH}
+    spec = TRAIN_ARCHS[arch]
+    n = spec.phase
 
-    # ---- (a) parity at full width: the scan layer alone, the cut model --- #
+    def at(part: str) -> str:
+        return f"phase {n}({part}) {arch}"
+
+    full = get_config(arch)
+    cut = dataclasses.replace(full, n_layers=spec.cut)
+    moe = full.moe is not None
+    rec: dict = {"card": smi, "arch": arch, "a": None}    # (a) is read after (c)
+
+    # ---- (a) on the card: the scan layer alone, its MoE MLP, the cut model - #
     t0 = time.perf_counter()
     params = init_params(cut, device=dev, seed=0)
-    local = layer_kinds(cut).index("attn_local")
+    first = next(i for i, k in enumerate(layer_kinds(cut)) if k.startswith("attn"))
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (RG_BLOCK_BATCH, RG_SEQ, cut.d_model), dtype=np.float32)).to(torch.bfloat16)
-    src = SyntheticLM(DataConfig(vocab=cut.vocab, seq_len=RG_PARITY_SEQ,
-                                 global_batch=RG_PARITY_BATCH, seed=0))
+        (spec.block_batch, TRAIN_4K_SEQ, cut.d_model), dtype=np.float32)).to(torch.bfloat16)
+    pb, ps = TRAIN_4K_PARITY
+    src = SyntheticLM(DataConfig(vocab=cut.vocab, seq_len=ps, global_batch=pb, seed=0))
     batch = as_batch(src.batch(0), "cpu")
+    card: dict = {}
     zero_counts()
-    with scan_tally() as scans:
-        v_g, gb_g = mixer_grads(cut, params, x, dev, local)
+    with scan_tally() as layer_scans:
+        card["layer"] = part_grads(cut, params, x, dev, first)
         torch.cuda.synchronize()
-    with scan_tally() as dense_scans:
-        ce_g, g_g = loss_and_grads(cut, params, batch, dev)
+    if moe:
+        with routes_seen() as mlp_routes:
+            card["mlp"] = part_grads(cut, params, x, dev, first, "mlp")
+            torch.cuda.synchronize()
+    with scan_tally() as dense_scans, routes_seen() as model_routes:
+        card["model"] = loss_and_grads(cut, params, batch, dev)
         torch.cuda.synchronize()
-    expect_counts("phase 29(a) the layer's and the model's backward on the card", {})
+    if spec.remat_check:
+        _, g_nr = loss_and_grads(cut, params, batch, dev, remat=False)
+        with deterministic_algorithms():
+            ce_dr, g_dr = loss_and_grads(cut, params, batch, dev)
+            ce_dn, g_dn = loss_and_grads(cut, params, batch, dev, remat=False)
+        torch.cuda.synchronize()
+    expect_counts(f"{at('a')} the layer's and the model's backward on the card", {})
     card_s = time.perf_counter() - t0
+    n_moe = cut.n_layers if moe else 0
+    if len(model_routes) != 2 * n_moe or (moe and len(mlp_routes) != 1):
+        fail(f"{at('a')}: {len(model_routes)} routings under remat, want {2 * n_moe}")
+    fwd_experts = [e.cpu() for e in model_routes[:n_moe]] or None
+    recompute_equal = all(torch.equal(a.cpu(), b) for a, b in
+                          zip(model_routes[n_moe:][::-1], fwd_experts or []))
+    if not recompute_equal:
+        fail(f"{at('a')}: the remat recompute chose other experts than the forward")
+    # The layer at TRAIN_4K_SEQ: one forward of TRAIN_4K_SEQ // 512 query
+    # blocks (no remat outside LM.forward); the model: the dense route.
+    if layer_scans != {"calls": 1, "q_blocks": TRAIN_4K_SEQ // 512} or dense_scans["calls"]:
+        fail(f"{at('a')}: the scan ran {layer_scans} for the layer, {dense_scans} for "
+             "the model")
+    if spec.remat_check:
+        bits = [k for k in g_dn if not torch.equal(g_dr[k], g_dn[k])]
+        if bits or ce_dr != ce_dn:
+            fail(f"{at('a')}: under deterministic algorithms remat on and off differ: "
+                 f"ce {ce_dr} vs {ce_dn}, leaves {bits}")
+        loose = [k for k in g_nr if not torch.equal(card["model"][1][k], g_nr[k])]
+        remat_rec = {"bit_identical": True, "deterministic_algorithms": True,
+                     "bit_identical_without_deterministic_algorithms": not loose,
+                     "leaves_differing_without": loose,
+                     "routings_under_remat": len(model_routes),
+                     "recompute_experts_equal_forward": recompute_equal if moe else None}
+        del g_nr, g_dr, g_dn
+    mlp_experts = mlp_routes[0].cpu() if moe else None
     cpu_params = {k: v.cpu() for k, v in params.items()}
-    del params
-    t1 = time.perf_counter()
-    v_c, gb_c = mixer_grads(cut, cpu_params, x, "cpu", local)
-    _, gb_s = mixer_grads(cut, cpu_params, x, "cpu", local, stepped=True)
-    block_cpu_s = time.perf_counter() - t1
-    ce_c, g_c = loss_and_grads(cut, cpu_params, batch, "cpu")
-    _, g_s = loss_and_grads(cut, cpu_params, batch, "cpu", stepped=True)
-    cpu_s = time.perf_counter() - t1
-    for what, got in (("the layer's", gb_g), ("the model's", g_g)):
-        if not all(bool(torch.isfinite(g.float()).all()) for g in got.values()):
-            fail(f"phase 29(a): non-finite gradients of {what} on the card")
-    for what, got, want in (("the layer's mean square", v_g, v_c), ("ce", ce_g, ce_c)):
-        if not abs(got - want) <= CE_REL * abs(want):
-            fail(f"phase 29(a): {what} {got} on the card vs {want} on the CPU "
-                 f"(> {CE_REL} rel)")
-    block_rd = grad_row_readings(gb_c, gb_g, gb_c, gb_s)
-    readings = grad_row_readings(g_c, g_g, g_c, g_s)
-    for what, rd in (("the layer's gradient", block_rd), ("the model's gradient", readings)):
-        w = max(rd, key=rd.get)
-        if rd[w] > GRAD_ROW_SENS:
-            fail(f"phase 29(a): {what} at {w} reads {rd[w]:.3g} x the CPU's "
-                 f"one-bf16-step change (> {GRAD_ROW_SENS})")
-    # The layer at RG_SEQ: one forward of RG_SEQ // 512 query blocks (no
-    # remat outside LM.forward); the model at RG_PARITY_SEQ: the dense route.
-    if scans != {"calls": 1, "q_blocks": RG_SEQ // 512} or dense_scans["calls"]:
-        fail(f"phase 29(a): the scan ran {scans} for the layer, {dense_scans} for the model")
-    rec["a"] = {"layer": {"index": local, "input": [RG_BLOCK_BATCH, RG_SEQ, cut.d_model],
-                          "scan": scans, "mean_square_card": v_g, "mean_square_cpu": v_c,
-                          "rel_err": abs(v_g - v_c) / abs(v_c),
-                          "worst_leaf": max(block_rd, key=block_rd.get),
-                          "worst_row_reading": max(block_rd.values()), "cpu_s": block_cpu_s},
-                "model": {"layers": RG_CUT, "batch": [RG_PARITY_BATCH, RG_PARITY_SEQ],
-                          "ce_card": ce_g, "ce_cpu": ce_c,
-                          "ce_rel_err": abs(ce_g - ce_c) / abs(ce_c),
-                          "worst_leaf": max(readings, key=readings.get),
-                          "worst_row_reading": max(readings.values()),
-                          "cpu_s": cpu_s - block_cpu_s},
-                "bar": CE_REL, "row_bar": GRAD_ROW_SENS, "card_s": card_s,
-                "s": time.perf_counter() - t0}
-    log("phase 29(a) " + json.dumps(rec["a"]))
-    clock("phase 29(a)")
-    del cpu_params, x, gb_g, gb_c, gb_s, g_g, g_c, g_s
+    del params, model_routes
     torch.cuda.empty_cache()
+    clock(f"phase {n}(a) {arch} on the card")
 
-    # (b) and (c) with segments that grow (:func:`expandable_segments`).
-    with expandable_segments():
-        # ---- (b) full depth through the Trainer ------------------------------ #
-        opt_b = AdamWConfig(lr=RG_LR, warmup_steps=2, total_steps=RG_STEPS)
-        step = make_train_step(full, opt_b, TrainOptions(grad_dtype="bf16",
-                                                         microbatches=RG_MICROBATCHES))
-        data = SyntheticLM(DataConfig(vocab=full.vocab, seq_len=RG_SEQ,
-                                      global_batch=RG_BATCH, seed=0))
+    def cpu_side() -> dict:
+        """(a)'s CPU runs, the plain and the one-bf16-step-off run of each
+        part, with their seconds; off the main thread, beside (b) and (c)."""
+        # Its own OpenMP team, at the lowest priority: the host's cores go
+        # to the thread that drives the card first (at nice 0 this thread's
+        # team slowed phase 29(b)'s step by 22 %, PERF.md §6).
+        os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
+        torch.set_num_threads(cpu_threads)
+        UNTALLIED.on = True
+        out, t = {}, time.perf_counter()
+        out["layer"] = (part_grads(cut, cpu_params, x, "cpu", first),
+                        part_grads(cut, cpu_params, x, "cpu", first, stepped=True)[1])
+        out["layer_s"] = time.perf_counter() - t
+        if moe:
+            t = time.perf_counter()
+            out["mlp"] = (part_grads(cut, cpu_params, x, "cpu", first, "mlp",
+                                     experts=mlp_experts),
+                          part_grads(cut, cpu_params, x, "cpu", first, "mlp", stepped=True,
+                                     experts=mlp_experts)[1])
+            out["mlp_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        out["model"] = (loss_and_grads(cut, cpu_params, batch, "cpu", experts=fwd_experts),
+                        loss_and_grads(cut, cpu_params, batch, "cpu", stepped=True,
+                                       experts=fwd_experts)[1])
+        out["model_s"] = time.perf_counter() - t
+        return out
 
-        def init_full():
-            p = init_params(full, device=dev, seed=0)
-            return {"params": p, "opt": init_opt_state(p)}
+    # The CPU's runs (40-60 s at these widths) overlap (b) and (c) on the
+    # card; one of the host's cores stays with the thread that drives it.
+    threads = torch.get_num_threads()
+    cpu_threads = max(1, (os.cpu_count() or 1) - 1)
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    cpu_job = pool.submit(cpu_side)
+    try:
+        # (b) and (c) with segments that grow (:func:`expandable_segments`).
+        with expandable_segments():
+            # ---- (b) full depth through the Trainer -------------------------- #
+            opt_b = AdamWConfig(lr=spec.lr, warmup_steps=2, total_steps=spec.steps)
+            step = make_train_step(full, opt_b, TrainOptions(
+                grad_dtype="bf16", microbatches=spec.microbatches, donate=spec.donate))
+            data = SyntheticLM(DataConfig(vocab=full.vocab, seq_len=TRAIN_4K_SEQ,
+                                          global_batch=TRAIN_4K_BATCH, seed=0))
 
+            def init_full():
+                p = init_params(full, device=dev, seed=0)
+                return {"params": p, "opt": init_opt_state(p)}
+
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory() as d:
+                trainer = Trainer(TrainerConfig(total_steps=spec.steps,
+                                                checkpoint_every=spec.steps, checkpoint_dir=d,
+                                                max_restarts=0, log_every=1),
+                                  step, data, init_full, log=log)
+                trainer.ckpt = NoCheckpoints()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                with scan_tally() as scans:
+                    params, opt_state = trainer.run()
+                torch.cuda.synchronize()
+                expect_counts(f"{at('b')} training at {full.n_layers} layers", {})
+                peak = torch.cuda.max_memory_allocated()
+            run_s = time.perf_counter() - t0
+            losses = [h["loss"] for h in trainer.metrics_history]
+            dts = [h["dt"] * 1e3 for h in trainer.metrics_history]
+            if len(losses) != spec.steps or not np.all(np.isfinite(losses)):
+                fail(f"{at('b')}: losses {losses}")
+            if not np.mean(losses[-2:]) <= losses[0] - TRAIN_DROP:
+                fail(f"{at('b')}: the loss fell from {losses[0]} to {losses[-2:]}, "
+                     f"not by {TRAIN_DROP}")
+            kinds = layer_kinds(full)
+            n_attn = sum(k.startswith("attn") for k in kinds)
+            blocks = n_attn * 2 * spec.microbatches * (TRAIN_4K_SEQ // 512)
+            if scans["q_blocks"] != blocks * spec.steps:
+                fail(f"{at('b')}: the scan ran {scans} in {spec.steps} steps, want {blocks} "
+                     "query blocks a step")
+            step_ms = float(np.median(dts[1:]))
+            tokens = TRAIN_4K_BATCH * TRAIN_4K_SEQ
+            rec["b"] = {"layers": full.n_layers,
+                        "params": sum(p.numel() for p in params.values()),
+                        "batch": [TRAIN_4K_BATCH, TRAIN_4K_SEQ],
+                        "microbatches": spec.microbatches, "tokens_per_step": tokens,
+                        "scan_q_blocks_per_step": scans["q_blocks"] // spec.steps,
+                        "losses": losses, "step_ms": dts, "median_step_ms_from_2": step_ms,
+                        "tokens_per_s": tokens / step_ms * 1e3,
+                        "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
+                        **profiled_step(step, params, opt_state,
+                                        as_batch(data.batch(spec.steps), dev), at("b"))}
+            if spec.donate:
+                rec["b"]["donated"] = True      # (c) serves the profiled step's update too
+            log(f"{at('b')} " + json.dumps(rec["b"]))
+            clock(f"phase {n}(b) {arch}")
+            del opt_state, trainer
+            torch.cuda.empty_cache()
+
+            # ---- (c) the trained weights serve through the kernels ----------- #
+            want = {k: v for k, v in (("B5", n_attn), ("B6", kinds.count("ssd")),
+                                      ("B7", kinds.count("rec"))) if v}
+            rec["c"] = trained_prefill(full, params, dev, zero_counts, expect_counts, at("c"),
+                                       want)
+            log(f"{at('c')} " + json.dumps(rec["c"]))
+            del params
         t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory() as d:
-            trainer = Trainer(TrainerConfig(total_steps=RG_STEPS, checkpoint_every=RG_STEPS,
-                                            checkpoint_dir=d, max_restarts=0, log_every=1),
-                              step, data, init_full, log=log)
-            trainer.ckpt = NoCheckpoints()
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            zero_counts()
-            with scan_tally() as scans:
-                params, opt_state = trainer.run()
-            torch.cuda.synchronize()
-            expect_counts(f"phase 29(b) training at {full.n_layers} layers", {})
-            peak = torch.cuda.max_memory_allocated()
-        run_s = time.perf_counter() - t0
-        losses = [h["loss"] for h in trainer.metrics_history]
-        dts = [h["dt"] * 1e3 for h in trainer.metrics_history]
-        if len(losses) != RG_STEPS or not np.all(np.isfinite(losses)):
-            fail(f"phase 29(b): losses {losses}")
-        if not np.mean(losses[-2:]) <= losses[0] - TRAIN_DROP:
-            fail(f"phase 29(b): the loss fell from {losses[0]} to {losses[-2:]}, "
-                 f"not by {TRAIN_DROP}")
-        kinds = layer_kinds(full)
-        blocks = kinds.count("attn_local") * 2 * RG_MICROBATCHES * (RG_SEQ // 512)
-        if scans["q_blocks"] != blocks * RG_STEPS:
-            fail(f"phase 29(b): the scan ran {scans} in {RG_STEPS} steps, want {blocks} "
-                 "query blocks a step")
-        step_ms = float(np.median(dts[1:]))
-        tokens = RG_BATCH * RG_SEQ
-        rec["b"] = {"layers": full.n_layers, "params": sum(p.numel() for p in params.values()),
-                    "batch": [RG_BATCH, RG_SEQ], "microbatches": RG_MICROBATCHES,
-                    "tokens_per_step": tokens,
-                    "scan_q_blocks_per_step": scans["q_blocks"] // RG_STEPS,
-                    "losses": losses, "step_ms": dts, "median_step_ms_from_2": step_ms,
-                    "tokens_per_s": tokens / step_ms * 1e3,
-                    "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
-                    **profiled_step(step, params, opt_state, as_batch(data.batch(RG_STEPS), dev),
-                                    "phase 29(b)")}
-        log("phase 29(b) " + json.dumps(rec["b"]))
-        clock("phase 29(b)")
-        del opt_state, trainer
-        torch.cuda.empty_cache()
+        cpu = cpu_job.result()
+        wait_s = time.perf_counter() - t0
+    finally:
+        pool.shutdown(wait=True)
+        torch.set_num_threads(threads)
 
-        # ---- (c) the trained weights serve through B5 and B7 ----------------- #
-        rec["c"] = trained_prefill(full, params, dev, zero_counts, expect_counts, "phase 29(c)",
-                                   {"B5": kinds.count("attn_local"), "B7": kinds.count("rec")})
-        log("phase 29(c) " + json.dumps(rec["c"]))
+    # ---- (a) the card against the CPU ---------------------------------------- #
+    held = [("the layer's", "layer"), ("the model's", "model")]
+    if moe:
+        held.append(("the MoE MLP's", "mlp"))
+    readings = {}
+    for what, key in held:
+        (got, grads), ((want, base), stepped) = card[key], cpu[key]
+        if not all(bool(torch.isfinite(g.float()).all()) for g in grads.values()):
+            fail(f"{at('a')}: non-finite gradients of {what} on the card")
+        if not abs(got - want) <= CE_REL * abs(want):
+            fail(f"{at('a')}: {what} value {got} on the card vs {want} on the CPU "
+                 f"(> {CE_REL} rel)")
+        readings[key] = grad_row_readings(base, grads, base, stepped)
+        worst_row(f"{at('a')}: {what} gradient", readings[key])
+
+    def part(key: str) -> dict:
+        rd = readings[key]
+        return {"worst_leaf": max(rd, key=rd.get), "worst_row_reading": max(rd.values()),
+                "cpu_s": cpu[f"{key}_s"]}
+    (v_g, _), (v_c, _) = card["layer"], cpu["layer"][0]
+    (ce_g, _), (ce_c, _) = card["model"], cpu["model"][0]
+    rec["a"] = {"layer": {"index": first,
+                          "input": [spec.block_batch, TRAIN_4K_SEQ, cut.d_model],
+                          "scan": layer_scans, "mean_square_card": v_g,
+                          "mean_square_cpu": v_c,
+                          "rel_err": abs(v_g - v_c) / abs(v_c), **part("layer")},
+                "model": {"layers": spec.cut, "batch": [pb, ps],
+                          "ce_card": ce_g, "ce_cpu": ce_c,
+                          "ce_rel_err": abs(ce_g - ce_c) / abs(ce_c), **part("model")},
+                "bar": CE_REL, "row_bar": GRAD_ROW_SENS, "card_s": card_s}
+    if moe:
+        (m_g, _), (m_c, _) = card["mlp"], cpu["mlp"][0]
+        rec["a"]["mlp"] = {"index": first,
+                           "input": [spec.block_batch, TRAIN_4K_SEQ, cut.d_model],
+                           "value_card": m_g, "value_cpu": m_c,
+                           "rel_err": abs(m_g - m_c) / abs(m_c), "aux_weight": AUX_WEIGHT,
+                           "card_experts_fed": True, **part("mlp")}
+    if spec.remat_check:
+        rec["a"]["remat"] = remat_rec
+    # The work (a) took: the card's part and the CPU's, which ran beside
+    # (b) and (c) and was waited for wait_s after them.
+    rec["a"]["s"] = card_s + sum(cpu[f"{k}_s"] for _, k in held)
+    if n == 30:
+        rec["a"]["cpu_wait_s"] = wait_s
+    log(f"{at('a')} " + json.dumps(rec["a"]))
+    clock(f"phase {n}(a) {arch} against the CPU")
     return rec
 
 
@@ -4883,7 +5123,7 @@ def shard_serve(rank: int, dev, zero, counts) -> dict:
     import torch.distributed as dist
     from repro_torch.core import ExecutionPlan
     from repro_torch.serve import ActorEngine, Request, ServeConfig
-    model, init_s = lm_model("recurrentgemma-2b", dev)
+    model, init_s = lm_model("recurrentgemma-2b", dev, n_layers=ACTOR_LAYERS)
     cfg = model.cfg
     rng = np.random.default_rng(0)
     lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
@@ -5721,8 +5961,10 @@ def main() -> None:
     serve_mk_only = sys.argv[1:] == ["--serve-mk"]
     registry_only = sys.argv[1:] == ["--registry"]
     train_rg_only = sys.argv[1:] == ["--train-rg"]
+    train_reg_only = sys.argv[1:] == ["--train-registry"]
     if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only
-                                  or serve_mk_only or registry_only or train_rg_only):
+                                  or serve_mk_only or registry_only or train_rg_only
+                                  or train_reg_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -5786,13 +6028,15 @@ def main() -> None:
         libs = ("flash_attention", "ssd", "rglru")
     if train_rg_only:
         libs = ("flash_attention", "rglru")
+    if train_reg_only:
+        libs = ("flash_attention",)
     # Phase 16's build of B2 with the clock split and phase 17's three
     # health builds, beside the seven.
     other_defines = [(mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
                      mk_kernel.build_defines(trace=True),
                      mk_kernel.build_defines(guards=True, trace=True)]
     one_phase = (lm_only or train_only or shard_only or mesh_only or serve_mk_only
-                 or registry_only or train_rg_only)
+                 or registry_only or train_rg_only or train_reg_only)
     if serve_mk_only:       # phase 27's guarded and guarded, traced runs
         other_defines = other_defines[1:2] + other_defines[3:]
     elif one_phase:
@@ -5821,10 +6065,15 @@ def main() -> None:
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
         return
-    if train_rg_only:
-        rg = rg_train_phase(dev, smi, zero_counts, expect_counts)
+    if train_rg_only or train_reg_only:
+        archs = [a for a, s in TRAIN_ARCHS.items() if s.phase == (29 if train_rg_only else 30)]
+        recs = {}
+        for arch in archs:
+            torch.cuda.empty_cache()
+            recs[arch] = train_arch_phase(dev, smi, zero_counts, expect_counts, arch)
         log(f"total {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"phase_29": rg}), flush=True)
+        print(json.dumps({"phase_29": recs[RG_ARCH]} if train_rg_only else {"phase_30": recs}),
+              flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
@@ -6183,14 +6432,15 @@ def main() -> None:
     clock("phase 28")
     # ---- 29. recurrentgemma-2b trained on the card -------------------------- #
     torch.cuda.empty_cache()
-    rg = rg_train_phase(dev, smi, zero_counts, expect_counts)
+    rg = train_arch_phase(dev, smi, zero_counts, expect_counts, RG_ARCH)
     for row in lm:
         if row["name"] in ("flash_attention", "rglru"):
             row["trained_weights"] = {
                 "launches": rg["c"]["launches"]["B5" if row["name"] == "flash_attention"
                                                 else "B7"],
                 "launches_from": "phase 29(c): recurrentgemma-2b's weights after phase "
-                                 f"29(b)'s {RG_STEPS} steps, one prefill of 4 x 4096 tokens",
+                                 f"29(b)'s {TRAIN_ARCHS[RG_ARCH].steps} steps, one prefill "
+                                 "of 4 x 4096 tokens",
                 "logit_err": rg["c"]["logit_err"], "bar": rg["c"]["bar"]}
     clock("phase 29")
     # ---- 25. the multi-device runtime ------------------------------------ #
@@ -6217,6 +6467,20 @@ def main() -> None:
             row["mesh_launches_from"] = (f"phase 26(c): mamba2-780m's weights ({MESH_LAYERS} "
                                          "layers) trained on a (data 2, model 2) mesh, "
                                          "restored in a fresh process, one prefill")
+    clock("phase 26")
+    # ---- 30. granite-moe-3b-a800m and h2o-danube-3-4b trained --------------- #
+    for arch in (a for a, s in TRAIN_ARCHS.items() if s.phase == 30):
+        torch.cuda.empty_cache()
+        tr = train_arch_phase(dev, smi, zero_counts, expect_counts, arch)
+        for row in lm:
+            if row["name"] == "flash_attention":
+                row.setdefault("trained_weights_registry", {})[arch] = {
+                    "launches": tr["c"]["launches"]["B5"],
+                    "launches_from": f"phase 30(c): {arch}'s weights after phase 30(b)'s "
+                                     f"{TRAIN_ARCHS[arch].steps} steps at full depth and "
+                                     "its profiled step, one prefill of 4 x 4096 tokens",
+                    "logit_err": tr["c"]["logit_err"], "bar": tr["c"]["bar"]}
+    clock("phase 30")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -403,15 +403,17 @@ class LM(nn.Module):
     def prefill(self, tokens: torch.Tensor, *, max_cache_len: Optional[int] = None,
                 routing: Optional[List] = None, frames: Optional[torch.Tensor] = None,
                 vision_embeds: Optional[torch.Tensor] = None,
-                kernel_impl: Optional[str] = None) -> Tuple[torch.Tensor, List[Cache]]:
+                kernel_impl: Optional[str] = None, experts: Optional[List] = None
+                ) -> Tuple[torch.Tensor, List[Cache]]:
         """``max_cache_len``: ring size of full-attention layers; it must
         cover the prompt (the vision embeddings included) and the decode
         budget (defaults to the prompt length, which leaves no room to
-        decode).  ``routing``, ``frames``, ``vision_embeds`` and
-        ``kernel_impl`` as :meth:`forward`."""
+        decode).  ``routing``, ``frames``, ``vision_embeds``,
+        ``kernel_impl`` and ``experts`` as :meth:`forward`."""
         logits, caches = self.forward(tokens, mode="prefill", max_cache_len=max_cache_len,
                                       routing=routing, frames=frames,
-                                      vision_embeds=vision_embeds, kernel_impl=kernel_impl)
+                                      vision_embeds=vision_embeds, kernel_impl=kernel_impl,
+                                      experts=experts)
         return logits[:, 0], caches
 
     @torch.inference_mode()

@@ -17,6 +17,11 @@ Scatter/gather dispatch on contiguous ``(E, C, D)`` expert slabs:
    token-major order; assignments past capacity are dropped;
 3. tokens scattered (added into zeros) to ``(E C, D)`` slots, the expert
    SwiGLU FFNs as batched products, rows gathered back with the weights.
+   The gather is an ``index_select``: its backward adds into each kept
+   slot once, and every dropped assignment into the one zero row, whose
+   gradient nothing reads (indexing's backward sorts the indices and walks
+   that row's thousands of duplicates in one warp: 41 ms a layer at
+   granite-moe-3b-a800m's 2 x 4096 tokens on an H100).
 
 The arithmetic and its rounding follow the reference: logits in float32
 (:func:`router_logits`); softmax, top-k (ties to the lower expert) and the
@@ -170,7 +175,7 @@ def dispatch_combine(params: Dict[str, torch.Tensor], xt: torch.Tensor,
     y_slabs = _experts(params, disp[:-1].reshape(E, C, D))
     y_flat = torch.cat([y_slabs.reshape(E * C, D),
                         torch.zeros((1, D), dtype=xt.dtype, device=xt.device)])
-    per_k = y_flat[flat].reshape(N, k, D)
+    per_k = y_flat.index_select(0, flat).reshape(N, k, D)
     w = (r.gate_w * keep.to(F32)).to(xt.dtype)
     return torch.einsum("nkd,nk->nd", per_k, w)
 
@@ -209,7 +214,7 @@ def _dispatch_combine_grouped(params, xt, top_k, C, G,
     y_slabs = y.reshape(E, G, Cg, D).transpose(0, 1).reshape(G, E * Cg, D)
     pad = torch.zeros((G, 1, D), dtype=xt.dtype, device=xt.device)
     y_flat = torch.cat([y_slabs, pad], dim=1).reshape(G * stride, D)
-    per_k = y_flat[flat].reshape(G, Ng, top_k, D)
+    per_k = y_flat.index_select(0, flat).reshape(G, Ng, top_k, D)
     w = (r.gate_w * keep.to(F32)).to(xt.dtype)
     out = torch.einsum("gnkd,gnk->gnd", per_k, w).reshape(N, D)
     return out, _aux(r.probs, r.gate_e, keep)

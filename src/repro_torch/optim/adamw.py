@@ -68,14 +68,18 @@ def global_norm(tensors) -> torch.Tensor:
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
                  grads: Mapping[str, torch.Tensor], state: Mapping[str, object],
-                 gnorm: Optional[torch.Tensor] = None
+                 gnorm: Optional[torch.Tensor] = None, in_place: bool = False
                  ) -> Tuple[Params, Dict[str, object], Dict[str, torch.Tensor]]:
     """One AdamW step: clip by the global norm, update the float32 moments,
     bias-correct, decoupled weight decay.  Grads may be bf16.  Returns new
     tensors (params in their own type, the state, and the metrics
     ``grad_norm`` and ``lr``); the inputs are not changed.  ``gnorm``, when
     given, is the global norm to clip by (a sharded step updates slices of
-    the leaves and takes the norm of the whole gradient)."""
+    the leaves and takes the norm of the whole gradient).  ``in_place``
+    writes the new params, moments and count into the given tensors, leaf
+    by leaf, and returns those: the same values, bit for bit, without a
+    second copy of the moments alive at once (the JAX package's donated
+    buffers)."""
     count = state["count"] + 1
     b1, b2 = cfg.betas
     lr = schedule(cfg, count)
@@ -93,4 +97,11 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
         step_ = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
         new_p[k] = (p.to(F32) - lr * step_).to(p.dtype)
         new_m[k], new_v[k] = m, v
+        if in_place:
+            new_p[k] = p.copy_(new_p[k])
+            new_m[k] = state["m"][k].copy_(m)
+            new_v[k] = state["v"][k].copy_(v)
+            del m, v
+    if in_place:
+        count = state["count"].copy_(count)
     return new_p, {"m": new_m, "v": new_v, "count": count}, {"grad_norm": gnorm, "lr": lr}

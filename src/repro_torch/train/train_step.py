@@ -53,7 +53,10 @@ class TrainOptions:
     """``unroll`` is accepted and has no effect: the port's model has no
     layer scan to unroll.  ``zero1`` shards the moments over the mesh's
     ``data`` axis (:func:`train_shardings`); on one device it changes
-    nothing."""
+    nothing.  ``donate`` (one device only) lets the step write its AdamW
+    update into the params and optimizer state it is given, which it then
+    returns: the same values, and one copy of the moments instead of two
+    (a full-depth h2o-danube-3-4b step on one 80 GB card needs it)."""
     microbatches: int = 1
     remat: bool = True
     grad_dtype: str = "bf16"       # "bf16" | "f32"
@@ -62,6 +65,7 @@ class TrainOptions:
     kernel_impl: Optional[str] = "xla"
     aux_weight: float = 0.01
     unroll: bool = False
+    donate: bool = False           # AdamW writes into the given params and state
 
 
 class _LossAndGrad(nn.Module):
@@ -127,7 +131,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
                     k: c - grads[k].to(torch.float32) for k, c in corrected.items()})
         core = {k: v for k, v in opt_state.items() if k != "feedback"}
         with record_function("train_step.adamw"):
-            new_params, new_core, om = adamw_update(opt_cfg, params, grads, core)
+            new_params, new_core, om = adamw_update(opt_cfg, params, grads, core,
+                                                    in_place=opts.donate)
         new_opt = dict(new_core)
         if "feedback" in opt_state:
             new_opt["feedback"] = opt_state["feedback"]
@@ -159,6 +164,8 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig,
         return loss, parts, acc
 
     if mesh is not None:
+        if opts.donate:
+            raise ValueError("TrainOptions.donate is for the one-device step")
         return _sharded_step(opt_cfg, opts, mesh, sums, gdt)
     return train_step
 

@@ -16,10 +16,12 @@ fault, B5's plain version (float32 probabilities into the value
 product) standing in for the dense route, reads many steps over it.
 
 The whole model at more than 2048 positions (recurrentgemma-2b's smoke
-config cut to its first (rec, rec, local attention) group, and
-h2o-danube-3-4b's, batch 1 x 2304): ``LM.train_loss`` and
-its gradient against the reference's ``train_loss`` under
-``tests/test_torch_train_grads.py``'s rule.  ``kernel_impl="flash_scan"``
+config cut to its first (rec, rec, local attention) group,
+h2o-danube-3-4b's, and granite-moe-3b-a800m's, whose unwindowed scan runs
+inside the layer remat beside MoE layers, batch 1 x 2304): ``LM.train_loss``
+and its gradient against the reference's ``train_loss`` under
+``tests/test_torch_train_grads.py``'s rule (the MoE layers fed the
+reference's experts, its stepped run pinned to them).  ``kernel_impl="flash_scan"``
 reaches every layer kind through ``LM.forward`` (local attention,
 RG-LRU, the encoder and ``xdec``, whose self-attention is the global
 layers' call: each model's logits within
@@ -31,6 +33,7 @@ beside its projections.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 
@@ -55,8 +58,8 @@ from repro_torch.models import attention as att
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.train import TrainOptions, make_train_step
 from test_torch_lm import TOL, close, load, np_tree
-from test_torch_train_grads import (CE_REL, GRAD_ROW_SENS, _np_batch, _row_readings,
-                                    _stepped_embed)
+from test_torch_train_grads import (AUX_REL, CE_REL, GRAD_ROW_SENS, _np_batch,
+                                    _row_readings, _stepped_embed, pinned_top_k)
 
 # The reference's init_params in one compiled call (its eager init costs
 # seconds of small compiles a model); any seeded weights serve here.
@@ -238,34 +241,41 @@ def _long_config(smoke, arch: str):
 
 
 def _reference_long(arch: str):
-    """The reference's params, batch (1 x LONG), ce and gradient, and its
-    gradient with the embedded input one bf16 step off (by the port's
-    names)."""
+    """The reference's params, batch (1 x LONG), ce, aux and gradient, and
+    its gradient with the embedded input one bf16 step off (by the port's
+    names); an MoE arch's routing is recorded, pinned for the stepped run
+    (``pinned_top_k``, on the unrolled model) and returned as "gates"."""
     cfg = _long_config(ref_smoke_config, arch)
     params = ref_params(jax.random.PRNGKey(0), cfg)
     batch = _np_batch(cfg, np.random.default_rng(0), B=1, S=LONG)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     orig = ref_lm.embed_lookup
+    unroll = cfg.moe is not None
+    pin = contextlib.nullcontext([]) if cfg.moe is None else pinned_top_k(
+        lambda: jax.block_until_ready(jax.jit(lambda p: ref_train_loss(
+            p, cfg, jb, remat=False, unroll=True))(params)))
 
     def loss(p, sign):
         ref_lm.embed_lookup = functools.partial(_stepped_embed, sign=sign, orig=orig)
-        return ref_train_loss(p, cfg, jb, remat=False)
-    try:
-        vg = jax.jit(jax.value_and_grad(loss, has_aux=True))
-        shape = (1, LONG, cfg.d_model)
-        sign = np.random.default_rng(1).choice([-1, 1], size=shape).astype(np.int16)
-        (_, parts), g = vg(params, jnp.zeros(shape, jnp.int16))
-        _, g_step = vg(params, jnp.asarray(sign))
-    finally:
-        ref_lm.embed_lookup = orig
+        return ref_train_loss(p, cfg, jb, remat=False, unroll=unroll)
+    with pin as gates:
+        try:
+            vg = jax.jit(jax.value_and_grad(loss, has_aux=True))
+            shape = (1, LONG, cfg.d_model)
+            sign = np.random.default_rng(1).choice([-1, 1], size=shape).astype(np.int16)
+            (_, parts), g = vg(params, jnp.zeros(shape, jnp.int16))
+            _, g_step = vg(params, jnp.asarray(sign))
+        finally:
+            ref_lm.embed_lookup = orig
     pcfg = _long_config(smoke_config, arch)
     return {"params": lm_params_from_numpy(pcfg, np_tree(params)), "batch": batch,
-            "ce": float(parts["ce"]),
+            "ce": float(parts["ce"]), "aux": float(parts["aux"]),
             "g": lm_params_from_numpy(pcfg, np_tree(g)),
-            "g_step": lm_params_from_numpy(pcfg, np_tree(g_step))}
+            "g_step": lm_params_from_numpy(pcfg, np_tree(g_step)), "gates": gates}
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "h2o-danube-3-4b"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "h2o-danube-3-4b",
+                                  "granite-moe-3b-a800m"])
 def test_train_loss_and_gradients_above_the_threshold(arch):
     ref = _reference_long(arch)
     model = LM(_long_config(smoke_config, arch), device="cpu", seed=None)
@@ -273,10 +283,14 @@ def test_train_loss_and_gradients_above_the_threshold(arch):
     for p in model.parameters():
         p.requires_grad_(True)
     tokens, labels = (torch.from_numpy(ref["batch"][k]).long() for k in ("tokens", "labels"))
-    _, parts = model.train_loss(tokens, labels)
-    parts["ce"].backward()
-    ce = float(parts["ce"].detach())
+    # granite-moe: the unwindowed scan inside the layer remat, and the MoE
+    # layers fed the reference's experts (its stepped run pinned to them).
+    experts = [torch.from_numpy(e).long() for e in ref["gates"]] or None
+    total, parts = model.train_loss(tokens, labels, experts=experts)
+    total.backward()
+    ce, aux = (float(parts[k].detach()) for k in ("ce", "aux"))
     assert abs(ce - ref["ce"]) <= CE_REL * abs(ref["ce"])
+    assert abs(aux - ref["aux"]) <= AUX_REL * abs(ref["aux"])
     readings = _row_readings(ref, {n: p.grad for n, p in model.named_parameters()})
     worst = max(readings, key=readings.get)
     assert readings[worst] <= GRAD_ROW_SENS, (worst, readings[worst])

@@ -256,3 +256,79 @@ def test_moe_parameter_count_matches_reference():
         ref = jax.tree.leaves(ref_init_params(jax.random.PRNGKey(0), ref_smoke_config(arch)))
         model = LM(smoke_config(arch), device="cpu", seed=None)
         assert sum(p.numel() for p in model.parameters()) == sum(x.size for x in ref)
+
+
+# ---------------------------------------------------------------------- #
+# Remat and fixed experts in the port alone.
+# ---------------------------------------------------------------------- #
+@pytest.fixture
+def one_thread():
+    """The smoke models' many small ops run fastest on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _recorded_routes(monkeypatch) -> list:
+    """Every routing's top-k experts from now on, in call order."""
+    seen, own = [], moe.route
+
+    def recorded(logits, top_k, gate_e=None):
+        r = own(logits, top_k, gate_e)
+        seen.append(r.gate_e.clone())
+        return r
+    monkeypatch.setattr(moe, "route", recorded)
+    return seen
+
+
+def test_remat_reproduces_routing_and_gradients(monkeypatch, one_thread):
+    """granite-moe-3b-a800m's smoke config at 1 x 2304 (the unwindowed
+    scan, each key block's scores under a checkpoint inside the layer
+    remat's): ``train_loss`` gives the same ce and every gradient bit for
+    bit with remat on and off, and the experts each layer's recompute
+    chose in the backward pass equal its forward's."""
+    from repro_torch.models import attention as att
+    cfg = smoke_config("granite-moe-3b-a800m")
+    model = LM(cfg, device="cpu", seed=0)
+    for p in model.parameters():
+        p.requires_grad_(True)
+    rng = np.random.default_rng(0)
+    tokens, labels = (torch.from_numpy(rng.integers(0, cfg.vocab, (1, 2304))) for _ in range(2))
+    seen = _recorded_routes(monkeypatch)
+    scans, scan = [], att._flash_scan
+    monkeypatch.setattr(att, "_flash_scan", lambda *a, **k: scans.append(1) or scan(*a, **k))
+    out = {}
+    for remat in (True, False):
+        model.zero_grad(set_to_none=True)
+        total, parts = model.train_loss(tokens, labels, remat=remat)
+        total.backward()
+        out[remat] = (parts["ce"].detach(), {n: p.grad for n, p in model.named_parameters()})
+    n = cfg.n_layers
+    assert len(scans) == 3 * n                  # remat: forward and recompute; then forward
+    assert len(seen) == 3 * n
+    forward, recompute, plain = seen[:n], seen[n:2 * n][::-1], seen[2 * n:]
+    assert all(torch.equal(a, b) for a, b in zip(forward, recompute))
+    assert all(torch.equal(a, b) for a, b in zip(forward, plain))
+    assert torch.equal(out[True][0], out[False][0])
+    for name, g in out[True][1].items():
+        assert torch.equal(g, out[False][1][name]), name
+
+
+def test_prefill_takes_fixed_experts(monkeypatch, one_thread):
+    """``LM.prefill(experts=)``: the experts a prefill chose, fed back,
+    give its logits bit for bit; other experts are the ones routed to, and
+    move the logits."""
+    cfg = smoke_config("granite-moe-3b-a800m")
+    model = LM(cfg, device="cpu", seed=0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 64)))
+    seen = _recorded_routes(monkeypatch)
+    logits = model.prefill(tokens)[0]
+    chosen = list(seen)
+    assert len(chosen) == cfg.n_layers
+    assert torch.equal(model.prefill(tokens, experts=chosen)[0], logits)
+    other = [(e + 1) % cfg.moe.n_experts for e in chosen]
+    seen.clear()
+    moved = model.prefill(tokens, experts=other)[0]
+    assert all(torch.equal(a, b) for a, b in zip(seen, other))
+    assert not torch.equal(moved, logits)

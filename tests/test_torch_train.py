@@ -136,6 +136,33 @@ def test_zero1_is_refused_naming_a13b():
     assert torch.equal(outs[0][2]["loss"], outs[1][2]["loss"])
 
 
+def test_donated_step_equals_the_functional_step():
+    """``TrainOptions(donate=True)``: the step writes its AdamW update into
+    the params and moments it was given and returns those tensors, bit for
+    bit the functional step's (two steps, microbatched, bf16 grads)."""
+    cfg = smoke_config("granite-moe-3b-a800m")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4))
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=4)
+    runs = []
+    for donate in (False, True):
+        step = make_train_step(cfg, opt, TrainOptions(microbatches=2, donate=donate))
+        params = init_params(cfg, device="cpu", seed=0)
+        state = init_opt_state(params)
+        for i in range(2):
+            given = (params, state["m"], state["v"])
+            params, state, metrics = step(params, state, _to_dev(data.batch(i)))
+            if donate:
+                assert all(params[k] is given[0][k] and state["m"][k] is given[1][k]
+                           and state["v"][k] is given[2][k] for k in params)
+        runs.append((params, state, metrics))
+    (pf, sf, mf), (pd, sd, md) = runs
+    for k in pf:
+        assert torch.equal(pf[k], pd[k]), k
+        assert torch.equal(sf["m"][k], sd["m"][k]) and torch.equal(sf["v"][k], sd["v"][k]), k
+    assert int(sf["count"]) == int(sd["count"]) == 2
+    assert all(torch.equal(mf[k], md[k]) for k in mf)
+
+
 # ---------------------------------------------------------------------- #
 # Values against the reference's.
 # ---------------------------------------------------------------------- #

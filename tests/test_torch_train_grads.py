@@ -24,6 +24,7 @@ by the same power-of-two rule (readings 1.1e-4 and 1.06e-3).
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import jax
@@ -85,6 +86,32 @@ def _stepped_embed(w, tokens, *, sign, orig):
     return x + jax.lax.stop_gradient(y - x)
 
 
+@contextlib.contextmanager
+def pinned_top_k(record):
+    """The reference's routing recorded over ``record()`` (a jitted run of
+    the unrolled model: each MoE layer's top-k experts, in layer order),
+    then pinned inside the block: ``jax.lax.top_k`` returns the recorded
+    experts, layer by layer in trace order.  Yields the recorded experts."""
+    top_k, gates, calls = jax.lax.top_k, [], [0]
+
+    def recorded(x, k):
+        out = top_k(x, k)
+        jax.debug.callback(lambda e: gates.append(np.asarray(e)), out[1], ordered=True)
+        return out
+
+    def pinned(x, k):
+        e = jnp.asarray(gates[calls[0] % len(gates)])
+        calls[0] += 1
+        return jnp.take_along_axis(x, e, -1), e
+    try:
+        jax.lax.top_k = recorded
+        record()
+        jax.lax.top_k = pinned
+        yield gates
+    finally:
+        jax.lax.top_k = top_k
+
+
 @functools.lru_cache(maxsize=None)
 def _reference(arch: str):
     """The reference's params, batch, ce, aux and gradient (by the port's
@@ -94,39 +121,25 @@ def _reference(arch: str):
     params = ref_init_params(jax.random.PRNGKey(0), cfg)
     batch = _np_batch(cfg, np.random.default_rng(0))
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    top_k, orig_embed = jax.lax.top_k, ref_lm.embed_lookup
-    gates = []
-    try:
-        if cfg.moe is not None:
-            def record(x, k):
-                out = top_k(x, k)
-                jax.debug.callback(lambda e: gates.append(np.asarray(e)), out[1],
-                                   ordered=True)
-                return out
-            jax.lax.top_k = record
-            jax.block_until_ready(jax.jit(lambda p: ref_train_loss(
-                p, cfg, jb, remat=False, unroll=True))(params))
-            calls = [0]
-
-            def pinned(x, k):           # the recorded experts, layer by layer
-                e = jnp.asarray(gates[calls[0] % len(gates)])
-                calls[0] += 1
-                return jnp.take_along_axis(x, e, -1), e
-            jax.lax.top_k = pinned
-
+    orig_embed = ref_lm.embed_lookup
+    pin = contextlib.nullcontext([]) if cfg.moe is None else pinned_top_k(
+        lambda: jax.block_until_ready(jax.jit(lambda p: ref_train_loss(
+            p, cfg, jb, remat=False, unroll=True))(params)))
+    with pin as gates:
         def loss(p, sign):
             ref_lm.embed_lookup = functools.partial(_stepped_embed, sign=sign, orig=orig_embed)
             return ref_train_loss(p, cfg, jb, remat=False, unroll=True)
 
-        vg = jax.jit(jax.value_and_grad(loss, has_aux=True))
-        n_txt = batch["tokens"].shape[1]
-        zero = jnp.zeros((2, n_txt, cfg.d_model), jnp.int16)
-        sign = jnp.asarray(np.random.default_rng(1).choice([-1, 1], size=zero.shape)
-                           .astype(np.int16))
-        (_, parts), g = vg(params, zero)
-        _, g_step = vg(params, sign)
-    finally:
-        jax.lax.top_k, ref_lm.embed_lookup = top_k, orig_embed
+        try:
+            vg = jax.jit(jax.value_and_grad(loss, has_aux=True))
+            n_txt = batch["tokens"].shape[1]
+            zero = jnp.zeros((2, n_txt, cfg.d_model), jnp.int16)
+            sign = jnp.asarray(np.random.default_rng(1).choice([-1, 1], size=zero.shape)
+                               .astype(np.int16))
+            (_, parts), g = vg(params, zero)
+            _, g_step = vg(params, sign)
+        finally:
+            ref_lm.embed_lookup = orig_embed
     pcfg = smoke_config(arch)
     return {"params": lm_params_from_numpy(pcfg, jax.tree.map(np.asarray, params)),
             "batch": batch, "ce": float(parts["ce"]), "aux": float(parts["aux"]),
