@@ -16,6 +16,7 @@
     python3 chip_smoke.py --registry  # phases 12 and 28 with 28's profiles (and 1)
     python3 chip_smoke.py --train-rg  # phase 29 alone (with phase 1)
     python3 chip_smoke.py --train-registry  # phase 30 alone (with phase 1)
+    python3 chip_smoke.py --train-frontends  # phase 31 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -104,8 +105,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     18 per prefill) and none of B1-B4 or B6; logs prefill ms per batch,
     decode ms per step and tokens/s; then a short run (``PARITY_BATCH`` 1,
     cut from 2 for the script's time, prompt 256, 4 new tokens, the same
-    seed, the depth cut to ``PARITY_LAYERS``: two
-    (rec, rec, local attention) groups) on the card and on the CPU (the
+    seed, the depth cut to ``PARITY_LAYERS``: one
+    (rec, rec, local attention) group) on the card and on the CPU (the
     plain path): every layer's mixer and MLP, fed the CPU's input, element by
     element within one bf16 step plus ``MIX_ROW_TOL`` of the row's RMS;
     logits at every prompt position within ``LOGIT_SENS`` times the CPU
@@ -115,7 +116,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     logits within the last position's bar and its tokens identical
     wherever the CPU's top-2 margin exceeds twice the step's largest logit
     difference;
-14. the same for mamba2-780m (its parity at 12 of 48 layers): 96 B6
+14. the same for mamba2-780m (its parity at 6 of 48 layers): 96 B6
     launches (48 per prefill) and no B5 or B7; then mamba2's smoke configuration served on the card (B6's SIMT
     route, one launch a layer a prefill) and held to the CPU model on the
     same weights as in 13 (each layer, the logits, the Engine);
@@ -190,7 +191,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     2 KV heads of 64, vocab 151 655) served likewise with 256 stub vision
     embeddings (4, 256, 896) before prompts of 1792-3840 tokens
     left-padded to 3840 (S = 4096): 48 B5 launches, its profile and
-    parity on 4 of its layers (``PARITY_LAYERS``); then served as text through the Engine (as 13:
+    parity on 2 of its layers (``PARITY_LAYERS``); then served as text through the Engine (as 13:
     48 B5 launches, tokens/s); then its decode on the int8 KV cache
     (``kv_quant_int8=True``, the same weights) against the bf16 cache,
     step by step in turns, with both caches' bytes; the card's int8 slots
@@ -203,7 +204,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     against its plain version and times each beside SDPA.
 22. (run after 13) recurrentgemma-2b served through ``ActorEngine``
     (``graphs/serving.py``'s admission/gate/decode/merge/retire network on
-    the host dynamic executor) at its published width (``ACTOR_LAYERS`` = 6
+    the host dynamic executor) at its published width (``ACTOR_LAYERS`` = 3
     of its 26 layers, for the script's time), on phase 13's
     traffic, eos_id None: the closed loop's tokens equal the ``Engine``'s
     bit for bit; an open loop (budgets 32 and 8 in turn, arrivals
@@ -277,7 +278,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     versions, the logits within phase 14's rule (``LOGIT_SENS`` times the
     plain run's change under a bf16 step at its embedded input, at least
     ``LOGIT_TOL``).
-25. (run last) the multi-device runtime (ROADMAP A12): each sub-phase
+25. (after 28) the multi-device runtime (ROADMAP A12): each sub-phase
     in k ranks spawned on this one card (``repro_torch.launch.group.
     spawn_group``: a gloo group through a ``file://`` rendezvous, rings
     staged through host buffers, a deadline; a failure in any rank fails
@@ -366,11 +367,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     local and global apart), each with its window in the plain version,
     SDPA's mask and the bound's live pairs, and the kernels line gives
     each shape its launches from phase 28.
-29. (after 28) recurrentgemma-2b trained on the card at train_4k's
+29. (after 26) recurrentgemma-2b trained on the card at train_4k's
     length (4096 > ``FLASH_SCAN_THRESHOLD``, so its local-attention layers
     take the reference's blocked scan, ``_flash_scan``): (a) at full width,
     on the card and on the CPU, phase 24(a)'s bars: the first
-    local-attention layer's norm and attention alone on 2 x 4096 positions
+    local-attention layer's norm and attention alone on 1 x 4096 positions
     (the scan), its gradient by its weights and its input, and the model
     cut to one (rec, rec, local attention) group, one ``train_loss`` and
     backward of 1 x 128 tokens (the dense route); (b) all 26 layers through
@@ -380,8 +381,11 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     peak memory, the scan's query blocks a step and one profiled step; (c)
     (b)'s weights served: one prefill of
     phase 13's first batch through B5 (8 launches) and B7 (18), counted,
-    against the plain versions within phase 13's rule.
-30. (run last, after 26) granite-moe-3b-a800m (32 layers, d 1536, 24 heads on 8 KV
+    against the plain versions within phase 13's rule.  Phases 29-31's
+    (a) runs on the CPU go to one lane (a thread at nice 19) beside the
+    card's work, and each arch's (a) is read after the next arch's card
+    work (``train_archs``).
+30. (after 26) granite-moe-3b-a800m (32 layers, d 1536, 24 heads on 8 KV
     heads of 64, 40 experts top-8 of F 512, no window: its scan recomputes
     each key block's scores under a checkpoint inside the layer remat's)
     and h2o-danube-3-4b (24 layers, d 3840, 32 on 8 heads of 120, window
@@ -401,6 +405,23 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     phase 13's rule, granite-moe's plain runs taking the kernel run's
     experts (``LM.prefill(experts=)``).  One record per arch and part
     (``phase 30(a) <arch> {...}`` lines).
+31. (run last, after 30) whisper-small (12 decoder and 12 encoder layers,
+    d 768, 12 heads of 64) and internvl2-1b (24 layers, d 896, 14 on 2 KV
+    heads of 64) trained at their published widths and full depth by the
+    same function: (a) the first decoder layer's mixer alone at 1 x 4096
+    (the scan); whisper's first cross attention alone on a 1 x 1500
+    encoder output and its first encoder block alone at 1 x 1500, each
+    with its inputs' gradients; the model cut to 2 layers (whisper's
+    encoder to 2 as well) at 1 x 128 tokens with the stub inputs (the
+    frames stepped with the embedded input in the CPU's sensitivity run;
+    internvl's 256 vision embeddings before its tokens); remat on and off
+    bit for bit; (b) 4 steps of train_4k's 2 x 4096 positions through
+    ``Trainer`` in one microbatch (whisper's stub frames (2, 1500, 768);
+    internvl's 256 vision embeddings and 3840 tokens a row; 192 and 384
+    scan query blocks a step), the loss falling by ``TRAIN_DROP``; (c)
+    the trained weights' prefill of phases 20-21's first batch with its
+    stub inputs through B5 (24 launches each: whisper's 12 inside
+    ``LM.encode``) against the plain versions within phase 13's rule.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -438,8 +459,9 @@ B2, B5, B6 and B7) and prints the ``megakernel.b2.serving`` row;
 ``--registry`` runs phases 1, 12 and 28, with phase 15's profile of each of
 28's models (building B5, B6 and B7), and prints the ``flash_attention``
 row; ``--train-rg`` runs phases 1 and 29 (building B5 and B7) and prints
-phase 29's record before the last line; ``--train-registry`` runs phases 1
-and 30 (building B5) and prints phase 30's records the same way.
+phase 29's record before the last line; ``--train-registry`` and
+``--train-frontends`` run phases 1 and 30 or 1 and 31 (building B5) and
+print that phase's records the same way.
 """
 from __future__ import annotations
 
@@ -529,14 +551,14 @@ FAMILY_PROMPTS = {"whisper-small": (64, 384), "internvl2-1b": (1792, 3840)}
 # The depth of an arch's parity model (the CPU's time; the widths stay):
 # whisper-small's encoder is cut to the same count as its decoder.  Cut for
 # the script's time, each keeping every layer kind of its arch:
-# recurrentgemma-2b from 26 to two (rec, rec, local attention) groups,
-# mamba2-780m from 48 to 12, phase 28's four from 2 to 1 (global attention
+# recurrentgemma-2b from 26 to one (rec, rec, local attention) group,
+# mamba2-780m from 48 to 6, phase 28's four from 2 to 1 (global attention
 # is held at parity in granite-8b, granite-moe-3b-a800m and qwen2-72b);
-# gemma3-12b's 6 hold its first global layer, index 5; internvl2-1b from
-# 24 to 4.  An arch not named here is held at full depth.
-PARITY_LAYERS = {"recurrentgemma-2b": 6, "mamba2-780m": 12, "olmoe-1b-7b": 4,
-                 "whisper-small": 4, "gemma3-12b": 6, "granite-8b": 1, "h2o-danube-3-4b": 1,
-                 "granite-moe-3b-a800m": 1, "qwen2-72b": 1, "internvl2-1b": 4}
+# gemma3-12b's 6 hold its first global layer, index 5; whisper-small and
+# internvl2-1b to 2.  An arch not named here is held at full depth.
+PARITY_LAYERS = {"recurrentgemma-2b": 3, "mamba2-780m": 6, "olmoe-1b-7b": 4,
+                 "whisper-small": 2, "gemma3-12b": 6, "granite-8b": 1, "h2o-danube-3-4b": 1,
+                 "granite-moe-3b-a800m": 1, "qwen2-72b": 1, "internvl2-1b": 2}
 # Phase 28: the registry's other five models, served at their published
 # widths on phase 13's traffic.  REGISTRY_LAYERS cuts a depth the card
 # cannot hold (qwen2-72b's 80 layers are 145 GB of bf16 weights; 16 layers
@@ -552,12 +574,13 @@ LONG_PROMPT = 32768
 # The script's cuts for its time, each with its seconds in PERF.md §5:
 # PARITY_BATCH, PARITY_LAYERS and REGISTRY_REQUESTS above, ACTOR_LAYERS
 # here, and beside
-# their phases TRAIN_LAYERS (24), TRAIN_ARCHS's steps (29) and MESH_LAYERS
-# (26).  ACTOR_LAYERS: recurrentgemma-2b through the ActorEngine (phases 22,
-# 27(a) and 25(b)) at two (rec, rec, local attention) groups of its 26
-# layers, as in its parity; every decode step launches a kernel a layer
-# from the host, so those phases' seconds go with the depth.
-ACTOR_LAYERS = 6
+# their phases TRAIN_CUT and TRAIN_LAYERS (24), TRAIN_ARCHS's steps (29) and
+# the mixers' batch of 1 (29-31) and MESH_LAYERS (26).  ACTOR_LAYERS:
+# recurrentgemma-2b through the ActorEngine (phases 22, 27(a) and 25(b)) at
+# one (rec, rec, local attention) group of its 26 layers, as in its
+# parity; every decode step launches a kernel a layer from the host, so
+# those phases' seconds go with the depth.
+ACTOR_LAYERS = 3
 
 
 def log(msg: str) -> None:
@@ -2498,6 +2521,25 @@ def stub_traffic(model) -> tuple:
         "stub": {k: list(t.shape) for k, t in stub.items()}}
 
 
+@contextlib.contextmanager
+def encoder_launches(model):
+    """B5's launches inside ``model.encode`` within the block, counted
+    apart (a one-element list)."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    encode, tally = model.encode, [0]
+
+    def counted_encode(*a, **kw):
+        before = flash_attention_cuda.launches
+        out = encode(*a, **kw)
+        tally[0] += flash_attention_cuda.launches - before
+        return out
+    model.encode = counted_encode
+    try:
+        yield tally
+    finally:
+        del model.encode
+
+
 def serve_run(model, smi: str, zero_counts, expect_counts, want: dict, phase: int,
               traffic: tuple, fields: dict, counted=contextlib.nullcontext) -> dict:
     """Full-width serving (phases 13, 14, 19-21 and 28): ``generate(batch)``
@@ -2507,31 +2549,21 @@ def serve_run(model, smi: str, zero_counts, expect_counts, want: dict, phase: in
     B5's launches inside ``LM.encode`` counted apart; ``counted()`` is a
     context entered around that run only (phase 28 tallies B5 by window
     in it); then a warm, untimed run of the same batches for tokens/s."""
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
     cfg, dev = model.cfg, model.device
     generate, batches, traffic_fields = traffic
     n_req = traffic_fields.get("requests", LM_REQUESTS)
     n_batches = n_req // LM_BATCH
     times = timed_calls(model)
-    enc_launches = [0]
-    encode = model.encode
-
-    def counted_encode(*a, **kw):
-        before = flash_attention_cuda.launches
-        out = encode(*a, **kw)
-        enc_launches[0] += flash_attention_cuda.launches - before
-        return out
-    model.encode = counted_encode
     torch.cuda.reset_peak_memory_stats(dev)
     torch.cuda.synchronize()
     zero_counts()
     t0 = time.perf_counter()
-    with counted():
+    with counted(), encoder_launches(model) as enc_launches:
         tokens = np.concatenate([generate(b) for b in batches])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = expect_counts(f"{cfg.name} serving", want)
-    del model.prefill, model.decode_step, model.encode
+    del model.prefill, model.decode_step
     peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     if tokens.shape != (n_req, LM_NEW) \
             or not ((tokens >= 0) & (tokens < cfg.vocab)).all():
@@ -4162,7 +4194,7 @@ def stream_phase(dev, smi: str, zero_counts, expect_counts, net_gpu, res_gpu,
 # ---- 24. training on one card ---------------------------------------------- #
 TRAIN_ARCH = "mamba2-780m"
 TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 8, 8, 2048      # (b): 16 384 tokens a step
-TRAIN_CUT = 4                                         # layers in (a) and (c)
+TRAIN_CUT = 2                                         # layers in (a) and (c)
 TRAIN_LAYERS = 6        # (b) and (d): the published width, depth cut from 48 (the script's time)
 TRAIN_PARITY_BATCH, TRAIN_PARITY_SEQ = 2, 512         # (a)
 TRAIN_FT_BATCH, TRAIN_FT_SEQ = 4, 1024                # (c)
@@ -4188,38 +4220,70 @@ TRAIN_DROP = 0.2
 TRAIN_FT_TOL = 1e-5
 
 
+STUB_KEYS = ("frames", "vision_embeds")      # the frontend stub's inputs in a batch
+
+
 def as_batch(b: dict, dev) -> dict:
-    """A numpy batch as int64 tensors on ``dev``."""
-    return {k: torch.from_numpy(v.astype(np.int64)).to(dev) for k, v in b.items()}
+    """A numpy batch as tensors on ``dev``: integer arrays as int64, the
+    stub inputs' float arrays as they are (``Trainer._batch``'s rule)."""
+    return {k: torch.from_numpy(v.astype(np.int64) if v.dtype.kind in "iu" else v).to(dev)
+            for k, v in b.items()}
 
 
-def stepped_embed(model) -> None:
-    """``model``'s embedded input moved one bf16 step at every element
-    (:func:`bf16_step_noise`); the gradient passes as through the plain
-    embedding."""
+class StubLM:
+    """``SyntheticLM``'s batch i with the frontend stub's inputs of the
+    audio and vision families (:func:`stub_inputs` for its rows, drawn
+    from ``numpy.random.default_rng(i)``) as float32 arrays of bf16
+    values, which the model casts to bf16; another family's batch as it
+    is."""
+
+    def __init__(self, cfg, src):
+        self.cfg, self.src = cfg, src
+
+    def batch(self, i: int) -> dict:
+        b = self.src.batch(i)
+        stub = stub_inputs(self.cfg, np.random.default_rng(i), b["tokens"].shape[0])
+        return {**b, **{k: t.float().numpy() for k, t in stub.items()}}
+
+
+@contextlib.contextmanager
+def stepped_embed(model):
+    """Inside the block, ``model``'s embedded input moved one bf16 step at
+    every element (:func:`bf16_step_noise`); the gradient passes as through
+    the plain embedding.  The patch goes when the block ends: it refers to
+    the model, and the cycle would keep the model's weights on the card
+    until Python's cycle collector ran (a trained model's, 7-8 GB, held
+    through the next arch's training step, PERF.md §6)."""
     embed = model._embed
 
     def noisy(*a, **kw):
         x = embed(*a, **kw)
         return x + (bf16_step_noise(x.detach()) - x).detach()
     model._embed = noisy
+    try:
+        yield
+    finally:
+        del model._embed
 
 
 def loss_and_grads(cfg, params: dict, batch: dict, dev, stepped: bool = False,
                    remat: bool = True, experts: list = None) -> tuple:
     """``LM.train_loss`` (``kernel_impl="xla"``, ``remat``, the MoE layers'
-    ``experts``) of ``batch`` on ``dev`` and every parameter's gradient
-    (CPU tensors); ``stepped``: with the embedded input one bf16 step
-    off."""
+    ``experts``) of ``batch`` (with its stub inputs) on ``dev`` and every
+    parameter's gradient (CPU tensors); ``stepped``: with the embedded
+    input (the vision embeddings with it) and whisper's frames one bf16
+    step off."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)
     model.load_state_dict(params)
     for p in model.parameters():
         p.requires_grad_(True)
-    if stepped:
-        stepped_embed(model)
-    total, parts = model.train_loss(batch["tokens"].to(dev), batch["labels"].to(dev),
-                                    remat=remat, experts=experts)
+    extra = {k: batch[k].to(dev) for k in STUB_KEYS if k in batch}
+    if stepped and "frames" in extra:
+        extra["frames"] = bf16_step_noise(extra["frames"].to(torch.bfloat16))
+    with stepped_embed(model) if stepped else contextlib.nullcontext():
+        total, parts = model.train_loss(batch["tokens"].to(dev), batch["labels"].to(dev),
+                                        remat=remat, experts=experts, **extra)
     total.backward()
     return float(parts["ce"].detach()), {n: p.grad.cpu() for n, p in model.named_parameters()}
 
@@ -4506,32 +4570,45 @@ def profiled_step(step, params: dict, opt_state: dict, batch: dict, label: str) 
 def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: str,
                     want: dict = None) -> dict:
     """Trained weights served: one prefill of phase 14's first LM_BATCH
-    prompts (phase 13's for recurrentgemma-2b) through the model's kernels
-    (``want``, launches by kernel; B6 a layer by default), counted, and
-    through the plain versions, the logits within phases 13-14's rule
-    (LOGIT_SENS times the model's own change under one bf16 step at its
-    embedded input).  An MoE model's plain runs take the kernel run's
-    experts (``LM.prefill(experts=)``)."""
+    prompts (phase 13's for recurrentgemma-2b; the audio and vision
+    families' first batch of phases 20-21's traffic, :func:`stub_traffic`,
+    with its stub inputs) through the model's kernels (``want``, launches
+    by kernel; B6 a layer by default; B5's inside ``LM.encode`` a layer of
+    the encoder), counted, and through the plain versions, the logits
+    within phases 13-14's rule (LOGIT_SENS times the model's own change
+    under one bf16 step at its embedded input and, for audio, its frames).
+    An MoE model's plain runs take the kernel run's experts
+    (``LM.prefill(experts=)``)."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)
     model.load_state_dict(params)
     del params
     torch.cuda.empty_cache()
-    rng = np.random.default_rng(0)
-    lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
-    prompts = [rng.integers(0, cfg.vocab, n) for n in lens][:LM_BATCH]
-    toks = torch.from_numpy(left_pad(prompts, LM_PROMPT)).to(dev)
+    if cfg.family in ("audio", "vlm"):
+        _, batches, fields = stub_traffic(model)
+        toks, extra = batches[0]
+        lens, padded = fields["prompt_lens"][:LM_BATCH], fields["max_prompt"]
+    else:
+        rng = np.random.default_rng(0)
+        lens = [int(n) for n in rng.integers(LM_PROMPT_MIN, LM_PROMPT + 1, LM_REQUESTS)]
+        prompts = [rng.integers(0, cfg.vocab, n) for n in lens][:LM_BATCH]
+        toks, extra = torch.from_numpy(left_pad(prompts, LM_PROMPT)).to(dev), {}
+        lens, padded = lens[:LM_BATCH], LM_PROMPT
     V = cfg.vocab
     zero_counts()
-    with routes_seen() as experts:
-        lg_k = model.prefill(toks)[0][:, :V].float()
+    with routes_seen() as experts, encoder_launches(model) as enc:
+        lg_k = model.prefill(toks, **extra)[0][:, :V].float()
         torch.cuda.synchronize()
     want = want or {"B6": cfg.n_layers}
     got = expect_counts(f"{label} the trained weights served", want)
+    if cfg.encoder is not None and enc[0] != cfg.encoder.n_layers:
+        fail(f"{label}: {enc[0]} B5 launches in the encoder, want {cfg.encoder.n_layers}")
     fed = experts or None
-    lg_x = model.prefill(toks, kernel_impl="xla", experts=fed)[0][:, :V].float()
-    stepped_embed(model)
-    lg_s = model.prefill(toks, kernel_impl="xla", experts=fed)[0][:, :V].float()
+    lg_x = model.prefill(toks, kernel_impl="xla", experts=fed, **extra)[0][:, :V].float()
+    if "frames" in extra:
+        extra = {**extra, "frames": bf16_step_noise(extra["frames"])}
+    with stepped_embed(model):
+        lg_s = model.prefill(toks, kernel_impl="xla", experts=fed, **extra)[0][:, :V].float()
     del model
     torch.cuda.empty_cache()
     sens = (lg_s - lg_x).abs().amax(-1)
@@ -4543,8 +4620,10 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
     if bool((err > bar).any()):
         fail(f"{label}: the kernels' logits differ from the plain versions' by "
              f"{err.tolist()} > {bar.tolist()}")
-    return {"prompts": lens[:LM_BATCH], "padded_to": LM_PROMPT,
+    return {"prompts": lens, "padded_to": padded,
             "launches": {k: got[k] for k in want}, **({"experts_fed": True} if fed else {}),
+            **({"encoder_b5_launches": enc[0]} if cfg.encoder is not None else {}),
+            **({"stub": {k: list(t.shape) for k, t in extra.items()}} if extra else {}),
             "logit_err": err.tolist(), "sensitivity": sens.tolist(),
             "bar": bar.tolist(), "max_abs_logit": mag.tolist(),
             "rows_with_power": int((bar < mag).sum()),
@@ -4558,7 +4637,6 @@ class TrainArch:
 
     phase: int
     cut: int              # (a): the model cut to this many layers
-    block_batch: int      # (a): the first attention layer alone at block_batch x TRAIN_4K_SEQ
     steps: int            # (b)
     microbatches: int     # (b)
     lr: float             # (b)
@@ -4579,14 +4657,23 @@ RG_ARCH = "recurrentgemma-2b"
 # first steps move every weight by about lr whatever its gradient:
 # h2o-danube-3-4b's loss rose from 11.2 to 19.0 in 4 steps at 3e-4 and
 # to 13.1 by step 3 at 1e-4, and an update of 5e-5 or more raised it, so
-# it takes 2e-5.
+# it takes 2e-5.  whisper-small and internvl2-1b (phase 31): full depth,
+# 4 steps in one microbatch, lr 3e-4, the functional AdamW (both fit one
+# card with two copies of the moments: whisper's params, grads and moments
+# are 3.4 GB, internvl's 7.6 GB, the float32 logits over 2 x 4096
+# positions 1.7 and 5.0 GB); whisper's encoder is cut with its decoder in
+# (a).
 TRAIN_ARCHS = {
-    "recurrentgemma-2b": TrainArch(29, cut=3, block_batch=2, steps=4, microbatches=2,
+    "recurrentgemma-2b": TrainArch(29, cut=3, steps=4, microbatches=2,
                                    lr=3e-4, remat_check=False, donate=False),
-    "granite-moe-3b-a800m": TrainArch(30, cut=2, block_batch=1, steps=4, microbatches=1,
+    "granite-moe-3b-a800m": TrainArch(30, cut=2, steps=4, microbatches=1,
                                       lr=3e-4, remat_check=True, donate=True),
-    "h2o-danube-3-4b": TrainArch(30, cut=2, block_batch=1, steps=4, microbatches=2,
+    "h2o-danube-3-4b": TrainArch(30, cut=2, steps=4, microbatches=2,
                                  lr=2e-5, remat_check=True, donate=True),
+    "whisper-small": TrainArch(31, cut=2, steps=4, microbatches=1,
+                               lr=3e-4, remat_check=True, donate=False),
+    "internvl2-1b": TrainArch(31, cut=2, steps=4, microbatches=1,
+                              lr=3e-4, remat_check=True, donate=False),
 }
 AUX_WEIGHT = 0.01        # LM.train_loss's weight of the MoE load-balance loss
 
@@ -4685,27 +4772,48 @@ def deterministic_algorithms():
         torch.use_deterministic_algorithms(False)
 
 
+def is_attn(kind: str) -> bool:
+    """An attention layer's kind (the JAX package's ``_is_attn`` rule):
+    whisper's decoder layers (``xdec``) are attention layers too."""
+    return kind.startswith("attn") or kind == "xdec"
+
+
 def part_grads(cfg, params: dict, x: torch.Tensor, dev, index: int, part: str = "mixer",
-               stepped: bool = False, experts: torch.Tensor = None) -> tuple:
+               stepped: bool = False, experts: torch.Tensor = None,
+               enc: torch.Tensor = None) -> tuple:
     """Layer ``index`` of ``LM(cfg)``'s ``part`` alone on ``dev``: "mixer",
-    its norm and attention in mode "train" (the plain routes), or "mlp",
-    its norm and MLP (an MoE layer's experts fixed to ``experts`` where
-    given, ``moe_layer``'s ``gate_e``).  Returns a value, the mean square
-    of the part's float32 output for the input ``x`` (one bf16 step off
-    under ``stepped``) plus AUX_WEIGHT times an MoE layer's load-balance
-    loss, and the gradient of that by the part's parameters and by ``x``
-    ("input"), as CPU tensors."""
+    its norm and attention in mode "train" (the plain routes); "mlp", its
+    norm and MLP (an MoE layer's experts fixed to ``experts`` where given,
+    ``moe_layer``'s ``gate_e``); "cross", an ``xdec`` layer's cross
+    attention (its norm, the encoder output ``enc`` projected to k and v
+    and attended); or "encoder", encoder block ``index`` (its attention,
+    non-causal, the plain routes, then its MLP on the residual sum: the
+    two branches added in float32).  Returns a value, the mean square of
+    the part's float32 output for the input ``x`` (``x`` and ``enc`` one
+    bf16 step off under ``stepped``) plus AUX_WEIGHT times an MoE layer's
+    load-balance loss, and the gradient of that by the part's parameters,
+    by ``x`` ("input") and by ``enc`` ("encoder_output"), as CPU
+    tensors."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)     # only the held layer's weights loaded
-    pre = f"layers.{index}."
-    blk = model.layers[index]
+    pre = f"encoder.blocks.{index}." if part == "encoder" else f"layers.{index}."
+    blk = model.encoder.blocks[index] if part == "encoder" else model.layers[index]
     blk.load_state_dict({k[len(pre):]: v for k, v in params.items() if k.startswith(pre)})
     for p in blk.parameters():
         p.requires_grad_(True)
-    x = x.to(dev)
-    x = (bf16_step_noise(x) if stepped else x).requires_grad_(True)
+    ins = {"input": x} if enc is None else {"input": x, "encoder_output": enc}
+    # A copy even on the CPU: a caller's tensor would keep this call's
+    # gradient, and the next call on it would add to it in place.
+    ins = {k: (bf16_step_noise(t.to(dev)) if stepped else t.to(dev, copy=True))
+           .requires_grad_(True) for k, t in ins.items()}
+    x, aux = ins["input"], None
     if part == "mixer":
-        y, aux = model._mixer(blk, x, mode="train", kernel_impl="xla")[0], None
+        y = model._mixer(blk, x, mode="train", kernel_impl="xla")[0]
+    elif part == "cross":
+        y = model._cross(blk, x, model._cross_kv(blk, ins["encoder_output"]))
+    elif part == "encoder":
+        y1 = model._enc_attn(blk, x, kernel_impl="xla")
+        y = y1.float() + model._enc_mlp(blk, x + y1).float()
     else:
         y, aux = model._mlp(blk, x, experts=experts)
     value = y.float().square().mean()
@@ -4713,7 +4821,7 @@ def part_grads(cfg, params: dict, x: torch.Tensor, dev, index: int, part: str = 
         value = value + AUX_WEIGHT * aux
     value.backward()
     grads = {n: p.grad.cpu() for n, p in blk.named_parameters() if p.grad is not None}
-    grads["input"] = x.grad.cpu()
+    grads.update({k: t.grad.cpu() for k, t in ins.items()})
     return float(value.detach()), grads
 
 
@@ -4726,7 +4834,7 @@ def worst_row(what: str, rd: dict) -> None:
              f"(> {GRAD_ROW_SENS})")
 
 
-def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> dict:
+def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane):
     """Phase 29 (recurrentgemma-2b) or 30 (granite-moe-3b-a800m,
     h2o-danube-3-4b): ``arch`` trained on the card at its published widths
     and train_4k's length, where its attention layers take the
@@ -4735,11 +4843,14 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
     queries, h2o-danube-3-4b's window 4096 all of them; granite-moe's
     layers have no window, so each key block's scores are recomputed in
     the backward pass under ``torch.utils.checkpoint``, inside the layer
-    remat's).  Its constants are its ``TRAIN_ARCHS`` entry.
+    remat's).  Its constants are its ``TRAIN_ARCHS`` entry.  (a)'s CPU
+    runs go to ``lane`` (see :func:`train_archs`); returns ``finish()``,
+    which waits for them, holds the card to the CPU and returns the arch's
+    record.
 
     (a) At full width, on the card and on the CPU with the same weights,
     phase 24(a)'s bars: the first attention layer's mixer (its norm and
-    attention) alone on a ``block_batch`` x TRAIN_4K_SEQ input (the scan
+    attention) alone on a 1 x TRAIN_4K_SEQ input (the scan
     route; the mean square of its output within CE_REL, every gradient
     row, of its weights and of its input, within GRAD_ROW_SENS times the
     CPU's own change when the input moves one bf16 step); an MoE arch's
@@ -4748,7 +4859,12 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
     and the model cut to ``cut`` layers, one ``train_loss`` and backward
     of TRAIN_4K_PARITY tokens (the dense route; ce within CE_REL, the rows
     as 24(a); the card's experts, the forward's, fed to the CPU by
-    ``train_loss(experts=)``).  ``remat_check``: the cut model's gradients
+    ``train_loss(experts=)``); whisper's first layer's cross attention
+    alone on a 1 x 1500 encoder output and its first encoder block alone
+    at 1 x 1500 (the dense route, non-causal), each with its inputs'
+    gradients, and its cut model with the encoder cut to as many layers
+    and, in the CPU's stepped run, the frames one bf16 step off too.
+    ``remat_check``: the cut model's gradients
     on the card with remat on and off, bit for bit under deterministic
     algorithms (whether they are without them is recorded), and under
     remat the experts of each layer's recompute equal to its forward's.
@@ -4764,7 +4880,8 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
     prefill of phase 13's first batch through the kernels (a launch a
     layer of each kind, counted) and through the plain versions, within
     phase 13's rule (an MoE arch's plain runs take the kernel run's
-    experts)."""
+    experts); whisper and internvl serve phases 20-21's first batch with
+    its stub inputs (B5 a layer, and a layer of whisper's encoder)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import layer_kinds
@@ -4779,18 +4896,31 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
         return f"phase {n}({part}) {arch}"
 
     full = get_config(arch)
-    cut = dataclasses.replace(full, n_layers=spec.cut)
+    audio = full.family == "audio"
+    cut = dataclasses.replace(full, n_layers=spec.cut, **(
+        {"encoder": dataclasses.replace(full.encoder, n_layers=spec.cut)} if audio else {}))
     moe = full.moe is not None
     rec: dict = {"card": smi, "arch": arch, "a": None}    # (a) is read after (c)
 
-    # ---- (a) on the card: the scan layer alone, its MoE MLP, the cut model - #
+    # ---- (a) on the card: the scan layer alone, its MoE MLP or whisper's
+    # cross attention and encoder block, the cut model ------------------- #
     t0 = time.perf_counter()
     params = init_params(cut, device=dev, seed=0)
-    first = next(i for i, k in enumerate(layer_kinds(cut)) if k.startswith("attn"))
-    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
-        (spec.block_batch, TRAIN_4K_SEQ, cut.d_model), dtype=np.float32)).to(torch.bfloat16)
+    first = next(i for i, k in enumerate(layer_kinds(cut)) if is_attn(k))
+    draw = np.random.default_rng(0)
+
+    def normal(*shape) -> torch.Tensor:
+        return torch.from_numpy(draw.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
+    x = normal(1, TRAIN_4K_SEQ, cut.d_model)
+    audio_parts = ()
+    if audio:       # the cross attention's encoder output, the encoder block's input
+        e = cut.encoder
+        enc, frames_x = normal(1, e.n_ctx, e.d_model), normal(1, e.n_ctx, e.d_model)
+        audio_parts = (("cross", dict(index=first, x=x, part="cross", enc=enc)),
+                       ("encoder", dict(index=0, x=frames_x, part="encoder")))
     pb, ps = TRAIN_4K_PARITY
-    src = SyntheticLM(DataConfig(vocab=cut.vocab, seq_len=ps, global_batch=pb, seed=0))
+    src = StubLM(cut, SyntheticLM(DataConfig(vocab=cut.vocab, seq_len=ps, global_batch=pb,
+                                             seed=0)))
     batch = as_batch(src.batch(0), "cpu")
     card: dict = {}
     zero_counts()
@@ -4802,6 +4932,8 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
             card["mlp"] = part_grads(cut, params, x, dev, first, "mlp")
             torch.cuda.synchronize()
     with scan_tally() as dense_scans, routes_seen() as model_routes:
+        for key, kw in audio_parts:
+            card[key] = part_grads(cut, params, dev=dev, **kw)
         card["model"] = loss_and_grads(cut, params, batch, dev)
         torch.cuda.synchronize()
     if spec.remat_check:
@@ -4821,10 +4953,11 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
     if not recompute_equal:
         fail(f"{at('a')}: the remat recompute chose other experts than the forward")
     # The layer at TRAIN_4K_SEQ: one forward of TRAIN_4K_SEQ // 512 query
-    # blocks (no remat outside LM.forward); the model: the dense route.
+    # blocks (no remat outside LM.forward); the model and whisper's parts:
+    # the dense route (the cross attention has no other).
     if layer_scans != {"calls": 1, "q_blocks": TRAIN_4K_SEQ // 512} or dense_scans["calls"]:
         fail(f"{at('a')}: the scan ran {layer_scans} for the layer, {dense_scans} for "
-             "the model")
+             "the model and the other parts")
     if spec.remat_check:
         bits = [k for k in g_dn if not torch.equal(g_dr[k], g_dn[k])]
         if bits or ce_dr != ce_dn:
@@ -4863,6 +4996,11 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
                           part_grads(cut, cpu_params, x, "cpu", first, "mlp", stepped=True,
                                      experts=mlp_experts)[1])
             out["mlp_s"] = time.perf_counter() - t
+        for key, kw in audio_parts:
+            t = time.perf_counter()
+            out[key] = (part_grads(cut, cpu_params, dev="cpu", **kw),
+                        part_grads(cut, cpu_params, dev="cpu", stepped=True, **kw)[1])
+            out[f"{key}_s"] = time.perf_counter() - t
         t = time.perf_counter()
         out["model"] = (loss_and_grads(cut, cpu_params, batch, "cpu", experts=fwd_experts),
                         loss_and_grads(cut, cpu_params, batch, "cpu", stepped=True,
@@ -4870,135 +5008,173 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str) -> di
         out["model_s"] = time.perf_counter() - t
         return out
 
-    # The CPU's runs (40-60 s at these widths) overlap (b) and (c) on the
-    # card; one of the host's cores stays with the thread that drives it.
-    threads = torch.get_num_threads()
     cpu_threads = max(1, (os.cpu_count() or 1) - 1)
-    pool = concurrent.futures.ThreadPoolExecutor(1)
-    cpu_job = pool.submit(cpu_side)
-    try:
-        # (b) and (c) with segments that grow (:func:`expandable_segments`).
-        with expandable_segments():
-            # ---- (b) full depth through the Trainer -------------------------- #
-            opt_b = AdamWConfig(lr=spec.lr, warmup_steps=2, total_steps=spec.steps)
-            step = make_train_step(full, opt_b, TrainOptions(
-                grad_dtype="bf16", microbatches=spec.microbatches, donate=spec.donate))
-            data = SyntheticLM(DataConfig(vocab=full.vocab, seq_len=TRAIN_4K_SEQ,
-                                          global_batch=TRAIN_4K_BATCH, seed=0))
+    cpu_job = lane.submit(cpu_side)
+    # (b) and (c) with segments that grow (:func:`expandable_segments`).
+    with expandable_segments():
+        # ---- (b) full depth through the Trainer -------------------------- #
+        opt_b = AdamWConfig(lr=spec.lr, warmup_steps=2, total_steps=spec.steps)
+        step = make_train_step(full, opt_b, TrainOptions(
+            grad_dtype="bf16", microbatches=spec.microbatches, donate=spec.donate))
+        data = StubLM(full, SyntheticLM(DataConfig(
+            vocab=full.vocab, seq_len=TRAIN_4K_SEQ - full.n_vision_tokens,
+            global_batch=TRAIN_4K_BATCH, seed=0)))
 
-            def init_full():
-                p = init_params(full, device=dev, seed=0)
-                return {"params": p, "opt": init_opt_state(p)}
+        def init_full():
+            p = init_params(full, device=dev, seed=0)
+            return {"params": p, "opt": init_opt_state(p)}
 
-            t0 = time.perf_counter()
-            with tempfile.TemporaryDirectory() as d:
-                trainer = Trainer(TrainerConfig(total_steps=spec.steps,
-                                                checkpoint_every=spec.steps, checkpoint_dir=d,
-                                                max_restarts=0, log_every=1),
-                                  step, data, init_full, log=log)
-                trainer.ckpt = NoCheckpoints()
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                zero_counts()
-                with scan_tally() as scans:
-                    params, opt_state = trainer.run()
-                torch.cuda.synchronize()
-                expect_counts(f"{at('b')} training at {full.n_layers} layers", {})
-                peak = torch.cuda.max_memory_allocated()
-            run_s = time.perf_counter() - t0
-            losses = [h["loss"] for h in trainer.metrics_history]
-            dts = [h["dt"] * 1e3 for h in trainer.metrics_history]
-            if len(losses) != spec.steps or not np.all(np.isfinite(losses)):
-                fail(f"{at('b')}: losses {losses}")
-            if not np.mean(losses[-2:]) <= losses[0] - TRAIN_DROP:
-                fail(f"{at('b')}: the loss fell from {losses[0]} to {losses[-2:]}, "
-                     f"not by {TRAIN_DROP}")
-            kinds = layer_kinds(full)
-            n_attn = sum(k.startswith("attn") for k in kinds)
-            blocks = n_attn * 2 * spec.microbatches * (TRAIN_4K_SEQ // 512)
-            if scans["q_blocks"] != blocks * spec.steps:
-                fail(f"{at('b')}: the scan ran {scans} in {spec.steps} steps, want {blocks} "
-                     "query blocks a step")
-            step_ms = float(np.median(dts[1:]))
-            tokens = TRAIN_4K_BATCH * TRAIN_4K_SEQ
-            rec["b"] = {"layers": full.n_layers,
-                        "params": sum(p.numel() for p in params.values()),
-                        "batch": [TRAIN_4K_BATCH, TRAIN_4K_SEQ],
-                        "microbatches": spec.microbatches, "tokens_per_step": tokens,
-                        "scan_q_blocks_per_step": scans["q_blocks"] // spec.steps,
-                        "losses": losses, "step_ms": dts, "median_step_ms_from_2": step_ms,
-                        "tokens_per_s": tokens / step_ms * 1e3,
-                        "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
-                        **profiled_step(step, params, opt_state,
-                                        as_batch(data.batch(spec.steps), dev), at("b"))}
-            if spec.donate:
-                rec["b"]["donated"] = True      # (c) serves the profiled step's update too
-            log(f"{at('b')} " + json.dumps(rec["b"]))
-            clock(f"phase {n}(b) {arch}")
-            del opt_state, trainer
-            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as d:
+            trainer = Trainer(TrainerConfig(total_steps=spec.steps,
+                                            checkpoint_every=spec.steps, checkpoint_dir=d,
+                                            max_restarts=0, log_every=1),
+                              step, data, init_full, log=log)
+            trainer.ckpt = NoCheckpoints()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with scan_tally() as scans:
+                params, opt_state = trainer.run()
+            torch.cuda.synchronize()
+            expect_counts(f"{at('b')} training at {full.n_layers} layers", {})
+            peak = torch.cuda.max_memory_allocated()
+        run_s = time.perf_counter() - t0
+        losses = [h["loss"] for h in trainer.metrics_history]
+        dts = [h["dt"] * 1e3 for h in trainer.metrics_history]
+        if len(losses) != spec.steps or not np.all(np.isfinite(losses)):
+            fail(f"{at('b')}: losses {losses}")
+        if not np.mean(losses[-2:]) <= losses[0] - TRAIN_DROP:
+            fail(f"{at('b')}: the loss fell from {losses[0]} to {losses[-2:]}, "
+                 f"not by {TRAIN_DROP}")
+        kinds = layer_kinds(full)
+        n_attn = sum(is_attn(k) for k in kinds)
+        blocks = n_attn * 2 * spec.microbatches * (TRAIN_4K_SEQ // 512)
+        if scans["q_blocks"] != blocks * spec.steps:
+            fail(f"{at('b')}: the scan ran {scans} in {spec.steps} steps, want {blocks} "
+                 "query blocks a step")
+        step_ms = float(np.median(dts[1:]))
+        tokens = TRAIN_4K_BATCH * TRAIN_4K_SEQ
+        rec["b"] = {"layers": full.n_layers,
+                    "params": sum(p.numel() for p in params.values()),
+                    "batch": [TRAIN_4K_BATCH, TRAIN_4K_SEQ],
+                    "microbatches": spec.microbatches, "tokens_per_step": tokens,
+                    "stub": {k: list(t.shape) for k, t in stub_inputs(
+                        full, np.random.default_rng(0), TRAIN_4K_BATCH).items()},
+                    "scan_q_blocks_per_step": scans["q_blocks"] // spec.steps,
+                    "losses": losses, "step_ms": dts, "median_step_ms_from_2": step_ms,
+                    "tokens_per_s": tokens / step_ms * 1e3,
+                    "max_memory_allocated_gb": peak / 1e9, "run_s": run_s,
+                    **profiled_step(step, params, opt_state,
+                                    as_batch(data.batch(spec.steps), dev), at("b"))}
+        if spec.donate:
+            rec["b"]["donated"] = True      # (c) serves the profiled step's update too
+        log(f"{at('b')} " + json.dumps(rec["b"]))
+        clock(f"phase {n}(b) {arch}")
+        del opt_state, trainer
+        torch.cuda.empty_cache()
 
-            # ---- (c) the trained weights serve through the kernels ----------- #
-            want = {k: v for k, v in (("B5", n_attn), ("B6", kinds.count("ssd")),
-                                      ("B7", kinds.count("rec"))) if v}
-            rec["c"] = trained_prefill(full, params, dev, zero_counts, expect_counts, at("c"),
-                                       want)
-            log(f"{at('c')} " + json.dumps(rec["c"]))
-            del params
+        # ---- (c) the trained weights serve through the kernels ----------- #
+        n_b5 = n_attn + (full.encoder.n_layers if audio else 0)
+        want = {k: v for k, v in (("B5", n_b5), ("B6", kinds.count("ssd")),
+                                  ("B7", kinds.count("rec"))) if v}
+        rec["c"] = trained_prefill(full, params, dev, zero_counts, expect_counts, at("c"),
+                                   want)
+        log(f"{at('c')} " + json.dumps(rec["c"]))
+        del params
+
+    def finish() -> dict:
+        """(a): the card against the CPU, once the lane has run this arch's
+        CPU side."""
         t0 = time.perf_counter()
         cpu = cpu_job.result()
         wait_s = time.perf_counter() - t0
-    finally:
-        pool.shutdown(wait=True)
-        torch.set_num_threads(threads)
+        held = [("the layer's", "layer"), ("the model's", "model")]
+        if moe:
+            held.append(("the MoE MLP's", "mlp"))
+        if audio:
+            held += [("the cross attention's", "cross"), ("the encoder block's", "encoder")]
+        readings = {}
+        for what, key in held:
+            (got, grads), ((want, base), stepped) = card[key], cpu[key]
+            if not all(bool(torch.isfinite(g.float()).all()) for g in grads.values()):
+                fail(f"{at('a')}: non-finite gradients of {what} on the card")
+            if not abs(got - want) <= CE_REL * abs(want):
+                fail(f"{at('a')}: {what} value {got} on the card vs {want} on the CPU "
+                     f"(> {CE_REL} rel)")
+            readings[key] = grad_row_readings(base, grads, base, stepped)
+            worst_row(f"{at('a')}: {what} gradient", readings[key])
 
-    # ---- (a) the card against the CPU ---------------------------------------- #
-    held = [("the layer's", "layer"), ("the model's", "model")]
-    if moe:
-        held.append(("the MoE MLP's", "mlp"))
-    readings = {}
-    for what, key in held:
-        (got, grads), ((want, base), stepped) = card[key], cpu[key]
-        if not all(bool(torch.isfinite(g.float()).all()) for g in grads.values()):
-            fail(f"{at('a')}: non-finite gradients of {what} on the card")
-        if not abs(got - want) <= CE_REL * abs(want):
-            fail(f"{at('a')}: {what} value {got} on the card vs {want} on the CPU "
-                 f"(> {CE_REL} rel)")
-        readings[key] = grad_row_readings(base, grads, base, stepped)
-        worst_row(f"{at('a')}: {what} gradient", readings[key])
-
-    def part(key: str) -> dict:
-        rd = readings[key]
-        return {"worst_leaf": max(rd, key=rd.get), "worst_row_reading": max(rd.values()),
-                "cpu_s": cpu[f"{key}_s"]}
-    (v_g, _), (v_c, _) = card["layer"], cpu["layer"][0]
-    (ce_g, _), (ce_c, _) = card["model"], cpu["model"][0]
-    rec["a"] = {"layer": {"index": first,
-                          "input": [spec.block_batch, TRAIN_4K_SEQ, cut.d_model],
-                          "scan": layer_scans, "mean_square_card": v_g,
-                          "mean_square_cpu": v_c,
-                          "rel_err": abs(v_g - v_c) / abs(v_c), **part("layer")},
-                "model": {"layers": spec.cut, "batch": [pb, ps],
-                          "ce_card": ce_g, "ce_cpu": ce_c,
-                          "ce_rel_err": abs(ce_g - ce_c) / abs(ce_c), **part("model")},
-                "bar": CE_REL, "row_bar": GRAD_ROW_SENS, "card_s": card_s}
-    if moe:
-        (m_g, _), (m_c, _) = card["mlp"], cpu["mlp"][0]
-        rec["a"]["mlp"] = {"index": first,
-                           "input": [spec.block_batch, TRAIN_4K_SEQ, cut.d_model],
-                           "value_card": m_g, "value_cpu": m_c,
-                           "rel_err": abs(m_g - m_c) / abs(m_c), "aux_weight": AUX_WEIGHT,
-                           "card_experts_fed": True, **part("mlp")}
-    if spec.remat_check:
-        rec["a"]["remat"] = remat_rec
-    # The work (a) took: the card's part and the CPU's, which ran beside
-    # (b) and (c) and was waited for wait_s after them.
-    rec["a"]["s"] = card_s + sum(cpu[f"{k}_s"] for _, k in held)
-    if n == 30:
+        def part(key: str) -> dict:
+            rd = readings[key]
+            return {"worst_leaf": max(rd, key=rd.get), "worst_row_reading": max(rd.values()),
+                    "cpu_s": cpu[f"{key}_s"]}
+        (v_g, _), (v_c, _) = card["layer"], cpu["layer"][0]
+        (ce_g, _), (ce_c, _) = card["model"], cpu["model"][0]
+        rec["a"] = {"layer": {"index": first,
+                              "input": list(x.shape),
+                              "scan": layer_scans, "mean_square_card": v_g,
+                              "mean_square_cpu": v_c,
+                              "rel_err": abs(v_g - v_c) / abs(v_c), **part("layer")},
+                    "model": {"layers": spec.cut, "batch": [pb, ps],
+                              **({"encoder_layers": spec.cut} if audio else {}),
+                              "stub": {k: list(batch[k].shape) for k in STUB_KEYS if k in batch},
+                              "stepped": ["the embedded input"] + (["frames"] if audio else []),
+                              "ce_card": ce_g, "ce_cpu": ce_c,
+                              "ce_rel_err": abs(ce_g - ce_c) / abs(ce_c), **part("model")},
+                    "bar": CE_REL, "row_bar": GRAD_ROW_SENS, "card_s": card_s}
+        if moe:
+            (m_g, _), (m_c, _) = card["mlp"], cpu["mlp"][0]
+            rec["a"]["mlp"] = {"index": first,
+                               "input": list(x.shape),
+                               "value_card": m_g, "value_cpu": m_c,
+                               "rel_err": abs(m_g - m_c) / abs(m_c), "aux_weight": AUX_WEIGHT,
+                               "card_experts_fed": True, **part("mlp")}
+        for key, kw in audio_parts:
+            (v_g, _), (v_c, _) = card[key], cpu[key][0]
+            rec["a"][key] = {"index": kw["index"],
+                             "input": list(kw["x"].shape),
+                             **({"encoder_output": list(kw["enc"].shape)} if "enc" in kw else {}),
+                             "mean_square_card": v_g, "mean_square_cpu": v_c,
+                             "rel_err": abs(v_g - v_c) / abs(v_c), **part(key)}
+        if spec.remat_check:
+            rec["a"]["remat"] = remat_rec
+        # The work (a) took: the card's part and the CPU's, which ran on the
+        # lane beside the card's later work and was waited for wait_s here.
+        rec["a"]["s"] = card_s + sum(cpu[f"{k}_s"] for _, k in held)
         rec["a"]["cpu_wait_s"] = wait_s
-    log(f"{at('a')} " + json.dumps(rec["a"]))
-    clock(f"phase {n}(a) {arch} against the CPU")
-    return rec
+        log(f"{at('a')} " + json.dumps(rec["a"]))
+        clock(f"phase {n}(a) {arch} against the CPU")
+        return rec
+
+    return finish
+
+
+def train_archs(dev, smi: str, zero_counts, expect_counts, archs) -> dict:
+    """Phases 29-31: :func:`train_arch_phase` for each of ``archs`` in
+    turn, their CPU runs on one lane (a thread with all but one of the
+    host's cores, at nice 19): an arch's CPU side runs beside the card's
+    work on it and on the next arch, and its (a) is read against the CPU
+    once that next arch's card work is done (the last arch's at the end).
+    The CPU sides (40-70 s an arch) took longer than the card's work
+    beside them, which waited 10-27 s an arch for them (PERF.md §5)."""
+    threads = torch.get_num_threads()
+    lane = concurrent.futures.ThreadPoolExecutor(1)
+    recs, pending = {}, []
+    try:
+        for arch in archs:
+            torch.cuda.empty_cache()
+            pending.append((arch, train_arch_phase(dev, smi, zero_counts, expect_counts,
+                                                   arch, lane)))
+            if len(pending) == 2:
+                done, finish = pending.pop(0)
+                recs[done] = finish()
+        for done, finish in pending:
+            recs[done] = finish()
+    finally:
+        lane.shutdown(wait=True)
+        torch.set_num_threads(threads)
+    return recs
 
 
 # ---- 25. the multi-device runtime (devices=k, pipeline_forward) -------- #
@@ -5960,11 +6136,11 @@ def main() -> None:
     mesh_only = sys.argv[1:] == ["--mesh"]
     serve_mk_only = sys.argv[1:] == ["--serve-mk"]
     registry_only = sys.argv[1:] == ["--registry"]
-    train_rg_only = sys.argv[1:] == ["--train-rg"]
-    train_reg_only = sys.argv[1:] == ["--train-registry"]
+    # One training phase alone, by its flag.
+    train_flags = {"--train-rg": 29, "--train-registry": 30, "--train-frontends": 31}
+    train_phase_only = train_flags.get(" ".join(sys.argv[1:]))
     if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only
-                                  or serve_mk_only or registry_only or train_rg_only
-                                  or train_reg_only):
+                                  or serve_mk_only or registry_only or train_phase_only):
         raise SystemExit(__doc__)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.convert import state_to_numpy
@@ -6026,17 +6202,15 @@ def main() -> None:
         libs = ("megakernel", "flash_attention", "ssd", "rglru")
     if registry_only:
         libs = ("flash_attention", "ssd", "rglru")
-    if train_rg_only:
-        libs = ("flash_attention", "rglru")
-    if train_reg_only:
-        libs = ("flash_attention",)
+    if train_phase_only:
+        libs = ("flash_attention", "rglru") if train_phase_only == 29 else ("flash_attention",)
     # Phase 16's build of B2 with the clock split and phase 17's three
     # health builds, beside the seven.
     other_defines = [(mk_kernel.CLOCK_SPLIT_DEFINE,), mk_kernel.build_defines(guards=True),
                      mk_kernel.build_defines(trace=True),
                      mk_kernel.build_defines(guards=True, trace=True)]
     one_phase = (lm_only or train_only or shard_only or mesh_only or serve_mk_only
-                 or registry_only or train_rg_only or train_reg_only)
+                 or registry_only or train_phase_only)
     if serve_mk_only:       # phase 27's guarded and guarded, traced runs
         other_defines = other_defines[1:2] + other_defines[3:]
     elif one_phase:
@@ -6065,15 +6239,12 @@ def main() -> None:
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
         return
-    if train_rg_only or train_reg_only:
-        archs = [a for a, s in TRAIN_ARCHS.items() if s.phase == (29 if train_rg_only else 30)]
-        recs = {}
-        for arch in archs:
-            torch.cuda.empty_cache()
-            recs[arch] = train_arch_phase(dev, smi, zero_counts, expect_counts, arch)
+    if train_phase_only:
+        recs = train_archs(dev, smi, zero_counts, expect_counts,
+                           [a for a, s in TRAIN_ARCHS.items() if s.phase == train_phase_only])
         log(f"total {time.perf_counter() - t_start:.1f} s")
-        print(json.dumps({"phase_29": recs[RG_ARCH]} if train_rg_only else {"phase_30": recs}),
-              flush=True)
+        print(json.dumps({"phase_29": recs[RG_ARCH]} if train_phase_only == 29
+                         else {f"phase_{train_phase_only}": recs}), flush=True)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
             flush=True)
@@ -6430,19 +6601,6 @@ def main() -> None:
         if row["name"] == "flash_attention":
             registry_launches(row, reg)
     clock("phase 28")
-    # ---- 29. recurrentgemma-2b trained on the card -------------------------- #
-    torch.cuda.empty_cache()
-    rg = train_arch_phase(dev, smi, zero_counts, expect_counts, RG_ARCH)
-    for row in lm:
-        if row["name"] in ("flash_attention", "rglru"):
-            row["trained_weights"] = {
-                "launches": rg["c"]["launches"]["B5" if row["name"] == "flash_attention"
-                                                else "B7"],
-                "launches_from": "phase 29(c): recurrentgemma-2b's weights after phase "
-                                 f"29(b)'s {TRAIN_ARCHS[RG_ARCH].steps} steps, one prefill "
-                                 "of 4 x 4096 tokens",
-                "logit_err": rg["c"]["logit_err"], "bar": rg["c"]["bar"]}
-    clock("phase 29")
     # ---- 25. the multi-device runtime ------------------------------------ #
     torch.cuda.empty_cache()
     shard = shard_phase(dev, smi, zero_counts, expect_counts)
@@ -6468,19 +6626,31 @@ def main() -> None:
                                          "layers) trained on a (data 2, model 2) mesh, "
                                          "restored in a fresh process, one prefill")
     clock("phase 26")
-    # ---- 30. granite-moe-3b-a800m and h2o-danube-3-4b trained --------------- #
-    for arch in (a for a, s in TRAIN_ARCHS.items() if s.phase == 30):
-        torch.cuda.empty_cache()
-        tr = train_arch_phase(dev, smi, zero_counts, expect_counts, arch)
+    # ---- 29-31. recurrentgemma-2b; granite-moe-3b-a800m and h2o-danube-3-4b;
+    # whisper-small and internvl2-1b trained on the card ------------------- #
+    trained = train_archs(dev, smi, zero_counts, expect_counts, list(TRAIN_ARCHS))
+    for arch, tr in trained.items():
+        n = TRAIN_ARCHS[arch].phase
         for row in lm:
-            if row["name"] == "flash_attention":
+            if arch == RG_ARCH and row["name"] in ("flash_attention", "rglru"):
+                row["trained_weights"] = {
+                    "launches": tr["c"]["launches"]["B5" if row["name"] == "flash_attention"
+                                                    else "B7"],
+                    "launches_from": "phase 29(c): recurrentgemma-2b's weights after phase "
+                                     f"29(b)'s {TRAIN_ARCHS[RG_ARCH].steps} steps, one "
+                                     "prefill of 4 x 4096 tokens",
+                    "logit_err": tr["c"]["logit_err"], "bar": tr["c"]["bar"]}
+            elif arch != RG_ARCH and row["name"] == "flash_attention":
                 row.setdefault("trained_weights_registry", {})[arch] = {
                     "launches": tr["c"]["launches"]["B5"],
-                    "launches_from": f"phase 30(c): {arch}'s weights after phase 30(b)'s "
-                                     f"{TRAIN_ARCHS[arch].steps} steps at full depth and "
-                                     "its profiled step, one prefill of 4 x 4096 tokens",
+                    **({"encoder_launches": tr["c"]["encoder_b5_launches"]}
+                       if "encoder_b5_launches" in tr["c"] else {}),
+                    "launches_from": f"phase {n}(c): {arch}'s weights after phase "
+                                     f"{n}(b)'s {TRAIN_ARCHS[arch].steps} steps at full "
+                                     "depth and its profiled step, one prefill of "
+                                     f"{LM_BATCH} x {tr['c']['padded_to']} tokens",
                     "logit_err": tr["c"]["logit_err"], "bar": tr["c"]["bar"]}
-    clock("phase 30")
+    clock("phases 29-31")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

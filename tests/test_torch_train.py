@@ -8,7 +8,9 @@ reference's on the same inputs: batches bit for bit; ``schedule`` within
 one float32 ulp plus one ulp of its cosine carried through;
 ``adamw_update`` (m and v within 1e-6 of the leaf's largest magnitude,
 bf16 params within one bf16 step, float32 params within 1e-6);
-``rglru_scan`` within B7's bar (1e-5).  ``LM.train_loss`` with its
+``rglru_scan`` within B7's bar (1e-5); ``make_train_step`` of the audio and
+vision families (stub inputs, 2 microbatches, bf16 grads) within
+``STEP_REL``.  ``LM.train_loss`` with its
 gradient for every arch of the registry is in
 ``test_torch_train_grads.py``.
 """
@@ -24,12 +26,17 @@ import torch
 from repro.data import DataConfig as RefDataConfig
 from repro.data import FileTokens as RefFileTokens
 from repro.data import SyntheticLM as RefSyntheticLM
+from repro.configs import smoke_config as ref_smoke_config
+from repro.models import init_params as ref_init_params
 from repro.models.rglru import rglru_scan as ref_rglru_scan
 from repro.optim.adamw import AdamWConfig as RefAdamWConfig
 from repro.optim.adamw import adamw_update as ref_adamw_update
+from repro.optim.adamw import init_opt_state as ref_init_opt_state
 from repro.optim.adamw import schedule as ref_schedule
+from repro.train import TrainOptions as RefTrainOptions
+from repro.train import make_train_step as ref_make_train_step
 from repro_torch.configs import smoke_config
-from repro_torch.convert import tensor_from_numpy, tensor_to_numpy
+from repro_torch.convert import lm_params_from_numpy, tensor_from_numpy, tensor_to_numpy
 from repro_torch.data import DataConfig, FileTokens, SyntheticLM
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state, schedule
@@ -45,8 +52,28 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
+# The train step's loss, ce and grad_norm against the reference's, each
+# the smallest power of two at least twice its largest sound reading
+# (loss and ce 9.1e-5, internvl2-1b's ce; grad_norm 1.49e-3, internvl2-1b's:
+# bf16 gradients summed in other orders).
+STEP_REL = {"loss": 2.0 ** -12, "ce": 2.0 ** -12, "grad_norm": 2.0 ** -8}
+
+
 def _to_dev(b):
     return {k: torch.from_numpy(v.astype(np.int64)) for k, v in b.items()}
+
+
+def _stub_inputs(cfg, n: int) -> dict:
+    """The frontend stub's inputs for n rows, bf16 from numpy seed 0:
+    whisper's frames, internvl's vision embeddings; nothing otherwise."""
+    if cfg.family == "audio":
+        key, shape = "frames", (n, cfg.encoder.n_ctx, cfg.encoder.d_model)
+    elif cfg.family == "vlm":
+        key, shape = "vision_embeds", (n, cfg.n_vision_tokens, cfg.d_model)
+    else:
+        return {}
+    return {key: tensor_from_numpy(np.random.default_rng(0).normal(size=shape)
+                                   .astype(ml_dtypes.bfloat16))}
 
 
 # ---------------------------------------------------------------------- #
@@ -78,14 +105,17 @@ def test_loss_decreases(opts):
     assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2, losses
 
 
-def test_microbatch_equivalence():
+@pytest.mark.parametrize("arch", ["granite-8b", "whisper-small", "internvl2-1b"])
+def test_microbatch_equivalence(arch):
     """Grad accumulation over 2 microbatches ~= one big batch; the step
-    leaves its inputs as they were, so both start from the same params."""
-    cfg = smoke_config("granite-8b")
+    leaves its inputs as they were, so both start from the same params.
+    whisper's frames and internvl's vision embeddings are split row for
+    row with the tokens."""
+    cfg = smoke_config(arch)
     params = init_params(cfg, device="cpu", seed=0)
     before = {k: v.clone() for k, v in params.items()}
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4))
-    batch = _to_dev(data.batch(0))
+    batch = {**_to_dev(data.batch(0)), **_stub_inputs(cfg, 4)}
     s1 = make_train_step(cfg, AdamWConfig(lr=1e-3), TrainOptions(grad_dtype="f32"))
     s2 = make_train_step(cfg, AdamWConfig(lr=1e-3),
                          TrainOptions(microbatches=2, grad_dtype="f32"))
@@ -237,6 +267,31 @@ def test_adamw_update_matches_the_reference(rng, gscale):
             assert tp[k].dtype == torch.bfloat16 and steps.max() <= 1
     for key in ("grad_norm", "lr"):
         assert abs(float(tm[key]) - float(rm[key])) <= 1e-6 * abs(float(rm[key]))
+
+
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+def test_train_step_matches_the_reference(arch):
+    """``make_train_step`` against the reference's on the same numpy
+    params and batch (4 rows with their stub inputs, 2 microbatches, bf16
+    grads): loss, ce and grad_norm each within its STEP_REL of the
+    reference's."""
+    rcfg, cfg = ref_smoke_config(arch), smoke_config(arch)
+    ref_params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4))
+    batch = {**_to_dev(data.batch(0)), **_stub_inputs(cfg, 4)}
+    np_batch = {k: tensor_to_numpy(v) if v.is_floating_point() else v.numpy().astype(np.int32)
+                for k, v in batch.items()}
+    opt = dict(lr=1e-3, warmup_steps=1, total_steps=4)
+    ref_step = ref_make_train_step(rcfg, RefAdamWConfig(**opt),
+                                   RefTrainOptions(microbatches=2, grad_dtype="bf16"))
+    _, _, want = jax.jit(ref_step)(ref_params, ref_init_opt_state(ref_params),
+                                   jax.tree.map(jnp.asarray, np_batch))
+    step = make_train_step(cfg, AdamWConfig(**opt), TrainOptions(microbatches=2))
+    params = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, ref_params))
+    _, _, got = step(params, init_opt_state(params), batch)
+    for key, bar in STEP_REL.items():
+        w = float(want[key])
+        assert abs(float(got[key]) - w) <= bar * abs(w), (key, float(got[key]), w)
 
 
 @pytest.mark.parametrize("B,L,W", [(2, 64, 32), (1, 100, 8), (3, 33, 16)])

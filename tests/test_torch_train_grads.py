@@ -20,7 +20,9 @@ smallest power of two at least twice the largest sound reading (2.47, the
 granite-moe router; ``PERF.md``); the planted faults (the head's gradient
 dropped, untied and tied, and the MoE aux weight set to 0) read 48 and
 more.  ce and aux within ``CE_REL`` and ``AUX_REL`` of the reference's,
-by the same power-of-two rule (readings 1.1e-4 and 1.06e-3).
+by the same power-of-two rule (readings 1.1e-4 and 1.06e-3).  whisper's
+encoder block and an ``xdec`` block's cross attention are also held alone,
+values and gradient rows (of their weights and their inputs) at these bars.
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ import torch
 import repro.models.lm as ref_lm
 from repro.configs import REGISTRY
 from repro.configs import smoke_config as ref_smoke_config
+from repro.models import attention as ref_att
 from repro.models import init_params as ref_init_params
+from repro.models import layers as ref_layers
 from repro.models import train_loss as ref_train_loss
 from repro_torch.configs import smoke_config
 from repro_torch.convert import lm_params_from_numpy, tensor_from_numpy
@@ -211,3 +215,95 @@ def test_planted_faults_read_above_the_bar(arch, fault, monkeypatch):
         leaf = "layers.0.mlp.router"
         _, grads = _port(arch, ref, aux_weight=0.0)
     assert _row_readings(ref, grads)[leaf] > GRAD_ROW_SENS
+
+
+# ---------------------------------------------------------------------- #
+# whisper's encoder block and an xdec block's cross attention alone.
+# ---------------------------------------------------------------------- #
+def _ref_whisper_part(cfg, part: str, params, x, enc):
+    """The reference's encoder block 0 (``encode``'s body: attention,
+    non-causal, then the GELU MLP on the residual sum; the two branches
+    added in float32) or layer 0's cross attention (``_block_apply``'s:
+    ``normx``, ``cross_kv`` of the encoder output, ``cross_attention``):
+    the mean square of its float32 output."""
+    if part == "encoder":
+        e = cfg.encoder
+        bp = jax.tree.map(lambda a: a[0], params["encoder"]["blocks"])
+        y1 = ref_att.attention(bp["attn"], ref_layers.rmsnorm(bp["norm1"], x, cfg.rms_eps),
+                               n_heads=e.n_heads, n_kv_heads=e.n_heads,
+                               head_dim=e.d_model // e.n_heads, rope_theta=cfg.rope_theta,
+                               causal=False)
+        y = y1.astype(jnp.float32) + ref_layers.gelu_mlp(
+            bp["mlp"], ref_layers.rmsnorm(bp["norm2"], x + y1, cfg.rms_eps)).astype(jnp.float32)
+    else:
+        bp = jax.tree.map(lambda a: a[0], params["groups"]["c0"])
+        xkv = ref_att.cross_kv(bp["xattn"], enc, n_heads=cfg.n_heads, head_dim=cfg.hd)
+        y = ref_att.cross_attention(bp["xattn"], ref_layers.rmsnorm(bp["normx"], x, cfg.rms_eps),
+                                    xkv, n_heads=cfg.n_heads, head_dim=cfg.hd)
+    return jnp.mean(jnp.square(y.astype(jnp.float32)))
+
+
+def _port_whisper_part(model, part: str, ins: dict):
+    """The port's part on the same inputs, as ``chip_smoke.part_grads``
+    computes it: (value, gradients by the part's parameters, named as the
+    state dict, and by its inputs)."""
+    blk = model.encoder.blocks[0] if part == "encoder" else model.layers[0]
+    pre = "encoder.blocks.0." if part == "encoder" else "layers.0."
+    x = ins["input"]
+    if part == "encoder":
+        y1 = model._enc_attn(blk, x, kernel_impl="xla")
+        y = y1.float() + model._enc_mlp(blk, x + y1).float()
+    else:
+        y = model._cross(blk, x, model._cross_kv(blk, ins["encoder_output"]))
+    value = y.float().square().mean()
+    value.backward()
+    grads = {pre + n: p.grad for n, p in blk.named_parameters() if p.grad is not None}
+    return float(value.detach()), {**grads, **{k: t.grad for k, t in ins.items()}}
+
+
+@pytest.mark.parametrize("part", ["encoder", "cross"])
+def test_whisper_encoder_block_and_cross_attention_match_the_reference(part):
+    """Each part alone on the reference's weights, at smoke size: its value
+    within CE_REL, every gradient row (the part's weights and its inputs:
+    the encoder's frames (2, n_ctx, d), or the decoder's hidden states (2,
+    32, d) and the encoder output) within GRAD_ROW_SENS times the
+    reference's own change when every input moves one bf16 step."""
+    arch = "whisper-small"
+    rcfg, cfg = ref_smoke_config(arch), smoke_config(arch)
+    params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    rng = np.random.default_rng(0)
+    e = rcfg.encoder
+    shapes = {"input": (2, e.n_ctx, e.d_model)} if part == "encoder" else \
+        {"input": (2, 32, rcfg.d_model), "encoder_output": (2, e.n_ctx, e.d_model)}
+    ins = {k: rng.normal(size=s).astype(ml_dtypes.bfloat16) for k, s in shapes.items()}
+    signs = {k: np.random.default_rng(1).choice([-1, 1], size=s).astype(np.int16)
+             for k, s in shapes.items()}
+
+    def ref_value(p, xs):
+        return _ref_whisper_part(rcfg, part, p, xs["input"], xs.get("encoder_output"))
+    vg = jax.jit(jax.value_and_grad(ref_value, argnums=(0, 1)))
+    step = {k: jax.lax.bitcast_convert_type(
+        jax.lax.bitcast_convert_type(jnp.asarray(a), jnp.int16) + signs[k], jnp.bfloat16)
+        for k, a in ins.items()}
+    want, (g_p, g_x) = vg(params, {k: jnp.asarray(a) for k, a in ins.items()})
+    _, (s_p, s_x) = vg(params, step)
+    pre = "encoder.blocks.0." if part == "encoder" else "layers.0."
+
+    def by_name(gp, gx):
+        flat = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, gp))
+        return {**{k: v for k, v in flat.items() if k.startswith(pre)
+                   and ("xattn" in k or "normx" in k or part == "encoder")},
+                **{k: tensor_from_numpy(np.asarray(v)) for k, v in gx.items()}}
+    ref = {"g": by_name(g_p, g_x), "g_step": by_name(s_p, s_x)}
+
+    model = LM(cfg, device="cpu", seed=None)
+    model.load_state_dict(lm_params_from_numpy(cfg, jax.tree.map(np.asarray, params)))
+    for p in model.parameters():
+        p.requires_grad_(True)
+    got, grads = _port_whisper_part(
+        model, part, {k: tensor_from_numpy(a).requires_grad_(True) for k, a in ins.items()})
+    assert abs(got - float(want)) <= CE_REL * abs(float(want))
+    assert grads.keys() == ref["g"].keys()
+    readings = _row_readings(ref, grads)
+    worst = max(readings, key=readings.get)
+    assert readings[worst] <= GRAD_ROW_SENS, (worst, readings[worst])
