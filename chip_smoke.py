@@ -17,6 +17,7 @@
     python3 chip_smoke.py --train-rg  # phase 29 alone (with phase 1)
     python3 chip_smoke.py --train-registry  # phase 30 alone (with phase 1)
     python3 chip_smoke.py --train-frontends  # phase 31 alone (with phase 1)
+    python3 chip_smoke.py --train-wide  # phase 32 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -338,7 +339,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     within phase 14's bar; (d) a ``phase 26 mesh {...}`` line: step walls,
     each rank's seconds in gather, compute, reduce and AdamW, the bytes it
     sends a step by collective, its peak memory.
-28. (after 24) the registry's other five models served at their
+28. (after 32) the registry's other five models served at their
     published widths (random weights from seed 0; qwen2-72b's QKV bias
     drawn, ``seeded_model``) on phase 13's traffic through the Engine:
     gemma3-12b (48 layers, 40 local with window 1024 and 8 global, 16
@@ -367,7 +368,8 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     local and global apart), each with its window in the plain version,
     SDPA's mask and the bound's live pairs, and the kernels line gives
     each shape its launches from phase 28.
-29. (after 26) recurrentgemma-2b trained on the card at train_4k's
+29. (after 24, then 30-32, before 28) recurrentgemma-2b trained on the
+    card at train_4k's
     length (4096 > ``FLASH_SCAN_THRESHOLD``, so its local-attention layers
     take the reference's blocked scan, ``_flash_scan``): (a) at full width,
     on the card and on the CPU, phase 24(a)'s bars: the first
@@ -381,15 +383,17 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     peak memory, the scan's query blocks a step and one profiled step; (c)
     (b)'s weights served: one prefill of
     phase 13's first batch through B5 (8 launches) and B7 (18), counted,
-    against the plain versions within phase 13's rule.  Phases 29-31's
+    against the plain versions within phase 13's rule.  Phases 29-32's
     (a) runs on the CPU go to one lane (a thread at nice 19) beside the
-    card's work, and each arch's (a) is read after the next arch's card
-    work (``train_archs``).
-30. (after 26) granite-moe-3b-a800m (32 layers, d 1536, 24 heads on 8 KV
+    card's work and phases 28, 25 and 26, which holds the card to the CPU
+    as each arch's ends; every arch's (a) is read after phase 26
+    (``TrainLane``).
+30. (after 29) granite-moe-3b-a800m (32 layers, d 1536, 24 heads on 8 KV
     heads of 64, 40 experts top-8 of F 512, no window: its scan recomputes
     each key block's scores under a checkpoint inside the layer remat's)
     and h2o-danube-3-4b (24 layers, d 3840, 32 on 8 heads of 120, window
-    4096) trained at their published widths and full depth, each by
+    4096) trained at their published widths and half their depth (16
+    and 12 layers; full depth in PR 32), each by
     phase 29's function and its ``TRAIN_ARCHS`` entry: (a) the first
     attention layer's mixer alone at 1 x 4096 (the scan), granite-moe's
     MoE MLP in that layer at 1 x 4096 (the card's experts fed to the CPU,
@@ -398,17 +402,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     the cut model's gradients on the card with remat on and off bit for
     bit under deterministic algorithms, each layer's recomputed experts
     its forward's; (b) 4 steps of 2 x 4096 tokens through ``Trainer`` (1
-    microbatch for granite-moe, 2 for h2o; 512 and 768 scan query blocks
+    microbatch for granite-moe, 2 for h2o; 256 and 384 scan query blocks
     a step), the loss falling by ``TRAIN_DROP``, step ms, tokens/s, peak
     memory, one profiled step; (c) the trained weights' prefill through
-    B5 (32 and 24 launches, counted) against the plain versions within
+    B5 (16 and 12 launches, counted) against the plain versions within
     phase 13's rule, granite-moe's plain runs taking the kernel run's
     experts (``LM.prefill(experts=)``).  One record per arch and part
     (``phase 30(a) <arch> {...}`` lines).
-31. (run last, after 30) whisper-small (12 decoder and 12 encoder layers,
+31. (after 30) whisper-small (12 decoder and 12 encoder layers,
     d 768, 12 heads of 64) and internvl2-1b (24 layers, d 896, 14 on 2 KV
-    heads of 64) trained at their published widths and full depth by the
-    same function: (a) the first decoder layer's mixer alone at 1 x 4096
+    heads of 64) trained at their published widths and half their depth
+    (6 decoder layers beside whisper's 12 encoder layers, and 12; full
+    depth in PR 33) by the same function: (a) the first decoder layer's
+    mixer alone at 1 x 4096
     (the scan); whisper's first cross attention alone on a 1 x 1500
     encoder output and its first encoder block alone at 1 x 1500, each
     with its inputs' gradients; the model cut to 2 layers (whisper's
@@ -417,11 +423,27 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     internvl's 256 vision embeddings before its tokens); remat on and off
     bit for bit; (b) 4 steps of train_4k's 2 x 4096 positions through
     ``Trainer`` in one microbatch (whisper's stub frames (2, 1500, 768);
-    internvl's 256 vision embeddings and 3840 tokens a row; 192 and 384
+    internvl's 256 vision embeddings and 3840 tokens a row; 96 and 192
     scan query blocks a step), the loss falling by ``TRAIN_DROP``; (c)
     the trained weights' prefill of phases 20-21's first batch with its
-    stub inputs through B5 (24 launches each: whisper's 12 inside
-    ``LM.encode``) against the plain versions within phase 13's rule.
+    stub inputs through B5 (18 launches, 12 of them inside ``LM.encode``,
+    and 12) against the plain versions within phase 13's rule.
+32. (after 31) gemma3-12b (d 3840, 16 on 8 KV heads of 240, 5 local
+    layers of window 1024 to 1 global, tied vocab 262 144) and
+    qwen2-72b (d 8192, 64 on 8 heads of 128, d_ff 29 568, QKV bias,
+    vocab 152 064) trained at their published widths and a cut depth by
+    the same function: (a) the first layer of each attention kind's mixer
+    alone (gemma3's layer 0, the windowed scan, and layer 5, the
+    unwindowed one, both at hd 240 and 1 x 4096; qwen2's layer 0 at 1 x
+    2560), the model cut to 6 and 1 layers
+    at 1 x 128 tokens (where the window of 1024 does not bind), qwen2's
+    QKV biases drawn from N(0, QKV_BIAS_STD^2) on both sides and their
+    gradient rows held to the bar; remat on and off bit for bit; (b) 4
+    steps of 2 x 4096 tokens in 2 microbatches through ``Trainer`` at 6
+    (one 5:1 group) and 1 layers, AdamW in place (192 and 32 scan query
+    blocks a step); (c) the trained weights' prefill through B5 (6
+    launches, 5 windowed and 1 global, and 1) against the plain versions
+    within phase 13's rule.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -460,14 +482,15 @@ B2, B5, B6 and B7) and prints the ``megakernel.b2.serving`` row;
 28's models (building B5, B6 and B7), and prints the ``flash_attention``
 row; ``--train-rg`` runs phases 1 and 29 (building B5 and B7) and prints
 phase 29's record before the last line; ``--train-registry`` and
-``--train-frontends`` run phases 1 and 30 or 1 and 31 (building B5) and
-print that phase's records the same way.
+``--train-frontends`` and ``--train-wide`` run phases 1 and 30, 31 or 32
+(building B5) and print that phase's records the same way.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
 import dataclasses
+import functools
 import inspect
 import json
 import os
@@ -574,8 +597,11 @@ LONG_PROMPT = 32768
 # The script's cuts for its time, each with its seconds in PERF.md §5:
 # PARITY_BATCH, PARITY_LAYERS and REGISTRY_REQUESTS above, ACTOR_LAYERS
 # here, and beside
-# their phases TRAIN_CUT and TRAIN_LAYERS (24), TRAIN_ARCHS's steps (29) and
-# the mixers' batch of 1 (29-31) and MESH_LAYERS (26).  ACTOR_LAYERS:
+# their phases TRAIN_CUT and TRAIN_LAYERS (24), TRAIN_ARCHS's steps (29),
+# its layers (30-31: half depth) and the mixers' batch of 1 (29-31),
+# qwen2-72b's mixer_seq (32) and MESH_LAYERS (26); and phases 29-32 run
+# before 28, their CPU sides on a lane beside 28, 25 and 26 (TrainLane:
+# nothing dropped).  ACTOR_LAYERS:
 # recurrentgemma-2b through the ActorEngine (phases 22, 27(a) and 25(b)) at
 # one (rec, rec, local attention) group of its 26 layers, as in its
 # parity; every decode step launches a kernel a layer from the host, so
@@ -4267,12 +4293,12 @@ def stepped_embed(model):
 
 
 def loss_and_grads(cfg, params: dict, batch: dict, dev, stepped: bool = False,
-                   remat: bool = True, experts: list = None) -> tuple:
+                   remat: bool = True, experts: list = None, keep: bool = False) -> tuple:
     """``LM.train_loss`` (``kernel_impl="xla"``, ``remat``, the MoE layers'
     ``experts``) of ``batch`` (with its stub inputs) on ``dev`` and every
-    parameter's gradient (CPU tensors); ``stepped``: with the embedded
-    input (the vision embeddings with it) and whisper's frames one bf16
-    step off."""
+    parameter's gradient (CPU tensors; with ``keep``, on ``dev``);
+    ``stepped``: with the embedded input (the vision embeddings with it)
+    and whisper's frames one bf16 step off."""
     from repro_torch.models import LM
     model = LM(cfg, device=dev, seed=None)
     model.load_state_dict(params)
@@ -4285,7 +4311,8 @@ def loss_and_grads(cfg, params: dict, batch: dict, dev, stepped: bool = False,
         total, parts = model.train_loss(batch["tokens"].to(dev), batch["labels"].to(dev),
                                         remat=remat, experts=experts, **extra)
     total.backward()
-    return float(parts["ce"].detach()), {n: p.grad.cpu() for n, p in model.named_parameters()}
+    return float(parts["ce"].detach()), {n: p.grad if keep else p.grad.cpu()
+                                         for n, p in model.named_parameters()}
 
 
 def grad_row_readings(want: dict, got: dict, base: dict, stepped: dict) -> dict:
@@ -4568,13 +4595,14 @@ def profiled_step(step, params: dict, opt_state: dict, batch: dict, label: str) 
 
 
 def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: str,
-                    want: dict = None) -> dict:
+                    want: dict = None, by_window: dict = None) -> dict:
     """Trained weights served: one prefill of phase 14's first LM_BATCH
     prompts (phase 13's for recurrentgemma-2b; the audio and vision
     families' first batch of phases 20-21's traffic, :func:`stub_traffic`,
     with its stub inputs) through the model's kernels (``want``, launches
     by kernel; B6 a layer by default; B5's inside ``LM.encode`` a layer of
-    the encoder), counted, and through the plain versions, the logits
+    the encoder; ``by_window``, B5's by window, :func:`b5_by_window`),
+    counted, and through the plain versions, the logits
     within phases 13-14's rule (LOGIT_SENS times the model's own change
     under one bf16 step at its embedded input and, for audio, its frames).
     An MoE model's plain runs take the kernel run's experts
@@ -4595,12 +4623,15 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
         toks, extra = torch.from_numpy(left_pad(prompts, LM_PROMPT)).to(dev), {}
         lens, padded = lens[:LM_BATCH], LM_PROMPT
     V = cfg.vocab
+    tally: dict = {}
     zero_counts()
-    with routes_seen() as experts, encoder_launches(model) as enc:
+    with routes_seen() as experts, encoder_launches(model) as enc, b5_by_window(tally):
         lg_k = model.prefill(toks, **extra)[0][:, :V].float()
         torch.cuda.synchronize()
     want = want or {"B6": cfg.n_layers}
     got = expect_counts(f"{label} the trained weights served", want)
+    if by_window is not None and tally != by_window:
+        fail(f"{label}: B5 launches by window {tally}, want {by_window}")
     if cfg.encoder is not None and enc[0] != cfg.encoder.n_layers:
         fail(f"{label}: {enc[0]} B5 launches in the encoder, want {cfg.encoder.n_layers}")
     fed = experts or None
@@ -4623,6 +4654,8 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
     return {"prompts": lens, "padded_to": padded,
             "launches": {k: got[k] for k in want}, **({"experts_fed": True} if fed else {}),
             **({"encoder_b5_launches": enc[0]} if cfg.encoder is not None else {}),
+            **({"b5_launches_by_window": {str(w): n for w, n in tally.items()}}
+               if by_window is not None else {}),
             **({"stub": {k: list(t.shape) for k, t in extra.items()}} if extra else {}),
             "logit_err": err.tolist(), "sensitivity": sens.tolist(),
             "bar": bar.tolist(), "max_abs_logit": mag.tolist(),
@@ -4630,7 +4663,11 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
             "top1_equal": bool(torch.equal(lg_k.argmax(-1), lg_x.argmax(-1)))}
 
 
-# ---- 29-30. registry models trained on one card at train_4k's length ------ #
+# ---- 29-32. registry models trained on one card at train_4k's length ------ #
+TRAIN_4K_BATCH, TRAIN_4K_SEQ = 2, 4096       # (b): 2 rows of train_4k a step
+TRAIN_4K_PARITY = (1, 128)                   # (a): the cut model (the CPU's time)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrainArch:
     """One arch's constants in :func:`train_arch_phase`."""
@@ -4642,38 +4679,54 @@ class TrainArch:
     lr: float             # (b)
     remat_check: bool     # (a): the cut model's gradients, remat on and off, bit for bit
     donate: bool          # (b): AdamW in place (TrainOptions.donate): one copy of the moments
+    layers: int = None    # (b) and (c): the depth trained and served (None: the published)
+    mixer_seq: int = TRAIN_4K_SEQ   # (a): the mixers' positions (above 2048: the scan)
 
 
-TRAIN_4K_BATCH, TRAIN_4K_SEQ = 2, 4096       # (b): 2 rows of train_4k a step
-TRAIN_4K_PARITY = (1, 128)                   # (a): the cut model (the CPU's time)
 RG_ARCH = "recurrentgemma-2b"
 # The one table of the trained archs.  recurrentgemma-2b: one (rec, rec,
 # local attention) group in (a); (b) 4 steps, cut from 6 for the script's
 # time, a row a microbatch (peak 65 GB; PERF.md), lr AdamWConfig's default
 # (at 1e-3 the loss rose again by step 3).  granite-moe-3b-a800m and
-# h2o-danube-3-4b: full depth, 4 steps, AdamW in place (the functional
+# h2o-danube-3-4b: 4 steps, AdamW in place (the functional
 # update holds two copies of the moments: 75 GB for granite-moe, out of
 # memory for h2o); granite-moe in one microbatch, h2o in two.  Adam's
 # first steps move every weight by about lr whatever its gradient:
 # h2o-danube-3-4b's loss rose from 11.2 to 19.0 in 4 steps at 3e-4 and
 # to 13.1 by step 3 at 1e-4, and an update of 5e-5 or more raised it, so
-# it takes 2e-5.  whisper-small and internvl2-1b (phase 31): full depth,
-# 4 steps in one microbatch, lr 3e-4, the functional AdamW (both fit one
+# it takes 2e-5.  whisper-small and internvl2-1b (phase 31): 4 steps in
+# one microbatch, lr 3e-4, the functional AdamW (both fit one
 # card with two copies of the moments: whisper's params, grads and moments
 # are 3.4 GB, internvl's 7.6 GB, the float32 logits over 2 x 4096
 # positions 1.7 and 5.0 GB); whisper's encoder is cut with its decoder in
-# (a).
+# (a).  Phases 30-31 train at half their depth (whisper-small's decoder;
+# its encoder keeps 12 layers), for the script's time: full depth in PRs
+# 32-33, whose numbers PERF.md keeps.  gemma3-12b and qwen2-72b (phase
+# 32): a cut depth, since neither fits one card whole (11.6 B and 72.7 B
+# parameters: 139 and 872 GB of bf16 params and grads and float32
+# moments).  gemma3 at 6 of 48 layers,
+# one 5:1 local:global group, so both scan branches run, in (a) and (b)
+# alike (2.33 B); qwen2 at 1 of 80 (3.37 B, 2.49 B of them its two
+# tables).  Both in 2 microbatches, AdamW in place.  Their (a) holds the
+# first layer of each attention kind; qwen2's d-8192 mixer at 2560
+# positions (5 query blocks of the scan), cut from 4096 for the script's
+# time: at 4096 its CPU side took 127 s (PERF.md).  qwen2's lr 1e-5: at
+# 1e-4 its loss rose from 13.4 to 56.0 after the first update.
 TRAIN_ARCHS = {
     "recurrentgemma-2b": TrainArch(29, cut=3, steps=4, microbatches=2,
                                    lr=3e-4, remat_check=False, donate=False),
-    "granite-moe-3b-a800m": TrainArch(30, cut=2, steps=4, microbatches=1,
-                                      lr=3e-4, remat_check=True, donate=True),
-    "h2o-danube-3-4b": TrainArch(30, cut=2, steps=4, microbatches=2,
-                                 lr=2e-5, remat_check=True, donate=True),
-    "whisper-small": TrainArch(31, cut=2, steps=4, microbatches=1,
-                               lr=3e-4, remat_check=True, donate=False),
-    "internvl2-1b": TrainArch(31, cut=2, steps=4, microbatches=1,
-                              lr=3e-4, remat_check=True, donate=False),
+    "granite-moe-3b-a800m": TrainArch(30, cut=2, steps=4, microbatches=1, lr=3e-4,
+                                      remat_check=True, donate=True, layers=16),
+    "h2o-danube-3-4b": TrainArch(30, cut=2, steps=4, microbatches=2, lr=2e-5,
+                                 remat_check=True, donate=True, layers=12),
+    "whisper-small": TrainArch(31, cut=2, steps=4, microbatches=1, lr=3e-4,
+                               remat_check=True, donate=False, layers=6),
+    "internvl2-1b": TrainArch(31, cut=2, steps=4, microbatches=1, lr=3e-4,
+                              remat_check=True, donate=False, layers=12),
+    "gemma3-12b": TrainArch(32, cut=6, steps=4, microbatches=2, lr=1e-4,
+                            remat_check=True, donate=True, layers=6),
+    "qwen2-72b": TrainArch(32, cut=1, steps=4, microbatches=2, lr=1e-5,
+                           remat_check=True, donate=True, layers=1, mixer_seq=2560),
 }
 AUX_WEIGHT = 0.01        # LM.train_loss's weight of the MoE load-balance loss
 
@@ -4825,6 +4878,29 @@ def part_grads(cfg, params: dict, x: torch.Tensor, dev, index: int, part: str = 
     return float(value.detach()), grads
 
 
+def drawn_qkv_bias(cfg, params: dict) -> dict:
+    """``params`` (a state dict) with every QKV bias leaf drawn from
+    N(0, QKV_BIAS_STD^2) by numpy (seed 1), in the leaf's type on its
+    device, as :func:`seeded_model` draws them: ``init_params`` gives
+    zeros, which hide the bias' part of the forward."""
+    if not cfg.qkv_bias:
+        return params
+    rng = np.random.default_rng(1)
+    return {k: (torch.from_numpy(QKV_BIAS_STD * rng.standard_normal(tuple(v.shape),
+                                                                     dtype=np.float32))
+                .to(device=v.device, dtype=v.dtype) if is_qkv_bias(k) else v)
+            for k, v in params.items()}
+
+
+def is_qkv_bias(name: str) -> bool:
+    return name.rsplit(".", 1)[-1] in ("bq", "bk", "bv")
+
+
+def bias_rows(rd: dict) -> dict:
+    """The QKV bias leaves' readings of ``rd`` (:func:`grad_row_readings`)."""
+    return {k: v for k, v in rd.items() if is_qkv_bias(k)}
+
+
 def worst_row(what: str, rd: dict) -> None:
     """Fails where a gradient row of ``rd`` (:func:`grad_row_readings`)
     reads over GRAD_ROW_SENS."""
@@ -4835,25 +4911,27 @@ def worst_row(what: str, rd: dict) -> None:
 
 
 def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane):
-    """Phase 29 (recurrentgemma-2b) or 30 (granite-moe-3b-a800m,
-    h2o-danube-3-4b): ``arch`` trained on the card at its published widths
+    """Phases 29-32: ``arch`` trained on the card at its published widths
     and train_4k's length, where its attention layers take the
     reference's blocked scan (``models/attention.py``'s ``_flash_scan``:
     recurrentgemma-2b's window 2048 reads 2560 of 4096 keys a block of 512
-    queries, h2o-danube-3-4b's window 4096 all of them; granite-moe's
-    layers have no window, so each key block's scores are recomputed in
-    the backward pass under ``torch.utils.checkpoint``, inside the layer
-    remat's).  Its constants are its ``TRAIN_ARCHS`` entry.  (a)'s CPU
-    runs go to ``lane`` (see :func:`train_archs`); returns ``finish()``,
-    which waits for them, holds the card to the CPU and returns the arch's
-    record.
+    queries, gemma3-12b's local window 1024 reads 1536, h2o-danube-3-4b's
+    window 4096 all of them; granite-moe's, qwen2-72b's and gemma3-12b's
+    global layers have no window, so each key block's scores are
+    recomputed in the backward pass under ``torch.utils.checkpoint``,
+    inside the layer remat's).  Its constants are its ``TRAIN_ARCHS``
+    entry.  (a)'s CPU runs go to ``lane`` (see :class:`TrainLane`), which
+    also holds the card to the CPU; returns ``finish()``, which waits for
+    them and returns the arch's record.
 
     (a) At full width, on the card and on the CPU with the same weights,
-    phase 24(a)'s bars: the first attention layer's mixer (its norm and
-    attention) alone on a 1 x TRAIN_4K_SEQ input (the scan
-    route; the mean square of its output within CE_REL, every gradient
-    row, of its weights and of its input, within GRAD_ROW_SENS times the
-    CPU's own change when the input moves one bf16 step); an MoE arch's
+    phase 24(a)'s bars: the mixer (its norm and attention) of the first
+    layer of each attention kind (gemma3-12b's local layer 0 and global
+    layer 5) alone on a 1 x ``mixer_seq`` input (the scan route; the mean
+    square of its output within CE_REL, every gradient row, of its
+    weights and of its input, within GRAD_ROW_SENS times the CPU's own
+    change when the input moves one bf16 step; qwen2-72b's QKV biases
+    drawn, :func:`drawn_qkv_bias`, and their rows among those); an MoE arch's
     MLP in that layer alone on the same input, the card's experts fed to
     the CPU (``moe_layer(gate_e=)``) for its plain and its stepped run;
     and the model cut to ``cut`` layers, one ``train_loss`` and backward
@@ -4870,7 +4948,8 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
     remat the experts of each layer's recompute equal to its forward's.
     On the CPU recurrentgemma-2b's cut model at the scan's length took 105
     s (its float32 head is 256 000 x 2560) and its whole layer at 2 x 4096
-    53 s (its MLP), so the scan is held in the mixer.  (b) At full depth
+    53 s (its MLP), so the scan is held in the mixer.  (b) At ``layers``
+    (the published depth when None; the QKV biases drawn as in (a))
     through ``Trainer``: ``steps`` steps of TRAIN_4K_BATCH x TRAIN_4K_SEQ
     tokens in ``microbatches`` microbatches, remat, bf16 grads, no
     checkpoints (:class:`NoCheckpoints`); the loss falls by TRAIN_DROP;
@@ -4878,7 +4957,8 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
     scan's query blocks a step (8 an attention layer, pass and
     microbatch), one more step profiled.  (c) (b)'s weights served: one
     prefill of phase 13's first batch through the kernels (a launch a
-    layer of each kind, counted) and through the plain versions, within
+    layer of each kind, counted, B5's by window) and through the plain
+    versions, within
     phase 13's rule (an MoE arch's plain runs take the kernel run's
     experts); whisper and internvl serve phases 20-21's first batch with
     its stub inputs (B5 a layer, and a layer of whisper's encoder)."""
@@ -4896,22 +4976,29 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
         return f"phase {n}({part}) {arch}"
 
     full = get_config(arch)
+    deep = full if spec.layers is None else dataclasses.replace(full, n_layers=spec.layers)
     audio = full.family == "audio"
     cut = dataclasses.replace(full, n_layers=spec.cut, **(
         {"encoder": dataclasses.replace(full.encoder, n_layers=spec.cut)} if audio else {}))
     moe = full.moe is not None
     rec: dict = {"card": smi, "arch": arch, "a": None}    # (a) is read after (c)
 
-    # ---- (a) on the card: the scan layer alone, its MoE MLP or whisper's
+    # ---- (a) on the card: the scan layers alone, the MoE MLP or whisper's
     # cross attention and encoder block, the cut model ------------------- #
     t0 = time.perf_counter()
-    params = init_params(cut, device=dev, seed=0)
-    first = next(i for i, k in enumerate(layer_kinds(cut)) if is_attn(k))
+    params = drawn_qkv_bias(cut, init_params(cut, device=dev, seed=0))
+    # The first layer of each attention kind: "layer" (the first of all),
+    # then e.g. gemma3-12b's "global_layer".
+    mixers: dict = {}
+    for i, k in enumerate(layer_kinds(cut)):
+        if is_attn(k) and k not in [kind for _, kind in mixers.values()]:
+            mixers["layer" if not mixers else f"{k.removeprefix('attn_')}_layer"] = (i, k)
+    first = mixers["layer"][0]
     draw = np.random.default_rng(0)
 
     def normal(*shape) -> torch.Tensor:
         return torch.from_numpy(draw.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
-    x = normal(1, TRAIN_4K_SEQ, cut.d_model)
+    x = normal(1, spec.mixer_seq, cut.d_model)
     audio_parts = ()
     if audio:       # the cross attention's encoder output, the encoder block's input
         e = cut.encoder
@@ -4924,9 +5011,11 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
     batch = as_batch(src.batch(0), "cpu")
     card: dict = {}
     zero_counts()
-    with scan_tally() as layer_scans:
-        card["layer"] = part_grads(cut, params, x, dev, first)
-        torch.cuda.synchronize()
+    layer_scans = {}
+    for key, (i, _) in mixers.items():
+        with scan_tally() as layer_scans[key]:
+            card[key] = part_grads(cut, params, x, dev, i)
+            torch.cuda.synchronize()
     if moe:
         with routes_seen() as mlp_routes:
             card["mlp"] = part_grads(cut, params, x, dev, first, "mlp")
@@ -4934,14 +5023,21 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
     with scan_tally() as dense_scans, routes_seen() as model_routes:
         for key, kw in audio_parts:
             card[key] = part_grads(cut, params, dev=dev, **kw)
-        card["model"] = loss_and_grads(cut, params, batch, dev)
+        ce_g, g_card = loss_and_grads(cut, params, batch, dev, keep=True)
         torch.cuda.synchronize()
     if spec.remat_check:
-        _, g_nr = loss_and_grads(cut, params, batch, dev, remat=False)
+        # Compared on the card, a set of gradients at a time beside the model's.
+        _, g_nr = loss_and_grads(cut, params, batch, dev, remat=False, keep=True)
+        loose = [k for k in g_nr if not torch.equal(g_card[k], g_nr[k])]
+        del g_nr
         with deterministic_algorithms():
-            ce_dr, g_dr = loss_and_grads(cut, params, batch, dev)
-            ce_dn, g_dn = loss_and_grads(cut, params, batch, dev, remat=False)
+            ce_dr, g_dr = loss_and_grads(cut, params, batch, dev, keep=True)
+            ce_dn, g_dn = loss_and_grads(cut, params, batch, dev, remat=False, keep=True)
+        bits = [k for k in g_dn if not torch.equal(g_dr[k], g_dn[k])]
+        del g_dr, g_dn
         torch.cuda.synchronize()
+    card["model"] = (ce_g, {k: v.cpu() for k, v in g_card.items()})
+    del g_card
     expect_counts(f"{at('a')} the layer's and the model's backward on the card", {})
     card_s = time.perf_counter() - t0
     n_moe = cut.n_layers if moe else 0
@@ -4952,24 +5048,22 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
                           zip(model_routes[n_moe:][::-1], fwd_experts or []))
     if not recompute_equal:
         fail(f"{at('a')}: the remat recompute chose other experts than the forward")
-    # The layer at TRAIN_4K_SEQ: one forward of TRAIN_4K_SEQ // 512 query
-    # blocks (no remat outside LM.forward); the model and whisper's parts:
-    # the dense route (the cross attention has no other).
-    if layer_scans != {"calls": 1, "q_blocks": TRAIN_4K_SEQ // 512} or dense_scans["calls"]:
-        fail(f"{at('a')}: the scan ran {layer_scans} for the layer, {dense_scans} for "
+    # Each layer at mixer_seq: one forward of mixer_seq // 512 query blocks
+    # (no remat outside LM.forward); the model and whisper's parts: the
+    # dense route (the cross attention has no other).
+    one_scan = {"calls": 1, "q_blocks": spec.mixer_seq // 512}
+    if any(t != one_scan for t in layer_scans.values()) or dense_scans["calls"]:
+        fail(f"{at('a')}: the scan ran {layer_scans} for the layers, {dense_scans} for "
              "the model and the other parts")
     if spec.remat_check:
-        bits = [k for k in g_dn if not torch.equal(g_dr[k], g_dn[k])]
         if bits or ce_dr != ce_dn:
             fail(f"{at('a')}: under deterministic algorithms remat on and off differ: "
                  f"ce {ce_dr} vs {ce_dn}, leaves {bits}")
-        loose = [k for k in g_nr if not torch.equal(card["model"][1][k], g_nr[k])]
         remat_rec = {"bit_identical": True, "deterministic_algorithms": True,
                      "bit_identical_without_deterministic_algorithms": not loose,
                      "leaves_differing_without": loose,
                      "routings_under_remat": len(model_routes),
                      "recompute_experts_equal_forward": recompute_equal if moe else None}
-        del g_nr, g_dr, g_dn
     mlp_experts = mlp_routes[0].cpu() if moe else None
     cpu_params = {k: v.cpu() for k, v in params.items()}
     del params, model_routes
@@ -4978,50 +5072,67 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
 
     def cpu_side() -> dict:
         """(a)'s CPU runs, the plain and the one-bf16-step-off run of each
-        part, with their seconds; off the main thread, beside (b) and (c)."""
+        part, and the card's part held to them; off the main thread,
+        beside the card's later work.  Returns each part's CPU value,
+        gradient-row readings and seconds, and the card's value; the
+        gradients and the CPU's params go when it ends."""
         # Its own OpenMP team, at the lowest priority: the host's cores go
         # to the thread that drives the card first (at nice 0 this thread's
         # team slowed phase 29(b)'s step by 22 %, PERF.md §6).
         os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
         torch.set_num_threads(cpu_threads)
         UNTALLIED.on = True
-        out, t = {}, time.perf_counter()
-        out["layer"] = (part_grads(cut, cpu_params, x, "cpu", first),
-                        part_grads(cut, cpu_params, x, "cpu", first, stepped=True)[1])
-        out["layer_s"] = time.perf_counter() - t
+        out = {}
+
+        def hold(what: str, key: str, run) -> None:
+            t = time.perf_counter()
+            (want, base), stepped = run(), run(stepped=True)[1]
+            cpu_s = time.perf_counter() - t
+            got, grads = card.pop(key)
+            if not all(bool(torch.isfinite(g.float()).all()) for g in grads.values()):
+                fail(f"{at('a')}: non-finite gradients of {what} on the card")
+            if not abs(got - want) <= CE_REL * abs(want):
+                fail(f"{at('a')}: {what} value {got} on the card vs {want} on the CPU "
+                     f"(> {CE_REL} rel)")
+            rd = grad_row_readings(base, grads, base, stepped)
+            worst_row(f"{at('a')}: {what} gradient", rd)
+            # A QKV bias' rows are held like any other leaf's: every bias
+            # of the part must have a gradient on both sides.
+            if cut.qkv_bias and (key in mixers or key == "model"):
+                n_bias = 3 * (cut.n_layers if key == "model" else 1)
+                if len(bias_rows(rd)) != n_bias:
+                    fail(f"{at('a')}: {what} QKV bias gradients {sorted(bias_rows(rd))}, "
+                         f"want {n_bias}")
+            out[key] = {"card": got, "cpu": want, "readings": rd, "cpu_s": cpu_s}
+
+        for key, (i, _) in mixers.items():
+            hold(f"layer {i}'s mixer", key,
+                 functools.partial(part_grads, cut, cpu_params, x, "cpu", i))
         if moe:
-            t = time.perf_counter()
-            out["mlp"] = (part_grads(cut, cpu_params, x, "cpu", first, "mlp",
-                                     experts=mlp_experts),
-                          part_grads(cut, cpu_params, x, "cpu", first, "mlp", stepped=True,
-                                     experts=mlp_experts)[1])
-            out["mlp_s"] = time.perf_counter() - t
+            hold("the MoE MLP's", "mlp", functools.partial(
+                part_grads, cut, cpu_params, x, "cpu", first, "mlp", experts=mlp_experts))
         for key, kw in audio_parts:
-            t = time.perf_counter()
-            out[key] = (part_grads(cut, cpu_params, dev="cpu", **kw),
-                        part_grads(cut, cpu_params, dev="cpu", stepped=True, **kw)[1])
-            out[f"{key}_s"] = time.perf_counter() - t
-        t = time.perf_counter()
-        out["model"] = (loss_and_grads(cut, cpu_params, batch, "cpu", experts=fwd_experts),
-                        loss_and_grads(cut, cpu_params, batch, "cpu", stepped=True,
-                                       experts=fwd_experts)[1])
-        out["model_s"] = time.perf_counter() - t
+            hold({"cross": "the cross attention's", "encoder": "the encoder block's"}[key],
+                 key, functools.partial(part_grads, cut, cpu_params, dev="cpu", **kw))
+        hold("the model's", "model", functools.partial(
+            loss_and_grads, cut, cpu_params, batch, "cpu", experts=fwd_experts))
+        cpu_params.clear()
         return out
 
     cpu_threads = max(1, (os.cpu_count() or 1) - 1)
     cpu_job = lane.submit(cpu_side)
     # (b) and (c) with segments that grow (:func:`expandable_segments`).
     with expandable_segments():
-        # ---- (b) full depth through the Trainer -------------------------- #
+        # ---- (b) at ``layers`` through the Trainer ----------------------- #
         opt_b = AdamWConfig(lr=spec.lr, warmup_steps=2, total_steps=spec.steps)
-        step = make_train_step(full, opt_b, TrainOptions(
+        step = make_train_step(deep, opt_b, TrainOptions(
             grad_dtype="bf16", microbatches=spec.microbatches, donate=spec.donate))
-        data = StubLM(full, SyntheticLM(DataConfig(
-            vocab=full.vocab, seq_len=TRAIN_4K_SEQ - full.n_vision_tokens,
+        data = StubLM(deep, SyntheticLM(DataConfig(
+            vocab=deep.vocab, seq_len=TRAIN_4K_SEQ - deep.n_vision_tokens,
             global_batch=TRAIN_4K_BATCH, seed=0)))
 
         def init_full():
-            p = init_params(full, device=dev, seed=0)
+            p = drawn_qkv_bias(deep, init_params(deep, device=dev, seed=0))
             return {"params": p, "opt": init_opt_state(p)}
 
         t0 = time.perf_counter()
@@ -5037,7 +5148,8 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
             with scan_tally() as scans:
                 params, opt_state = trainer.run()
             torch.cuda.synchronize()
-            expect_counts(f"{at('b')} training at {full.n_layers} layers", {})
+            expect_counts(f"{at('b')} training at {deep.n_layers} of {full.n_layers} layers",
+                          {})
             peak = torch.cuda.max_memory_allocated()
         run_s = time.perf_counter() - t0
         losses = [h["loss"] for h in trainer.metrics_history]
@@ -5047,7 +5159,7 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
         if not np.mean(losses[-2:]) <= losses[0] - TRAIN_DROP:
             fail(f"{at('b')}: the loss fell from {losses[0]} to {losses[-2:]}, "
                  f"not by {TRAIN_DROP}")
-        kinds = layer_kinds(full)
+        kinds = layer_kinds(deep)
         n_attn = sum(is_attn(k) for k in kinds)
         blocks = n_attn * 2 * spec.microbatches * (TRAIN_4K_SEQ // 512)
         if scans["q_blocks"] != blocks * spec.steps:
@@ -5055,12 +5167,12 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
                  "query blocks a step")
         step_ms = float(np.median(dts[1:]))
         tokens = TRAIN_4K_BATCH * TRAIN_4K_SEQ
-        rec["b"] = {"layers": full.n_layers,
-                    "params": sum(p.numel() for p in params.values()),
+        rec["b"] = {"layers": deep.n_layers, "published_layers": full.n_layers,
+                    "lr": spec.lr, "params": sum(p.numel() for p in params.values()),
                     "batch": [TRAIN_4K_BATCH, TRAIN_4K_SEQ],
                     "microbatches": spec.microbatches, "tokens_per_step": tokens,
                     "stub": {k: list(t.shape) for k, t in stub_inputs(
-                        full, np.random.default_rng(0), TRAIN_4K_BATCH).items()},
+                        deep, np.random.default_rng(0), TRAIN_4K_BATCH).items()},
                     "scan_q_blocks_per_step": scans["q_blocks"] // spec.steps,
                     "losses": losses, "step_ms": dts, "median_step_ms_from_2": step_ms,
                     "tokens_per_s": tokens / step_ms * 1e3,
@@ -5075,73 +5187,65 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
         torch.cuda.empty_cache()
 
         # ---- (c) the trained weights serve through the kernels ----------- #
-        n_b5 = n_attn + (full.encoder.n_layers if audio else 0)
-        want = {k: v for k, v in (("B5", n_b5), ("B6", kinds.count("ssd")),
+        by_window: dict = {}        # B5's launches by window: a local layer's, a global one's
+        for k in kinds:
+            if is_attn(k):
+                w = deep.swa_window if k == "attn_local" else None
+                by_window[w] = by_window.get(w, 0) + 1
+        if audio:
+            by_window[None] = by_window.get(None, 0) + deep.encoder.n_layers
+        want = {k: v for k, v in (("B5", sum(by_window.values())), ("B6", kinds.count("ssd")),
                                   ("B7", kinds.count("rec"))) if v}
-        rec["c"] = trained_prefill(full, params, dev, zero_counts, expect_counts, at("c"),
-                                   want)
+        rec["c"] = trained_prefill(deep, params, dev, zero_counts, expect_counts, at("c"),
+                                   want, by_window)
         log(f"{at('c')} " + json.dumps(rec["c"]))
         del params
 
     def finish() -> dict:
-        """(a): the card against the CPU, once the lane has run this arch's
-        CPU side."""
+        """(a)'s record, once the lane has run this arch's CPU side."""
         t0 = time.perf_counter()
         cpu = cpu_job.result()
         wait_s = time.perf_counter() - t0
-        held = [("the layer's", "layer"), ("the model's", "model")]
-        if moe:
-            held.append(("the MoE MLP's", "mlp"))
-        if audio:
-            held += [("the cross attention's", "cross"), ("the encoder block's", "encoder")]
-        readings = {}
-        for what, key in held:
-            (got, grads), ((want, base), stepped) = card[key], cpu[key]
-            if not all(bool(torch.isfinite(g.float()).all()) for g in grads.values()):
-                fail(f"{at('a')}: non-finite gradients of {what} on the card")
-            if not abs(got - want) <= CE_REL * abs(want):
-                fail(f"{at('a')}: {what} value {got} on the card vs {want} on the CPU "
-                     f"(> {CE_REL} rel)")
-            readings[key] = grad_row_readings(base, grads, base, stepped)
-            worst_row(f"{at('a')}: {what} gradient", readings[key])
 
-        def part(key: str) -> dict:
-            rd = readings[key]
-            return {"worst_leaf": max(rd, key=rd.get), "worst_row_reading": max(rd.values()),
-                    "cpu_s": cpu[f"{key}_s"]}
-        (v_g, _), (v_c, _) = card["layer"], cpu["layer"][0]
-        (ce_g, _), (ce_c, _) = card["model"], cpu["model"][0]
-        rec["a"] = {"layer": {"index": first,
-                              "input": list(x.shape),
-                              "scan": layer_scans, "mean_square_card": v_g,
-                              "mean_square_cpu": v_c,
-                              "rel_err": abs(v_g - v_c) / abs(v_c), **part("layer")},
-                    "model": {"layers": spec.cut, "batch": [pb, ps],
-                              **({"encoder_layers": spec.cut} if audio else {}),
-                              "stub": {k: list(batch[k].shape) for k in STUB_KEYS if k in batch},
-                              "stepped": ["the embedded input"] + (["frames"] if audio else []),
-                              "ce_card": ce_g, "ce_cpu": ce_c,
-                              "ce_rel_err": abs(ce_g - ce_c) / abs(ce_c), **part("model")},
-                    "bar": CE_REL, "row_bar": GRAD_ROW_SENS, "card_s": card_s}
+        def part(key: str, value: str = "mean_square") -> dict:
+            c = cpu[key]
+            rd = c["readings"]
+            return {f"{value}_card": c["card"], f"{value}_cpu": c["cpu"],
+                    "rel_err": abs(c["card"] - c["cpu"]) / abs(c["cpu"]),
+                    "worst_leaf": max(rd, key=rd.get), "worst_row_reading": max(rd.values()),
+                    **({"bias_rows": bias_rows(rd)} if cut.qkv_bias else {}),
+                    "cpu_s": c["cpu_s"]}
+        rec["a"] = {}
+        for key, (i, kind) in mixers.items():
+            rec["a"][key] = {"index": i, "kind": kind,
+                             "window": cut.swa_window if kind == "attn_local" else None,
+                             "head_dim": cut.hd, "input": list(x.shape),
+                             "scan": layer_scans[key], **part(key)}
+        model = part("model", "ce")
+        model["ce_rel_err"] = model.pop("rel_err")
+        rec["a"].update({
+            "model": {"layers": spec.cut, "batch": [pb, ps],
+                      **({"encoder_layers": spec.cut} if audio else {}),
+                      **({"window": cut.swa_window, "window_binds": cut.swa_window < ps}
+                         if cut.swa_window else {}),
+                      "stub": {k: list(batch[k].shape) for k in STUB_KEYS if k in batch},
+                      "stepped": ["the embedded input"] + (["frames"] if audio else []),
+                      **model},
+            "bar": CE_REL, "row_bar": GRAD_ROW_SENS, "card_s": card_s})
         if moe:
-            (m_g, _), (m_c, _) = card["mlp"], cpu["mlp"][0]
-            rec["a"]["mlp"] = {"index": first,
-                               "input": list(x.shape),
-                               "value_card": m_g, "value_cpu": m_c,
-                               "rel_err": abs(m_g - m_c) / abs(m_c), "aux_weight": AUX_WEIGHT,
-                               "card_experts_fed": True, **part("mlp")}
+            rec["a"]["mlp"] = {"index": first, "input": list(x.shape),
+                               **part("mlp", "value"), "aux_weight": AUX_WEIGHT,
+                               "card_experts_fed": True}
         for key, kw in audio_parts:
-            (v_g, _), (v_c, _) = card[key], cpu[key][0]
             rec["a"][key] = {"index": kw["index"],
                              "input": list(kw["x"].shape),
                              **({"encoder_output": list(kw["enc"].shape)} if "enc" in kw else {}),
-                             "mean_square_card": v_g, "mean_square_cpu": v_c,
-                             "rel_err": abs(v_g - v_c) / abs(v_c), **part(key)}
+                             **part(key)}
         if spec.remat_check:
             rec["a"]["remat"] = remat_rec
         # The work (a) took: the card's part and the CPU's, which ran on the
         # lane beside the card's later work and was waited for wait_s here.
-        rec["a"]["s"] = card_s + sum(cpu[f"{k}_s"] for _, k in held)
+        rec["a"]["s"] = card_s + sum(c["cpu_s"] for c in cpu.values())
         rec["a"]["cpu_wait_s"] = wait_s
         log(f"{at('a')} " + json.dumps(rec["a"]))
         clock(f"phase {n}(a) {arch} against the CPU")
@@ -5150,31 +5254,35 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
     return finish
 
 
-def train_archs(dev, smi: str, zero_counts, expect_counts, archs) -> dict:
-    """Phases 29-31: :func:`train_arch_phase` for each of ``archs`` in
-    turn, their CPU runs on one lane (a thread with all but one of the
-    host's cores, at nice 19): an arch's CPU side runs beside the card's
-    work on it and on the next arch, and its (a) is read against the CPU
-    once that next arch's card work is done (the last arch's at the end).
-    The CPU sides (40-70 s an arch) took longer than the card's work
-    beside them, which waited 10-27 s an arch for them (PERF.md §5)."""
-    threads = torch.get_num_threads()
-    lane = concurrent.futures.ThreadPoolExecutor(1)
-    recs, pending = {}, []
-    try:
+class TrainLane:
+    """Phases 29-32: :func:`train_arch_phase` for each arch given to
+    :meth:`run`, in turn, their CPU sides on one lane (a thread with all
+    but one of the host's cores, at nice 19) that holds the card to the
+    CPU as each ends and frees its tensors; :meth:`finish` reads every
+    arch's (a).  The CPU sides (20-115 s an arch, 358 s in all on a fast
+    host) take longer than the card's work beside them (151 s), so the
+    default run trains before phases 28, 25 and 26 and reads the lane
+    after them (PERF.md §5)."""
+
+    def __init__(self, dev, smi: str, zero_counts, expect_counts):
+        self.args = (dev, smi, zero_counts, expect_counts)
+        self.threads = torch.get_num_threads()
+        self.pool = concurrent.futures.ThreadPoolExecutor(1)
+        self.pending = []
+
+    def run(self, archs) -> None:
         for arch in archs:
             torch.cuda.empty_cache()
-            pending.append((arch, train_arch_phase(dev, smi, zero_counts, expect_counts,
-                                                   arch, lane)))
-            if len(pending) == 2:
-                done, finish = pending.pop(0)
-                recs[done] = finish()
-        for done, finish in pending:
-            recs[done] = finish()
-    finally:
-        lane.shutdown(wait=True)
-        torch.set_num_threads(threads)
-    return recs
+            self.pending.append((arch, train_arch_phase(*self.args, arch, self.pool)))
+
+    def finish(self) -> dict:
+        """Every arch's record, once the lane has run its CPU side; closes
+        the lane."""
+        try:
+            return {arch: finish() for arch, finish in self.pending}
+        finally:
+            self.pool.shutdown(wait=True)
+            torch.set_num_threads(self.threads)
 
 
 # ---- 25. the multi-device runtime (devices=k, pipeline_forward) -------- #
@@ -6137,7 +6245,8 @@ def main() -> None:
     serve_mk_only = sys.argv[1:] == ["--serve-mk"]
     registry_only = sys.argv[1:] == ["--registry"]
     # One training phase alone, by its flag.
-    train_flags = {"--train-rg": 29, "--train-registry": 30, "--train-frontends": 31}
+    train_flags = {"--train-rg": 29, "--train-registry": 30, "--train-frontends": 31,
+                   "--train-wide": 32}
     train_phase_only = train_flags.get(" ".join(sys.argv[1:]))
     if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only
                                   or serve_mk_only or registry_only or train_phase_only):
@@ -6240,8 +6349,9 @@ def main() -> None:
             flush=True)
         return
     if train_phase_only:
-        recs = train_archs(dev, smi, zero_counts, expect_counts,
-                           [a for a, s in TRAIN_ARCHS.items() if s.phase == train_phase_only])
+        lane = TrainLane(dev, smi, zero_counts, expect_counts)
+        lane.run([a for a, s in TRAIN_ARCHS.items() if s.phase == train_phase_only])
+        recs = lane.finish()
         log(f"total {time.perf_counter() - t_start:.1f} s")
         print(json.dumps({"phase_29": recs[RG_ARCH]} if train_phase_only == 29
                          else {f"phase_{train_phase_only}": recs}), flush=True)
@@ -6594,6 +6704,13 @@ def main() -> None:
     moe = moe_phase(dev, smi, zero_counts, expect_counts)
     clock("phase 18")
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
+    # ---- 29-32. recurrentgemma-2b; granite-moe-3b-a800m and h2o-danube-3-4b;
+    # whisper-small and internvl2-1b; gemma3-12b and qwen2-72b trained on the
+    # card: the card's work now, the CPU sides on the lane beside it and
+    # beside phases 28, 25 and 26, read after 26 ---------------------------- #
+    lane = TrainLane(dev, smi, zero_counts, expect_counts)
+    lane.run(list(TRAIN_ARCHS))
+    clock("phases 29-32 on the card")
     # ---- 28. the registry's other five models ------------------------------ #
     torch.cuda.empty_cache()
     reg = registry_phase(dev, smi, zero_counts, expect_counts, profile=False)
@@ -6626,9 +6743,8 @@ def main() -> None:
                                          "layers) trained on a (data 2, model 2) mesh, "
                                          "restored in a fresh process, one prefill")
     clock("phase 26")
-    # ---- 29-31. recurrentgemma-2b; granite-moe-3b-a800m and h2o-danube-3-4b;
-    # whisper-small and internvl2-1b trained on the card ------------------- #
-    trained = train_archs(dev, smi, zero_counts, expect_counts, list(TRAIN_ARCHS))
+    # ---- 29-32's (a): the card against the CPU ------------------------- #
+    trained = lane.finish()
     for arch, tr in trained.items():
         n = TRAIN_ARCHS[arch].phase
         for row in lm:
@@ -6641,16 +6757,20 @@ def main() -> None:
                                      "prefill of 4 x 4096 tokens",
                     "logit_err": tr["c"]["logit_err"], "bar": tr["c"]["bar"]}
             elif arch != RG_ARCH and row["name"] == "flash_attention":
+                b = tr["b"]
+                depth = ("full depth" if b["layers"] == b["published_layers"] else
+                         f"{b['layers']} of its {b['published_layers']} layers")
                 row.setdefault("trained_weights_registry", {})[arch] = {
                     "launches": tr["c"]["launches"]["B5"],
                     **({"encoder_launches": tr["c"]["encoder_b5_launches"]}
                        if "encoder_b5_launches" in tr["c"] else {}),
+                    "launches_by_window": tr["c"]["b5_launches_by_window"],
                     "launches_from": f"phase {n}(c): {arch}'s weights after phase "
-                                     f"{n}(b)'s {TRAIN_ARCHS[arch].steps} steps at full "
-                                     "depth and its profiled step, one prefill of "
+                                     f"{n}(b)'s {TRAIN_ARCHS[arch].steps} steps at {depth} "
+                                     "and its profiled step, one prefill of "
                                      f"{LM_BATCH} x {tr['c']['padded_to']} tokens",
                     "logit_err": tr["c"]["logit_err"], "bar": tr["c"]["bar"]}
-    clock("phases 29-31")
+    clock("phases 29-32 against the CPU")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -17,6 +17,11 @@ import torch
 
 F32 = torch.float32
 Params = Dict[str, torch.Tensor]
+# An update in place runs over each leaf in slices of at most this many
+# elements: the float32 temporaries of the update (about nine of a slice's
+# size) then stay small beside the leaf itself (a 152 064 x 8192 table
+# would need 45 GB of them at once).
+IN_PLACE_SLICE = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +84,9 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
     writes the new params, moments and count into the given tensors, leaf
     by leaf, and returns those: the same values, bit for bit, without a
     second copy of the moments alive at once (the JAX package's donated
-    buffers)."""
+    buffers).  In place, each leaf is updated in slices of at most
+    ``IN_PLACE_SLICE`` elements; every operation is elementwise, so the
+    values are the same."""
     count = state["count"] + 1
     b1, b2 = cfg.betas
     lr = schedule(cfg, count)
@@ -87,21 +94,27 @@ def adamw_update(cfg: AdamWConfig, params: Mapping[str, torch.Tensor],
         gnorm = global_norm(grads[k] for k in params)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     cf = count.to(F32)
-    new_p, new_m, new_v = {}, {}, {}
-    for k, p in params.items():
-        g = grads[k].to(F32) * scale
-        m = b1 * state["m"][k] + (1 - b1) * g
-        v = b2 * state["v"][k] + (1 - b2) * g * g
+
+    def update(p, g, m, v):
+        g = g.to(F32) * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
         mhat = m / (1 - b1 ** cf)
         vhat = v / (1 - b2 ** cf)
         step_ = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
-        new_p[k] = (p.to(F32) - lr * step_).to(p.dtype)
-        new_m[k], new_v[k] = m, v
-        if in_place:
-            new_p[k] = p.copy_(new_p[k])
-            new_m[k] = state["m"][k].copy_(m)
-            new_v[k] = state["v"][k].copy_(v)
-            del m, v
+        return (p.to(F32) - lr * step_).to(p.dtype), m, v
+
+    new_p, new_m, new_v = {}, {}, {}
+    for k, p in params.items():
+        m, v = state["m"][k], state["v"][k]
+        if not in_place:
+            new_p[k], new_m[k], new_v[k] = update(p, grads[k], m, v)
+            continue
+        for piece in zip(*(t.view(-1).split(IN_PLACE_SLICE)
+                           for t in (p, grads[k].reshape(-1), m, v))):
+            for dst, val in zip(piece[:1] + piece[2:], update(*piece)):
+                dst.copy_(val)
+        new_p[k], new_m[k], new_v[k] = p, m, v
     if in_place:
         count = state["count"].copy_(count)
     return new_p, {"m": new_m, "v": new_v, "count": count}, {"grad_norm": gnorm, "lr": lr}

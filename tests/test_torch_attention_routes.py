@@ -17,8 +17,10 @@ product) standing in for the dense route, reads many steps over it.
 
 The whole model at more than 2048 positions (recurrentgemma-2b's smoke
 config cut to its first (rec, rec, local attention) group,
-h2o-danube-3-4b's, and granite-moe-3b-a800m's, whose unwindowed scan runs
-inside the layer remat beside MoE layers, batch 1 x 2304): ``LM.train_loss``
+h2o-danube-3-4b's, granite-moe-3b-a800m's, whose unwindowed scan runs
+inside the layer remat beside MoE layers, gemma3-12b's grown to its first
+5:1 group of local and global layers, and qwen2-72b's with its QKV biases
+drawn, batch 1 x 2304): ``LM.train_loss``
 and its gradient against the reference's ``train_loss`` under
 ``tests/test_torch_train_grads.py``'s rule (the MoE layers fed the
 reference's experts, its stepped run pinned to them).  ``kernel_impl="flash_scan"``
@@ -58,6 +60,7 @@ from repro_torch.models import attention as att
 from repro_torch.optim import AdamWConfig, init_opt_state
 from repro_torch.train import TrainOptions, make_train_step
 from test_torch_lm import TOL, close, load, np_tree
+from test_torch_registry import _with_bias
 from test_torch_train_grads import (AUX_REL, CE_REL, GRAD_ROW_SENS, _np_batch,
                                     _row_readings, _stepped_embed, pinned_top_k)
 
@@ -116,20 +119,28 @@ def test_flash_scan_matches_the_reference(B, S, H, Hkv, causal, window, block):
     assert steps_over(got, np.asarray(want)) <= 1.0
 
 
-@pytest.mark.parametrize("B,S,H,Hkv,causal,window,block", [
-    (2, 256, 4, 2, True, None, 64),
-    (2, 256, 4, 2, False, None, 64),
-    (2, 256, 4, 2, True, 64, 64),
-    (1, LONG, 4, 1, True, None, 512),          # bq = bk = 384
+def _case(*args, hd: int = 32):
+    """A case of the scan's gradient test, its id without the default head
+    dim (the ids its cases had before the head dim was a column)."""
+    return pytest.param(*args, hd, id="-".join(map(str, args + ((hd,) if hd != 32 else ()))))
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,causal,window,block,hd", [
+    _case(2, 256, 4, 2, True, None, 64),
+    _case(2, 256, 4, 2, False, None, 64),
+    _case(2, 256, 4, 2, True, 64, 64),
+    _case(1, LONG, 4, 1, True, None, 512),     # bq = bk = 384
+    _case(1, 2560, 2, 1, True, 1024, 512, hd=240),  # gemma3-12b's local layers: span 1536
 ])
-def test_flash_scan_gradient_matches_the_reference(B, S, H, Hkv, causal, window, block):
+def test_flash_scan_gradient_matches_the_reference(B, S, H, Hkv, causal, window, block, hd):
     """q's, k's and v's gradients of a fixed weighting of the output (the
     unwindowed branch recomputes its key blocks' scores in the backward
     pass) against ``jax.grad`` of the reference's scan, every element
-    within one bf16 step."""
+    within one bf16 step; the windowed branch also at gemma3-12b's window
+    and head dim (1024, 240: not a power of two)."""
     rng = np.random.default_rng(S + H + (window or 0) + 1)
-    q, k, v = bf16(rng, (B, S, H, 32)), bf16(rng, (B, S, Hkv, 32)), bf16(rng, (B, S, Hkv, 32))
-    w = rng.normal(size=(B, S, H, 32)).astype(np.float32)
+    q, k, v = bf16(rng, (B, S, H, hd)), bf16(rng, (B, S, Hkv, hd)), bf16(rng, (B, S, Hkv, hd))
+    w = rng.normal(size=(B, S, H, hd)).astype(np.float32)
 
     def loss(q, k, v):
         o = ref_att._flash_scan(q, k, v, causal=causal, window=window, bq=block, bk=block)
@@ -233,20 +244,32 @@ def test_routes_by_length_and_impl(monkeypatch):
 # ---------------------------------------------------------------------- #
 # The whole model above the threshold: train_loss and its gradient.
 # ---------------------------------------------------------------------- #
+# Depths other than the smoke config's: recurrentgemma-2b cut to its first
+# group of layers (rec, rec, local attention), for the reference's compile
+# time; gemma3-12b's 4 local layers grown to its first 5:1 group, so its
+# global layer 5 (the unwindowed scan) runs beside the windowed ones;
+# qwen2-72b's cut to one layer, as the smoke script trains it (its 16
+# query heads' unwindowed scan took 48 s a model of 4 on one core).
+LONG_LAYERS = {"recurrentgemma-2b": 3, "gemma3-12b": 6, "qwen2-72b": 1}
+
+
 def _long_config(smoke, arch: str):
-    """``smoke(arch)``; recurrentgemma-2b's cut to its first group of
-    layers (rec, rec, local attention), for the reference's compile time."""
+    """``smoke(arch)`` at its ``LONG_LAYERS`` depth."""
     cfg = smoke(arch)
-    return dataclasses.replace(cfg, n_layers=3) if arch == "recurrentgemma-2b" else cfg
+    return dataclasses.replace(cfg, n_layers=LONG_LAYERS.get(arch, cfg.n_layers))
 
 
 def _reference_long(arch: str):
     """The reference's params, batch (1 x LONG), ce, aux and gradient, and
     its gradient with the embedded input one bf16 step off (by the port's
     names); an MoE arch's routing is recorded, pinned for the stepped run
-    (``pinned_top_k``, on the unrolled model) and returned as "gates"."""
+    (``pinned_top_k``, on the unrolled model) and returned as "gates".
+    QKV biases are drawn non-zero (both packages initialise them to 0,
+    which hides their part of the forward)."""
     cfg = _long_config(ref_smoke_config, arch)
     params = ref_params(jax.random.PRNGKey(0), cfg)
+    if cfg.qkv_bias:
+        params = _with_bias(params, 100)
     batch = _np_batch(cfg, np.random.default_rng(0), B=1, S=LONG)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     orig = ref_lm.embed_lookup
@@ -275,7 +298,7 @@ def _reference_long(arch: str):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "h2o-danube-3-4b",
-                                  "granite-moe-3b-a800m"])
+                                  "granite-moe-3b-a800m", "gemma3-12b", "qwen2-72b"])
 def test_train_loss_and_gradients_above_the_threshold(arch):
     ref = _reference_long(arch)
     model = LM(_long_config(smoke_config, arch), device="cpu", seed=None)

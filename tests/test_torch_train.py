@@ -40,7 +40,9 @@ from repro_torch.convert import lm_params_from_numpy, tensor_from_numpy, tensor_
 from repro_torch.data import DataConfig, FileTokens, SyntheticLM
 from repro_torch.kernels.rglru import rglru_scan
 from repro_torch.optim import AdamWConfig, adamw_update, init_opt_state, schedule
+from repro_torch.optim import adamw as adamw_mod
 from repro_torch.train import TrainOptions, init_params, make_train_step
+from test_torch_registry import _with_bias
 
 @pytest.fixture(autouse=True, scope="module")
 def _one_thread():
@@ -193,6 +195,38 @@ def test_donated_step_equals_the_functional_step():
     assert all(torch.equal(mf[k], md[k]) for k in mf)
 
 
+def test_in_place_update_in_slices_equals_the_functional_update(rng, monkeypatch):
+    """``adamw_update(in_place=True)`` runs over each leaf in slices of
+    ``IN_PLACE_SLICE`` elements; at 7 a slice (slices that cross rows, a
+    leaf shorter than one, a 0-d leaf) its params, moments and count are
+    the functional update's bit for bit, written into the given tensors."""
+    monkeypatch.setattr(adamw_mod, "IN_PLACE_SLICE", 7)
+    shapes = {"a": ((8, 16), ml_dtypes.bfloat16), "b": ((5,), np.float32),
+              "c": ((), np.float32), "d": ((3, 4), ml_dtypes.bfloat16)}
+    T = lambda a: tensor_from_numpy(np.asarray(a))  # noqa: E731
+    params = {k: rng.normal(size=s).astype(t) for k, (s, t) in shapes.items()}
+    grads = {k: rng.normal(size=s).astype(ml_dtypes.bfloat16) for k, (s, _) in shapes.items()}
+    m = {k: (rng.normal(size=s) * 0.01).astype(np.float32) for k, (s, _) in shapes.items()}
+    v = {k: (rng.uniform(size=s) * 1e-4).astype(np.float32) for k, (s, _) in shapes.items()}
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10, weight_decay=0.1)
+
+    def run(in_place):
+        state = {"m": {k: T(a) for k, a in m.items()}, "v": {k: T(a) for k, a in v.items()},
+                 "count": torch.tensor(3, dtype=torch.int32)}
+        given = {k: T(a) for k, a in params.items()}
+        out = adamw_update(cfg, given, {k: T(a) for k, a in grads.items()}, state,
+                           in_place=in_place)
+        return given, state, out
+    _, _, (fp, fs, fm) = run(False)
+    given, state, (ip, is_, im) = run(True)
+    for k in shapes:
+        assert ip[k] is given[k] and is_["m"][k] is state["m"][k] and is_["v"][k] is state["v"][k]
+        assert torch.equal(ip[k], fp[k]) and ip[k].dtype == fp[k].dtype, k
+        assert torch.equal(is_["m"][k], fs["m"][k]) and torch.equal(is_["v"][k], fs["v"][k]), k
+    assert int(is_["count"]) == int(fs["count"]) == 4
+    assert all(torch.equal(fm[key], im[key]) for key in fm)
+
+
 # ---------------------------------------------------------------------- #
 # Values against the reference's.
 # ---------------------------------------------------------------------- #
@@ -269,14 +303,17 @@ def test_adamw_update_matches_the_reference(rng, gscale):
         assert abs(float(tm[key]) - float(rm[key])) <= 1e-6 * abs(float(rm[key]))
 
 
-@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["whisper-small", "internvl2-1b", "gemma3-12b", "qwen2-72b"])
 def test_train_step_matches_the_reference(arch):
     """``make_train_step`` against the reference's on the same numpy
     params and batch (4 rows with their stub inputs, 2 microbatches, bf16
     grads): loss, ce and grad_norm each within its STEP_REL of the
-    reference's."""
+    reference's.  gemma3-12b: the tied head and gemma scaling; qwen2-72b:
+    its QKV biases drawn non-zero (both packages initialise them to 0)."""
     rcfg, cfg = ref_smoke_config(arch), smoke_config(arch)
     ref_params = ref_init_params(jax.random.PRNGKey(0), rcfg)
+    if cfg.qkv_bias:
+        ref_params = _with_bias(ref_params, 100)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16, global_batch=4))
     batch = {**_to_dev(data.batch(0)), **_stub_inputs(cfg, 4)}
     np_batch = {k: tensor_to_numpy(v) if v.is_floating_point() else v.numpy().astype(np.int32)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -46,6 +47,7 @@ from repro.models import train_loss as ref_train_loss
 from repro_torch.configs import smoke_config
 from repro_torch.convert import lm_params_from_numpy, tensor_from_numpy
 from repro_torch.models import LM
+from repro_torch.models import attention as att_mod
 from repro_torch.models import lm as lm_mod
 
 ARCHS = sorted(REGISTRY)
@@ -200,13 +202,21 @@ def test_train_loss_and_gradients_match_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch,fault", [("granite-8b", "head"), ("recurrentgemma-2b", "head"),
-                                        ("olmoe-1b-7b", "aux")])
+                                        ("olmoe-1b-7b", "aux"), ("qwen2-72b", "bias")])
 def test_planted_faults_read_above_the_bar(arch, fault, monkeypatch):
     """The head's gradient dropped (the cached, detached table; tied in
-    recurrentgemma-2b, where only the unembedding half goes) and the MoE
-    load-balance loss left out must break the gradient bar."""
+    recurrentgemma-2b, where only the unembedding half goes), the MoE
+    load-balance loss left out and the QKV bias detached in the
+    projection must break the gradient bar."""
     ref = _reference(arch)
-    if fault == "head":
+    if fault == "bias":
+        project = att_mod._project_qkv
+        monkeypatch.setattr(att_mod, "_project_qkv", lambda p, *a: project(
+            types.SimpleNamespace(wq=p.wq, wk=p.wk, wv=p.wv, bq=p.bq.detach(),
+                                  bk=p.bk.detach(), bv=p.bv.detach()), *a))
+        leaf = "layers.0.attn.bk"
+        _, grads = _port(arch, ref)
+    elif fault == "head":
         monkeypatch.setattr(lm_mod.LM, "head_f32", lambda self: (
             self.embed if self.cfg.tie_embeddings else self.lm_head).w.detach().float())
         leaf = "embed.w" if smoke_config(arch).tie_embeddings else "lm_head.w"
