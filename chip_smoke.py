@@ -18,6 +18,7 @@
     python3 chip_smoke.py --train-registry  # phase 30 alone (with phase 1)
     python3 chip_smoke.py --train-frontends  # phase 31 alone (with phase 1)
     python3 chip_smoke.py --train-wide  # phase 32 alone (with phase 1)
+    python3 chip_smoke.py --train-last  # phase 33 alone (with phase 1)
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
 ``sm_90a``, one ``nvcc`` per library, all seven started together:
@@ -319,8 +320,15 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     phase 22's turns (a ``phase 27(a) ...`` line).  (b, inside phase 23(c))
     mamba2-780m's 4-stage network in megakernel mode, unspecialized: 17 B2
     launches (one a stage firing, plus one), 192 B6 calls, activations bit
-    for bit the static run's; walls in turns with the static run, 3 each (a
-    ``phase 27(b) ...`` line).  The kernels line's
+    for bit the static run's; then B2's ``MK_GUARDS`` build on its bf16
+    channels, as the reference runs the network guarded: 17 launches of
+    that build, every state bit, count and sweep the unguarded run's, its
+    diagnostics dynamic mode's with guards, and a NaN planted in one
+    embedded position of microbatch 1 NONFINITE on the channels dynamic
+    mode names; walls in turns with the static run, 5 each, and B2's
+    launches timed by CUDA events in each build, beside a bound from the
+    bytes of the windows each build reads and writes (a ``phase 27(b)
+    ...`` line).  The kernels line's
     ``megakernel.b2.serving`` row carries both.
 26. (after 25) training over a mesh (ROADMAP A13b): mamba2-780m at full
     width, its depth cut to MESH_LAYERS (6 of 48) for the run's time, on
@@ -368,12 +376,13 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     local and global apart), each with its window in the plain version,
     SDPA's mask and the bound's live pairs, and the kernels line gives
     each shape its launches from phase 28.
-29. (after 24, then 30-32, before 28) recurrentgemma-2b trained on the
+29. (after 24, then 30-33, before 28) recurrentgemma-2b trained on the
     card at train_4k's
     length (4096 > ``FLASH_SCAN_THRESHOLD``, so its local-attention layers
     take the reference's blocked scan, ``_flash_scan``): (a) at full width,
     on the card and on the CPU, phase 24(a)'s bars: the first
-    local-attention layer's norm and attention alone on 1 x 4096 positions
+    local-attention layer's norm and attention alone on 1 x ``MIXER_SEQ``
+    = 2560 positions
     (the scan), its gradient by its weights and its input, and the model
     cut to one (rec, rec, local attention) group, one ``train_loss`` and
     backward of 1 x 128 tokens (the dense route); (b) all 26 layers through
@@ -383,7 +392,7 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     peak memory, the scan's query blocks a step and one profiled step; (c)
     (b)'s weights served: one prefill of
     phase 13's first batch through B5 (8 launches) and B7 (18), counted,
-    against the plain versions within phase 13's rule.  Phases 29-32's
+    against the plain versions within phase 13's rule.  Phases 29-33's
     (a) runs on the CPU go to one lane (a thread at nice 19) beside the
     card's work and phases 28, 25 and 26, which holds the card to the CPU
     as each arch's ends; every arch's (a) is read after phase 26
@@ -392,29 +401,29 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     heads of 64, 40 experts top-8 of F 512, no window: its scan recomputes
     each key block's scores under a checkpoint inside the layer remat's)
     and h2o-danube-3-4b (24 layers, d 3840, 32 on 8 heads of 120, window
-    4096) trained at their published widths and half their depth (16
-    and 12 layers; full depth in PR 32), each by
+    4096) trained at their published widths and a quarter of their
+    depth (8 and 6 layers, for the script's time), each by
     phase 29's function and its ``TRAIN_ARCHS`` entry: (a) the first
-    attention layer's mixer alone at 1 x 4096 (the scan), granite-moe's
-    MoE MLP in that layer at 1 x 4096 (the card's experts fed to the CPU,
+    attention layer's mixer alone at 1 x 2560 (the scan), granite-moe's
+    MoE MLP in that layer at 1 x 2560 (the card's experts fed to the CPU,
     ``moe_layer(gate_e=)``), the model cut to 2 layers at 1 x 128 (the
     card's experts fed by ``train_loss(experts=)``), phase 24(a)'s bars;
     the cut model's gradients on the card with remat on and off bit for
     bit under deterministic algorithms, each layer's recomputed experts
     its forward's; (b) 4 steps of 2 x 4096 tokens through ``Trainer`` (1
-    microbatch for granite-moe, 2 for h2o; 256 and 384 scan query blocks
+    microbatch for granite-moe, 2 for h2o; 128 and 192 scan query blocks
     a step), the loss falling by ``TRAIN_DROP``, step ms, tokens/s, peak
     memory, one profiled step; (c) the trained weights' prefill through
-    B5 (16 and 12 launches, counted) against the plain versions within
+    B5 (8 and 6 launches, counted) against the plain versions within
     phase 13's rule, granite-moe's plain runs taking the kernel run's
     experts (``LM.prefill(experts=)``).  One record per arch and part
     (``phase 30(a) <arch> {...}`` lines).
 31. (after 30) whisper-small (12 decoder and 12 encoder layers,
     d 768, 12 heads of 64) and internvl2-1b (24 layers, d 896, 14 on 2 KV
-    heads of 64) trained at their published widths and half their depth
-    (6 decoder layers beside whisper's 12 encoder layers, and 12; full
-    depth in PR 33) by the same function: (a) the first decoder layer's
-    mixer alone at 1 x 4096
+    heads of 64) trained at their published widths and a quarter of their
+    depth (3 decoder layers beside whisper's 12 encoder layers, and 6; for
+    the script's time) by the same function: (a) the first decoder layer's
+    mixer alone at 1 x 2560
     (the scan); whisper's first cross attention alone on a 1 x 1500
     encoder output and its first encoder block alone at 1 x 1500, each
     with its inputs' gradients; the model cut to 2 layers (whisper's
@@ -423,19 +432,19 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     internvl's 256 vision embeddings before its tokens); remat on and off
     bit for bit; (b) 4 steps of train_4k's 2 x 4096 positions through
     ``Trainer`` in one microbatch (whisper's stub frames (2, 1500, 768);
-    internvl's 256 vision embeddings and 3840 tokens a row; 96 and 192
+    internvl's 256 vision embeddings and 3840 tokens a row; 48 and 96
     scan query blocks a step), the loss falling by ``TRAIN_DROP``; (c)
     the trained weights' prefill of phases 20-21's first batch with its
-    stub inputs through B5 (18 launches, 12 of them inside ``LM.encode``,
-    and 12) against the plain versions within phase 13's rule.
+    stub inputs through B5 (15 launches, 12 of them inside ``LM.encode``,
+    and 6) against the plain versions within phase 13's rule.
 32. (after 31) gemma3-12b (d 3840, 16 on 8 KV heads of 240, 5 local
     layers of window 1024 to 1 global, tied vocab 262 144) and
     qwen2-72b (d 8192, 64 on 8 heads of 128, d_ff 29 568, QKV bias,
     vocab 152 064) trained at their published widths and a cut depth by
     the same function: (a) the first layer of each attention kind's mixer
     alone (gemma3's layer 0, the windowed scan, and layer 5, the
-    unwindowed one, both at hd 240 and 1 x 4096; qwen2's layer 0 at 1 x
-    2560), the model cut to 6 and 1 layers
+    unwindowed one, both at hd 240; qwen2's layer 0; all at 1 x 2560),
+    the model cut to 6 and 1 layers
     at 1 x 128 tokens (where the window of 1024 does not bind), qwen2's
     QKV biases drawn from N(0, QKV_BIAS_STD^2) on both sides and their
     gradient rows held to the bar; remat on and off bit for bit; (b) 4
@@ -444,6 +453,18 @@ Builds the port's CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
     blocks a step); (c) the trained weights' prefill through B5 (6
     launches, 5 windowed and 1 global, and 1) against the plain versions
     within phase 13's rule.
+33. (after 32) granite-8b (d 4096, 32 on 8 KV heads of 128, d_ff 14 336,
+    untied vocab 49 152) and olmoe-1b-7b (d 2048, 16 on 16 heads of 128,
+    64 experts top-8 of F 1024) trained at their published widths and a
+    cut depth by the same function, the last two archs of the registry:
+    (a) the first layer's mixer alone at 1 x 2560 (the unwindowed scan;
+    olmoe's at G = 1), olmoe's MoE MLP in that layer (the card's experts
+    fed to the CPU), the model cut to 1 and 2 layers at 1 x 128; remat on
+    and off bit for bit; (b) 4 steps of 2 x 4096 tokens through
+    ``Trainer`` at 16 of 36 and 8 of 16 layers (2 and 1 microbatches,
+    AdamW in place; 512 and 128 scan query blocks a step); (c) the trained
+    weights' prefill through B5 (16 and 8 launches) within phase 13's
+    rule, olmoe's plain runs taking the kernel run's experts.
 
 Every launch count is set to 0 just before each path is driven and read
 just after; launches made to compare a kernel with its plain version or
@@ -598,10 +619,12 @@ LONG_PROMPT = 32768
 # PARITY_BATCH, PARITY_LAYERS and REGISTRY_REQUESTS above, ACTOR_LAYERS
 # here, and beside
 # their phases TRAIN_CUT and TRAIN_LAYERS (24), TRAIN_ARCHS's steps (29),
-# its layers (30-31: half depth) and the mixers' batch of 1 (29-31),
-# qwen2-72b's mixer_seq (32) and MESH_LAYERS (26); and phases 29-32 run
-# before 28, their CPU sides on a lane beside 28, 25 and 26 (TrainLane:
-# nothing dropped).  ACTOR_LAYERS:
+# its layers (30-31: a quarter of their depth; 32-33: the depth one card
+# holds, gemma3-12b 6 of 48, qwen2-72b 1 of 80, granite-8b 16 of 36,
+# olmoe-1b-7b 8 of 16, reckoned in PERF.md), the mixers' batch of 1
+# (29-33) and MIXER_SEQ (29-33: 2560 of train_4k's 4096 positions) and
+# MESH_LAYERS (26); and phases 29-33 run before 28, their CPU sides on a
+# lane beside 28, 25 and 26 (TrainLane: nothing dropped).  ACTOR_LAYERS:
 # recurrentgemma-2b through the ActorEngine (phases 22, 27(a) and 25(b)) at
 # one (rec, rec, local attention) group of its 26 layers, as in its
 # parity; every decode step launches a kernel a layer from the host, so
@@ -3322,6 +3345,8 @@ def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
     ``pipeline_forward_reference`` and to ``LM.forward`` at batch 4."""
     import shutil
     import tempfile
+    from repro_torch.core import NetworkFaultError
+    from repro_torch.core.megakernel import megakernel_cuda
     from repro_torch.core.pipeline import pipeline_reference
     from repro_torch.graphs.lm_pipeline import (build_lm_stage_network, make_stage_fn,
                                                 pipeline_forward_reference,
@@ -3368,25 +3393,86 @@ def lm_stage_phase(model, smi: str, zero_counts, expect_counts) -> dict:
     t_phase = time.perf_counter()
     mk_prog = net.compile(mode="megakernel", specialize=False)
     n_b2 = LM_STAGES * LM_MICRO + 1
-    mk_y, wall_mk = counted("phase 27 LM stage network, megakernel",
-                            lambda: mk_prog.collect("sink", mk_prog.run().state),
-                            per_stream, b2=n_b2)
+    mk_res, wall_mk = counted("phase 27 LM stage network, megakernel", mk_prog.run,
+                              per_stream, b2=n_b2)
+    mk_y = mk_prog.collect("sink", mk_res.state)
     if not torch.equal(mk_y, static):
         fail("phase 27 LM stages: the megakernel run's activations differ from the "
              "static run's")
-    mk_walls = {"megakernel": [], "static": []}
-    for _ in range(3):
-        for label, p in (("megakernel", mk_prog), ("static", full)):
+    # The guarded build (MK_GUARDS) on these bf16 channels, as the reference
+    # runs the network: bit for bit the unguarded run, its diagnostics
+    # dynamic mode's with guards; then a NaN planted in one embedded
+    # position of microbatch 1 is NONFINITE on the channels dynamic mode
+    # names.
+    g_prog = net.compile(mode="megakernel", specialize=False, guards=True)
+    g_res, wall_g = counted("phase 27 LM stage network, megakernel guarded", g_prog.run,
+                            per_stream, b2=n_b2)
+    if megakernel_cuda.build_launches != {"guards": n_b2}:
+        fail(f"phase 27 guarded: B2 launches by build {megakernel_cuda.build_launches}")
+    if (state_bits(g_res.state) != state_bits(mk_res.state)
+            or (g_res.fire_counts, g_res.sweeps) != (mk_res.fire_counts, mk_res.sweeps)):
+        fail("phase 27 LM stages: the guarded megakernel run differs from the unguarded one")
+    dyn_g = net.compile(mode="dynamic", guards=True)
+    dyn_res, _ = counted("phase 27 LM stage network, dynamic guarded", dyn_g.run, per_stream)
+    if not g_res.diagnostics.ok or diag_key(g_res.diagnostics) != diag_key(dyn_res.diagnostics):
+        fail(f"phase 27 guarded: {g_res.diagnostics} vs dynamic mode's {dyn_res.diagnostics}")
+    del mk_res, dyn_res
+
+    def planted(prog):
+        st = net.init_state().clone()
+        st.actor("source")[0][1, 3, 5] = float("nan")
+        try:
+            prog.run(st, in_place=True)
+        except NetworkFaultError as exc:
+            return exc.diagnostics
+        fail("phase 27 guarded: the planted NaN raised no fault")
+    nan_mk, _ = counted("phase 27 planted NaN, megakernel guarded",
+                        lambda: planted(g_prog), per_stream, b2=n_b2)
+    nan_dyn, _ = counted("phase 27 planted NaN, dynamic guarded",
+                         lambda: planted(dyn_g), per_stream)
+    flagged = {f.fifo: list(f.faults) for f in nan_mk.faults}
+    if diag_key(nan_mk) != diag_key(nan_dyn) or flagged.get("f_s0") != ["NONFINITE"]:
+        fail(f"phase 27 planted NaN: {nan_mk.summary()} vs dynamic mode's {nan_dyn.summary()}")
+    # In turns: the runs' walls, and B2's launches' own time by CUDA events.
+    mk_walls = {"megakernel": [], "megakernel_guarded": [], "static": []}
+    b2_ms = {"megakernel": [], "megakernel_guarded": []}
+    for _ in range(5):
+        for label, p in (("megakernel", mk_prog), ("megakernel_guarded", g_prog),
+                         ("static", full)):
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            p.run()
-            torch.cuda.synchronize()
-            mk_walls[label].append((time.perf_counter() - t0) * 1e3)
-    mk_rec = {"card": smi, "b2_launches": n_b2, "b6_calls": per_stream,
-              "first_wall_ms": wall_mk * 1e3, "walls_ms": mk_walls,
-              "bit_identical": "static run", "seconds": time.perf_counter() - t_phase}
+            with b2_events() as events:
+                t0 = time.perf_counter()
+                p.run()
+                torch.cuda.synchronize()
+                mk_walls[label].append((time.perf_counter() - t0) * 1e3)
+            if label in b2_ms:
+                b2_ms[label].append(sum(a.elapsed_time(b) for a, b in events))
+    # Bound: the bytes B2 must move, each enabled window once: the source's
+    # and the sink's copies (slab and ring, each read once and written
+    # once).  The guarded build must also read once each window that only
+    # the host wrote, the stages' inner outputs f_s1.. (f_s0's tokens are
+    # tested as the source's copy stores them, f_out's as the sink's copy
+    # reads them).  Its design reads more, every stage firing's windows at
+    # a resume and the sink's input before the copy: a cost of the design,
+    # not of the bound.
+    win = {n: sp.rate * sp.token_size_bytes for n, sp in net.fifos.items()}
+    copy_bytes = LM_MICRO * 2 * (win["f_s0"] + win["f_out"])
+    scan_bytes = LM_MICRO * (sum(win.values()) - win["f_s0"] - win["f_out"])
+    bound = {"megakernel": copy_bytes / HBM_BYTES_PER_S * 1e3,
+             "megakernel_guarded": (copy_bytes + scan_bytes) / HBM_BYTES_PER_S * 1e3}
+    mk_rec = {"card": smi, "b2_launches": n_b2, "b2_guarded_launches": n_b2,
+              "b6_calls": per_stream, "first_wall_ms": wall_mk * 1e3,
+              "first_wall_guarded_ms": wall_g * 1e3, "walls_ms": mk_walls,
+              "b2_ms_per_run": b2_ms, "b2_bound_ms": bound, "bound_by": "bytes",
+              "window_bytes": win, "guarded_diagnostics": {
+                  "ok": True, "high_water": g_res.diagnostics.high_water,
+                  "equal_dynamic_guards": True},
+              "planted_nan": {"at": "microbatch 1, position 3, channel 5",
+                              "faults": flagged, "equal_dynamic_guards": True},
+              "bit_identical": ["static run", "guarded build: every state bit, counts, "
+                                "sweeps"], "seconds": time.perf_counter() - t_phase}
     log("phase 27(b) LM stage network in megakernel mode " + json.dumps(mk_rec))
-    del mk_y
+    del mk_y, g_res
     with torch.no_grad():
         stage_lg = model._logits(chunked)[..., :V]
     ref_lg, _ = counted("phase 23 pipeline_forward_reference",
@@ -3597,9 +3683,14 @@ def serving_row(mk: dict, stages: dict) -> dict:
             "bound_by": seg["bound_by"], "bytes_per_segment": seg["bytes_per_segment"],
             "library_ms": None, "step_host_ms": seg["step_host_ms_median"],
             "stage_network": {"launches": stages["b2_launches"],
+                              "guarded_launches": stages["b2_guarded_launches"],
                               "launches_from": "phase 27(b): mamba2-780m's 4-stage "
-                                               "network, 4 microbatches, one run",
-                              "walls_ms": stages["walls_ms"]}}
+                                               "network, 4 microbatches, one run each "
+                                               "of the main and the MK_GUARDS build",
+                              "walls_ms": stages["walls_ms"],
+                              "b2_ms_per_run": stages["b2_ms_per_run"],
+                              "b2_bound_ms": stages["b2_bound_ms"],
+                              "bound_by": stages["bound_by"]}}
 
 
 # ---- 28. the registry's other five models -------------------------------- #
@@ -4663,9 +4754,13 @@ def trained_prefill(cfg, params: dict, dev, zero_counts, expect_counts, label: s
             "top1_equal": bool(torch.equal(lg_k.argmax(-1), lg_x.argmax(-1)))}
 
 
-# ---- 29-32. registry models trained on one card at train_4k's length ------ #
+# ---- 29-33. registry models trained on one card at train_4k's length ------ #
 TRAIN_4K_BATCH, TRAIN_4K_SEQ = 2, 4096       # (b): 2 rows of train_4k a step
 TRAIN_4K_PARITY = (1, 128)                   # (a): the cut model (the CPU's time)
+# (a): the mixers' positions, cut from train_4k's 4096 for the script's
+# time (the CPU side's; still above the scan's 2048 threshold, 5 query
+# blocks of 512).
+MIXER_SEQ = 2560
 
 
 @dataclasses.dataclass(frozen=True)
@@ -4680,7 +4775,6 @@ class TrainArch:
     remat_check: bool     # (a): the cut model's gradients, remat on and off, bit for bit
     donate: bool          # (b): AdamW in place (TrainOptions.donate): one copy of the moments
     layers: int = None    # (b) and (c): the depth trained and served (None: the published)
-    mixer_seq: int = TRAIN_4K_SEQ   # (a): the mixers' positions (above 2048: the scan)
 
 
 RG_ARCH = "recurrentgemma-2b"
@@ -4699,34 +4793,47 @@ RG_ARCH = "recurrentgemma-2b"
 # card with two copies of the moments: whisper's params, grads and moments
 # are 3.4 GB, internvl's 7.6 GB, the float32 logits over 2 x 4096
 # positions 1.7 and 5.0 GB); whisper's encoder is cut with its decoder in
-# (a).  Phases 30-31 train at half their depth (whisper-small's decoder;
-# its encoder keeps 12 layers), for the script's time: full depth in PRs
-# 32-33, whose numbers PERF.md keeps.  gemma3-12b and qwen2-72b (phase
-# 32): a cut depth, since neither fits one card whole (11.6 B and 72.7 B
+# (a).  Phases 30-31 train at a quarter of their depth (whisper-small's
+# decoder; its encoder keeps 12 layers), for the script's time: PERF.md
+# keeps their numbers at full and half depth.  gemma3-12b and qwen2-72b
+# (phase 32): a cut depth, since neither fits one card whole (11.6 B and 72.7 B
 # parameters: 139 and 872 GB of bf16 params and grads and float32
 # moments).  gemma3 at 6 of 48 layers,
 # one 5:1 local:global group, so both scan branches run, in (a) and (b)
 # alike (2.33 B); qwen2 at 1 of 80 (3.37 B, 2.49 B of them its two
 # tables).  Both in 2 microbatches, AdamW in place.  Their (a) holds the
-# first layer of each attention kind; qwen2's d-8192 mixer at 2560
-# positions (5 query blocks of the scan), cut from 4096 for the script's
-# time: at 4096 its CPU side took 127 s (PERF.md).  qwen2's lr 1e-5: at
-# 1e-4 its loss rose from 13.4 to 56.0 after the first update.
+# first layer of each attention kind.  qwen2's lr 1e-5: at 1e-4 its loss
+# rose from 13.4 to 56.0 after the first update.  Every mixer of (a) runs at
+# MIXER_SEQ positions (at 4096 qwen2's CPU side took 127 s, PERF.md).  granite-8b and olmoe-1b-7b
+# (phase 33): a cut depth, 8.25 B and 6.92 B parameters whole (99 and 83 GB
+# of bf16 params and grads and float32 moments).  granite-8b at 16 of 36
+# layers (3.89 B: about 54.5 GB at 14 B a parameter in 2 microbatches, and
+# its untied 49 152-row float32 head), lr 1e-5 (at h2o-danube-3-4b's 2e-5
+# its loss went 11.57, 11.03, 12.43, 11.10: the full-lr update overshot);
+# olmoe-1b-7b at 8 of 16 (3.56 B: about 42.8 GB at 12 B
+# in one microbatch, and the head over 2 x 4096 positions), lr 3e-4 as
+# granite-moe; both AdamW in place.  olmoe's (a) holds layer 0's MoE MLP
+# (64 experts, top 8, capacity 640 at 1 x 4096) with the card's experts
+# fed to the CPU, and its G = 1 (16 q and 16 kv heads) scan at hd 128.
 TRAIN_ARCHS = {
     "recurrentgemma-2b": TrainArch(29, cut=3, steps=4, microbatches=2,
                                    lr=3e-4, remat_check=False, donate=False),
     "granite-moe-3b-a800m": TrainArch(30, cut=2, steps=4, microbatches=1, lr=3e-4,
-                                      remat_check=True, donate=True, layers=16),
+                                      remat_check=True, donate=True, layers=8),
     "h2o-danube-3-4b": TrainArch(30, cut=2, steps=4, microbatches=2, lr=2e-5,
-                                 remat_check=True, donate=True, layers=12),
+                                 remat_check=True, donate=True, layers=6),
     "whisper-small": TrainArch(31, cut=2, steps=4, microbatches=1, lr=3e-4,
-                               remat_check=True, donate=False, layers=6),
+                               remat_check=True, donate=False, layers=3),
     "internvl2-1b": TrainArch(31, cut=2, steps=4, microbatches=1, lr=3e-4,
-                              remat_check=True, donate=False, layers=12),
+                              remat_check=True, donate=False, layers=6),
     "gemma3-12b": TrainArch(32, cut=6, steps=4, microbatches=2, lr=1e-4,
                             remat_check=True, donate=True, layers=6),
     "qwen2-72b": TrainArch(32, cut=1, steps=4, microbatches=2, lr=1e-5,
-                           remat_check=True, donate=True, layers=1, mixer_seq=2560),
+                           remat_check=True, donate=True, layers=1),
+    "granite-8b": TrainArch(33, cut=1, steps=4, microbatches=2, lr=1e-5,
+                            remat_check=True, donate=True, layers=16),
+    "olmoe-1b-7b": TrainArch(33, cut=2, steps=4, microbatches=1, lr=3e-4,
+                             remat_check=True, donate=True, layers=8),
 }
 AUX_WEIGHT = 0.01        # LM.train_loss's weight of the MoE load-balance loss
 
@@ -4911,13 +5018,13 @@ def worst_row(what: str, rd: dict) -> None:
 
 
 def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane):
-    """Phases 29-32: ``arch`` trained on the card at its published widths
+    """Phases 29-33: ``arch`` trained on the card at its published widths
     and train_4k's length, where its attention layers take the
     reference's blocked scan (``models/attention.py``'s ``_flash_scan``:
     recurrentgemma-2b's window 2048 reads 2560 of 4096 keys a block of 512
     queries, gemma3-12b's local window 1024 reads 1536, h2o-danube-3-4b's
-    window 4096 all of them; granite-moe's, qwen2-72b's and gemma3-12b's
-    global layers have no window, so each key block's scores are
+    window 4096 all of them; granite-moe's, qwen2-72b's, granite-8b's,
+    olmoe-1b-7b's and gemma3-12b's global layers have no window, so each key block's scores are
     recomputed in the backward pass under ``torch.utils.checkpoint``,
     inside the layer remat's).  Its constants are its ``TRAIN_ARCHS``
     entry.  (a)'s CPU runs go to ``lane`` (see :class:`TrainLane`), which
@@ -4927,7 +5034,7 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
     (a) At full width, on the card and on the CPU with the same weights,
     phase 24(a)'s bars: the mixer (its norm and attention) of the first
     layer of each attention kind (gemma3-12b's local layer 0 and global
-    layer 5) alone on a 1 x ``mixer_seq`` input (the scan route; the mean
+    layer 5) alone on a 1 x ``MIXER_SEQ`` input (the scan route; the mean
     square of its output within CE_REL, every gradient row, of its
     weights and of its input, within GRAD_ROW_SENS times the CPU's own
     change when the input moves one bf16 step; qwen2-72b's QKV biases
@@ -4998,7 +5105,7 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
 
     def normal(*shape) -> torch.Tensor:
         return torch.from_numpy(draw.standard_normal(shape, dtype=np.float32)).to(torch.bfloat16)
-    x = normal(1, spec.mixer_seq, cut.d_model)
+    x = normal(1, MIXER_SEQ, cut.d_model)
     audio_parts = ()
     if audio:       # the cross attention's encoder output, the encoder block's input
         e = cut.encoder
@@ -5048,10 +5155,10 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
                           zip(model_routes[n_moe:][::-1], fwd_experts or []))
     if not recompute_equal:
         fail(f"{at('a')}: the remat recompute chose other experts than the forward")
-    # Each layer at mixer_seq: one forward of mixer_seq // 512 query blocks
+    # Each layer at MIXER_SEQ: one forward of MIXER_SEQ // 512 query blocks
     # (no remat outside LM.forward); the model and whisper's parts: the
     # dense route (the cross attention has no other).
-    one_scan = {"calls": 1, "q_blocks": spec.mixer_seq // 512}
+    one_scan = {"calls": 1, "q_blocks": MIXER_SEQ // 512}
     if any(t != one_scan for t in layer_scans.values()) or dense_scans["calls"]:
         fail(f"{at('a')}: the scan ran {layer_scans} for the layers, {dense_scans} for "
              "the model and the other parts")
@@ -5255,7 +5362,7 @@ def train_arch_phase(dev, smi: str, zero_counts, expect_counts, arch: str, lane)
 
 
 class TrainLane:
-    """Phases 29-32: :func:`train_arch_phase` for each arch given to
+    """Phases 29-33: :func:`train_arch_phase` for each arch given to
     :meth:`run`, in turn, their CPU sides on one lane (a thread with all
     but one of the host's cores, at nice 19) that holds the card to the
     CPU as each ends and frees its tensors; :meth:`finish` reads every
@@ -6246,7 +6353,7 @@ def main() -> None:
     registry_only = sys.argv[1:] == ["--registry"]
     # One training phase alone, by its flag.
     train_flags = {"--train-rg": 29, "--train-registry": 30, "--train-frontends": 31,
-                   "--train-wide": 32}
+                   "--train-wide": 32, "--train-last": 33}
     train_phase_only = train_flags.get(" ".join(sys.argv[1:]))
     if len(sys.argv) > 1 and not (lm_only or train_only or shard_only or mesh_only
                                   or serve_mk_only or registry_only or train_phase_only):
@@ -6704,13 +6811,13 @@ def main() -> None:
     moe = moe_phase(dev, smi, zero_counts, expect_counts)
     clock("phase 18")
     lm = lm_serving(dev, smi, zero_counts, expect_counts)
-    # ---- 29-32. recurrentgemma-2b; granite-moe-3b-a800m and h2o-danube-3-4b;
-    # whisper-small and internvl2-1b; gemma3-12b and qwen2-72b trained on the
-    # card: the card's work now, the CPU sides on the lane beside it and
+    # ---- 29-33. recurrentgemma-2b; granite-moe-3b-a800m and h2o-danube-3-4b;
+    # whisper-small and internvl2-1b; gemma3-12b and qwen2-72b; granite-8b and
+    # olmoe-1b-7b trained on the card: the card's work now, the CPU sides on the lane beside it and
     # beside phases 28, 25 and 26, read after 26 ---------------------------- #
     lane = TrainLane(dev, smi, zero_counts, expect_counts)
     lane.run(list(TRAIN_ARCHS))
-    clock("phases 29-32 on the card")
+    clock("phases 29-33 on the card")
     # ---- 28. the registry's other five models ------------------------------ #
     torch.cuda.empty_cache()
     reg = registry_phase(dev, smi, zero_counts, expect_counts, profile=False)
@@ -6743,7 +6850,7 @@ def main() -> None:
                                          "layers) trained on a (data 2, model 2) mesh, "
                                          "restored in a fresh process, one prefill")
     clock("phase 26")
-    # ---- 29-32's (a): the card against the CPU ------------------------- #
+    # ---- 29-33's (a): the card against the CPU ------------------------- #
     trained = lane.finish()
     for arch, tr in trained.items():
         n = TRAIN_ARCHS[arch].phase
@@ -6770,7 +6877,7 @@ def main() -> None:
                                      "and its profiled step, one prefill of "
                                      f"{LM_BATCH} x {tr['c']['padded_to']} tokens",
                     "logit_err": tr["c"]["logit_err"], "bar": tr["c"]["bar"]}
-    clock("phases 29-32 against the CPU")
+    clock("phases 29-33 against the CPU")
 
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{

@@ -42,7 +42,7 @@ import numpy as np
 
 from repro_torch.core.executor import DynamicResult
 from repro_torch.core.megakernel.program import (BODY_CTRL_KINDS, H_MOE, H_SCRATCH,
-                                                 HALF_DTYPES, KIND_CODES, M_CLK_KIND,
+                                                 KIND_CODES, M_CLK_KIND,
                                                  M_CLK_LOOP, M_CLK_SCHED,
                                                  M_CLK_STALL, MAX_STEP_PORTS,
                                                  Y_OFF, Y_PENDING,
@@ -279,12 +279,6 @@ def compile_megakernel(network: Network, max_sweeps: int = 1_000_000,
                 f"megakernel guards: control channels {body_written} are "
                 "written by bodies and declare a domain; the kernel checks "
                 "the domain of scheduler-written control tokens only")
-        half = [n for n, sp in network.fifos.items() if sp.dtype in HALF_DTYPES]
-        if half:
-            raise NotImplementedError(
-                f"megakernel guards: data channels {half} carry bf16 or f16 "
-                "tokens; the guarded build tests float32 tokens for NaN and "
-                "Inf only (run them guarded in mode='dynamic')")
     health_words = guards or bool(trace_capacity)
     host_table = prog.table.tolist()
     on_device: Dict[torch.device, Tuple[torch.Tensor, List[torch.Tensor]]] = {}

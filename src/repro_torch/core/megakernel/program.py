@@ -64,7 +64,8 @@ scalars, the control rings, the fire counts and the run's result words.
   scheduler.  A rate-0 firing stays the kernel's own.
 * **Element types**: float32, uint8 and int32 tokens everywhere; bf16 and
   f16 tokens on channels that only copy bodies (source, sink, fork, gate)
-  and step actors touch.
+  and step actors touch (the guarded build tests them on their 16-bit
+  patterns, and their domain bounds are rounded to their type).
 
 Networks the kernel cannot run raise here.
 """
@@ -74,7 +75,6 @@ import dataclasses
 import struct
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.actor import eval_enable
@@ -287,12 +287,13 @@ def fifo_row(spec: FifoSpec, forwarded: bool = False,
         row[F_DLO], row[F_DHI] = int_domain(spec)
     elif spec.domain is not None:
         # A data channel's domain, each bound cast to the token type first
-        # as the reference casts it: float32 bits for a float channel, ints
-        # (clamped to int32) for u8 and int32 ones.
+        # as the reference casts it: a float channel's bounds rounded to its
+        # type (bf16 and f16 too) and packed as float32 bits, ints (clamped
+        # to int32) for u8 and int32 ones.
         row[F_DOM] = 1
         if spec.dtype.is_floating_point:
-            row[F_DLO], row[F_DHI] = (int(np.array(x, np.float32).view(np.int32))
-                                      for x in spec.domain)
+            row[F_DLO], row[F_DHI] = torch.tensor(spec.domain, dtype=torch.float32).to(
+                spec.dtype).float().view(torch.int32).tolist()
         else:
             row[F_DLO], row[F_DHI] = (min(max(x, -2 ** 31), 2 ** 31 - 1)
                                       for x in int_domain(spec))

@@ -561,11 +561,16 @@ def schedule(table: Sequence[int], tensors: List[Optional[torch.Tensor]],
     return commands
 
 
+#: The element codes of float channels.
+FLOAT_ELEMS = tuple(ELEM_CODES[t] for t in (torch.float32, torch.bfloat16, torch.float16))
+
+
 def _check_finite(P: _Table, fault: torch.Tensor, f: int,
                   window: torch.Tensor) -> None:
-    """OR NONFINITE into ``fault[f]`` when a float data window holds a NaN
-    or an Inf (on the window's device, without a host sync)."""
-    if P.fifo[f][F_CTRL] or P.fifo[f][F_ELEM] != ELEM_CODES[torch.float32]:
+    """OR NONFINITE into ``fault[f]`` when a float data window (float32,
+    bf16 or f16) holds a NaN or an Inf (on the window's device, without a
+    host sync)."""
+    if P.fifo[f][F_CTRL] or P.fifo[f][F_ELEM] not in FLOAT_ELEMS:
         return
     bad = (~torch.isfinite(window)).any().to(torch.int32) * NONFINITE
     fault[f:f + 1].bitwise_or_(bad)
@@ -575,13 +580,17 @@ def _check_domain(P: _Table, fault: torch.Tensor, f: int,
                   window: torch.Tensor) -> None:
     """OR DOMAIN into ``fault[f]`` when a window of a data channel with a
     declared domain holds an element outside ``[lo, hi]``: the row's bounds,
-    float32 bits for a float channel, ints otherwise.  ``lo <= x <= hi``
-    fails for a NaN too, as the reference's ``_domain_bit`` compares."""
+    float32 bits for a float channel, against which the kernel compares
+    each token widened to float32 (a bf16 or f16 channel's bounds are
+    rounded to its type, so this is the comparison in that type), ints
+    otherwise.  ``lo <= x <= hi`` fails for a NaN too, as the reference's
+    ``_domain_bit`` compares."""
     row = P.fifo[f]
     if row[F_CTRL] or not row[F_DOM]:
         return
-    if row[F_ELEM] == ELEM_CODES[torch.float32]:
+    if row[F_ELEM] in FLOAT_ELEMS:
         lo, hi = (struct.unpack("<f", struct.pack("<i", row[x]))[0] for x in (F_DLO, F_DHI))
+        window = window.to(torch.float32)
     else:
         lo, hi = row[F_DLO], row[F_DHI]
         window = window.to(torch.int64)

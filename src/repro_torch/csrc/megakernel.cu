@@ -122,7 +122,11 @@
 //   out.  NONFINITE and a data channel's DOMAIN read token values: before a
 //   body, the block scans its share of every enabled float input window for
 //   NaN and Inf (inputs stay put while a command runs); every store of an
-//   enabled float output (put) tests the word it stores.  In a program with
+//   enabled float output (put) tests the word it stores.  bf16 and f16
+//   tokens (copy bodies and step windows only) are tested on their 16-bit
+//   patterns (every exponent bit set) and, against a domain, widened to
+//   float32 against bounds the program rounded to their type; their words
+//   are never single bytes (word_bytes' 2-byte level).  In a program with
 //   a data channel that declares a domain (H_DOM) the block also scans every
 //   enabled input window of such a channel for an element outside [lo, hi],
 //   and a command with such an output runs bodies of their own (CB_DOM)
@@ -184,6 +188,7 @@
 //   scheduler's own (no stop).  These kinds, like the MoE ones, run in the
 //   instance with MOE set.
 #include <cooperative_groups.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <climits>
@@ -201,11 +206,15 @@ enum { H_N_FIFOS, H_N_ACTORS, H_N_VISIT, H_FIFO_OFF, H_ACTOR_OFF, H_VISIT_OFF,
        H_N_APTRS, H_N_SCALARS, H_N_CTRL, H_LEN, H_SCRATCH, H_MOE, H_DOM };
 constexpr int FIFO_FIELDS = 13;
 // F_DOM: a data channel with a declared domain, [F_DLO, F_DHI] as float32
-// bits for float channels, as ints for u8 and int32 ones (control channels
+// bits for float channels (a bf16 or f16 channel's rounded to its type
+// first), as ints for u8 and int32 ones (control channels
 // always compare their int32 tokens with F_DLO and F_DHI).
 enum { F_RATE, F_CAP, F_TOKB, F_NPH, F_BOUND, F_CTRL, F_FWD, F_CBASE, F_DELAY,
        F_ELEM, F_DLO, F_DHI, F_DOM };
 enum { ELEM_F32 = 0, ELEM_U8 = 1, ELEM_I32 = 2, ELEM_BF16 = 3, ELEM_F16 = 4 };
+__host__ __device__ __forceinline__ bool is_half(int elem) {
+  return elem == ELEM_BF16 || elem == ELEM_F16;
+}
 constexpr int ACTOR_FIELDS = 20;
 enum { A_KIND, A_CTRL, A_IN, A_NIN, A_OUT, A_NOUT, A_READY, A_SCALAR, A_ORDER,
        A_ENABLES, A_N2, A_N3, A_PTR0, A_PTR1, A_AUX, A_NAUX, A_N0, A_N1,
@@ -281,7 +290,10 @@ struct Cmd {
   float* hist;
   const float* taps;
 #ifdef MK_GUARDS
-  unsigned in_fl, out_fl;  // bit k: port k's channel carries float tokens
+  unsigned in_fl;          // bit k: input k's channel carries float tokens of any width
+  unsigned in_h, in_hf;    // bit k: input k's tokens are bf16 or f16; are f16
+  unsigned out_fl;         // bit k: output k's channel carries float32 tokens
+  unsigned out_h, out_hf;  // bit k: output k's tokens are bf16 or f16; are f16
   int in_f[MAX_PORTS];     // each port's channel
   int out_f[MAX_PORTS];
 #endif
@@ -1152,14 +1164,23 @@ __device__ __forceinline__ void fill(const View& v, const Visit& u, const Firing
   }
 #ifdef MK_GUARDS
   {
-    const bool fl_i = u.fi >= 0 && u.data_i && fifo_row(v, u.fi)[F_ELEM] == ELEM_F32;
-    const bool fl_o = u.fo >= 0 && u.data_o && fifo_row(v, u.fo)[F_ELEM] == ELEM_F32;
-    const unsigned in_fl = __ballot_sync(FULL, fl_i), out_fl = __ballot_sync(FULL, fl_o);
+    const int ei = u.fi >= 0 && u.data_i ? fifo_row(v, u.fi)[F_ELEM] : -1;
+    const int eo = u.fo >= 0 && u.data_o ? fifo_row(v, u.fo)[F_ELEM] : -1;
+    const unsigned in_fl = __ballot_sync(FULL, ei == ELEM_F32 || is_half(ei));
+    const unsigned in_h = __ballot_sync(FULL, is_half(ei));
+    const unsigned in_hf = __ballot_sync(FULL, ei == ELEM_F16);
+    const unsigned out_fl = __ballot_sync(FULL, eo == ELEM_F32);
+    const unsigned out_h = __ballot_sync(FULL, is_half(eo));
+    const unsigned out_hf = __ballot_sync(FULL, eo == ELEM_F16);
     if (u.fi >= 0) c->in_f[l] = u.fi;
     if (u.fo >= 0) c->out_f[l] = u.fo;
     if (l == 6) {
       c->in_fl = in_fl;
+      c->in_h = in_h;
+      c->in_hf = in_hf;
       c->out_fl = out_fl;
+      c->out_h = out_h;
+      c->out_hf = out_hf;
     }
   }
 #endif
@@ -1302,8 +1323,8 @@ __shared__ const int* dom_rows;
 __shared__ int dom_any;
 
 // Whether a word of float32 tokens holds a NaN or an Inf (every exponent
-// bit set).  Float channels move words of 4 or 16 bytes (their addresses
-// and windows are multiples of 4); 1-byte words are u8 tokens.
+// bit set).  float32 channels move words of 4 or 16 bytes (their addresses
+// and windows are multiples of 4); 1- and 2-byte words are u8 or half tokens.
 __device__ __forceinline__ bool nonfinite(unsigned x) {
   return (x & 0x7f800000u) == 0x7f800000u;
 }
@@ -1314,16 +1335,53 @@ __device__ __forceinline__ bool nonfinite(uint4 x) {
 __device__ __forceinline__ bool nonfinite(float4 x) {
   return nonfinite(x.x) || nonfinite(x.y) || nonfinite(x.z) || nonfinite(x.w);
 }
+__device__ __forceinline__ bool nonfinite(unsigned short) { return false; }
 __device__ __forceinline__ bool nonfinite(unsigned char) { return false; }
+
+// The same for a word of bf16 or f16 tokens, e the exponent bits of one
+// (half_exp): its 16-bit halves tested on their own.  Half channels' words
+// are 2, 4 or 16 bytes (their addresses and windows are even).
+__device__ __forceinline__ unsigned half_exp(int elem) {
+  return elem == ELEM_F16 ? 0x7c00u : 0x7f80u;
+}
+__device__ __forceinline__ bool nonfinite_h(unsigned short x, unsigned e) {
+  return (x & e) == e;
+}
+__device__ __forceinline__ bool nonfinite_h(unsigned x, unsigned e) {
+  return (x & e) == e || ((x >> 16) & e) == e;
+}
+__device__ __forceinline__ bool nonfinite_h(float x, unsigned e) {
+  return nonfinite_h(__float_as_uint(x), e);
+}
+__device__ __forceinline__ bool nonfinite_h(uint4 x, unsigned e) {
+  return nonfinite_h(x.x, e) || nonfinite_h(x.y, e) || nonfinite_h(x.z, e) ||
+         nonfinite_h(x.w, e);
+}
+__device__ __forceinline__ bool nonfinite_h(float4 x, unsigned e) {
+  return nonfinite_h(x.x, e) || nonfinite_h(x.y, e) || nonfinite_h(x.z, e) ||
+         nonfinite_h(x.w, e);
+}
+__device__ __forceinline__ bool nonfinite_h(unsigned char, unsigned) { return false; }
+
+// A bf16 or f16 token's float32 value.
+__device__ __forceinline__ float half_value(unsigned h, int elem) {
+  return elem == ELEM_F16 ? __half2float(__ushort_as_half(static_cast<unsigned short>(h)))
+                          : __uint_as_float(h << 16);
+}
 
 // Whether a word of a channel with a declared domain (row fr) holds an
 // element outside [lo, hi], compared as health.py compares it: lo <= x <= hi
-// fails for a NaN too.  A 4-byte word of a u8 channel holds four tokens.
+// fails for a NaN too.  A 4-byte word of a u8 channel holds four tokens, of
+// a half channel two (each widened to float32: its bounds are rounded to
+// its type, so the comparison is the one in that type).
+__device__ __forceinline__ bool out_of_domain_f(float x, const int* fr) {
+  return !(x >= __int_as_float(fr[F_DLO]) && x <= __int_as_float(fr[F_DHI]));
+}
 __device__ __forceinline__ bool out_of_domain(unsigned w, const int* fr) {
-  if (fr[F_ELEM] == ELEM_F32) {
-    const float x = __uint_as_float(w);
-    return !(x >= __int_as_float(fr[F_DLO]) && x <= __int_as_float(fr[F_DHI]));
-  }
+  if (fr[F_ELEM] == ELEM_F32) return out_of_domain_f(__uint_as_float(w), fr);
+  if (is_half(fr[F_ELEM]))
+    return out_of_domain_f(half_value(w & 0xffffu, fr[F_ELEM]), fr) ||
+           out_of_domain_f(half_value(w >> 16, fr[F_ELEM]), fr);
   if (fr[F_ELEM] == ELEM_I32) {
     const int x = static_cast<int>(w);
     return x < fr[F_DLO] || x > fr[F_DHI];
@@ -1337,6 +1395,12 @@ __device__ __forceinline__ bool out_of_domain(unsigned w, const int* fr) {
 }
 __device__ __forceinline__ bool out_of_domain(unsigned char x, const int* fr) {
   return x < fr[F_DLO] || x > fr[F_DHI];
+}
+// A 2-byte word: one half token, or two u8 ones.
+__device__ __forceinline__ bool out_of_domain(unsigned short x, const int* fr) {
+  if (is_half(fr[F_ELEM])) return out_of_domain_f(half_value(x, fr[F_ELEM]), fr);
+  return out_of_domain(static_cast<unsigned char>(x & 0xffu), fr) ||
+         out_of_domain(static_cast<unsigned char>(x >> 8), fr);
 }
 __device__ __forceinline__ bool out_of_domain(float x, const int* fr) {
   return out_of_domain(__float_as_uint(x), fr);
@@ -1355,6 +1419,9 @@ template <int CB, typename T>
 __device__ __forceinline__ void put(const Cmd& c, int o, long long b, T x) {
 #ifdef MK_GUARDS
   if (((c.out_fl >> o) & 1) && nonfinite(x)) atomicOr(&bad_out, 1u << o);
+  if (((c.out_h >> o) & 1) &&
+      nonfinite_h(x, ((c.out_hf >> o) & 1) ? half_exp(ELEM_F16) : half_exp(ELEM_BF16)))
+    atomicOr(&bad_out, 1u << o);
   if constexpr ((CB & CB_DOM) != 0) {
     const int* fr = dom_rows + FIFO_FIELDS * c.out_f[o];
     if (fr[F_DOM] && out_of_domain(x, fr)) atomicOr(&dom_out, 1u << o);
@@ -1365,10 +1432,11 @@ __device__ __forceinline__ void put(const Cmd& c, int o, long long b, T x) {
     *reinterpret_cast<T*>(c.slot0[o] + (b - c.cb_from[o])) = x;
 }
 
-// The widest word (16, 4 or 1 bytes) that every address and length in
-// `bits` allows.
+// The widest word (16, 4, 2 or 1 bytes) that every address and length in
+// `bits` allows.  A bf16 or f16 window is never moved a byte at a time, so
+// the guards see whole tokens.
 __device__ __forceinline__ int word_bytes(unsigned long long bits) {
-  return (bits & 15) == 0 ? 16 : ((bits & 3) == 0 ? 4 : 1);
+  return (bits & 15) == 0 ? 16 : (bits & 3) == 0 ? 4 : (bits & 1) == 0 ? 2 : 1;
 }
 
 // n bytes of src to byte `at` of every enabled output window.
@@ -1396,6 +1464,7 @@ __device__ void fan_out(const Cmd& c, const unsigned char* src, long long n, lon
   switch (word_bytes(bits)) {
     case 16: fan_out_words<CB, uint4>(c, src, n, at); break;
     case 4: fan_out_words<CB, unsigned int>(c, src, n, at); break;
+    case 2: fan_out_words<CB, unsigned short>(c, src, n, at); break;
     default: fan_out_words<CB, unsigned char>(c, src, n, at); break;
   }
 }
@@ -1414,6 +1483,7 @@ __device__ void copy_bytes(unsigned char* dst, const unsigned char* src, long lo
   switch (word_bytes(reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src) | n)) {
     case 16: copy_words<uint4>(dst, src, n); break;
     case 4: copy_words<unsigned int>(dst, src, n); break;
+    case 2: copy_words<unsigned short>(dst, src, n); break;
     default: copy_words<unsigned char>(dst, src, n); break;
   }
 }
@@ -1988,11 +2058,16 @@ template <int CB>
 __device__ __noinline__ void run_gate(const Cmd& c) {
   for (int o = 0; o < c.n_out; ++o) {
     if (!((c.out_en >> o) & 1)) continue;
-    if (((reinterpret_cast<uintptr_t>(c.in[o]) | reinterpret_cast<uintptr_t>(c.out[o]) |
-          c.win) & 3) == 0) {
+    const unsigned long long bits = reinterpret_cast<uintptr_t>(c.in[o]) |
+                                    reinterpret_cast<uintptr_t>(c.out[o]) | c.win;
+    if ((bits & 3) == 0) {
       const unsigned* src = reinterpret_cast<const unsigned*>(c.in[o]);
       for (long long j = grid_first(); j < c.win / 4; j += grid_step())
         put<CB, unsigned>(c, o, 4 * j, __ldcg(src + j));
+    } else if ((bits & 1) == 0) {
+      const unsigned short* src = reinterpret_cast<const unsigned short*>(c.in[o]);
+      for (long long j = grid_first(); j < c.win / 2; j += grid_step())
+        put<CB, unsigned short>(c, o, 2 * j, __ldcg(src + j));
     } else {
       for (long long j = grid_first(); j < c.win; j += grid_step())
         put<CB, unsigned char>(c, o, j, __ldcg(c.in[o] + j));
@@ -2228,26 +2303,74 @@ __device__ __forceinline__ void run_serving(const View& v, const Cmd& c) {
 }
 
 #ifdef MK_GUARDS
+// Bytes of a window of the channel with row fr.
+__device__ __forceinline__ long long window_bytes(const int* fr) {
+  return static_cast<long long>(fr[F_RATE]) * fr[F_TOKB];
+}
+// Whether a data channel (row fr) carries float tokens of any width.
+__device__ __forceinline__ bool is_float(const int* fr) {
+  return fr[F_ELEM] == ELEM_F32 || is_half(fr[F_ELEM]);
+}
+
+enum { SCAN_BAD = 1, SCAN_DOM = 2 };
+// The block's share of n bytes at w of elem tokens: NaN and Inf where fl
+// (SCAN_BAD), an element outside the domain of the channel with row fr
+// where dm (SCAN_DOM; fr is read only then).  u8 tokens a byte at a time,
+// bf16 and f16 ones 16 bytes at a time where the address and length allow,
+// else 16 bits at a time (a window of an odd count of them ends mid-word),
+// int32 and float32 ones a word at a time.
+__device__ __forceinline__ int scan_span(const unsigned char* w, long long n, int elem,
+                                         const int* fr, bool fl, bool dm) {
+  bool bad = false, dom = false;
+  if (elem == ELEM_U8) {
+    if (dm)
+      for (long long j = grid_first(); j < n; j += grid_step())
+        dom |= out_of_domain(__ldcg(w + j), fr);
+  } else if (is_half(elem)) {
+    const unsigned e = half_exp(elem);
+    if (((reinterpret_cast<uintptr_t>(w) | static_cast<unsigned long long>(n)) & 15) == 0) {
+      const uint4* q = reinterpret_cast<const uint4*>(w);
+      for (long long j = grid_first(); j < n / 16; j += grid_step()) {
+        const uint4 x = __ldcg(q + j);
+        bad |= fl && nonfinite_h(x, e);
+        dom |= dm && out_of_domain(x, fr);
+      }
+    } else {
+      const unsigned short* h = reinterpret_cast<const unsigned short*>(w);
+      for (long long j = grid_first(); j < n / 2; j += grid_step()) {
+        const unsigned short x = __ldcg(h + j);
+        bad |= fl && nonfinite_h(x, e);
+        dom |= dm && out_of_domain(x, fr);
+      }
+    }
+  } else {
+    const unsigned* ws = reinterpret_cast<const unsigned*>(w);
+    for (long long j = grid_first(); j < n / 4; j += grid_step()) {
+      const unsigned x = __ldcg(ws + j);
+      bad |= fl && nonfinite(x);
+      dom |= dm && out_of_domain(x, fr);
+    }
+  }
+  return (bad ? SCAN_BAD : 0) | (dom ? SCAN_DOM : 0);
+}
+// scan_span over the window at w of the channel with row fr, in its type.
+__device__ __noinline__ int scan_window(const unsigned char* w, const int* fr, bool fl,
+                                        bool dm) {
+  return scan_span(w, window_bytes(fr), fr[F_ELEM], fr, fl, dm);
+}
+
 // NONFINITE of a wide command's enabled float inputs and DOMAIN of those
-// whose channel declares one (in its first phase; the wide kinds' data
-// channels carry float32 or int32 tokens).
+// whose channel declares one (in its first phase).
 __device__ __noinline__ void scan_inputs_wide(const View v, const Cmd& c) {
   for (int p = 0; p < c.n_in; ++p) {
     if (!bit_of(c.wen_in, p)) continue;
     const int f = v.P[c.row[A_IN] + p];
     const int* fr = fifo_row(v, f);
-    const bool fl = fr[F_ELEM] == ELEM_F32, dm = dom_any && fr[F_DOM];
+    const bool fl = is_float(fr), dm = dom_any && fr[F_DOM];
     if (fr[F_CTRL] || !(fl || dm)) continue;
-    const unsigned* w = reinterpret_cast<const unsigned*>(port_window(v, c, false, p));
-    const long long n = static_cast<long long>(fr[F_RATE]) * fr[F_TOKB] / 4;
-    bool bad = false, dom = false;
-    for (long long j = grid_first(); j < n; j += grid_step()) {
-      const unsigned x = __ldcg(w + j);
-      bad |= fl && nonfinite(x);
-      dom |= dm && out_of_domain(x, fr);
-    }
-    if (bad) atomicOr(&bad_win[p >> 5], 1u << (p & 31));
-    if (dom) atomicOr(&dom_win[p >> 5], 1u << (p & 31));
+    const int got = scan_window(port_window(v, c, false, p), fr, fl, dm);
+    if (got & SCAN_BAD) atomicOr(&bad_win[p >> 5], 1u << (p & 31));
+    if (got & SCAN_DOM) atomicOr(&dom_win[p >> 5], 1u << (p & 31));
   }
 }
 
@@ -2290,22 +2413,18 @@ __device__ __noinline__ void run_moe(const View v, const Cmd& c, Stage& st) {
 }
 
 #ifdef MK_GUARDS
-// Bytes of a window of the channel with row fr.
-__device__ __forceinline__ long long window_bytes(const int* fr) {
-  return static_cast<long long>(fr[F_RATE]) * fr[F_TOKB];
-}
-
-// NONFINITE of the command's enabled float inputs: the block scans its share
-// of each window (every float input window of a command is win bytes: the
-// serving kinds, whose windows differ, have none).
-__device__ void scan_inputs(const Cmd& c) {
-  const unsigned m = c.in_fl & c.in_en;
-  for (int k = 0; k < c.n_in; ++k) {
-    if (!((m >> k) & 1)) continue;
-    const unsigned* w = reinterpret_cast<const unsigned*>(c.in[k]);
-    bool bad = false;
-    for (long long j = grid_first(); j < c.win / 4; j += grid_step()) bad |= nonfinite(__ldcg(w + j));
-    if (bad) atomicOr(&bad_in, 1u << k);
+// NONFINITE of the command's enabled float inputs (float32, bf16, f16): the
+// block scans its share of each window, win bytes (every float input of a
+// command has input 0's window: the serving kinds, whose windows differ,
+// have none), in line and from the command alone (DPD's many short
+// commands pay for a call and a read of the channel's row).
+__device__ __forceinline__ void scan_inputs(const Cmd& c) {
+  for (unsigned m = c.in_fl & c.in_en; m; m &= m - 1) {
+    const int k = __ffs(m) - 1;
+    const int elem = !((c.in_h >> k) & 1) ? ELEM_F32
+                     : (c.in_hf >> k) & 1 ? ELEM_F16 : ELEM_BF16;
+    if (scan_span(c.in[k], c.win, elem, nullptr, true, false) & SCAN_BAD)
+      atomicOr(&bad_in, 1u << k);
   }
 }
 
@@ -2321,17 +2440,7 @@ __device__ __noinline__ bool scan_domains(const Cmd& c) {
   for (int k = 0; k < c.n_in; ++k) {
     const int* fr = rows + FIFO_FIELDS * c.in_f[k];
     if (!((c.in_en >> k) & 1) || !fr[F_DOM]) continue;
-    bool dom = false;
-    const long long n = window_bytes(fr);
-    if (fr[F_ELEM] == ELEM_U8) {
-      for (long long j = grid_first(); j < n; j += grid_step())
-        dom |= out_of_domain(__ldcg(c.in[k] + j), fr);
-    } else {
-      const unsigned* w = reinterpret_cast<const unsigned*>(c.in[k]);
-      for (long long j = grid_first(); j < n / 4; j += grid_step())
-        dom |= out_of_domain(__ldcg(w + j), fr);
-    }
-    if (dom) atomicOr(&dom_in, 1u << k);
+    if (scan_window(c.in[k], fr, false, true) & SCAN_DOM) atomicOr(&dom_in, 1u << k);
   }
   return (out_dm & c.out_en) != 0;
 }
@@ -2385,9 +2494,9 @@ __device__ __noinline__ void run_ext(const View v, const Cmd& c, long long* faul
 
 #ifdef MK_GUARDS
 // At a resume, the step firing the runner ran: NONFINITE of its enabled
-// float32 windows and DOMAIN of those whose channel declares one, inputs and
-// outputs, each block its share (the values dynamic mode's guards read at
-// that firing).
+// float windows (float32, bf16, f16) and DOMAIN of those whose channel
+// declares one, inputs and outputs, each block its share (the values
+// dynamic mode's guards read at that firing).
 __device__ __noinline__ void scan_step(const View v, long long* fault) {
   const int* y = v.S + v.io_counts + v.P[H_N_ACTORS];
   const int* r = actor_row(v, y[Y_ACTOR]);
@@ -2397,26 +2506,14 @@ __device__ __noinline__ void scan_step(const View v, long long* fault) {
       if (!((en >> p) & 1)) continue;
       const int f = v.P[r[side ? A_OUT : A_IN] + p];
       const int* fr = fifo_row(v, f);
-      const bool fl = fr[F_ELEM] == ELEM_F32, dm = fr[F_DOM] != 0;
+      const bool fl = is_float(fr), dm = fr[F_DOM] != 0;
       if (fr[F_CTRL] || !(fl || dm)) continue;
-      const unsigned char* w = ring(v, f, y[Y_OFF + side * MAX_STEP_PORTS + p]);
-      const long long n = window_bytes(fr);
-      bool bad = false, dom = false;
-      if (fr[F_ELEM] == ELEM_U8) {
-        for (long long j = grid_first(); j < n; j += grid_step())
-          dom |= out_of_domain(__ldcg(w + j), fr);
-      } else {
-        const unsigned* ws = reinterpret_cast<const unsigned*>(w);
-        for (long long j = grid_first(); j < n / 4; j += grid_step()) {
-          const unsigned x = __ldcg(ws + j);
-          bad |= fl && nonfinite(x);
-          dom |= dm && out_of_domain(x, fr);
-        }
-      }
-      if (bad)
+      const int got = scan_window(ring(v, f, y[Y_OFF + side * MAX_STEP_PORTS + p]), fr,
+                                  fl, dm);
+      if (got & SCAN_BAD)
         atomicOr(reinterpret_cast<unsigned long long*>(fault + f),
                  static_cast<unsigned long long>(NONFINITE));
-      if (dom)
+      if (got & SCAN_DOM)
         atomicOr(reinterpret_cast<unsigned long long*>(fault + f),
                  static_cast<unsigned long long>(DOMAIN));
     }

@@ -249,8 +249,11 @@ def test_routes_by_length_and_impl(monkeypatch):
 # time; gemma3-12b's 4 local layers grown to its first 5:1 group, so its
 # global layer 5 (the unwindowed scan) runs beside the windowed ones;
 # qwen2-72b's cut to one layer, as the smoke script trains it (its 16
-# query heads' unwindowed scan took 48 s a model of 4 on one core).
-LONG_LAYERS = {"recurrentgemma-2b": 3, "gemma3-12b": 6, "qwen2-72b": 1}
+# query heads' unwindowed scan took 48 s a model of 4 on one core);
+# granite-8b and olmoe-1b-7b to 2 of their 4 for the tier-1 run's time (43
+# and 34 s at 4, 26 and 21 s at 2 on one core).
+LONG_LAYERS = {"recurrentgemma-2b": 3, "gemma3-12b": 6, "qwen2-72b": 1, "granite-8b": 2,
+               "olmoe-1b-7b": 2}
 
 
 def _long_config(smoke, arch: str):
@@ -298,7 +301,8 @@ def _reference_long(arch: str):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "h2o-danube-3-4b",
-                                  "granite-moe-3b-a800m", "gemma3-12b", "qwen2-72b"])
+                                  "granite-moe-3b-a800m", "gemma3-12b", "qwen2-72b",
+                                  "granite-8b", "olmoe-1b-7b"])
 def test_train_loss_and_gradients_above_the_threshold(arch):
     ref = _reference_long(arch)
     model = LM(_long_config(smoke_config, arch), device="cpu", seed=None)

@@ -806,6 +806,135 @@ def test_megakernel_guarded_traced_motion_detection(gen, cores):
     assert k == p == d and not any(k[4][0])
 
 
+# ---- B2's guarded build on bf16 and f16 channels ------------------------ #
+#: Per type: a token ``t`` one step above 1, and a domain bound ``hi`` below
+#: it that rounds up to it in that type (float32 bits of ``hi`` would put
+#: ``t`` outside).
+HALF_ROUNDING = {torch.bfloat16: (1.0078125, 1.006), torch.float16: (1.0009765625, 1.0006)}
+#: Token widths of 3, 6 and 8 halves: windows moved in 2-, 4- and 16-byte
+#: words (a window of an odd count of halves ends mid-word).
+HALF_CASES = [(dt, width, case) for dt in HALF_ROUNDING for width in (3, 6, 8)
+              for case in ("clean", "inf", "domain_rounds_up", "domain_above")]
+HALF_IDS = [f"{str(d).split('.')[-1]}-w{w}-{c}" for d, w, c in HALF_CASES]
+#: The fault each case reads on every channel (none: healthy).
+HALF_WANT = {"clean": None, "domain_rounds_up": None, "inf": "NONFINITE",
+             "domain_above": "DOMAIN"}
+
+
+def half_values(dt, width, case) -> torch.Tensor:
+    """Six tokens of ``width`` values of type ``dt`` in [-1, 1], one of them
+    Inf (``inf``), ``t`` (``domain_rounds_up``) or the next token up from it
+    (``domain_above``)."""
+    rng = np.random.default_rng(width)
+    v = torch.from_numpy(rng.uniform(-1, 1, (6, width)).astype(np.float32)).to(dt)
+    t, _ = HALF_ROUNDING[dt]
+    if case == "inf":
+        v[2, width - 1] = float("inf")
+    elif case == "domain_rounds_up":
+        v[4, width // 2] = t
+    elif case == "domain_above":
+        v[4, width // 2] = 2 * t - 1
+    return v
+
+
+def half_copy_chain(values: torch.Tensor, domain=None, device="cpu"):
+    """source -> fork -> two sinks, one token of ``values`` a firing, on
+    channels ``f_in``, ``f_a`` and ``f_b`` of ``values``' type, each
+    declaring ``domain``."""
+    from repro_torch.core import NetworkBuilder, static_actor
+    from repro_torch.core.actor import DeviceOp
+    n, width = values.shape
+    data = values.to(device)
+
+    def src_fire(st, inputs, rates):
+        d, idx = st
+        return (d, idx + 1), {"out": d[idx:idx + 1]}
+
+    def sink_fire(st, inputs, rates):
+        d, idx = st
+        d[idx:idx + 1] = inputs["in"]
+        return (d, idx + 1), {}
+
+    source = static_actor("source", (), ("out",), src_fire, init=lambda: (data.clone(), 0),
+                          ready=lambda st: st[1] < n,
+                          device_op=DeviceOp("source", {"n_firings": n, "planes": 1}))
+    fork = static_actor("fork", ("in",), ("a", "b"),
+                        lambda st, inputs, rates: (st, {"a": inputs["in"], "b": inputs["in"]}),
+                        device_op=DeviceOp("fork"))
+    sinks = [static_actor(s, ("in",), (), sink_fire,
+                          init=lambda: (torch.zeros_like(data), 0), finish=lambda st: st[0],
+                          device_op=DeviceOp("sink", {"planes": 1}))
+             for s in ("sink_a", "sink_b")]
+    b = NetworkBuilder()
+    b.actors(source, fork, *sinks)
+    kw = dict(token_shape=(width,), dtype=values.dtype, domain=domain)
+    b.connect("source.out", "fork.in", name="f_in", **kw)
+    b.connect("fork.a", "sink_a.in", name="f_a", **kw)
+    b.connect("fork.b", "sink_b.in", name="f_b", **kw)
+    return b.build(device=device)
+
+
+@pytest.mark.parametrize("cores", [1, 2])
+@pytest.mark.parametrize("dt,width,case", HALF_CASES, ids=HALF_IDS)
+def test_megakernel_half_guards_copy_bodies(gen, dt, width, case, cores):
+    """B2's MK_GUARDS build on bf16 and f16 copy bodies: every state bit,
+    count, sweep, fault word and high-water mark equal to its plain
+    version's and the host dynamic run's; the state equal to the unguarded
+    build's; Inf reads NONFINITE and a token past the rounded bound DOMAIN
+    on every channel, the token the bound rounds up to nothing."""
+    from repro_torch.core.health import DOMAIN, NONFINITE
+    _, hi = HALF_ROUNDING[dt]
+    values = half_values(dt, width, case)
+    net = half_copy_chain(values, (-1.0, hi) if case.startswith("domain") else None, "cuda")
+    layout = lower_network(net)
+    part = partition_layout(net, layout, cores)
+    runner = compile_megakernel(net, layout=layout, partition=part, guards=True)
+    state = net.init_state()
+    before = megakernel_cuda.launches
+    k = _health_and_trace(net, state, runner, True, False)
+    assert megakernel_cuda.launches == before + 1
+    p = _health_and_trace(net, state, runner.plain, True, False)
+    d = _health_and_trace(net, state, lambda st: run_dynamic(net, st, guards=True), True, False)
+    assert k == p == d
+    main = compile_megakernel(net, layout=layout, partition=part)(state.clone())
+    assert k[0] == _bits(main[0])
+    want = {None: 0, "NONFINITE": NONFINITE, "DOMAIN": DOMAIN}[HALF_WANT[case]]
+    assert k[4][0] == [want] * 3
+    for sink in ("sink_a", "sink_b"):
+        assert torch.equal(main[0].actor(sink)[0].cpu().view(torch.int16),
+                           values.view(torch.int16))
+
+
+@pytest.mark.parametrize("planted", [False, True], ids=["clean", "nan_embedding"])
+@pytest.mark.parametrize("cores", [1, 2])
+def test_megakernel_half_guards_lm_stage_network(gen, cores, planted):
+    """mamba2-780m's smoke config as 2 stages on bf16 channels, B2's
+    MK_GUARDS build with a yield at each stage firing: fault words and
+    high-water marks equal to the plain version's and the host dynamic
+    run's, every state bit equal to the unguarded build's; a NaN planted in
+    one microbatch's embedded row reads NONFINITE on every channel."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.health import NONFINITE
+    from repro_torch.graphs.lm_pipeline import build_lm_stage_network
+    from repro_torch.models import LM
+    cfg = smoke_config("mamba2-780m")
+    model = LM(cfg, device="cuda", seed=0)
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(0))
+    net = build_lm_stage_network(model, cfg, tokens, 2)
+    state = net.init_state().clone()
+    if planted:
+        state.actor("source")[0][1, 3, 5] = float("nan")
+    runner = compile_megakernel(net, cores=cores, guards=True)
+    before = megakernel_cuda.launches
+    k = _health_and_trace(net, state, runner, True, False)
+    assert megakernel_cuda.launches == before + 9
+    p = _health_and_trace(net, state, runner.plain, True, False)
+    d = _health_and_trace(net, state, lambda st: run_dynamic(net, st, guards=True), True, False)
+    assert k == p == d
+    assert k[0] == _bits(compile_megakernel(net, cores=cores)(state.clone())[0])
+    assert k[4] == ([NONFINITE if planted else 0] * 3, [2, 2, 2])
+
+
 # ---------------------------------------------------------------------- #
 # The families' plain-PyTorch attention on the card against the CPU port:
 # cross attention at whisper-small's widths, and the one-token decode on a

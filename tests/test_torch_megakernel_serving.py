@@ -12,9 +12,9 @@ B2's plain version (``core/megakernel/ref.py``).
   stops once a stage firing.
 * What the program packs: kind codes, the slot table's columns, admission's
   ready limit, scalar and taken words, the extended instance, and the
-  refusals (bf16 channels beside a body that computes, guards on bf16
-  channels, serving parameters that do not fit their channels); any actor
-  runs as a step.
+  refusals (bf16 channels beside a body that computes, serving parameters
+  that do not fit their channels); any actor runs as a step.  The guarded
+  build on bf16 channels is in ``tests/test_torch_megakernel_half_guards.py``.
 
 Structure against the JAX package's megakernel (sweeps, fire counts,
 latency steps, statuses, high-water marks, trace events) is in
@@ -30,7 +30,7 @@ import pytest
 import torch
 
 from repro_torch.configs import smoke_config
-from repro_torch.core import ExecutionPlan, Network
+from repro_torch.core import Network
 from repro_torch.core.executor import run_dynamic
 from repro_torch.core.megakernel import compile_megakernel, lower_network, partition_layout
 from repro_torch.core.megakernel.kernel import run_step
@@ -343,8 +343,6 @@ def test_megakernel_refusals_on_step_and_half_channels(lm):
     tokens = torch.zeros((2, 8), dtype=torch.int64)
     net = build_lm_stage_network(model, cfg, tokens, 2)
     assert next(iter(net.fifos.values())).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="float32 tokens for NaN"):
-        net.compile(ExecutionPlan(mode="megakernel", guards=True))
     # A bf16 channel into a body that computes is refused.
     actors = dict(net.actors)
     actors["stage0"] = dataclasses.replace(actors["stage0"],
